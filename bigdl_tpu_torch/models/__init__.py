@@ -1,0 +1,5 @@
+"""Models of the port (counterpart of ``bigdl_tpu.models``)."""
+
+from bigdl_tpu_torch.models.transformer_lm import (  # noqa: F401
+    TransformerLM, transformer_lm,
+)

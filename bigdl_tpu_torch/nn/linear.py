@@ -1,0 +1,67 @@
+"""Dense layers (counterpart of ``bigdl_tpu/nn/linear.py``: ``Linear``
+and ``LookupTable``).
+
+Weight layout stays Torch-style (out, in).  Initial values are drawn on
+the CPU from the caller's ``torch.Generator`` (so one seed gives the
+same weights whatever the device) and then moved to ``device``; they
+follow the reference's distributions, not its bits.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from bigdl_tpu_torch.core.device import resolve_device
+
+__all__ = ["Linear", "LookupTable"]
+
+
+def _uniform(shape, bound: float, generator: torch.Generator):
+    return (torch.rand(shape, generator=generator) * 2.0 - 1.0) * bound
+
+
+class Linear(nn.Module):
+    """y = x W^T + b.  W ~ U(-1/sqrt(in), 1/sqrt(in)) (the reference's
+    default ``RandomUniform``), b likewise."""
+
+    def __init__(self, input_size: int, output_size: int,
+                 with_bias: bool = True, *, generator: torch.Generator,
+                 device=None):
+        super().__init__()
+        dev = resolve_device(device)
+        self.input_size = input_size
+        self.output_size = output_size
+        self.with_bias = with_bias
+        bound = 1.0 / math.sqrt(max(input_size, 1))
+        self.weight = nn.Parameter(_uniform(
+            (output_size, input_size), bound, generator).to(dev))
+        if with_bias:
+            self.bias = nn.Parameter(
+                _uniform((output_size,), bound, generator).to(dev))
+        else:
+            self.register_parameter("bias", None)
+
+    def forward(self, x):
+        return F.linear(x, self.weight, self.bias)
+
+
+class LookupTable(nn.Module):
+    """Embedding lookup; indices are 1-based (the reference/Torch
+    convention) and clipped into range.  Weight ~ N(0, 1)."""
+
+    def __init__(self, n_index: int, n_output: int, *,
+                 generator: torch.Generator, device=None):
+        super().__init__()
+        dev = resolve_device(device)
+        self.n_index, self.n_output = n_index, n_output
+        self.weight = nn.Parameter(
+            torch.randn((n_index, n_output), generator=generator).to(dev))
+
+    def forward(self, indices):
+        idx = (torch.as_tensor(indices, device=self.weight.device).long()
+               - 1).clamp(0, self.n_index - 1)
+        return self.weight[idx]
