@@ -10,8 +10,10 @@ reference's ``logits, caches = decode_step(...)`` idiom still reads the
 same.  ``decode_step`` also takes a per-row position tensor, the
 batched form of the reference's vmap over pool slots.
 
-Generation, beam search aside, is ported; ``generate_beam``, sequence
-parallelism, pipeline parallelism and ``remat`` belong to later slices.
+Generation, beam search aside, is ported, and so is training (train
+mode, dropout from the forward context, bf16 compute through the
+Optimizer); ``generate_beam``, sequence parallelism, pipeline
+parallelism and ``remat`` belong to later slices.
 """
 
 from __future__ import annotations
@@ -44,9 +46,15 @@ class TransformerLM(nn.Module):
     def __init__(self, vocab_size: int, hidden_size: int = 256,
                  num_layers: int = 4, num_heads: int = 4,
                  filter_size: int = 1024, max_len: int = 512,
-                 dropout: float = 0.0, padded_inputs: bool = True, *,
-                 generator: torch.Generator, device=None):
+                 dropout: float = 0.0, padded_inputs: bool = True,
+                 remat: bool = False, *, generator: torch.Generator,
+                 device=None):
         super().__init__()
+        if remat:
+            raise NotImplementedError(
+                "TransformerLM(remat=True) (recompute each block in the "
+                "backward) is not ported yet (ROADMAP.md queue 1, item 4: "
+                "the training loop, the rest)")
         dev = resolve_device(device)
         self.hidden_size = hidden_size
         self.max_len = max_len
@@ -286,11 +294,11 @@ class TransformerLM(nn.Module):
 def transformer_lm(vocab_size: int, hidden_size: int = 256,
                    num_layers: int = 4, num_heads: int = 4,
                    filter_size: int = 1024, max_len: int = 512,
-                   dropout: float = 0.0, padded_inputs: bool = True, *,
-                   generator: torch.Generator,
+                   dropout: float = 0.0, padded_inputs: bool = True,
+                   remat: bool = False, *, generator: torch.Generator,
                    device=None) -> TransformerLM:
     """Factory mirroring the models/* builder convention."""
     return TransformerLM(vocab_size, hidden_size, num_layers, num_heads,
                          filter_size, max_len, dropout,
-                         padded_inputs=padded_inputs, generator=generator,
-                         device=device)
+                         padded_inputs=padded_inputs, remat=remat,
+                         generator=generator, device=device)

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from bigdl_tpu_torch.core.device import resolve_device
+from bigdl_tpu_torch.core.module import dropout
 from bigdl_tpu_torch.nn.linear import Linear
 from bigdl_tpu_torch.nn.normalization import LayerNormalization
 from bigdl_tpu_torch.ops.attention_kernels import NEG_INF, \
@@ -183,8 +184,8 @@ class Attention(nn.Module):
                 mask = torch.ones((tq, tk), dtype=torch.bool,
                                   device=logits.device).tril(tk - tq)
                 logits = logits.masked_fill(~mask, NEG_INF)
-            w = F.dropout(torch.softmax(logits, dim=-1),
-                          self.attention_dropout, training=True)
+            w = dropout(torch.softmax(logits, dim=-1),
+                        self.attention_dropout)
             ctxt = torch.matmul(w.to(v.dtype), v)
         else:
             ctxt = dot_product_attention(q, k, v, bias, causal=causal)
@@ -221,9 +222,10 @@ class FeedForwardNetwork(nn.Module):
 
 
 def _residual_dropout(x, p, training):
-    """Inverted dropout in training, identity otherwise."""
+    """Inverted dropout in training (mask from the forward context's
+    generator), identity otherwise."""
     if training and p > 0.0:
-        return F.dropout(x, p, training=True)
+        return dropout(x, p)
     return x
 
 

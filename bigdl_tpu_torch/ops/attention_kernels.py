@@ -1,24 +1,38 @@
-"""Scaled dot-product attention: the plain version, the CUDA kernel's
-wrapper, and the dispatch between them.
+"""Scaled dot-product attention: the plain versions, the CUDA kernels'
+wrappers, the autograd Function over them, and the dispatch.
 
 Counterpart of ``bigdl_tpu/ops/attention_kernels.py``.  Shapes follow
 [batch, heads, length, head_dim] ("BHTD").
 
 * :func:`plain_attention` — materialised attention in plain PyTorch (the
-  counterpart of ``xla_attention``): the reference the kernel is held to,
-  and what the dispatch runs for CPU tensors.
+  counterpart of ``xla_attention``): what the dispatch runs, and autograd
+  differentiates, for CPU tensors.
 * :func:`flash_attention_fwd` — the wrapper of the hand-written CUDA
   kernel ``csrc/flash_attention_fwd.cu`` (which replaces the Pallas
-  ``_fwd_impl``/``_flash_fwd_kernel``).  It counts its launches in
-  ``flash_attention_fwd.launches``.
-* :func:`flash_attention` — the kernel with the reference's causal
-  contract: start-aligned, so a causal call needs tq == tk.
+  ``_fwd_impl``/``_flash_fwd_kernel``); :func:`plain_attention_fwd` is its
+  plain version, with the same ``lse``.
+* :func:`flash_attention_dq`, :func:`flash_attention_dkv`,
+  :func:`flash_attention_dbias` — the wrappers of the three backward
+  kernels of ``csrc/flash_attention_bwd.cu`` (which replace the Pallas
+  ``_flash_dq_kernel``, ``_flash_dkv_kernel`` and
+  ``_flash_dbias_kernel``); ``plain_attention_dq``/``_dkv``/``_dbias`` are
+  their plain versions.  Each wrapper counts its launches in
+  ``<wrapper>.launches``.
+* :func:`flash_attention_with_grad` — the ``torch.autograd.Function``
+  whose forward is the forward kernel and whose backward launches dQ and
+  dK/dV (and dBias only when the bias needs a gradient), reading the
+  ``lse`` the forward wrote: the counterpart of the reference's
+  ``custom_vjp`` (``_flash3``/``_flash4``).  On CPU tensors the same
+  Function runs the plain versions, because the tensors lie on the CPU.
+* :func:`flash_attention` — the reference's causal contract:
+  start-aligned, so a causal call needs tq == tk.
 * :func:`dot_product_attention` — the public entry.  On a CUDA tensor
-  EVERY call goes to the kernel: the reference's rule (Tq and Tk
-  multiples of 128, D a multiple of 8) was a tiling constraint of the
-  Pallas kernel, and this kernel masks its ragged edges itself.  For a
-  causal call it passes the diagonal offset tk - tq, so it equals
-  ``plain_attention`` (whose causal mask is end-aligned) on every shape.
+  EVERY call goes to the kernels (through the Function when a gradient is
+  wanted): the reference's rule (Tq and Tk multiples of 128, D a multiple
+  of 8) was a tiling constraint of the Pallas kernel, and these kernels
+  mask their ragged edges themselves.  For a causal call it passes the
+  diagonal offset tk - tq, so it equals ``plain_attention`` (whose causal
+  mask is end-aligned) on every shape.
 """
 
 from __future__ import annotations
@@ -30,8 +44,12 @@ import torch
 
 from bigdl_tpu_torch.ops.build import load_library
 
-__all__ = ["plain_attention", "flash_attention_fwd", "flash_attention",
-           "dot_product_attention", "NEG_INF"]
+__all__ = ["plain_attention", "plain_attention_fwd", "attention_delta",
+           "plain_attention_dq", "plain_attention_dkv",
+           "plain_attention_dbias", "fold_bias_grad", "flash_attention_fwd",
+           "flash_attention_dq", "flash_attention_dkv",
+           "flash_attention_dbias", "flash_attention_with_grad",
+           "flash_attention", "dot_product_attention", "NEG_INF"]
 
 NEG_INF = -1e9  # the reference's attention mask fill (_NEG_INF)
 MAX_HEAD_DIM = 128
@@ -68,6 +86,116 @@ def plain_attention(q, k, v, bias=None, *, causal: bool = False,
                         v.float()).to(q.dtype)
 
 
+# ---- plain versions of the kernels ----------------------------------------
+#
+# Each repeats its kernel's arithmetic at the reference's rounding points
+# (``_recompute_p`` :284, ``_dq_accum`` :299, ``_dkv_accum`` :321,
+# ``_flash_dbias_kernel`` :410), with the kernels' causal diagonal offset.
+# On a card the main path never calls them: chip_smoke.py and the cuda
+# tests hold the kernels against them, and the autograd Function runs
+# them for CPU tensors.
+
+def _scores(q, k, bias, scale, causal, causal_offset):
+    """(s [B,H,Tq,Tk] f32 with replaced scores at -1e9, visible mask or
+    None, rows-with-no-key [Tq] or None)."""
+    tq, tk = q.shape[-2], k.shape[-2]
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if bias is not None:
+        s = s + bias.float()
+    if not causal:
+        return s, None, None
+    visible = torch.ones((tq, tk), dtype=torch.bool,
+                         device=q.device).tril(causal_offset)
+    blind = torch.arange(tq, device=q.device) + causal_offset < 0
+    return s.masked_fill(~visible, NEG_INF), visible, blind
+
+
+def _rows(x, b, h, tq):
+    """[B*H, Tq] → [B, H, Tq, 1]."""
+    return x.reshape(b, h, tq, 1)
+
+
+def plain_attention_fwd(q, k, v, bias=None, *, scale: float,
+                        causal: bool = False, causal_offset: int = 0):
+    """Plain version of :func:`flash_attention_fwd`: ``(out, lse f32
+    [B*H, Tq])``, with the causal mask ``j <= i + causal_offset``."""
+    b, h, tq, _ = q.shape
+    s, _, _ = _scores(q, k, bias, scale, causal, causal_offset)
+    out = torch.matmul(torch.softmax(s, dim=-1).to(v.dtype).float(),
+                       v.float()).to(q.dtype)
+    return out, torch.logsumexp(s, dim=-1).reshape(b * h, tq)
+
+
+def attention_delta(out, do):
+    """Δ = rowsum(dO ∘ O) in f32 as [B*H, Tq]: the backward prologue the
+    reference computes in XLA (``_bwd_prep`` :434), a PyTorch op here."""
+    b, h, tq, _ = out.shape
+    return (do.float() * out.float()).sum(-1).reshape(b * h, tq)
+
+
+def _p_and_ds(q, k, v, bias, do, lse, delta, scale, causal, causal_offset):
+    """The kernels' recomputed P and dS, both f32 [B, H, Tq, Tk]: P =
+    exp(s - lse) (1/Tk on a row that sees no key), dS = P ∘ (dO·Vᵀ − Δ),
+    0 where the causal mask replaced the score."""
+    b, h, tq, _ = q.shape
+    s, visible, blind = _scores(q, k, bias, scale, causal, causal_offset)
+    p = torch.exp(s - _rows(lse, b, h, tq))
+    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    ds = p * (dp - _rows(delta, b, h, tq))
+    if causal:
+        ds = ds.masked_fill(~visible, 0.0)
+        p = torch.where(blind[:, None], 1.0 / k.shape[-2], p)
+    return p, ds
+
+
+def plain_attention_dq(q, k, v, bias, do, lse, delta, *, scale: float,
+                       causal: bool = False, causal_offset: int = 0):
+    """Plain version of :func:`flash_attention_dq`: dQ = scale · dS·K,
+    dS cast to K's dtype first; dq in q's dtype."""
+    _, ds = _p_and_ds(q, k, v, bias, do, lse, delta, scale, causal,
+                      causal_offset)
+    return (torch.matmul(ds.to(k.dtype).float(), k.float())
+            * scale).to(q.dtype)
+
+
+def plain_attention_dkv(q, k, v, bias, do, lse, delta, *, scale: float,
+                        causal: bool = False, causal_offset: int = 0):
+    """Plain version of :func:`flash_attention_dkv`: ``(dK, dV)`` with
+    dV = Pᵀ·dO (P cast to dO's dtype) and dK = scale · dSᵀ·Q (dS cast to
+    Q's dtype), in k's and v's dtypes."""
+    p, ds = _p_and_ds(q, k, v, bias, do, lse, delta, scale, causal,
+                      causal_offset)
+    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), do.float())
+    dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2),
+                      q.float()) * scale
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def plain_attention_dbias(q, k, v, bias, do, lse, delta, *, scale: float,
+                          causal: bool = False, causal_offset: int = 0):
+    """Plain version of :func:`flash_attention_dbias`: dS in f32 as
+    [B*H, Tq, Tk]."""
+    b, h, tq, _ = q.shape
+    _, ds = _p_and_ds(q, k, v, bias, do, lse, delta, scale, causal,
+                      causal_offset)
+    return ds.reshape(b * h, tq, k.shape[-2])
+
+
+def fold_bias_grad(ds, bias, b: int, h: int):
+    """dS [B*H, Tq, Tk] folded to ``bias``'s own (broadcast) shape and
+    dtype: right-align the bias shape against [B, H, Tq, Tk], sum over
+    every dim the bias has as 1 or lacks (``_dbias_impl`` :560-570)."""
+    ds = ds.reshape(b, h, ds.shape[-2], ds.shape[-1])
+    aligned = (1,) * (4 - bias.dim()) + tuple(bias.shape)
+    dims = [i for i, (full, orig) in enumerate(zip(ds.shape, aligned))
+            if orig == 1 and full != 1]
+    if dims:
+        ds = ds.sum(dim=dims, keepdim=True)
+    return ds.reshape(bias.shape).to(bias.dtype)
+
+
+# ---- the CUDA kernels' wrappers ---------------------------------------------
+
 def _check_inputs(q, k, v, bias):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not isinstance(t, torch.Tensor) or t.dim() != 4:
@@ -97,33 +225,51 @@ def _check_inputs(q, k, v, bias):
         raise ValueError("empty attention input")
     if d > MAX_HEAD_DIM:
         raise ValueError(f"head dim {d} > {MAX_HEAD_DIM} is not supported")
-    if b * h >= 2 ** 31 or (tq + 15) // 16 > 65535:
+    if b * h >= 2 ** 31 or (tq + 15) // 16 > 65535 \
+            or (tk + 31) // 32 > 65535:
         raise ValueError("attention grid too large for one launch")
     if bias is not None and bias.device != q.device:
         raise ValueError("bias must be on q's device")
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (q, k, v, bias)):
-        raise NotImplementedError(
-            "the flash-attention backward kernels are not ported yet; run "
-            "the CUDA forward under torch.no_grad()")
 
 
-_kernel = None
+def _bias_args(bias, shape):
+    """The f32 bias broadcast (by strides, never materialised) to
+    ``shape``, as (pointer, strides); (None, zeros) without one."""
+    if bias is None:
+        return None, (0, 0, 0, 0)
+    if bias.dtype != torch.float32:
+        bias = bias.float()     # the small, un-broadcast bias
+    bias = bias.expand(*shape)
+    return bias, bias.stride()
 
 
-def _kernel_fn():
-    """The C entry point, built and bound at first use (never at
-    import: the CPU tests import this module without a CUDA toolkit)."""
-    global _kernel
-    if _kernel is None:
-        fn = load_library("flash_attention_fwd").flash_attention_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                       + [ctypes.c_longlong] * 13
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_void_p])
+def _bind(library: str, name: str, argtypes):
+    """A C entry point, built and bound at first use (never at import:
+    the CPU tests import this module without a CUDA toolkit)."""
+    key = (library, name)
+    fn = _bound.get(key)
+    if fn is None:
+        fn = getattr(load_library(library), name)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _kernel = fn
-    return _kernel
+        _bound[key] = fn
+    return fn
+
+
+_bound: dict = {}
+_FWD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                 + [ctypes.c_longlong] * 13
+                 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_void_p])
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+                 + [ctypes.c_longlong] * 16
+                 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_void_p])
+
+
+def _raise_on(rc: int, name: str):
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed with CUDA error {rc}")
 
 
 def flash_attention_fwd(q, k, v, bias=None, *, scale: float,
@@ -139,27 +285,20 @@ def flash_attention_fwd(q, k, v, bias=None, *, scale: float,
     _check_inputs(q, k, v, bias)
     b, h, tq, d = q.shape
     tk = k.shape[2]
-    if bias is not None:
-        if bias.dtype != torch.float32:
-            bias = bias.float()     # the small, un-broadcast bias
-        bias = bias.expand(b, h, tq, tk)
-        b_ptr, b_strides = bias.data_ptr(), bias.stride()
-    else:
-        b_ptr, b_strides = None, (0, 0, 0, 0)
+    bias, b_strides = _bias_args(bias, (b, h, tq, tk))
     out = torch.empty((b, h, tq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, tq), dtype=torch.float32, device=q.device)
-    fn = _kernel_fn()
+    fn = _bind("flash_attention_fwd", "flash_attention_fwd", _FWD_ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), b_ptr,
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                None if bias is None else bias.data_ptr(),
                 out.data_ptr(), lse.data_ptr(),
                 int(q.dtype == torch.bfloat16), b, h, tq, tk, d,
                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                 *b_strides, float(scale), int(bool(causal)),
                 int(causal_offset), stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_attention_fwd launch failed with CUDA "
-                           f"error {rc}")
+    _raise_on(rc, "flash_attention_fwd")
     flash_attention_fwd.launches += 1
     return out, lse
 
@@ -167,9 +306,150 @@ def flash_attention_fwd(q, k, v, bias=None, *, scale: float,
 flash_attention_fwd.launches = 0
 
 
+def _launch_bwd(name, q, k, v, bias, do, lse, delta, out0, out1, scale,
+                causal, causal_offset):
+    """Check the backward's extra inputs and launch kernel ``name``."""
+    _check_inputs(q, k, v, bias)
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(f"dO must match q: {tuple(do.shape)} {do.dtype} "
+                         f"{do.device}")
+    if do.stride(-1) != 1:
+        raise ValueError(f"dO needs a contiguous head dim "
+                         f"(stride {do.stride(-1)})")
+    for label, t in (("lse", lse), ("delta", delta)):
+        if (t.shape != (b * h, tq) or t.dtype != torch.float32
+                or t.device != q.device or not t.is_contiguous()):
+            raise ValueError(f"{label} must be a contiguous f32 [B*H, Tq] "
+                             f"tensor on q's device")
+    bias, b_strides = _bias_args(bias, (b, h, tq, tk))
+    fn = _bind("flash_attention_bwd", name, _BWD_ARGTYPES)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                None if bias is None else bias.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), out0.data_ptr(),
+                None if out1 is None else out1.data_ptr(),
+                int(q.dtype == torch.bfloat16), b, h, tq, tk, d,
+                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                *do.stride()[:3], *b_strides, float(scale),
+                int(bool(causal)), int(causal_offset), stream)
+    _raise_on(rc, name)
+
+
+def flash_attention_dq(q, k, v, bias, do, lse, delta, *, scale: float,
+                       causal: bool = False, causal_offset: int = 0):
+    """Launch the dQ kernel (#2) on CUDA tensors: dq [B, H, Tq, D] in q's
+    dtype.  ``lse`` is the forward kernel's, ``delta`` is
+    :func:`attention_delta`; q, k, v, dO are read through their strides."""
+    b, h, tq, d = q.shape
+    dq = torch.empty((b, h, tq, d), dtype=q.dtype, device=q.device)
+    _launch_bwd("flash_attention_dq", q, k, v, bias, do, lse, delta, dq,
+                None, scale, causal, causal_offset)
+    flash_attention_dq.launches += 1
+    return dq
+
+
+flash_attention_dq.launches = 0
+
+
+def flash_attention_dkv(q, k, v, bias, do, lse, delta, *, scale: float,
+                        causal: bool = False, causal_offset: int = 0):
+    """Launch the dK/dV kernel (#3) on CUDA tensors: ``(dk, dv)``
+    [B, H, Tk, D] in k's and v's dtype."""
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    _launch_bwd("flash_attention_dkv", q, k, v, bias, do, lse, delta, dk,
+                dv, scale, causal, causal_offset)
+    flash_attention_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_dkv.launches = 0
+
+
+def flash_attention_dbias(q, k, v, bias, do, lse, delta, *, scale: float,
+                          causal: bool = False, causal_offset: int = 0):
+    """Launch the dBias kernel (#4) on CUDA tensors: dS f32
+    [B*H, Tq, Tk] (fold it with :func:`fold_bias_grad`)."""
+    b, h, tq, _ = q.shape
+    ds = torch.empty((b * h, tq, k.shape[2]), dtype=torch.float32,
+                     device=q.device)
+    _launch_bwd("flash_attention_dbias", q, k, v, bias, do, lse, delta, ds,
+                None, scale, causal, causal_offset)
+    flash_attention_dbias.launches += 1
+    return ds
+
+
+flash_attention_dbias.launches = 0
+
+_KERNELS = (flash_attention_fwd, flash_attention_dq, flash_attention_dkv,
+            flash_attention_dbias)
+_PLAIN = (plain_attention_fwd, plain_attention_dq, plain_attention_dkv,
+          plain_attention_dbias)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward kernel #1, backward kernels #2 and #3, and #4 only when
+    the bias needs a gradient (the reference runs it as a separate
+    ``pallas_call`` that jit drops for a constant mask).  On CPU tensors
+    the plain versions stand in, only because the tensors are there."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale, causal, causal_offset):
+        fwd = (_KERNELS if q.device.type == "cuda" else _PLAIN)[0]
+        out, lse = fwd(q, k, v, bias, scale=scale, causal=causal,
+                       causal_offset=causal_offset)
+        ctx.save_for_backward(q, k, v, bias, out, lse)
+        ctx.cfg = dict(scale=scale, causal=causal,
+                       causal_offset=causal_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, bias, out, lse = ctx.saved_tensors
+        _, dq_fn, dkv_fn, dbias_fn = (_KERNELS if q.device.type == "cuda"
+                                      else _PLAIN)
+        if do.stride(-1) != 1:   # the kernels read only a contiguous head dim
+            do = do.contiguous()
+        do = do.to(q.dtype)
+        delta = attention_delta(out, do)
+        args = (q, k, v, bias, do, lse, delta)
+        need_q, need_k, need_v, need_bias = ctx.needs_input_grad[:4]
+        dq = dq_fn(*args, **ctx.cfg) if need_q else None
+        dk = dv = None
+        if need_k or need_v:
+            dk, dv = dkv_fn(*args, **ctx.cfg)
+        dbias = None
+        if bias is not None and need_bias:
+            dbias = fold_bias_grad(dbias_fn(*args, **ctx.cfg), bias,
+                                   q.shape[0], q.shape[1])
+        return dq, dk, dv, dbias, None, None, None
+
+
+def flash_attention_with_grad(q, k, v, bias=None, *, scale: float,
+                              causal: bool = False, causal_offset: int = 0):
+    """Attention through the autograd Function: the kernels on CUDA
+    tensors (forward #1; backward #2, #3 and, when the bias needs a
+    gradient, #4), their plain versions on CPU tensors."""
+    return _FlashAttention.apply(q, k, v, bias, float(scale), bool(causal),
+                                 int(causal_offset))
+
+
+def _kernel_attention(q, k, v, bias, scale, causal, causal_offset):
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (q, k, v, bias)):
+        return flash_attention_with_grad(q, k, v, bias, scale=scale,
+                                         causal=causal,
+                                         causal_offset=causal_offset)
+    return flash_attention_fwd(q, k, v, bias, scale=scale, causal=causal,
+                               causal_offset=causal_offset)[0]
+
+
 def flash_attention(q, k, v, bias=None, *, causal: bool = False,
                     scale: Optional[float] = None):
-    """The kernel with the reference's contract: its causal mask is
+    """The kernels with the reference's contract: the causal mask is
     start-aligned, so a causal call with tq != tk is refused rather than
     silently diverging from the end-aligned plain version.  CUDA tensors
     only: there is no interpret mode for a CUDA kernel."""
@@ -178,20 +458,21 @@ def flash_attention(q, k, v, bias=None, *, causal: bool = False,
         raise ValueError("flash_attention causal requires tq == tk")
     if scale is None:
         scale = _default_scale(q.shape[-1])
-    return flash_attention_fwd(q, k, v, bias, scale=scale, causal=causal,
-                               causal_offset=0)[0]
+    _check_inputs(q, k, v, bias)   # a CPU tensor raises here, before the
+    return _kernel_attention(q, k, v, bias, scale, causal, 0)  # Function
 
 
 def dot_product_attention(q, k, v, bias=None, *, causal: bool = False,
                           scale: Optional[float] = None,
                           force: Optional[str] = None):
     """Public attention entry (used by nn.Attention and TransformerLM).
-    A CUDA tensor goes to the kernel on every call, with the causal
-    offset ``tk - tq`` so the result equals :func:`plain_attention`; a
-    CPU tensor goes to :func:`plain_attention`.  ``force="flash"`` calls
-    :func:`flash_attention` whatever the device (a CPU tensor then
-    raises); ``force="plain"`` (the reference's ``"xla"``) calls
-    :func:`plain_attention`."""
+    A CUDA tensor goes to the kernels on every call, with the causal
+    offset ``tk - tq`` so the result equals :func:`plain_attention`; when
+    a gradient is wanted, through :func:`flash_attention_with_grad`.  A
+    CPU tensor goes to :func:`plain_attention` (autograd differentiates
+    it).  ``force="flash"`` calls :func:`flash_attention` whatever the
+    device (a CPU tensor then raises); ``force="plain"`` (the reference's
+    ``"xla"``) calls :func:`plain_attention`."""
     if force not in (None, "flash", "plain"):
         raise ValueError(
             f"force must be None, 'flash' or 'plain', got {force!r}")
@@ -201,5 +482,5 @@ def dot_product_attention(q, k, v, bias=None, *, causal: bool = False,
         return plain_attention(q, k, v, bias, causal=causal, scale=scale)
     if scale is None:
         scale = _default_scale(q.shape[-1])
-    return flash_attention_fwd(q, k, v, bias, scale=scale, causal=causal,
-                               causal_offset=k.shape[-2] - q.shape[-2])[0]
+    return _kernel_attention(q, k, v, bias, scale, causal,
+                             k.shape[-2] - q.shape[-2])

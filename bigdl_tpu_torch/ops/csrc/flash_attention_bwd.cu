@@ -1,0 +1,537 @@
+// Flash-attention backward for Hopper (sm_90a), plain C interface: three
+// kernels, dQ, dK/dV and dBias.
+//
+// Replaces the TPU kernels of bigdl_tpu/ops/attention_kernels.py:
+//   flash_attention_dq    <- _bwd_impl / _flash_dq_kernel   (pallas_call :483)
+//   flash_attention_dkv   <- _bwd_impl / _flash_dkv_kernel  (pallas_call :515)
+//   flash_attention_dbias <- _dbias_impl / _flash_dbias_kernel (pallas_call :549)
+// They compute what those kernels compute, from the forward kernel's lse
+// and Delta = rowsum(dO * O) (a PyTorch op outside, as _bwd_prep is XLA):
+//
+//   s   = (q . k) * scale (+ bias)    the forward's score, bit for bit: the
+//                                     same f32 FMA order over the head dim
+//   s   = -1e9 where key > row + off  causal mask: REPLACES the score
+//   P   = exp(s - lse)                recomputed per tile, never stored
+//   dP  = dO . v                      f32
+//   dS  = P * (dP - Delta)            0 where the causal mask replaced the
+//                                     score: the gradient of a replaced
+//                                     score is zero, as autograd of the
+//                                     plain version's masked_fill gives
+//   dQ  = scale * sum_k dS . K        dS cast to K's dtype first
+//   dV  = sum_q P^T . dO              P cast to dO's dtype first
+//   dK  = scale * sum_q dS^T . Q      dS cast to Q's dtype first
+//   dBias tile = dS in f32 [B*H, Tq, Tk]; the fold to the bias's broadcast
+//                shape is a torch sum outside (as _dbias_impl :560-570)
+//
+// Masking is the forward's: a key beyond Tk (a row beyond Tq) is skipped,
+// never given -1e9.  A row that the causal mask leaves no key (row + off
+// < 0) is uniform over the real keys in the forward, so its P is 1/Tk
+// exactly here: exp(s - lse) cannot give it, since lse = -1e9 + log(Tk)
+// rounds to -1e9 in f32.  Its dS is 0 (every score replaced).
+//
+// What bounds them on an H100.  The training shape (B8 H8 T2048 D64 bf16,
+// causal) does ~2*D flops per visible (query, key) pair and product:
+// three products in dQ, four in dK/dV, 10-20 GFLOP per call for a few MB
+// of inputs, so they are bound by operations, not bytes.  These kernels
+// run scalar f32 FMAs on the CUDA cores (no tensor cores): the design
+// answers what it can without wgmma.  Each block keeps its accumulator
+// (dQ of 16 rows; dK, dV of 16 keys) in registers for the whole sweep, so
+// nothing but the inputs crosses device memory; the tile it streams sits
+// in shared memory with its rows padded by one float, so a lane-per-key
+// (or lane-per-query) dot product reads distinct banks; causal tiles that
+// no row of the block can see are skipped.  No float atomics: the split of
+// the reference (dQ streams K/V, dK/dV streams Q/dO) makes every output
+// the sum of one block in a fixed order, so two runs give the same bits.
+// Tensor cores, TMA and cp.async pipelining are a later PR's work.
+//
+// Work split (fixed tiles; ragged edges masked here):
+//   dQ    grid (B*H, ceil(Tq/16)): 4 warps x 4 query rows; loops over
+//         32-key tiles, lane = key for s and dP, lane = head-dim column
+//         for the dS . K accumulation.
+//   dK/dV grid (B*H, ceil(Tk/16)): 4 warps x 4 keys; loops over 32-query
+//         tiles, lane = query for s and dP, lane = column for the sums.
+//   dBias grid (B*H, ceil(Tq/16), ceil(Tk/32)): one 16 x 32 tile each.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kRowsPerWarp = 4;
+constexpr int kBlockRows = kWarps * kRowsPerWarp;  // q rows (dQ, dBias) or
+                                                   // keys (dK/dV) per block
+constexpr int kTile = 32;                          // streamed tile: one per lane
+constexpr float kMaskedScore = -1e9f;              // the reference's _NEG_INF
+
+struct Params {
+  const void* q;
+  const void* k;
+  const void* v;
+  const float* bias;  // nullptr when absent
+  const void* dout;
+  const float* lse;    // [B*H, Tq] contiguous
+  const float* delta;  // [B*H, Tq] contiguous
+  void* out0;          // dq [B,H,Tq,D] | dk [B,H,Tk,D] | ds f32 [B*H,Tq,Tk]
+  void* out1;          // dv [B,H,Tk,D] (dK/dV only)
+  int B, H, Tq, Tk, D;
+  long long q_sb, q_sh, q_st;  // element strides; the head-dim stride is 1
+  long long k_sb, k_sh, k_st;
+  long long v_sb, v_sh, v_st;
+  long long o_sb, o_sh, o_st;        // dO
+  long long b_sb, b_sh, b_sq, b_sk;  // bias strides, 0 on broadcast dims
+  float scale;
+  int causal;
+  int causal_offset;  // key j is visible to row i when j <= i + offset
+};
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// x rounded to T and back: the reference's casts before a product
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_f32(from_f32<T>(x));
+}
+
+// P and dS of one (row, key) pair, both in range, from the raw dot
+// q . k and dP = dO . v.  Same arithmetic as the forward's score.
+__device__ __forceinline__ void p_and_ds(const Params& p, const float* bias,
+                                         float dot, float dp, float lse,
+                                         float delta, int row, int key,
+                                         float* pr, float* ds) {
+  if (p.causal && row + p.causal_offset < 0) {  // the row sees no key
+    *pr = 1.f / (float)p.Tk;
+    *ds = 0.f;
+    return;
+  }
+  if (p.causal && key > row + p.causal_offset) {  // a replaced score
+    *pr = expf(kMaskedScore - lse);
+    *ds = 0.f;
+    return;
+  }
+  float x = dot * p.scale;
+  if (bias != nullptr) x += bias[row * p.b_sq + key * p.b_sk];
+  *pr = expf(x - lse);
+  *ds = *pr * (dp - delta);
+}
+
+// Row tile [r0, r0 + n) of a [T, D] operand (strided rows, contiguous
+// columns) into shared memory as f32, zero beyond T and D.
+template <typename T, int LD>
+__device__ __forceinline__ void load_rows(float* dst, const T* src,
+                                          long long st, int r0, int n, int T_,
+                                          int D, int dmax) {
+  for (int i = threadIdx.x; i < n * dmax; i += blockDim.x) {
+    const int r = i / dmax, c = i % dmax, t = r0 + r;
+    dst[r * LD + c] = (t < T_ && c < D) ? to_f32(src[t * st + c]) : 0.f;
+  }
+}
+
+// ---- dQ ------------------------------------------------------------------
+
+template <int DMAX>
+constexpr size_t dq_smem_floats() {
+  return 2 * kBlockRows * DMAX + 2 * kTile * (DMAX + 1);
+}
+
+template <typename T, int DMAX>
+__global__ void __launch_bounds__(kThreads) flash_dq_kernel(const Params p) {
+  constexpr int kCols = DMAX / 32;
+  extern __shared__ float smem[];
+  float* qs = smem;                            // [kBlockRows][DMAX]
+  float* dos = qs + kBlockRows * DMAX;         // [kBlockRows][DMAX]
+  float* ks = dos + kBlockRows * DMAX;         // [kTile][DMAX + 1]
+  float* vs = ks + kTile * (DMAX + 1);         // [kTile][DMAX + 1]
+
+  const int bh = blockIdx.x;
+  const int b = bh / p.H, h = bh % p.H;
+  const int q0 = blockIdx.y * kBlockRows;
+  const int lane = threadIdx.x % 32;
+  const int r0 = (threadIdx.x / 32) * kRowsPerWarp;
+
+  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const T* dout = static_cast<const T*>(p.dout) + b * p.o_sb + h * p.o_sh;
+  const float* bias =
+      p.bias == nullptr ? nullptr : p.bias + b * p.b_sb + h * p.b_sh;
+
+  load_rows<T, DMAX>(qs, q, p.q_st, q0, kBlockRows, p.Tq, p.D, DMAX);
+  load_rows<T, DMAX>(dos, dout, p.o_st, q0, kBlockRows, p.Tq, p.D, DMAX);
+
+  float lse[kRowsPerWarp], delta[kRowsPerWarp], acc[kRowsPerWarp][kCols];
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r) {
+    const int t = q0 + r0 + r;
+    const long long row = (long long)bh * p.Tq + t;
+    lse[r] = t < p.Tq ? p.lse[row] : 0.f;
+    delta[r] = t < p.Tq ? p.delta[row] : 0.f;
+#pragma unroll
+    for (int i = 0; i < kCols; ++i) acc[r][i] = 0.f;
+  }
+
+  int n_tiles = (p.Tk + kTile - 1) / kTile;
+  if (p.causal && q0 + p.causal_offset >= 0) {
+    // key tiles wholly above the block's last row add dS = 0 (a row with
+    // no key at all has dS = 0 everywhere, so it needs no tile either)
+    const long long last_key =
+        (long long)min(q0 + kBlockRows, p.Tq) - 1 + p.causal_offset;
+    n_tiles = (int)min((long long)n_tiles, last_key / kTile + 1);
+  }
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int k0 = tile * kTile;
+    __syncthreads();  // the previous tile's reads are done
+    load_rows<T, DMAX + 1>(ks, k, p.k_st, k0, kTile, p.Tk, p.D, DMAX);
+    load_rows<T, DMAX + 1>(vs, v, p.v_st, k0, kTile, p.Tk, p.D, DMAX);
+    __syncthreads();
+
+    float s[kRowsPerWarp], dp[kRowsPerWarp];
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) s[r] = dp[r] = 0.f;
+    for (int c = 0; c < p.D; ++c) {
+      const float kc = ks[lane * (DMAX + 1) + c];
+      const float vc = vs[lane * (DMAX + 1) + c];
+#pragma unroll
+      for (int r = 0; r < kRowsPerWarp; ++r) {
+        s[r] = fmaf(qs[(r0 + r) * DMAX + c], kc, s[r]);
+        dp[r] = fmaf(dos[(r0 + r) * DMAX + c], vc, dp[r]);
+      }
+    }
+
+    const int key = k0 + lane;
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) {
+      const int t = q0 + r0 + r;
+      float pr = 0.f, ds = 0.f;
+      if (key < p.Tk && t < p.Tq)
+        p_and_ds(p, bias, s[r], dp[r], lse[r], delta[r], t, key, &pr, &ds);
+      const float dsk = round_to<T>(ds);  // dS in K's dtype
+      for (int j = 0; j < kTile; ++j) {
+        const float dj = __shfl_sync(0xffffffffu, dsk, j);
+#pragma unroll
+        for (int i = 0; i < kCols; ++i)
+          acc[r][i] = fmaf(dj, ks[j * (DMAX + 1) + lane + 32 * i], acc[r][i]);
+      }
+    }
+  }
+
+  T* dq = static_cast<T*>(p.out0);
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r) {
+    const int t = q0 + r0 + r;
+    if (t >= p.Tq) continue;  // uniform across the warp
+    const long long row = (long long)bh * p.Tq + t;
+#pragma unroll
+    for (int i = 0; i < kCols; ++i) {
+      const int c = lane + 32 * i;
+      if (c < p.D) dq[row * p.D + c] = from_f32<T>(acc[r][i] * p.scale);
+    }
+  }
+}
+
+// ---- dK / dV ---------------------------------------------------------------
+
+template <int DMAX>
+constexpr size_t dkv_smem_floats() {
+  return 2 * kBlockRows * DMAX + 2 * kTile * (DMAX + 1) + 2 * kTile;
+}
+
+template <typename T, int DMAX>
+__global__ void __launch_bounds__(kThreads) flash_dkv_kernel(const Params p) {
+  constexpr int kCols = DMAX / 32;
+  extern __shared__ float smem[];
+  float* ks = smem;                         // [kBlockRows][DMAX]
+  float* vs = ks + kBlockRows * DMAX;       // [kBlockRows][DMAX]
+  float* qs = vs + kBlockRows * DMAX;       // [kTile][DMAX + 1]
+  float* dos = qs + kTile * (DMAX + 1);     // [kTile][DMAX + 1]
+  float* lse_s = dos + kTile * (DMAX + 1);  // [kTile]
+  float* delta_s = lse_s + kTile;           // [kTile]
+
+  const int bh = blockIdx.x;
+  const int b = bh / p.H, h = bh % p.H;
+  const int k0 = blockIdx.y * kBlockRows;
+  const int lane = threadIdx.x % 32;
+  const int r0 = (threadIdx.x / 32) * kRowsPerWarp;
+
+  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const T* dout = static_cast<const T*>(p.dout) + b * p.o_sb + h * p.o_sh;
+  const float* bias =
+      p.bias == nullptr ? nullptr : p.bias + b * p.b_sb + h * p.b_sh;
+
+  load_rows<T, DMAX>(ks, k, p.k_st, k0, kBlockRows, p.Tk, p.D, DMAX);
+  load_rows<T, DMAX>(vs, v, p.v_st, k0, kBlockRows, p.Tk, p.D, DMAX);
+
+  float dk[kRowsPerWarp][kCols], dv[kRowsPerWarp][kCols];
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r)
+#pragma unroll
+    for (int i = 0; i < kCols; ++i) dk[r][i] = dv[r][i] = 0.f;
+
+  // query tiles that no row can reach the block's keys from are skipped:
+  // row i sees key j when i >= j - offset.  Rows that see no key at all
+  // (i + offset < 0, only when offset < 0) still weigh every key with
+  // 1/Tk in dV, so then every tile is walked.
+  int first = 0;
+  if (p.causal && p.causal_offset >= 0)
+    first = max(0, k0 - p.causal_offset) / kTile;
+  const int n_tiles = (p.Tq + kTile - 1) / kTile;
+
+  for (int tile = first; tile < n_tiles; ++tile) {
+    const int i0 = tile * kTile;
+    __syncthreads();  // the previous tile's reads are done
+    load_rows<T, DMAX + 1>(qs, q, p.q_st, i0, kTile, p.Tq, p.D, DMAX);
+    load_rows<T, DMAX + 1>(dos, dout, p.o_st, i0, kTile, p.Tq, p.D, DMAX);
+    if (threadIdx.x < kTile) {
+      const int t = i0 + threadIdx.x;
+      const long long row = (long long)bh * p.Tq + t;
+      lse_s[threadIdx.x] = t < p.Tq ? p.lse[row] : 0.f;
+      delta_s[threadIdx.x] = t < p.Tq ? p.delta[row] : 0.f;
+    }
+    __syncthreads();
+
+    float s[kRowsPerWarp], dp[kRowsPerWarp];
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) s[r] = dp[r] = 0.f;
+    for (int c = 0; c < p.D; ++c) {
+      const float qc = qs[lane * (DMAX + 1) + c];
+      const float dc = dos[lane * (DMAX + 1) + c];
+#pragma unroll
+      for (int r = 0; r < kRowsPerWarp; ++r) {
+        s[r] = fmaf(qc, ks[(r0 + r) * DMAX + c], s[r]);
+        dp[r] = fmaf(dc, vs[(r0 + r) * DMAX + c], dp[r]);
+      }
+    }
+
+    const int t = i0 + lane;
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) {
+      const int key = k0 + r0 + r;
+      float pr = 0.f, ds = 0.f;
+      if (key < p.Tk && t < p.Tq)
+        p_and_ds(p, bias, s[r], dp[r], lse_s[lane], delta_s[lane], t, key,
+                 &pr, &ds);
+      const float pd = round_to<T>(pr);  // P in dO's dtype
+      const float dsq = round_to<T>(ds);  // dS in Q's dtype
+      for (int j = 0; j < kTile; ++j) {
+        const float pj = __shfl_sync(0xffffffffu, pd, j);
+        const float dj = __shfl_sync(0xffffffffu, dsq, j);
+#pragma unroll
+        for (int i = 0; i < kCols; ++i) {
+          const int c = j * (DMAX + 1) + lane + 32 * i;
+          dv[r][i] = fmaf(pj, dos[c], dv[r][i]);
+          dk[r][i] = fmaf(dj, qs[c], dk[r][i]);
+        }
+      }
+    }
+  }
+
+  T* dk_out = static_cast<T*>(p.out0);
+  T* dv_out = static_cast<T*>(p.out1);
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r) {
+    const int key = k0 + r0 + r;
+    if (key >= p.Tk) continue;  // uniform across the warp
+    const long long row = (long long)bh * p.Tk + key;
+#pragma unroll
+    for (int i = 0; i < kCols; ++i) {
+      const int c = lane + 32 * i;
+      if (c < p.D) {
+        dk_out[row * p.D + c] = from_f32<T>(dk[r][i] * p.scale);
+        dv_out[row * p.D + c] = from_f32<T>(dv[r][i]);
+      }
+    }
+  }
+}
+
+// ---- dBias -----------------------------------------------------------------
+
+template <typename T, int DMAX>
+__global__ void __launch_bounds__(kThreads)
+    flash_dbias_kernel(const Params p) {
+  extern __shared__ float smem[];
+  float* qs = smem;                     // [kBlockRows][DMAX]
+  float* dos = qs + kBlockRows * DMAX;  // [kBlockRows][DMAX]
+  float* ks = dos + kBlockRows * DMAX;  // [kTile][DMAX + 1]
+  float* vs = ks + kTile * (DMAX + 1);  // [kTile][DMAX + 1]
+
+  const int bh = blockIdx.x;
+  const int b = bh / p.H, h = bh % p.H;
+  const int q0 = blockIdx.y * kBlockRows;
+  const int k0 = blockIdx.z * kTile;
+  const int lane = threadIdx.x % 32;
+  const int r0 = (threadIdx.x / 32) * kRowsPerWarp;
+
+  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const T* dout = static_cast<const T*>(p.dout) + b * p.o_sb + h * p.o_sh;
+  const float* bias =
+      p.bias == nullptr ? nullptr : p.bias + b * p.b_sb + h * p.b_sh;
+
+  load_rows<T, DMAX>(qs, q, p.q_st, q0, kBlockRows, p.Tq, p.D, DMAX);
+  load_rows<T, DMAX>(dos, dout, p.o_st, q0, kBlockRows, p.Tq, p.D, DMAX);
+  load_rows<T, DMAX + 1>(ks, k, p.k_st, k0, kTile, p.Tk, p.D, DMAX);
+  load_rows<T, DMAX + 1>(vs, v, p.v_st, k0, kTile, p.Tk, p.D, DMAX);
+  __syncthreads();
+
+  float s[kRowsPerWarp], dp[kRowsPerWarp];
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r) s[r] = dp[r] = 0.f;
+  for (int c = 0; c < p.D; ++c) {
+    const float kc = ks[lane * (DMAX + 1) + c];
+    const float vc = vs[lane * (DMAX + 1) + c];
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) {
+      s[r] = fmaf(qs[(r0 + r) * DMAX + c], kc, s[r]);
+      dp[r] = fmaf(dos[(r0 + r) * DMAX + c], vc, dp[r]);
+    }
+  }
+
+  const int key = k0 + lane;
+  float* ds_out = static_cast<float*>(p.out0);
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r) {
+    const int t = q0 + r0 + r;
+    if (t >= p.Tq || key >= p.Tk) continue;
+    const long long row = (long long)bh * p.Tq + t;
+    float pr, ds;
+    p_and_ds(p, bias, s[r], dp[r], p.lse[row], p.delta[row], t, key, &pr,
+             &ds);
+    ds_out[row * p.Tk + key] = ds;
+  }
+}
+
+// ---- launches --------------------------------------------------------------
+
+enum Which { kDq = 0, kDkv = 1, kDbias = 2 };
+
+template <typename Kernel>
+int launch(Kernel kernel, dim3 grid, size_t smem_floats, const Params& p,
+           cudaStream_t stream) {
+  const size_t smem = smem_floats * sizeof(float);
+  if (smem > 48 * 1024) {  // above 48 KB only as opted-in dynamic memory
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<grid, kThreads, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int DMAX>
+int launch_which(int which, const Params& p, cudaStream_t stream) {
+  const int q_tiles = (p.Tq + kBlockRows - 1) / kBlockRows;
+  switch (which) {
+    case kDq:
+      return launch(flash_dq_kernel<T, DMAX>, dim3(p.B * p.H, q_tiles),
+                    dq_smem_floats<DMAX>(), p, stream);
+    case kDkv:
+      return launch(flash_dkv_kernel<T, DMAX>,
+                    dim3(p.B * p.H, (p.Tk + kBlockRows - 1) / kBlockRows),
+                    dkv_smem_floats<DMAX>(), p, stream);
+    case kDbias:
+      return launch(flash_dbias_kernel<T, DMAX>,
+                    dim3(p.B * p.H, q_tiles, (p.Tk + kTile - 1) / kTile),
+                    dq_smem_floats<DMAX>(), p, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
+int launch_for_dim(int which, const Params& p, cudaStream_t stream) {
+  if (p.D <= 32) return launch_which<T, 32>(which, p, stream);
+  if (p.D <= 64) return launch_which<T, 64>(which, p, stream);
+  if (p.D <= 128) return launch_which<T, 128>(which, p, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+int run(int which, const void* q, const void* k, const void* v,
+        const void* bias, const void* dout, const void* lse,
+        const void* delta, void* out0, void* out1, int is_bf16, int B, int H,
+        int Tq, int Tk, int D, long long q_sb, long long q_sh, long long q_st,
+        long long k_sb, long long k_sh, long long k_st, long long v_sb,
+        long long v_sh, long long v_st, long long o_sb, long long o_sh,
+        long long o_st, long long b_sb, long long b_sh, long long b_sq,
+        long long b_sk, float scale, int causal, int causal_offset,
+        void* stream) {
+  Params p;
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.bias = static_cast<const float*>(bias);
+  p.dout = dout;
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<const float*>(delta);
+  p.out0 = out0;
+  p.out1 = out1;
+  p.B = B;
+  p.H = H;
+  p.Tq = Tq;
+  p.Tk = Tk;
+  p.D = D;
+  p.q_sb = q_sb;
+  p.q_sh = q_sh;
+  p.q_st = q_st;
+  p.k_sb = k_sb;
+  p.k_sh = k_sh;
+  p.k_st = k_st;
+  p.v_sb = v_sb;
+  p.v_sh = v_sh;
+  p.v_st = v_st;
+  p.o_sb = o_sb;
+  p.o_sh = o_sh;
+  p.o_st = o_st;
+  p.b_sb = b_sb;
+  p.b_sh = b_sh;
+  p.b_sq = b_sq;
+  p.b_sk = b_sk;
+  p.scale = scale;
+  p.causal = causal;
+  p.causal_offset = causal_offset;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? launch_for_dim<__nv_bfloat16>(which, p, s)
+                 : launch_for_dim<float>(which, p, s);
+}
+
+}  // namespace
+
+// Each entry returns cudaGetLastError() after its launch (0 = launched).
+// The three share one argument list: out0/out1 are dq/unused, dk/dv, and
+// ds/unused.  The caller checks shapes, dtypes and strides before calling.
+#define BWD_ARGS                                                             \
+  const void *q, const void *k, const void *v, const void *bias,            \
+      const void *dout, const void *lse, const void *delta, void *out0,      \
+      void *out1, int is_bf16, int B, int H, int Tq, int Tk, int D,          \
+      long long q_sb, long long q_sh, long long q_st, long long k_sb,        \
+      long long k_sh, long long k_st, long long v_sb, long long v_sh,        \
+      long long v_st, long long o_sb, long long o_sh, long long o_st,        \
+      long long b_sb, long long b_sh, long long b_sq, long long b_sk,        \
+      float scale, int causal, int causal_offset, void *stream
+#define BWD_CALL(which)                                                      \
+  run(which, q, k, v, bias, dout, lse, delta, out0, out1, is_bf16, B, H, Tq, \
+      Tk, D, q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st, o_sb,     \
+      o_sh, o_st, b_sb, b_sh, b_sq, b_sk, scale, causal, causal_offset,      \
+      stream)
+
+extern "C" int flash_attention_dq(BWD_ARGS) { return BWD_CALL(kDq); }
+extern "C" int flash_attention_dkv(BWD_ARGS) { return BWD_CALL(kDkv); }
+extern "C" int flash_attention_dbias(BWD_ARGS) { return BWD_CALL(kDbias); }

@@ -7,19 +7,33 @@ Phases, each raising on failure (the script then exits non-zero):
 
 1. device: the card's name, its ``nvidia-smi`` name and power limit, and
    the TF32 settings (f32 matmuls are set to full f32);
-2. build: the CUDA flash-attention kernel from the checkout's sources;
-3. the kernel against its plain PyTorch version at the serving path's
-   shapes, with times (CUDA events, median of 60 runs, L2 flushed before
-   each): the kernel, the plain version, ``scaled_dot_product_attention``
-   with the same additive mask (a yardstick the port never calls) and
-   the card's bound for the same work;
-4. serving: a TransformerLM at the width of the largest LM the repo
+2. build: both CUDA sources from the checkout (the flash-attention
+   forward and its three backward kernels), one ``nvcc`` each in
+   parallel, with their register and spill reports;
+3. the forward kernel against its plain PyTorch version at the serving
+   path's shapes, with times (CUDA events, median of 60 runs, L2 flushed
+   before each): the kernel, the plain version,
+   ``scaled_dot_product_attention`` with the same additive mask (a
+   yardstick the port never calls) and the card's bound for the same
+   work;
+4. the backward kernels (dQ, dK/dV, dBias) against their plain versions
+   on the same inputs and the forward kernel's lse, at the training
+   shape and six edge shapes, each launched twice to show the same bits,
+   with times beside the plain version, SDPA's backward and the bound;
+5. serving: a TransformerLM at the width of the largest LM the repo
    serves (vocab 32000, hidden 512, 6 layers, 8 heads, filter 1024,
    max_len 512; random weights from a seed) behind ``ModelServer`` and
    the continuous-batching engine with 128-wide prefill chunks, 32
    requests; every served row is held against a solo ``generate()`` and
    the kernel's launch count against the path's attention calls;
-5. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+6. training: the port's ``examples.perf`` training path at the width of
+   the reference's transformer perf run (L6 H512 T2048 b8, vocab 32000,
+   filter 2048, bf16 compute) through ``Optimizer.optimize()``; the loss
+   must stay finite and fall, and every step must launch the forward,
+   dQ and dK/dV kernels once per layer (dBias never: no bias);
+7. one f32 training step at batch 2, on the card and on a CPU copy of
+   the same model (plain attention): loss and every gradient must agree;
+8. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 Imports torch, numpy and ``bigdl_tpu_torch`` only.
 """
@@ -82,16 +96,26 @@ def phase_device() -> str:
     return smi
 
 
+KERNEL_SOURCES = ("flash_attention_fwd", "flash_attention_bwd")
+
+
 def phase_build():
+    """Build every kernel source at once (one nvcc each, in parallel),
+    then print each one's register and spill report."""
+    from concurrent.futures import ThreadPoolExecutor
     from bigdl_tpu_torch.ops.build import build_library, load_library
     t0 = time.perf_counter()
-    load_library("flash_attention_fwd")
-    print(f"build: flash_attention_fwd.cu built and loaded in "
-          f"{time.perf_counter() - t0:.3f} s")
-    report = build_library("flash_attention_fwd").with_suffix(".ptxas.txt")
-    for line in report.read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print("  " + line.strip())
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        libs = list(pool.map(build_library, KERNEL_SOURCES))
+    for name in KERNEL_SOURCES:
+        load_library(name)
+    print(f"build: {', '.join(n + '.cu' for n in KERNEL_SOURCES)} built "
+          f"and loaded in {time.perf_counter() - t0:.3f} s")
+    for name, lib in zip(KERNEL_SOURCES, libs):
+        print(f"  {name}.cu:")
+        for line in lib.with_suffix(".ptxas.txt").read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                print("    " + line.strip())
 
 
 # ---------------------------------------------------------------------------
@@ -149,7 +173,8 @@ def bound(q, k, v, bias, causal, rates):
 
 
 def _inputs(gen):
-    """The five shapes of the serving path and its edges."""
+    """The five shapes of the serving path and its edges, and the
+    training path's shape."""
     from bigdl_tpu_torch.nn.attention import (chunk_incremental_bias,
                                               incremental_bias)
     dev = "cuda"
@@ -190,6 +215,9 @@ def _inputs(gen):
         ("e_ragged_causal", "B2 H4 Tq100 Tk300 D32 f32 causal",
          (rnd(2, 4, 100, 32), rnd(2, 4, 300, 32), rnd(2, 4, 300, 32), None,
           True), F32_TOL),
+        ("f_train", "B8 H8 T2048 D64 bf16 causal (training)",
+         (rnd(8, 8, 2048, 64, dtype=bf), rnd(8, 8, 2048, 64, dtype=bf),
+          rnd(8, 8, 2048, 64, dtype=bf), None, True), BF16_TOL),
     ]
 
 
@@ -246,7 +274,186 @@ def phase_kernel_checks(rates):
 
 
 # ---------------------------------------------------------------------------
-# 4. serving at full width
+# 4. the backward kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+# f32: sums of up to 2048 products, where cuBLAS may take another order.
+# bf16 must agree bit for bit (tolerance None): kernel and plain version
+# round P and dS to bf16 at the same points and sum the same products in
+# one f32 FMA chain each, and they have never differed.  A tolerance of a
+# few ulps could not see a missing cast: one moves about 40% of the
+# entries, each by at most one ulp of the largest (chip_gate_controls.py
+# shows this check refusing such kernels)
+F32_BWD_TOL = dict(rtol=1e-4, atol=1e-4)
+BF16_BWD_TOL = None
+BWD_RUNS = 15                      # timed runs per kernel (median)
+# flops per visible (query, key) pair: 2·D for each product
+BWD_PRODUCTS = {"dq": 3, "dkv": 4, "dbias": 2}
+
+
+def _bwd_inputs(gen):
+    """The backward shapes, as (key, what, (q, k, v), bias, causal,
+    bias needs a gradient, tolerance): (t) is the training path's; (v)
+    launches dBias with a learnable bias; (w) and (x) are ragged and
+    end-aligned, (x) with rows that see no key; (y) has a constant mask."""
+    dev = "cuda"
+
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    def qkv(b, h, tq, tk, d, dtype=torch.float32):
+        return rnd(b, h, tq, d, dtype=dtype), rnd(b, h, tk, d, dtype=dtype), \
+            rnd(b, h, tk, d, dtype=dtype)
+
+    t = 127
+    lens = torch.tensor([127, 100, 9, 64], device=dev)
+    pad = torch.arange(t, device=dev)[None, :] >= lens[:, None]
+    tri = torch.ones((t, t), dtype=torch.bool, device=dev).tril()
+    bias_y = (torch.where(tri, 0.0, -1e9)[None, None]
+              + torch.where(pad, -1e9, 0.0)[:, None, None, :])
+    bf = torch.bfloat16
+    return [
+        ("t_train", "B8 H8 T2048 D64 bf16 causal",
+         qkv(8, 8, 2048, 2048, 64, bf), None, True, False, BF16_BWD_TOL),
+        ("u_causal", "B2 H8 T512 D64 f32 causal",
+         qkv(2, 8, 512, 512, 64), None, True, False, F32_BWD_TOL),
+        ("v_bias_b1tt", "B2 H8 T256 D64 f32 learnable bias [B,1,T,T]",
+         qkv(2, 8, 256, 256, 64), rnd(2, 1, 256, 256), False, True,
+         F32_BWD_TOL),
+        ("v_bias_tt", "B2 H8 T256 D64 f32 learnable bias [T,T]",
+         qkv(2, 8, 256, 256, 64), rnd(256, 256), False, True, F32_BWD_TOL),
+        ("w_ragged", "B2 H4 Tq100 Tk300 D32 f32 causal",
+         qkv(2, 4, 100, 300, 32), None, True, False, F32_BWD_TOL),
+        ("x_no_key_rows", "B2 H4 Tq300 Tk100 D32 f32 causal",
+         qkv(2, 4, 300, 100, 32), None, True, False, F32_BWD_TOL),
+        ("y_const_mask", "B4 H8 T127 D64 f32 causal+padding bias",
+         qkv(4, 8, t, t, 64), bias_y, False, False, F32_BWD_TOL),
+    ]
+
+
+def bwd_bound(kernel, q, k, bias, causal, rates):
+    """Least device time for one backward kernel: inputs (q, k, v, dO,
+    lse, Δ, bias) read once, its outputs written once, and 2·D flops
+    per visible pair for each of its products."""
+    mem_rate, f32_rate, bf16_rate = rates
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    qd = q.numel() * q.element_size()
+    kd = k.numel() * k.element_size()
+    nbytes = 2 * qd + 2 * kd + 2 * b * h * tq * 4
+    if bias is not None:
+        nbytes += bias.numel() * bias.element_size()
+    nbytes += {"dq": qd, "dkv": 2 * kd, "dbias": b * h * tq * tk * 4}[kernel]
+    flops = 2 * d * BWD_PRODUCTS[kernel] * b * h * _visible_pairs(tq, tk,
+                                                                   causal)
+    peak = bf16_rate if q.dtype == torch.bfloat16 else f32_rate
+    t_bytes, t_ops = nbytes / mem_rate * 1e3, flops / peak * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def _close(got, want, tol):
+    """(max abs err, entries that differ, agrees): within ``tol``, or
+    equal bit for bit where ``tol`` is None."""
+    err = float((got.float() - want.float()).abs().max())
+    differ = int((got != want).sum())
+    if tol is None:
+        return err, differ, differ == 0
+    return err, differ, bool(torch.allclose(got.float(), want.float(),
+                                            **tol))
+
+
+def phase_bwd_kernel_checks(rates):
+    """dQ, dK/dV and dBias against their plain versions on the same q, k,
+    v, bias, dO and the forward kernel's lse; two launches of each must
+    give the same bits; times beside the plain version's, the library's
+    backward and the bound."""
+    import torch.nn.functional as F
+    from bigdl_tpu_torch.ops import attention_kernels as ak
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    kernels = {"dq": (ak.flash_attention_dq, ak.plain_attention_dq),
+               "dkv": (ak.flash_attention_dkv, ak.plain_attention_dkv),
+               "dbias": (ak.flash_attention_dbias, ak.plain_attention_dbias)}
+    results = []
+    for key, desc, (q, k, v), bias, causal, learnable, tol in \
+            _bwd_inputs(gen):
+        t0 = time.perf_counter()
+        d, tq, tk = q.shape[-1], q.shape[2], k.shape[2]
+        cfg = dict(scale=d ** -0.5, causal=causal, causal_offset=tk - tq)
+        with torch.no_grad():
+            out, lse = ak.flash_attention_fwd(q, k, v, bias, **cfg)
+            do = torch.randn(out.shape, generator=gen,
+                             device="cuda").to(q.dtype)
+            delta = ak.attention_delta(out, do)
+        args = (q, k, v, bias, do, lse, delta)
+        names = ["dq", "dkv"] + (["dbias"] if learnable else [])
+        # the library yardstick: one backward of SDPA for dq, dk, dv (and
+        # the mask's gradient when the bias is learnable) together
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+        if bias is None and causal and tq == tk:
+            lib_out = F.scaled_dot_product_attention(qg, kg, vg,
+                                                     is_causal=True)
+        else:
+            mask = _sdpa_mask(q, k, bias, causal)
+            if learnable:
+                mask = mask.detach().requires_grad_()
+            lib_out = F.scaled_dot_product_attention(qg, kg, vg,
+                                                     attn_mask=mask)
+        lib_inputs = [qg, kg, vg] + ([mask] if learnable else [])
+        library_ms = time_ms(lambda: torch.autograd.grad(
+            lib_out, lib_inputs, do, retain_graph=True), flush,
+            runs=BWD_RUNS, warmup=2)
+        for name in names:
+            kernel, plain = kernels[name]
+            with torch.no_grad():
+                got = kernel(*args, **cfg)
+                again = kernel(*args, **cfg)
+                want = plain(*args, **cfg)
+            torch.cuda.synchronize()
+            got, again, want = ([x] if torch.is_tensor(x) else list(x)
+                                for x in (got, again, want))
+            if not all(torch.isfinite(g).all() for g in got):
+                raise RuntimeError(f"{name} at {key}: output not finite")
+            if not all(torch.equal(g, a) for g, a in zip(got, again)):
+                raise RuntimeError(f"{name} at {key}: two launches differ")
+            checks = [_close(g, w, tol) for g, w in zip(got, want)]
+            err = max(e for e, _, _ in checks)
+            differ = sum(n for _, n, _ in checks)
+            if not all(ok for _, _, ok in checks):
+                raise RuntimeError(
+                    f"{name} at {key}: kernel disagrees with the plain "
+                    f"version (max abs err {err:.3e}, {differ} entries "
+                    f"differ, tolerance {tol or 'bit for bit'})")
+            with torch.no_grad():
+                row = {
+                    "kernel": name, "shape": key, "what": desc,
+                    "max_abs_err": err, "entries_differ": differ,
+                    "bitwise_repeatable": True,
+                    "ms": time_ms(lambda: kernel(*args, **cfg), flush,
+                                  runs=BWD_RUNS, warmup=2),
+                    "plain_ms": time_ms(lambda: plain(*args, **cfg), flush,
+                                        runs=BWD_RUNS, warmup=2),
+                    "library_ms": library_ms,
+                }
+            row["bound_ms"], row["bound_by"] = bwd_bound(
+                name, q, k, bias, causal, rates)
+            results.append(row)
+            print(f"bwd {name:5s} {key:13s} {desc:44s} max_abs_err "
+                  f"{err:.3e} ({differ} differ) repeatable  kernel_ms "
+                  f"{row['ms']:.5f}  "
+                  f"plain_ms {row['plain_ms']:.5f}  library_ms "
+                  f"{library_ms:.5f}  bound_ms {row['bound_ms']:.5f} "
+                  f"({row['bound_by']})")
+        if not learnable:
+            print(f"bwd dbias {key:13s} not launched: the bias is "
+                  f"{'absent' if bias is None else 'a constant mask'}")
+        print(f"  ({key}: {time.perf_counter() - t0:.1f} s)")
+    return results
+
+
+# ---------------------------------------------------------------------------
+# 5. serving at full width
 # ---------------------------------------------------------------------------
 
 def _traffic():
@@ -374,29 +581,210 @@ def phase_serving(device: str = "cuda"):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 6-7. training at full width, and a step held against the CPU
+# ---------------------------------------------------------------------------
+
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_ITERS, TRAIN_EPOCHS = 2048, 8, 5, 4
+TRAIN_ARGV = ["--model", "transformer-lm", "--seq-len", str(TRAIN_SEQ),
+              "-b", str(TRAIN_BATCH), "--hidden-size", str(HIDDEN),
+              "--num-layers", str(LAYERS), "--num-heads", str(HEADS),
+              "--vocab-size", str(VOCAB), "--bf16",
+              "--iterations", str(TRAIN_ITERS),
+              "--epochs", str(TRAIN_EPOCHS)]
+# f32 card against CPU, one step: the loss is a mean over 4096 tokens
+# (sums in another order: 1e-5 relative).  Each gradient is a sum over
+# 4096 tokens and 2048 keys, through 6 layers, taken in another order by
+# cuBLAS, the kernels and the CPU's BLAS; cancelling sums leave a few
+# entries 1e-3 of their tensor's largest off.  So each tensor is held to
+# 1e-3 in norm (||card - cpu|| / ||cpu||) and to 1e-2 of its largest
+# entry.  The same step with the attention backward in bf16 reads about
+# 2e-3 in norm, which the norm bound refuses (chip_gate_controls.py)
+PARITY_BATCH, LOSS_RTOL, GRAD_NORM_REL, GRAD_MAX_REL = 2, 1e-5, 1e-3, 1e-2
+
+
+def _attention_wrappers():
+    from bigdl_tpu_torch.ops import attention_kernels as ak
+    return (ak.flash_attention_fwd, ak.flash_attention_dq,
+            ak.flash_attention_dkv, ak.flash_attention_dbias)
+
+
+def phase_training():
+    """The port's perf training path at full width, bf16 compute."""
+    from bigdl_tpu_torch.examples import perf
+    from bigdl_tpu_torch.nn.attention import Attention
+    seen = set()
+
+    def record_dtype(module, _inputs, output):
+        if isinstance(module, Attention):
+            seen.add(output.dtype)
+    hook = torch.nn.modules.module.register_module_forward_hook(
+        record_dtype)
+    wrappers = _attention_wrappers()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers:
+        w.launches = 0
+    t0 = time.perf_counter()
+    try:
+        out, opt = perf.train(perf.parse_args(TRAIN_ARGV))
+    finally:
+        hook.remove()
+    wall = time.perf_counter() - t0
+    launches = {w.__name__: w.launches for w in wrappers}
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = TRAIN_ITERS * TRAIN_EPOCHS
+    losses = [loss for _, loss in opt.loss_history]
+    tokens_s = TRAIN_BATCH * TRAIN_SEQ / (out["ms_per_iteration"] / 1e3)
+    print(f"training: {json.dumps(out)}")
+    print(f"training: {steps} steps in {wall:.3f} s; "
+          f"{out['records_per_sec']} records/s, {tokens_s:.1f} tokens/s, "
+          f"{out['ms_per_iteration']} ms/iteration (steady windows); "
+          f"first window {out['compile_plus_first_window_s']} s; loss "
+          f"{losses[0]:.6f} -> {losses[-1]:.6f}; peak memory "
+          f"{peak_gb:.3f} GiB; attention output dtypes "
+          f"{sorted(str(d) for d in seen)}; launches {launches}")
+    if seen != {torch.bfloat16}:
+        raise RuntimeError(f"the bf16 run's attention computed in {seen}")
+    if len(losses) != steps or not all(np.isfinite(losses)):
+        raise RuntimeError(f"losses not finite or missing: {losses}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"loss did not fall: {losses}")
+    want = LAYERS * steps
+    if not (launches["flash_attention_fwd"]
+            == launches["flash_attention_dq"]
+            == launches["flash_attention_dkv"] == want):
+        raise RuntimeError(f"launches {launches} != {LAYERS} layers x "
+                           f"{steps} steps = {want} each")
+    if launches["flash_attention_dbias"] != 0:
+        raise RuntimeError("dBias launched on a path without a bias")
+    return dict(out, tokens_per_sec=tokens_s, steps=steps,
+                first_loss=losses[0], last_loss=losses[-1],
+                peak_memory_gib=peak_gb, launches=launches)
+
+
+def parity_setup():
+    """The full-width LM of the f32 parity step on the card, its CPU
+    copy, and ``step(model, device) -> (loss, {name: gradient on the
+    CPU})`` over one fixed batch of PARITY_BATCH sequences."""
+    import copy
+    from bigdl_tpu_torch.examples.perf import FlatLM
+    from bigdl_tpu_torch.models import TransformerLM
+    from bigdl_tpu_torch.nn.criterion import CrossEntropyCriterion
+    lm = TransformerLM(VOCAB, HIDDEN, LAYERS, HEADS, 4 * HIDDEN, TRAIN_SEQ,
+                       padded_inputs=False,
+                       generator=torch.Generator().manual_seed(1),
+                       device="cuda")
+    on_card = FlatLM(lm)
+    on_cpu = copy.deepcopy(on_card).to("cpu")
+    rng = np.random.default_rng(4)
+    x = rng.integers(1, VOCAB + 1, (PARITY_BATCH, TRAIN_SEQ))
+    y = rng.integers(1, VOCAB + 1, (PARITY_BATCH * TRAIN_SEQ,))
+    crit = CrossEntropyCriterion()
+
+    def step(model, device):
+        model.train()
+        model.zero_grad(set_to_none=True)
+        loss = crit(model(torch.as_tensor(x, device=device)),
+                    torch.as_tensor(y, device=device))
+        loss.backward()
+        return float(loss.detach()), {n: p.grad.detach().cpu()
+                                      for n, p in model.named_parameters()}
+    return on_card, on_cpu, step
+
+
+def parity_report(card, cpu, label="train parity"):
+    """Hold a card step's ``(loss, grads)`` against the CPU's and print
+    the worst errors; returns (worst norm error, worst entry error,
+    within LOSS_RTOL, GRAD_NORM_REL and GRAD_MAX_REL)."""
+    (loss_card, g_card), (loss_cpu, g_cpu) = card, cpu
+    norm_rel = {n: float((g_card[n] - g_cpu[n]).norm()
+                         / max(float(g_cpu[n].norm()), 1e-30))
+                for n in g_cpu}
+    max_rel = {n: float((g_card[n] - g_cpu[n]).abs().max()
+                        / max(float(g_cpu[n].abs().max()), 1e-30))
+               for n in g_cpu}
+    worst_norm = max(norm_rel, key=norm_rel.get)
+    worst_max = max(max_rel, key=max_rel.get)
+    ok = (abs(loss_card - loss_cpu) <= LOSS_RTOL * abs(loss_cpu)
+          and norm_rel[worst_norm] <= GRAD_NORM_REL
+          and max_rel[worst_max] <= GRAD_MAX_REL)
+    print(f"{label}: f32 step at batch {PARITY_BATCH}, T{TRAIN_SEQ}: loss "
+          f"card {loss_card:.7f} cpu {loss_cpu:.7f}; over {len(g_cpu)} "
+          f"gradient tensors the worst norm error is "
+          f"{norm_rel[worst_norm]:.3e} ({worst_norm}) and the worst entry "
+          f"{max_rel[worst_max]:.3e} of its tensor's largest ({worst_max}); "
+          f"{'within' if ok else 'BEYOND'} the bounds")
+    return norm_rel[worst_norm], max_rel[worst_max], ok
+
+
+def phase_train_parity():
+    """One f32 step of the full-width LM at batch 2: the card (kernels)
+    against a CPU copy (plain attention)."""
+    on_card, on_cpu, step = parity_setup()
+    before = [w.launches for w in _attention_wrappers()]
+    t0 = time.perf_counter()
+    card = step(on_card, "cuda")
+    t1 = time.perf_counter()
+    cpu = step(on_cpu, "cpu")
+    t2 = time.perf_counter()
+    used = [w.launches - b for w, b in zip(_attention_wrappers(), before)]
+    if used[:3] != [LAYERS] * 3:
+        raise RuntimeError(f"the card step launched {used}, not "
+                           f"{LAYERS} forward, dQ and dK/dV each")
+    print(f"train parity: card {t1 - t0:.2f} s, cpu {t2 - t1:.2f} s")
+    norm, worst, ok = parity_report(card, cpu)
+    if not ok:
+        raise RuntimeError("loss or gradients differ beyond the stated "
+                           "bounds")
+    return norm, worst
+
+
+def _kernel_entry(name, source, replaces, launches, row):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "shape": row["what"]}
+
+
 def main() -> int:
     smi = phase_device()
     rates = card_rates(torch.cuda.get_device_name(0))
     phase_build()
     shapes = phase_kernel_checks(rates)
-    launches = phase_serving()
+    bwd = phase_bwd_kernel_checks(rates)
+    serving_launches = phase_serving()
+    train = phase_training()
+    phase_train_parity()
     decode = next(s for s in shapes if s["shape"] == "b_decode")
+
+    def bwd_row(kernel, shape):
+        return next(r for r in bwd
+                    if r["kernel"] == kernel and r["shape"] == shape)
+
+    bwd_src = "bigdl_tpu_torch/ops/csrc/flash_attention_bwd.cu"
+    fwd = _kernel_entry(
+        "flash_attention_fwd", "bigdl_tpu_torch/ops/csrc/flash_attention_fwd.cu",
+        "bigdl_tpu/ops/attention_kernels.py:264", serving_launches, decode)
+    fwd["launches_by_path"] = {
+        "serving": serving_launches,
+        "training": train["launches"]["flash_attention_fwd"]}
+    fwd["shapes"] = shapes
+    kernels = [fwd]
+    for name, replaces, shape in (
+            ("dq", "bigdl_tpu/ops/attention_kernels.py:483", "t_train"),
+            ("dkv", "bigdl_tpu/ops/attention_kernels.py:515", "t_train"),
+            ("dbias", "bigdl_tpu/ops/attention_kernels.py:549",
+             "v_bias_b1tt")):
+        entry = _kernel_entry(
+            f"flash_attention_{name}", bwd_src, replaces,
+            train["launches"][f"flash_attention_{name}"],
+            bwd_row(name, shape))
+        entry["shapes"] = [r for r in bwd if r["kernel"] == name]
+        kernels.append(entry)
     print(smi)
-    print(json.dumps({"kernels": [{
-        "name": "flash_attention_fwd",
-        "route": "cuda",
-        "source": "bigdl_tpu_torch/ops/csrc/flash_attention_fwd.cu",
-        "replaces": "bigdl_tpu/ops/attention_kernels.py:264",
-        "launches": launches,
-        "max_abs_err": decode["max_abs_err"],
-        "ms": decode["ms"],
-        "plain_ms": decode["plain_ms"],
-        "bound_ms": decode["bound_ms"],
-        "bound_by": decode["bound_by"],
-        "library_ms": decode["library_ms"],
-        "shape": decode["what"],
-        "shapes": shapes,
-    }]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

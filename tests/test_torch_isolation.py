@@ -44,7 +44,7 @@ def test_port_and_chip_smoke_import_no_jax():
     n, leaked = proc.stdout.strip().split(" ", 1)
     expected = len(list(pkgutil.walk_packages(bigdl_tpu_torch.__path__,
                                               "bigdl_tpu_torch.")))
-    assert int(n) == expected and expected >= 15
+    assert int(n) == expected and expected >= 29
     assert leaked == "[]", leaked
 
 
