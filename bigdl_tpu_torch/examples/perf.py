@@ -1,6 +1,9 @@
 """Training-throughput CLI (counterpart of ``bigdl_tpu/examples/perf.py``,
-``bigdl-tpu-perf``), for ``--model transformer-lm`` training:
+``bigdl-tpu-perf``), for ``--model resnet50`` and ``--model
+transformer-lm`` training:
 
+    python -m bigdl_tpu_torch.examples.perf --model resnet50 --fused \\
+        --bf16 -b 128 --image-size 224 --classes 1000
     python -m bigdl_tpu_torch.examples.perf --model transformer-lm \\
         --seq-len 2048 -b 8 --hidden-size 512 --num-layers 6 \\
         --num-heads 8 --vocab-size 32000 --bf16 --iterations 10 --epochs 4
@@ -25,7 +28,7 @@ import torch
 from torch import nn
 
 from bigdl_tpu_torch.dataset import DataSet, MiniBatch
-from bigdl_tpu_torch.models import transformer_lm
+from bigdl_tpu_torch.models import resnet50, transformer_lm
 from bigdl_tpu_torch.nn.criterion import CrossEntropyCriterion
 from bigdl_tpu_torch.optim import SGD, Optimizer, Trigger
 
@@ -35,7 +38,6 @@ MODELS = ("lenet", "resnet50", "inception-v1", "inception-v2", "vgg16",
           "transformer-lm", "ptb-lstm")
 
 _NOT_PORTED = {
-    "resnet50": "ROADMAP.md queue 1, items 3-5 (ResNet-50, the next slice)",
     "lenet": "ROADMAP.md queue 1, item 9 (the rest of the model zoo)",
     "inception-v1": "ROADMAP.md queue 1, item 9 (the rest of the model zoo)",
     "inception-v2": "ROADMAP.md queue 1, item 9 (the rest of the model zoo)",
@@ -51,8 +53,6 @@ _MODES = (
     ("generate", 0, "ROADMAP.md queue 1, item 6 (GPU measurement "
      "harness)"),
     ("int8_infer", False, "ROADMAP.md queue 1, item 9 (nn/quantized.py)"),
-    ("fused", False, "ROADMAP.md queue 1, item 5 (fused bottleneck, "
-     "kernels #8-#11)"),
 )
 
 
@@ -77,9 +77,20 @@ def build(name: str, args):
     if name in _NOT_PORTED:
         raise NotImplementedError(f"--model {name} is not ported yet "
                                   f"({_NOT_PORTED[name]})")
+    rng = np.random.default_rng(0)
+    size = args.image_size
+
+    def image_batch(b):
+        return (rng.normal(size=(b, size, size, 3)).astype(np.float32),
+                rng.integers(1, args.classes + 1, size=(b,)))
+
+    if name == "resnet50":
+        return (resnet50(args.classes, fused=args.fused,
+                         generator=torch.Generator().manual_seed(0),
+                         device=args.device),
+                CrossEntropyCriterion(), image_batch)
     if name != "transformer-lm":
         raise SystemExit(f"unknown --model {name!r}")
-    rng = np.random.default_rng(0)
 
     def token_batch(b):
         return (rng.integers(
@@ -110,6 +121,8 @@ def parse_args(argv=None):
                    help="iterations per timed epoch")
     p.add_argument("--epochs", type=int, default=4,
                    help="total epochs (the first window pays the build)")
+    p.add_argument("--image-size", type=int, default=224)
+    p.add_argument("--classes", type=int, default=1000)
     p.add_argument("--seq-len", type=int, default=128)
     p.add_argument("--vocab-size", type=int, default=1000)
     p.add_argument("--hidden-size", type=int, default=256)
@@ -117,7 +130,9 @@ def parse_args(argv=None):
     p.add_argument("--num-heads", type=int, default=4)
     p.add_argument("--remat", action="store_true")
     p.add_argument("--real-jpeg-train", type=int, default=0, metavar="N")
-    p.add_argument("--fused", action="store_true")
+    p.add_argument("--fused", action="store_true",
+                   help="resnet50: the fused conv+BN bottleneck path "
+                        "(kernels #8-#11 on the card)")
     p.add_argument("--bf16", action="store_true")
     p.add_argument("--learning-rate", type=float, default=0.01)
     p.add_argument("--generate", type=int, default=0, metavar="N")

@@ -1,5 +1,8 @@
 """Models of the port (counterpart of ``bigdl_tpu.models``)."""
 
+from bigdl_tpu_torch.models.resnet import (  # noqa: F401
+    BasicBlock, Bottleneck, ResNet, resnet50, resnet_cifar,
+)
 from bigdl_tpu_torch.models.transformer_lm import (  # noqa: F401
     TransformerLM, transformer_lm,
 )

@@ -26,19 +26,26 @@ def _uniform(shape, bound: float, generator: torch.Generator):
 
 class Linear(nn.Module):
     """y = x W^T + b.  W ~ U(-1/sqrt(in), 1/sqrt(in)) (the reference's
-    default ``RandomUniform``), b likewise."""
+    default ``RandomUniform``) unless an ``init_method`` of
+    :mod:`bigdl_tpu_torch.core.init` is given; b ~ U(-1/sqrt(in),
+    1/sqrt(in))."""
 
     def __init__(self, input_size: int, output_size: int,
                  with_bias: bool = True, *, generator: torch.Generator,
-                 device=None):
+                 device=None, init_method=None):
         super().__init__()
         dev = resolve_device(device)
         self.input_size = input_size
         self.output_size = output_size
         self.with_bias = with_bias
         bound = 1.0 / math.sqrt(max(input_size, 1))
-        self.weight = nn.Parameter(_uniform(
-            (output_size, input_size), bound, generator).to(dev))
+        if init_method is None:
+            weight = _uniform((output_size, input_size), bound, generator)
+        else:
+            weight = init_method((output_size, input_size),
+                                 generator=generator, fan_in=input_size,
+                                 fan_out=output_size)
+        self.weight = nn.Parameter(weight.to(dev))
         if with_bias:
             self.bias = nn.Parameter(
                 _uniform((output_size,), bound, generator).to(dev))

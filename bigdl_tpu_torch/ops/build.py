@@ -3,8 +3,10 @@
 Each kernel source in ``csrc/`` exports a plain C interface, so it is
 compiled by ``nvcc`` alone into a shared library (seconds; no PyTorch
 headers) and bound with :mod:`ctypes`.  Libraries go into ``_build/``
-(git-ignored), named by a hash of the source and the compiler flags, so
-an edited source builds anew and an unchanged one is reused.
+(git-ignored), named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the compiler flags, so an edited source builds anew
+and an unchanged one is reused.  :func:`build_all` builds every source at
+once, one ``nvcc`` each, in parallel.
 """
 
 from __future__ import annotations
@@ -15,10 +17,16 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List, Sequence
 
-__all__ = ["find_nvcc", "build_library", "load_library", "NVCC_FLAGS"]
+__all__ = ["find_nvcc", "build_library", "build_all", "load_library",
+           "KERNEL_SOURCES", "NVCC_FLAGS"]
+
+# every kernel source of the port, by the name of its csrc/<name>.cu
+KERNEL_SOURCES = ("flash_attention_fwd", "flash_attention_bwd",
+                  "conv_bn_fwd", "conv_bn_bwd")
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -55,8 +63,10 @@ def build_library(name: str) -> Path:
     that file exists; returns its path.  The compiler's resource report
     (``-Xptxas -v``) is kept beside it as ``<name>-<hash>.ptxas.txt``."""
     src = CSRC_DIR / f"{name}.cu"
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + "\0".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        src.read_bytes() + headers
+        + "\0".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"{name}-{digest}.so"
     if out.is_file():
         return out
@@ -74,6 +84,13 @@ def build_library(name: str) -> Path:
     out.with_suffix(".ptxas.txt").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)
     return out
+
+
+def build_all(names: Sequence[str] = KERNEL_SOURCES) -> List[Path]:
+    """Build every source in ``names`` at once (one ``nvcc`` each, in
+    parallel); returns the libraries' paths in order."""
+    with ThreadPoolExecutor(len(names)) as pool:
+        return list(pool.map(build_library, names))
 
 
 def load_library(name: str) -> ctypes.CDLL:

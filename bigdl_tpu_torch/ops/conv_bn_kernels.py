@@ -1,0 +1,637 @@
+"""Fused conv+BN+ReLU for bottleneck convnets: the plain versions, the
+CUDA kernels' wrappers and the autograd Functions over them.
+
+Counterpart of ``bigdl_tpu/ops/conv_bn_kernels.py``, whose layouts it
+keeps: NHWC activations, HWIO weights (a 1x1 weight sliced to [K, N]).
+
+* :func:`fused_matmul_bn` — (normalize → relu → 1x1 conv → batch stats),
+  a ``torch.autograd.Function`` whose forward is kernel #8
+  (:func:`matmul_bn_fwd`, ``csrc/conv_bn_fwd.cu``, replacing the Pallas
+  ``_fused_fwd``/``_fwd_kernel``) and whose backward is kernel #9
+  (:func:`matmul_bn_bwd`, ``csrc/conv_bn_bwd.cu``, replacing
+  ``_fused_bwd``/``_bwd_kernel``).
+* :func:`fused_conv3x3_bn` — the same around a 3x3 stride-1 SAME conv:
+  kernels #10 (:func:`conv3x3_bn_fwd`, replacing ``_conv3_fwd``) and #11
+  (:func:`conv3x3_bn_bwd`, replacing ``_conv3_bwd``).
+* ``plain_matmul_bn_fwd``/``_bwd`` and ``plain_conv3x3_bn_fwd``/``_bwd``
+  — the kernels' plain versions, at the reference's rounding points.  On
+  CPU tensors the Functions run them, only because the tensors are
+  there; on a card the main path never calls them.  Each wrapper counts
+  its launches in ``<wrapper>.launches``.
+* :func:`fused_matmul_bn_reference`, :func:`fused_conv3x3_bn_reference`
+  and :func:`shifted_batch_stats` — the reference's oracles.
+
+The contract is the reference's ``custom_vjp``: ``kshift`` has a zero
+cotangent (the caller detaches it); the statistics outputs are
+differentiable and their cotangents (gm, gs) flow into the backward
+kernel; dW comes back in W's dtype; with ``norm=None`` dx = dz and the
+norm vectors get no gradient.  The C-sized algebra stays outside the
+kernels, as in the reference: the factor 2 on gs, and dmean, dscale and
+dbeta from the kernels' channel sums.
+
+:func:`fused_block_supported` and :func:`fused_conv3x3_supported`
+describe the CUDA kernels' own limits (the TPU's VMEM block pickers are
+not ported): the kernels tile any shape and mask their ragged edges, so
+only the size of the dW partials and the grid bound them.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from bigdl_tpu_torch.ops.build import load_library
+
+__all__ = ["shifted_batch_stats", "fused_matmul_bn_reference",
+           "fused_conv3x3_bn_reference", "fused_block_supported",
+           "fused_conv3x3_supported", "fused_matmul_bn", "fused_conv3x3_bn",
+           "matmul_bn_fwd", "matmul_bn_bwd", "conv3x3_bn_fwd",
+           "conv3x3_bn_bwd", "plain_matmul_bn_fwd", "plain_matmul_bn_bwd",
+           "plain_conv3x3_bn_fwd", "plain_conv3x3_bn_bwd", "dw_splits"]
+
+_SUPPORTED = (torch.float32, torch.bfloat16)
+_TILE = 64                        # the kernels' fixed output tile
+_MAX_PART_BYTES = 256 * 2 ** 20   # the dW partials' scratch, at most
+_TARGET_BLOCKS = 4 * 132          # four blocks per SM of an H100
+_MIN_SPLIT_ROWS = 256             # rows a dW split sums, at least
+_MAX_GRID_Y = 65535
+
+
+def _tiles(n: int) -> int:
+    return -(-n // _TILE)
+
+
+# ---- the reference's oracles ------------------------------------------------
+
+def shifted_batch_stats(y, kshift):
+    """(sum(y-K), sum((y-K)^2)) in f32 over every axis but the last."""
+    yf = y.float() - kshift.float()
+    dims = tuple(range(y.dim() - 1))
+    return yf.sum(dims), (yf * yf).sum(dims)
+
+
+def _z(x, norm):
+    """relu((x - mean) * scale + beta) in f32, cast to x's dtype."""
+    if norm is None:
+        return x
+    mean, scale, beta = (v.float() for v in norm)
+    return torch.relu((x.float() - mean) * scale + beta).to(x.dtype)
+
+
+@contextlib.contextmanager
+def _full_f32():
+    """f32 products and convolutions in full f32 (no TF32) on the card,
+    whatever the caller's settings; the plain versions do not depend on
+    torch's flags."""
+    matmul, cudnn = (torch.backends.cuda.matmul.allow_tf32,
+                     torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul
+        torch.backends.cudnn.allow_tf32 = cudnn
+
+
+def _nchw(t):
+    return t.permute(0, 3, 1, 2)
+
+
+def _oihw(w):
+    return w.permute(3, 2, 0, 1)
+
+
+def _conv3x3_f32(z, w):
+    """The 3x3 stride-1 SAME conv of NHWC z with HWIO w, in f32."""
+    with _full_f32():
+        y = F.conv2d(_nchw(z.float()), _oihw(w.float()), padding=1)
+    return y.permute(0, 2, 3, 1)
+
+
+def fused_matmul_bn_reference(x2d, w2d, norm=None, kshift=None):
+    """The unfused op: the normalized input cast to x's dtype before the
+    product, y summed in f32 and cast to x's dtype before the
+    statistics."""
+    with _full_f32():
+        y = torch.matmul(_z(x2d, norm).float(), w2d.float()).to(x2d.dtype)
+    if kshift is None:
+        return y
+    return (y, *shifted_batch_stats(y, kshift))
+
+
+def fused_conv3x3_bn_reference(x4d, w, norm=None, kshift=None):
+    """The unfused 3x3 op, at the same rounding points."""
+    y = _conv3x3_f32(_z(x4d, norm), w).to(x4d.dtype).contiguous()
+    if kshift is None:
+        return y
+    return (y, *shifted_batch_stats(y, kshift))
+
+
+# ---- what the kernels take --------------------------------------------------
+
+def dw_splits(rows: int, out_rows: int, cols: int) -> int:
+    """How many parts the backward kernels split dW's sum over ``rows``
+    into: enough 64 x 64 tiles to fill the card, each part summing at
+    least a few hundred rows, the f32 partials within their budget.  A
+    pure function of the shape, so a shape is always summed alike."""
+    tiles = _tiles(out_rows) * _tiles(cols)
+    splits = -(-_TARGET_BLOCKS // tiles)
+    splits = min(splits, max(1, rows // _MIN_SPLIT_ROWS),
+                 _MAX_PART_BYTES // (out_rows * cols * 4))
+    return max(1, splits)
+
+
+def _grid_ok(rows: int, cols: int) -> bool:
+    return rows >= 1 and 1 <= cols and _tiles(cols) <= _MAX_GRID_Y \
+        and _tiles(rows) < 2 ** 31
+
+
+def fused_block_supported(m: int, k: int, n: int,
+                          itemsize: int = 2) -> bool:
+    """Whether kernels #8/#9 take this (M, K, N) problem in this dtype
+    size: any shape whose grid fits one launch and whose [K, N] f32 dW
+    partial fits the scratch budget."""
+    return (itemsize in (2, 4) and k >= 1 and _grid_ok(m, n)
+            and _grid_ok(m, k) and _grid_ok(k, n)
+            and k * n * 4 <= _MAX_PART_BYTES)
+
+
+def fused_conv3x3_supported(h: int, w: int, c: int, co: int,
+                            itemsize: int = 2) -> bool:
+    """Whether kernels #10/#11 take this 3x3 (per image; any batch whose
+    grid fits one launch)."""
+    return (itemsize in (2, 4) and min(h, w, c, co) >= 1
+            and _tiles(co) <= _MAX_GRID_Y and _tiles(c) <= _MAX_GRID_Y
+            and 9 * c * co * 4 <= _MAX_PART_BYTES)
+
+
+# ---- plain versions of the kernels ------------------------------------------
+#
+# Each repeats its kernel's arithmetic at the reference's rounding points
+# (_fwd_kernel :158, _bwd_kernel :186, _conv3_fwd_kernel :460,
+# _conv3_bwd_kernel :510): products upcast to f32 first and summed in
+# full f32 whatever torch's TF32 flags, z and the folded dy cast to the
+# input's dtype before the products, y cast before the statistics, dW in
+# f32 cast to W's dtype, the channel sums on x in f32.
+
+def _vectors(mean, scale, beta, fuse_input):
+    return (mean, scale, beta) if fuse_input else None
+
+
+def plain_matmul_bn_fwd(x, w, mean, scale, beta, kshift, *,
+                        fuse_input: bool, emit_stats: bool):
+    """Plain version of :func:`matmul_bn_fwd`: ``(y, s1, s2)``, the sums
+    None without stats."""
+    out = fused_matmul_bn_reference(
+        x, w, _vectors(mean, scale, beta, fuse_input),
+        kshift if emit_stats else None)
+    return out if emit_stats else (out, None, None)
+
+
+def plain_conv3x3_bn_fwd(x, w, mean, scale, beta, kshift, *,
+                         fuse_input: bool, emit_stats: bool):
+    """Plain version of :func:`conv3x3_bn_fwd`: ``(y, s1, s2)``."""
+    out = fused_conv3x3_bn_reference(
+        x, w, _vectors(mean, scale, beta, fuse_input),
+        kshift if emit_stats else None)
+    return out if emit_stats else (out, None, None)
+
+
+def _fold(dy, y, kshift, gm, gs, emit_stats):
+    """dy + gm + gs * (y - K) in f32 (gs already doubled), cast to dy's
+    dtype; dy itself without stats."""
+    if not emit_stats:
+        return dy
+    return (dy.float() + gm + gs * (y.float() - kshift)).to(dy.dtype)
+
+
+def _input_side(x, dz, mean, scale, beta, fuse_input, dims):
+    """(dx, sum du*x, sum du) from dz: du = dz where u > 0."""
+    if not fuse_input:
+        zeros = torch.zeros(x.shape[-1], device=x.device)
+        return dz.to(x.dtype), zeros, zeros.clone()
+    xf = x.float()
+    u = (xf - mean) * scale + beta
+    du = torch.where(u > 0, dz, torch.zeros((), device=dz.device))
+    return ((du * scale).to(x.dtype), (du * xf).sum(dims), du.sum(dims))
+
+
+def plain_matmul_bn_bwd(x, w, mean, scale, beta, kshift, dy, gm, gs, *,
+                        fuse_input: bool, emit_stats: bool):
+    """Plain version of :func:`matmul_bn_bwd`: ``(dx, dw, dsx, dsu)``;
+    ``gs`` is the doubled cotangent of s2."""
+    z = _z(x, _vectors(mean, scale, beta, fuse_input))
+    with _full_f32():
+        yr = torch.matmul(z.float(), w.float()).to(dy.dtype) \
+            if emit_stats else None
+        dyl = _fold(dy, yr, kshift, gm, gs, emit_stats).float()
+        dw = torch.matmul(z.float().t(), dyl).to(w.dtype)
+        dz = torch.matmul(dyl, w.float().t())
+    dx, dsx, dsu = _input_side(x, dz, mean, scale, beta, fuse_input, (0,))
+    return dx, dw, dsx, dsu
+
+
+def plain_conv3x3_bn_bwd(x, w, mean, scale, beta, kshift, y, dy, gm, gs, *,
+                         fuse_input: bool, emit_stats: bool):
+    """Plain version of :func:`conv3x3_bn_bwd`: ``(dx, dw, dsx, dsu)``,
+    folding the statistics cotangents with the forward's saved ``y``."""
+    z = _z(x, _vectors(mean, scale, beta, fuse_input))
+    dyl = _nchw(_fold(dy, y, kshift, gm, gs, emit_stats).float())
+    wf = _oihw(w.float())
+    with _full_f32():
+        dz = torch.nn.grad.conv2d_input(_nchw(x).shape, wf, dyl, padding=1)
+        dw = torch.nn.grad.conv2d_weight(_nchw(z.float()), wf.shape, dyl,
+                                         padding=1)
+    dz = dz.permute(0, 2, 3, 1)
+    dx, dsx, dsu = _input_side(x, dz, mean, scale, beta, fuse_input,
+                               (0, 1, 2))
+    return (dx.contiguous(), dw.permute(2, 3, 1, 0).to(w.dtype).contiguous(),
+            dsx, dsu)
+
+
+# ---- the CUDA kernels' wrappers ---------------------------------------------
+
+def _check(name, tensors, dtype, device):
+    for label, t in tensors:
+        if not isinstance(t, torch.Tensor):
+            raise ValueError(f"{name}: {label} must be a tensor")
+        if t.device.type != "cuda":
+            raise ValueError(
+                f"{name} runs on CUDA tensors; {label} is on {t.device} "
+                "(the autograd Functions run the plain versions for CPU "
+                "tensors)")
+        if t.device != device:
+            raise ValueError(f"{name}: {label} is on {t.device}, not "
+                             f"{device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {label} has dtype {t.dtype}, "
+                            f"expected {dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {label} must be contiguous")
+
+
+def _check_main(name, x, w):
+    if not isinstance(x, torch.Tensor) or x.dtype not in _SUPPORTED:
+        raise TypeError(f"{name}: x has dtype "
+                        f"{getattr(x, 'dtype', None)}; the kernel takes "
+                        "float32 or bfloat16 tensors")
+    _check(name, (("x", x), ("w", w)), x.dtype, x.device)
+
+
+def _check_vectors(name, device, sizes):
+    _check(name, [(label, v) for label, (v, _) in sizes.items()],
+           torch.float32, device)
+    for label, (v, n) in sizes.items():
+        if v.shape != (n,):
+            raise ValueError(f"{name}: {label} must have shape ({n},), not "
+                             f"{tuple(v.shape)}")
+
+
+_bound: dict = {}
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_ARGTYPES = {
+    ("conv_bn_fwd", "conv_bn_matmul_fwd"):
+        [_P] * 11 + [_I, _L, _I, _I, _I, _I, _P],
+    ("conv_bn_fwd", "conv_bn_conv3x3_fwd"):
+        [_P] * 11 + [_I] * 8 + [_P],
+    ("conv_bn_bwd", "conv_bn_matmul_bwd"):
+        [_P] * 17 + [_I, _L, _I, _I, _I, _I, _I, _P],
+    ("conv_bn_bwd", "conv_bn_conv3x3_bwd"):
+        [_P] * 17 + [_I] * 9 + [_P],
+}
+
+
+def _bind(library: str, name: str):
+    """A C entry point, built and bound at first use (never at import:
+    the CPU tests import this module without a CUDA toolkit)."""
+    key = (library, name)
+    fn = _bound.get(key)
+    if fn is None:
+        fn = getattr(load_library(library), name)
+        fn.argtypes = _ARGTYPES[key]
+        fn.restype = ctypes.c_int
+        _bound[key] = fn
+    return fn
+
+
+def _launch(library, name, device, *args):
+    fn = _bind(library, name)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed with CUDA error {rc}")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _stats_scratch(rows, n, device):
+    return (torch.empty((_tiles(rows), n), dtype=torch.float32,
+                        device=device) for _ in range(2))
+
+
+def matmul_bn_fwd(x, w, mean, scale, beta, kshift, *, fuse_input: bool,
+                  emit_stats: bool):
+    """Launch kernel #8 on CUDA tensors: x [M, K], w [K, N] (one dtype),
+    f32 mean, scale, beta [K] and kshift [N] (zeros where unused).
+    Returns ``(y [M, N] in x's dtype, s1, s2)``, the sums f32 [N] or
+    None without stats.  Raises on what the kernel does not take."""
+    name = "conv_bn_matmul_fwd"
+    _check_main(name, x, w)
+    m, k = x.shape
+    if w.dim() != 2 or w.shape[0] != k:
+        raise ValueError(f"{name}: w {tuple(w.shape)} does not match x "
+                         f"{tuple(x.shape)}")
+    n = w.shape[1]
+    _check_vectors(name, x.device, {"mean": (mean, k), "scale": (scale, k),
+                                    "beta": (beta, k), "kshift": (kshift, n)})
+    if not fused_block_supported(m, k, n, x.element_size()):
+        raise ValueError(f"{name} cannot take M={m} K={k} N={n}")
+    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    p1, p2 = _stats_scratch(m, n, x.device) if emit_stats else (None, None)
+    s1, s2 = ((torch.empty(n, device=x.device) for _ in range(2))
+              if emit_stats else (None, None))
+    _launch("conv_bn_fwd", name, x.device, x.data_ptr(), w.data_ptr(),
+            mean.data_ptr(), scale.data_ptr(), beta.data_ptr(),
+            kshift.data_ptr(), y.data_ptr(), _ptr(p1), _ptr(p2), _ptr(s1),
+            _ptr(s2), int(x.dtype == torch.bfloat16), m, k, n,
+            int(fuse_input), int(emit_stats))
+    matmul_bn_fwd.launches += 1
+    return y, s1, s2
+
+
+matmul_bn_fwd.launches = 0
+
+
+def _check_image(name, x, w):
+    _check_main(name, x, w)
+    if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[:3]) != (3, 3,
+                                                               x.shape[3]):
+        raise ValueError(f"{name}: needs x [B, H, W, C] and w [3, 3, C, Co]; "
+                         f"got {tuple(x.shape)} and {tuple(w.shape)}")
+    b, h, wd, c = x.shape
+    co = w.shape[3]
+    if b < 1 or not fused_conv3x3_supported(h, wd, c, co, x.element_size()) \
+            or not _grid_ok(b * h * wd, max(c, co)):
+        raise ValueError(f"{name} cannot take B={b} H={h} W={wd} C={c} "
+                         f"Co={co}")
+    return b, h, wd, c, co
+
+
+def conv3x3_bn_fwd(x, w, mean, scale, beta, kshift, *, fuse_input: bool,
+                   emit_stats: bool):
+    """Launch kernel #10 on CUDA tensors: x [B, H, W, C], w [3, 3, C, Co]
+    (one dtype), f32 mean, scale, beta [C] and kshift [Co].  Returns
+    ``(y [B, H, W, Co] in x's dtype, s1, s2)``."""
+    name = "conv_bn_conv3x3_fwd"
+    b, h, wd, c, co = _check_image(name, x, w)
+    _check_vectors(name, x.device, {"mean": (mean, c), "scale": (scale, c),
+                                    "beta": (beta, c),
+                                    "kshift": (kshift, co)})
+    m = b * h * wd
+    y = torch.empty((b, h, wd, co), dtype=x.dtype, device=x.device)
+    p1, p2 = _stats_scratch(m, co, x.device) if emit_stats else (None, None)
+    s1, s2 = ((torch.empty(co, device=x.device) for _ in range(2))
+              if emit_stats else (None, None))
+    _launch("conv_bn_fwd", name, x.device, x.data_ptr(), w.data_ptr(),
+            mean.data_ptr(), scale.data_ptr(), beta.data_ptr(),
+            kshift.data_ptr(), y.data_ptr(), _ptr(p1), _ptr(p2), _ptr(s1),
+            _ptr(s2), int(x.dtype == torch.bfloat16), b, h, wd, c, co,
+            int(fuse_input), int(emit_stats))
+    conv3x3_bn_fwd.launches += 1
+    return y, s1, s2
+
+
+conv3x3_bn_fwd.launches = 0
+
+
+def _grad_outputs(x, w, c, fuse_input, rows_w, cols_w, rows):
+    """dx, dw, dsx, dsu and the scratch of a backward launch."""
+    dev = x.device
+    splits = dw_splits(rows, rows_w, cols_w)
+    part = torch.empty((splits, rows_w, cols_w), dtype=torch.float32,
+                       device=dev)
+    psx, psu = _stats_scratch(rows, c, dev) if fuse_input else (None, None)
+    dsx, dsu = torch.zeros(c, device=dev), torch.zeros(c, device=dev)
+    return (torch.empty_like(x), torch.empty_like(w), dsx, dsu, part, psx,
+            psu, splits)
+
+
+def matmul_bn_bwd(x, w, mean, scale, beta, kshift, dy, gm, gs, *,
+                  fuse_input: bool, emit_stats: bool):
+    """Launch kernel #9 on CUDA tensors: the inputs of #8, dy [M, N] in
+    x's dtype and the f32 cotangents gm, gs [N] of s1 and s2 (gs already
+    doubled; zeros without stats).  Returns ``(dx [M, K], dw [K, N],
+    dsx [K], dsu [K])``: dx and dw in the inputs' dtype, the channel sums
+    sum du*x and sum du in f32 (zeros without a norm)."""
+    name = "conv_bn_matmul_bwd"
+    _check_main(name, x, w)
+    m, k = x.shape
+    if w.dim() != 2 or w.shape[0] != k:
+        raise ValueError(f"{name}: w {tuple(w.shape)} does not match x "
+                         f"{tuple(x.shape)}")
+    n = w.shape[1]
+    _check(name, (("dy", dy),), x.dtype, x.device)
+    if dy.shape != (m, n):
+        raise ValueError(f"{name}: dy must be [{m}, {n}]")
+    _check_vectors(name, x.device, {
+        "mean": (mean, k), "scale": (scale, k), "beta": (beta, k),
+        "kshift": (kshift, n), "gm": (gm, n), "gs": (gs, n)})
+    if not fused_block_supported(m, k, n, x.element_size()):
+        raise ValueError(f"{name} cannot take M={m} K={k} N={n}")
+    dx, dw, dsx, dsu, part, psx, psu, splits = _grad_outputs(
+        x, w, k, fuse_input, k, n, m)
+    yr = torch.empty_like(dy) if emit_stats else None
+    _launch("conv_bn_bwd", name, x.device, x.data_ptr(), w.data_ptr(),
+            mean.data_ptr(), scale.data_ptr(), beta.data_ptr(),
+            kshift.data_ptr(), dy.data_ptr(), gm.data_ptr(), gs.data_ptr(),
+            _ptr(yr), dx.data_ptr(), part.data_ptr(), dw.data_ptr(),
+            _ptr(psx), _ptr(psu), dsx.data_ptr(), dsu.data_ptr(),
+            int(x.dtype == torch.bfloat16), m, k, n, int(fuse_input),
+            int(emit_stats), splits)
+    matmul_bn_bwd.launches += 1
+    return dx, dw, dsx, dsu
+
+
+matmul_bn_bwd.launches = 0
+
+
+def conv3x3_bn_bwd(x, w, mean, scale, beta, kshift, y, dy, gm, gs, *,
+                   fuse_input: bool, emit_stats: bool):
+    """Launch kernel #11 on CUDA tensors: the inputs of #10, the forward's
+    saved y and dy [B, H, W, Co] in x's dtype, and the f32 cotangents gm,
+    gs [Co] (gs doubled).  Returns ``(dx, dw [3, 3, C, Co], dsx [C],
+    dsu [C])``."""
+    name = "conv_bn_conv3x3_bwd"
+    b, h, wd, c, co = _check_image(name, x, w)
+    _check(name, (("y", y), ("dy", dy)), x.dtype, x.device)
+    if y.shape != (b, h, wd, co) or dy.shape != y.shape:
+        raise ValueError(f"{name}: y and dy must be [{b}, {h}, {wd}, {co}]")
+    _check_vectors(name, x.device, {
+        "mean": (mean, c), "scale": (scale, c), "beta": (beta, c),
+        "kshift": (kshift, co), "gm": (gm, co), "gs": (gs, co)})
+    m = b * h * wd
+    dx, dw, dsx, dsu, part, psx, psu, splits = _grad_outputs(
+        x, w, c, fuse_input, 9 * c, co, m)
+    _launch("conv_bn_bwd", name, x.device, x.data_ptr(), w.data_ptr(),
+            mean.data_ptr(), scale.data_ptr(), beta.data_ptr(),
+            kshift.data_ptr(), y.data_ptr(), dy.data_ptr(), gm.data_ptr(),
+            gs.data_ptr(), dx.data_ptr(), part.data_ptr(), dw.data_ptr(),
+            _ptr(psx), _ptr(psu), dsx.data_ptr(), dsu.data_ptr(),
+            int(x.dtype == torch.bfloat16), b, h, wd, c, co,
+            int(fuse_input), int(emit_stats), splits)
+    conv3x3_bn_bwd.launches += 1
+    return dx, dw, dsx, dsu
+
+
+conv3x3_bn_bwd.launches = 0
+
+_KERNELS = (matmul_bn_fwd, matmul_bn_bwd, conv3x3_bn_fwd, conv3x3_bn_bwd)
+_PLAIN = (plain_matmul_bn_fwd, plain_matmul_bn_bwd, plain_conv3x3_bn_fwd,
+          plain_conv3x3_bn_bwd)
+
+
+# ---- the autograd Functions -------------------------------------------------
+
+def _ops(x):
+    """The kernels for a CUDA tensor, the plain versions for a CPU one."""
+    return _KERNELS if x.device.type == "cuda" else _PLAIN
+
+
+def _cotangents(gm, gs, n, device, emit_stats):
+    """gm and the doubled gs in f32 (s1 and s2 are sums, so
+    d/dy sum (y-K)^2 = 2 (y-K): the factor 2 is folded in here, as
+    _fused_bwd :303-307 does)."""
+    if not emit_stats:
+        zeros = torch.zeros(n, device=device)
+        return zeros, zeros
+    return gm.float().contiguous(), (2.0 * gs.float()).contiguous()
+
+
+def _norm_grads(mean, scale, dsx, dsu, fuse_input):
+    """dmean, dscale, dbeta of u = (x - mean) * scale + beta from the
+    kernels' channel sums (_fused_bwd :334-343)."""
+    if not fuse_input:
+        return None, None, None
+    return -scale * dsu, dsx - mean * dsu, dsu
+
+
+class _MatmulBN(torch.autograd.Function):
+    """Forward kernel #8, backward kernel #9 (their plain versions on CPU
+    tensors)."""
+
+    @staticmethod
+    def forward(ctx, x, w, mean, scale, beta, kshift, fuse_input,
+                emit_stats):
+        y, s1, s2 = _ops(x)[0](x, w, mean, scale, beta, kshift,
+                               fuse_input=fuse_input, emit_stats=emit_stats)
+        ctx.save_for_backward(x, w, mean, scale, beta, kshift)
+        ctx.flags = dict(fuse_input=fuse_input, emit_stats=emit_stats)
+        return (y, s1, s2) if emit_stats else y
+
+    @staticmethod
+    def backward(ctx, dy, gm=None, gs=None):
+        x, w, mean, scale, beta, kshift = ctx.saved_tensors
+        fuse, stats = ctx.flags["fuse_input"], ctx.flags["emit_stats"]
+        gm, gs = _cotangents(gm, gs, w.shape[1], x.device, stats)
+        dx, dw, dsx, dsu = _ops(x)[1](
+            x, w, mean, scale, beta, kshift, dy.to(x.dtype).contiguous(), gm,
+            gs, **ctx.flags)
+        return (dx, dw, *_norm_grads(mean, scale, dsx, dsu, fuse), None,
+                None, None)
+
+
+class _Conv3x3BN(torch.autograd.Function):
+    """Forward kernel #10, backward kernel #11; the forward's y is saved
+    for the backward's statistics fold, as the reference saves it
+    (:678)."""
+
+    @staticmethod
+    def forward(ctx, x, w, mean, scale, beta, kshift, fuse_input,
+                emit_stats):
+        y, s1, s2 = _ops(x)[2](x, w, mean, scale, beta, kshift,
+                               fuse_input=fuse_input, emit_stats=emit_stats)
+        ctx.save_for_backward(x, w, mean, scale, beta, kshift, y)
+        ctx.flags = dict(fuse_input=fuse_input, emit_stats=emit_stats)
+        return (y, s1, s2) if emit_stats else y
+
+    @staticmethod
+    def backward(ctx, dy, gm=None, gs=None):
+        x, w, mean, scale, beta, kshift, y = ctx.saved_tensors
+        fuse, stats = ctx.flags["fuse_input"], ctx.flags["emit_stats"]
+        gm, gs = _cotangents(gm, gs, w.shape[3], x.device, stats)
+        dx, dw, dsx, dsu = _ops(x)[3](
+            x, w, mean, scale, beta, kshift, y, dy.to(x.dtype).contiguous(),
+            gm, gs, **ctx.flags)
+        return (dx, dw, *_norm_grads(mean, scale, dsx, dsu, fuse), None,
+                None, None)
+
+
+def _vector(v, n, device):
+    if v is None:
+        return torch.zeros(n, device=device)
+    return v.float().reshape(n).contiguous()
+
+
+def _apply(fn, x, w, norm, kshift, c, co):
+    dev = x.device
+    mean, scale, beta = ((_vector(v, c, dev) for v in norm)
+                         if norm is not None else
+                         (_vector(None, c, dev) for _ in range(3)))
+    ks = _vector(None if kshift is None else kshift.detach(), co, dev)
+    return fn.apply(x.contiguous(), w.contiguous(), mean, scale, beta, ks,
+                    norm is not None, kshift is not None)
+
+
+def fused_matmul_bn(x2d, w2d, *, norm=None, kshift=None):
+    """Fused (normalize → relu → matmul → batch stats) for 1x1 convs.
+
+    x2d: [M, K] pre-normalization activation (NHWC collapsed to rows);
+    w2d: [K, N] (the HWIO 1x1 kernel sliced to [Cin, Cout]), x's dtype;
+    norm: optional (mean, scale, beta) f32 [K] — the previous BN folded to
+      subtract-first form; None feeds x through unchanged;
+    kshift: optional [N] shift (the next BN's running_mean); None = no
+      statistics.  A constant under autograd (detached here).
+
+    Returns y [M, N] in x's dtype, and with a kshift also (sum(y-K),
+    sum((y-K)^2)) f32 [N].  Differentiable in x, w, the norm vectors and
+    the statistics.  Kernels #8/#9 on CUDA tensors, their plain versions
+    on CPU tensors."""
+    m, k = x2d.shape
+    if w2d.dim() != 2 or w2d.shape[0] != k:
+        raise ValueError(f"w {tuple(w2d.shape)} does not match x "
+                         f"{tuple(x2d.shape)}")
+    n = w2d.shape[1]
+    if not fused_block_supported(m, k, n, x2d.element_size()):
+        raise ValueError(f"fused_matmul_bn cannot take M={m} K={k} N={n}; "
+                         "use fused_block_supported() to pre-check")
+    return _apply(_MatmulBN, x2d, w2d, norm, kshift, k, n)
+
+
+def fused_conv3x3_bn(x4d, w, *, norm=None, kshift=None):
+    """Fused (normalize → relu → 3x3 stride-1 SAME conv → batch stats)
+    for NHWC inputs — the bottleneck's conv2.
+
+    x4d: [B, H, W, C]; w: [3, 3, C, Co] (HWIO); norm: optional (mean,
+    scale, beta) f32 [C]; kshift: optional [Co] (detached).  Returns y
+    [B, H, W, Co] (and the shifted sums with a kshift).  Kernels #10/#11
+    on CUDA tensors, their plain versions on CPU tensors."""
+    b, h, wd, c = x4d.shape
+    if tuple(w.shape[:3]) != (3, 3, c):
+        raise ValueError(f"w {tuple(w.shape)} does not match x "
+                         f"{tuple(x4d.shape)}")
+    co = w.shape[3]
+    if not fused_conv3x3_supported(h, wd, c, co, x4d.element_size()):
+        raise ValueError(f"fused_conv3x3_bn cannot take H={h} W={wd} C={c} "
+                         f"Co={co}; use fused_conv3x3_supported() to "
+                         "pre-check")
+    return _apply(_Conv3x3BN, x4d, w, norm, kshift, c, co)

@@ -1,0 +1,213 @@
+// Fused conv+BN forward for Hopper (sm_90a), plain C interface: kernels #8
+// and #10 of the port.
+//
+// Replaces the TPU kernels of bigdl_tpu/ops/conv_bn_kernels.py:
+//   conv_bn_matmul_fwd   <- _fused_fwd / _fwd_kernel        (pallas_call :274)
+//   conv_bn_conv3x3_fwd  <- _conv3_fwd / _conv3_fwd_kernel  (pallas_call :668)
+// and computes what they compute:
+//
+//   z  = relu((x - mean) * scale + beta) cast to x's dtype   (norm given)
+//      = x                                                   (no norm)
+//   y  = z . W (1x1: x [M,K], W [K,N]) or the NHWC 3x3 stride-1 SAME conv
+//        of z with W [3,3,C,Co], summed in f32 and cast to x's dtype
+//   s1 = sum over rows of (y - K), s2 = sum of (y - K)^2, f32, on the
+//        rounded y (only with a kshift K)
+//
+// The 3x3 pads z, the normalized activation, not x: a tap that falls
+// outside the image reads 0 AFTER normalize+ReLU (_conv3_fwd_kernel
+// :472-478, _wshift :448-457); zero-padding x would give relu(beta -
+// mean * scale) on the border instead.
+//
+// What bounds them on an H100.  At ResNet-50's b128 shapes the products
+// do 2*M*K*N (1x1) or 18*B*H*W*C*Co (3x3) operations on a few hundred MB
+// at most, so the bound is the bf16 tensor-core rate (operations).  These
+// kernels run scalar f32 FMAs on the CUDA cores (conv_bn_common.cuh): each
+// block keeps a 64 x 64 tile of y in registers, loads each input slice once
+// into shared memory with the normalize+ReLU applied on the way, and never
+// writes z to device memory; the statistics are summed from the tile in
+// registers, so y is not read back.  Tensor cores (mma/wgmma) and TMA are
+// later work.
+//
+// Routing differs from the TPU in one place: the reference's VMEM budget
+// refuses the 3x3 at C = Co = 512 (stage 4: 9 * 512 * 512 * 6 B > 11 MiB),
+// which therefore takes the plain path on a TPU.  This kernel takes it.
+// The fused and plain paths compute the same thing, so only the launch
+// count differs.
+//
+// Each entry point launches the product (one block per 64 x 64 tile of y)
+// and, with a kshift, one fixed-order reduction of the per-tile statistics.
+// It returns cudaGetLastError().
+
+#include "conv_bn_common.cuh"
+
+namespace {
+
+using namespace convbn;
+
+// the statistics of this thread's entries and the store of y (rounded)
+template <typename T>
+__device__ __forceinline__ void store_y_and_stats(
+    const float (&acc)[4][4], Tile t, float* sums, T* y, const float* kshift,
+    float* p1, float* p2, long long rows, int cols, int stats) {
+  float c1[4] = {0.f, 0.f, 0.f, 0.f}, c2[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const long long row = t.row + i;
+    if (row >= rows) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = t.col + j;
+      if (col >= cols) continue;
+      const T yv = from_f32<T>(acc[i][j]);  // y cast before the statistics
+      y[row * cols + col] = yv;
+      if (stats) {
+        const float d = __fsub_rn(to_f32(yv), kshift[col]);
+        c1[j] += d;
+        c2[j] += __fmul_rn(d, d);
+      }
+    }
+  }
+  if (stats) column_partials(c1, c2, sums, p1, p2, cols);
+}
+
+// #8: y [M,N] = z [M,K] . W [K,N]
+template <typename T>
+struct MatmulFwd {
+  const T* x;
+  const T* w;
+  const float *mean, *scale, *beta, *kshift;
+  T* y;
+  float *p1, *p2;
+  long long rows;  // M
+  int cols;        // N
+  int depth;       // K
+  int fuse, stats;
+  static constexpr bool kAFastR = true;   // x is contiguous along K
+  static constexpr bool kBFastR = false;  // W is contiguous along N
+  __device__ void range(int, long long* b, long long* e) const {
+    *b = 0;
+    *e = depth;
+  }
+  __device__ float a(long long m, long long k) const {
+    const float xv = to_f32(x[m * depth + k]);
+    return fuse ? norm_relu<T>(xv, mean[k], scale[k], beta[k]) : xv;
+  }
+  __device__ float b(long long k, int n) const {
+    return to_f32(w[k * cols + n]);
+  }
+  __device__ void epilogue(const float (&acc)[4][4], Tile t,
+                           float* sums) const {
+    store_y_and_stats(acc, t, sums, y, kshift, p1, p2, rows, cols, stats);
+  }
+};
+
+// #10: y [B,H,W,Co] = the 3x3 SAME conv of z [B,H,W,C] with W [3,3,C,Co];
+// the reduction index r = (3 * dh + dw) * C + c
+template <typename T>
+struct Conv3Fwd {
+  const T* x;
+  const T* w;
+  const float *mean, *scale, *beta, *kshift;
+  T* y;
+  float *p1, *p2;
+  Image img;
+  long long rows;  // B * H * W
+  int cols;        // Co
+  int C;
+  int fuse, stats;
+  static constexpr bool kAFastR = true;   // x is contiguous along C
+  static constexpr bool kBFastR = false;  // W is contiguous along Co
+  __device__ void range(int, long long* b, long long* e) const {
+    *b = 0;
+    *e = 9LL * C;
+  }
+  __device__ float a(long long m, long long r) const {
+    const int tap = (int)(r / C), c = (int)(r - (long long)tap * C);
+    const long long pos = img.shifted(m, tap / 3 - 1, tap % 3 - 1);
+    const float xv = pos >= 0 ? to_f32(x[pos * C + c]) : 0.f;
+    const float zv = fuse ? norm_relu<T>(xv, mean[c], scale[c], beta[c]) : xv;
+    return pos >= 0 ? zv : 0.f;  // SAME padding of z: zero after normalize+ReLU
+  }
+  __device__ float b(long long r, int co) const {
+    return to_f32(w[r * cols + co]);
+  }
+  __device__ void epilogue(const float (&acc)[4][4], Tile t,
+                           float* sums) const {
+    store_y_and_stats(acc, t, sums, y, kshift, p1, p2, rows, cols, stats);
+  }
+};
+
+template <class P>
+int run_fwd(const P& p, float* s1, float* s2, cudaStream_t stream) {
+  launch_product(p, 1, stream);
+  if (p.stats) {
+    const long long tiles = (p.rows + kBM - 1) / kBM;
+    launch_reduce<float>(p.p1, tiles, p.cols, s1, stream);
+    launch_reduce<float>(p.p2, tiles, p.cols, s2, stream);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int matmul_fwd(const void* x, const void* w, const float* mean,
+               const float* scale, const float* beta, const float* kshift,
+               void* y, float* p1, float* p2, float* s1, float* s2,
+               long long M, int K, int N, int fuse, int stats,
+               cudaStream_t stream) {
+  MatmulFwd<T> p{static_cast<const T*>(x), static_cast<const T*>(w), mean,
+                 scale, beta, kshift, static_cast<T*>(y), p1, p2, M, N, K,
+                 fuse, stats};
+  return run_fwd(p, s1, s2, stream);
+}
+
+template <typename T>
+int conv3_fwd(const void* x, const void* w, const float* mean,
+              const float* scale, const float* beta, const float* kshift,
+              void* y, float* p1, float* p2, float* s1, float* s2, int B,
+              int H, int W, int C, int Co, int fuse, int stats,
+              cudaStream_t stream) {
+  Conv3Fwd<T> p{static_cast<const T*>(x), static_cast<const T*>(w), mean,
+                scale, beta, kshift, static_cast<T*>(y), p1, p2,
+                Image{B, H, W}, (long long)B * H * W, Co, C, fuse, stats};
+  return run_fwd(p, s1, s2, stream);
+}
+
+}  // namespace
+
+extern "C" {
+
+// x [M,K], w [K,N], y [M,N] (dtype: bf16 ? bfloat16 : float32); mean,
+// scale, beta [K] and kshift [N] f32; p1, p2 f32 [ceil(M/64), N] scratch;
+// s1, s2 f32 [N].  Without a kshift (stats = 0) p1, p2, s1, s2 are unused.
+int conv_bn_matmul_fwd(const void* x, const void* w, const float* mean,
+                       const float* scale, const float* beta,
+                       const float* kshift, void* y, float* p1, float* p2,
+                       float* s1, float* s2, int bf16, long long M, int K,
+                       int N, int fuse_input, int emit_stats, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bf16 ? matmul_fwd<__nv_bfloat16>(x, w, mean, scale, beta, kshift,
+                                          y, p1, p2, s1, s2, M, K, N,
+                                          fuse_input, emit_stats, s)
+              : matmul_fwd<float>(x, w, mean, scale, beta, kshift, y, p1,
+                                  p2, s1, s2, M, K, N, fuse_input,
+                                  emit_stats, s);
+}
+
+// x [B,H,W,C], w [3,3,C,Co], y [B,H,W,Co]; mean, scale, beta [C] and
+// kshift [Co] f32; p1, p2 f32 [ceil(B*H*W/64), Co]; s1, s2 f32 [Co].
+int conv_bn_conv3x3_fwd(const void* x, const void* w, const float* mean,
+                        const float* scale, const float* beta,
+                        const float* kshift, void* y, float* p1, float* p2,
+                        float* s1, float* s2, int bf16, int B, int H, int W,
+                        int C, int Co, int fuse_input, int emit_stats,
+                        void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bf16 ? conv3_fwd<__nv_bfloat16>(x, w, mean, scale, beta, kshift,
+                                         y, p1, p2, s1, s2, B, H, W, C, Co,
+                                         fuse_input, emit_stats, s)
+              : conv3_fwd<float>(x, w, mean, scale, beta, kshift, y, p1, p2,
+                                 s1, s2, B, H, W, C, Co, fuse_input,
+                                 emit_stats, s);
+}
+
+}  // extern "C"

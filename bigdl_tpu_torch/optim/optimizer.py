@@ -23,9 +23,11 @@ the forward (``torch.func.functional_call`` with cast copies, so the
 gradients reach the float32 masters through the casts), floating inputs
 are cast too, and the output is cast back to float32 before the
 criterion.  ``torch.autocast`` would not: it keeps softmax, layer norm
-and ``log_softmax`` in float32 and rounds elsewhere.  Buffers a forward
-mutates are not written back under a compute dtype (no ported layer
-mutates one yet).
+and ``log_softmax`` in float32 and rounds elsewhere.  A buffer the
+forward assigns (a BatchNorm's running statistics in train mode) is
+carried back into the model's float32 buffer after the step, detached:
+float32 of the value computed under the compute dtype, as the
+reference's ``cast_floating(new_rest, float32)`` keeps it.
 
 What the slice does not need raises ``NotImplementedError`` naming its
 ROADMAP item; nothing is silently ignored.
@@ -164,11 +166,18 @@ class Optimizer:
         dtype = self.compute_dtype
         if dtype is None:
             return self.model(x)
+        buffers = dict(self.model.named_buffers())
         cast = {name: _cast_floating(t, dtype) for name, t in
-                (*self.model.named_parameters(),
-                 *self.model.named_buffers())}
-        return functional_call(self.model, cast,
-                               (_cast_floating(x, dtype),)).float()
+                (*self.model.named_parameters(), *buffers.items())}
+        given = {name: cast[name] for name in buffers}
+        out = functional_call(self.model, cast,
+                              (_cast_floating(x, dtype),)).float()
+        # functional_call writes what the forward assigned into ``cast``
+        with torch.no_grad():
+            for name, buf in buffers.items():
+                if cast[name] is not given[name]:
+                    buf.copy_(cast[name].detach())
+        return out
 
     def _step(self, params, opt_state, x, y, generator, epoch):
         """One training step; returns the loss, still on the device."""

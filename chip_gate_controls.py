@@ -19,6 +19,21 @@ the faults they are there to catch:
    attention backward in bf16: q, k, v and dO rounded to bf16 before the
    dQ and dK/dV kernels.  The script fails unless the first stays within
    chip_smoke's bounds and the second does not.
+3. Conv+BN mutants.  ``conv_bn_fwd.cu`` or ``conv_bn_bwd.cu`` is rebuilt
+   with one fault: the cast of z to x's dtype dropped in #8, the 3x3's
+   halo zeroed before normalize+ReLU in #10 (the border then reads
+   relu(beta - mean * scale)), the cast of the folded dy before the
+   products dropped in #9.  Each runs through chip_smoke's conv check at
+   a ResNet-50 b128 shape in bf16; the script fails unless the check
+   passes the sources as they stand and refuses every mutant, and prints
+   the share of entries each fault moves.
+4. A control ResNet-50 step.  chip_smoke's f32 fused step (batch 4,
+   64 px, card against a CPU copy) runs as it is and again with the conv
+   kernels fed x and W rounded to bf16; the script fails unless the first
+   stays within chip_smoke's bounds and the second does not.  Beside
+   them it prints how far three CPU steps whose inputs moved by 2^-23 of
+   themselves drift from the CPU step: the noise floor a ReLU flipped by
+   rounding sets under the bounds.
 
 The last line is one JSON object with every reading.  Imports torch,
 numpy, ``bigdl_tpu_torch`` and ``chip_smoke`` only.
@@ -50,12 +65,40 @@ MUTANTS = {
 LOOSE_REL = 2e-2   # a tolerance relative to the largest entry
 BWD_ENTRIES = ("flash_attention_dq", "flash_attention_dkv")
 
+# name: (the file with the fault, the library built from it, the line as
+# it stands, the line with the fault, chip_smoke's conv problem, the
+# output whose check must refuse it)
+CONV_MUTANTS = {
+    "no_z_cast_in_8": (
+        "conv_bn_fwd.cu", "conv_bn_fwd",
+        "return fuse ? norm_relu<T>(xv, mean[k], scale[k], beta[k]) : xv;",
+        "return fuse ? fmaxf(bn_input(xv, mean[k], scale[k], beta[k]), 0.f)"
+        " : xv;", "s1_conv3", ("y",)),
+    "halo_zeroed_before_norm_in_10": (
+        "conv_bn_fwd.cu", "conv_bn_fwd",
+        "return pos >= 0 ? zv : 0.f;", "return zv;", "s1_conv2", ("y",)),
+    "no_dy_cast_in_9": (
+        "conv_bn_common.cuh", "conv_bn_bwd",
+        "return round_to<T>(__fadd_rn(__fadd_rn(dy, gm), __fmul_rn(gs, "
+        "__fsub_rn(y, k))));",
+        "return __fadd_rn(__fadd_rn(dy, gm), __fmul_rn(gs, __fsub_rn(y, k)));",
+        "s1_conv3", ("dx", "dw")),
+}
+
+
+def _nvcc(cu, so):
+    from bigdl_tpu_torch.ops.build import NVCC_FLAGS, find_nvcc
+    proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", str(so), str(cu)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {cu.name}:\n{proc.stderr}")
+    return ctypes.CDLL(str(so))
+
 
 def build_mutant(tag: str) -> ctypes.CDLL:
     """``flash_attention_bwd.cu`` with MUTANTS[tag] applied, built into
     ``_build/mutants/`` with the port's own nvcc flags."""
-    from bigdl_tpu_torch.ops.build import (BUILD_DIR, CSRC_DIR, NVCC_FLAGS,
-                                           find_nvcc)
+    from bigdl_tpu_torch.ops.build import BUILD_DIR, CSRC_DIR
     before, after, _ = MUTANTS[tag]
     src = (CSRC_DIR / "flash_attention_bwd.cu").read_text()
     if src.count(before) != 1:
@@ -64,12 +107,26 @@ def build_mutant(tag: str) -> ctypes.CDLL:
     out_dir.mkdir(parents=True, exist_ok=True)
     cu = out_dir / f"flash_attention_bwd_{tag}.cu"
     cu.write_text(src.replace(before, after))
-    so = cu.with_suffix(".so")
-    proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", str(so), str(cu)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {cu.name}:\n{proc.stderr}")
-    return ctypes.CDLL(str(so))
+    return _nvcc(cu, cu.with_suffix(".so"))
+
+
+def build_conv_mutant(tag: str) -> ctypes.CDLL:
+    """The conv+BN library of CONV_MUTANTS[tag], built with the fault from
+    a copy of ``csrc/`` in ``_build/mutants/<tag>/``."""
+    from bigdl_tpu_torch.ops.build import BUILD_DIR, CSRC_DIR
+    path, library, before, after, _, _ = CONV_MUTANTS[tag]
+    out_dir = BUILD_DIR / "mutants" / tag
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for f in (*CSRC_DIR.glob("conv_bn_*.cu"), *CSRC_DIR.glob("*.cuh")):
+        text = f.read_text()
+        if f.name == path:
+            if text.count(before) != 1:
+                raise RuntimeError(f"{tag}: {before!r} is not in {path} "
+                                   "once")
+            text = text.replace(before, after)
+        (out_dir / f.name).write_text(text)
+    cu = out_dir / f"{library}.cu"
+    return _nvcc(cu, cu.with_suffix(".so"))
 
 
 @contextlib.contextmanager
@@ -190,14 +247,138 @@ def phase_control_step():
     return readings, failures
 
 
+@contextlib.contextmanager
+def conv_kernels_from(library: str, lib):
+    """The port's conv+BN wrappers of ``library`` launch ``lib``'s
+    kernels."""
+    from bigdl_tpu_torch.ops import conv_bn_kernels as ck
+    saved = dict(ck._bound)
+    for (name_lib, name), argtypes in ck._ARGTYPES.items():
+        if name_lib == library:
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            ck._bound[(name_lib, name)] = fn
+    try:
+        yield
+    finally:
+        ck._bound.clear()
+        ck._bound.update(saved)
+
+
+def phase_conv_mutants():
+    problems = {p[0]: p for p in chip_smoke.conv_problems()}
+    with ThreadPoolExecutor(len(CONV_MUTANTS)) as pool:
+        libs = dict(zip(CONV_MUTANTS, pool.map(build_conv_mutant,
+                                               CONV_MUTANTS)))
+    readings, failures = {}, []
+    for tag, (_, library, _, _, key, guarded) in CONV_MUTANTS.items():
+        _, kind, shape, dtype, norm = problems[key]
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        inputs = chip_smoke.conv_inputs(kind, shape, dtype, gen)
+        print(f"conv mutant {tag} at ({key}) "
+              f"{chip_smoke.conv_what(kind, shape, dtype, norm)}")
+        readings[tag] = {}
+        for label, lib in (("as_it_stands", None), (tag, libs[tag])):
+            with (conv_kernels_from(library, lib) if lib is not None
+                  else contextlib.nullcontext()):
+                held, _, same = chip_smoke.check_conv(kind, *inputs, norm)
+            r = {name: dict(max_abs_err=err, entries_differ=differ,
+                            share_differ=differ / _numel(kind, shape, name),
+                            check_passes=ok)
+                 for name, (err, differ, ok) in held.items()
+                 if name in guarded}
+            readings[tag][label] = r
+            for name, v in r.items():
+                print(f"  {label:30s} {name}: {v['entries_differ']} entries "
+                      f"differ ({v['share_differ']:.4%}), max abs err "
+                      f"{v['max_abs_err']:.3e}; check "
+                      f"{'passes' if v['check_passes'] else 'REFUSES'}")
+            passes = all(v["check_passes"] for v in r.values()) and same
+            if lib is None and not passes:
+                failures.append(f"the conv check refuses the sources as "
+                                f"they stand at {key}")
+            if lib is not None and passes:
+                failures.append(f"the conv check passes {tag}")
+    return readings, failures
+
+
+def _numel(kind, shape, output):
+    """Entries of one output of chip_smoke's conv problem."""
+    if kind == "1x1":
+        m, c, co = shape
+        return {"y": m * co, "dx": m * c, "dw": c * co}[output]
+    b, h, w, c, co = shape
+    return {"y": b * h * w * co, "dx": b * h * w * c,
+            "dw": 9 * c * co}[output]
+
+
+def _rounded(kernel):
+    """``kernel`` on x and W rounded to bf16 (kept in f32)."""
+    def run(x, w, *rest, **flags):
+        return kernel(x.to(torch.bfloat16).float(),
+                      w.to(torch.bfloat16).float(), *rest, **flags)
+    return run
+
+
+def phase_resnet_control_step():
+    import copy
+    from bigdl_tpu_torch.ops import conv_bn_kernels as ck
+    on_card, on_cpu, step = chip_smoke.resnet_parity_setup()
+    control = copy.deepcopy(on_card)
+    perturbed = [step(copy.deepcopy(on_cpu), "cpu", perturb=seed)
+                 for seed in range(3)]
+    cpu = step(on_cpu, "cpu")
+    card = step(on_card, "cuda")
+    as_is = chip_smoke.resnet_parity_report(card, cpu,
+                                            "resnet step as it is")
+    noise = [chip_smoke.resnet_parity_report(
+        p, cpu, f"cpu step, inputs moved by 2^-23 (seed {seed})")
+        for seed, p in enumerate(perturbed)]
+    kernels = ck._KERNELS
+    before = chip_smoke._read_counts()
+    ck._KERNELS = tuple(_rounded(k) for k in kernels)
+    try:
+        card_rounded = step(control, "cuda")
+    finally:
+        ck._KERNELS = kernels
+    after = chip_smoke._read_counts()
+    if {n: after[n] - before[n] for n in chip_smoke.RESNET_LAUNCHES} != \
+            chip_smoke.RESNET_LAUNCHES:
+        raise RuntimeError("the rounded control did not go through the "
+                           "kernels")
+    rounded = chip_smoke.resnet_parity_report(
+        card_rounded, cpu, "conv kernels on bf16-rounded x and W")
+    readings = {
+        label: dict(worst_norm_err=n, worst_entry_err=m, within_bounds=ok)
+        for label, (n, m, ok) in (
+            ("as_it_is", as_is), ("inputs_rounded_to_bf16", rounded),
+            *((f"cpu_inputs_moved_2^-23_seed{s}", r)
+              for s, r in enumerate(noise)))}
+    failures = []
+    if not as_is[2]:
+        failures.append("the ResNet step as it is breaks the bounds")
+    if rounded[2]:
+        failures.append("the bounds pass the ResNet step with bf16-rounded "
+                        "conv inputs")
+    return readings, failures
+
+
 def main() -> int:
     chip_smoke.phase_device()
     mutants, failures = phase_mutants()
     control, more = phase_control_step()
     failures += more
+    conv_mutants, more = phase_conv_mutants()
+    failures += more
+    resnet_control, more = phase_resnet_control_step()
+    failures += more
     print(json.dumps({"mutants": mutants, "control_step": control,
                       "bounds": {"grad_norm_rel": chip_smoke.GRAD_NORM_REL,
                                  "grad_max_rel": chip_smoke.GRAD_MAX_REL},
+                      "conv_mutants": conv_mutants,
+                      "resnet_control_step": resnet_control,
+                      "resnet_bounds": chip_smoke.RESNET_PARITY_BOUNDS,
                       "failures": failures}))
     return 1 if failures else 0
 

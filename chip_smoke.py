@@ -7,9 +7,10 @@ Phases, each raising on failure (the script then exits non-zero):
 
 1. device: the card's name, its ``nvidia-smi`` name and power limit, and
    the TF32 settings (f32 matmuls are set to full f32);
-2. build: both CUDA sources from the checkout (the flash-attention
-   forward and its three backward kernels), one ``nvcc`` each in
-   parallel, with their register and spill reports;
+2. build: the four CUDA sources from the checkout (the flash-attention
+   forward and its three backward kernels; the fused conv+BN forward
+   kernels #8 and #10 and backward kernels #9 and #11), one ``nvcc`` each
+   in parallel, with their register and spill reports;
 3. the forward kernel against its plain PyTorch version at the serving
    path's shapes, with times (CUDA events, median of 60 runs, L2 flushed
    before each): the kernel, the plain version,
@@ -33,7 +34,24 @@ Phases, each raising on failure (the script then exits non-zero):
    dQ and dK/dV kernels once per layer (dBias never: no bias);
 7. one f32 training step at batch 2, on the card and on a CPU copy of
    the same model (plain attention): loss and every gradient must agree;
-8. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+8. the conv+BN kernels #8-#11 against their plain versions, forward and
+   backward, with nonzero statistics cotangents, at ResNet-50's own b128
+   shapes and at ragged small ones in f32 and bf16, each launched twice
+   to show the same bits, with times beside the plain version, the
+   cuBLAS/cuDNN product alone and the bound;
+9. ResNet-50 training: ``examples.perf`` with ``--model resnet50 --fused
+   --bf16 -b 128 --image-size 224 --classes 1000``; every step must
+   launch #8/#9/#10/#11 exactly 32/32/13/13 times, the loss must stay
+   finite and fall; the step's time is split into the four kernels and
+   the rest;
+10. one bf16 step with the fused path and one with
+   ``BIGDL_TPU_TORCH_FUSED_CONVBN=0``, from the same weights and batch:
+   losses and every BatchNorm running statistic must agree;
+11. one f32 fused ResNet-50 step at batch 4, 64 px, on the card and on a
+   CPU copy (the kernels' plain versions): loss and every gradient must
+   agree;
+12. a ``{"kernels": [...]}`` line (eight kernels, launches by path), then
+   the ``{"ok": true, ...}`` line.
 
 Imports torch, numpy and ``bigdl_tpu_torch`` only.
 """
@@ -71,6 +89,25 @@ def card_rates(name: str):
                        "add the card to CARDS before quoting a bound")
 
 
+def _wrappers():
+    """Every kernel wrapper of the port: each counts its launches."""
+    from bigdl_tpu_torch.ops import attention_kernels as ak
+    from bigdl_tpu_torch.ops import conv_bn_kernels as ck
+    return (ak.flash_attention_fwd, ak.flash_attention_dq,
+            ak.flash_attention_dkv, ak.flash_attention_dbias,
+            ck.matmul_bn_fwd, ck.matmul_bn_bwd, ck.conv3x3_bn_fwd,
+            ck.conv3x3_bn_bwd)
+
+
+def _zero_counts():
+    for w in _wrappers():
+        w.launches = 0
+
+
+def _read_counts():
+    return {w.__name__: w.launches for w in _wrappers()}
+
+
 # ---------------------------------------------------------------------------
 # 1-2. device and build
 # ---------------------------------------------------------------------------
@@ -96,17 +133,13 @@ def phase_device() -> str:
     return smi
 
 
-KERNEL_SOURCES = ("flash_attention_fwd", "flash_attention_bwd")
-
-
 def phase_build():
     """Build every kernel source at once (one nvcc each, in parallel),
     then print each one's register and spill report."""
-    from concurrent.futures import ThreadPoolExecutor
-    from bigdl_tpu_torch.ops.build import build_library, load_library
+    from bigdl_tpu_torch.ops.build import (KERNEL_SOURCES, build_all,
+                                           load_library)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
-        libs = list(pool.map(build_library, KERNEL_SOURCES))
+    libs = build_all(KERNEL_SOURCES)
     for name in KERNEL_SOURCES:
         load_library(name)
     print(f"build: {', '.join(n + '.cu' for n in KERNEL_SOURCES)} built "
@@ -484,7 +517,6 @@ def _solo_margin(lm, prompt, step):
 
 def phase_serving(device: str = "cuda"):
     from bigdl_tpu_torch.models import TransformerLM
-    from bigdl_tpu_torch.ops.attention_kernels import flash_attention_fwd
     from bigdl_tpu_torch.serving import GenerationScheduler, ModelServer
 
     gen = torch.Generator().manual_seed(0)
@@ -528,7 +560,7 @@ def phase_serving(device: str = "cuda"):
     server = new_server()
     ttft = [None] * len(prompts)
     futs = []
-    flash_attention_fwd.launches = 0
+    _zero_counts()
     t0 = time.perf_counter()
     try:
         for i, (p, m) in enumerate(zip(prompts, max_news)):
@@ -542,7 +574,8 @@ def phase_serving(device: str = "cuda"):
         wall = time.perf_counter() - t0
     finally:
         server.shutdown()   # drains: every dispatched step is read back
-    launches = flash_attention_fwd.launches
+    counts = _read_counts()
+    launches = counts["flash_attention_fwd"]
     stats = server.generation_stats()
 
     calls = stats["prefill_calls"] + stats["decode_steps"]
@@ -578,7 +611,7 @@ def phase_serving(device: str = "cuda"):
                                f"near-tie)")
     print(f"rows: {len(rows) - differ}/{len(rows)} served rows equal solo "
           f"generate() token for token; {differ} differ at a near-tie")
-    return launches
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -603,12 +636,6 @@ TRAIN_ARGV = ["--model", "transformer-lm", "--seq-len", str(TRAIN_SEQ),
 PARITY_BATCH, LOSS_RTOL, GRAD_NORM_REL, GRAD_MAX_REL = 2, 1e-5, 1e-3, 1e-2
 
 
-def _attention_wrappers():
-    from bigdl_tpu_torch.ops import attention_kernels as ak
-    return (ak.flash_attention_fwd, ak.flash_attention_dq,
-            ak.flash_attention_dkv, ak.flash_attention_dbias)
-
-
 def phase_training():
     """The port's perf training path at full width, bf16 compute."""
     from bigdl_tpu_torch.examples import perf
@@ -620,17 +647,15 @@ def phase_training():
             seen.add(output.dtype)
     hook = torch.nn.modules.module.register_module_forward_hook(
         record_dtype)
-    wrappers = _attention_wrappers()
     torch.cuda.reset_peak_memory_stats()
-    for w in wrappers:
-        w.launches = 0
+    _zero_counts()
     t0 = time.perf_counter()
     try:
         out, opt = perf.train(perf.parse_args(TRAIN_ARGV))
     finally:
         hook.remove()
     wall = time.perf_counter() - t0
-    launches = {w.__name__: w.launches for w in wrappers}
+    launches = _read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     steps = TRAIN_ITERS * TRAIN_EPOCHS
     losses = [loss for _, loss in opt.loss_history]
@@ -662,14 +687,36 @@ def phase_training():
                 peak_memory_gib=peak_gb, launches=launches)
 
 
+def grad_step(x, y):
+    """``step(model, device, perturb=None) -> (loss, {name: gradient on
+    the CPU})``: one train-mode forward and backward of the cross-entropy
+    over the batch (x, y).  With ``perturb`` (a seed) each input moves by
+    2^-23 of itself in a random direction: the step's own sensitivity."""
+    from bigdl_tpu_torch.nn.criterion import CrossEntropyCriterion
+    crit = CrossEntropyCriterion()
+
+    def step(model, device, perturb=None):
+        xs = x
+        if perturb is not None:
+            sign = np.random.default_rng(perturb).choice([-1, 1], x.shape)
+            xs = x * (1 + sign * 2.0 ** -23).astype(np.float32)
+        model.train()
+        model.zero_grad(set_to_none=True)
+        loss = crit(model(torch.as_tensor(xs, device=device)),
+                    torch.as_tensor(y, device=device))
+        loss.backward()
+        return float(loss.detach()), {n: p.grad.detach().cpu()
+                                      for n, p in model.named_parameters()}
+    return step
+
+
 def parity_setup():
     """The full-width LM of the f32 parity step on the card, its CPU
-    copy, and ``step(model, device) -> (loss, {name: gradient on the
-    CPU})`` over one fixed batch of PARITY_BATCH sequences."""
+    copy, and :func:`grad_step` over one fixed batch of PARITY_BATCH
+    sequences."""
     import copy
     from bigdl_tpu_torch.examples.perf import FlatLM
     from bigdl_tpu_torch.models import TransformerLM
-    from bigdl_tpu_torch.nn.criterion import CrossEntropyCriterion
     lm = TransformerLM(VOCAB, HIDDEN, LAYERS, HEADS, 4 * HIDDEN, TRAIN_SEQ,
                        padded_inputs=False,
                        generator=torch.Generator().manual_seed(1),
@@ -679,23 +726,17 @@ def parity_setup():
     rng = np.random.default_rng(4)
     x = rng.integers(1, VOCAB + 1, (PARITY_BATCH, TRAIN_SEQ))
     y = rng.integers(1, VOCAB + 1, (PARITY_BATCH * TRAIN_SEQ,))
-    crit = CrossEntropyCriterion()
-
-    def step(model, device):
-        model.train()
-        model.zero_grad(set_to_none=True)
-        loss = crit(model(torch.as_tensor(x, device=device)),
-                    torch.as_tensor(y, device=device))
-        loss.backward()
-        return float(loss.detach()), {n: p.grad.detach().cpu()
-                                      for n, p in model.named_parameters()}
-    return on_card, on_cpu, step
+    return on_card, on_cpu, grad_step(x, y)
 
 
-def parity_report(card, cpu, label="train parity"):
+def parity_report(card, cpu, label="train parity",
+                  bounds=(LOSS_RTOL, GRAD_NORM_REL, GRAD_MAX_REL),
+                  what=f"batch {PARITY_BATCH}, T{TRAIN_SEQ}"):
     """Hold a card step's ``(loss, grads)`` against the CPU's and print
     the worst errors; returns (worst norm error, worst entry error,
-    within LOSS_RTOL, GRAD_NORM_REL and GRAD_MAX_REL)."""
+    within ``bounds``: the loss's relative error, each gradient's norm
+    error and its worst entry relative to its largest)."""
+    loss_rtol, grad_norm_rel, grad_max_rel = bounds
     (loss_card, g_card), (loss_cpu, g_cpu) = card, cpu
     norm_rel = {n: float((g_card[n] - g_cpu[n]).norm()
                          / max(float(g_cpu[n].norm()), 1e-30))
@@ -705,10 +746,10 @@ def parity_report(card, cpu, label="train parity"):
                for n in g_cpu}
     worst_norm = max(norm_rel, key=norm_rel.get)
     worst_max = max(max_rel, key=max_rel.get)
-    ok = (abs(loss_card - loss_cpu) <= LOSS_RTOL * abs(loss_cpu)
-          and norm_rel[worst_norm] <= GRAD_NORM_REL
-          and max_rel[worst_max] <= GRAD_MAX_REL)
-    print(f"{label}: f32 step at batch {PARITY_BATCH}, T{TRAIN_SEQ}: loss "
+    ok = (abs(loss_card - loss_cpu) <= loss_rtol * abs(loss_cpu)
+          and norm_rel[worst_norm] <= grad_norm_rel
+          and max_rel[worst_max] <= grad_max_rel)
+    print(f"{label}: f32 step at {what}: loss "
           f"card {loss_card:.7f} cpu {loss_cpu:.7f}; over {len(g_cpu)} "
           f"gradient tensors the worst norm error is "
           f"{norm_rel[worst_norm]:.3e} ({worst_norm}) and the worst entry "
@@ -721,18 +762,482 @@ def phase_train_parity():
     """One f32 step of the full-width LM at batch 2: the card (kernels)
     against a CPU copy (plain attention)."""
     on_card, on_cpu, step = parity_setup()
-    before = [w.launches for w in _attention_wrappers()]
+    _zero_counts()
     t0 = time.perf_counter()
     card = step(on_card, "cuda")
     t1 = time.perf_counter()
+    used = _read_counts()
     cpu = step(on_cpu, "cpu")
     t2 = time.perf_counter()
-    used = [w.launches - b for w, b in zip(_attention_wrappers(), before)]
-    if used[:3] != [LAYERS] * 3:
+    if [used[f"flash_attention_{n}"] for n in ("fwd", "dq", "dkv")] != \
+            [LAYERS] * 3:
         raise RuntimeError(f"the card step launched {used}, not "
                            f"{LAYERS} forward, dQ and dK/dV each")
     print(f"train parity: card {t1 - t0:.2f} s, cpu {t2 - t1:.2f} s")
     norm, worst, ok = parity_report(card, cpu)
+    if not ok:
+        raise RuntimeError("loss or gradients differ beyond the stated "
+                           "bounds")
+    return norm, worst
+
+
+# ---------------------------------------------------------------------------
+# 8. the conv+BN kernels #8-#11 against their plain versions
+# ---------------------------------------------------------------------------
+
+RESNET_BATCH, RESNET_SIZE, RESNET_CLASSES = 128, 224, 1000
+CONV_RUNS = 10                     # timed runs per call (median)
+# f32: the kernels sum their products in another order than cuBLAS and
+# cuDNN, so each output is held to 1e-4 of the plain output's largest
+# entry.  bf16 (y, dx, dW): each entry within one bf16 ulp of the plain
+# version's, and at most 1% of the entries differing at all: another f32
+# summation order moves only entries next to a rounding boundary, where a
+# missing cast moves a large share (chip_gate_controls.py).  An entry
+# that a long sum cancels to near zero has an ulp below both f32 sums'
+# own rounding, so an entry may also differ by up to 1e-5 of the
+# output's largest.  Statistics: within 1e-5 of sum |y - K| (s1) and of
+# sum (y - K)^2 (s2), summed in f64 from the kernel's own y
+CONV_F32_REL, CONV_BF16_SHARE, CONV_BF16_FLOOR, CONV_STATS_REL = \
+    1e-4, 0.01, 1e-5, 1e-5
+CONV_OUTPUTS = ("y", "dx", "dw", "dsx", "dsu")
+
+
+def _conv_ops(kind):
+    """(forward, backward, their plain versions) of a 1x1 or a 3x3."""
+    from bigdl_tpu_torch.ops import conv_bn_kernels as ck
+    if kind == "1x1":
+        return (ck.matmul_bn_fwd, ck.matmul_bn_bwd, ck.plain_matmul_bn_fwd,
+                ck.plain_matmul_bn_bwd)
+    return (ck.conv3x3_bn_fwd, ck.conv3x3_bn_bwd, ck.plain_conv3x3_bn_fwd,
+            ck.plain_conv3x3_bn_bwd)
+
+
+def conv_problems():
+    """(key, kind, shape, dtype, norm given): ResNet-50's own shapes at
+    b128, then ragged small ones (M = 63 or 100 rows, not a multiple of
+    the 64-row tile; 72 output channels, not a multiple of 64; H = 3,
+    W = 7) in f32 and bf16, with the norm given and absent.  A 1x1's
+    shape is (M, K, N), a 3x3's (B, H, W, C, Co)."""
+    b, bf, f32 = RESNET_BATCH, torch.bfloat16, torch.float32
+    rows = [
+        ("s1_conv1", "1x1", (b * 56 * 56, 64, 64), bf, False),
+        ("s1_conv3", "1x1", (b * 56 * 56, 64, 256), bf, True),
+        ("s3_conv1", "1x1", (b * 14 * 14, 1024, 256), bf, False),
+        ("s4_conv3", "1x1", (b * 7 * 7, 512, 2048), bf, True),
+        ("s1_conv2", "3x3", (b, 56, 56, 64, 64), bf, True),
+        ("s2_conv2", "3x3", (b, 28, 28, 128, 128), bf, True),
+        ("s3_conv2", "3x3", (b, 14, 14, 256, 256), bf, True),
+        ("s4_conv2", "3x3", (b, 7, 7, 512, 512), bf, True),
+    ]
+    for dtype, tag in ((f32, "f32"), (bf, "bf16")):
+        for norm in (True, False):
+            n = "norm" if norm else "nonorm"
+            rows.append((f"r1_{tag}_{n}", "1x1", (100, 24, 72), dtype, norm))
+            rows.append((f"r3_{tag}_{n}", "3x3", (3, 3, 7, 20, 72), dtype,
+                         norm))
+    return rows
+
+
+def conv_what(kind, shape, dtype, norm):
+    dt = "bf16" if dtype == torch.bfloat16 else "f32"
+    n = "norm" if norm else "no norm"
+    if kind == "1x1":
+        return f"M{shape[0]} K{shape[1]} N{shape[2]} {dt} {n}"
+    b, h, w, c, co = shape
+    return f"B{b} {h}x{w} C{c} Co{co} {dt} {n}"
+
+
+def conv_inputs(kind, shape, dtype, gen):
+    """x, w, the f32 vectors (mean, scale, beta, kshift), dy and the
+    statistics cotangents gm, gs (nonzero) on the card."""
+    def rnd(*s, scale=1.0):
+        return torch.randn(*s, generator=gen, device="cuda") * scale
+    if kind == "1x1":
+        m, c, co = shape
+        x_shape, w_shape, y_shape, fan = (m, c), (c, co), (m, co), c
+    else:
+        b, h, wd, c, co = shape
+        x_shape, w_shape, y_shape = (b, h, wd, c), (3, 3, c, co), (b, h, wd,
+                                                                  co)
+        fan = 9 * c
+    x = (rnd(*x_shape, scale=1.5) + 0.3).to(dtype)
+    w = rnd(*w_shape, scale=(2.0 / fan) ** 0.5).to(dtype)
+    vec = (rnd(c, scale=0.1), rnd(c).abs() + 0.5, rnd(c, scale=0.2),
+           rnd(co, scale=0.05))
+    return x, w, vec, rnd(*y_shape).to(dtype), rnd(co, scale=0.1), \
+        rnd(co, scale=0.1)
+
+
+def conv_held(got, want):
+    """(max abs err, entries that differ, within the rule of the dtype)."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    err = float(diff.max())
+    differ = int((got != want).sum())
+    if want.dtype == torch.bfloat16:
+        ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(1e-30)))
+                         - 7)
+        tol = ulp.clamp_min(CONV_BF16_FLOOR * float(w.abs().max()))
+        ok = bool((diff <= tol).all()) and \
+            differ <= CONV_BF16_SHARE * want.numel()
+    else:
+        ok = err <= CONV_F32_REL * float(w.abs().max())
+    return err, differ, ok
+
+
+def conv_stats_held(s1, s2, y, kshift):
+    """(worst error relative to its bound's scale, within the bounds):
+    s1 against sum(y-K) and s2 against sum((y-K)^2), in f64 from y."""
+    yk = y.double().reshape(-1, y.shape[-1]) - kshift.double()
+    own1, mass, own2 = yk.sum(0), yk.abs().sum(0), (yk * yk).sum(0)
+    rel1 = (s1.double() - own1).abs() / mass.clamp_min(1e-30)
+    rel2 = (s2.double() - own2).abs() / own2.clamp_min(1e-30)
+    worst = float(torch.maximum(rel1.max(), rel2.max()))
+    return worst, worst <= CONV_STATS_REL
+
+
+def check_conv(kind, x, w, vec, dy, gm, gs, fuse):
+    """Kernels #8/#9 (1x1) or #10/#11 (3x3), with statistics, against their
+    plain versions on the same inputs (the backward of a 3x3 folds with the
+    forward kernel's y); each launched twice.  Returns ({output: (max abs
+    err, entries that differ, held)}, (stats error, held), same bits)."""
+    fwd, bwd, plain_fwd, plain_bwd = _conv_ops(kind)
+    flags = dict(fuse_input=fuse, emit_stats=True)
+    with torch.no_grad():
+        got = fwd(x, w, *vec, **flags)
+        again = fwd(x, w, *vec, **flags)
+        want = plain_fwd(x, w, *vec, **flags)
+        saved_y = (got[0],) if kind == "3x3" else ()
+        grads = bwd(x, w, *vec, *saved_y, dy, gm, gs, **flags)
+        grads_again = bwd(x, w, *vec, *saved_y, dy, gm, gs, **flags)
+        grads_want = plain_bwd(x, w, *vec, *saved_y, dy, gm, gs, **flags)
+    torch.cuda.synchronize()
+    outs = (*got, *grads)
+    if not all(torch.isfinite(t).all() for t in outs):
+        raise RuntimeError(f"{kind}: a kernel output is not finite")
+    repeatable = all(torch.equal(a, b) for a, b in
+                     zip(outs, (*again, *grads_again)))
+    held = {name: conv_held(g, p) for name, g, p in
+            zip(CONV_OUTPUTS, (got[0], *grads), (want[0], *grads_want))}
+    return held, conv_stats_held(got[1], got[2], got[0], vec[3]), repeatable
+
+
+def conv_bound(kind, direction, shape, dtype, rates):
+    """Least device time of one call: each input read once and each output
+    written once (the backward's dW counted as f32) over the memory rate,
+    or its operations over the peak rate of its type: 2 per multiply-add
+    of the product, forward; 4 backward, 6 for a 1x1 that recomputes y."""
+    mem_rate, f32_rate, bf16_rate = rates
+    size = 2 if dtype == torch.bfloat16 else 4
+    if kind == "1x1":
+        (m, c, co), taps = shape, 1
+    else:
+        b, h, wd, c, co = shape
+        m, taps = b * h * wd, 9
+    x_b, w_b, y_b = m * c * size, taps * c * co * size, m * co * size
+    macs = m * c * co * taps
+    if direction == "fwd":
+        nbytes, ops = x_b + w_b + y_b, 2 * macs
+    else:
+        # x, dy, W in; dx and the f32 dW out; the 3x3 reads its saved y
+        nbytes = 2 * x_b + y_b + w_b + taps * c * co * 4
+        nbytes += y_b if kind == "3x3" else 0
+        ops = (6 if kind == "1x1" else 4) * macs
+    peak = bf16_rate if dtype == torch.bfloat16 else f32_rate
+    t_bytes, t_ops = nbytes / mem_rate * 1e3, ops / peak * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def conv_library(kind, direction, x, w, dy):
+    """One PyTorch call for the product alone (a yardstick the port never
+    calls): cuBLAS's z.W (forward) or z^T.dy and dy.W^T (backward) for
+    the 1x1; cuDNN's conv2d or its convolution_backward (input and weight
+    gradients) for the 3x3."""
+    import torch.nn.functional as F
+    if kind == "1x1":
+        if direction == "fwd":
+            return lambda: torch.matmul(x, w)
+        return lambda: (torch.matmul(x.t(), dy), torch.matmul(dy, w.t()))
+    xn, dyn = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+    wn = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    if direction == "fwd":
+        return lambda: F.conv2d(xn, wn, padding=1)
+    return lambda: torch.ops.aten.convolution_backward(
+        dyn, xn, wn, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+        [True, True, False])
+
+
+def phase_conv_kernel_checks(rates):
+    """#8-#11 against their plain versions at every shape of
+    conv_problems(); times beside the plain versions, the library's
+    product and the bound."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    results = []
+    for key, kind, shape, dtype, norm in conv_problems():
+        t0 = time.perf_counter()
+        what = conv_what(kind, shape, dtype, norm)
+        x, w, vec, dy, gm, gs = conv_inputs(kind, shape, dtype, gen)
+        held, (stats_err, stats_ok), repeatable = check_conv(
+            kind, x, w, vec, dy, gm, gs, norm)
+        bad = [n for n, (_, _, ok) in held.items() if not ok]
+        if not repeatable or bad or not stats_ok:
+            raise RuntimeError(
+                f"conv {key} ({what}): same bits {repeatable}; outputs "
+                f"beyond their rule {bad}; statistics error {stats_err:.3e} "
+                f"(bound {CONV_STATS_REL}); readings {held}")
+        fwd, bwd, plain_fwd, plain_bwd = _conv_ops(kind)
+        flags = dict(fuse_input=norm, emit_stats=True)
+        with torch.no_grad():
+            y = fwd(x, w, *vec, **flags)[0]
+            saved_y = (y,) if kind == "3x3" else ()
+            bwd_args = (x, w, *vec, *saved_y, dy, gm, gs)
+            calls = {
+                "fwd": (fwd, plain_fwd, (x, w, *vec)),
+                "bwd": (bwd, plain_bwd, bwd_args),
+            }
+            for direction, (kernel, plain, args) in calls.items():
+                outs = ("y",) if direction == "fwd" else CONV_OUTPUTS[1:]
+                row = {
+                    "kernel": kernel.__name__, "shape": key, "what": what,
+                    "max_abs_err": max(held[o][0] for o in outs),
+                    "entries_differ": {o: held[o][1] for o in outs},
+                    "stats_rel_err": stats_err if direction == "fwd"
+                    else None,
+                    "bitwise_repeatable": True,
+                    "ms": time_ms(lambda: kernel(*args, **flags), flush,
+                                  runs=CONV_RUNS, warmup=2),
+                    "plain_ms": time_ms(lambda: plain(*args, **flags),
+                                        flush, runs=CONV_RUNS, warmup=2),
+                    "library_ms": time_ms(
+                        conv_library(kind, direction, x, w, dy), flush,
+                        runs=CONV_RUNS, warmup=2),
+                }
+                row["bound_ms"], row["bound_by"] = conv_bound(
+                    kind, direction, shape, dtype, rates)
+                results.append(row)
+                print(f"conv {row['kernel']:14s} {key:16s} {what:36s} "
+                      f"max_abs_err {row['max_abs_err']:.3e} differ "
+                      f"{row['entries_differ']} repeatable  kernel_ms "
+                      f"{row['ms']:.5f}  plain_ms {row['plain_ms']:.5f}  "
+                      f"library_ms {row['library_ms']:.5f}  bound_ms "
+                      f"{row['bound_ms']:.5f} ({row['bound_by']})")
+        print(f"  ({key}: statistics within {stats_err:.3e} of their own "
+              f"sums; {time.perf_counter() - t0:.1f} s)")
+        del x, w, vec, dy, y, saved_y, bwd_args, calls
+    return results
+
+
+# ---------------------------------------------------------------------------
+# 9-11. ResNet-50 training, fused against plain, and a step against the CPU
+# ---------------------------------------------------------------------------
+
+RESNET_ITERS, RESNET_EPOCHS = 4, 3
+RESNET_ARGV = ["--model", "resnet50", "--fused", "--bf16",
+               "-b", str(RESNET_BATCH), "--image-size", str(RESNET_SIZE),
+               "--classes", str(RESNET_CLASSES),
+               "--iterations", str(RESNET_ITERS),
+               "--epochs", str(RESNET_EPOCHS)]
+# launches of #8, #9, #10, #11 in one step: conv1 and conv3 of the 16
+# bottlenecks, conv2 of the 13 whose 3x3 has stride 1
+RESNET_LAUNCHES = {"matmul_bn_fwd": 32, "matmul_bn_bwd": 32,
+                   "conv3x3_bn_fwd": 13, "conv3x3_bn_bwd": 13}
+# fused against plain, one bf16 step (bench.py's own cross-check of the
+# fused step: 5% of the loss); each running statistic within 1e-2 of its
+# tensor's largest entry: the two paths round at the same points, so only
+# the products' summation order differs
+FUSED_LOSS_REL, FUSED_STAT_REL = 5e-2, 1e-2
+
+
+def _timed(fn, log):
+    """``fn`` between two CUDA events recorded on the current stream; the
+    pair goes into ``log``."""
+    def run(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args, **kwargs)
+        end.record()
+        log.append((start, end))
+        return out
+    return run
+
+
+def phase_resnet_training():
+    """ResNet-50 at the reference's benchmark shape through the port's perf
+    training path, bf16 compute, the fused bottleneck on.  Each kernel
+    call is bracketed by CUDA events, so the last epoch's steps split into
+    the four kernels and the rest."""
+    from bigdl_tpu_torch.examples import perf
+    from bigdl_tpu_torch.ops import conv_bn_kernels as ck
+    logs = {fn.__name__: [] for fn in ck._KERNELS}
+    kernels = ck._KERNELS
+    ck._KERNELS = tuple(_timed(fn, logs[fn.__name__]) for fn in kernels)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    try:
+        out, opt = perf.train(perf.parse_args(RESNET_ARGV))
+    finally:
+        ck._KERNELS = kernels
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = RESNET_ITERS * RESNET_EPOCHS
+    losses = [loss for _, loss in opt.loss_history]
+    kernel_ms = {name: sum(s.elapsed_time(e) for s, e in
+                           log[-RESNET_LAUNCHES[name] * RESNET_ITERS:])
+                 / RESNET_ITERS for name, log in logs.items()}
+    rest_ms = out["ms_per_iteration"] - sum(kernel_ms.values())
+    print(f"resnet training: {json.dumps(out)}")
+    print(f"resnet training: {steps} steps in {wall:.3f} s; "
+          f"{out['records_per_sec']} images/s, {out['ms_per_iteration']} "
+          f"ms/iteration (steady windows); first window "
+          f"{out['compile_plus_first_window_s']} s; loss {losses[0]:.6f} -> "
+          f"{losses[-1]:.6f}; peak memory {peak_gb:.3f} GiB; launches "
+          f"{launches}")
+    print("resnet training: last epoch, device ms per step: "
+          + ", ".join(f"{n} {t:.3f} ({RESNET_LAUNCHES[n]} launches)"
+                      for n, t in kernel_ms.items())
+          + f"; the rest {rest_ms:.3f}")
+    if len(losses) != steps or not all(np.isfinite(losses)):
+        raise RuntimeError(f"losses not finite or missing: {losses}")
+    first, last = losses[:RESNET_ITERS], losses[-RESNET_ITERS:]
+    if not np.mean(last) < np.mean(first):
+        raise RuntimeError(f"the last window's loss did not fall below the "
+                           f"first's: {losses}")
+    want = {n: RESNET_LAUNCHES.get(n, 0) * steps for n in launches}
+    if launches != want:
+        raise RuntimeError(f"launches {launches} != {want} ({steps} steps)")
+    return dict(out, steps=steps, first_loss=losses[0],
+                last_loss=losses[-1], peak_memory_gib=peak_gb,
+                launches=launches, kernel_ms_per_step=kernel_ms,
+                rest_ms_per_step=rest_ms)
+
+
+def _one_step(model, x, y, dtype=None):
+    """One SGD step of ``model`` on the batch (x, y) through the port's
+    Optimizer; returns its loss."""
+    from bigdl_tpu_torch.dataset import DataSet, MiniBatch
+    from bigdl_tpu_torch.nn.criterion import CrossEntropyCriterion
+    from bigdl_tpu_torch.optim import SGD, Optimizer, Trigger
+    opt = (Optimizer(model, DataSet.array([MiniBatch(x, y)], shuffle=False),
+                     CrossEntropyCriterion())
+           .set_optim_method(SGD(0.01, momentum=0.9, dampening=0.0))
+           .set_end_when(Trigger.max_iteration(1))
+           .set_compute_dtype(dtype))
+    opt.optimize()
+    return opt.loss_history[0][1]
+
+
+def phase_fused_vs_plain():
+    """One bf16 step with the fused path and one with it switched off by
+    the environment, at full width from the same weights and batch."""
+    import copy
+    import os
+    from bigdl_tpu_torch.models import resnet
+    fused = resnet.resnet50(RESNET_CLASSES, fused=True,
+                            generator=torch.Generator().manual_seed(2),
+                            device="cuda")
+    plain = copy.deepcopy(fused)
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(RESNET_BATCH, RESNET_SIZE, RESNET_SIZE, 3)) \
+        .astype(np.float32)
+    y = rng.integers(1, RESNET_CLASSES + 1, size=(RESNET_BATCH,))
+    _zero_counts()
+    loss_fused = _one_step(fused, x, y, torch.bfloat16)
+    used = _read_counts()
+    os.environ[resnet.FUSED_ENV] = "0"
+    try:
+        loss_plain = _one_step(plain, x, y, torch.bfloat16)
+    finally:
+        del os.environ[resnet.FUSED_ENV]
+    if used != _read_counts() or used != {
+            n: RESNET_LAUNCHES.get(n, 0) for n in used}:
+        raise RuntimeError(f"the fused step launched {used}, the plain "
+                           f"step {_read_counts()}")
+    stats = {}
+    for (name, a), b in zip(fused.named_buffers(), plain.buffers()):
+        scale = max(float(b.abs().max()), 1e-30)
+        stats[name] = float((a - b).abs().max()) / scale
+    worst = max(stats, key=stats.get)
+    loss_rel = abs(loss_fused - loss_plain) / abs(loss_plain)
+    print(f"fused vs plain: bf16 step at b{RESNET_BATCH} {RESNET_SIZE} px: "
+          f"loss fused {loss_fused:.6f} plain {loss_plain:.6f} (relative "
+          f"{loss_rel:.3e}); over {len(stats)} running statistics the worst "
+          f"is {stats[worst]:.3e} of its largest entry ({worst})")
+    if loss_rel > FUSED_LOSS_REL or stats[worst] > FUSED_STAT_REL:
+        raise RuntimeError("the fused and plain steps disagree beyond "
+                           f"{FUSED_LOSS_REL} (loss) or {FUSED_STAT_REL} "
+                           "(running statistics)")
+    return dict(loss_fused=loss_fused, loss_plain=loss_plain,
+                loss_rel=loss_rel, worst_stat_rel=stats[worst])
+
+
+# f32 fused step of ResNet-50 at batch 4, 64 px, card against CPU: the
+# loss is a mean over 4 images (1e-5 relative).  Each gradient is held to
+# 1e-2 in norm (||card - cpu|| / ||cpu||) and to 5e-2 of its largest
+# entry.  Sums in another order can flip a ReLU whose input lies within
+# rounding of zero, and one flip moves the small, cancelling gradients
+# of a BatchNorm by a share of its positions; chip_gate_controls.py
+# reads how far two CPU steps whose inputs differ by 2^-23 drift apart,
+# and shows the same step with the conv kernels fed bf16-rounded x and
+# W refused (PERF.md)
+RESNET_PARITY_BATCH, RESNET_PARITY_SIZE = 4, 64
+RESNET_PARITY_BOUNDS = (1e-5, 1e-2, 5e-2)
+
+
+def resnet_parity_setup():
+    """ResNet-50 on the card in train mode with the fused path, its CPU
+    copy, and :func:`grad_step` over one fixed batch.  The BatchNorm
+    weights are drawn from U(0.5, 1), those of each block's last BN from
+    U(0.03, 0.06): the zero-initialised last BN would give every conv
+    kernel's backward a zero cotangent, and a residual branch scaled
+    small keeps the 16-block step well conditioned."""
+    import copy
+    from bigdl_tpu_torch.models import resnet50
+    on_card = resnet50(RESNET_CLASSES, fused=True,
+                       generator=torch.Generator().manual_seed(1),
+                       device="cuda")
+    gen = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        for name, p in on_card.named_parameters():
+            if "bn" in name and name.endswith("weight"):
+                low = 0.03 if name.endswith("bn3.weight") else 0.5
+                p.copy_(torch.rand(p.shape, generator=gen) * low + low)
+    on_cpu = copy.deepcopy(on_card).to("cpu")
+    rng = np.random.default_rng(6)
+    x = rng.normal(size=(RESNET_PARITY_BATCH, RESNET_PARITY_SIZE,
+                         RESNET_PARITY_SIZE, 3)).astype(np.float32)
+    y = rng.integers(1, RESNET_CLASSES + 1, (RESNET_PARITY_BATCH,))
+    return on_card, on_cpu, grad_step(x, y)
+
+
+def resnet_parity_report(card, cpu, label="resnet parity"):
+    return parity_report(
+        card, cpu, label, RESNET_PARITY_BOUNDS,
+        f"batch {RESNET_PARITY_BATCH}, {RESNET_PARITY_SIZE} px, ResNet-50 "
+        "fused")
+
+
+def phase_resnet_parity():
+    """One f32 fused step of ResNet-50: the card (kernels #8-#11, cuDNN
+    in full f32 for the unfused convs) against a CPU copy (the kernels'
+    plain versions)."""
+    on_card, on_cpu, step = resnet_parity_setup()
+    _zero_counts()
+    t0 = time.perf_counter()
+    card = step(on_card, "cuda")
+    t1 = time.perf_counter()
+    used = _read_counts()
+    cpu = step(on_cpu, "cpu")
+    t2 = time.perf_counter()
+    if used != {n: RESNET_LAUNCHES.get(n, 0) for n in used}:
+        raise RuntimeError(f"the card step launched {used}")
+    print(f"resnet parity: card {t1 - t0:.2f} s, cpu {t2 - t1:.2f} s")
+    norm, worst, ok = resnet_parity_report(card, cpu)
     if not ok:
         raise RuntimeError("loss or gradients differ beyond the stated "
                            "bounds")
@@ -749,27 +1254,35 @@ def _kernel_entry(name, source, replaces, launches, row):
 
 
 def main() -> int:
+    t0 = time.perf_counter()
     smi = phase_device()
     rates = card_rates(torch.cuda.get_device_name(0))
     phase_build()
     shapes = phase_kernel_checks(rates)
     bwd = phase_bwd_kernel_checks(rates)
-    serving_launches = phase_serving()
+    conv = phase_conv_kernel_checks(rates)
+    serving = phase_serving()
     train = phase_training()
     phase_train_parity()
-    decode = next(s for s in shapes if s["shape"] == "b_decode")
+    resnet = phase_resnet_training()
+    phase_fused_vs_plain()
+    phase_resnet_parity()
+    by_path = {"serving": serving, "lm_training": train["launches"],
+               "resnet_training": resnet["launches"]}
 
-    def bwd_row(kernel, shape):
-        return next(r for r in bwd
+    def paths(name):
+        return {path: counts[name] for path, counts in by_path.items()}
+
+    def row(rows, kernel, shape):
+        return next(r for r in rows
                     if r["kernel"] == kernel and r["shape"] == shape)
 
-    bwd_src = "bigdl_tpu_torch/ops/csrc/flash_attention_bwd.cu"
+    csrc = "bigdl_tpu_torch/ops/csrc/"
     fwd = _kernel_entry(
-        "flash_attention_fwd", "bigdl_tpu_torch/ops/csrc/flash_attention_fwd.cu",
-        "bigdl_tpu/ops/attention_kernels.py:264", serving_launches, decode)
-    fwd["launches_by_path"] = {
-        "serving": serving_launches,
-        "training": train["launches"]["flash_attention_fwd"]}
+        "flash_attention_fwd", csrc + "flash_attention_fwd.cu",
+        "bigdl_tpu/ops/attention_kernels.py:264",
+        serving["flash_attention_fwd"],
+        next(s for s in shapes if s["shape"] == "b_decode"))
     fwd["shapes"] = shapes
     kernels = [fwd]
     for name, replaces, shape in (
@@ -778,11 +1291,26 @@ def main() -> int:
             ("dbias", "bigdl_tpu/ops/attention_kernels.py:549",
              "v_bias_b1tt")):
         entry = _kernel_entry(
-            f"flash_attention_{name}", bwd_src, replaces,
-            train["launches"][f"flash_attention_{name}"],
-            bwd_row(name, shape))
+            f"flash_attention_{name}", csrc + "flash_attention_bwd.cu",
+            replaces, train["launches"][f"flash_attention_{name}"],
+            row(bwd, name, shape))
         entry["shapes"] = [r for r in bwd if r["kernel"] == name]
         kernels.append(entry)
+    for name, source, line, shape in (
+            ("matmul_bn_fwd", "conv_bn_fwd.cu", 274, "s1_conv3"),
+            ("matmul_bn_bwd", "conv_bn_bwd.cu", 317, "s1_conv3"),
+            ("conv3x3_bn_fwd", "conv_bn_fwd.cu", 668, "s1_conv2"),
+            ("conv3x3_bn_bwd", "conv_bn_bwd.cu", 708, "s1_conv2")):
+        entry = _kernel_entry(
+            name, csrc + source, f"bigdl_tpu/ops/conv_bn_kernels.py:{line}",
+            resnet["launches"][name], row(conv, name, shape))
+        entry["ms_per_training_step"] = resnet["kernel_ms_per_step"][name]
+        entry["shapes"] = [r for r in conv if r["kernel"] == name]
+        kernels.append(entry)
+    for entry in kernels:
+        entry["launches_by_path"] = paths(entry["name"])
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - t0:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

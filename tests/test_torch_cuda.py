@@ -1,8 +1,9 @@
-"""The port's CUDA flash-attention kernels on the card (the forward and
-the dQ, dK/dV and dBias backward kernels), against their plain PyTorch
-versions, and a training step on the card against the CPU.  Every test
-here needs an NVIDIA GPU and skips without one; the file imports no JAX,
-so it runs where only PyTorch is installed:
+"""The port's CUDA kernels on the card (the flash-attention forward and
+its dQ, dK/dV and dBias backward kernels; the fused conv+BN kernels
+#8-#11), against their plain PyTorch versions, and training steps on the
+card against the CPU.  Every test here needs an NVIDIA GPU and skips
+without one; the file imports no JAX, so it runs where only PyTorch is
+installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -11,6 +12,13 @@ order than cuBLAS; 1e-4 for the backward's longer sums); the bfloat16
 forward 2e-2 (one bf16 ulp near 1).  The bfloat16 backward must equal its
 plain version bit for bit: both round P and dS to bf16 at the same points
 and sum in f32, and a missing cast moves a sum by less than an ulp.
+The conv+BN kernels sum their products in another order than cuBLAS and
+cuDNN: float32 outputs within 1e-4 of the plain output's largest entry;
+bfloat16 outputs within one bf16 ulp of the plain version's entry (or
+1e-5 of the largest entry, where a long sum cancels to near zero, below
+both f32 sums' own rounding), with at most 1% of the entries differing;
+the statistics within 1e-5 of sum |y - K| and of sum (y - K)^2, summed
+from the kernel's own y.
 """
 
 import numpy as np
@@ -20,8 +28,10 @@ import torch
 from bigdl_tpu_torch.dataset import DataSet, MiniBatch
 from bigdl_tpu_torch.examples.perf import FlatLM
 from bigdl_tpu_torch.models import TransformerLM
+from bigdl_tpu_torch.models import resnet as presnet
 from bigdl_tpu_torch.nn.criterion import CrossEntropyCriterion
 from bigdl_tpu_torch.ops import attention_kernels as ak
+from bigdl_tpu_torch.ops import conv_bn_kernels as ck
 from bigdl_tpu_torch.optim import SGD, Optimizer, Trigger
 
 F32_TOL = dict(rtol=1e-4, atol=2e-5)
@@ -251,3 +261,149 @@ def test_training_steps_on_the_card_match_the_cpu(cuda):
                                  lm_cpu.named_parameters()):
         torch.testing.assert_close(a.detach().cpu(), b.detach(),
                                    rtol=1e-3, atol=1e-4, msg=name)
+
+
+# ---- the fused conv+BN kernels #8-#11 ---------------------------------------
+
+def _held(got, want, what):
+    """The conv+BN check: f32 within 1e-4 of the plain output's largest
+    entry; bf16 within one ulp of each entry (or 1e-5 of the largest,
+    where a long sum cancels to near zero) and at most 1% differing."""
+    assert got.dtype == want.dtype and got.shape == want.shape, what
+    g, w = got.float(), want.float()
+    top = float(w.abs().max())
+    if want.dtype == torch.float32:
+        assert float((g - w).abs().max()) <= 1e-4 * max(top, 1e-30), what
+        return
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(1e-30))) - 7)
+    assert bool(((g - w).abs() <= ulp.clamp_min(1e-5 * top)).all()), what
+    assert float((g != w).float().mean()) <= 0.01, what
+
+
+def _stats_held(s1, s2, y, kshift):
+    yk = y.float() - kshift
+    dims = tuple(range(y.dim() - 1))
+    assert bool(((s1 - yk.sum(dims)).abs()
+                 <= 1e-5 * yk.abs().sum(dims) + 1e-6).all())
+    s2_own = (yk * yk).sum(dims)
+    assert bool(((s2 - s2_own).abs() <= 1e-5 * s2_own + 1e-6).all())
+
+
+def _conv_inputs(shape_x, c, co, dtype, seed):
+    x = rnd(*shape_x, seed=seed, device="cuda", dtype=dtype) * 1.5
+    w_shape = (c, co) if len(shape_x) == 2 else (3, 3, c, co)
+    w = (rnd(*w_shape, seed=seed + 1, device="cuda") * 0.2).to(dtype)
+    vec = (rnd(c, seed=seed + 2, device="cuda") * 0.1,
+           rnd(c, seed=seed + 3, device="cuda").abs() + 0.5,
+           rnd(c, seed=seed + 4, device="cuda") * 0.2,
+           rnd(co, seed=seed + 5, device="cuda") * 0.05)
+    return x, w, vec
+
+
+def _check_conv_kernels(fwd, bwd, pfwd, pbwd, x, w, vec, fuse, stats):
+    flags = dict(fuse_input=fuse, emit_stats=stats)
+    kshift = vec[3]
+    launched = (fwd.launches, bwd.launches)
+    y, s1, s2 = fwd(x, w, *vec, **flags)
+    again = fwd(x, w, *vec, **flags)
+    want = pfwd(x, w, *vec, **flags)
+    torch.cuda.synchronize()
+    assert all(a is None or torch.equal(a, b) for a, b in
+               zip((y, s1, s2), again))              # no atomics
+    _held(y, want[0], "y")
+    if stats:
+        _stats_held(s1, s2, y, kshift)
+    co = w.shape[-1]
+    dy = rnd(*y.shape, seed=90, device="cuda", dtype=x.dtype)
+    gm = rnd(co, seed=91, device="cuda") * 0.1
+    gs = rnd(co, seed=92, device="cuda") * 0.1
+    extra = (y,) if w.dim() == 4 else ()
+    got = bwd(x, w, *vec, *extra, dy, gm, gs, **flags)
+    again = bwd(x, w, *vec, *extra, dy, gm, gs, **flags)
+    want = pbwd(x, w, *vec, *extra, dy, gm, gs, **flags)
+    torch.cuda.synchronize()
+    assert (fwd.launches, bwd.launches) == (launched[0] + 2,
+                                            launched[1] + 2)
+    for g, a, p, what in zip(got, again, want, ("dx", "dw", "dsx", "dsu")):
+        assert torch.equal(g, a), what
+        if what in ("dsx", "dsu"):
+            if fuse:
+                torch.testing.assert_close(g, p, rtol=1e-4, atol=1e-3)
+        else:
+            _held(g, p, what)
+
+
+@pytest.mark.parametrize("m,k,n", [(100, 24, 40), (4096, 64, 256),
+                                   (6272, 512, 2048)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fuse,stats", [(False, True), (True, True),
+                                        (True, False)])
+def test_matmul_bn_kernels_match_plain(cuda, m, k, n, dtype, fuse, stats):
+    x, w, vec = _conv_inputs((m, k), k, n, dtype, seed=40)
+    _check_conv_kernels(ck.matmul_bn_fwd, ck.matmul_bn_bwd,
+                        ck.plain_matmul_bn_fwd, ck.plain_matmul_bn_bwd,
+                        x, w, vec, fuse, stats)
+
+
+@pytest.mark.parametrize("b,h,wd,c,co", [(2, 3, 7, 4, 8), (4, 14, 14, 64, 64),
+                                         (8, 7, 7, 512, 512)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fuse,stats", [(False, False), (True, True)])
+def test_conv3x3_bn_kernels_match_plain(cuda, b, h, wd, c, co, dtype, fuse,
+                                        stats):
+    x, w, vec = _conv_inputs((b, h, wd, c), c, co, dtype, seed=60)
+    _check_conv_kernels(ck.conv3x3_bn_fwd, ck.conv3x3_bn_bwd,
+                        ck.plain_conv3x3_bn_fwd, ck.plain_conv3x3_bn_bwd,
+                        x, w, vec, fuse, stats)
+
+
+def test_conv_bn_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    x = rnd(8, 4, device=cuda)
+    v = torch.zeros(4, device=cuda)
+    with pytest.raises(TypeError, match="dtype"):
+        ck.matmul_bn_fwd(x.half(), x.half()[:4], v, v, v, v,
+                         fuse_input=False, emit_stats=False)
+    with pytest.raises(ValueError, match="contiguous"):
+        ck.matmul_bn_fwd(x.t().contiguous().t(), x[:4].t(), v, v, v, v,
+                         fuse_input=False, emit_stats=False)
+    with pytest.raises(ValueError, match="shape"):
+        ck.matmul_bn_fwd(x, x[:4], v[:3], v, v, v, fuse_input=True,
+                         emit_stats=False)
+
+
+def test_fused_bottleneck_on_the_card_matches_the_cpu(cuda):
+    """One f32 train-mode fused Bottleneck (conv1 and conv3 through #8/#9,
+    conv2 through #10/#11) on the card against its CPU copy (the plain
+    versions): output, running statistics and every gradient."""
+    import copy
+    blk = presnet.Bottleneck(64, 16, fused=True,
+                             generator=torch.Generator().manual_seed(0),
+                             device=cuda)
+    with torch.no_grad():
+        for bn in (blk.bn1, blk.bn2, blk.bn3):
+            bn.weight.uniform_(0.5, 1.5)
+    cpu = copy.deepcopy(blk).to("cpu")
+    x = rnd(4, 14, 14, 64, seed=70)
+    r = rnd(4, 14, 14, 64, seed=71)
+    wrappers = ck._KERNELS
+    before = [k.launches for k in wrappers]
+    outs = {}
+    for dev, mod in ((cuda, blk), ("cpu", cpu)):
+        xt = x.to(dev).requires_grad_()
+        out = mod.train()(xt)
+        (out * r.to(dev)).sum().backward()
+        outs[str(dev)] = (out.detach().cpu(), xt.grad.cpu(),
+                          {n: p.grad.cpu() for n, p in mod.named_parameters()},
+                          {n: b.cpu() for n, b in mod.named_buffers()})
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(wrappers, before)] == [2, 2, 1, 1]
+    card, host = outs[str(cuda)], outs["cpu"]
+    torch.testing.assert_close(card[0], host[0], rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(card[1], host[1], rtol=1e-3, atol=1e-4)
+    for name in host[2]:
+        scale = float(host[2][name].abs().max())
+        torch.testing.assert_close(card[2][name], host[2][name], rtol=0,
+                                   atol=1e-3 * scale, msg=name)
+    for name in host[3]:
+        torch.testing.assert_close(card[3][name], host[3][name], rtol=1e-4,
+                                   atol=1e-5, msg=name)

@@ -13,7 +13,8 @@ import pytest
 import torch
 
 import bigdl_tpu_torch
-from bigdl_tpu_torch.models import TransformerLM
+from bigdl_tpu_torch.models import TransformerLM, resnet50, resnet_cifar
+from bigdl_tpu_torch.nn import SpatialBatchNormalization, SpatialConvolution
 from bigdl_tpu_torch.serving import GenerationScheduler, ModelServer
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -44,7 +45,12 @@ def test_port_and_chip_smoke_import_no_jax():
     n, leaked = proc.stdout.strip().split(" ", 1)
     expected = len(list(pkgutil.walk_packages(bigdl_tpu_torch.__path__,
                                               "bigdl_tpu_torch.")))
-    assert int(n) == expected and expected >= 29
+    assert int(n) == expected and expected >= 33
+    for name in ("bigdl_tpu_torch.core.init", "bigdl_tpu_torch.nn.conv",
+                 "bigdl_tpu_torch.nn.pooling", "bigdl_tpu_torch.models.resnet",
+                 "bigdl_tpu_torch.ops.conv_bn_kernels"):
+        assert name in {m.name for m in pkgutil.walk_packages(
+            bigdl_tpu_torch.__path__, "bigdl_tpu_torch.")}
     assert leaked == "[]", leaked
 
 
@@ -64,6 +70,16 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         ModelServer(generator=lm)
     with pytest.raises(ValueError, match="unsupported device"):
         TransformerLM(**cfg, device="meta")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resnet50(generator=gen)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resnet_cifar(8, generator=gen)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SpatialConvolution(3, 4, 3, 3, generator=gen)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SpatialBatchNormalization(4, generator=gen)
+    assert resnet_cifar(8, generator=gen, device="cpu").head.weight \
+        .device.type == "cpu"
 
 
 def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):

@@ -324,15 +324,35 @@ def test_perf_cli_trains_and_reports_the_reference_keys(capsys):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--model", "resnet50"], "next slice"),
+    (["--model", "vgg16"], "model zoo"),
     (["--model", "lenet"], "model zoo"),
     (["--generate", "4"], "--generate"),
-    (["--fused"], "--fused"),
+    (["--int8-infer"], "--int8-infer"),
     (["--remat"], "remat"),
 ])
 def test_perf_cli_refuses_other_models_and_modes(extra, match):
     with pytest.raises(NotImplementedError, match=match):
         perf.main(PERF_ARGV + extra, emit=False)
+
+
+def test_perf_cli_trains_fused_resnet50_in_bf16():
+    """``--model resnet50 --fused --bf16`` on the CPU: the reference's
+    result keys, a falling loss, and BatchNorm statistics written back
+    to float32 buffers."""
+    argv = ["--model", "resnet50", "--fused", "--bf16", "-b", "2",
+            "--image-size", "32", "--classes", "10", "--iterations", "2",
+            "--epochs", "3", "--device", "cpu"]
+    out, opt = perf.train(perf.parse_args(argv))
+    assert set(out) == {"model", "batch_size", "records_per_sec",
+                        "ms_per_iteration", "windows_timed",
+                        "compile_plus_first_window_s", "bf16"}
+    assert out["model"] == "resnet50" and out["bf16"]
+    losses = [loss for _, loss in opt.loss_history]
+    assert len(losses) == 6 and np.isfinite(losses).all()
+    assert losses[-1] < losses[0]
+    blk = opt.model.blocks[0]
+    assert blk.fused and blk.bn1.running_mean.dtype == torch.float32
+    assert float(blk.bn1.running_mean.abs().max()) > 0
 
 
 # ---- the dropout repair ------------------------------------------------------
