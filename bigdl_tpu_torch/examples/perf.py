@@ -148,7 +148,13 @@ def train(args):
         if getattr(args, flag) != default:
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')} is not ported yet ({item})")
-    model, criterion, make_batch = build(args.model, args)
+    return run(args, *build(args.model, args))
+
+
+def run(args, model, criterion, make_batch):
+    """The timed training of :func:`train` on a model already built (by
+    :func:`build`, and perhaps reconfigured, as chip_smoke.py arms
+    sequence parallelism on the LM)."""
     x, y = make_batch(args.batch_size)
     # one shared host buffer per epoch slot: the device cache holds it once
     data = DataSet.array(

@@ -12,8 +12,9 @@ batched form of the reference's vmap over pool slots.
 
 Generation, beam search aside, is ported, and so is training (train
 mode, dropout from the forward context, bf16 compute through the
-Optimizer); ``generate_beam``, sequence parallelism, pipeline
-parallelism and ``remat`` belong to later slices.
+Optimizer), with sequence parallelism (``set_sequence_parallel``: every
+block's self-attention through ring attention); ``generate_beam``,
+pipeline parallelism and ``remat`` belong to later slices.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from bigdl_tpu_torch.nn.linear import LookupTable
 from bigdl_tpu_torch.nn.normalization import LayerNormalization
 from bigdl_tpu_torch.ops.attention_kernels import NEG_INF, \
     dot_product_attention
+from bigdl_tpu_torch.parallel.ring_attention import RingSelfAttention
 
 __all__ = ["TransformerLM", "transformer_lm"]
 
@@ -62,6 +64,7 @@ class TransformerLM(nn.Module):
         # padding) — the causal mask moves inside the attention kernel
         # and padding fails loudly
         self.padded_inputs = padded_inputs
+        self.seq_parallel = False
         self.embedding = LookupTable(vocab_size + 1, hidden_size,
                                      generator=generator, device=dev)
         with torch.no_grad():
@@ -81,6 +84,26 @@ class TransformerLM(nn.Module):
         self.register_buffer(
             "pos_table", position_encoding(max_len, hidden_size, device=dev),
             persistent=False)
+
+    def set_sequence_parallel(self, mesh, axis: str = "seq", kernel=None,
+                              head_axis=None) -> "TransformerLM":
+        """Run every block's self-attention through ring attention over
+        ``mesh.shape[axis]`` shards (``parallel/ring_attention.py``).  The
+        projection modules are SHARED with the existing Attention modules,
+        so this changes how attention runs, not the parameters; a second
+        call reconfigures the rings in place.  The ring applies the causal
+        mask itself; a padded batch raises ValueError on this path.
+        ``head_axis`` raises NotImplementedError (ROADMAP.md queue 1,
+        item 11)."""
+        for blk in self.blocks:
+            if isinstance(blk.self_attn, RingSelfAttention):
+                blk.self_attn._configure(mesh, axis, True, kernel, head_axis)
+            else:
+                blk.self_attn = RingSelfAttention.from_attention(
+                    blk.self_attn, mesh, axis, causal=True, kernel=kernel,
+                    head_axis=head_axis)
+        self.seq_parallel = True
+        return self
 
     @property
     def device(self) -> torch.device:
@@ -104,17 +127,21 @@ class TransformerLM(nn.Module):
             raise ValueError(
                 f"sequence length {T} exceeds max_len={self.max_len}")
         x = self._embed(tokens) + self.pos_table[:T]
-        if self.padded_inputs:
+        if self.padded_inputs and not self.seq_parallel:
             bias = causal_bias(T, x.dtype, x.device) \
                 + padding_bias(tokens).to(x.dtype)
             causal = False
         else:
+            # the ring applies the causal mask itself; the dense path
+            # masks inside the attention kernel
+            mode = ("sequence-parallel" if self.seq_parallel
+                    else "padded_inputs=False")
             if bool((tokens == 0).any()):
                 raise ValueError(
-                    "padded_inputs=False TransformerLM does not support "
-                    "padded batches (token 0): this path has no padding "
-                    "mask; use contiguous LM batching")
-            bias, causal = None, True
+                    f"{mode} TransformerLM does not support padded batches "
+                    "(token 0): this path has no padding mask; use "
+                    "contiguous LM batching")
+            bias, causal = None, not self.seq_parallel
         for blk in self.blocks:
             x = blk(x, self_bias=bias, self_causal=causal)
         return self._logits(x)

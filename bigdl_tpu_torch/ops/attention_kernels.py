@@ -18,6 +18,14 @@ Counterpart of ``bigdl_tpu/ops/attention_kernels.py``.  Shapes follow
   ``_flash_dbias_kernel``); ``plain_attention_dq``/``_dkv``/``_dbias`` are
   their plain versions.  Each wrapper counts its launches in
   ``<wrapper>.launches``.
+* :func:`flash_attention_partial`, :func:`flash_attention_dq_partial`,
+  :func:`flash_attention_dkv_partial` — the wrappers of the ring-attention
+  kernels (``csrc/flash_attention_fwd.cu``'s partial merge and
+  ``csrc/flash_attention_bwd.cu``'s partial dQ and dK/dV, which replace
+  the Pallas ``_flash_partial_kernel``, ``_flash_dq_partial_kernel`` and
+  ``_flash_dkv_partial_kernel``); ``plain_attention_partial``/
+  ``_dq_partial``/``_dkv_partial`` are their plain versions.  The ring
+  (``bigdl_tpu_torch.parallel.ring_attention``) chains them.
 * :func:`flash_attention_with_grad` — the ``torch.autograd.Function``
   whose forward is the forward kernel and whose backward launches dQ and
   dK/dV (and dBias only when the bias needs a gradient), reading the
@@ -49,7 +57,10 @@ __all__ = ["plain_attention", "plain_attention_fwd", "attention_delta",
            "plain_attention_dbias", "fold_bias_grad", "flash_attention_fwd",
            "flash_attention_dq", "flash_attention_dkv",
            "flash_attention_dbias", "flash_attention_with_grad",
-           "flash_attention", "dot_product_attention", "NEG_INF"]
+           "flash_attention", "dot_product_attention", "NEG_INF",
+           "plain_attention_partial", "plain_attention_dq_partial",
+           "plain_attention_dkv_partial", "flash_attention_partial",
+           "flash_attention_dq_partial", "flash_attention_dkv_partial"]
 
 NEG_INF = -1e9  # the reference's attention mask fill (_NEG_INF)
 MAX_HEAD_DIM = 128
@@ -388,6 +399,203 @@ _KERNELS = (flash_attention_fwd, flash_attention_dq, flash_attention_dkv,
             flash_attention_dbias)
 _PLAIN = (plain_attention_fwd, plain_attention_dq, plain_attention_dkv,
           plain_attention_dbias)
+
+
+# ---- the ring-attention partial kernels (#5-#7) ------------------------------
+#
+# One visiting K/V chunk of ring attention at a time.  q_offset and
+# k_offset are the chunks' GLOBAL positions: the causal mask admits key j
+# for row i when q_offset + i >= k_offset + j.  The carried state (acc
+# [B,H,Tq,D], m and l [B,H,Tq]), lse, Δ and dO are f32; q, k and v keep
+# their dtype.  The plain versions keep the rounding points of the
+# reference's ``_flash_partial_kernel`` (:577) and of ``_dq_accum`` and
+# ``_dkv_accum`` (:299, :321) as the partial kernels call them.
+
+def _partial_scores(q, k, scale, causal, q_offset, k_offset):
+    """s = q·kᵀ·scale in f32 [B,H,Tq,Tk], -1e9 where a global row may not
+    see a global key."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if not causal:
+        return s
+    rows = q_offset + torch.arange(q.shape[-2], device=q.device)
+    keys = k_offset + torch.arange(k.shape[-2], device=q.device)
+    return s.masked_fill(rows[:, None] < keys[None, :], NEG_INF)
+
+
+def plain_attention_partial(q, k, v, acc, m, l, *, q_offset: int,
+                            k_offset: int, scale: float,
+                            causal: bool = False):
+    """Plain version of :func:`flash_attention_partial`: the state
+    (acc, m, l) with this chunk merged in by the online softmax (P cast to
+    v's dtype before P·V).  A causal chunk that no row sees leaves the
+    state as it was."""
+    if causal and q_offset + q.shape[-2] - 1 < k_offset:
+        return acc, m, l
+    s = _partial_scores(q, k, scale, causal, q_offset, k_offset)
+    m_new = torch.maximum(m, s.amax(-1))
+    p = torch.exp(s - m_new[..., None])
+    alpha = torch.exp(m - m_new)
+    l_new = l * alpha + p.sum(-1)
+    acc_new = acc * alpha[..., None] + torch.matmul(
+        p.to(v.dtype).float(), v.float())
+    return acc_new, m_new, l_new
+
+
+def _partial_p_and_ds(q, k, v, do, lse, delta, scale, causal, q_offset,
+                      k_offset):
+    """P = exp(s − lse) and dS = P ∘ (dO·Vᵀ − Δ), f32 [B,H,Tq,Tk], with the
+    whole sequence's lse and Δ [B,H,Tq]."""
+    s = _partial_scores(q, k, scale, causal, q_offset, k_offset)
+    p = torch.exp(s - lse[..., None])
+    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    return p, p * (dp - delta[..., None])
+
+
+def plain_attention_dq_partial(q, k, v, do, lse, delta, *, q_offset: int,
+                               k_offset: int, scale: float,
+                               causal: bool = False):
+    """Plain version of :func:`flash_attention_dq_partial`: this chunk's
+    dQ in f32, scale · dS·K with dS cast to K's dtype first."""
+    _, ds = _partial_p_and_ds(q, k, v, do, lse, delta, scale, causal,
+                              q_offset, k_offset)
+    return torch.matmul(ds.to(k.dtype).float(), k.float()) * scale
+
+
+def plain_attention_dkv_partial(q, k, v, do, lse, delta, *, q_offset: int,
+                                k_offset: int, scale: float,
+                                causal: bool = False):
+    """Plain version of :func:`flash_attention_dkv_partial`: this chunk's
+    ``(dK, dV)`` in f32, dV = Pᵀ·dO with P cast to dO's dtype (f32) and
+    dK = scale · dSᵀ·Q with dS cast to Q's dtype."""
+    p, ds = _partial_p_and_ds(q, k, v, do, lse, delta, scale, causal,
+                              q_offset, k_offset)
+    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), do.float())
+    dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2),
+                      q.float()) * scale
+    return dk, dv
+
+
+_PARTIAL_FWD_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+                         + [ctypes.c_longlong] * 9
+                         + [ctypes.c_float] + [ctypes.c_int] * 3
+                         + [ctypes.c_void_p])
+_PARTIAL_BWD_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+                         + [ctypes.c_longlong] * 12
+                         + [ctypes.c_float] + [ctypes.c_int] * 3
+                         + [ctypes.c_void_p])
+
+
+def _check_f32(label, t, shape, device):
+    if (tuple(t.shape) != tuple(shape) or t.dtype != torch.float32
+            or t.device != device or not t.is_contiguous()):
+        raise ValueError(f"{label} must be a contiguous f32 tensor of shape "
+                         f"{tuple(shape)} on {device}; got "
+                         f"{tuple(t.shape)} {t.dtype} {t.device}")
+
+
+def _check_offsets(q_offset, k_offset):
+    for label, x in (("q_offset", q_offset), ("k_offset", k_offset)):
+        if not 0 <= int(x) < 2 ** 30:
+            raise ValueError(f"{label} {x} is not a position in [0, 2^30)")
+
+
+def flash_attention_partial(q, k, v, acc, m, l, *, q_offset: int,
+                            k_offset: int, scale: float,
+                            causal: bool = False):
+    """Launch kernel #5 on CUDA tensors: merge the visiting chunk k, v
+    [B,H,Tk,D] into the state (acc [B,H,Tq,D], m, l [B,H,Tq], contiguous
+    f32) of the rows q [B,H,Tq,D]; returns the new state in new tensors.
+    q, k, v are read through their strides (head dim contiguous).  Raises
+    on anything the kernel does not take; never falls back to the plain
+    version."""
+    _check_inputs(q, k, v, None)
+    _check_offsets(q_offset, k_offset)
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    for label, t, shape in (("acc", acc, (b, h, tq, d)), ("m", m, (b, h, tq)),
+                            ("l", l, (b, h, tq))):
+        _check_f32(label, t, shape, q.device)
+    out = tuple(torch.empty_like(t) for t in (acc, m, l))
+    fn = _bind("flash_attention_fwd", "flash_attention_partial",
+               _PARTIAL_FWD_ARGTYPES)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), acc.data_ptr(),
+                m.data_ptr(), l.data_ptr(), *(t.data_ptr() for t in out),
+                int(q.dtype == torch.bfloat16), b, h, tq, tk, d,
+                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                float(scale), int(bool(causal)), int(q_offset),
+                int(k_offset), stream)
+    _raise_on(rc, "flash_attention_partial")
+    flash_attention_partial.launches += 1
+    return out
+
+
+flash_attention_partial.launches = 0
+
+
+def _launch_partial_bwd(name, q, k, v, do, lse, delta, out0, out1, scale,
+                        causal, q_offset, k_offset):
+    """Check the partial backward's inputs and launch kernel ``name``."""
+    _check_inputs(q, k, v, None)
+    _check_offsets(q_offset, k_offset)
+    b, h, tq, d = q.shape
+    if (do.shape != q.shape or do.dtype != torch.float32
+            or do.device != q.device or do.stride(-1) != 1):
+        raise ValueError(f"dO must be f32 with q's shape and a contiguous "
+                         f"head dim: {tuple(do.shape)} {do.dtype} "
+                         f"{do.device} stride {do.stride()}")
+    for label, t in (("lse", lse), ("delta", delta)):
+        _check_f32(label, t, (b, h, tq), q.device)
+    fn = _bind("flash_attention_bwd", name, _PARTIAL_BWD_ARGTYPES)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), out0.data_ptr(),
+                None if out1 is None else out1.data_ptr(),
+                int(q.dtype == torch.bfloat16), b, h, tq, k.shape[2], d,
+                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                *do.stride()[:3], float(scale), int(bool(causal)),
+                int(q_offset), int(k_offset), stream)
+    _raise_on(rc, name)
+
+
+def flash_attention_dq_partial(q, k, v, do, lse, delta, *, q_offset: int,
+                               k_offset: int, scale: float,
+                               causal: bool = False):
+    """Launch kernel #6 on CUDA tensors: the visiting chunk's dQ
+    contribution, f32 [B,H,Tq,D].  dO is f32 [B,H,Tq,D]; lse and Δ are the
+    whole sequence's rows of q, contiguous f32 [B,H,Tq]."""
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    _launch_partial_bwd("flash_attention_dq_partial", q, k, v, do, lse,
+                        delta, dq, None, scale, causal, q_offset, k_offset)
+    flash_attention_dq_partial.launches += 1
+    return dq
+
+
+flash_attention_dq_partial.launches = 0
+
+
+def flash_attention_dkv_partial(q, k, v, do, lse, delta, *, q_offset: int,
+                                k_offset: int, scale: float,
+                                causal: bool = False):
+    """Launch kernel #7 on CUDA tensors: ``(dK, dV)`` of the visiting
+    chunk against these rows' q and dO, f32 [B,H,Tk,D]."""
+    dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.empty(v.shape, dtype=torch.float32, device=v.device)
+    _launch_partial_bwd("flash_attention_dkv_partial", q, k, v, do, lse,
+                        delta, dk, dv, scale, causal, q_offset, k_offset)
+    flash_attention_dkv_partial.launches += 1
+    return dk, dv
+
+
+flash_attention_dkv_partial.launches = 0
+
+# the ring's kernels and their plain versions, looked up at each call
+_RING_KERNELS = (flash_attention_partial, flash_attention_dq_partial,
+                 flash_attention_dkv_partial)
+_RING_PLAIN = (plain_attention_partial, plain_attention_dq_partial,
+               plain_attention_dkv_partial)
 
 
 class _FlashAttention(torch.autograd.Function):

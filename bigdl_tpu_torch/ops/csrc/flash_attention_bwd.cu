@@ -1,10 +1,14 @@
-// Flash-attention backward for Hopper (sm_90a), plain C interface: three
-// kernels, dQ, dK/dV and dBias.
+// Flash-attention backward for Hopper (sm_90a), plain C interface: five
+// kernels, dQ, dK/dV and dBias, and the ring's partial dQ and dK/dV.
 //
 // Replaces the TPU kernels of bigdl_tpu/ops/attention_kernels.py:
-//   flash_attention_dq    <- _bwd_impl / _flash_dq_kernel   (pallas_call :483)
-//   flash_attention_dkv   <- _bwd_impl / _flash_dkv_kernel  (pallas_call :515)
-//   flash_attention_dbias <- _dbias_impl / _flash_dbias_kernel (pallas_call :549)
+//   flash_attention_dq    <- _bwd_impl / _flash_dq_kernel   (#2, pallas_call :483)
+//   flash_attention_dkv   <- _bwd_impl / _flash_dkv_kernel  (#3, pallas_call :515)
+//   flash_attention_dbias <- _dbias_impl / _flash_dbias_kernel (#4, pallas_call :549)
+//   flash_attention_dq_partial  <- flash_attention_dq_partial /
+//                          _flash_dq_partial_kernel  (#6, pallas_call :787)
+//   flash_attention_dkv_partial <- flash_attention_dkv_partial /
+//                          _flash_dkv_partial_kernel (#7, pallas_call :829)
 // They compute what those kernels compute, from the forward kernel's lse
 // and Delta = rowsum(dO * O) (a PyTorch op outside, as _bwd_prep is XLA):
 //
@@ -22,6 +26,23 @@
 //   dK  = scale * sum_q dS^T . Q      dS cast to Q's dtype first
 //   dBias tile = dS in f32 [B*H, Tq, Tk]; the fold to the bias's broadcast
 //                shape is a torch sum outside (as _dbias_impl :560-570)
+//
+// The partial kernels (#6, #7) are the dQ and dK/dV kernels over ONE
+// visiting chunk of ring attention, with the whole sequence's lse and
+// Delta.  They keep the reference's dtype rules, which differ from #2/#3:
+//   - dO comes in f32 (the ring passes g in f32), while q, k, v keep their
+//     dtype: dP = dO . v is an f32 product;
+//   - dS is cast to K's (dQ) and Q's (dK) dtype, as in #2/#3, but P is
+//     cast to dO's dtype, f32, before P^T . dO: no rounding there;
+//   - dQ, dK and dV are written in f32 (the ring sums them over chunks);
+//   - the causal mask is on global positions: causal_offset is
+//     q_offset - k_offset; no bias;
+//   - a row that sees no key of the chunk is not special: its scores are
+//     -1e9, so P = exp(-1e9 - lse) = 0 (its lse, of the whole sequence,
+//     is finite), as the reference computes it.  So key (query) tiles that
+//     no row of the block sees are skipped for every offset.
+// The dtype of dO is a template parameter of the dQ and dK/dV kernels:
+// #2/#3 take it as q's, #6/#7 as f32, so "P in dO's dtype" is one line.
 //
 // Masking is the forward's: a key beyond Tk (a row beyond Tq) is skipped,
 // never given -1e9.  A row that the causal mask leaves no key (row + off
@@ -42,7 +63,9 @@
 // no row of the block can see are skipped.  No float atomics: the split of
 // the reference (dQ streams K/V, dK/dV streams Q/dO) makes every output
 // the sum of one block in a fixed order, so two runs give the same bits.
-// Tensor cores, TMA and cp.async pipelining are a later PR's work.
+// Tensor cores, TMA and cp.async pipelining are a later PR's work.  The
+// partial kernels' chunk pair (B8 H8 Tc512 D64) is the same kind of work,
+// 8x smaller than the whole causal sequence, so the same holds for them.
 //
 // Work split (fixed tiles; ragged edges masked here):
 //   dQ    grid (B*H, ceil(Tq/16)): 4 warps x 4 query rows; loops over
@@ -55,6 +78,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -110,12 +135,14 @@ __device__ __forceinline__ float round_to(float x) {
 }
 
 // P and dS of one (row, key) pair, both in range, from the raw dot
-// q . k and dP = dO . v.  Same arithmetic as the forward's score.
+// q . k and dP = dO . v.  Same arithmetic as the forward's score.  A
+// partial kernel has no row that sees no key: its lse is the sequence's.
+template <bool kPartial>
 __device__ __forceinline__ void p_and_ds(const Params& p, const float* bias,
                                          float dot, float dp, float lse,
                                          float delta, int row, int key,
                                          float* pr, float* ds) {
-  if (p.causal && row + p.causal_offset < 0) {  // the row sees no key
+  if (!kPartial && p.causal && row + p.causal_offset < 0) {  // sees no key
     *pr = 1.f / (float)p.Tk;
     *ds = 0.f;
     return;
@@ -150,8 +177,10 @@ constexpr size_t dq_smem_floats() {
   return 2 * kBlockRows * DMAX + 2 * kTile * (DMAX + 1);
 }
 
-template <typename T, int DMAX>
+// T: q, k, v; TO: dO; the output is T, or f32 for the partial kernel
+template <typename T, typename TO, int DMAX, bool kPartial>
 __global__ void __launch_bounds__(kThreads) flash_dq_kernel(const Params p) {
+  using TOut = std::conditional_t<kPartial, float, T>;
   constexpr int kCols = DMAX / 32;
   extern __shared__ float smem[];
   float* qs = smem;                            // [kBlockRows][DMAX]
@@ -168,12 +197,12 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(const Params p) {
   const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
   const T* v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const T* dout = static_cast<const T*>(p.dout) + b * p.o_sb + h * p.o_sh;
+  const TO* dout = static_cast<const TO*>(p.dout) + b * p.o_sb + h * p.o_sh;
   const float* bias =
       p.bias == nullptr ? nullptr : p.bias + b * p.b_sb + h * p.b_sh;
 
   load_rows<T, DMAX>(qs, q, p.q_st, q0, kBlockRows, p.Tq, p.D, DMAX);
-  load_rows<T, DMAX>(dos, dout, p.o_st, q0, kBlockRows, p.Tq, p.D, DMAX);
+  load_rows<TO, DMAX>(dos, dout, p.o_st, q0, kBlockRows, p.Tq, p.D, DMAX);
 
   float lse[kRowsPerWarp], delta[kRowsPerWarp], acc[kRowsPerWarp][kCols];
 #pragma unroll
@@ -187,12 +216,14 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(const Params p) {
   }
 
   int n_tiles = (p.Tk + kTile - 1) / kTile;
-  if (p.causal && q0 + p.causal_offset >= 0) {
+  if (p.causal && (kPartial || q0 + p.causal_offset >= 0)) {
     // key tiles wholly above the block's last row add dS = 0 (a row with
     // no key at all has dS = 0 everywhere, so it needs no tile either)
     const long long last_key =
         (long long)min(q0 + kBlockRows, p.Tq) - 1 + p.causal_offset;
-    n_tiles = (int)min((long long)n_tiles, last_key / kTile + 1);
+    n_tiles = last_key < 0
+                  ? 0
+                  : (int)min((long long)n_tiles, last_key / kTile + 1);
   }
 
   for (int tile = 0; tile < n_tiles; ++tile) {
@@ -221,7 +252,8 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(const Params p) {
       const int t = q0 + r0 + r;
       float pr = 0.f, ds = 0.f;
       if (key < p.Tk && t < p.Tq)
-        p_and_ds(p, bias, s[r], dp[r], lse[r], delta[r], t, key, &pr, &ds);
+        p_and_ds<kPartial>(p, bias, s[r], dp[r], lse[r], delta[r], t, key,
+                           &pr, &ds);
       const float dsk = round_to<T>(ds);  // dS in K's dtype
       for (int j = 0; j < kTile; ++j) {
         const float dj = __shfl_sync(0xffffffffu, dsk, j);
@@ -232,7 +264,7 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(const Params p) {
     }
   }
 
-  T* dq = static_cast<T*>(p.out0);
+  TOut* dq = static_cast<TOut*>(p.out0);
 #pragma unroll
   for (int r = 0; r < kRowsPerWarp; ++r) {
     const int t = q0 + r0 + r;
@@ -241,7 +273,7 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(const Params p) {
 #pragma unroll
     for (int i = 0; i < kCols; ++i) {
       const int c = lane + 32 * i;
-      if (c < p.D) dq[row * p.D + c] = from_f32<T>(acc[r][i] * p.scale);
+      if (c < p.D) dq[row * p.D + c] = from_f32<TOut>(acc[r][i] * p.scale);
     }
   }
 }
@@ -253,8 +285,9 @@ constexpr size_t dkv_smem_floats() {
   return 2 * kBlockRows * DMAX + 2 * kTile * (DMAX + 1) + 2 * kTile;
 }
 
-template <typename T, int DMAX>
+template <typename T, typename TO, int DMAX, bool kPartial>
 __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(const Params p) {
+  using TOut = std::conditional_t<kPartial, float, T>;
   constexpr int kCols = DMAX / 32;
   extern __shared__ float smem[];
   float* ks = smem;                         // [kBlockRows][DMAX]
@@ -273,7 +306,7 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(const Params p) {
   const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
   const T* v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const T* dout = static_cast<const T*>(p.dout) + b * p.o_sb + h * p.o_sh;
+  const TO* dout = static_cast<const TO*>(p.dout) + b * p.o_sb + h * p.o_sh;
   const float* bias =
       p.bias == nullptr ? nullptr : p.bias + b * p.b_sb + h * p.b_sh;
 
@@ -289,9 +322,10 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(const Params p) {
   // query tiles that no row can reach the block's keys from are skipped:
   // row i sees key j when i >= j - offset.  Rows that see no key at all
   // (i + offset < 0, only when offset < 0) still weigh every key with
-  // 1/Tk in dV, so then every tile is walked.
+  // 1/Tk in dV, so then every tile is walked; not in a partial kernel,
+  // where such a row's P is 0.
   int first = 0;
-  if (p.causal && p.causal_offset >= 0)
+  if (p.causal && (kPartial || p.causal_offset >= 0))
     first = max(0, k0 - p.causal_offset) / kTile;
   const int n_tiles = (p.Tq + kTile - 1) / kTile;
 
@@ -299,7 +333,7 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(const Params p) {
     const int i0 = tile * kTile;
     __syncthreads();  // the previous tile's reads are done
     load_rows<T, DMAX + 1>(qs, q, p.q_st, i0, kTile, p.Tq, p.D, DMAX);
-    load_rows<T, DMAX + 1>(dos, dout, p.o_st, i0, kTile, p.Tq, p.D, DMAX);
+    load_rows<TO, DMAX + 1>(dos, dout, p.o_st, i0, kTile, p.Tq, p.D, DMAX);
     if (threadIdx.x < kTile) {
       const int t = i0 + threadIdx.x;
       const long long row = (long long)bh * p.Tq + t;
@@ -327,9 +361,9 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(const Params p) {
       const int key = k0 + r0 + r;
       float pr = 0.f, ds = 0.f;
       if (key < p.Tk && t < p.Tq)
-        p_and_ds(p, bias, s[r], dp[r], lse_s[lane], delta_s[lane], t, key,
-                 &pr, &ds);
-      const float pd = round_to<T>(pr);  // P in dO's dtype
+        p_and_ds<kPartial>(p, bias, s[r], dp[r], lse_s[lane],
+                           delta_s[lane], t, key, &pr, &ds);
+      const float pd = round_to<TO>(pr);  // P in dO's dtype
       const float dsq = round_to<T>(ds);  // dS in Q's dtype
       for (int j = 0; j < kTile; ++j) {
         const float pj = __shfl_sync(0xffffffffu, pd, j);
@@ -344,8 +378,8 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(const Params p) {
     }
   }
 
-  T* dk_out = static_cast<T*>(p.out0);
-  T* dv_out = static_cast<T*>(p.out1);
+  TOut* dk_out = static_cast<TOut*>(p.out0);
+  TOut* dv_out = static_cast<TOut*>(p.out1);
 #pragma unroll
   for (int r = 0; r < kRowsPerWarp; ++r) {
     const int key = k0 + r0 + r;
@@ -355,8 +389,8 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(const Params p) {
     for (int i = 0; i < kCols; ++i) {
       const int c = lane + 32 * i;
       if (c < p.D) {
-        dk_out[row * p.D + c] = from_f32<T>(dk[r][i] * p.scale);
-        dv_out[row * p.D + c] = from_f32<T>(dv[r][i]);
+        dk_out[row * p.D + c] = from_f32<TOut>(dk[r][i] * p.scale);
+        dv_out[row * p.D + c] = from_f32<TOut>(dv[r][i]);
       }
     }
   }
@@ -414,15 +448,15 @@ __global__ void __launch_bounds__(kThreads)
     if (t >= p.Tq || key >= p.Tk) continue;
     const long long row = (long long)bh * p.Tq + t;
     float pr, ds;
-    p_and_ds(p, bias, s[r], dp[r], p.lse[row], p.delta[row], t, key, &pr,
-             &ds);
+    p_and_ds<false>(p, bias, s[r], dp[r], p.lse[row], p.delta[row], t, key,
+                    &pr, &ds);
     ds_out[row * p.Tk + key] = ds;
   }
 }
 
 // ---- launches --------------------------------------------------------------
 
-enum Which { kDq = 0, kDkv = 1, kDbias = 2 };
+enum Which { kDq = 0, kDkv = 1, kDbias = 2, kDqPartial = 3, kDkvPartial = 4 };
 
 template <typename Kernel>
 int launch(Kernel kernel, dim3 grid, size_t smem_floats, const Params& p,
@@ -440,14 +474,24 @@ int launch(Kernel kernel, dim3 grid, size_t smem_floats, const Params& p,
 template <typename T, int DMAX>
 int launch_which(int which, const Params& p, cudaStream_t stream) {
   const int q_tiles = (p.Tq + kBlockRows - 1) / kBlockRows;
+  const int k_tiles = (p.Tk + kBlockRows - 1) / kBlockRows;
   switch (which) {
     case kDq:
-      return launch(flash_dq_kernel<T, DMAX>, dim3(p.B * p.H, q_tiles),
-                    dq_smem_floats<DMAX>(), p, stream);
+      return launch(flash_dq_kernel<T, T, DMAX, false>,
+                    dim3(p.B * p.H, q_tiles), dq_smem_floats<DMAX>(), p,
+                    stream);
     case kDkv:
-      return launch(flash_dkv_kernel<T, DMAX>,
-                    dim3(p.B * p.H, (p.Tk + kBlockRows - 1) / kBlockRows),
-                    dkv_smem_floats<DMAX>(), p, stream);
+      return launch(flash_dkv_kernel<T, T, DMAX, false>,
+                    dim3(p.B * p.H, k_tiles), dkv_smem_floats<DMAX>(), p,
+                    stream);
+    case kDqPartial:  // dO in f32
+      return launch(flash_dq_kernel<T, float, DMAX, true>,
+                    dim3(p.B * p.H, q_tiles), dq_smem_floats<DMAX>(), p,
+                    stream);
+    case kDkvPartial:
+      return launch(flash_dkv_kernel<T, float, DMAX, true>,
+                    dim3(p.B * p.H, k_tiles), dkv_smem_floats<DMAX>(), p,
+                    stream);
     case kDbias:
       return launch(flash_dbias_kernel<T, DMAX>,
                     dim3(p.B * p.H, q_tiles, (p.Tk + kTile - 1) / kTile),
@@ -473,7 +517,7 @@ int run(int which, const void* q, const void* k, const void* v,
         long long o_st, long long b_sb, long long b_sh, long long b_sq,
         long long b_sk, float scale, int causal, int causal_offset,
         void* stream) {
-  Params p;
+  Params p = {};
   p.q = q;
   p.k = k;
   p.v = v;
@@ -535,3 +579,26 @@ int run(int which, const void* q, const void* k, const void* v,
 extern "C" int flash_attention_dq(BWD_ARGS) { return BWD_CALL(kDq); }
 extern "C" int flash_attention_dkv(BWD_ARGS) { return BWD_CALL(kDkv); }
 extern "C" int flash_attention_dbias(BWD_ARGS) { return BWD_CALL(kDbias); }
+
+// The partial kernels (#6, #7) take no bias, dO in f32 and the chunks'
+// global positions; out0/out1 are f32 dq/unused and dk/dv.
+#define PARTIAL_ARGS                                                         \
+  const void *q, const void *k, const void *v, const void *dout,            \
+      const void *lse, const void *delta, void *out0, void *out1,           \
+      int is_bf16, int B, int H, int Tq, int Tk, int D, long long q_sb,     \
+      long long q_sh, long long q_st, long long k_sb, long long k_sh,       \
+      long long k_st, long long v_sb, long long v_sh, long long v_st,       \
+      long long o_sb, long long o_sh, long long o_st, float scale,          \
+      int causal, int q_offset, int k_offset, void *stream
+#define PARTIAL_CALL(which)                                                  \
+  run(which, q, k, v, nullptr, dout, lse, delta, out0, out1, is_bf16, B, H, \
+      Tq, Tk, D, q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st,      \
+      o_sb, o_sh, o_st, 0, 0, 0, 0, scale, causal, q_offset - k_offset,     \
+      stream)
+
+extern "C" int flash_attention_dq_partial(PARTIAL_ARGS) {
+  return PARTIAL_CALL(kDqPartial);
+}
+extern "C" int flash_attention_dkv_partial(PARTIAL_ARGS) {
+  return PARTIAL_CALL(kDkvPartial);
+}

@@ -1,8 +1,10 @@
-// Flash-attention forward for Hopper (sm_90a), plain C interface.
+// Flash-attention forward for Hopper (sm_90a), plain C interface: two
+// entry points over one kernel template.
 //
-// Replaces the TPU kernel bigdl_tpu/ops/attention_kernels.py:
-// _fwd_impl / _flash_fwd_kernel (the Pallas blockwise online-softmax
-// forward).  It computes exactly what that kernel computes:
+// flash_attention_fwd replaces the TPU kernel #1 of
+// bigdl_tpu/ops/attention_kernels.py: _fwd_impl / _flash_fwd_kernel (the
+// Pallas blockwise online-softmax forward, pallas_call :264).  It computes
+// exactly what that kernel computes:
 //
 //   s   = (q . k) * scale            dot in f32 (bf16 products are exact
 //                                    in f32), scale applied AFTER the dot
@@ -39,6 +41,23 @@
 // per warp.  The TPU's sequential k grid axis becomes the loop over K/V
 // tiles in shared memory.  Each lane owns one key of the tile for Q.K^T
 // and 32-strided head-dim columns for P.V.
+//
+// flash_attention_partial replaces the TPU kernel #5, the ring-attention
+// step flash_attention_partial / _flash_partial_kernel (pallas_call
+// :674): the same loop over one VISITING K/V chunk, merged into a carried
+// f32 state instead of finished.  It differs from #1 in three places:
+//   - (acc, m, l) start from the caller's state (acc_in, m_in, l_in), not
+//     from (0, -inf, 0); the ring's fresh state is (0, -1e9, 0);
+//   - the causal mask is on GLOBAL positions, q_offset + i >= k_offset + j,
+//     which is #1's mask with causal_offset = q_offset - k_offset; a chunk
+//     wholly above the diagonal merges nothing (the state passes through);
+//   - no epilogue: acc, m and l are written back in f32 (the caller takes
+//     acc / l and m + log l after the last chunk).
+// No bias (the ring routes a biased call to its plain path).  On an H100
+// the ring's chunk pairs (B8 H8 Tc512 D64) do 8 flops per byte of q, k, v
+// and state and are bound by operations: the design answer is #1's (K/V
+// read once per 16-row query tile, no score matrix in device memory, tiles
+// above the diagonal skipped); tensor cores are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -57,8 +76,12 @@ struct Params {
   const void* k;
   const void* v;
   const float* bias;  // nullptr when absent
-  void* out;          // [B, H, Tq, D] contiguous, q's dtype
-  float* lse;         // [B*H, Tq] contiguous
+  void* out;          // [B, H, Tq, D] contiguous: q's dtype (#1), f32 acc (#5)
+  float* lse;         // [B*H, Tq] contiguous: lse (#1), m (#5)
+  float* l_out;       // [B*H, Tq] contiguous, #5 only
+  const float* acc_in;  // #5 only: the carried state, f32, contiguous
+  const float* m_in;
+  const float* l_in;
   int B, H, Tq, Tk, D;
   long long q_sb, q_sh, q_st;  // element strides; the head-dim stride is 1
   long long k_sb, k_sh, k_st;
@@ -97,7 +120,7 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename T, int DMAX>
+template <typename T, int DMAX, bool kPartial>
 __global__ void __launch_bounds__(kWarps * 32)
     flash_fwd_kernel(const Params p) {
   constexpr int kCols = DMAX / 32;  // head-dim columns per lane in P.V
@@ -127,7 +150,10 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 
   int n_tiles = (p.Tk + kBlockK - 1) / kBlockK;
-  if (p.causal && q0 + p.causal_offset >= 0) {
+  if (kPartial && p.causal &&
+      (long long)p.Tq - 1 + p.causal_offset < 0) {
+    n_tiles = 0;  // no row of the chunk sees a key: the state passes through
+  } else if (p.causal && q0 + p.causal_offset >= 0) {
     // skip key tiles wholly above the diagonal of the block's last row.
     // Only when every row of the block sees at least key 0: a row that
     // sees no key is uniform over ALL keys, so no tile may be dropped.
@@ -139,10 +165,16 @@ __global__ void __launch_bounds__(kWarps * 32)
   float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][kCols];
 #pragma unroll
   for (int r = 0; r < kRowsPerWarp; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.f;
+    const int t = q0 + r0 + r;
+    const long long row = (long long)bh * p.Tq + t;
+    const bool carried = kPartial && t < p.Tq;
+    m[r] = carried ? p.m_in[row] : (kPartial ? kMaskedScore : -INFINITY);
+    l[r] = carried ? p.l_in[row] : 0.f;
 #pragma unroll
-    for (int i = 0; i < kCols; ++i) acc[r][i] = 0.f;
+    for (int i = 0; i < kCols; ++i) {
+      const int c = lane + 32 * i;
+      acc[r][i] = carried && c < p.D ? p.acc_in[row * p.D + c] : 0.f;
+    }
   }
 
   for (int tile = 0; tile < n_tiles; ++tile) {
@@ -194,34 +226,54 @@ __global__ void __launch_bounds__(kWarps * 32)
     }
   }
 
-  T* out = static_cast<T*>(p.out);
 #pragma unroll
   for (int r = 0; r < kRowsPerWarp; ++r) {
     const int t = q0 + r0 + r;
     if (t >= p.Tq) continue;  // uniform across the warp
     const long long row = (long long)bh * p.Tq + t;
+    if constexpr (kPartial) {
+      float* acc_out = static_cast<float*>(p.out);
 #pragma unroll
-    for (int i = 0; i < kCols; ++i) {
-      const int c = lane + 32 * i;
-      if (c < p.D) out[row * p.D + c] = from_f32<T>(acc[r][i] / l[r]);
+      for (int i = 0; i < kCols; ++i) {
+        const int c = lane + 32 * i;
+        if (c < p.D) acc_out[row * p.D + c] = acc[r][i];
+      }
+      if (lane == 0) {
+        p.lse[row] = m[r];
+        p.l_out[row] = l[r];
+      }
+    } else {
+      T* out = static_cast<T*>(p.out);
+#pragma unroll
+      for (int i = 0; i < kCols; ++i) {
+        const int c = lane + 32 * i;
+        if (c < p.D) out[row * p.D + c] = from_f32<T>(acc[r][i] / l[r]);
+      }
+      if (lane == 0) p.lse[row] = m[r] + logf(l[r]);
     }
-    if (lane == 0) p.lse[row] = m[r] + logf(l[r]);
   }
 }
 
-template <typename T, int DMAX>
+template <typename T, int DMAX, bool kPartial>
 int launch(const Params& p, cudaStream_t stream) {
   const dim3 grid(p.B * p.H, (p.Tq + kBlockQ - 1) / kBlockQ);
-  flash_fwd_kernel<T, DMAX><<<grid, kWarps * 32, 0, stream>>>(p);
+  flash_fwd_kernel<T, DMAX, kPartial><<<grid, kWarps * 32, 0, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kPartial>
 int launch_for_dim(const Params& p, cudaStream_t stream) {
-  if (p.D <= 32) return launch<T, 32>(p, stream);
-  if (p.D <= 64) return launch<T, 64>(p, stream);
-  if (p.D <= 128) return launch<T, 128>(p, stream);
+  if (p.D <= 32) return launch<T, 32, kPartial>(p, stream);
+  if (p.D <= 64) return launch<T, 64, kPartial>(p, stream);
+  if (p.D <= 128) return launch<T, 128, kPartial>(p, stream);
   return (int)cudaErrorInvalidValue;
+}
+
+template <bool kPartial>
+int launch_for_type(int is_bf16, const Params& p, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? launch_for_dim<__nv_bfloat16, kPartial>(p, s)
+                 : launch_for_dim<float, kPartial>(p, s);
 }
 
 }  // namespace
@@ -236,7 +288,7 @@ extern "C" int flash_attention_fwd(
     long long v_st, long long b_sb, long long b_sh, long long b_sq,
     long long b_sk, float scale, int causal, int causal_offset,
     void* stream) {
-  Params p;
+  Params p = {};
   p.q = q;
   p.k = k;
   p.v = v;
@@ -264,7 +316,48 @@ extern "C" int flash_attention_fwd(
   p.scale = scale;
   p.causal = causal;
   p.causal_offset = causal_offset;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_for_dim<__nv_bfloat16>(p, s)
-                 : launch_for_dim<float>(p, s);
+  return launch_for_type<false>(is_bf16, p, stream);
+}
+
+// Kernel #5: merge one visiting K/V chunk into the carried state.  q is
+// [B, H, Tq, D], k and v [B, H, Tk, D] (strided; head dim contiguous);
+// acc_in/acc_out [B*H, Tq, D] and m/l [B*H, Tq] are contiguous f32 (the
+// outputs may alias the inputs: each element is read and written by one
+// thread).  q_offset and k_offset are the chunks' global positions.
+extern "C" int flash_attention_partial(
+    const void* q, const void* k, const void* v, const void* acc_in,
+    const void* m_in, const void* l_in, void* acc_out, void* m_out,
+    void* l_out, int is_bf16, int B, int H, int Tq, int Tk, int D,
+    long long q_sb, long long q_sh, long long q_st, long long k_sb,
+    long long k_sh, long long k_st, long long v_sb, long long v_sh,
+    long long v_st, float scale, int causal, int q_offset, int k_offset,
+    void* stream) {
+  Params p = {};
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.out = acc_out;
+  p.lse = static_cast<float*>(m_out);
+  p.l_out = static_cast<float*>(l_out);
+  p.acc_in = static_cast<const float*>(acc_in);
+  p.m_in = static_cast<const float*>(m_in);
+  p.l_in = static_cast<const float*>(l_in);
+  p.B = B;
+  p.H = H;
+  p.Tq = Tq;
+  p.Tk = Tk;
+  p.D = D;
+  p.q_sb = q_sb;
+  p.q_sh = q_sh;
+  p.q_st = q_st;
+  p.k_sb = k_sb;
+  p.k_sh = k_sh;
+  p.k_st = k_st;
+  p.v_sb = v_sb;
+  p.v_sh = v_sh;
+  p.v_st = v_st;
+  p.scale = scale;
+  p.causal = causal;
+  p.causal_offset = q_offset - k_offset;  // global q >= global k
+  return launch_for_type<true>(is_bf16, p, stream);
 }

@@ -93,6 +93,10 @@ class SlotPool:
 
     def __init__(self, model, slots: int, prefill_batch: int = 4,
                  device=None):
+        if getattr(model, "seq_parallel", False):
+            raise ValueError(
+                "sequence-parallel models cannot serve from a slot pool "
+                "(the ring path has no decode cache); build a dense copy")
         for attr in ("init_cache", "decode_step", "prefill_kv",
                      "prefill_chunk", "max_len", "_mask_untrained_logit"):
             if not hasattr(model, attr):

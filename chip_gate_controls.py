@@ -27,7 +27,15 @@ the faults they are there to catch:
    a ResNet-50 b128 shape in bf16; the script fails unless the check
    passes the sources as they stand and refuses every mutant, and prints
    the share of entries each fault moves.
-4. A control ResNet-50 step.  chip_smoke's f32 fused step (batch 4,
+4. Ring-attention mutants.  ``flash_attention_fwd.cu`` is rebuilt with
+   #5's causal test on local rather than global positions (the offset
+   q_offset - k_offset taken as 0), and ``flash_attention_bwd.cu`` with
+   #7's P cast to q's dtype before Pᵀ·dO (the rule of #3, where dO is in
+   q's dtype; the ring's dO is f32).  Each runs through chip_smoke's
+   check of #5-#7 at the SP path's off-diagonal bf16 chunk pair; the
+   script fails unless the check passes the sources as they stand and
+   refuses each mutant, and prints the share of entries each moves.
+5. A control ResNet-50 step.  chip_smoke's f32 fused step (batch 4,
    64 px, card against a CPU copy) runs as it is and again with the conv
    kernels fed x and W rounded to bf16; the script fails unless the first
    stays within chip_smoke's bounds and the second does not.  Beside
@@ -59,7 +67,7 @@ MUTANTS = {
                          "const float dsk = ds;", "dq"),
     "no_ds_cast_in_dk": ("const float dsq = round_to<T>(ds);",
                          "const float dsq = ds;", "dk"),
-    "no_p_cast_in_dv": ("const float pd = round_to<T>(pr);",
+    "no_p_cast_in_dv": ("const float pd = round_to<TO>(pr);",
                         "const float pd = pr;", "dv"),
 }
 LOOSE_REL = 2e-2   # a tolerance relative to the largest entry
@@ -84,6 +92,19 @@ CONV_MUTANTS = {
         "return __fadd_rn(__fadd_rn(dy, gm), __fmul_rn(gs, __fsub_rn(y, k)));",
         "s1_conv3", ("dx", "dw")),
 }
+
+
+# name: (the source with the fault, the line as it stands, the line with
+# the fault, the partial kernel whose check must refuse it)
+RING_MUTANTS = {
+    "local_mask_in_5": (
+        "flash_attention_fwd", "p.causal_offset = q_offset - k_offset;",
+        "p.causal_offset = 0;", "partial"),
+    "p_cast_to_q_dtype_in_7": (
+        "flash_attention_bwd", "const float pd = round_to<TO>(pr);",
+        "const float pd = round_to<T>(pr);", "dkv_partial"),
+}
+RING_PROBLEM = "offdiag_bf16"     # chip_smoke's B8 H8 Tc512 D64 bf16 pair
 
 
 def _nvcc(cu, so):
@@ -144,6 +165,84 @@ def backward_from(lib):
     finally:
         ak._bound.clear()
         ak._bound.update(saved)
+
+
+def build_ring_mutant(tag: str) -> ctypes.CDLL:
+    """The source of RING_MUTANTS[tag] with its fault, built into
+    ``_build/mutants/``."""
+    from bigdl_tpu_torch.ops.build import BUILD_DIR, CSRC_DIR
+    library, before, after, _ = RING_MUTANTS[tag]
+    src = (CSRC_DIR / f"{library}.cu").read_text()
+    if src.count(before) != 1:
+        raise RuntimeError(f"{tag}: {before!r} is not in {library}.cu once")
+    out_dir = BUILD_DIR / "mutants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cu = out_dir / f"{library}_{tag}.cu"
+    cu.write_text(src.replace(before, after))
+    return _nvcc(cu, cu.with_suffix(".so"))
+
+
+@contextlib.contextmanager
+def ring_kernel_from(name: str, lib):
+    """The port's wrapper of partial kernel ``name`` launches ``lib``'s."""
+    from bigdl_tpu_torch.ops import attention_kernels as ak
+    entry = f"flash_attention_{name}"
+    library, argtypes = (("flash_attention_fwd", ak._PARTIAL_FWD_ARGTYPES)
+                         if name == "partial" else
+                         ("flash_attention_bwd", ak._PARTIAL_BWD_ARGTYPES))
+    saved = dict(ak._bound)
+    fn = getattr(lib, entry)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    ak._bound[(library, entry)] = fn
+    try:
+        yield
+    finally:
+        ak._bound.clear()
+        ak._bound.update(saved)
+
+
+def phase_ring_mutants():
+    problem = next(p for p in chip_smoke._partial_problems()
+                   if p[0] == RING_PROBLEM)
+    with ThreadPoolExecutor(len(RING_MUTANTS)) as pool:
+        libs = dict(zip(RING_MUTANTS, pool.map(build_ring_mutant,
+                                               RING_MUTANTS)))
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    calls = chip_smoke.partial_calls(*chip_smoke.partial_inputs(problem,
+                                                                gen))
+    readings, failures = {}, []
+    for tag, (_, _, _, name) in RING_MUTANTS.items():
+        print(f"ring mutant {tag} at ({RING_PROBLEM}) {problem[1]}, check "
+              f"tolerances {chip_smoke.partial_tols(name, problem)}")
+        readings[tag] = {}
+        for label, lib in (("as_it_stands", None), (tag, libs[tag])):
+            with (ring_kernel_from(name, lib) if lib is not None
+                  else contextlib.nullcontext()):
+                checks, same = chip_smoke.check_partial(name, calls,
+                                                        problem)
+            q, k = calls[name][2][:2]
+            sizes = {"acc/l": q.numel(), "m": q[..., 0].numel(),
+                     "l": q[..., 0].numel(), "dk": k.numel(),
+                     "dv": k.numel()}
+            outputs = ("acc/l", "m", "l") if name == "partial" \
+                else ("dk", "dv")
+            r = {o: dict(max_abs_err=err, entries_differ=differ,
+                         share_differ=differ / sizes[o], check_passes=ok)
+                 for o, (err, differ, ok) in zip(outputs, checks)}
+            readings[tag][label] = r
+            for o, v in r.items():
+                print(f"  {label:24s} {o:5s}: {v['entries_differ']} entries "
+                      f"differ ({v['share_differ']:.4%}), max abs err "
+                      f"{v['max_abs_err']:.3e}; check "
+                      f"{'passes' if v['check_passes'] else 'REFUSES'}")
+            passes = same and all(v["check_passes"] for v in r.values())
+            if lib is None and not passes:
+                failures.append(f"the ring check refuses {name} as it "
+                                f"stands")
+            if lib is not None and passes:
+                failures.append(f"the ring check passes {tag}")
+    return readings, failures
 
 
 def _ulp(x: torch.Tensor) -> float:
@@ -371,12 +470,15 @@ def main() -> int:
     failures += more
     conv_mutants, more = phase_conv_mutants()
     failures += more
+    ring_mutants, more = phase_ring_mutants()
+    failures += more
     resnet_control, more = phase_resnet_control_step()
     failures += more
     print(json.dumps({"mutants": mutants, "control_step": control,
                       "bounds": {"grad_norm_rel": chip_smoke.GRAD_NORM_REL,
                                  "grad_max_rel": chip_smoke.GRAD_MAX_REL},
                       "conv_mutants": conv_mutants,
+                      "ring_mutants": ring_mutants,
                       "resnet_control_step": resnet_control,
                       "resnet_bounds": chip_smoke.RESNET_PARITY_BOUNDS,
                       "failures": failures}))

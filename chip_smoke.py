@@ -8,9 +8,10 @@ Phases, each raising on failure (the script then exits non-zero):
 1. device: the card's name, its ``nvidia-smi`` name and power limit, and
    the TF32 settings (f32 matmuls are set to full f32);
 2. build: the four CUDA sources from the checkout (the flash-attention
-   forward and its three backward kernels; the fused conv+BN forward
-   kernels #8 and #10 and backward kernels #9 and #11), one ``nvcc`` each
-   in parallel, with their register and spill reports;
+   forward #1 and the ring's partial merge #5; its three backward kernels
+   #2-#4 and the ring's partial dQ #6 and dK/dV #7; the fused conv+BN
+   forward kernels #8 and #10 and backward kernels #9 and #11), one
+   ``nvcc`` each in parallel, with their register and spill reports;
 3. the forward kernel against its plain PyTorch version at the serving
    path's shapes, with times (CUDA events, median of 60 runs, L2 flushed
    before each): the kernel, the plain version,
@@ -21,6 +22,13 @@ Phases, each raising on failure (the script then exits non-zero):
    on the same inputs and the forward kernel's lse, at the training
    shape and six edge shapes, each launched twice to show the same bits,
    with times beside the plain version, SDPA's backward and the bound;
+4b. the ring-attention kernels #5-#7 against their plain versions, f32
+   and bf16, at the sequence-parallel training path's chunk pairs (B8 H8
+   Tc512 D64: a diagonal pair from the fresh state, an off-diagonal and a
+   non-causal pair from a carried state) and at a ragged pair whose
+   offsets are not tile multiples; each launched twice to show the same
+   bits, with times beside the plain version, SDPA on the same chunk pair
+   and mask (which merges no carried state) and the bound;
 5. serving: a TransformerLM at the width of the largest LM the repo
    serves (vocab 32000, hidden 512, 6 layers, 8 heads, filter 1024,
    max_len 512; random weights from a seed) behind ``ModelServer`` and
@@ -34,6 +42,15 @@ Phases, each raising on failure (the script then exits non-zero):
    dQ and dK/dV kernels once per layer (dBias never: no bias);
 7. one f32 training step at batch 2, on the card and on a CPU copy of
    the same model (plain attention): loss and every gradient must agree;
+7b. sequence-parallel training: the same LM and run with every block's
+   attention through ring attention over a 4-shard ``seq`` mesh on the
+   one card (``set_sequence_parallel``); every step must launch #5, #6
+   and #7 once per layer and visible chunk pair (6 x 10) and #1-#4 never,
+   and the loss must stay finite and fall; the step's time is split into
+   the three kernels and the rest;
+7c. one f32 step at batch 2, the ring LM (#5-#7) against the dense LM
+   (#1-#3) from the same weights and tokens: loss and every gradient must
+   agree within phase 7's bounds;
 8. the conv+BN kernels #8-#11 against their plain versions, forward and
    backward, with nonzero statistics cotangents, at ResNet-50's own b128
    shapes and at ragged small ones in f32 and bf16, each launched twice
@@ -50,8 +67,8 @@ Phases, each raising on failure (the script then exits non-zero):
 11. one f32 fused ResNet-50 step at batch 4, 64 px, on the card and on a
    CPU copy (the kernels' plain versions): loss and every gradient must
    agree;
-12. a ``{"kernels": [...]}`` line (eight kernels, launches by path), then
-   the ``{"ok": true, ...}`` line.
+12. a ``{"kernels": [...]}`` line (eleven kernels, launches by path),
+   then the ``{"ok": true, ...}`` line.
 
 Imports torch, numpy and ``bigdl_tpu_torch`` only.
 """
@@ -95,6 +112,8 @@ def _wrappers():
     from bigdl_tpu_torch.ops import conv_bn_kernels as ck
     return (ak.flash_attention_fwd, ak.flash_attention_dq,
             ak.flash_attention_dkv, ak.flash_attention_dbias,
+            ak.flash_attention_partial, ak.flash_attention_dq_partial,
+            ak.flash_attention_dkv_partial,
             ck.matmul_bn_fwd, ck.matmul_bn_bwd, ck.conv3x3_bn_fwd,
             ck.conv3x3_bn_bwd)
 
@@ -486,6 +505,240 @@ def phase_bwd_kernel_checks(rates):
 
 
 # ---------------------------------------------------------------------------
+# 4b. the ring-attention kernels #5-#7 against their plain versions
+# ---------------------------------------------------------------------------
+
+SP_SHARDS = 4                      # the seq mesh of the SP training phase
+SP_CHUNK = 2048 // SP_SHARDS       # Tc of one shard at T2048
+# #5 is held as #1 is: its normalised state acc / l to F32_TOL or
+# BF16_TOL, m and l (unrounded f32 sums) to F32_TOL.  #6 and #7 as #2 and
+# #3 are: bit for bit in bf16 at the training chunk, where kernel and
+# plain version round at the same points and cuBLAS sums the head dim in
+# the kernel's order (tolerance None); F32_BWD_TOL elsewhere
+PARTIAL_RUNS = 15
+
+
+def _partial_problems():
+    """(key, what, (b, h, tq, tk, d), q_offset, k_offset, causal, dtype,
+    state carried): the SP path's chunk pairs in f32 and bf16, and a
+    ragged pair whose offsets are not tile multiples."""
+    rows = []
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        tc = SP_CHUNK
+        shape = (8, 8, tc, tc, 64)
+        rows += [
+            (f"diag_{tag}", f"B8 H8 Tc{tc} D64 {tag} diagonal 1024/1024",
+             shape, 2 * tc, 2 * tc, True, dtype, False),
+            (f"offdiag_{tag}", f"B8 H8 Tc{tc} D64 {tag} off-diagonal "
+             f"1536/512", shape, 3 * tc, tc, True, dtype, True),
+            (f"noncausal_{tag}", f"B8 H8 Tc{tc} D64 {tag} non-causal",
+             shape, tc, 3 * tc, False, dtype, True),
+            (f"ragged_{tag}", f"B2 H4 Tc200 D40 {tag} 200/0 causal",
+             (2, 4, 200, 200, 40), 200, 0, True, dtype, True),
+        ]
+    return rows
+
+
+def _partial_pairs(tq, tk, q_offset, k_offset, causal) -> int:
+    """Visible (query, key) pairs of one chunk pair: global row q_offset+i
+    sees global key k_offset+j when it is not later."""
+    if not causal:
+        return tq * tk
+    seen = np.arange(tq) + (q_offset - k_offset) + 1
+    return int(np.clip(seen, 0, tk).sum())
+
+
+# products per visible pair, as (bf16-able, f32): #5 q·k and P·V; #6 q·k,
+# dS·K and dP = dO·v (dO is f32); #7 q·k, dSᵀ·Q, dP and Pᵀ·dO (P and dO
+# f32).  A product of two bf16 operands runs at the bf16 rate.
+PARTIAL_PRODUCTS = {"partial": (2, 0), "dq_partial": (2, 1),
+                    "dkv_partial": (2, 2)}
+
+
+def partial_bound(kernel, shape, q_offset, k_offset, causal, dtype, rates):
+    """Least device time of one partial kernel call: its inputs (q, k, v,
+    and the f32 state, or dO, lse and Δ) read once and its f32 outputs
+    written once over the memory rate, against 2·D flops per visible pair
+    for each product at the peak rate of its operands' type, summed."""
+    mem_rate, f32_rate, bf16_rate = rates
+    b, h, tq, tk, d = shape
+    size = 2 if dtype == torch.bfloat16 else 4
+    qkv = (b * h * tq * d + 2 * b * h * tk * d) * size
+    rows_f32 = b * h * tq * 4
+    if kernel == "partial":   # acc, m, l in and out
+        nbytes = qkv + 2 * (b * h * tq * d * 4 + 2 * rows_f32)
+    else:                     # dO (f32), lse, Δ in; dq or dk, dv (f32) out
+        out = b * h * tq * d * 4 if kernel == "dq_partial" \
+            else 2 * b * h * tk * d * 4
+        nbytes = qkv + b * h * tq * d * 4 + 2 * rows_f32 + out
+    pairs = b * h * _partial_pairs(tq, tk, q_offset, k_offset, causal)
+    low, full = PARTIAL_PRODUCTS[kernel]
+    low_rate = bf16_rate if dtype == torch.bfloat16 else f32_rate
+    t_ops = (2 * d * pairs * (low / low_rate + full / f32_rate)) * 1e3
+    t_bytes = nbytes / mem_rate * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def _sdpa_chunk_mask(tq, tk, q_offset, k_offset, causal, dtype):
+    """SDPA's additive mask for the chunk pair: None when every pair is
+    visible, else -1e9 where a global row may not see a global key."""
+    if not causal or q_offset >= k_offset + tk - 1:
+        return None
+    rows = q_offset + torch.arange(tq, device="cuda")
+    keys = k_offset + torch.arange(tk, device="cuda")
+    return torch.where(rows[:, None] >= keys[None], 0.0, -1e9).to(dtype)
+
+
+def partial_inputs(problem, gen):
+    """(q, k, v, state (acc, m, l), dO f32, lse, Δ) of one chunk pair: the
+    state is fresh, or carried from a plain merge of a previous chunk at
+    the same rows (the diagonal one); lse and Δ are those of the rows
+    after both merges."""
+    from bigdl_tpu_torch.ops import attention_kernels as ak
+    _, _, (b, h, tq, tk, d), q_off, k_off, causal, dtype, carried = problem
+
+    def rnd(*s):
+        return torch.randn(*s, generator=gen, device="cuda").to(dtype)
+    q, k, v = rnd(b, h, tq, d), rnd(b, h, tk, d), rnd(b, h, tk, d)
+    state = (torch.zeros(b, h, tq, d, device="cuda"),
+             torch.full((b, h, tq), ak.NEG_INF, device="cuda"),
+             torch.zeros(b, h, tq, device="cuda"))
+    scale = d ** -0.5
+    with torch.no_grad():
+        if carried:
+            state = ak.plain_attention_partial(
+                q, rnd(b, h, tq, d), rnd(b, h, tq, d), *state,
+                q_offset=q_off, k_offset=q_off, scale=scale, causal=causal)
+        acc, m, l = ak.plain_attention_partial(
+            q, k, v, *state, q_offset=q_off, k_offset=k_off, scale=scale,
+            causal=causal)
+        out = (acc / l[..., None]).to(dtype)
+        do = torch.randn(b, h, tq, d, generator=gen, device="cuda")
+        lse = m + torch.log(l)
+        delta = (do * out.float()).sum(-1)
+    return q, k, v, state, do, lse, delta
+
+
+def partial_calls(q, k, v, state, do, lse, delta):
+    """{name: (kernel, plain version, arguments, library direction)} of
+    #5-#7 on one chunk pair's inputs."""
+    from bigdl_tpu_torch.ops import attention_kernels as ak
+    return {
+        "partial": (ak.flash_attention_partial, ak.plain_attention_partial,
+                    (q, k, v, *state), "fwd"),
+        "dq_partial": (ak.flash_attention_dq_partial,
+                       ak.plain_attention_dq_partial,
+                       (q, k, v, do, lse, delta), "bwd"),
+        "dkv_partial": (ak.flash_attention_dkv_partial,
+                        ak.plain_attention_dkv_partial,
+                        (q, k, v, do, lse, delta), "bwd"),
+    }
+
+
+def partial_cfg(problem):
+    _, _, shape, q_off, k_off, causal, _, _ = problem
+    return dict(q_offset=q_off, k_offset=k_off, scale=shape[4] ** -0.5,
+                causal=causal)
+
+
+def partial_tols(name, problem):
+    """The tolerance of each held output: #5's acc / l, m, l; #6's dq;
+    #7's dk, dv."""
+    dtype, d = problem[6], problem[2][4]
+    if name == "partial":
+        return [BF16_TOL if dtype == torch.bfloat16 else F32_TOL,
+                F32_TOL, F32_TOL]
+    tol = BF16_BWD_TOL if dtype == torch.bfloat16 and d == 64 \
+        else F32_BWD_TOL
+    return [tol] * (1 if name == "dq_partial" else 2)
+
+
+def check_partial(name, calls, problem):
+    """One partial kernel against its plain version: ([(max abs err,
+    entries that differ, held)] per output, two launches equal bit for
+    bit).  #5 is held on its normalised state acc / l, and m and l."""
+    kernel, plain, args, _ = calls[name]
+    cfg = partial_cfg(problem)
+    with torch.no_grad():
+        got, again, want = [list(out) if isinstance(out, tuple) else [out]
+                            for out in (f(*args, **cfg)
+                                        for f in (kernel, kernel, plain))]
+    torch.cuda.synchronize()
+    if not all(torch.isfinite(g).all() for g in got):
+        raise RuntimeError(f"{name} at {problem[0]}: output not finite")
+    same = all(torch.equal(g, a) for g, a in zip(got, again))
+    if name == "partial":
+        got = [got[0] / got[2][..., None], got[1], got[2]]
+        want = [want[0] / want[2][..., None], want[1], want[2]]
+    return [_close(g, w, tol) for g, w, tol in
+            zip(got, want, partial_tols(name, problem))], same
+
+
+def phase_partial_kernel_checks(rates):
+    """#5, #6 and #7 against their plain versions at every problem of
+    _partial_problems(); two launches of each must give the same bits;
+    times beside the plain version's, SDPA's on the chunk pair and the
+    bound."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    results = []
+    for problem in _partial_problems():
+        key, what, shape, q_off, k_off, causal, dtype, _ = problem
+        t0 = time.perf_counter()
+        q, k, v, state, do, lse, delta = partial_inputs(problem, gen)
+        cfg = partial_cfg(problem)
+        mask = _sdpa_chunk_mask(shape[2], shape[3], q_off, k_off, causal,
+                                dtype)
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
+        library = {
+            "fwd": time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask), flush, runs=PARTIAL_RUNS,
+                warmup=2),
+            "bwd": time_ms(lambda: torch.autograd.grad(
+                lib_out, (qg, kg, vg), do.to(dtype), retain_graph=True),
+                flush, runs=PARTIAL_RUNS, warmup=2)}
+        calls = partial_calls(q, k, v, state, do, lse, delta)
+        for name, (kernel, plain, args, direction) in calls.items():
+            checks, same = check_partial(name, calls, problem)
+            if not same:
+                raise RuntimeError(f"{name} at {key}: two launches differ")
+            err = max(e for e, _, _ in checks)
+            differ = sum(n for _, n, _ in checks)
+            if not all(ok for _, _, ok in checks):
+                raise RuntimeError(
+                    f"{name} at {key}: kernel disagrees with the plain "
+                    f"version (max abs err {err:.3e}, {differ} entries "
+                    f"differ, tolerances {partial_tols(name, problem)})")
+            with torch.no_grad():
+                row = {
+                    "kernel": name, "shape": key, "what": what,
+                    "max_abs_err": err, "entries_differ": differ,
+                    "bitwise_repeatable": True,
+                    "ms": time_ms(lambda: kernel(*args, **cfg), flush,
+                                  runs=PARTIAL_RUNS, warmup=2),
+                    "plain_ms": time_ms(lambda: plain(*args, **cfg), flush,
+                                        runs=PARTIAL_RUNS, warmup=2),
+                    "library_ms": library[direction],
+                    "library": f"SDPA {direction} on the chunk pair (merges "
+                               f"no carried state)",
+                }
+            row["bound_ms"], row["bound_by"] = partial_bound(
+                name, shape, q_off, k_off, causal, dtype, rates)
+            results.append(row)
+            print(f"ring {name:11s} {key:14s} {what:44s} max_abs_err "
+                  f"{err:.3e} ({differ} differ) repeatable  kernel_ms "
+                  f"{row['ms']:.5f}  plain_ms {row['plain_ms']:.5f}  "
+                  f"library_ms {row['library_ms']:.5f}  bound_ms "
+                  f"{row['bound_ms']:.5f} ({row['bound_by']})")
+        print(f"  ({key}: {time.perf_counter() - t0:.1f} s)")
+        del q, k, v, state, do, lse, delta, qg, kg, vg, lib_out, calls
+    return results
+
+
+# ---------------------------------------------------------------------------
 # 5. serving at full width
 # ---------------------------------------------------------------------------
 
@@ -731,11 +984,13 @@ def parity_setup():
 
 def parity_report(card, cpu, label="train parity",
                   bounds=(LOSS_RTOL, GRAD_NORM_REL, GRAD_MAX_REL),
-                  what=f"batch {PARITY_BATCH}, T{TRAIN_SEQ}"):
-    """Hold a card step's ``(loss, grads)`` against the CPU's and print
-    the worst errors; returns (worst norm error, worst entry error,
-    within ``bounds``: the loss's relative error, each gradient's norm
-    error and its worst entry relative to its largest)."""
+                  what=f"batch {PARITY_BATCH}, T{TRAIN_SEQ}",
+                  sides=("card", "cpu")):
+    """Hold a card step's ``(loss, grads)`` against the CPU's (or, with
+    ``sides``, one step against another) and print the worst errors;
+    returns (worst norm error, worst entry error, within ``bounds``: the
+    loss's relative error, each gradient's norm error and its worst entry
+    relative to its largest)."""
     loss_rtol, grad_norm_rel, grad_max_rel = bounds
     (loss_card, g_card), (loss_cpu, g_cpu) = card, cpu
     norm_rel = {n: float((g_card[n] - g_cpu[n]).norm()
@@ -750,7 +1005,8 @@ def parity_report(card, cpu, label="train parity",
           and norm_rel[worst_norm] <= grad_norm_rel
           and max_rel[worst_max] <= grad_max_rel)
     print(f"{label}: f32 step at {what}: loss "
-          f"card {loss_card:.7f} cpu {loss_cpu:.7f}; over {len(g_cpu)} "
+          f"{sides[0]} {loss_card:.7f} {sides[1]} {loss_cpu:.7f}; over "
+          f"{len(g_cpu)} "
           f"gradient tensors the worst norm error is "
           f"{norm_rel[worst_norm]:.3e} ({worst_norm}) and the worst entry "
           f"{max_rel[worst_max]:.3e} of its tensor's largest ({worst_max}); "
@@ -778,6 +1034,115 @@ def phase_train_parity():
     if not ok:
         raise RuntimeError("loss or gradients differ beyond the stated "
                            "bounds")
+    return norm, worst
+
+
+# ---------------------------------------------------------------------------
+# 7b-7c. sequence-parallel training, and its step held against the dense one
+# ---------------------------------------------------------------------------
+
+# visible chunk pairs of a causal ring over SP_SHARDS shards: n (n + 1) / 2
+SP_PAIRS = SP_SHARDS * (SP_SHARDS + 1) // 2
+RING_NAMES = ("flash_attention_partial", "flash_attention_dq_partial",
+              "flash_attention_dkv_partial")
+DENSE_NAMES = ("flash_attention_fwd", "flash_attention_dq",
+               "flash_attention_dkv", "flash_attention_dbias")
+
+
+def seq_mesh():
+    """The SP phases' mesh: SP_SHARDS shards of the sequence, all on the
+    one card."""
+    from bigdl_tpu_torch.parallel import make_mesh
+    return make_mesh({"seq": SP_SHARDS}, devices=["cuda"] * SP_SHARDS)
+
+
+def phase_sp_training():
+    """The LM training run of phase 6 with every block's self-attention
+    through ring attention over seq_mesh(); each call of #5-#7 bracketed
+    by CUDA events, so the last epoch's steps split into the three kernels
+    and the rest."""
+    from bigdl_tpu_torch.examples import perf
+    from bigdl_tpu_torch.ops import attention_kernels as ak
+    args = perf.parse_args(TRAIN_ARGV)
+    model, criterion, make_batch = perf.build(args.model, args)
+    model.lm.set_sequence_parallel(seq_mesh(), "seq")
+    kernels = ak._RING_KERNELS
+    logs = {fn.__name__: [] for fn in kernels}
+    ak._RING_KERNELS = tuple(_timed(fn, logs[fn.__name__]) for fn in kernels)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    try:
+        out, opt = perf.run(args, model, criterion, make_batch)
+    finally:
+        ak._RING_KERNELS = kernels
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = TRAIN_ITERS * TRAIN_EPOCHS
+    per_step = LAYERS * SP_PAIRS
+    losses = [loss for _, loss in opt.loss_history]
+    tokens_s = TRAIN_BATCH * TRAIN_SEQ / (out["ms_per_iteration"] / 1e3)
+    kernel_ms = {name: sum(s.elapsed_time(e) for s, e in
+                           log[-per_step * TRAIN_ITERS:]) / TRAIN_ITERS
+                 for name, log in logs.items()}
+    rest_ms = out["ms_per_iteration"] - sum(kernel_ms.values())
+    print(f"sp training: {json.dumps(out)}")
+    print(f"sp training: {SP_SHARDS} shards of T{TRAIN_SEQ // SP_SHARDS} on "
+          f"one card; {steps} steps in {wall:.3f} s; "
+          f"{out['records_per_sec']} records/s, {tokens_s:.1f} tokens/s, "
+          f"{out['ms_per_iteration']} ms/iteration (steady windows); "
+          f"first window {out['compile_plus_first_window_s']} s; loss "
+          f"{losses[0]:.6f} -> {losses[-1]:.6f}; peak memory "
+          f"{peak_gb:.3f} GiB; launches {launches}")
+    print("sp training: last epoch, device ms per step: "
+          + ", ".join(f"{n} {t:.3f} ({per_step} launches)"
+                      for n, t in kernel_ms.items())
+          + f"; the rest {rest_ms:.3f}")
+    if len(losses) != steps or not all(np.isfinite(losses)):
+        raise RuntimeError(f"losses not finite or missing: {losses}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"loss did not fall: {losses}")
+    want = {n: (per_step * steps if n in RING_NAMES else 0)
+            for n in launches}
+    if launches != want:
+        raise RuntimeError(f"launches {launches} != {want} ({LAYERS} layers "
+                           f"x {SP_PAIRS} chunk pairs x {steps} steps)")
+    return dict(out, tokens_per_sec=tokens_s, steps=steps,
+                first_loss=losses[0], last_loss=losses[-1],
+                peak_memory_gib=peak_gb, launches=launches,
+                kernel_ms_per_step=kernel_ms, rest_ms_per_step=rest_ms)
+
+
+def phase_sp_parity():
+    """One f32 step of the full-width LM at batch 2 through ring attention
+    (#5-#7) against the same step through dense attention (#1-#3), from
+    the same weights and tokens, within phase 7's bounds."""
+    import copy
+    dense, _, step = parity_setup()
+    ring = copy.deepcopy(dense)
+    ring.lm.set_sequence_parallel(seq_mesh(), "seq")
+    _zero_counts()
+    ring_step = step(ring, "cuda")
+    used_ring = _read_counts()
+    _zero_counts()
+    dense_step = step(dense, "cuda")
+    used_dense = _read_counts()
+    want_ring = {n: (LAYERS * SP_PAIRS if n in RING_NAMES else 0)
+                 for n in used_ring}
+    want_dense = {n: (LAYERS if n in DENSE_NAMES[:3] else 0)
+                  for n in used_dense}
+    if used_ring != want_ring or used_dense != want_dense:
+        raise RuntimeError(f"the ring step launched {used_ring}, the dense "
+                           f"step {used_dense}")
+    norm, worst, ok = parity_report(
+        ring_step, dense_step, "sp parity",
+        what=f"batch {PARITY_BATCH}, T{TRAIN_SEQ}, {SP_SHARDS} shards",
+        sides=("ring", "dense"))
+    if not ok:
+        raise RuntimeError("the ring step's loss or gradients differ from "
+                           "the dense step's beyond the stated bounds")
     return norm, worst
 
 
@@ -1260,14 +1625,18 @@ def main() -> int:
     phase_build()
     shapes = phase_kernel_checks(rates)
     bwd = phase_bwd_kernel_checks(rates)
+    ring = phase_partial_kernel_checks(rates)
     conv = phase_conv_kernel_checks(rates)
     serving = phase_serving()
     train = phase_training()
     phase_train_parity()
+    sp = phase_sp_training()
+    phase_sp_parity()
     resnet = phase_resnet_training()
     phase_fused_vs_plain()
     phase_resnet_parity()
     by_path = {"serving": serving, "lm_training": train["launches"],
+               "sp_training": sp["launches"],
                "resnet_training": resnet["launches"]}
 
     def paths(name):
@@ -1295,6 +1664,17 @@ def main() -> int:
             replaces, train["launches"][f"flash_attention_{name}"],
             row(bwd, name, shape))
         entry["shapes"] = [r for r in bwd if r["kernel"] == name]
+        kernels.append(entry)
+    for name, source, line in (
+            ("partial", "flash_attention_fwd.cu", 674),
+            ("dq_partial", "flash_attention_bwd.cu", 787),
+            ("dkv_partial", "flash_attention_bwd.cu", 829)):
+        full = f"flash_attention_{name}"
+        entry = _kernel_entry(
+            full, csrc + source, f"bigdl_tpu/ops/attention_kernels.py:{line}",
+            sp["launches"][full], row(ring, name, "offdiag_bf16"))
+        entry["ms_per_training_step"] = sp["kernel_ms_per_step"][full]
+        entry["shapes"] = [r for r in ring if r["kernel"] == name]
         kernels.append(entry)
     for name, source, line, shape in (
             ("matmul_bn_fwd", "conv_bn_fwd.cu", 274, "s1_conv3"),

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card (the flash-attention forward and
-its dQ, dK/dV and dBias backward kernels; the fused conv+BN kernels
-#8-#11), against their plain PyTorch versions, and training steps on the
-card against the CPU.  Every test here needs an NVIDIA GPU and skips
+its dQ, dK/dV and dBias backward kernels; the ring-attention kernels
+#5-#7; the fused conv+BN kernels #8-#11), against their plain PyTorch
+versions, and training steps on the card against the CPU (and, for the
+sequence-parallel LM, against the dense one).  Every test here needs an NVIDIA GPU and skips
 without one; the file imports no JAX, so it runs where only PyTorch is
 installed:
 
@@ -12,6 +13,10 @@ order than cuBLAS; 1e-4 for the backward's longer sums); the bfloat16
 forward 2e-2 (one bf16 ulp near 1).  The bfloat16 backward must equal its
 plain version bit for bit: both round P and dS to bf16 at the same points
 and sum in f32, and a missing cast moves a sum by less than an ulp.
+The ring kernels: #5's merged state as the forward (acc / l at the
+dtype's tolerance, m and l at float32's); #6 and #7 write float32, held
+bit for bit with bf16 inputs at D 64 and to the backward's float32
+tolerance elsewhere.
 The conv+BN kernels sum their products in another order than cuBLAS and
 cuDNN: float32 outputs within 1e-4 of the plain output's largest entry;
 bfloat16 outputs within one bf16 ulp of the plain version's entry (or
@@ -261,6 +266,119 @@ def test_training_steps_on_the_card_match_the_cpu(cuda):
                                  lm_cpu.named_parameters()):
         torch.testing.assert_close(a.detach().cpu(), b.detach(),
                                    rtol=1e-3, atol=1e-4, msg=name)
+
+
+# ---- the ring-attention kernels #5-#7 ----------------------------------------
+
+@pytest.mark.parametrize("b,h,tq,tk,d,q_off,k_off,causal,dtype", [
+    (2, 8, 256, 256, 64, 512, 256, True, torch.bfloat16),
+    (2, 8, 256, 256, 64, 256, 256, True, torch.float32),
+    (2, 4, 200, 200, 40, 200, 0, True, torch.float32),
+    (1, 2, 70, 33, 16, 0, 100, False, torch.bfloat16),
+])
+def test_ring_kernels_match_plain_and_repeat(cuda, b, h, tq, tk, d, q_off,
+                                             k_off, causal, dtype):
+    q = rnd(b, h, tq, d, seed=61, device=cuda, dtype=dtype)
+    k = rnd(b, h, tk, d, seed=62, device=cuda, dtype=dtype)
+    v = rnd(b, h, tk, d, seed=63, device=cuda, dtype=dtype)
+    cfg = dict(q_offset=q_off, k_offset=k_off, scale=d ** -0.5,
+               causal=causal)
+    fresh = (torch.zeros(b, h, tq, d, device=cuda),
+             torch.full((b, h, tq), ak.NEG_INF, device=cuda),
+             torch.zeros(b, h, tq, device=cuda))
+    # a carried state: a first merge of the diagonal chunk of these rows
+    state = ak.plain_attention_partial(
+        q, rnd(b, h, tq, d, seed=64, device=cuda, dtype=dtype),
+        rnd(b, h, tq, d, seed=65, device=cuda, dtype=dtype), *fresh,
+        q_offset=q_off, k_offset=q_off, scale=d ** -0.5, causal=causal)
+    before = ak.flash_attention_partial.launches
+    got, again = (ak.flash_attention_partial(q, k, v, *state, **cfg)
+                  for _ in range(2))
+    want = ak.plain_attention_partial(q, k, v, *state, **cfg)
+    torch.cuda.synchronize()
+    assert ak.flash_attention_partial.launches == before + 2
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    acc, m, l = got
+    torch.testing.assert_close(m, want[1], **F32_TOL)
+    torch.testing.assert_close(l, want[2], **F32_TOL)
+    torch.testing.assert_close(
+        acc / l[..., None], want[0] / want[2][..., None],
+        **(BF16_TOL if dtype == torch.bfloat16 else F32_TOL))
+
+    do = rnd(b, h, tq, d, seed=66, device=cuda)
+    lse = m + torch.log(l)
+    delta = (do * (acc / l[..., None]).to(dtype).float()).sum(-1)
+    args = (q, k, v, do, lse, delta)
+    exact = dtype == torch.bfloat16 and d == 64
+    for kernel, plain in ((ak.flash_attention_dq_partial,
+                           ak.plain_attention_dq_partial),
+                          (ak.flash_attention_dkv_partial,
+                           ak.plain_attention_dkv_partial)):
+        got, again = kernel(*args, **cfg), kernel(*args, **cfg)
+        want = plain(*args, **cfg)
+        torch.cuda.synchronize()
+        got, again, want = ((x,) if torch.is_tensor(x) else x
+                            for x in (got, again, want))
+        for g, a, w in zip(got, again, want):
+            assert torch.equal(g, a), kernel.__name__
+            assert g.dtype == torch.float32 == w.dtype
+            if exact:
+                assert torch.equal(g, w), kernel.__name__
+            else:
+                torch.testing.assert_close(g, w, **BWD_F32_TOL)
+
+
+def test_ring_kernel_wrappers_refuse_what_they_do_not_take(cuda):
+    x = rnd(1, 2, 32, 16, device=cuda)
+    rows = torch.zeros(1, 2, 32, device=cuda)
+    cfg = dict(q_offset=0, k_offset=0, scale=0.25)
+    with pytest.raises(ValueError, match="acc must be"):
+        ak.flash_attention_partial(x, x, x, x.half(), rows, rows, **cfg)
+    with pytest.raises(ValueError, match="m must be"):
+        ak.flash_attention_partial(x, x, x, x, rows[..., :5], rows, **cfg)
+    with pytest.raises(ValueError, match="dO must be f32"):
+        ak.flash_attention_dq_partial(x.bfloat16(), x.bfloat16(),
+                                      x.bfloat16(), x.bfloat16(), rows,
+                                      rows, **cfg)
+    with pytest.raises(ValueError, match="q_offset"):
+        ak.flash_attention_dkv_partial(x, x, x, x, rows, rows,
+                                       q_offset=-1, k_offset=0, scale=0.25)
+
+
+def test_ring_lm_step_on_the_card_matches_dense(cuda):
+    """One f32 step of a small LM through ring attention over 4 shards on
+    the card (#5-#7) against the same step through dense attention
+    (#1-#3): loss within 1e-5, every gradient within 1e-3 in norm."""
+    from bigdl_tpu_torch.parallel import make_mesh
+    import copy
+    lm = TransformerLM(64, hidden_size=64, num_layers=2, num_heads=4,
+                       filter_size=128, max_len=128, padded_inputs=False,
+                       generator=torch.Generator().manual_seed(3),
+                       device=cuda)
+    ring = copy.deepcopy(lm).set_sequence_parallel(
+        make_mesh({"seq": 4}, ["cuda"] * 4))
+    rng = np.random.default_rng(4)
+    x = torch.as_tensor(rng.integers(1, 65, (2, 128)), device=cuda)
+    y = torch.as_tensor(rng.integers(1, 65, (256,)), device=cuda)
+    results = []
+    for model in (ring, lm):
+        before = (ak.flash_attention_partial.launches,
+                  ak.flash_attention_dkv_partial.launches,
+                  ak.flash_attention_fwd.launches)
+        loss = CrossEntropyCriterion()(model(x).reshape(-1, 65), y)
+        loss.backward()
+        torch.cuda.synchronize()
+        used = (ak.flash_attention_partial.launches - before[0],
+                ak.flash_attention_dkv_partial.launches - before[1],
+                ak.flash_attention_fwd.launches - before[2])
+        results.append((float(loss), dict(model.named_parameters()), used))
+    (loss_r, p_r, used_r), (loss_d, p_d, used_d) = results
+    assert used_r == (2 * 10, 2 * 10, 0) and used_d == (0, 0, 2)
+    assert abs(loss_r - loss_d) <= 1e-5 * abs(loss_d)
+    for name, p in p_d.items():
+        err = float((p_r[name].grad - p.grad).norm() / p.grad.norm())
+        assert err <= 1e-3, name
 
 
 # ---- the fused conv+BN kernels #8-#11 ---------------------------------------
