@@ -60,7 +60,8 @@ __all__ = ["plain_attention", "plain_attention_fwd", "attention_delta",
            "flash_attention", "dot_product_attention", "NEG_INF",
            "plain_attention_partial", "plain_attention_dq_partial",
            "plain_attention_dkv_partial", "flash_attention_partial",
-           "flash_attention_dq_partial", "flash_attention_dkv_partial"]
+           "flash_attention_dq_partial", "flash_attention_dkv_partial",
+           "dkv_route"]
 
 NEG_INF = -1e9  # the reference's attention mask fill (_NEG_INF)
 MAX_HEAD_DIM = 128
@@ -365,19 +366,39 @@ def flash_attention_dq(q, k, v, bias, do, lse, delta, *, scale: float,
 flash_attention_dq.launches = 0
 
 
+def dkv_route(dtype) -> str:
+    """Which dK/dV kernel (#3) runs for q, k, v and dO of ``dtype``:
+    ``"tensor_core"`` (``flash_dkv_tc_kernel``: bf16 operands, f32 sums
+    on mma.sync) for bfloat16, ``"scalar"`` (``flash_dkv_kernel``: f32
+    FMAs) for float32, whose operands the tensor cores would round.  The
+    C entry picks the same kernel by dtype; this names it for the route
+    counter."""
+    if dtype == torch.bfloat16:
+        return "tensor_core"
+    if dtype == torch.float32:
+        return "scalar"
+    raise TypeError(f"the dK/dV kernel takes float32 or bfloat16, not "
+                    f"{dtype}")
+
+
 def flash_attention_dkv(q, k, v, bias, do, lse, delta, *, scale: float,
                         causal: bool = False, causal_offset: int = 0):
     """Launch the dK/dV kernel (#3) on CUDA tensors: ``(dk, dv)``
-    [B, H, Tk, D] in k's and v's dtype."""
+    [B, H, Tk, D] in k's and v's dtype.  bf16 takes the tensor-core
+    route, f32 the scalar one (:func:`dkv_route`);
+    ``flash_attention_dkv.routes`` counts each."""
+    route = dkv_route(q.dtype)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     _launch_bwd("flash_attention_dkv", q, k, v, bias, do, lse, delta, dk,
                 dv, scale, causal, causal_offset)
     flash_attention_dkv.launches += 1
+    flash_attention_dkv.routes[route] += 1
     return dk, dv
 
 
 flash_attention_dkv.launches = 0
+flash_attention_dkv.routes = {"tensor_core": 0, "scalar": 0}
 
 
 def flash_attention_dbias(q, k, v, bias, do, lse, delta, *, scale: float,

@@ -51,7 +51,8 @@ __all__ = ["shifted_batch_stats", "fused_matmul_bn_reference",
            "fused_conv3x3_supported", "fused_matmul_bn", "fused_conv3x3_bn",
            "matmul_bn_fwd", "matmul_bn_bwd", "conv3x3_bn_fwd",
            "conv3x3_bn_bwd", "plain_matmul_bn_fwd", "plain_matmul_bn_bwd",
-           "plain_conv3x3_bn_fwd", "plain_conv3x3_bn_bwd", "dw_splits"]
+           "plain_conv3x3_bn_fwd", "plain_conv3x3_bn_bwd", "dw_splits",
+           "tc_channels", "conv3x3_bwd_route", "tc_split_chunk"]
 
 _SUPPORTED = (torch.float32, torch.bfloat16)
 _TILE = 64                        # the kernels' fixed output tile
@@ -59,6 +60,11 @@ _MAX_PART_BYTES = 256 * 2 ** 20   # the dW partials' scratch, at most
 _TARGET_BLOCKS = 4 * 132          # four blocks per SM of an H100
 _MIN_SPLIT_ROWS = 256             # rows a dW split sums, at least
 _MAX_GRID_Y = 65535
+# the tensor-core route of #11 (csrc/conv_bn_tc.cuh)
+_TC_PAD = 64                      # channels of its scratch, rounded up to
+_TC_ROWS = 128                    # rows of its product tiles
+_TC_MIN_SPLIT_ROWS = 512          # positions a dW split sums, at least
+_TC_DEPTH = 32                    # positions in one stage of its dW sum
 
 
 def _tiles(n: int) -> int:
@@ -134,16 +140,43 @@ def fused_conv3x3_bn_reference(x4d, w, norm=None, kshift=None):
 
 # ---- what the kernels take --------------------------------------------------
 
-def dw_splits(rows: int, out_rows: int, cols: int) -> int:
+def dw_splits(rows: int, out_rows: int, cols: int, tile_rows: int = _TILE,
+              min_rows: int = _MIN_SPLIT_ROWS) -> int:
     """How many parts the backward kernels split dW's sum over ``rows``
-    into: enough 64 x 64 tiles to fill the card, each part summing at
-    least a few hundred rows, the f32 partials within their budget.  A
-    pure function of the shape, so a shape is always summed alike."""
-    tiles = _tiles(out_rows) * _tiles(cols)
+    into: enough ``tile_rows`` x 64 tiles of the [out_rows, cols] dW to
+    fill the card, each part summing at least ``min_rows`` rows, the f32
+    partials within their budget (one part may pass it at widths near
+    fused_conv3x3_supported's limit).  A pure function of the shape, so a
+    shape is always summed alike."""
+    tiles = -(-out_rows // tile_rows) * _tiles(cols)
     splits = -(-_TARGET_BLOCKS // tiles)
-    splits = min(splits, max(1, rows // _MIN_SPLIT_ROWS),
+    splits = min(splits, max(1, rows // min_rows),
                  _MAX_PART_BYTES // (out_rows * cols * 4))
     return max(1, splits)
+
+
+def conv3x3_bwd_route(dtype) -> str:
+    """Which kernel #11 runs for inputs of ``dtype``: ``"tensor_core"``
+    (bf16 operands, f32 sums on mma.sync) for bfloat16, ``"scalar"`` (f32
+    FMAs) for float32, whose operands the tensor cores would round."""
+    if dtype == torch.bfloat16:
+        return "tensor_core"
+    if dtype == torch.float32:
+        return "scalar"
+    raise TypeError(f"kernel #11 takes float32 or bfloat16, not {dtype}")
+
+
+def tc_channels(n: int) -> int:
+    """A channel count rounded up to the tensor-core route's padding."""
+    return -(-n // _TC_PAD) * _TC_PAD
+
+
+def tc_split_chunk(rows: int, splits: int) -> int:
+    """Positions in each part of the tensor-core dW sum: part s adds
+    positions [s * chunk, (s + 1) * chunk) of ``rows``, equal parts in
+    whole stages of the kernel's 32 positions, the last one short."""
+    chunk = -(-rows // splits)
+    return -(-chunk // _TC_DEPTH) * _TC_DEPTH
 
 
 def _grid_ok(rows: int, cols: int) -> bool:
@@ -304,7 +337,9 @@ _ARGTYPES = {
     ("conv_bn_bwd", "conv_bn_matmul_bwd"):
         [_P] * 17 + [_I, _L, _I, _I, _I, _I, _I, _P],
     ("conv_bn_bwd", "conv_bn_conv3x3_bwd"):
-        [_P] * 17 + [_I] * 9 + [_P],
+        [_P] * 17 + [_I] * 8 + [_P],
+    ("conv_bn_bwd", "conv_bn_conv3x3_bwd_tc"):
+        [_P] * 20 + [_I] * 10 + [_L, _P],
 }
 
 
@@ -470,7 +505,8 @@ def conv3x3_bn_bwd(x, w, mean, scale, beta, kshift, y, dy, gm, gs, *,
     """Launch kernel #11 on CUDA tensors: the inputs of #10, the forward's
     saved y and dy [B, H, W, Co] in x's dtype, and the f32 cotangents gm,
     gs [Co] (gs doubled).  Returns ``(dx, dw [3, 3, C, Co], dsx [C],
-    dsu [C])``."""
+    dsu [C])``.  bf16 takes the tensor-core route, f32 the scalar one
+    (:func:`conv3x3_bwd_route`); ``conv3x3_bn_bwd.routes`` counts each."""
     name = "conv_bn_conv3x3_bwd"
     b, h, wd, c, co = _check_image(name, x, w)
     _check(name, (("y", y), ("dy", dy)), x.dtype, x.device)
@@ -480,20 +516,56 @@ def conv3x3_bn_bwd(x, w, mean, scale, beta, kshift, y, dy, gm, gs, *,
         "mean": (mean, c), "scale": (scale, c), "beta": (beta, c),
         "kshift": (kshift, co), "gm": (gm, co), "gs": (gs, co)})
     m = b * h * wd
-    dx, dw, dsx, dsu, part, psx, psu, splits = _grad_outputs(
-        x, w, c, fuse_input, 9 * c, co, m)
-    _launch("conv_bn_bwd", name, x.device, x.data_ptr(), w.data_ptr(),
-            mean.data_ptr(), scale.data_ptr(), beta.data_ptr(),
-            kshift.data_ptr(), y.data_ptr(), dy.data_ptr(), gm.data_ptr(),
-            gs.data_ptr(), dx.data_ptr(), part.data_ptr(), dw.data_ptr(),
-            _ptr(psx), _ptr(psu), dsx.data_ptr(), dsu.data_ptr(),
-            int(x.dtype == torch.bfloat16), b, h, wd, c, co,
-            int(fuse_input), int(emit_stats), splits)
+    route = conv3x3_bwd_route(x.dtype)
+    if route == "tensor_core":
+        grads = _conv3x3_bwd_tc(x, w, mean, scale, beta, kshift, y, dy, gm,
+                                gs, fuse_input, emit_stats)
+    else:
+        dx, dw, dsx, dsu, part, psx, psu, splits = _grad_outputs(
+            x, w, c, fuse_input, 9 * c, co, m)
+        _launch("conv_bn_bwd", name, x.device, x.data_ptr(), w.data_ptr(),
+                mean.data_ptr(), scale.data_ptr(), beta.data_ptr(),
+                kshift.data_ptr(), y.data_ptr(), dy.data_ptr(),
+                gm.data_ptr(), gs.data_ptr(), dx.data_ptr(), part.data_ptr(),
+                dw.data_ptr(), _ptr(psx), _ptr(psu), dsx.data_ptr(),
+                dsu.data_ptr(), b, h, wd, c, co, int(fuse_input),
+                int(emit_stats), splits)
+        grads = dx, dw, dsx, dsu
     conv3x3_bn_bwd.launches += 1
+    conv3x3_bn_bwd.routes[route] += 1
+    return grads
+
+
+def _conv3x3_bwd_tc(x, w, mean, scale, beta, kshift, y, dy, gm, gs,
+                    fuse_input, emit_stats):
+    """The tensor-core launch of #11 (bf16), its scratch allocated here."""
+    b, h, wd, c = x.shape
+    co, m, dev = w.shape[3], b * h * wd, x.device
+    cp, cop = tc_channels(c), tc_channels(co)
+    splits = dw_splits(m, 9 * cp, cop, _TC_ROWS, _TC_MIN_SPLIT_ROWS)
+    z = torch.empty((m, cp), dtype=x.dtype, device=dev)
+    dyl = torch.empty((m, cop), dtype=x.dtype, device=dev)
+    wp = torch.empty((9, cp, cop), dtype=x.dtype, device=dev)
+    part = torch.empty((splits, 9 * cp, cop), dtype=torch.float32,
+                       device=dev)
+    psx, psu = ((torch.empty((-(-m // _TC_ROWS), c), dtype=torch.float32,
+                             device=dev) for _ in range(2))
+                if fuse_input else (None, None))
+    dsx, dsu = torch.zeros(c, device=dev), torch.zeros(c, device=dev)
+    dx, dw = torch.empty_like(x), torch.empty_like(w)
+    _launch("conv_bn_bwd", "conv_bn_conv3x3_bwd_tc", dev, x.data_ptr(),
+            w.data_ptr(), mean.data_ptr(), scale.data_ptr(), beta.data_ptr(),
+            kshift.data_ptr(), y.data_ptr(), dy.data_ptr(), gm.data_ptr(),
+            gs.data_ptr(), dx.data_ptr(), z.data_ptr(), dyl.data_ptr(),
+            wp.data_ptr(), part.data_ptr(), dw.data_ptr(), _ptr(psx),
+            _ptr(psu), dsx.data_ptr(), dsu.data_ptr(), b, h, wd, c, co,
+            int(fuse_input), int(emit_stats), splits, cp, cop,
+            tc_split_chunk(m, splits))
     return dx, dw, dsx, dsu
 
 
 conv3x3_bn_bwd.launches = 0
+conv3x3_bn_bwd.routes = {"tensor_core": 0, "scalar": 0}
 
 _KERNELS = (matmul_bn_fwd, matmul_bn_bwd, conv3x3_bn_fwd, conv3x3_bn_bwd)
 _PLAIN = (plain_matmul_bn_fwd, plain_matmul_bn_bwd, plain_conv3x3_bn_fwd,

@@ -43,11 +43,16 @@
 //
 // What bounds them on an H100: operations (4 or, with the recomputed y,
 // 6 * M * K * N for the 1x1; 36 * B * H * W * C * Co for the 3x3) at the
-// bf16 tensor-core rate.  They run scalar f32 FMAs on the CUDA cores; z and
-// dyl are recomputed where they are loaded instead of stored.  Tensor
-// cores and TMA are later work.  The entry points return cudaGetLastError().
+// bf16 tensor-core rate.  conv_bn_matmul_bwd and conv_bn_conv3x3_bwd run
+// scalar f32 FMAs on the CUDA cores; z and dyl are recomputed where they
+// are loaded instead of stored.  The 3x3 in bf16 has a tensor-core route,
+// conv_bn_conv3x3_bwd_tc (conv_bn_tc.cuh: a prepass that stores z and dyl
+// once, then implicit GEMMs on mma.sync); the wrapper takes it for bf16
+// and the scalar entry for f32.  The entry points return
+// cudaGetLastError().
 
 #include "conv_bn_common.cuh"
+#include "conv_bn_tc.cuh"
 
 namespace {
 
@@ -362,24 +367,90 @@ int conv_bn_matmul_bwd(const void* x, const void* w, const float* mean,
 }
 
 // x [B,H,W,C], w [3,3,C,Co], y and dy [B,H,W,Co] (y: the forward's saved
-// output), dx [B,H,W,C], dw [3,3,C,Co]; mean, scale, beta [C] and kshift,
-// gm, gs [Co] f32; dw_part f32 [splits, 9*C, Co]; psx, psu f32
-// [ceil(B*H*W/64), C]; dsx, dsu f32 [C].
+// output), dx [B,H,W,C], dw [3,3,C,Co], all f32 (bf16 takes
+// conv_bn_conv3x3_bwd_tc); mean, scale, beta [C] and kshift, gm, gs [Co]
+// f32; dw_part f32 [splits, 9*C, Co]; psx, psu f32 [ceil(B*H*W/64), C];
+// dsx, dsu f32 [C].
 int conv_bn_conv3x3_bwd(const void* x, const void* w, const float* mean,
                         const float* scale, const float* beta,
                         const float* kshift, const void* y, const void* dy,
                         const float* gm, const float* gs, void* dx,
                         float* dw_part, void* dw, float* psx, float* psu,
-                        float* dsx, float* dsu, int bf16, int B, int H, int W,
-                        int C, int Co, int fuse_input, int emit_stats,
-                        int splits, void* stream) {
+                        float* dsx, float* dsu, int B, int H, int W, int C,
+                        int Co, int fuse_input, int emit_stats, int splits,
+                        void* stream) {
   const Vecs v{mean, scale, beta, kshift, gm, gs, fuse_input, emit_stats};
+  return conv3_bwd<float>(x, w, v, y, dy, dx, dw_part, dw, psx, psu, dsx,
+                          dsu, B, H, W, C, Co, splits,
+                          static_cast<cudaStream_t>(stream));
+}
+
+// The 3x3 on the tensor cores, bf16 only: the arguments of
+// conv_bn_conv3x3_bwd, and scratch z [B*H*W, Cp], dyl [B*H*W, Cop], wp
+// [9, Cp, Cop] (bf16; Cp, Cop: C, Co rounded up to a multiple of 64),
+// dw_part f32 [splits, 9*Cp, Cop], psx, psu f32 [ceil(B*H*W/128), C];
+// split s of the dW sum adds positions [s * chunk, (s + 1) * chunk).
+int conv_bn_conv3x3_bwd_tc(const void* x, const void* w, const float* mean,
+                           const float* scale, const float* beta,
+                           const float* kshift, const void* y, const void* dy,
+                           const float* gm, const float* gs, void* dx,
+                           void* z, void* dyl, void* wp, float* dw_part,
+                           void* dw, float* psx, float* psu, float* dsx,
+                           float* dsu, int B, int H, int W, int C, int Co,
+                           int fuse_input, int emit_stats, int splits,
+                           int Cp, int Cop, long long chunk, void* stream) {
+  namespace t = convbn::tcconv;
+  const long long M = (long long)B * H * W;
+  if (Cp % t::kBN != 0 || Cp < C || Cop % t::kBN != 0 || Cop < Co ||
+      chunk < 1 || chunk * splits < M)
+    return (int)cudaErrorInvalidValue;
+  using bf16 = __nv_bfloat16;
+  t::Problem p{};
+  p.x = static_cast<const bf16*>(x);
+  p.w = static_cast<const bf16*>(w);
+  p.y = static_cast<const bf16*>(y);
+  p.dy = static_cast<const bf16*>(dy);
+  p.z = static_cast<bf16*>(z);
+  p.dyl = static_cast<bf16*>(dyl);
+  p.wp = static_cast<bf16*>(wp);
+  p.dx = static_cast<bf16*>(dx);
+  p.dw = static_cast<bf16*>(dw);
+  p.part = dw_part;
+  p.psx = psx;
+  p.psu = psu;
+  p.mean = mean;
+  p.scale = scale;
+  p.beta = beta;
+  p.kshift = kshift;
+  p.gm = gm;
+  p.gs = gs;
+  p.img = convbn::Image{B, H, W};
+  p.M = M;
+  p.chunk = chunk;
+  p.C = C;
+  p.Co = Co;
+  p.Cp = Cp;
+  p.Cop = Cop;
+  p.splits = splits;
+  p.fuse = fuse_input;
+  p.stats = emit_stats;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? conv3_bwd<__nv_bfloat16>(x, w, v, y, dy, dx, dw_part, dw,
-                                         psx, psu, dsx, dsu, B, H, W, C, Co,
-                                         splits, s)
-              : conv3_bwd<float>(x, w, v, y, dy, dx, dw_part, dw, psx, psu,
-                                 dsx, dsu, B, H, W, C, Co, splits, s);
+  const long long chunks =
+      p.M * (p.Cp / 8) + p.M * (p.Cop / 8) + 9LL * p.Cp * (p.Cop / 8);
+  const long long pre_blocks = (chunks + 255) / 256;
+  t::prepass<<<(unsigned)(pre_blocks < 132 * 16 ? pre_blocks : 132 * 16), 256,
+               0, s>>>(p);
+  const long long m_tiles = (p.M + t::kBM - 1) / t::kBM;
+  t::dgrad<<<dim3((unsigned)m_tiles, p.Cp / t::kBN), t::kThreads, 0, s>>>(p);
+  t::wgrad<<<dim3((9 * p.Cp + t::kBM - 1) / t::kBM, p.Cop / t::kBN, splits),
+             t::kThreads, 0, s>>>(p);
+  const long long n_dw = 9LL * C * Co;
+  t::reduce_dw<<<(unsigned)((n_dw + 255) / 256), 256, 0, s>>>(p);
+  if (fuse_input) {
+    convbn::launch_reduce<float>(psx, m_tiles, C, dsx, s);
+    convbn::launch_reduce<float>(psu, m_tiles, C, dsu, s);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

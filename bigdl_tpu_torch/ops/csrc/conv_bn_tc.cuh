@@ -1,0 +1,468 @@
+// Kernel #11 on the tensor cores: the backward of the fused 3x3 conv+BN
+// (conv_bn_conv3x3_bwd_tc in conv_bn_bwd.cu), for bf16 inputs, the
+// `--fused --bf16` training path.  It computes what the scalar route
+// (Conv3Dz / Conv3Dw over tile_product) computes, at the same rounding
+// points, and replaces the same TPU kernel (_conv3_bwd_kernel).
+//
+// Why a redesign.  The scalar route folds dy and normalises x again at
+// every load of every pass (each dy element 9 x ceil(C/64) times), with
+// 64-bit divisions per element, and sums with scalar f32 FMAs.  Here:
+//
+// 1. A prepass forms each operand once, with the scalar route's own
+//    functions (norm_relu, fold_dy), into scratch the wrapper allocates:
+//      z   [M, Cp]  bf16  relu((x - mean) * scale + beta) cast to x's dtype
+//      dyl [M, Cop] bf16  dy + gm + gs (y - K) cast to dy's dtype
+//      wp  [9, Cp, Cop] bf16, W with its channels padded
+//    Cp and Cop are C and Co rounded up to 64 with zeros (the wrapper
+//    picks them, tc_channels), so every 16-byte copy and every product
+//    tile below is whole in the channel dims.
+// 2. dgrad: dz [M, C] = sum over (tap, co) of dyl(position shifted by the
+//    tap) . W[tap]^T, an implicit GEMM: 128 positions x 64 channels per
+//    block of 8 warps (32 x 32 each), K in 32-wide chunks of one tap,
+//    three cp.async stages.  A shifted row outside the image is a 16-byte
+//    copy of source size 0: it reads zeros, as the reference zeroes its
+//    halo.  The epilogue is the scalar route's: du = dz where u > 0,
+//    dx = du * scale cast to x's dtype, and per-tile partials of
+//    sum du * x and sum du over the block's 128 rows in a fixed order
+//    (each thread's rows, a shuffle tree over the 8 row groups of a warp,
+//    then the 4 warps in turn).  A thread keeps the row and column of
+//    each position it loads, so a shift costs no division (Pos).
+// 3. wgrad: dW [9 Cp, Cop] = sum over positions of z(shifted)^T . dyl,
+//    rows (tap, c), split over positions into parts of `chunk` positions
+//    that the wrapper fixes from the shape alone (tc_dw_splits,
+//    tc_split_chunk); each split writes its f32
+//    partial and reduce_dw adds them in order and casts to W's dtype.  Both operands are position-major in memory, so they come
+//    through ldmatrix.trans.
+// 4. bf16 x bf16 -> f32 on mma.sync.m16n8k16 (tensor_core.cuh says why
+//    not wgmma yet).  No float atomics: two launches give the same bits.
+//
+// f32 inputs keep the scalar route (TF32 would round the operands to 10
+// bits); the wrapper routes by dtype and counts each route.
+
+#pragma once
+
+#include "conv_bn_common.cuh"
+#include "tensor_core.cuh"
+
+namespace convbn {
+namespace tcconv {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kBM = 128;       // rows of a product tile
+constexpr int kBN = 64;        // columns of a product tile
+constexpr int kBK = 32;        // depth of one stage
+constexpr int kStages = 3;
+constexpr int kThreads = 256;  // 8 warps: 4 along rows x 2 along columns
+constexpr int kLdK = kBK + 8;  // K-contiguous smem rows (dgrad)
+constexpr int kLdA = kBM + 8;  // row-contiguous smem rows (wgrad A)
+constexpr int kLdB = kBN + 8;  // column-contiguous smem rows (wgrad B)
+
+struct Problem {
+  const bf16* x;    // [M, C]
+  const bf16* w;    // [9, C, Co]
+  const bf16* y;    // [M, Co], the forward's saved output
+  const bf16* dy;   // [M, Co]
+  bf16* z;          // [M, Cp] scratch
+  bf16* dyl;        // [M, Cop] scratch
+  bf16* wp;         // [9, Cp, Cop] scratch
+  bf16* dx;         // [M, C]
+  bf16* dw;         // [9, C, Co]
+  float* part;      // [splits, 9 Cp, Cop]
+  float *psx, *psu; // [ceil(M / 128), C]
+  const float *mean, *scale, *beta, *kshift, *gm, *gs;
+  Image img;
+  long long M, chunk;  // positions, and positions per dW split
+  int C, Co, Cp, Cop, splits, fuse, stats;
+};
+
+// ---- 1. the prepass -------------------------------------------------------
+
+// dyl of one entry as the reference forms it: dy folded with the
+// statistics cotangents, cast to dy's dtype (bf16)
+__device__ __forceinline__ bf16 dyl_entry(float dy, float y, float gm,
+                                          float gs, float k, int stats) {
+  return from_f32<bf16>(fold_dy<bf16>(dy, y, gm, gs, k, stats));
+}
+
+// one thread per 8 consecutive channels of a row of z, dyl or wp
+__global__ void __launch_bounds__(256) prepass(const Problem p) {
+  const long long nz = p.M * (p.Cp / 8), ndy = p.M * (p.Cop / 8);
+  const long long total = nz + ndy + 9LL * p.Cp * (p.Cop / 8);
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < total; i += (long long)gridDim.x * blockDim.x) {
+    __align__(16) bf16 out[8];
+    bf16* dst;
+    if (i < nz) {
+      const long long m = i / (p.Cp / 8);
+      const int c0 = (int)(i % (p.Cp / 8)) * 8;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = c0 + j;
+        float zv = 0.f;
+        if (c < p.C) {
+          const float xv = to_f32(p.x[m * p.C + c]);
+          zv = p.fuse ? norm_relu<bf16>(xv, p.mean[c], p.scale[c], p.beta[c])
+                      : xv;
+        }
+        out[j] = from_f32<bf16>(zv);
+      }
+      dst = p.z + m * p.Cp + c0;
+    } else if (i < nz + ndy) {
+      const long long r = i - nz;
+      const long long m = r / (p.Cop / 8);
+      const int c0 = (int)(r % (p.Cop / 8)) * 8;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int co = c0 + j;
+        const long long at = m * p.Co + co;
+        out[j] = co < p.Co
+                     ? dyl_entry(to_f32(p.dy[at]),
+                                 p.stats ? to_f32(p.y[at]) : 0.f, p.gm[co],
+                                 p.gs[co], p.kshift[co], p.stats)
+                     : from_f32<bf16>(0.f);
+      }
+      dst = p.dyl + m * p.Cop + c0;
+    } else {
+      const long long r = i - nz - ndy;
+      const long long row = r / (p.Cop / 8);  // tap * Cp + c
+      const int co0 = (int)(r % (p.Cop / 8)) * 8;
+      const int tap = (int)(row / p.Cp), c = (int)(row % p.Cp);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int co = co0 + j;
+        out[j] = (c < p.C && co < p.Co)
+                     ? p.w[((long long)tap * p.C + c) * p.Co + co]
+                     : from_f32<bf16>(0.f);
+      }
+      dst = p.wp + row * p.Cop + co0;
+    }
+    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(out);
+  }
+}
+
+// ---- the product tiles ----------------------------------------------------
+
+// 16 bytes of row `pos` of a [rows, ld] operand at column c, or zeros
+// where pos < 0 (the image's halo, or a row beyond the problem); `own` is
+// a row inside the operand, whose address stands in for an outside one
+__device__ __forceinline__ void load_row16(bf16* dst, const bf16* base,
+                                           long long pos, long long own,
+                                           int ld, int c) {
+  const bool halo = pos < 0;
+  tc::cp_async16(dst, base + (halo ? own : pos) * ld + c, !halo);  // the halo reads zeros
+}
+
+// A position m of the image batch with its row h and column w, so that a
+// shift costs no division: the main loops move it along by additions.
+struct Pos {
+  long long m;
+  int h, w;
+  __device__ __forceinline__ void set(const Image& img, long long at) {
+    m = at;
+    w = (int)(at % img.W);
+    h = (int)(at / img.W % img.H);
+  }
+  // m + step, with step % W and step / W % H given as dw and dh
+  __device__ __forceinline__ void advance(const Image& img, long long step,
+                                          int dh, int dw) {
+    m += step;
+    w += dw;
+    const int carry = w >= img.W;
+    w -= carry ? img.W : 0;
+    h += dh + carry;
+    h -= h >= img.H ? img.H : 0;
+  }
+  // the flat index of this position shifted by (dh, dw), or -1 outside
+  // the image or at m >= end
+  __device__ __forceinline__ long long shifted(const Image& img,
+                                               long long end, int dh,
+                                               int dw) const {
+    const int hh = h + dh, ww = w + dw;
+    if (m >= end || hh < 0 || hh >= img.H || ww < 0 || ww >= img.W)
+      return -1;
+    return m + (long long)dh * img.W + dw;
+  }
+};
+
+using Acc = float[2][4][4];  // [16-row tile][8-column tile][fragment]
+
+__device__ __forceinline__ void zero(Acc& acc) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+}
+
+// The cp.async ring: load(stage, kstep) issues one stage's copies,
+// compute(stage) consumes one; nk stages in all.
+template <class Load, class Compute>
+__device__ __forceinline__ void mainloop(int nk, Load load, Compute compute) {
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nk) load(s, s);
+    tc::cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    tc::cp_async_wait<kStages - 2>();
+    __syncthreads();  // stage kt landed; stage kt - 1 is free for reuse
+    const int next = kt + kStages - 1;
+    if (next < nk) load(next % kStages, next);
+    tc::cp_async_commit();
+    compute(kt % kStages);
+  }
+  tc::cp_async_wait<0>();
+  __syncthreads();
+}
+
+// ---- 2. dgrad -------------------------------------------------------------
+
+__global__ void __launch_bounds__(kThreads, 3) dgrad(const Problem p) {
+  __shared__ __align__(16) bf16 As[kStages][kBM][kLdK];
+  __shared__ __align__(16) bf16 Bs[kStages][kBN][kLdK];
+  __shared__ float sums[2][4][kBN];
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int wm = warp % 4, wn = warp / 4, g = lane / 4, t4 = lane % 4;
+  const long long m0 = (long long)blockIdx.x * kBM;
+  const int c0 = blockIdx.y * kBN;
+  const int nco = p.Cop / kBK;  // chunks per tap
+
+  // this thread's two A rows (fixed over K) and its B row
+  const int a_ch = tid % 4;
+  Pos a_m[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) a_m[i].set(p.img, m0 + (tid + i * kThreads) / 4);
+
+  auto load = [&](int st, int kc) {
+    const int tap = kc / nco, co0 = (kc % nco) * kBK;
+    // dz at (h, w) takes dyl at (h + 1 - dh, w + 1 - dw)
+    const int dh = 1 - tap / 3, dw = 1 - tap % 3;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = (tid + i * kThreads) / 4;
+      const long long pos = a_m[i].shifted(p.img, p.M, dh, dw);
+      load_row16(&As[st][r][a_ch * 8], p.dyl, pos,
+                 a_m[i].m < p.M ? a_m[i].m : 0, p.Cop, co0 + a_ch * 8);
+    }
+    const int r = tid / 4;
+    tc::cp_async16(&Bs[st][r][a_ch * 8],
+                   p.wp + ((long long)tap * p.Cp + c0 + r) * p.Cop + co0 +
+                       a_ch * 8,
+                   true);
+  };
+
+  // Two-level sums: each stage's 32-deep product goes into a fresh f32
+  // tile, added to the running sum with one rounded add per entry.  The
+  // tensor cores' own f32 accumulation drops the low bits of its addends
+  // (it does not round to nearest), so over 9 * Co products it would
+  // drift from the plain version's f32 sums by far more than their
+  // rounding; dz feeds the f32 channel sums sum du * x and sum du.
+  Acc acc;
+  zero(acc);
+  auto compute = [&](int st) {
+    Acc part;
+    zero(part);
+#pragma unroll
+    for (int ks = 0; ks < kBK / 16; ++ks) {
+      uint32_t a[2][4], b[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+        tc::ldmatrix_x4(a[mi], &As[st][wm * 32 + mi * 16 + lane % 16]
+                                  [ks * 16 + (lane / 16) * 8]);
+#pragma unroll
+      for (int np = 0; np < 2; ++np)
+        tc::ldmatrix_x4(b[np],
+                        &Bs[st][wn * 32 + np * 16 + lane % 8 + (lane / 16) * 8]
+                           [ks * 16 + ((lane / 8) % 2) * 8]);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+          tc::mma_bf16(part[mi][ni], a[mi], b[ni / 2][(ni % 2) * 2],
+                       b[ni / 2][(ni % 2) * 2 + 1]);
+    }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[mi][ni][e] = __fadd_rn(acc[mi][ni][e], part[mi][ni][e]);
+  };
+  mainloop(9 * nco, load, compute);
+
+  // epilogue: du, dx and the per-tile channel partials
+  float c1[4][2], c2[4][2];
+#pragma unroll
+  for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) c1[ni][e] = c2[ni][e] = 0.f;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const long long m = m0 + wm * 32 + mi * 16 + g + half * 8;
+      if (m >= p.M) continue;
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = c0 + wn * 32 + ni * 8 + 2 * t4 + e;
+          if (c >= p.C) continue;
+          const float dz = acc[mi][ni][half * 2 + e];
+          const long long at = m * p.C + c;
+          if (p.fuse) {
+            const float xv = to_f32(p.x[at]);
+            const float u = bn_input(xv, p.mean[c], p.scale[c], p.beta[c]);
+            const float du = u > 0.f ? dz : 0.f;
+            c1[ni][e] += __fmul_rn(du, xv);
+            c2[ni][e] += du;
+            p.dx[at] = from_f32<bf16>(__fmul_rn(du, p.scale[c]));
+          } else {
+            p.dx[at] = from_f32<bf16>(dz);
+          }
+        }
+    }
+  if (!p.fuse) return;  // uniform over the block
+  // over the warp's 8 row groups, then its 4 warps along the rows
+#pragma unroll
+  for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int off = 4; off < 32; off *= 2) {
+        c1[ni][e] += __shfl_xor_sync(0xffffffffu, c1[ni][e], off);
+        c2[ni][e] += __shfl_xor_sync(0xffffffffu, c2[ni][e], off);
+      }
+  if (g == 0)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = wn * 32 + ni * 8 + 2 * t4 + e;
+        sums[0][wm][col] = c1[ni][e];
+        sums[1][wm][col] = c2[ni][e];
+      }
+  __syncthreads();
+  if (tid < kBN && c0 + tid < p.C) {
+    float t1 = 0.f, t2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      t1 += sums[0][i][tid];
+      t2 += sums[1][i][tid];
+    }
+    p.psx[(long long)blockIdx.x * p.C + c0 + tid] = t1;
+    p.psu[(long long)blockIdx.x * p.C + c0 + tid] = t2;
+  }
+}
+
+// ---- 3. wgrad -------------------------------------------------------------
+
+__global__ void __launch_bounds__(kThreads) wgrad(const Problem p) {
+  __shared__ __align__(16) bf16 As[kStages][kBK][kLdA];  // [position][row]
+  __shared__ __align__(16) bf16 Bs[kStages][kBK][kLdB];  // [position][col]
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int wm = warp % 4, wn = warp / 4, g = lane / 4, t4 = lane % 4;
+  const int r0 = blockIdx.x * kBM;  // rows (tap, c) of dW
+  const int n0 = blockIdx.y * kBN;  // output channels
+  const int rows = 9 * p.Cp;
+
+  const long long begin = blockIdx.z * p.chunk;
+  const long long end = begin + p.chunk < p.M ? begin + p.chunk : p.M;
+  const int nk = end > begin ? (int)((end - begin + kBK - 1) / kBK) : 0;
+
+  // this thread's A column chunk (fixed): 8 channels of one tap
+  const int a_j = tid % 16;
+  const int a_row = r0 + a_j * 8;
+  const int a_tap = a_row / p.Cp, a_c = a_row % p.Cp;
+  // dW row (dh, dw, c) sums z at (h + dh - 1, w + dw - 1)
+  const int a_dh = a_tap / 3 - 1, a_dw = a_tap % 3 - 1;
+  const int b_ch = tid % 8;
+  // this thread's two A positions of the next stage to load (the stages
+  // are loaded in order, kBK positions apart)
+  Pos a_m[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    a_m[i].set(p.img, begin + (tid + i * kThreads) / 16);
+  const int step_w = kBK % p.img.W, step_h = kBK / p.img.W % p.img.H;
+
+  auto load = [&](int st, int kt) {
+    const long long kbase = begin + (long long)kt * kBK;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int kr = (tid + i * kThreads) / 16;
+      const long long pos =
+          a_row < rows ? a_m[i].shifted(p.img, end, a_dh, a_dw) : -1;
+      load_row16(&As[st][kr][a_j * 8], p.z, pos,
+                 a_m[i].m < end ? a_m[i].m : 0, p.Cp,
+                 a_row < rows ? a_c : 0);
+      a_m[i].advance(p.img, kBK, step_h, step_w);
+    }
+    const int kr = tid / 8;
+    const long long m = kbase + kr;
+    tc::cp_async16(&Bs[st][kr][b_ch * 8],
+                   p.dyl + (m < end ? m : 0) * p.Cop + n0 + b_ch * 8,
+                   m < end);
+  };
+
+  Acc acc;
+  zero(acc);
+  auto compute = [&](int st) {
+#pragma unroll
+    for (int ks = 0; ks < kBK / 16; ++ks) {
+      uint32_t a[2][4], b[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+        tc::ldmatrix_x4_trans(
+            a[mi], &As[st][ks * 16 + lane % 8 + (lane / 16) * 8]
+                      [wm * 32 + mi * 16 + ((lane / 8) % 2) * 8]);
+#pragma unroll
+      for (int np = 0; np < 2; ++np)
+        tc::ldmatrix_x4_trans(
+            b[np], &Bs[st][ks * 16 + lane % 8 + ((lane / 8) % 2) * 8]
+                      [wn * 32 + np * 16 + (lane / 16) * 8]);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+          tc::mma_bf16(acc[mi][ni], a[mi], b[ni / 2][(ni % 2) * 2],
+                       b[ni / 2][(ni % 2) * 2 + 1]);
+    }
+  };
+  mainloop(nk, load, compute);
+
+  float* out = p.part + (long long)blockIdx.z * rows * p.Cop;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = r0 + wm * 32 + mi * 16 + g + half * 8;
+      if (r >= rows) continue;
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const int col = n0 + wn * 32 + ni * 8 + 2 * t4;
+        *reinterpret_cast<float2*>(out + (long long)r * p.Cop + col) =
+            make_float2(acc[mi][ni][half * 2], acc[mi][ni][half * 2 + 1]);
+      }
+    }
+}
+
+// dW [9, C, Co] = the splits' partials added in order, cast to W's dtype
+__global__ void reduce_dw(const Problem p) {
+  const long long n = 9LL * p.C * p.Co;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int co = (int)(i % p.Co);
+  const long long t = i / p.Co;
+  const int c = (int)(t % p.C), tap = (int)(t / p.C);
+  const long long at = ((long long)tap * p.Cp + c) * p.Cop + co;
+  const long long step = 9LL * p.Cp * p.Cop;
+  float tot = 0.f;
+  for (int s = 0; s < p.splits; ++s) tot += p.part[s * step + at];
+  p.dw[i] = from_f32<bf16>(tot);
+}
+
+}  // namespace tcconv
+}  // namespace convbn

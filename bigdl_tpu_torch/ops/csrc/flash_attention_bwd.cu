@@ -3,7 +3,8 @@
 //
 // Replaces the TPU kernels of bigdl_tpu/ops/attention_kernels.py:
 //   flash_attention_dq    <- _bwd_impl / _flash_dq_kernel   (#2, pallas_call :483)
-//   flash_attention_dkv   <- _bwd_impl / _flash_dkv_kernel  (#3, pallas_call :515)
+//   flash_attention_dkv   <- _bwd_impl / _flash_dkv_kernel  (#3, pallas_call :515:
+//                          scalar FMAs for f32, the tensor cores for bf16)
 //   flash_attention_dbias <- _dbias_impl / _flash_dbias_kernel (#4, pallas_call :549)
 //   flash_attention_dq_partial  <- flash_attention_dq_partial /
 //                          _flash_dq_partial_kernel  (#6, pallas_call :787)
@@ -12,8 +13,13 @@
 // They compute what those kernels compute, from the forward kernel's lse
 // and Delta = rowsum(dO * O) (a PyTorch op outside, as _bwd_prep is XLA):
 //
-//   s   = (q . k) * scale (+ bias)    the forward's score, bit for bit: the
-//                                     same f32 FMA order over the head dim
+//   s   = (q . k) * scale (+ bias)    the forward's score: bit for bit in the
+//                                     scalar kernels (the same f32 FMA order
+//                                     over the head dim); in the bf16
+//                                     tensor-core dK/dV kernel every product
+//                                     of two bf16 values is exact in f32 and
+//                                     only the order of the head-dim sum
+//                                     differs from kernel #1's
 //   s   = -1e9 where key > row + off  causal mask: REPLACES the score
 //   P   = exp(s - lse)                recomputed per tile, never stored
 //   dP  = dO . v                      f32
@@ -63,9 +69,28 @@
 // no row of the block can see are skipped.  No float atomics: the split of
 // the reference (dQ streams K/V, dK/dV streams Q/dO) makes every output
 // the sum of one block in a fixed order, so two runs give the same bits.
-// Tensor cores, TMA and cp.async pipelining are a later PR's work.  The
-// partial kernels' chunk pair (B8 H8 Tc512 D64) is the same kind of work,
-// 8x smaller than the whole causal sequence, so the same holds for them.
+// The partial kernels' chunk pair (B8 H8 Tc512 D64) is the same kind of
+// work, 8x smaller than the whole causal sequence, so the same holds for
+// them.
+//
+// dK/dV in bf16 (#3 on the LM training path) runs on the tensor cores
+// instead: flash_dkv_tc_kernel, the FlashAttention-2 dK/dV structure on
+// mma.sync.m16n8k16 (tensor_core.cuh says why not wgmma yet).  A block of
+// 4 warps owns 64 keys of one (b, h), 16 per warp, with K and V in shared
+// memory; tiles of 32 queries of Q and dO, with their lse
+// and Delta, stream through two shared-memory stages by cp.async (16-byte
+// copies, zero filled beyond Tq and D; element loads where a stride or D
+// is not a multiple of 8).  Per tile each warp forms S^T = K . Q^T and
+// dP^T = V . dO^T on the tensor cores into f32 registers, forms P and dS
+// from them in registers (p_and_ds's arithmetic, with every step rounded
+// as torch rounds the plain version), casts P and
+// dS to bf16 as the reference does (dO's and Q's dtype), and adds
+// dV += P^T . dO and dK += dS^T . Q with P^T and dS^T taken straight from
+// its registers as the A operand.  Query tiles wholly before the block's
+// first key are skipped.  f32 inputs, and the ring's #7 (dO in f32: two of
+// its products are f32 products), keep the scalar flash_dkv_kernel: the
+// entry point flash_attention_dkv routes by dtype and the wrapper counts
+// each route.
 //
 // Work split (fixed tiles; ragged edges masked here):
 //   dQ    grid (B*H, ceil(Tq/16)): 4 warps x 4 query rows; loops over
@@ -73,13 +98,18 @@
 //         for the dS . K accumulation.
 //   dK/dV grid (B*H, ceil(Tk/16)): 4 warps x 4 keys; loops over 32-query
 //         tiles, lane = query for s and dP, lane = column for the sums.
+//   dK/dV on the tensor cores (bf16) grid (B*H, ceil(Tk/64)): 4 warps x 16
+//         keys; loops over 32-query tiles, two stages.
 //   dBias grid (B*H, ceil(Tq/16), ceil(Tk/32)): one 16 x 32 tile each.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #include <type_traits>
+
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -110,6 +140,7 @@ struct Params {
   float scale;
   int causal;
   int causal_offset;  // key j is visible to row i when j <= i + offset
+  int vec;            // 16-byte copies: D, the strides and pointers align
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -396,6 +427,243 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(const Params p) {
   }
 }
 
+// ---- dK / dV on the tensor cores (bf16) --------------------------------------
+
+constexpr int kTcWarps = 4;
+constexpr int kTcThreads = kTcWarps * 32;
+constexpr int kTcKeys = kTcWarps * 16;  // keys per block, 16 per warp
+
+template <int DMAX>
+struct DkvTc {
+  static constexpr int kQ = 32;  // queries per tile
+  static constexpr int kLd = DMAX + 8;  // padded row: ldmatrix hits 8 banks
+  static constexpr int kQTiles = kQ / 8;    // n8 tiles of S^T per warp
+  static constexpr int kDTiles = DMAX / 8;  // n8 tiles of dK, dV per warp
+  static constexpr size_t kSmem =
+      (size_t)(2 * kTcKeys + 4 * kQ) * kLd * sizeof(__nv_bfloat16) +
+      4 * kQ * sizeof(float);
+};
+
+// rows [r0, r0 + n) of a [T, D] bf16 operand (strided rows, contiguous
+// columns) into shared memory rows of kLd, zero beyond T and D: 16-byte
+// cp.async copies when p.vec, else element loads
+template <int DMAX>
+__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
+                                               const __nv_bfloat16* src,
+                                               long long st, int r0, int n,
+                                               int T_, int D, int vec) {
+  constexpr int kLd = DkvTc<DMAX>::kLd;
+  if (vec) {
+    constexpr int kChunks = DMAX / 8;
+    for (int i = threadIdx.x; i < n * kChunks; i += kTcThreads) {
+      const int r = i / kChunks, c = (i % kChunks) * 8, t = r0 + r;
+      const bool inside = t < T_ && c < D;
+      tc::cp_async16(dst + r * kLd + c, inside ? src + t * st + c : src,
+                     inside);
+    }
+  } else {
+    for (int i = threadIdx.x; i < n * DMAX; i += kTcThreads) {
+      const int r = i / DMAX, c = i % DMAX, t = r0 + r;
+      dst[r * kLd + c] =
+          (t < T_ && c < D) ? src[t * st + c] : __float2bfloat16_rn(0.f);
+    }
+  }
+}
+
+// p_and_ds with every elementwise step one rounded f32 operation, as torch
+// computes the plain version (no FMA contraction of the scale, bias and lse)
+__device__ __forceinline__ void p_and_ds_rn(const Params& p, const float* bias,
+                                            float dot, float dp, float lse,
+                                            float delta, int row, int key,
+                                            float* pr, float* ds) {
+  if (p.causal && row + p.causal_offset < 0) {  // sees no key
+    *pr = 1.f / (float)p.Tk;
+    *ds = 0.f;
+    return;
+  }
+  if (p.causal && key > row + p.causal_offset) {  // a replaced score
+    *pr = expf(__fsub_rn(kMaskedScore, lse));
+    *ds = 0.f;
+    return;
+  }
+  float x = __fmul_rn(dot, p.scale);
+  if (bias != nullptr) x = __fadd_rn(x, bias[row * p.b_sq + key * p.b_sk]);
+  *pr = expf(__fsub_rn(x, lse));
+  *ds = __fmul_rn(*pr, __fsub_rn(dp, delta));
+}
+
+template <int DMAX>
+__global__ void __launch_bounds__(kTcThreads, DMAX <= 64 ? 3 : 1)
+    flash_dkv_tc_kernel(const Params p) {
+  using Cfg = DkvTc<DMAX>;
+  constexpr int kQ = Cfg::kQ, kLd = Cfg::kLd;
+  constexpr int kQTiles = Cfg::kQTiles, kDTiles = Cfg::kDTiles;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* vs = ks + kTcKeys * kLd;
+  __nv_bfloat16* qs = vs + kTcKeys * kLd;  // [2][kQ][kLd]
+  __nv_bfloat16* dos = qs + 2 * kQ * kLd;  // [2][kQ][kLd]
+  float* lse_s = reinterpret_cast<float*>(dos + 2 * kQ * kLd);  // [2][kQ]
+  float* delta_s = lse_s + 2 * kQ;                              // [2][kQ]
+
+  const int bh = blockIdx.x;
+  const int b = bh / p.H, h = bh % p.H;
+  const int k0 = blockIdx.y * kTcKeys;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int kw = warp * 16;  // this warp's first key in the block
+
+  using bf16 = __nv_bfloat16;
+  const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const bf16* dout = static_cast<const bf16*>(p.dout) + b * p.o_sb +
+                     h * p.o_sh;
+  const float* bias =
+      p.bias == nullptr ? nullptr : p.bias + b * p.b_sb + h * p.b_sh;
+
+  // query tiles that no row can reach the block's keys from are skipped
+  // (as flash_dkv_kernel); rows that see no key weigh every key with 1/Tk
+  int first = 0;
+  if (p.causal && p.causal_offset >= 0)
+    first = max(0, k0 - p.causal_offset) / kQ;
+  const int n_tiles = (p.Tq + kQ - 1) / kQ;
+
+  auto load_queries = [&](int stage, int tile) {
+    const int i0 = tile * kQ;
+    load_tile_bf16<DMAX>(qs + stage * kQ * kLd, q, p.q_st, i0, kQ, p.Tq, p.D,
+                         p.vec);
+    load_tile_bf16<DMAX>(dos + stage * kQ * kLd, dout, p.o_st, i0, kQ, p.Tq,
+                         p.D, p.vec);
+    for (int i = threadIdx.x; i < kQ; i += kTcThreads) {
+      const int t = i0 + i;
+      const long long row = (long long)bh * p.Tq + t;
+      lse_s[stage * kQ + i] = t < p.Tq ? p.lse[row] : 0.f;
+      delta_s[stage * kQ + i] = t < p.Tq ? p.delta[row] : 0.f;
+    }
+  };
+
+  load_tile_bf16<DMAX>(ks, k, p.k_st, k0, kTcKeys, p.Tk, p.D, p.vec);
+  load_tile_bf16<DMAX>(vs, v, p.v_st, k0, kTcKeys, p.Tk, p.D, p.vec);
+  if (first < n_tiles) load_queries(0, first);
+  tc::cp_async_commit();
+
+  float dk[kDTiles][4], dv[kDTiles][4];
+#pragma unroll
+  for (int j = 0; j < kDTiles; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+
+  for (int tile = first; tile < n_tiles; ++tile) {
+    const int stage = (tile - first) & 1;
+    if (tile + 1 < n_tiles) load_queries(stage ^ 1, tile + 1);
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();  // this tile's copies (and K, V) have landed
+    __syncthreads();
+
+    const bf16* qt = qs + stage * kQ * kLd;
+    const bf16* ot = dos + stage * kQ * kLd;
+    // S^T = K . Q^T and dP^T = V . dO^T: 16 keys x kQ queries per warp
+    float s[kQTiles][4], dp[kQTiles][4];
+#pragma unroll
+    for (int j = 0; j < kQTiles; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < DMAX / 16; ++kd) {
+      uint32_t ka[4], va[4];
+      const int a_off = (kw + lane % 16) * kLd + kd * 16 + (lane / 16) * 8;
+      tc::ldmatrix_x4(ka, ks + a_off);
+      tc::ldmatrix_x4(va, vs + a_off);
+#pragma unroll
+      for (int np = 0; np < kQTiles / 2; ++np) {
+        const int b_off = (np * 16 + lane % 8 + (lane / 16) * 8) * kLd +
+                          kd * 16 + ((lane / 8) % 2) * 8;
+        uint32_t qb[4], ob[4];
+        tc::ldmatrix_x4(qb, qt + b_off);
+        tc::ldmatrix_x4(ob, ot + b_off);
+        tc::mma_bf16(s[2 * np], ka, qb[0], qb[1]);
+        tc::mma_bf16(s[2 * np + 1], ka, qb[2], qb[3]);
+        tc::mma_bf16(dp[2 * np], va, ob[0], ob[1]);
+        tc::mma_bf16(dp[2 * np + 1], va, ob[2], ob[3]);
+      }
+    }
+
+    // P and dS in registers, as the scalar kernels form them; a tile with
+    // no bias, no edge and no masked pair skips the tests
+    const int i0 = tile * kQ;
+    const bool plain_tile =
+        bias == nullptr && k0 + kTcKeys <= p.Tk && i0 + kQ <= p.Tq &&
+        (!p.causal || k0 + kTcKeys - 1 <= i0 + p.causal_offset);
+#pragma unroll
+    for (int j = 0; j < kQTiles; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + kw + g + (e / 2) * 8;
+        const int col = j * 8 + 2 * t4 + (e % 2);
+        const int row = i0 + col;
+        const float lse = lse_s[stage * kQ + col];
+        const float delta = delta_s[stage * kQ + col];
+        float pr = 0.f, ds = 0.f;
+        if (plain_tile) {
+          pr = expf(__fsub_rn(__fmul_rn(s[j][e], p.scale), lse));
+          ds = __fmul_rn(pr, __fsub_rn(dp[j][e], delta));
+        } else if (key < p.Tk && row < p.Tq) {
+          p_and_ds_rn(p, bias, s[j][e], dp[j][e], lse, delta, row, key, &pr,
+                      &ds);
+        }
+        s[j][e] = pr;
+        dp[j][e] = ds;
+      }
+    // the reference's casts: P to dO's dtype, dS to Q's dtype (both bf16)
+    uint32_t pf[kQTiles][2], df[kQTiles][2];
+#pragma unroll
+    for (int j = 0; j < kQTiles; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        pf[j][hh] = tc::pack_bf16(s[j][2 * hh], s[j][2 * hh + 1]);
+        df[j][hh] = tc::pack_bf16(dp[j][2 * hh], dp[j][2 * hh + 1]);
+      }
+
+    // dV += P^T . dO and dK += dS^T . Q, A from registers
+#pragma unroll
+    for (int kk = 0; kk < kQ / 16; ++kk) {
+      const uint32_t pa[4] = {pf[2 * kk][0], pf[2 * kk][1],
+                              pf[2 * kk + 1][0], pf[2 * kk + 1][1]};
+      const uint32_t da[4] = {df[2 * kk][0], df[2 * kk][1],
+                              df[2 * kk + 1][0], df[2 * kk + 1][1]};
+#pragma unroll
+      for (int dn = 0; dn < kDTiles / 2; ++dn) {
+        const int b_off = (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * kLd +
+                          dn * 16 + (lane / 16) * 8;
+        uint32_t ob[4], qb[4];
+        tc::ldmatrix_x4_trans(ob, ot + b_off);
+        tc::ldmatrix_x4_trans(qb, qt + b_off);
+        tc::mma_bf16(dv[2 * dn], pa, ob[0], ob[1]);
+        tc::mma_bf16(dv[2 * dn + 1], pa, ob[2], ob[3]);
+        tc::mma_bf16(dk[2 * dn], da, qb[0], qb[1]);
+        tc::mma_bf16(dk[2 * dn + 1], da, qb[2], qb[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage
+  }
+  tc::cp_async_wait<0>();
+
+  bf16* dk_out = static_cast<bf16*>(p.out0);
+  bf16* dv_out = static_cast<bf16*>(p.out1);
+#pragma unroll
+  for (int j = 0; j < kDTiles; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = k0 + kw + g + (e / 2) * 8;
+      const int c = j * 8 + 2 * t4 + (e % 2);
+      if (key >= p.Tk || c >= p.D) continue;
+      const long long at = ((long long)bh * p.Tk + key) * p.D + c;
+      dk_out[at] = __float2bfloat16_rn(dk[j][e] * p.scale);
+      dv_out[at] = __float2bfloat16_rn(dv[j][e]);
+    }
+}
+
 // ---- dBias -----------------------------------------------------------------
 
 template <typename T, int DMAX>
@@ -456,12 +724,18 @@ __global__ void __launch_bounds__(kThreads)
 
 // ---- launches --------------------------------------------------------------
 
-enum Which { kDq = 0, kDkv = 1, kDbias = 2, kDqPartial = 3, kDkvPartial = 4 };
+enum Which {
+  kDq = 0,
+  kDkv = 1,
+  kDbias = 2,
+  kDqPartial = 3,
+  kDkvPartial = 4
+};
 
 template <typename Kernel>
 int launch(Kernel kernel, dim3 grid, size_t smem_floats, const Params& p,
-           cudaStream_t stream) {
-  const size_t smem = smem_floats * sizeof(float);
+           cudaStream_t stream, size_t smem_bytes = 0) {
+  const size_t smem = smem_bytes ? smem_bytes : smem_floats * sizeof(float);
   if (smem > 48 * 1024) {  // above 48 KB only as opted-in dynamic memory
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -480,10 +754,15 @@ int launch_which(int which, const Params& p, cudaStream_t stream) {
       return launch(flash_dq_kernel<T, T, DMAX, false>,
                     dim3(p.B * p.H, q_tiles), dq_smem_floats<DMAX>(), p,
                     stream);
-    case kDkv:
-      return launch(flash_dkv_kernel<T, T, DMAX, false>,
-                    dim3(p.B * p.H, k_tiles), dkv_smem_floats<DMAX>(), p,
-                    stream);
+    case kDkv:  // bf16 on the tensor cores, f32 on the scalar kernel
+      if constexpr (std::is_same<T, __nv_bfloat16>::value)
+        return launch(flash_dkv_tc_kernel<DMAX>,
+                      dim3(p.B * p.H, (p.Tk + kTcKeys - 1) / kTcKeys), 0, p,
+                      stream, DkvTc<DMAX>::kSmem);
+      else
+        return launch(flash_dkv_kernel<T, T, DMAX, false>,
+                      dim3(p.B * p.H, k_tiles), dkv_smem_floats<DMAX>(), p,
+                      stream);
     case kDqPartial:  // dO in f32
       return launch(flash_dq_kernel<T, float, DMAX, true>,
                     dim3(p.B * p.H, q_tiles), dq_smem_floats<DMAX>(), p,
@@ -551,6 +830,13 @@ int run(int which, const void* q, const void* k, const void* v,
   p.scale = scale;
   p.causal = causal;
   p.causal_offset = causal_offset;
+  const long long strides[12] = {q_sb, q_sh, q_st, k_sb, k_sh, k_st,
+                                 v_sb, v_sh, v_st, o_sb, o_sh, o_st};
+  const void* ptrs[4] = {q, k, v, dout};
+  p.vec = D % 8 == 0;
+  for (long long st : strides) p.vec = p.vec && st % 8 == 0;
+  for (const void* ptr : ptrs)
+    p.vec = p.vec && reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_bf16 ? launch_for_dim<__nv_bfloat16>(which, p, s)
                  : launch_for_dim<float>(which, p, s);
@@ -577,6 +863,7 @@ int run(int which, const void* q, const void* k, const void* v,
       stream)
 
 extern "C" int flash_attention_dq(BWD_ARGS) { return BWD_CALL(kDq); }
+// #3: f32 on the scalar kernel, bf16 on the tensor cores
 extern "C" int flash_attention_dkv(BWD_ARGS) { return BWD_CALL(kDkv); }
 extern "C" int flash_attention_dbias(BWD_ARGS) { return BWD_CALL(kDbias); }
 

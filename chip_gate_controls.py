@@ -6,10 +6,13 @@ the faults they are there to catch:
 
 1. Kernel mutants.  ``flash_attention_bwd.cu`` is rebuilt, into the
    git-ignored build directory, with one of the reference's bf16 rounding
-   points taken out: dS before dS·K (the dQ kernel), dS before dSᵀ·Q
-   (dK), P before Pᵀ·dO (dV).  Each mutant runs through the port's own
-   wrappers at chip_smoke's training shape (t), and its outputs go
-   through chip_smoke's check against the plain versions.  The script
+   points taken out: dS before dS·K (the scalar dQ kernel), dS before
+   dSᵀ·Q (dK), P before Pᵀ·dO (dV).  dK/dV in bf16 runs on the tensor
+   cores, where P and dS reach the product as bf16 operands: there the
+   fault packs each f32 value's top 16 bits, the cast's rounding dropped.
+   Each mutant runs through the port's own wrappers at chip_smoke's
+   training shape (t), and its outputs go through chip_smoke's check
+   against the plain versions (``bwd_held``).  The script
    fails unless that check passes the source as it stands and refuses
    every mutant.  Beside each output it prints how many entries moved,
    the largest move in ulps of the largest entry, and whether a
@@ -23,8 +26,13 @@ the faults they are there to catch:
    with one fault: the cast of z to x's dtype dropped in #8, the 3x3's
    halo zeroed before normalize+ReLU in #10 (the border then reads
    relu(beta - mean * scale)), the cast of the folded dy before the
-   products dropped in #9.  Each runs through chip_smoke's conv check at
-   a ResNet-50 b128 shape in bf16; the script fails unless the check
+   products dropped in #9 (``fold_dy``, which #11's tensor-core prepass
+   calls too; there the bf16 store rounds the same value again, so this
+   fault reaches #9 alone), and in #11's tensor-core route the folded dy
+   stored cut to bf16 instead of rounded (its cast dropped) and the halo
+   of a shifted row copied from the position's own row instead of
+   zero-filled.  Each runs through chip_smoke's conv check at a
+   ResNet-50 b128 shape in bf16; the script fails unless the check
    passes the sources as they stand and refuses every mutant, and prints
    the share of entries each fault moves.
 4. Ring-attention mutants.  ``flash_attention_fwd.cu`` is rebuilt with
@@ -61,14 +69,22 @@ import torch
 
 import chip_smoke
 
-# name: (the line as it stands, the line without the cast, the output)
+# name: (the line as it stands, the line without the cast, the output).
+# #2's cast is a line of the scalar dQ kernel.  #3's bf16 route runs on
+# the tensor cores, where P and dS reach the product as bf16 operands
+# packed from f32: the cast is the packing's rounding, and the fault
+# packs the top 16 bits of each f32 value (the cast's rounding dropped)
 MUTANTS = {
     "no_ds_cast_in_dq": ("const float dsk = round_to<T>(ds);",
                          "const float dsk = ds;", "dq"),
-    "no_ds_cast_in_dk": ("const float dsq = round_to<T>(ds);",
-                         "const float dsq = ds;", "dk"),
-    "no_p_cast_in_dv": ("const float pd = round_to<TO>(pr);",
-                        "const float pd = pr;", "dv"),
+    "no_ds_cast_in_dk": (
+        "df[j][hh] = tc::pack_bf16(dp[j][2 * hh], dp[j][2 * hh + 1]);",
+        "df[j][hh] = (__float_as_uint(dp[j][2 * hh]) >> 16) | "
+        "(__float_as_uint(dp[j][2 * hh + 1]) & 0xffff0000u);", "dk"),
+    "no_p_cast_in_dv": (
+        "pf[j][hh] = tc::pack_bf16(s[j][2 * hh], s[j][2 * hh + 1]);",
+        "pf[j][hh] = (__float_as_uint(s[j][2 * hh]) >> 16) | "
+        "(__float_as_uint(s[j][2 * hh + 1]) & 0xffff0000u);", "dv"),
 }
 LOOSE_REL = 2e-2   # a tolerance relative to the largest entry
 BWD_ENTRIES = ("flash_attention_dq", "flash_attention_dkv")
@@ -91,6 +107,20 @@ CONV_MUTANTS = {
         "__fsub_rn(y, k))));",
         "return __fadd_rn(__fadd_rn(dy, gm), __fmul_rn(gs, __fsub_rn(y, k)));",
         "s1_conv3", ("dx", "dw")),
+    # #11's tensor-core route stores dyl as a bf16 operand: the fault
+    # stores the unrounded fold cut to its top 16 bits (the cast dropped)
+    "no_dyl_cast_in_11_prepass": (
+        "conv_bn_tc.cuh", "conv_bn_bwd",
+        "return from_f32<bf16>(fold_dy<bf16>(dy, y, gm, gs, k, stats));",
+        "return __float2bfloat16_rz(fold_dy<float>(dy, y, gm, gs, k, "
+        "stats));", "s1_conv2", ("dx", "dw")),
+    # the halo of a shifted row copied (the position's own row) instead
+    # of zero-filled
+    "halo_copied_in_11": (
+        "conv_bn_tc.cuh", "conv_bn_bwd",
+        "tc::cp_async16(dst, base + (halo ? own : pos) * ld + c, !halo);",
+        "tc::cp_async16(dst, base + (halo ? own : pos) * ld + c, true);",
+        "s1_conv2", ("dx", "dw")),
 }
 
 
@@ -108,8 +138,11 @@ RING_PROBLEM = "offdiag_bf16"     # chip_smoke's B8 H8 Tc512 D64 bf16 pair
 
 
 def _nvcc(cu, so):
-    from bigdl_tpu_torch.ops.build import NVCC_FLAGS, find_nvcc
-    proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", str(so), str(cu)],
+    """Build ``cu`` with the port's flags; headers that are not beside it
+    come from csrc/."""
+    from bigdl_tpu_torch.ops.build import CSRC_DIR, NVCC_FLAGS, find_nvcc
+    proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR),
+                           "-o", str(so), str(cu)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {cu.name}:\n{proc.stderr}")
@@ -254,8 +287,7 @@ def phase_mutants():
     from bigdl_tpu_torch.ops import attention_kernels as ak
     from bigdl_tpu_torch.ops.build import load_library
     gen = torch.Generator(device="cuda").manual_seed(2)   # chip_smoke's
-    key, desc, (q, k, v), bias, causal, _, tol = \
-        chip_smoke._bwd_inputs(gen)[0]
+    key, desc, (q, k, v), bias, causal, _ = chip_smoke._bwd_inputs(gen)[0]
     d, tq, tk = q.shape[-1], q.shape[2], k.shape[2]
     cfg = dict(scale=d ** -0.5, causal=causal, causal_offset=tk - tq)
     with ThreadPoolExecutor(len(MUTANTS)) as pool:
@@ -269,8 +301,12 @@ def phase_mutants():
         want = dict(zip(("dq", "dk", "dv"),
                         (ak.plain_attention_dq(*args, **cfg),
                          *ak.plain_attention_dkv(*args, **cfg))))
-    print(f"mutants at ({key}) {desc}, check tolerance "
-          f"{tol or 'bit for bit'}")
+        floors = dict(zip(("dq", "dk", "dv"),
+                          chip_smoke.bwd_floors(*args, **cfg)))
+    kernel_of = {"dq": "dq", "dk": "dkv", "dv": "dkv"}
+    print(f"mutants at ({key}) {desc}, check rules: dq "
+          f"{chip_smoke.bwd_rule('dq', q.dtype)}; dk, dv "
+          f"{chip_smoke.bwd_rule('dkv', q.dtype)}")
     readings, failures = {}, []
     for tag, lib in libs.items():
         with torch.no_grad(), backward_from(lib):
@@ -281,7 +317,8 @@ def phase_mutants():
         readings[tag] = {}
         for name, g in got.items():
             w = want[name]
-            err, differ, ok = chip_smoke._close(g, w, tol)
+            err, differ, ok = chip_smoke.bwd_held(kernel_of[name], g, w,
+                                                  floors[name])
             top = float(w.float().abs().max())
             loose = bool(torch.allclose(g.float(), w.float(), rtol=LOOSE_REL,
                                         atol=LOOSE_REL * top))

@@ -11,7 +11,10 @@ Phases, each raising on failure (the script then exits non-zero):
    forward #1 and the ring's partial merge #5; its three backward kernels
    #2-#4 and the ring's partial dQ #6 and dK/dV #7; the fused conv+BN
    forward kernels #8 and #10 and backward kernels #9 and #11), one
-   ``nvcc`` each in parallel, with their register and spill reports;
+   ``nvcc`` each in parallel, with their register and spill reports, and
+   for the tensor-core kernels (#3's bf16 dK/dV, #11's bf16 route) their
+   registers, shared memory, spills and count of HMMA instructions
+   (``cuobjdump``), which must not be 0;
 3. the forward kernel against its plain PyTorch version at the serving
    path's shapes, with times (CUDA events, median of 60 runs, L2 flushed
    before each): the kernel, the plain version,
@@ -20,8 +23,10 @@ Phases, each raising on failure (the script then exits non-zero):
    work;
 4. the backward kernels (dQ, dK/dV, dBias) against their plain versions
    on the same inputs and the forward kernel's lse, at the training
-   shape and six edge shapes, each launched twice to show the same bits,
-   with times beside the plain version, SDPA's backward and the bound;
+   shape, four bf16 edge shapes of #3's tensor-core route and six f32
+   edge shapes, each launched twice to show the same bits, with times
+   beside the plain version, SDPA's backward and the bound (bf16 dQ bit
+   for bit; bf16 dK/dV by the rule of ``bwd_held``);
 4b. the ring-attention kernels #5-#7 against their plain versions, f32
    and bf16, at the sequence-parallel training path's chunk pairs (B8 H8
    Tc512 D64: a diagonal pair from the fresh state, an off-diagonal and a
@@ -39,9 +44,11 @@ Phases, each raising on failure (the script then exits non-zero):
    the reference's transformer perf run (L6 H512 T2048 b8, vocab 32000,
    filter 2048, bf16 compute) through ``Optimizer.optimize()``; the loss
    must stay finite and fall, and every step must launch the forward,
-   dQ and dK/dV kernels once per layer (dBias never: no bias);
+   dQ and dK/dV kernels once per layer (dBias never: no bias), every
+   dK/dV launch by the tensor-core route;
 7. one f32 training step at batch 2, on the card and on a CPU copy of
    the same model (plain attention): loss and every gradient must agree;
+   its dK/dV launches take the scalar route;
 7b. sequence-parallel training: the same LM and run with every block's
    attention through ring attention over a 4-shard ``seq`` mesh on the
    one card (``set_sequence_parallel``); every step must launch #5, #6
@@ -58,17 +65,18 @@ Phases, each raising on failure (the script then exits non-zero):
    cuBLAS/cuDNN product alone and the bound;
 9. ResNet-50 training: ``examples.perf`` with ``--model resnet50 --fused
    --bf16 -b 128 --image-size 224 --classes 1000``; every step must
-   launch #8/#9/#10/#11 exactly 32/32/13/13 times, the loss must stay
-   finite and fall; the step's time is split into the four kernels and
-   the rest;
+   launch #8/#9/#10/#11 exactly 32/32/13/13 times, #11 by the
+   tensor-core route, the loss must stay finite and fall; the step's time
+   is split into the four kernels and the rest;
 10. one bf16 step with the fused path and one with
    ``BIGDL_TPU_TORCH_FUSED_CONVBN=0``, from the same weights and batch:
    losses and every BatchNorm running statistic must agree;
 11. one f32 fused ResNet-50 step at batch 4, 64 px, on the card and on a
    CPU copy (the kernels' plain versions): loss and every gradient must
-   agree;
-12. a ``{"kernels": [...]}`` line (eleven kernels, launches by path),
-   then the ``{"ok": true, ...}`` line.
+   agree; #11 by the scalar route;
+12. a ``{"kernels": [...]}`` line (eleven kernels, launches by path; #3
+   and #11 also their design, launches by route and build report), then
+   the ``{"ok": true, ...}`` line.
 
 Imports torch, numpy and ``bigdl_tpu_torch`` only.
 """
@@ -76,9 +84,12 @@ Imports torch, numpy and ``bigdl_tpu_torch`` only.
 from __future__ import annotations
 
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -121,10 +132,26 @@ def _wrappers():
 def _zero_counts():
     for w in _wrappers():
         w.launches = 0
+        for route in getattr(w, "routes", ()):
+            w.routes[route] = 0
 
 
 def _read_counts():
     return {w.__name__: w.launches for w in _wrappers()}
+
+
+def _read_routes():
+    """{wrapper: {route: launches}} of the wrappers with two routes (#3
+    and #11: tensor cores for bf16, scalar for f32)."""
+    return {w.__name__: dict(w.routes) for w in _wrappers()
+            if hasattr(w, "routes")}
+
+
+def _check_routes(routes, name, want, what):
+    """Raise unless wrapper ``name`` took the routes ``want`` exactly."""
+    if routes[name] != want:
+        raise RuntimeError(f"{what}: {name} took the routes {routes[name]}, "
+                           f"not {want}")
 
 
 # ---------------------------------------------------------------------------
@@ -152,9 +179,69 @@ def phase_device() -> str:
     return smi
 
 
+def ptxas_report(text: str) -> dict:
+    """{kernel: {registers, spill_stores, spill_loads, smem}} from an
+    ``nvcc -Xptxas -v`` report (smem: bytes of static shared memory)."""
+    report, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            report[name] = {"registers": 0, "spill_stores": 0,
+                            "spill_loads": 0, "smem": 0}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            report[name]["spill_stores"] = int(m.group(1))
+            report[name]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            report[name]["registers"] = int(m.group(1))
+            s = re.search(r"(\d+) bytes smem", line)
+            report[name]["smem"] = int(s.group(1)) if s else 0
+    return report
+
+
+def tensor_core_counts(sass: str) -> dict:
+    """{kernel: count of HGMMA or HMMA instructions} from ``cuobjdump
+    -sass``."""
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = 0
+        elif name is not None and re.search(r"\bH(G)?MMA\b|\bH(G)?MMA\.",
+                                            line):
+            counts[name] += 1
+    return counts
+
+
+# the kernels redesigned for the tensor cores, by a part of their
+# (mangled) names: #3's dK/dV, #11's prepass, dgrad, wgrad and dW sum; the
+# products (all but the prepass and the sum) must hold HMMA instructions
+TC_KERNELS = ("flash_dkv_tc_kernel", "tcconv")
+TC_PRODUCTS = ("flash_dkv_tc_kernel", "tcconv5dgrad", "tcconv5wgrad")
+
+
+def _cuobjdump():
+    from bigdl_tpu_torch.ops.build import find_nvcc
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    beside = Path(find_nvcc()).parent / "cuobjdump"
+    return str(beside) if beside.is_file() else None
+
+
 def phase_build():
     """Build every kernel source at once (one nvcc each, in parallel),
-    then print each one's register and spill report."""
+    then print each library's register and spill totals, and for each
+    tensor-core kernel its registers, shared memory, spills and (where
+    cuobjdump exists) its count of tensor-core instructions.  Returns
+    {kernel: report} of the tensor-core kernels."""
     from bigdl_tpu_torch.ops.build import (KERNEL_SOURCES, build_all,
                                            load_library)
     t0 = time.perf_counter()
@@ -163,11 +250,39 @@ def phase_build():
         load_library(name)
     print(f"build: {', '.join(n + '.cu' for n in KERNEL_SOURCES)} built "
           f"and loaded in {time.perf_counter() - t0:.3f} s")
+    cuobjdump = _cuobjdump()
+    tc = {}
     for name, lib in zip(KERNEL_SOURCES, libs):
-        print(f"  {name}.cu:")
-        for line in lib.with_suffix(".ptxas.txt").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print("    " + line.strip())
+        report = ptxas_report(lib.with_suffix(".ptxas.txt").read_text())
+        spills = sum(r["spill_stores"] + r["spill_loads"]
+                     for r in report.values())
+        print(f"  {name}.cu: {len(report)} kernels, at most "
+              f"{max(r['registers'] for r in report.values())} registers, "
+              f"{spills} bytes spilled in all")
+        counts = {}
+        if cuobjdump is not None:
+            counts = tensor_core_counts(subprocess.run(
+                [cuobjdump, "-sass", str(lib)], capture_output=True,
+                text=True, check=True, timeout=300).stdout)
+        for kernel, r in report.items():
+            if not any(k in kernel for k in TC_KERNELS):
+                continue
+            r["tensor_core_instructions"] = counts.get(kernel)
+            tc[kernel] = r
+            mma = ("not counted (no cuobjdump)" if cuobjdump is None
+                   else r["tensor_core_instructions"])
+            print(f"    {kernel}: {r['registers']} registers, {r['smem']} "
+                  f"bytes static shared memory, spills "
+                  f"{r['spill_stores']}/{r['spill_loads']} bytes, "
+                  f"HMMA/HGMMA instructions {mma}")
+            if (cuobjdump is not None
+                    and any(k in kernel for k in TC_PRODUCTS)
+                    and not r["tensor_core_instructions"]):
+                raise RuntimeError(f"{kernel} holds no tensor-core "
+                                   "instruction")
+    if cuobjdump is None:
+        print("  cuobjdump not found: tensor-core instructions not counted")
+    return tc
 
 
 # ---------------------------------------------------------------------------
@@ -330,14 +445,32 @@ def phase_kernel_checks(rates):
 # ---------------------------------------------------------------------------
 
 # f32: sums of up to 2048 products, where cuBLAS may take another order.
-# bf16 must agree bit for bit (tolerance None): kernel and plain version
-# round P and dS to bf16 at the same points and sum the same products in
-# one f32 FMA chain each, and they have never differed.  A tolerance of a
-# few ulps could not see a missing cast: one moves about 40% of the
-# entries, each by at most one ulp of the largest (chip_gate_controls.py
-# shows this check refusing such kernels)
+# bf16 dQ (and the ring's #6 and #7) must agree bit for bit (tolerance
+# None): kernel and plain version round P and dS to bf16 at the same
+# points and sum the same products in one f32 FMA chain each.  The one
+# exception is a row whose dS = P * (dP - Δ) cancels to rounding noise (a
+# row that sees a single key): there cuBLAS may sum a one-column dP in
+# another order, and an entry is held within bwd_floors' rounding floor,
+# which elsewhere stays near 1% of an ulp of the largest entry.  A
+# tolerance of a few ulps could not see a missing
+# cast: one moves about 40% of the entries, each by at most one ulp of the
+# largest (chip_gate_controls.py shows this check refusing such kernels).
+# bf16 dK/dV runs on the tensor cores: s = q.k and dP = dO.v are summed in
+# another order than the plain version's f32 FMA chain, so now and then a
+# P or dS lands on the other side of a bf16 rounding point, and the
+# entries it feeds move by one ulp of that operand times an entry of dO or
+# Q.  So each entry is held within one bf16 ulp of the plain version's, or
+# one ulp of the output's largest entry, and at most 1% of the entries
+# may differ at all (chip_gate_controls.py reads 0.15% differing at the
+# training shape, the worst at a quarter of an ulp of the largest entry,
+# and a cast dropped or cut short moving two thirds of the entries).  One
+# P or dS on the other neighbour moves a whole key row of D entries, so
+# where Tk < 100 the share is one key row of each head, 1/Tk: at Tk 1
+# (t_d8_tiny_bf16) every dK entry is dS times Q, and dS cancels to
+# rounding noise, held by the same floor
 F32_BWD_TOL = dict(rtol=1e-4, atol=1e-4)
 BF16_BWD_TOL = None
+DKV_BF16_SHARE = 0.01
 BWD_RUNS = 15                      # timed runs per kernel (median)
 # flops per visible (query, key) pair: 2·D for each product
 BWD_PRODUCTS = {"dq": 3, "dkv": 4, "dbias": 2}
@@ -345,7 +478,10 @@ BWD_PRODUCTS = {"dq": 3, "dkv": 4, "dbias": 2}
 
 def _bwd_inputs(gen):
     """The backward shapes, as (key, what, (q, k, v), bias, causal,
-    bias needs a gradient, tolerance): (t) is the training path's; (v)
+    bias needs a gradient): (t) is the training path's, and the (t_*)
+    rows take bf16 through #3's tensor-core route at its edges: a bias,
+    ragged causal tq != tk, D 8, 16, 32 and 128, rows that see no key, a
+    one-key output of 48 entries; (v)
     launches dBias with a learnable bias; (w) and (x) are ragged and
     end-aligned, (x) with rows that see no key; (y) has a constant mask."""
     dev = "cuda"
@@ -366,20 +502,33 @@ def _bwd_inputs(gen):
     bf = torch.bfloat16
     return [
         ("t_train", "B8 H8 T2048 D64 bf16 causal",
-         qkv(8, 8, 2048, 2048, 64, bf), None, True, False, BF16_BWD_TOL),
+         qkv(8, 8, 2048, 2048, 64, bf), None, True, False),
+        ("t_bias_bf16", "B2 H8 T256 D64 bf16 bias [B,1,T,T]",
+         qkv(2, 8, 256, 256, 64, bf), rnd(2, 1, 256, 256), False, False),
+        ("t_ragged_bf16", "B2 H4 Tq100 Tk300 D32 bf16 causal",
+         qkv(2, 4, 100, 300, 32, bf), None, True, False),
+        ("t_no_key_bf16", "B2 H4 Tq300 Tk100 D32 bf16 causal",
+         qkv(2, 4, 300, 100, 32, bf), None, True, False),
+        ("t_d128_bf16", "B2 H4 Tq200 Tk250 D128 bf16 causal",
+         qkv(2, 4, 200, 250, 128, bf), None, True, False),
         ("u_causal", "B2 H8 T512 D64 f32 causal",
-         qkv(2, 8, 512, 512, 64), None, True, False, F32_BWD_TOL),
+         qkv(2, 8, 512, 512, 64), None, True, False),
         ("v_bias_b1tt", "B2 H8 T256 D64 f32 learnable bias [B,1,T,T]",
-         qkv(2, 8, 256, 256, 64), rnd(2, 1, 256, 256), False, True,
-         F32_BWD_TOL),
+         qkv(2, 8, 256, 256, 64), rnd(2, 1, 256, 256), False, True),
         ("v_bias_tt", "B2 H8 T256 D64 f32 learnable bias [T,T]",
-         qkv(2, 8, 256, 256, 64), rnd(256, 256), False, True, F32_BWD_TOL),
+         qkv(2, 8, 256, 256, 64), rnd(256, 256), False, True),
         ("w_ragged", "B2 H4 Tq100 Tk300 D32 f32 causal",
-         qkv(2, 4, 100, 300, 32), None, True, False, F32_BWD_TOL),
+         qkv(2, 4, 100, 300, 32), None, True, False),
         ("x_no_key_rows", "B2 H4 Tq300 Tk100 D32 f32 causal",
-         qkv(2, 4, 300, 100, 32), None, True, False, F32_BWD_TOL),
+         qkv(2, 4, 300, 100, 32), None, True, False),
         ("y_const_mask", "B4 H8 T127 D64 f32 causal+padding bias",
-         qkv(4, 8, t, t, 64), bias_y, False, False, F32_BWD_TOL),
+         qkv(4, 8, t, t, 64), bias_y, False, False),
+        ("t_d8_tiny_bf16", "B3 H2 Tq5 Tk1 D8 bf16 causal",
+         qkv(3, 2, 5, 1, 8, bf), None, True, False),
+        ("t_d8_bf16", "B2 H8 T512 D8 bf16 causal",
+         qkv(2, 8, 512, 512, 8, bf), None, True, False),
+        ("t_d16_bf16", "B2 H8 Tq384 Tk512 D16 bf16 causal",
+         qkv(2, 8, 384, 512, 16, bf), None, True, False),
     ]
 
 
@@ -415,6 +564,69 @@ def _close(got, want, tol):
                                             **tol))
 
 
+def _bf16_ulp(x):
+    """One bf16 ulp at the magnitude of each entry of ``x`` (f32)."""
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(1e-30))) - 7)
+
+
+def bwd_floors(q, k, v, bias, do, lse, delta, *, scale, causal=False,
+               causal_offset=0):
+    """Per-entry floors (f32) for bf16 (dQ, dK, dV): how far f32 rounding
+    in the sums s = q·k and dP = dO·v, taken in another order, moves
+    them.  Each sum is held to 2^-22 (four f32 ulps) of the sum of its
+    products' magnitudes; that goes through P = exp(s − lse) and dS =
+    P·(dP − Δ) into the outputs, doubled for the bf16 casts.  Where the
+    entries carry signal it stays near 1% of an ulp of the largest entry
+    or below; it decides only where dP − Δ cancels to rounding noise, as
+    on a row that sees a single key (P = 1 and dO·v = Δ in exact
+    arithmetic: the plain version may read 0 there, and cuBLAS sums its
+    one-column dP in another order than at wider shapes)."""
+    from bigdl_tpu_torch.ops import attention_kernels as ak
+    b, h, tq, _ = q.shape
+    gamma = 2.0 ** -22
+    p, _ = ak._p_and_ds(q, k, v, bias, do, lse, delta, scale, causal,
+                        causal_offset)
+    qa, ka, va, da = (x.float().abs() for x in (q, k, v, do))
+    e_p = p * (gamma * scale) * torch.matmul(qa, ka.transpose(-1, -2))
+    a = torch.matmul(da, va.transpose(-1, -2)) \
+        + delta.abs().reshape(b, h, tq, 1)
+    e_ds = (p * gamma + e_p) * a
+    return (2 * scale * torch.matmul(e_ds, ka),
+            2 * scale * torch.matmul(e_ds.transpose(-1, -2), qa),
+            2 * torch.matmul(e_p.transpose(-1, -2), da))
+
+
+def bwd_held(kernel, got, want, floor=None):
+    """(max abs err, entries that differ, held) of one output of backward
+    kernel ``kernel`` ("dq", "dkv" or "dbias"): f32 within F32_BWD_TOL;
+    bf16 dK/dV by the tensor-core rule above; bf16 dQ bit for bit.  Where
+    a ``floor`` (bwd_floors) is given, an entry within it also holds."""
+    if want.dtype == torch.float32:
+        return _close(got, want, F32_BWD_TOL)
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    bound = torch.zeros_like(w) if floor is None else floor
+    share = 1.0
+    if kernel == "dkv":
+        bound = torch.maximum(bound, torch.maximum(
+            _bf16_ulp(w), _bf16_ulp(w.abs().max())))
+        share = max(DKV_BF16_SHARE, 1 / want.shape[-2])
+    differ = int((got != want).sum())
+    ok = bool((diff <= bound).all()) and differ <= share * want.numel()
+    return float(diff.max()), differ, ok
+
+
+def bwd_rule(kernel, dtype):
+    """The rule bwd_held holds an output of ``kernel`` in ``dtype`` to."""
+    if dtype == torch.float32:
+        return f"f32 {F32_BWD_TOL}"
+    if kernel == "dkv":
+        return (f"bf16 tensor cores: one ulp of the entry or of the largest "
+                f"or the rounding floor, at most {DKV_BF16_SHARE:.0%} (or "
+                f"one key row a head, 1/Tk) differing")
+    return "bit for bit, or within the rounding floor"
+
+
 def phase_bwd_kernel_checks(rates):
     """dQ, dK/dV and dBias against their plain versions on the same q, k,
     v, bias, dO and the forward kernel's lse; two launches of each must
@@ -428,8 +640,7 @@ def phase_bwd_kernel_checks(rates):
                "dkv": (ak.flash_attention_dkv, ak.plain_attention_dkv),
                "dbias": (ak.flash_attention_dbias, ak.plain_attention_dbias)}
     results = []
-    for key, desc, (q, k, v), bias, causal, learnable, tol in \
-            _bwd_inputs(gen):
+    for key, desc, (q, k, v), bias, causal, learnable in _bwd_inputs(gen):
         t0 = time.perf_counter()
         d, tq, tk = q.shape[-1], q.shape[2], k.shape[2]
         cfg = dict(scale=d ** -0.5, causal=causal, causal_offset=tk - tq)
@@ -439,6 +650,8 @@ def phase_bwd_kernel_checks(rates):
                              device="cuda").to(q.dtype)
             delta = ak.attention_delta(out, do)
         args = (q, k, v, bias, do, lse, delta)
+        all_floors = (bwd_floors(*args, **cfg) if q.dtype == torch.bfloat16
+                      else (None,) * 3)
         names = ["dq", "dkv"] + (["dbias"] if learnable else [])
         # the library yardstick: one backward of SDPA for dq, dk, dv (and
         # the mask's gradient when the bias is learnable) together
@@ -469,18 +682,27 @@ def phase_bwd_kernel_checks(rates):
                 raise RuntimeError(f"{name} at {key}: output not finite")
             if not all(torch.equal(g, a) for g, a in zip(got, again)):
                 raise RuntimeError(f"{name} at {key}: two launches differ")
-            checks = [_close(g, w, tol) for g, w in zip(got, want)]
+            floors = {"dq": all_floors[:1], "dkv": all_floors[1:]}.get(
+                name, (None,) * len(got))
+            checks = [bwd_held(name, g, w, f)
+                      for g, w, f in zip(got, want, floors)]
             err = max(e for e, _, _ in checks)
             differ = sum(n for _, n, _ in checks)
             if not all(ok for _, _, ok in checks):
                 raise RuntimeError(
                     f"{name} at {key}: kernel disagrees with the plain "
-                    f"version (max abs err {err:.3e}, {differ} entries "
-                    f"differ, tolerance {tol or 'bit for bit'})")
+                    f"version (max abs err {err:.3e}, differing entries "
+                    f"{[n for _, n, _ in checks]} of "
+                    f"{[g.numel() for g in got]}; "
+                    f"{bwd_rule(name, q.dtype)})")
             with torch.no_grad():
                 row = {
                     "kernel": name, "shape": key, "what": desc,
                     "max_abs_err": err, "entries_differ": differ,
+                    "share_differ": differ / sum(g.numel() for g in got),
+                    "rule": bwd_rule(name, q.dtype),
+                    "route": (ak.dkv_route(q.dtype) if name == "dkv"
+                              else "scalar"),
                     "bitwise_repeatable": True,
                     "ms": time_ms(lambda: kernel(*args, **cfg), flush,
                                   runs=BWD_RUNS, warmup=2),
@@ -909,6 +1131,7 @@ def phase_training():
         hook.remove()
     wall = time.perf_counter() - t0
     launches = _read_counts()
+    routes = _read_routes()
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     steps = TRAIN_ITERS * TRAIN_EPOCHS
     losses = [loss for _, loss in opt.loss_history]
@@ -920,7 +1143,8 @@ def phase_training():
           f"first window {out['compile_plus_first_window_s']} s; loss "
           f"{losses[0]:.6f} -> {losses[-1]:.6f}; peak memory "
           f"{peak_gb:.3f} GiB; attention output dtypes "
-          f"{sorted(str(d) for d in seen)}; launches {launches}")
+          f"{sorted(str(d) for d in seen)}; launches {launches}; routes "
+          f"{routes}")
     if seen != {torch.bfloat16}:
         raise RuntimeError(f"the bf16 run's attention computed in {seen}")
     if len(losses) != steps or not all(np.isfinite(losses)):
@@ -935,9 +1159,12 @@ def phase_training():
                            f"{steps} steps = {want} each")
     if launches["flash_attention_dbias"] != 0:
         raise RuntimeError("dBias launched on a path without a bias")
+    # every bf16 dK/dV launch of the path took the tensor cores
+    _check_routes(routes, "flash_attention_dkv",
+                  {"tensor_core": want, "scalar": 0}, "bf16 LM training")
     return dict(out, tokens_per_sec=tokens_s, steps=steps,
                 first_loss=losses[0], last_loss=losses[-1],
-                peak_memory_gib=peak_gb, launches=launches)
+                peak_memory_gib=peak_gb, launches=launches, routes=routes)
 
 
 def grad_step(x, y):
@@ -1023,12 +1250,16 @@ def phase_train_parity():
     card = step(on_card, "cuda")
     t1 = time.perf_counter()
     used = _read_counts()
+    routes = _read_routes()
     cpu = step(on_cpu, "cpu")
     t2 = time.perf_counter()
     if [used[f"flash_attention_{n}"] for n in ("fwd", "dq", "dkv")] != \
             [LAYERS] * 3:
         raise RuntimeError(f"the card step launched {used}, not "
                            f"{LAYERS} forward, dQ and dK/dV each")
+    # f32 keeps the scalar dK/dV
+    _check_routes(routes, "flash_attention_dkv",
+                  {"tensor_core": 0, "scalar": LAYERS}, "f32 LM step")
     print(f"train parity: card {t1 - t0:.2f} s, cpu {t2 - t1:.2f} s")
     norm, worst, ok = parity_report(card, cpu)
     if not ok:
@@ -1337,6 +1568,7 @@ def phase_conv_kernel_checks(rates):
     """#8-#11 against their plain versions at every shape of
     conv_problems(); times beside the plain versions, the library's
     product and the bound."""
+    from bigdl_tpu_torch.ops import conv_bn_kernels as ck
     gen = torch.Generator(device="cuda").manual_seed(3)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
     results = []
@@ -1366,6 +1598,9 @@ def phase_conv_kernel_checks(rates):
                 outs = ("y",) if direction == "fwd" else CONV_OUTPUTS[1:]
                 row = {
                     "kernel": kernel.__name__, "shape": key, "what": what,
+                    "route": (ck.conv3x3_bwd_route(dtype)
+                              if kernel.__name__ == "conv3x3_bn_bwd"
+                              else "scalar"),
                     "max_abs_err": max(held[o][0] for o in outs),
                     "entries_differ": {o: held[o][1] for o in outs},
                     "stats_rel_err": stats_err if direction == "fwd"
@@ -1449,6 +1684,7 @@ def phase_resnet_training():
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _read_counts()
+    routes = _read_routes()
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     steps = RESNET_ITERS * RESNET_EPOCHS
     losses = [loss for _, loss in opt.loss_history]
@@ -1476,9 +1712,14 @@ def phase_resnet_training():
     want = {n: RESNET_LAUNCHES.get(n, 0) * steps for n in launches}
     if launches != want:
         raise RuntimeError(f"launches {launches} != {want} ({steps} steps)")
+    print(f"resnet training: routes {routes}")
+    # every bf16 launch of #11 took the tensor cores
+    _check_routes(routes, "conv3x3_bn_bwd",
+                  {"tensor_core": want["conv3x3_bn_bwd"], "scalar": 0},
+                  "bf16 ResNet-50 training")
     return dict(out, steps=steps, first_loss=losses[0],
                 last_loss=losses[-1], peak_memory_gib=peak_gb,
-                launches=launches, kernel_ms_per_step=kernel_ms,
+                launches=launches, routes=routes, kernel_ms_per_step=kernel_ms,
                 rest_ms_per_step=rest_ms)
 
 
@@ -1514,6 +1755,9 @@ def phase_fused_vs_plain():
     _zero_counts()
     loss_fused = _one_step(fused, x, y, torch.bfloat16)
     used = _read_counts()
+    _check_routes(_read_routes(), "conv3x3_bn_bwd",
+                  {"tensor_core": RESNET_LAUNCHES["conv3x3_bn_bwd"],
+                   "scalar": 0}, "fused bf16 step")
     os.environ[resnet.FUSED_ENV] = "0"
     try:
         loss_plain = _one_step(plain, x, y, torch.bfloat16)
@@ -1597,10 +1841,16 @@ def phase_resnet_parity():
     card = step(on_card, "cuda")
     t1 = time.perf_counter()
     used = _read_counts()
+    routes = _read_routes()
     cpu = step(on_cpu, "cpu")
     t2 = time.perf_counter()
     if used != {n: RESNET_LAUNCHES.get(n, 0) for n in used}:
         raise RuntimeError(f"the card step launched {used}")
+    # f32 keeps the scalar #11
+    _check_routes(routes, "conv3x3_bn_bwd",
+                  {"tensor_core": 0,
+                   "scalar": RESNET_LAUNCHES["conv3x3_bn_bwd"]},
+                  "f32 ResNet-50 step")
     print(f"resnet parity: card {t1 - t0:.2f} s, cpu {t2 - t1:.2f} s")
     norm, worst, ok = resnet_parity_report(card, cpu)
     if not ok:
@@ -1622,7 +1872,7 @@ def main() -> int:
     t0 = time.perf_counter()
     smi = phase_device()
     rates = card_rates(torch.cuda.get_device_name(0))
-    phase_build()
+    tc_build = phase_build()
     shapes = phase_kernel_checks(rates)
     bwd = phase_bwd_kernel_checks(rates)
     ring = phase_partial_kernel_checks(rates)
@@ -1689,6 +1939,26 @@ def main() -> int:
         kernels.append(entry)
     for entry in kernels:
         entry["launches_by_path"] = paths(entry["name"])
+    # the two kernels redesigned for the tensor cores: their design, their
+    # launches by route on each path and their build report
+    routes_by_path = {"lm_training": train["routes"],
+                      "resnet_training": resnet["routes"]}
+    for name, design, part in (
+            ("flash_attention_dkv",
+             "tensor cores for bf16 (mma.sync.m16n8k16 bf16->f32, "
+             "FlashAttention-2 dK/dV: 64 keys per block, 32-query tiles "
+             "through two cp.async stages, P and dS from registers); "
+             "scalar f32 FMAs for f32", "flash_dkv_tc_kernel"),
+            ("conv3x3_bn_bwd",
+             "tensor cores for bf16 (a prepass storing z and dyl once, "
+             "then dgrad and wgrad as implicit GEMMs on mma.sync."
+             "m16n8k16 bf16->f32, 128x64 tiles, three cp.async stages, "
+             "zero-filled halo); scalar f32 FMAs for f32", "tcconv")):
+        entry = next(e for e in kernels if e["name"] == name)
+        entry["design"] = design
+        entry["launches_by_route"] = {
+            path: r[name] for path, r in routes_by_path.items()}
+        entry["build"] = {k: r for k, r in tc_build.items() if part in k}
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t0:.1f} s")
     print(smi)
