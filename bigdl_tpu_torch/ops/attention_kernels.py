@@ -25,7 +25,11 @@ Counterpart of ``bigdl_tpu/ops/attention_kernels.py``.  Shapes follow
   the Pallas ``_flash_partial_kernel``, ``_flash_dq_partial_kernel`` and
   ``_flash_dkv_partial_kernel``); ``plain_attention_partial``/
   ``_dq_partial``/``_dkv_partial`` are their plain versions.  The ring
-  (``bigdl_tpu_torch.parallel.ring_attention``) chains them.
+  (``bigdl_tpu_torch.parallel.ring_attention``) chains them.  Two
+  kernels route by dtype: bf16 dK/dV (#3) and the bf16 partial merge
+  (#5) run on the tensor cores, f32 on scalar kernels
+  (:func:`dkv_route`, :func:`partial_route`); their wrappers count each
+  route in ``<wrapper>.routes``.
 * :func:`flash_attention_with_grad` — the ``torch.autograd.Function``
   whose forward is the forward kernel and whose backward launches dQ and
   dK/dV (and dBias only when the bias needs a gradient), reading the
@@ -61,7 +65,7 @@ __all__ = ["plain_attention", "plain_attention_fwd", "attention_delta",
            "plain_attention_partial", "plain_attention_dq_partial",
            "plain_attention_dkv_partial", "flash_attention_partial",
            "flash_attention_dq_partial", "flash_attention_dkv_partial",
-           "dkv_route"]
+           "dkv_route", "partial_route"]
 
 NEG_INF = -1e9  # the reference's attention mask fill (_NEG_INF)
 MAX_HEAD_DIM = 128
@@ -496,7 +500,7 @@ def plain_attention_dkv_partial(q, k, v, do, lse, delta, *, q_offset: int,
     return dk, dv
 
 
-_PARTIAL_FWD_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+_PARTIAL_FWD_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
                          + [ctypes.c_longlong] * 9
                          + [ctypes.c_float] + [ctypes.c_int] * 3
                          + [ctypes.c_void_p])
@@ -520,15 +524,42 @@ def _check_offsets(q_offset, k_offset):
             raise ValueError(f"{label} {x} is not a position in [0, 2^30)")
 
 
+def rows_aligned(q, k, v) -> bool:
+    """Whether every row of q, k and v starts on 16 bytes, as the
+    tensor-core merge's copies need: the head dim a multiple of 8 values,
+    the batch, head and time strides multiples of 8 elements, the data
+    16-byte aligned."""
+    return q.shape[-1] % 8 == 0 and all(
+        t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in t.stride()[:3])
+        for t in (q, k, v))
+
+
+def partial_route(dtype, aligned: bool = True) -> str:
+    """Which merge kernel (#5) runs for q, k, v of ``dtype``:
+    ``"tensor_core"`` (``flash_partial_tc_kernel``: bf16 operands, f32
+    sums on mma.sync) for bfloat16 rows that start on 16 bytes
+    (:func:`rows_aligned`), ``"scalar"`` (the f32-FMA template) for
+    float32, whose operands the tensor cores would round, and for bf16
+    rows that do not."""
+    if dtype == torch.bfloat16:
+        return "tensor_core" if aligned else "scalar"
+    if dtype == torch.float32:
+        return "scalar"
+    raise TypeError(f"the partial merge takes float32 or bfloat16, not "
+                    f"{dtype}")
+
+
 def flash_attention_partial(q, k, v, acc, m, l, *, q_offset: int,
                             k_offset: int, scale: float,
                             causal: bool = False):
     """Launch kernel #5 on CUDA tensors: merge the visiting chunk k, v
     [B,H,Tk,D] into the state (acc [B,H,Tq,D], m, l [B,H,Tq], contiguous
     f32) of the rows q [B,H,Tq,D]; returns the new state in new tensors.
-    q, k, v are read through their strides (head dim contiguous).  Raises
-    on anything the kernel does not take; never falls back to the plain
-    version."""
+    q, k, v are read through their strides (head dim contiguous).  bf16
+    takes the tensor-core route where its rows start on 16 bytes, else the
+    scalar one (:func:`partial_route`); ``flash_attention_partial.routes``
+    counts each.  Raises on anything the kernel does not take; never falls
+    back to the plain version."""
     _check_inputs(q, k, v, None)
     _check_offsets(q_offset, k_offset)
     b, h, tq, d = q.shape
@@ -536,6 +567,7 @@ def flash_attention_partial(q, k, v, acc, m, l, *, q_offset: int,
     for label, t, shape in (("acc", acc, (b, h, tq, d)), ("m", m, (b, h, tq)),
                             ("l", l, (b, h, tq))):
         _check_f32(label, t, shape, q.device)
+    route = partial_route(q.dtype, rows_aligned(q, k, v))
     out = tuple(torch.empty_like(t) for t in (acc, m, l))
     fn = _bind("flash_attention_fwd", "flash_attention_partial",
                _PARTIAL_FWD_ARGTYPES)
@@ -543,16 +575,19 @@ def flash_attention_partial(q, k, v, acc, m, l, *, q_offset: int,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), acc.data_ptr(),
                 m.data_ptr(), l.data_ptr(), *(t.data_ptr() for t in out),
-                int(q.dtype == torch.bfloat16), b, h, tq, tk, d,
+                int(q.dtype == torch.bfloat16),
+                int(route == "tensor_core"), b, h, tq, tk, d,
                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                 float(scale), int(bool(causal)), int(q_offset),
                 int(k_offset), stream)
     _raise_on(rc, "flash_attention_partial")
     flash_attention_partial.launches += 1
+    flash_attention_partial.routes[route] += 1
     return out
 
 
 flash_attention_partial.launches = 0
+flash_attention_partial.routes = {"tensor_core": 0, "scalar": 0}
 
 
 def _launch_partial_bwd(name, q, k, v, do, lse, delta, out0, out1, scale,

@@ -52,7 +52,8 @@ __all__ = ["shifted_batch_stats", "fused_matmul_bn_reference",
            "matmul_bn_fwd", "matmul_bn_bwd", "conv3x3_bn_fwd",
            "conv3x3_bn_bwd", "plain_matmul_bn_fwd", "plain_matmul_bn_bwd",
            "plain_conv3x3_bn_fwd", "plain_conv3x3_bn_bwd", "dw_splits",
-           "tc_channels", "conv3x3_bwd_route", "tc_split_chunk"]
+           "tc_channels", "conv3x3_fwd_route", "conv3x3_bwd_route",
+           "tc_split_chunk"]
 
 _SUPPORTED = (torch.float32, torch.bfloat16)
 _TILE = 64                        # the kernels' fixed output tile
@@ -60,7 +61,7 @@ _MAX_PART_BYTES = 256 * 2 ** 20   # the dW partials' scratch, at most
 _TARGET_BLOCKS = 4 * 132          # four blocks per SM of an H100
 _MIN_SPLIT_ROWS = 256             # rows a dW split sums, at least
 _MAX_GRID_Y = 65535
-# the tensor-core route of #11 (csrc/conv_bn_tc.cuh)
+# the tensor-core routes of #10 and #11 (csrc/conv_bn_tc.cuh)
 _TC_PAD = 64                      # channels of its scratch, rounded up to
 _TC_ROWS = 128                    # rows of its product tiles
 _TC_MIN_SPLIT_ROWS = 512          # positions a dW split sums, at least
@@ -153,6 +154,19 @@ def dw_splits(rows: int, out_rows: int, cols: int, tile_rows: int = _TILE,
     splits = min(splits, max(1, rows // min_rows),
                  _MAX_PART_BYTES // (out_rows * cols * 4))
     return max(1, splits)
+
+
+def conv3x3_fwd_route(dtype) -> str:
+    """Which kernel #10 runs for inputs of ``dtype``: ``"tensor_core"``
+    (a prepass of z, then bf16 operands and f32 sums on mma.sync) for
+    bfloat16, ``"scalar"`` (f32 FMAs) for float32, whose operands the
+    tensor cores would round.  The C entry picks the same kernel by dtype;
+    this names it for the route counter."""
+    if dtype == torch.bfloat16:
+        return "tensor_core"
+    if dtype == torch.float32:
+        return "scalar"
+    raise TypeError(f"kernel #10 takes float32 or bfloat16, not {dtype}")
 
 
 def conv3x3_bwd_route(dtype) -> str:
@@ -333,7 +347,7 @@ _ARGTYPES = {
     ("conv_bn_fwd", "conv_bn_matmul_fwd"):
         [_P] * 11 + [_I, _L, _I, _I, _I, _I, _P],
     ("conv_bn_fwd", "conv_bn_conv3x3_fwd"):
-        [_P] * 11 + [_I] * 8 + [_P],
+        [_P] * 13 + [_I] * 10 + [_P],
     ("conv_bn_bwd", "conv_bn_matmul_bwd"):
         [_P] * 17 + [_I, _L, _I, _I, _I, _I, _I, _P],
     ("conv_bn_bwd", "conv_bn_conv3x3_bwd"):
@@ -369,8 +383,8 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _stats_scratch(rows, n, device):
-    return (torch.empty((_tiles(rows), n), dtype=torch.float32,
+def _stats_scratch(rows, n, device, tile_rows=_TILE):
+    return (torch.empty((-(-rows // tile_rows), n), dtype=torch.float32,
                         device=device) for _ in range(2))
 
 
@@ -426,27 +440,39 @@ def conv3x3_bn_fwd(x, w, mean, scale, beta, kshift, *, fuse_input: bool,
                    emit_stats: bool):
     """Launch kernel #10 on CUDA tensors: x [B, H, W, C], w [3, 3, C, Co]
     (one dtype), f32 mean, scale, beta [C] and kshift [Co].  Returns
-    ``(y [B, H, W, Co] in x's dtype, s1, s2)``."""
+    ``(y [B, H, W, Co] in x's dtype, s1, s2)``.  bf16 takes the
+    tensor-core route, f32 the scalar one (:func:`conv3x3_fwd_route`);
+    ``conv3x3_bn_fwd.routes`` counts each."""
     name = "conv_bn_conv3x3_fwd"
     b, h, wd, c, co = _check_image(name, x, w)
     _check_vectors(name, x.device, {"mean": (mean, c), "scale": (scale, c),
                                     "beta": (beta, c),
                                     "kshift": (kshift, co)})
-    m = b * h * wd
-    y = torch.empty((b, h, wd, co), dtype=x.dtype, device=x.device)
-    p1, p2 = _stats_scratch(m, co, x.device) if emit_stats else (None, None)
-    s1, s2 = ((torch.empty(co, device=x.device) for _ in range(2))
+    m, dev = b * h * wd, x.device
+    route = conv3x3_fwd_route(x.dtype)
+    if route == "tensor_core":  # z and W padded to 64 channels
+        cp, cop, tile_rows = tc_channels(c), tc_channels(co), _TC_ROWS
+        z = torch.empty((m, cp), dtype=x.dtype, device=dev)
+        wp = torch.empty((9, cp, cop), dtype=x.dtype, device=dev)
+    else:
+        cp, cop, tile_rows, z, wp = 0, 0, _TILE, None, None
+    y = torch.empty((b, h, wd, co), dtype=x.dtype, device=dev)
+    p1, p2 = (_stats_scratch(m, co, dev, tile_rows) if emit_stats
+              else (None, None))
+    s1, s2 = ((torch.empty(co, device=dev) for _ in range(2))
               if emit_stats else (None, None))
-    _launch("conv_bn_fwd", name, x.device, x.data_ptr(), w.data_ptr(),
+    _launch("conv_bn_fwd", name, dev, x.data_ptr(), w.data_ptr(),
             mean.data_ptr(), scale.data_ptr(), beta.data_ptr(),
             kshift.data_ptr(), y.data_ptr(), _ptr(p1), _ptr(p2), _ptr(s1),
-            _ptr(s2), int(x.dtype == torch.bfloat16), b, h, wd, c, co,
-            int(fuse_input), int(emit_stats))
+            _ptr(s2), _ptr(z), _ptr(wp), int(x.dtype == torch.bfloat16), b,
+            h, wd, c, co, cp, cop, int(fuse_input), int(emit_stats))
     conv3x3_bn_fwd.launches += 1
+    conv3x3_bn_fwd.routes[route] += 1
     return y, s1, s2
 
 
 conv3x3_bn_fwd.launches = 0
+conv3x3_bn_fwd.routes = {"tensor_core": 0, "scalar": 0}
 
 
 def _grad_outputs(x, w, c, fuse_input, rows_w, cols_w, rows):
@@ -548,9 +574,8 @@ def _conv3x3_bwd_tc(x, w, mean, scale, beta, kshift, y, dy, gm, gs,
     wp = torch.empty((9, cp, cop), dtype=x.dtype, device=dev)
     part = torch.empty((splits, 9 * cp, cop), dtype=torch.float32,
                        device=dev)
-    psx, psu = ((torch.empty((-(-m // _TC_ROWS), c), dtype=torch.float32,
-                             device=dev) for _ in range(2))
-                if fuse_input else (None, None))
+    psx, psu = (_stats_scratch(m, c, dev, _TC_ROWS) if fuse_input
+                else (None, None))
     dsx, dsu = torch.zeros(c, device=dev), torch.zeros(c, device=dev)
     dx, dw = torch.empty_like(x), torch.empty_like(w)
     _launch("conv_bn_bwd", "conv_bn_conv3x3_bwd_tc", dev, x.data_ptr(),

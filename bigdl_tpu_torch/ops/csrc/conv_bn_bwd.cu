@@ -438,8 +438,9 @@ int conv_bn_conv3x3_bwd_tc(const void* x, const void* w, const float* mean,
   const long long chunks =
       p.M * (p.Cp / 8) + p.M * (p.Cop / 8) + 9LL * p.Cp * (p.Cop / 8);
   const long long pre_blocks = (chunks + 255) / 256;
-  t::prepass<<<(unsigned)(pre_blocks < 132 * 16 ? pre_blocks : 132 * 16), 256,
-               0, s>>>(p);
+  t::prepass<true><<<(unsigned)(pre_blocks < 132 * 16 ? pre_blocks
+                                                      : 132 * 16),
+                     256, 0, s>>>(p);
   const long long m_tiles = (p.M + t::kBM - 1) / t::kBM;
   t::dgrad<<<dim3((unsigned)m_tiles, p.Cp / t::kBN), t::kThreads, 0, s>>>(p);
   t::wgrad<<<dim3((9 * p.Cp + t::kBM - 1) / t::kBM, p.Cop / t::kBN, splits),

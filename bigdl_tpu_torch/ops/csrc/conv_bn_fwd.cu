@@ -25,8 +25,11 @@
 // block keeps a 64 x 64 tile of y in registers, loads each input slice once
 // into shared memory with the normalize+ReLU applied on the way, and never
 // writes z to device memory; the statistics are summed from the tile in
-// registers, so y is not read back.  Tensor cores (mma/wgmma) and TMA are
-// later work.
+// registers, so y is not read back.  The 3x3 in bf16 (the `--fused --bf16`
+// path) runs on the tensor cores instead (conv_bn_tc.cuh: a prepass that
+// stores z and a padded W once, then an implicit GEMM on mma.sync): the
+// entry point conv_bn_conv3x3_fwd picks that route for bf16 and the
+// scalar one for f32, whose operands the tensor cores would round.
 //
 // Routing differs from the TPU in one place: the reference's VMEM budget
 // refuses the 3x3 at C = Co = 512 (stage 4: 9 * 512 * 512 * 6 B > 11 MiB),
@@ -34,11 +37,13 @@
 // The fused and plain paths compute the same thing, so only the launch
 // count differs.
 //
-// Each entry point launches the product (one block per 64 x 64 tile of y)
-// and, with a kshift, one fixed-order reduction of the per-tile statistics.
-// It returns cudaGetLastError().
+// Each entry point launches the product (one block per 64 x 64 tile of y;
+// the bf16 3x3: its prepass, then one block per 128 x 64 tile) and, with a
+// kshift, one fixed-order reduction of the per-tile statistics.  It
+// returns cudaGetLastError().
 
 #include "conv_bn_common.cuh"
+#include "conv_bn_tc.cuh"
 
 namespace {
 
@@ -101,8 +106,8 @@ struct MatmulFwd {
   }
 };
 
-// #10: y [B,H,W,Co] = the 3x3 SAME conv of z [B,H,W,C] with W [3,3,C,Co];
-// the reduction index r = (3 * dh + dw) * C + c
+// #10 in f32: y [B,H,W,Co] = the 3x3 SAME conv of z [B,H,W,C] with
+// W [3,3,C,Co]; the reduction index r = (3 * dh + dw) * C + c
 template <typename T>
 struct Conv3Fwd {
   const T* x;
@@ -160,16 +165,62 @@ int matmul_fwd(const void* x, const void* w, const float* mean,
   return run_fwd(p, s1, s2, stream);
 }
 
-template <typename T>
 int conv3_fwd(const void* x, const void* w, const float* mean,
               const float* scale, const float* beta, const float* kshift,
               void* y, float* p1, float* p2, float* s1, float* s2, int B,
               int H, int W, int C, int Co, int fuse, int stats,
               cudaStream_t stream) {
-  Conv3Fwd<T> p{static_cast<const T*>(x), static_cast<const T*>(w), mean,
-                scale, beta, kshift, static_cast<T*>(y), p1, p2,
-                Image{B, H, W}, (long long)B * H * W, Co, C, fuse, stats};
+  Conv3Fwd<float> p{static_cast<const float*>(x),
+                    static_cast<const float*>(w), mean, scale, beta, kshift,
+                    static_cast<float*>(y), p1, p2, Image{B, H, W},
+                    (long long)B * H * W, Co, C, fuse, stats};
   return run_fwd(p, s1, s2, stream);
+}
+
+// #10 on the tensor cores (bf16): the prepass of z and wp, the implicit
+// GEMM with the statistics partials, their reduction
+int conv3_fwd_tc(const void* x, const void* w, const float* mean,
+                 const float* scale, const float* beta, const float* kshift,
+                 void* y, float* p1, float* p2, float* s1, float* s2,
+                 void* z, void* wp, int B, int H, int W, int C, int Co,
+                 int Cp, int Cop, int fuse, int stats, cudaStream_t stream) {
+  namespace t = tcconv;
+  using bf16 = __nv_bfloat16;
+  if (Cp % t::kBN != 0 || Cp < C || Cop % t::kBN != 0 || Cop < Co)
+    return (int)cudaErrorInvalidValue;
+  t::Problem p{};
+  p.x = static_cast<const bf16*>(x);
+  p.w = static_cast<const bf16*>(w);
+  p.z = static_cast<bf16*>(z);
+  p.wp = static_cast<bf16*>(wp);
+  p.yf = static_cast<bf16*>(y);
+  p.ps1 = p1;
+  p.ps2 = p2;
+  p.mean = mean;
+  p.scale = scale;
+  p.beta = beta;
+  p.kshift = kshift;
+  p.img = Image{B, H, W};
+  p.M = (long long)B * H * W;
+  p.C = C;
+  p.Co = Co;
+  p.Cp = Cp;
+  p.Cop = Cop;
+  p.fuse = fuse;
+  p.stats = stats;
+  const long long chunks = p.M * (Cp / 8) + 9LL * Cp * (Cop / 8);
+  const long long pre_blocks = (chunks + 255) / 256;
+  t::prepass<false><<<(unsigned)(pre_blocks < 132 * 16 ? pre_blocks
+                                                       : 132 * 16),
+                      256, 0, stream>>>(p);
+  const long long m_tiles = (p.M + t::kBM - 1) / t::kBM;
+  t::fprop<<<dim3((unsigned)m_tiles, Cop / t::kBN), t::kThreads, 0,
+             stream>>>(p);
+  if (stats) {
+    launch_reduce<float>(p1, m_tiles, Co, s1, stream);
+    launch_reduce<float>(p2, m_tiles, Co, s2, stream);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -194,20 +245,22 @@ int conv_bn_matmul_fwd(const void* x, const void* w, const float* mean,
 }
 
 // x [B,H,W,C], w [3,3,C,Co], y [B,H,W,Co]; mean, scale, beta [C] and
-// kshift [Co] f32; p1, p2 f32 [ceil(B*H*W/64), Co]; s1, s2 f32 [Co].
+// kshift [Co] f32; s1, s2 f32 [Co].  f32 takes the scalar route: p1, p2
+// f32 [ceil(B*H*W/64), Co], z, wp, Cp and Cop unused.  bf16 takes the
+// tensor cores: p1, p2 f32 [ceil(B*H*W/128), Co], scratch z [B*H*W, Cp]
+// and wp [9, Cp, Cop] bf16 (Cp, Cop: C, Co rounded up to a multiple of 64).
 int conv_bn_conv3x3_fwd(const void* x, const void* w, const float* mean,
                         const float* scale, const float* beta,
                         const float* kshift, void* y, float* p1, float* p2,
-                        float* s1, float* s2, int bf16, int B, int H, int W,
-                        int C, int Co, int fuse_input, int emit_stats,
-                        void* stream) {
+                        float* s1, float* s2, void* z, void* wp, int bf16,
+                        int B, int H, int W, int C, int Co, int Cp, int Cop,
+                        int fuse_input, int emit_stats, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? conv3_fwd<__nv_bfloat16>(x, w, mean, scale, beta, kshift,
-                                         y, p1, p2, s1, s2, B, H, W, C, Co,
-                                         fuse_input, emit_stats, s)
-              : conv3_fwd<float>(x, w, mean, scale, beta, kshift, y, p1, p2,
-                                 s1, s2, B, H, W, C, Co, fuse_input,
-                                 emit_stats, s);
+  return bf16 ? conv3_fwd_tc(x, w, mean, scale, beta, kshift, y, p1, p2, s1,
+                             s2, z, wp, B, H, W, C, Co, Cp, Cop, fuse_input,
+                             emit_stats, s)
+              : conv3_fwd(x, w, mean, scale, beta, kshift, y, p1, p2, s1,
+                          s2, B, H, W, C, Co, fuse_input, emit_stats, s);
 }
 
 }  // extern "C"

@@ -1,17 +1,20 @@
-// Kernel #11 on the tensor cores: the backward of the fused 3x3 conv+BN
-// (conv_bn_conv3x3_bwd_tc in conv_bn_bwd.cu), for bf16 inputs, the
-// `--fused --bf16` training path.  It computes what the scalar route
-// (Conv3Dz / Conv3Dw over tile_product) computes, at the same rounding
-// points, and replaces the same TPU kernel (_conv3_bwd_kernel).
+// Kernels #10 and #11 on the tensor cores: the forward and the backward
+// of the fused 3x3 conv+BN (conv_bn_conv3x3_fwd in conv_bn_fwd.cu and
+// conv_bn_conv3x3_bwd_tc in conv_bn_bwd.cu), for bf16 inputs, the
+// `--fused --bf16` training path.  They compute what the scalar routes
+// (Conv3Fwd, Conv3Dz / Conv3Dw over tile_product) compute, at the same
+// rounding points, and replace the same TPU kernels (_conv3_fwd_kernel,
+// _conv3_bwd_kernel).
 //
-// Why a redesign.  The scalar route folds dy and normalises x again at
-// every load of every pass (each dy element 9 x ceil(C/64) times), with
-// 64-bit divisions per element, and sums with scalar f32 FMAs.  Here:
+// Why a redesign.  The scalar routes normalise x (and fold dy) again at
+// every load of every pass (each element 9 x ceil(C/64) times), with
+// 64-bit divisions per element, and sum with scalar f32 FMAs.  Here:
 //
-// 1. A prepass forms each operand once, with the scalar route's own
+// 1. A prepass forms each operand once, with the scalar routes' own
 //    functions (norm_relu, fold_dy), into scratch the wrapper allocates:
 //      z   [M, Cp]  bf16  relu((x - mean) * scale + beta) cast to x's dtype
 //      dyl [M, Cop] bf16  dy + gm + gs (y - K) cast to dy's dtype
+//                         (the backward only)
 //      wp  [9, Cp, Cop] bf16, W with its channels padded
 //    Cp and Cop are C and Co rounded up to 64 with zeros (the wrapper
 //    picks them, tc_channels), so every 16-byte copy and every product
@@ -29,15 +32,23 @@
 //    each position it loads, so a shift costs no division (Pos).
 // 3. wgrad: dW [9 Cp, Cop] = sum over positions of z(shifted)^T . dyl,
 //    rows (tap, c), split over positions into parts of `chunk` positions
-//    that the wrapper fixes from the shape alone (tc_dw_splits,
-//    tc_split_chunk); each split writes its f32
-//    partial and reduce_dw adds them in order and casts to W's dtype.  Both operands are position-major in memory, so they come
-//    through ldmatrix.trans.
-// 4. bf16 x bf16 -> f32 on mma.sync.m16n8k16 (tensor_core.cuh says why
+//    that the wrapper fixes from the shape alone (dw_splits,
+//    tc_split_chunk); each split writes its f32 partial and reduce_dw
+//    adds them in order and casts to W's dtype.  Both operands are
+//    position-major in memory, so they come through ldmatrix.trans.
+// 4. fprop (#10): y [M, Co] = sum over (tap, c) of z(position shifted by
+//    the tap) . wp[tap], the same implicit GEMM as dgrad with B (wp,
+//    contiguous along Co) through ldmatrix.trans.  The halo reads zeros
+//    of z, which is exactly the reference's SAME padding of z after
+//    normalize+ReLU.  The epilogue rounds y to bf16, stores the real
+//    columns, and forms the statistics s1 = sum (y - K) and s2 =
+//    sum (y - K)^2 from the rounded y as per-tile partials in dgrad's
+//    fixed order; launch_reduce adds them.
+// 5. bf16 x bf16 -> f32 on mma.sync.m16n8k16 (tensor_core.cuh says why
 //    not wgmma yet).  No float atomics: two launches give the same bits.
 //
-// f32 inputs keep the scalar route (TF32 would round the operands to 10
-// bits); the wrapper routes by dtype and counts each route.
+// f32 inputs keep the scalar routes (TF32 would round the operands to 10
+// bits); the wrappers route by dtype and count each route.
 
 #pragma once
 
@@ -70,6 +81,8 @@ struct Problem {
   bf16* dw;         // [9, C, Co]
   float* part;      // [splits, 9 Cp, Cop]
   float *psx, *psu; // [ceil(M / 128), C]
+  bf16* yf;         // [M, Co], the forward's output
+  float *ps1, *ps2; // [ceil(M / 128), Co], the forward's statistics
   const float *mean, *scale, *beta, *kshift, *gm, *gs;
   Image img;
   long long M, chunk;  // positions, and positions per dW split
@@ -78,6 +91,13 @@ struct Problem {
 
 // ---- 1. the prepass -------------------------------------------------------
 
+// z of one entry as the reference forms it: relu((x - mean) * scale +
+// beta) cast to x's dtype (bf16), or x itself without a norm
+__device__ __forceinline__ bf16 z_entry(float x, float mean, float scale,
+                                        float beta, int fuse) {
+  return from_f32<bf16>(fuse ? norm_relu<bf16>(x, mean, scale, beta) : x);
+}
+
 // dyl of one entry as the reference forms it: dy folded with the
 // statistics cotangents, cast to dy's dtype (bf16)
 __device__ __forceinline__ bf16 dyl_entry(float dy, float y, float gm,
@@ -85,9 +105,12 @@ __device__ __forceinline__ bf16 dyl_entry(float dy, float y, float gm,
   return from_f32<bf16>(fold_dy<bf16>(dy, y, gm, gs, k, stats));
 }
 
-// one thread per 8 consecutive channels of a row of z, dyl or wp
+// one thread per 8 consecutive channels of a row of z, dyl (with kDyl:
+// the backward) or wp
+template <bool kDyl>
 __global__ void __launch_bounds__(256) prepass(const Problem p) {
-  const long long nz = p.M * (p.Cp / 8), ndy = p.M * (p.Cop / 8);
+  const long long nz = p.M * (p.Cp / 8);
+  const long long ndy = kDyl ? p.M * (p.Cop / 8) : 0;
   const long long total = nz + ndy + 9LL * p.Cp * (p.Cop / 8);
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        i < total; i += (long long)gridDim.x * blockDim.x) {
@@ -99,13 +122,9 @@ __global__ void __launch_bounds__(256) prepass(const Problem p) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int c = c0 + j;
-        float zv = 0.f;
-        if (c < p.C) {
-          const float xv = to_f32(p.x[m * p.C + c]);
-          zv = p.fuse ? norm_relu<bf16>(xv, p.mean[c], p.scale[c], p.beta[c])
-                      : xv;
-        }
-        out[j] = from_f32<bf16>(zv);
+        out[j] = c < p.C ? z_entry(to_f32(p.x[m * p.C + c]), p.mean[c],
+                                   p.scale[c], p.beta[c], p.fuse)
+                         : from_f32<bf16>(0.f);
       }
       dst = p.z + m * p.Cp + c0;
     } else if (i < nz + ndy) {
@@ -462,6 +481,126 @@ __global__ void reduce_dw(const Problem p) {
   float tot = 0.f;
   for (int s = 0; s < p.splits; ++s) tot += p.part[s * step + at];
   p.dw[i] = from_f32<bf16>(tot);
+}
+
+// ---- 4. fprop (#10) -------------------------------------------------------
+
+__global__ void __launch_bounds__(kThreads, 2) fprop(const Problem p) {
+  __shared__ __align__(16) bf16 As[kStages][kBM][kLdK];  // [position][c]
+  __shared__ __align__(16) bf16 Bs[kStages][kBK][kLdB];  // [c][co]
+  __shared__ float sums[2][4][kBN];
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int wm = warp % 4, wn = warp / 4, g = lane / 4, t4 = lane % 4;
+  const long long m0 = (long long)blockIdx.x * kBM;
+  const int n0 = blockIdx.y * kBN;
+  const int ncp = p.Cp / kBK;  // chunks per tap
+
+  // this thread's two A rows (fixed over K), each with its own h and w:
+  // a tile may span several images
+  const int a_ch = tid % 4, b_ch = tid % 8;
+  Pos a_m[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) a_m[i].set(p.img, m0 + (tid + i * kThreads) / 4);
+
+  auto load = [&](int st, int kc) {
+    const int tap = kc / ncp, c0 = (kc % ncp) * kBK;
+    // y at (h, w) takes z at (h + dh - 1, w + dw - 1) for tap (dh, dw)
+    const int dh = tap / 3 - 1, dw = tap % 3 - 1;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = (tid + i * kThreads) / 4;
+      const long long pos = a_m[i].shifted(p.img, p.M, dh, dw);
+      load_row16(&As[st][r][a_ch * 8], p.z, pos,
+                 a_m[i].m < p.M ? a_m[i].m : 0, p.Cp, c0 + a_ch * 8);
+    }
+    const int kr = tid / 8;
+    tc::cp_async16(&Bs[st][kr][b_ch * 8],
+                   p.wp + ((long long)tap * p.Cp + c0 + kr) * p.Cop + n0 +
+                       b_ch * 8,
+                   true);
+  };
+
+  Acc acc;
+  zero(acc);
+  auto compute = [&](int st) {
+#pragma unroll
+    for (int ks = 0; ks < kBK / 16; ++ks) {
+      uint32_t a[2][4], b[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+        tc::ldmatrix_x4(a[mi], &As[st][wm * 32 + mi * 16 + lane % 16]
+                                  [ks * 16 + (lane / 16) * 8]);
+#pragma unroll
+      for (int np = 0; np < 2; ++np)
+        tc::ldmatrix_x4_trans(
+            b[np], &Bs[st][ks * 16 + lane % 8 + ((lane / 8) % 2) * 8]
+                      [wn * 32 + np * 16 + (lane / 16) * 8]);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+          tc::mma_bf16(acc[mi][ni], a[mi], b[ni / 2][(ni % 2) * 2],
+                       b[ni / 2][(ni % 2) * 2 + 1]);
+    }
+  };
+  mainloop(9 * ncp, load, compute);
+
+  // epilogue: y cast to bf16, and the statistics of the rounded y
+  float c1[4][2], c2[4][2];
+#pragma unroll
+  for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) c1[ni][e] = c2[ni][e] = 0.f;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const long long m = m0 + wm * 32 + mi * 16 + g + half * 8;
+      if (m >= p.M) continue;
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int co = n0 + wn * 32 + ni * 8 + 2 * t4 + e;
+          if (co >= p.Co) continue;
+          const bf16 yv = from_f32<bf16>(acc[mi][ni][half * 2 + e]);
+          p.yf[m * p.Co + co] = yv;
+          const float d = __fsub_rn(to_f32(yv), p.kshift[co]);
+          c1[ni][e] += d;
+          c2[ni][e] += __fmul_rn(d, d);
+        }
+    }
+  if (!p.stats) return;  // uniform over the block
+  // over the warp's 8 row groups, then its 4 warps along the rows
+#pragma unroll
+  for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int off = 4; off < 32; off *= 2) {
+        c1[ni][e] += __shfl_xor_sync(0xffffffffu, c1[ni][e], off);
+        c2[ni][e] += __shfl_xor_sync(0xffffffffu, c2[ni][e], off);
+      }
+  if (g == 0)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = wn * 32 + ni * 8 + 2 * t4 + e;
+        sums[0][wm][col] = c1[ni][e];
+        sums[1][wm][col] = c2[ni][e];
+      }
+  __syncthreads();
+  if (tid < kBN && n0 + tid < p.Co) {
+    float t1 = 0.f, t2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      t1 += sums[0][i][tid];
+      t2 += sums[1][i][tid];
+    }
+    p.ps1[(long long)blockIdx.x * p.Co + n0 + tid] = t1;
+    p.ps2[(long long)blockIdx.x * p.Co + n0 + tid] = t2;
+  }
 }
 
 }  // namespace tcconv

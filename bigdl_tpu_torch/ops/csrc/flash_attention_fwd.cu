@@ -55,13 +55,37 @@
 //     acc / l and m + log l after the last chunk).
 // No bias (the ring routes a biased call to its plain path).  On an H100
 // the ring's chunk pairs (B8 H8 Tc512 D64) do 8 flops per byte of q, k, v
-// and state and are bound by operations: the design answer is #1's (K/V
-// read once per 16-row query tile, no score matrix in device memory, tiles
-// above the diagonal skipped); tensor cores are later work.
+// and state and are bound by operations.  For f32 (and bf16 rows that are
+// not 16-byte aligned) the answer is #1's, the scalar template: K/V read
+// once per 16-row query tile, no score matrix in device memory, tiles
+// above the diagonal skipped.
+//
+// For bf16, the sequence-parallel training path, #5 runs on the tensor
+// cores instead: flash_partial_tc_kernel, the FlashAttention-2 forward
+// loop on mma.sync.m16n8k16 (tensor_core.cuh says why not wgmma yet).  A
+// block of 4 warps owns 64 query rows of one (b, h), 16 per warp, with
+// their Q fragments loaded once through ldmatrix and kept in registers;
+// 64-key tiles of K and V stream through two cp.async stages (zeros
+// beyond Tk and D; D padded to 32, 64 or 128).  Per tile each warp forms
+// S = Q . K^T into f32 fragments, scales and masks it as the scalar
+// kernel does (-1e9 replaces a score on global causal positions, -inf
+// excludes a key beyond Tk), takes row maxima and sums by quad shuffles
+// (l from the unrounded P), casts P to bf16 rounding to nearest (the
+// reference's cast to v's dtype) straight from the S fragments into A
+// fragments, and adds P . V (V through ldmatrix.trans) to acc, which
+// starts from acc_in in the C fragments.  Each element of the state is
+// read and written by the one thread that owns its fragment slot (m and l
+// by the first lane of a quad), so the outputs may alias the inputs.
+// The wrapper routes a call here only when the head dim is a multiple of
+// 8 and every row of q, k and v starts on 16 bytes; the entry point
+// refuses it otherwise.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -254,6 +278,275 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
+// ---- #5 on the tensor cores (bf16) ------------------------------------------
+
+constexpr int kTcWarps = 4;
+constexpr int kTcRows = kTcWarps * 16;  // query rows per block, 16 per warp
+constexpr int kTcKeys = 64;             // keys per K/V tile
+constexpr int kTcStages = 2;
+
+template <int DMAX>
+struct PartialTc {
+  static constexpr int kLd = DMAX + 8;  // padded row: ldmatrix hits 8 banks
+  static constexpr size_t kSmem =
+      (size_t)(kTcRows + 2 * kTcStages * kTcKeys) * kLd *
+      sizeof(__nv_bfloat16);
+};
+
+// rows [r0, r0 + n) of a [T, D] bf16 operand (row stride st, contiguous
+// columns) into shared rows of DMAX + 8, zeros beyond T and D, by 16-byte
+// cp.async copies
+template <int DMAX>
+__device__ __forceinline__ void load_rows_async(__nv_bfloat16* dst,
+                                                const __nv_bfloat16* src,
+                                                long long st, int r0, int n,
+                                                int T, int D) {
+  constexpr int kLd = PartialTc<DMAX>::kLd, kChunks = DMAX / 8;
+  for (int i = threadIdx.x; i < n * kChunks; i += kTcWarps * 32) {
+    const int r = i / kChunks, c = (i % kChunks) * 8, t = r0 + r;
+    const bool inside = t < T && c < D;
+    tc::cp_async16(dst + r * kLd + c, inside ? src + t * st + c : src,
+                   inside);
+  }
+}
+
+template <int DMAX>
+__global__ void __launch_bounds__(kTcWarps * 32)
+    flash_partial_tc_kernel(const Params p) {
+  using bf16 = __nv_bfloat16;
+  constexpr int kLd = PartialTc<DMAX>::kLd;
+  constexpr int kDk = DMAX / 16;     // 16-deep steps of Q . K^T
+  constexpr int kDn = DMAX / 8;      // n8 tiles of acc
+  constexpr int kKn = kTcKeys / 8;   // n8 tiles of S
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [kTcRows][kLd]
+  bf16* ks = qs + kTcRows * kLd;                 // [kTcStages][kTcKeys][kLd]
+  bf16* vs = ks + kTcStages * kTcKeys * kLd;     // [kTcStages][kTcKeys][kLd]
+
+  const int bh = blockIdx.x;
+  const int b = bh / p.H, h = bh % p.H;
+  const int q0 = blockIdx.y * kTcRows;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int r_lo = q0 + warp * 16 + g;  // this thread's rows r_lo, r_lo + 8
+
+  const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
+
+  // the scalar kernel's rule at 64-row blocks: a chunk no row sees passes
+  // the state through; key tiles wholly above the diagonal of the block's
+  // last row are skipped only when every row of the block sees key 0 (a
+  // row that sees no key is uniform over ALL keys), that is when its
+  // first row does
+  int n_tiles = (p.Tk + kTcKeys - 1) / kTcKeys;
+  if (p.causal && (long long)p.Tq - 1 + p.causal_offset < 0) {
+    n_tiles = 0;
+  } else if (p.causal && q0 + p.causal_offset >= 0) {
+    const long long last_key =
+        (long long)min(q0 + kTcRows, p.Tq) - 1 + p.causal_offset;
+    n_tiles = (int)min((long long)n_tiles, last_key / kTcKeys + 1);
+  }
+
+  auto load_kv = [&](int stage, int tile) {
+    load_rows_async<DMAX>(ks + stage * kTcKeys * kLd, k, p.k_st,
+                          tile * kTcKeys, kTcKeys, p.Tk, p.D);
+    load_rows_async<DMAX>(vs + stage * kTcKeys * kLd, v, p.v_st,
+                          tile * kTcKeys, kTcKeys, p.Tk, p.D);
+  };
+  load_rows_async<DMAX>(qs, q, p.q_st, q0, kTcRows, p.Tq, p.D);
+  if (n_tiles > 0) load_kv(0, 0);
+  tc::cp_async_commit();
+
+  // the carried state in C fragments: acc (rows g, g + 8 of the warp's 16,
+  // columns 2 t4, 2 t4 + 1 of each n8 tile), m and l of the two rows
+  float m[2], l[2], acc[kDn][4];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int t = r_lo + hh * 8;
+    const long long row = (long long)bh * p.Tq + t;
+    float mv = kMaskedScore, lv = 0.f;
+    if (t4 == 0 && t < p.Tq) {
+      mv = p.m_in[row];
+      lv = p.l_in[row];
+    }
+    m[hh] = __shfl_sync(0xffffffffu, mv, lane & ~3);
+    l[hh] = __shfl_sync(0xffffffffu, lv, lane & ~3);
+#pragma unroll
+    for (int j = 0; j < kDn; ++j) {
+      const int c = j * 8 + 2 * t4;
+      float2 a = make_float2(0.f, 0.f);
+      if (t < p.Tq && c < p.D)
+        a = *reinterpret_cast<const float2*>(p.acc_in + row * p.D + c);
+      acc[j][2 * hh] = a.x;
+      acc[j][2 * hh + 1] = a.y;
+    }
+  }
+
+  tc::cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qa[kDk][4];  // this warp's 16 rows of Q, kept for every tile
+#pragma unroll
+  for (int kd = 0; kd < kDk; ++kd)
+    tc::ldmatrix_x4(qa[kd],
+                    qs + (warp * 16 + lane % 16) * kLd + kd * 16 +
+                        (lane / 16) * 8);
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int stage = tile & 1;
+    if (tile + 1 < n_tiles) load_kv(stage ^ 1, tile + 1);
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();  // this tile's copies have landed
+    __syncthreads();
+    const bf16* kt = ks + stage * kTcKeys * kLd;
+    const bf16* vt = vs + stage * kTcKeys * kLd;
+
+    // S = Q . K^T: 16 rows x 64 keys per warp, f32
+    float s[kKn][4];
+#pragma unroll
+    for (int j = 0; j < kKn; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < kDk; ++kd)
+#pragma unroll
+      for (int np = 0; np < kKn / 2; ++np) {
+        uint32_t kb[4];
+        tc::ldmatrix_x4(kb, kt + (np * 16 + lane % 8 + (lane / 16) * 8) * kLd +
+                                kd * 16 + ((lane / 8) % 2) * 8);
+        tc::mma_bf16(s[2 * np], qa[kd], kb[0], kb[1]);
+        tc::mma_bf16(s[2 * np + 1], qa[kd], kb[2], kb[3]);
+      }
+
+    // the scale after the dot, the masks, and the rows' maxima; a tile
+    // whose every key every row of the block sees skips the tests
+    const int k0 = tile * kTcKeys;
+    const bool open_tile =
+        k0 + kTcKeys <= p.Tk &&
+        (!p.causal || k0 + kTcKeys - 1 <= q0 + p.causal_offset);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < kKn; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * p.scale;
+        if (!open_tile) {
+          const int key = k0 + j * 8 + 2 * t4 + (e % 2);
+          if (p.causal && key > r_lo + (e / 2) * 8 + p.causal_offset)
+            x = kMaskedScore;
+          if (key >= p.Tk) x = -INFINITY;  // excluded from the max and sums
+        }
+        s[j][e] = x;
+        mx[e / 2] = fmaxf(mx[e / 2], x);
+      }
+    float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+      const float m_new = fmaxf(m[hh], mx[hh]);  // finite: key k0 exists
+      alpha[hh] = expf(m[hh] - m_new);
+      m[hh] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < kKn; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pr = expf(s[j][e] - m[e / 2]);  // 0 beyond Tk
+        s[j][e] = pr;
+        rs[e / 2] += pr;
+      }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      rs[hh] += __shfl_xor_sync(0xffffffffu, rs[hh], 1);
+      rs[hh] += __shfl_xor_sync(0xffffffffu, rs[hh], 2);
+      l[hh] = l[hh] * alpha[hh] + rs[hh];  // l from the unrounded P
+    }
+#pragma unroll
+    for (int j = 0; j < kDn; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e / 2];
+
+    // P cast to v's dtype (bf16, to nearest), packed as A fragments
+    uint32_t pf[kKn][2];
+#pragma unroll
+    for (int j = 0; j < kKn; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        pf[j][hh] = tc::pack_bf16(s[j][2 * hh], s[j][2 * hh + 1]);
+
+    // acc += P . V, V through ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < kTcKeys / 16; ++kk) {
+      const uint32_t pa[4] = {pf[2 * kk][0], pf[2 * kk][1],
+                              pf[2 * kk + 1][0], pf[2 * kk + 1][1]};
+#pragma unroll
+      for (int dn = 0; dn < kDn / 2; ++dn) {
+        uint32_t vb[4];
+        tc::ldmatrix_x4_trans(
+            vb, vt + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * kLd +
+                    dn * 16 + (lane / 16) * 8);
+        tc::mma_bf16(acc[2 * dn], pa, vb[0], vb[1]);
+        tc::mma_bf16(acc[2 * dn + 1], pa, vb[2], vb[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage
+  }
+  tc::cp_async_wait<0>();
+
+  float* acc_out = static_cast<float*>(p.out);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int t = r_lo + hh * 8;
+    if (t >= p.Tq) continue;
+    const long long row = (long long)bh * p.Tq + t;
+#pragma unroll
+    for (int j = 0; j < kDn; ++j) {
+      const int c = j * 8 + 2 * t4;
+      if (c < p.D)
+        *reinterpret_cast<float2*>(acc_out + row * p.D + c) =
+            make_float2(acc[j][2 * hh], acc[j][2 * hh + 1]);
+    }
+    if (t4 == 0) {
+      p.lse[row] = m[hh];
+      p.l_out[row] = l[hh];
+    }
+  }
+}
+
+template <int DMAX>
+int launch_partial_tc(const Params& p, cudaStream_t stream) {
+  constexpr size_t smem = PartialTc<DMAX>::kSmem;
+  if (smem > 48 * 1024) {  // above 48 KB only as opted-in dynamic memory
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_partial_tc_kernel<DMAX>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 grid(p.B * p.H, (p.Tq + kTcRows - 1) / kTcRows);
+  flash_partial_tc_kernel<DMAX><<<grid, kTcWarps * 32, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// whether every row of q, k and v starts on 16 bytes (head dim contiguous,
+// a multiple of 8 bf16 values), as the tensor-core route's copies need
+bool rows_aligned(const Params& p) {
+  const long long strides[9] = {p.q_sb, p.q_sh, p.q_st, p.k_sb, p.k_sh,
+                                p.k_st, p.v_sb, p.v_sh, p.v_st};
+  for (long long st : strides)
+    if (st % 8 != 0) return false;
+  return p.D % 8 == 0 && (uintptr_t)p.q % 16 == 0 &&
+         (uintptr_t)p.k % 16 == 0 && (uintptr_t)p.v % 16 == 0;
+}
+
+int launch_partial_tc_for_dim(const Params& p, cudaStream_t stream) {
+  if (!rows_aligned(p)) return (int)cudaErrorInvalidValue;
+  if (p.D <= 32) return launch_partial_tc<32>(p, stream);
+  if (p.D <= 64) return launch_partial_tc<64>(p, stream);
+  if (p.D <= 128) return launch_partial_tc<128>(p, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
 template <typename T, int DMAX, bool kPartial>
 int launch(const Params& p, cudaStream_t stream) {
   const dim3 grid(p.B * p.H, (p.Tq + kBlockQ - 1) / kBlockQ);
@@ -323,11 +616,14 @@ extern "C" int flash_attention_fwd(
 // [B, H, Tq, D], k and v [B, H, Tk, D] (strided; head dim contiguous);
 // acc_in/acc_out [B*H, Tq, D] and m/l [B*H, Tq] are contiguous f32 (the
 // outputs may alias the inputs: each element is read and written by one
-// thread).  q_offset and k_offset are the chunks' global positions.
+// thread).  q_offset and k_offset are the chunks' global positions.  bf16
+// with tensor_cores set runs flash_partial_tc_kernel (an error unless D %
+// 8 == 0 and every row starts on 16 bytes), else the scalar template.
 extern "C" int flash_attention_partial(
     const void* q, const void* k, const void* v, const void* acc_in,
     const void* m_in, const void* l_in, void* acc_out, void* m_out,
-    void* l_out, int is_bf16, int B, int H, int Tq, int Tk, int D,
+    void* l_out, int is_bf16, int tensor_cores, int B, int H, int Tq,
+    int Tk, int D,
     long long q_sb, long long q_sh, long long q_st, long long k_sb,
     long long k_sh, long long k_st, long long v_sb, long long v_sh,
     long long v_st, float scale, int causal, int q_offset, int k_offset,
@@ -359,5 +655,7 @@ extern "C" int flash_attention_partial(
   p.scale = scale;
   p.causal = causal;
   p.causal_offset = q_offset - k_offset;  // global q >= global k
-  return launch_for_type<true>(is_bf16, p, stream);
+  if (!tensor_cores) return launch_for_type<true>(is_bf16, p, stream);
+  if (!is_bf16) return (int)cudaErrorInvalidValue;
+  return launch_partial_tc_for_dim(p, static_cast<cudaStream_t>(stream));
 }

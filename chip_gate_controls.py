@@ -23,26 +23,33 @@ the faults they are there to catch:
    dQ and dK/dV kernels.  The script fails unless the first stays within
    chip_smoke's bounds and the second does not.
 3. Conv+BN mutants.  ``conv_bn_fwd.cu`` or ``conv_bn_bwd.cu`` is rebuilt
-   with one fault: the cast of z to x's dtype dropped in #8, the 3x3's
-   halo zeroed before normalize+ReLU in #10 (the border then reads
-   relu(beta - mean * scale)), the cast of the folded dy before the
-   products dropped in #9 (``fold_dy``, which #11's tensor-core prepass
-   calls too; there the bf16 store rounds the same value again, so this
-   fault reaches #9 alone), and in #11's tensor-core route the folded dy
-   stored cut to bf16 instead of rounded (its cast dropped) and the halo
-   of a shifted row copied from the position's own row instead of
-   zero-filled.  Each runs through chip_smoke's conv check at a
-   ResNet-50 b128 shape in bf16; the script fails unless the check
-   passes the sources as they stand and refuses every mutant, and prints
-   the share of entries each fault moves.
+   with one fault: the cast of z to x's dtype dropped in #8; in #10's
+   scalar route (f32) the 3x3's halo zeroed before normalize+ReLU (the
+   border then reads relu(beta - mean * scale)); in #10's tensor-core
+   route z stored cut to bf16 instead of rounded (its cast dropped) and
+   the halo of a shifted row copied from the position's own row instead
+   of zero-filled; the cast of the folded dy before the products dropped
+   in #9 (``fold_dy``, which #11's tensor-core prepass calls too; there
+   the bf16 store rounds the same value again, so this fault reaches #9
+   alone); and in #11's tensor-core route the folded dy stored cut to
+   bf16 instead of rounded and the halo copied.  The two halo faults edit
+   the one line of ``conv_bn_tc.cuh`` that #10 and #11 share, each built
+   into its own library.  Each runs through chip_smoke's conv check at a
+   ResNet-50 b128 shape in bf16 (the f32 halo fault at a ragged f32
+   shape); the script fails unless the check passes the sources as they
+   stand and refuses every mutant, and prints the share of entries each
+   fault moves.
 4. Ring-attention mutants.  ``flash_attention_fwd.cu`` is rebuilt with
    #5's causal test on local rather than global positions (the offset
-   q_offset - k_offset taken as 0), and ``flash_attention_bwd.cu`` with
-   #7's P cast to q's dtype before Pᵀ·dO (the rule of #3, where dO is in
-   q's dtype; the ring's dO is f32).  Each runs through chip_smoke's
-   check of #5-#7 at the SP path's off-diagonal bf16 chunk pair; the
-   script fails unless the check passes the sources as they stand and
-   refuses each mutant, and prints the share of entries each moves.
+   q_offset - k_offset taken as 0, which both of #5's routes read), or
+   with P packed by truncation in #5's tensor-core route (the top 16 bits
+   of each f32 value, the cast's rounding dropped), and
+   ``flash_attention_bwd.cu`` with #7's P cast to q's dtype before Pᵀ·dO
+   (the rule of #3, where dO is in q's dtype; the ring's dO is f32).
+   Each runs through chip_smoke's check of #5-#7 at the SP path's
+   off-diagonal bf16 chunk pair; the script fails unless the check passes
+   the sources as they stand and refuses each mutant, and prints the
+   share of entries each moves (and #5's state bias).
 5. A control ResNet-50 step.  chip_smoke's f32 fused step (batch 4,
    64 px, card against a CPU copy) runs as it is and again with the conv
    kernels fed x and W rounded to bf16; the script fails unless the first
@@ -98,9 +105,25 @@ CONV_MUTANTS = {
         "return fuse ? norm_relu<T>(xv, mean[k], scale[k], beta[k]) : xv;",
         "return fuse ? fmaxf(bn_input(xv, mean[k], scale[k], beta[k]), 0.f)"
         " : xv;", "s1_conv3", ("y",)),
+    # #10's scalar route runs in f32 only: a ragged f32 problem
     "halo_zeroed_before_norm_in_10": (
         "conv_bn_fwd.cu", "conv_bn_fwd",
-        "return pos >= 0 ? zv : 0.f;", "return zv;", "s1_conv2", ("y",)),
+        "return pos >= 0 ? zv : 0.f;", "return zv;", "r3_f32_norm", ("y",)),
+    # #10's tensor-core route stores z as a bf16 operand: the fault stores
+    # the unrounded normalize+ReLU cut to its top 16 bits (the cast dropped)
+    "no_z_cast_in_10_prepass": (
+        "conv_bn_tc.cuh", "conv_bn_fwd",
+        "return from_f32<bf16>(fuse ? norm_relu<bf16>(x, mean, scale, beta) "
+        ": x);",
+        "return __float2bfloat16_rz(fuse ? fmaxf(bn_input(x, mean, scale, "
+        "beta), 0.f) : x);", "s1_conv2", ("y",)),
+    # the halo of a shifted row of z copied (the position's own row)
+    # instead of zero-filled: the line #11 shares, built into #10's library
+    "halo_copied_in_10": (
+        "conv_bn_tc.cuh", "conv_bn_fwd",
+        "tc::cp_async16(dst, base + (halo ? own : pos) * ld + c, !halo);",
+        "tc::cp_async16(dst, base + (halo ? own : pos) * ld + c, true);",
+        "s1_conv2", ("y",)),
     "no_dy_cast_in_9": (
         "conv_bn_common.cuh", "conv_bn_bwd",
         "return round_to<T>(__fadd_rn(__fadd_rn(dy, gm), __fmul_rn(gs, "
@@ -130,6 +153,13 @@ RING_MUTANTS = {
     "local_mask_in_5": (
         "flash_attention_fwd", "p.causal_offset = q_offset - k_offset;",
         "p.causal_offset = 0;", "partial"),
+    # #5's bf16 route packs P from f32 fragments: the fault packs the top
+    # 16 bits of each value (the cast's rounding dropped)
+    "p_truncated_in_5": (
+        "flash_attention_fwd",
+        "pf[j][hh] = tc::pack_bf16(s[j][2 * hh], s[j][2 * hh + 1]);",
+        "pf[j][hh] = (__float_as_uint(s[j][2 * hh]) >> 16) | "
+        "(__float_as_uint(s[j][2 * hh + 1]) & 0xffff0000u);", "partial"),
     "p_cast_to_q_dtype_in_7": (
         "flash_attention_bwd", "const float pd = round_to<TO>(pr);",
         "const float pd = round_to<T>(pr);", "dkv_partial"),
@@ -252,8 +282,8 @@ def phase_ring_mutants():
         for label, lib in (("as_it_stands", None), (tag, libs[tag])):
             with (ring_kernel_from(name, lib) if lib is not None
                   else contextlib.nullcontext()):
-                checks, same = chip_smoke.check_partial(name, calls,
-                                                        problem)
+                checks, same, extra = chip_smoke.check_partial(name, calls,
+                                                               problem)
             q, k = calls[name][2][:2]
             sizes = {"acc/l": q.numel(), "m": q[..., 0].numel(),
                      "l": q[..., 0].numel(), "dk": k.numel(),
@@ -263,13 +293,18 @@ def phase_ring_mutants():
             r = {o: dict(max_abs_err=err, entries_differ=differ,
                          share_differ=differ / sizes[o], check_passes=ok)
                  for o, (err, differ, ok) in zip(outputs, checks)}
+            r.update(extra)
             readings[tag][label] = r
             for o, v in r.items():
+                if o in extra:
+                    print(f"  {label:24s} {o}: {v:+.3e}")
+                    continue
                 print(f"  {label:24s} {o:5s}: {v['entries_differ']} entries "
                       f"differ ({v['share_differ']:.4%}), max abs err "
                       f"{v['max_abs_err']:.3e}; check "
                       f"{'passes' if v['check_passes'] else 'REFUSES'}")
-            passes = same and all(v["check_passes"] for v in r.values())
+            passes = same and all(v["check_passes"] for o, v in r.items()
+                                  if o not in extra)
             if lib is None and not passes:
                 failures.append(f"the ring check refuses {name} as it "
                                 f"stands")

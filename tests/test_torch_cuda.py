@@ -22,7 +22,9 @@ entry (or within the f32 rounding of the sums that feed it, where dP - Delta
 cancels), at most 1% of the entries, or one key row a head, differing
 (chip_smoke.bwd_held, chip_smoke.bwd_floors).
 The ring kernels: #5's merged state as the forward (acc / l at the
-dtype's tolerance, m and l at float32's); #6 and #7 write float32, held
+dtype's tolerance, m and l at float32's); in bf16 #5 runs on the tensor
+cores, and its state is held besides by the bias of its error
+(chip_smoke.partial_state_held); #6 and #7 write float32, held
 bit for bit with bf16 inputs at D 64 and to the backward's float32
 tolerance elsewhere.
 The conv+BN kernels sum their products in another order than cuBLAS and
@@ -281,18 +283,43 @@ def test_lm_step_takes_one_dkv_route(cuda, dtype, route):
 @pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "tensor_core"),
                                          (torch.float32, "scalar")])
 def test_fused_resnet_step_takes_one_conv3x3_route(cuda, dtype, route):
-    """A fused ResNet-50 step launches #11 13 times, all by the route of
-    its dtype."""
+    """A fused ResNet-50 step launches #10 and #11 13 times each, all by
+    the route of its dtype."""
     model = presnet.resnet50(10, fused=True,
                              generator=torch.Generator().manual_seed(0),
                              device=cuda)
     rng = np.random.default_rng(2)
-    before = dict(ck.conv3x3_bn_bwd.routes)
+    wrappers = (ck.conv3x3_bn_fwd, ck.conv3x3_bn_bwd)
+    before = [dict(w.routes) for w in wrappers]
     _one_step(model, rng.normal(size=(2, 32, 32, 3)).astype(np.float32),
               rng.integers(1, 11, (2,)), dtype)
     torch.cuda.synchronize()
-    used = {r: ck.conv3x3_bn_bwd.routes[r] - before[r] for r in before}
-    assert used == {"tensor_core": 0, "scalar": 0, route: 13}
+    for w, was in zip(wrappers, before):
+        used = {r: w.routes[r] - was[r] for r in was}
+        assert used == {"tensor_core": 0, "scalar": 0, route: 13}, \
+            w.__name__
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "tensor_core"),
+                                         (torch.float32, "scalar")])
+def test_ring_lm_step_takes_one_partial_route(cuda, dtype, route):
+    """A step of an LM through ring attention over 4 shards launches #5
+    once per layer and visible chunk pair (2 x 10), all by the route of
+    its dtype."""
+    from bigdl_tpu_torch.parallel import make_mesh
+    lm = TransformerLM(64, hidden_size=64, num_layers=2, num_heads=4,
+                       filter_size=128, max_len=128, padded_inputs=False,
+                       generator=torch.Generator().manual_seed(0),
+                       device=cuda)
+    lm.set_sequence_parallel(make_mesh({"seq": 4}, ["cuda"] * 4))
+    rng = np.random.default_rng(1)
+    before = dict(ak.flash_attention_partial.routes)
+    _one_step(FlatLM(lm), rng.integers(1, 65, (2, 128)),
+              rng.integers(1, 65, (256,)), dtype)
+    torch.cuda.synchronize()
+    used = {r: ak.flash_attention_partial.routes[r] - before[r]
+            for r in before}
+    assert used == {"tensor_core": 0, "scalar": 0, route: 20}
 
 
 @pytest.mark.parametrize("bias_grad", [False, True])
@@ -414,6 +441,60 @@ def test_ring_kernels_match_plain_and_repeat(cuda, b, h, tq, tk, d, q_off,
                 assert torch.equal(g, w), kernel.__name__
             else:
                 torch.testing.assert_close(g, w, **BWD_F32_TOL)
+
+
+def _bf16_partial_problems():
+    """chip_smoke's bf16 chunk pairs, and a pair whose first 100 rows see
+    no key (q_offset < k_offset, overlapping), fresh state"""
+    rows = [p for p in chip_smoke._partial_problems()
+            if p[6] == torch.bfloat16]
+    rows.append(("nokey_bf16", "B2 H4 Tc256 D64 bf16 0/100 causal",
+                 (2, 4, 256, 256, 64), 0, 100, True, torch.bfloat16, False))
+    return rows
+
+
+@pytest.mark.parametrize("problem", _bf16_partial_problems(),
+                         ids=lambda p: p[0])
+def test_bf16_partial_merge_on_the_tensor_cores_holds(cuda, problem):
+    """#5 in bf16 takes the tensor-core route and holds against its plain
+    version by chip_smoke's rule (acc / l within BF16_TOL and without
+    bias, m and l at float32's tolerance); two launches give the same
+    bits."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    calls = chip_smoke.partial_calls(*chip_smoke.partial_inputs(problem,
+                                                                gen))
+    before = dict(ak.flash_attention_partial.routes)
+    checks, same, extra = chip_smoke.check_partial("partial", calls, problem)
+    used = {r: ak.flash_attention_partial.routes[r] - before[r]
+            for r in before}
+    assert used == {"tensor_core": 2, "scalar": 0}
+    assert same
+    assert all(ok for _, _, ok in checks), (checks, extra)
+
+
+def test_bf16_partial_merge_of_unaligned_rows_takes_the_scalar_kernel(cuda):
+    """bf16 rows that do not start on 16 bytes (D 20) cannot take the
+    tensor cores' 16-byte copies: the wrapper launches the scalar kernel
+    and counts it, and the state holds against the plain version."""
+    b, h, tq, tk, d = 2, 4, 70, 33, 20
+    q, k, v = (rnd(b, h, t, d, seed=s, device=cuda, dtype=torch.bfloat16)
+               for s, t in ((81, tq), (82, tk), (83, tk)))
+    state = (torch.zeros(b, h, tq, d, device=cuda),
+             torch.full((b, h, tq), ak.NEG_INF, device=cuda),
+             torch.zeros(b, h, tq, device=cuda))
+    cfg = dict(q_offset=40, k_offset=10, scale=d ** -0.5, causal=True)
+    assert not ak.rows_aligned(q, k, v)
+    before = dict(ak.flash_attention_partial.routes)
+    acc, m, l = ak.flash_attention_partial(q, k, v, *state, **cfg)
+    want = ak.plain_attention_partial(q, k, v, *state, **cfg)
+    torch.cuda.synchronize()
+    used = {r: ak.flash_attention_partial.routes[r] - before[r]
+            for r in before}
+    assert used == {"tensor_core": 0, "scalar": 1}
+    torch.testing.assert_close(m, want[1], **F32_TOL)
+    torch.testing.assert_close(l, want[2], **F32_TOL)
+    torch.testing.assert_close(acc / l[..., None],
+                               want[0] / want[2][..., None], **BF16_TOL)
 
 
 def test_ring_kernel_wrappers_refuse_what_they_do_not_take(cuda):
@@ -544,6 +625,9 @@ def _check_conv_kernels(fwd, bwd, pfwd, pbwd, x, w, vec, fuse, stats):
     flags = dict(fuse_input=fuse, emit_stats=stats)
     kshift = vec[3]
     launched = (fwd.launches, bwd.launches)
+    fwd_routes = dict(getattr(fwd, "routes", {}))
+    if fwd_routes:      # #10: both launches take the route of the dtype
+        fwd_routes[ck.conv3x3_fwd_route(x.dtype)] += 2
     y, s1, s2 = fwd(x, w, *vec, **flags)
     again = fwd(x, w, *vec, **flags)
     want = pfwd(x, w, *vec, **flags)
@@ -557,6 +641,7 @@ def _check_conv_kernels(fwd, bwd, pfwd, pbwd, x, w, vec, fuse, stats):
     dy = rnd(*y.shape, seed=90, device="cuda", dtype=x.dtype)
     gm = rnd(co, seed=91, device="cuda") * 0.1
     gs = rnd(co, seed=92, device="cuda") * 0.1
+    assert getattr(fwd, "routes", {}) == fwd_routes
     extra = (y,) if w.dim() == 4 else ()
     routes = dict(getattr(bwd, "routes", {}))
     got = bwd(x, w, *vec, *extra, dy, gm, gs, **flags)
@@ -595,7 +680,8 @@ def test_matmul_bn_kernels_match_plain(cuda, m, k, n, dtype, fuse, stats):
     (2, 3, 7, 4, 8), (4, 14, 14, 64, 64), (8, 7, 7, 512, 512),
     (8, 56, 56, 64, 64), (8, 28, 28, 128, 128),
     (8, 14, 14, 256, 256),              # ResNet-50's 3x3s, batch cut
-    (3, 3, 7, 20, 72), (1, 5, 3, 72, 20)])  # ragged: C, Co, H, W and M
+    (3, 3, 7, 20, 72), (1, 5, 3, 72, 20),   # ragged: C, Co, H, W and M
+    (16, 5, 5, 64, 64)])  # each 128-row tile spans several images
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("fuse,stats", [(False, False), (False, True),
                                         (True, True)])

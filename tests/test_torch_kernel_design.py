@@ -1,8 +1,9 @@
-"""The planning of the redesigned kernels #3 and #11, on the CPU: the
-dtype routes, the dW split and scratch of #11's tensor-core route, the
-checks chip_smoke.py holds them to, and the source lines the fault
-controls of chip_gate_controls.py edit.  The kernels themselves run only
-on the card (tests/test_torch_cuda.py)."""
+"""The planning of the redesigned kernels #3, #5, #10 and #11, on the
+CPU: the dtype routes, the dW split and scratch of #11's tensor-core
+route and the scratch of #10's, the checks chip_smoke.py holds them to
+(with a CPU model of #5's tiled merge for its bf16 rule), and the source
+lines the fault controls of chip_gate_controls.py edit.  The kernels
+themselves run only on the card (tests/test_torch_cuda.py)."""
 
 import math
 
@@ -42,7 +43,10 @@ def test_each_fault_control_edits_one_line_of_its_source(name, path, before):
 
 def test_mutants_of_the_redesigned_kernels_edit_their_sources():
     """The #3 controls edit the tensor-core kernel, #7's the scalar
-    template, and the two new #11 controls the tensor-core header."""
+    template, the #10 and #11 tensor-core controls the tensor-core header
+    (each built into its own library), #10's halo-before-norm control the
+    f32 route, #5's truncation the tensor-core kernel and its causal
+    offset the entry point that sets it for both routes."""
     tc = (CSRC_DIR / "flash_attention_bwd.cu").read_text()
     start = tc.index("flash_dkv_tc_kernel(const Params p)")
     end = tc.index("// ---- dBias")
@@ -51,26 +55,75 @@ def test_mutants_of_the_redesigned_kernels_edit_their_sources():
         assert start < at < end, name
     ring = gates.RING_MUTANTS["p_cast_to_q_dtype_in_7"][1]
     assert tc.index(ring) < tc.index("// ---- dK / dV on the tensor cores")
-    for name in ("no_dyl_cast_in_11_prepass", "halo_copied_in_11"):
-        assert gates.CONV_MUTANTS[name][0] == "conv_bn_tc.cuh", name
+    for name, library in (("no_dyl_cast_in_11_prepass", "conv_bn_bwd"),
+                          ("halo_copied_in_11", "conv_bn_bwd"),
+                          ("no_z_cast_in_10_prepass", "conv_bn_fwd"),
+                          ("halo_copied_in_10", "conv_bn_fwd")):
+        assert gates.CONV_MUTANTS[name][:2] == ("conv_bn_tc.cuh",
+                                                library), name
+    conv = (CSRC_DIR / "conv_bn_fwd.cu").read_text()
+    before = gates.CONV_MUTANTS["halo_zeroed_before_norm_in_10"][2]
+    assert conv.index("struct Conv3Fwd") < conv.index(before)
+    assert gates.CONV_MUTANTS["halo_zeroed_before_norm_in_10"][4] in {
+        key for key, _, _, dtype, _ in chip_smoke.conv_problems()
+        if dtype == torch.float32}
+    fwd = (CSRC_DIR / "flash_attention_fwd.cu").read_text()
+    start = fwd.index("flash_partial_tc_kernel(const Params p)")
+    end = fwd.index("int launch_partial_tc(")
+    assert start < fwd.index(gates.RING_MUTANTS["p_truncated_in_5"][1]) < end
+    entry = fwd.index('extern "C" int flash_attention_partial(')
+    assert entry < fwd.index(gates.RING_MUTANTS["local_mask_in_5"][1])
 
 
-@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "tensor_core"),
-                                         (torch.float32, "scalar")])
-def test_dtype_routes(dtype, route):
-    assert ck.conv3x3_bwd_route(dtype) == route
-    assert ak.dkv_route(dtype) == route
+# the route functions of the redesigned kernels, beside their wrappers:
+# #11 and #3, then #10 and #5
+ROUTES = [(ck.conv3x3_bwd_route, ck.conv3x3_bn_bwd),
+          (ak.dkv_route, ak.flash_attention_dkv),
+          (ck.conv3x3_fwd_route, ck.conv3x3_bn_fwd),
+          (ak.partial_route, ak.flash_attention_partial)]
 
 
-@pytest.mark.parametrize("fn", [ck.conv3x3_bwd_route, ak.dkv_route])
+@pytest.mark.parametrize("fns,dtype,route", [
+    (ROUTES[:2], torch.bfloat16, "tensor_core"),
+    (ROUTES[:2], torch.float32, "scalar"),
+    (ROUTES[2:], torch.bfloat16, "tensor_core"),
+    (ROUTES[2:], torch.float32, "scalar"),
+], ids=["dtype0-tensor_core", "dtype1-scalar", "fwd-bf16", "fwd-f32"])
+def test_dtype_routes(fns, dtype, route):
+    for fn, _ in fns:
+        assert fn(dtype) == route, fn.__name__
+
+
+@pytest.mark.parametrize("fn", [fn for fn, _ in ROUTES])
 def test_routes_refuse_other_dtypes(fn):
     with pytest.raises(TypeError):
         fn(torch.float16)
 
 
-def test_wrappers_count_each_route():
-    assert set(ck.conv3x3_bn_bwd.routes) == {"tensor_core", "scalar"}
-    assert set(ak.flash_attention_dkv.routes) == {"tensor_core", "scalar"}
+@pytest.mark.parametrize("wrapper", [w for _, w in ROUTES],
+                         ids=[w.__name__ for _, w in ROUTES])
+def test_wrappers_count_each_route(wrapper):
+    assert set(wrapper.routes) == {"tensor_core", "scalar"}
+
+
+def test_partial_route_sends_unaligned_bf16_rows_to_the_scalar_kernel():
+    """#5's tensor-core copies move 16 bytes: bf16 rows that do not start
+    on 16 bytes take the scalar kernel (and count as its launches), never
+    the plain version."""
+    assert ak.partial_route(torch.bfloat16, False) == "scalar"
+    assert ak.partial_route(torch.float32, False) == "scalar"
+    x = torch.zeros(2, 4, 96, 64, dtype=torch.bfloat16)
+    heads = torch.zeros(2, 96, 4, 64, dtype=torch.bfloat16).transpose(1, 2)
+    # chunks of the time axis and the heads view of [B, T, H, D], D40
+    assert ak.rows_aligned(x, x[:, :, 32:64], heads[:, :, 8:])
+    assert ak.rows_aligned(x[..., :40], x[..., :40], x[..., :40])
+    odd = torch.zeros(2, 4, 96, 36, dtype=torch.bfloat16)     # D % 8 != 0
+    assert not ak.rows_aligned(odd, odd, odd)
+    wide = torch.zeros(2, 4, 96, 68, dtype=torch.bfloat16)[..., :64]
+    assert not ak.rows_aligned(x, wide, x)                    # stride 68
+    ragged = torch.zeros(2 * 4 * 96 * 40 + 4, dtype=torch.bfloat16)[4:] \
+        .reshape(2, 4, 96, 40)                                 # 8-byte start
+    assert not ak.rows_aligned(ragged, x[..., :40], x[..., :40])
 
 
 def tc_splits(m, c, co):
@@ -111,6 +164,19 @@ def test_tc_scratch_within_budget(shape):
     assert splits * 9 * cp * cop * 4 <= ck._MAX_PART_BYTES
     if c % 64 == 0 and co % 64 == 0:     # z and dyl: the size of x and dy
         assert (cp, cop) == (c, co)
+
+
+@pytest.mark.parametrize("shape", CONV3_SHAPES)
+def test_tc_fwd_scratch_within_budget(shape):
+    """#10's tensor-core scratch, as its wrapper allocates it: z [M, Cp]
+    and the padded W [9, Cp, Cop] in bf16 and the f32 statistics partials
+    of 128-row tiles, within the budget of #11's dW partials (z at
+    stage 1, b128: 51 MB)."""
+    b, h, w, c, co = shape
+    m = b * h * w
+    cp, cop = ck.tc_channels(c), ck.tc_channels(co)
+    scratch = (m * cp + 9 * cp * cop) * 2 + 2 * -(-m // ck._TC_ROWS) * co * 4
+    assert scratch <= ck._MAX_PART_BYTES
 
 
 def test_tc_dw_splits_fill_the_card_at_resnet_widths():
@@ -249,6 +315,92 @@ def test_bwd_rule_keeps_dq_and_f32_exact_or_at_their_tolerance():
     f32 = want.float()
     assert chip_smoke.bwd_held("dkv", f32 * (1 + 1e-6), f32)[2]
     assert not chip_smoke.bwd_held("dkv", f32 * (1 + 1e-3), f32)[2]
+
+
+# ---- chip_smoke's rule for #5's bf16 state -----------------------------------
+
+def _truncated(p):
+    """P cut to its top 16 bits: a bf16 cast without its rounding."""
+    return (p.float().contiguous().view(torch.int32) & ~0xffff) \
+        .view(torch.float32)
+
+
+def _tiled_merge(q, k, v, acc, m, l, cast, *, q_offset, k_offset, scale,
+                 causal, tile=64):
+    """A model of the tensor-core merge's arithmetic: the online softmax
+    over 64-key tiles, P cast by ``cast`` before P.V, l from the
+    unrounded P."""
+    if causal and q_offset + q.shape[-2] - 1 < k_offset:
+        return acc, m, l
+    s_all = ak._partial_scores(q, k, scale, causal, q_offset, k_offset)
+    for k0 in range(0, k.shape[-2], tile):
+        s = s_all[..., k0:k0 + tile]
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.matmul(
+            cast(p), v[..., k0:k0 + tile, :].float())
+        m = m_new
+    return acc, m, l
+
+
+# chip_smoke's four chunk pairs at two heads (tq, tk, d, q_offset,
+# k_offset, causal, state carried), and a pair whose first 100 rows see
+# no key
+PARTIAL_PAIRS = [(512, 512, 64, 1024, 1024, True, False),
+                 (512, 512, 64, 1536, 512, True, True),
+                 (512, 512, 64, 512, 1536, False, True),
+                 (200, 200, 40, 200, 0, True, True),
+                 (256, 256, 64, 0, 100, True, False)]
+
+
+def _state_pair(pair, cast):
+    """(the model's acc / l, the plain version's) for one chunk pair."""
+    tq, tk, d, q_off, k_off, causal, carried = pair
+    g = torch.Generator().manual_seed(7)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g).to(torch.bfloat16)
+    q, k, v = rnd(1, 2, tq, d), rnd(1, 2, tk, d), rnd(1, 2, tk, d)
+    cfg = dict(q_offset=q_off, scale=d ** -0.5, causal=causal)
+    state = (torch.zeros(1, 2, tq, d), torch.full((1, 2, tq), ak.NEG_INF),
+             torch.zeros(1, 2, tq))
+    if carried:
+        state = ak.plain_attention_partial(q, rnd(1, 2, tq, d),
+                                           rnd(1, 2, tq, d), *state,
+                                           k_offset=q_off, **cfg)
+    got = _tiled_merge(q, k, v, *state, cast, k_offset=k_off, **cfg)
+    want = ak.plain_attention_partial(q, k, v, *state, k_offset=k_off, **cfg)
+    return got[0] / got[2][..., None], want[0] / want[2][..., None]
+
+
+@pytest.mark.parametrize("pair", PARTIAL_PAIRS)
+def test_partial_rule_passes_the_tiled_merge_rounded_to_nearest(pair):
+    got, want = _state_pair(pair, lambda p: p.to(torch.bfloat16).float())
+    assert chip_smoke.partial_state_held(got, want, torch.bfloat16)[2]
+    assert abs(chip_smoke.state_bias(got, want)) < \
+        chip_smoke.PARTIAL_BF16_BIAS / 20
+
+
+@pytest.mark.parametrize("pair", PARTIAL_PAIRS)
+def test_partial_rule_refuses_p_truncated(pair):
+    """P cut short instead of rounded stays within BF16_TOL everywhere,
+    but its bias is several times the rule's bound."""
+    got, want = _state_pair(pair, _truncated)
+    assert torch.allclose(got, want, **chip_smoke.BF16_TOL)
+    assert not chip_smoke.partial_state_held(got, want, torch.bfloat16)[2]
+    assert chip_smoke.state_bias(got, want) < \
+        -3 * chip_smoke.PARTIAL_BF16_BIAS
+
+
+def test_partial_rule_keeps_f32_at_its_tolerance():
+    want = torch.randn(2, 4, 8, 16, generator=torch.Generator()
+                       .manual_seed(0))
+    assert chip_smoke.partial_state_held(want * (1 + 1e-6), want,
+                                         torch.float32)[2]
+    assert not chip_smoke.partial_state_held(want * (1 + 1e-3), want,
+                                             torch.float32)[2]
 
 
 # ---- chip_smoke's build report ----------------------------------------------
