@@ -65,7 +65,8 @@ __all__ = ["plain_attention", "plain_attention_fwd", "attention_delta",
            "plain_attention_partial", "plain_attention_dq_partial",
            "plain_attention_dkv_partial", "flash_attention_partial",
            "flash_attention_dq_partial", "flash_attention_dkv_partial",
-           "dkv_route", "partial_route"]
+           "dkv_route", "partial_route", "fwd_route", "dkv_partial_route",
+           "rows_aligned"]
 
 NEG_INF = -1e9  # the reference's attention mask fill (_NEG_INF)
 MAX_HEAD_DIM = 128
@@ -273,7 +274,7 @@ def _bind(library: str, name: str, argtypes):
 
 
 _bound: dict = {}
-_FWD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+_FWD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
                  + [ctypes.c_longlong] * 13
                  + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                     ctypes.c_void_p])
@@ -288,17 +289,38 @@ def _raise_on(rc: int, name: str):
         raise RuntimeError(f"{name} launch failed with CUDA error {rc}")
 
 
-def flash_attention_fwd(q, k, v, bias=None, *, scale: float,
-                        causal: bool = False, causal_offset: int = 0):
-    """Launch the CUDA forward kernel on CUDA tensors.  Returns
-    ``(out [B, H, Tq, D] in q's dtype, lse f32 [B*H, Tq])``.
+def rows_aligned(*tensors) -> bool:
+    """Whether every row of each tensor starts on 16 bytes, as the
+    tensor-core routes' copies need: the head dim a whole number of 16
+    bytes (8 bf16 or 4 f32 values), the batch, head and time strides too,
+    the data 16-byte aligned."""
+    def aligned(t):
+        size = t.element_size()
+        return (t.shape[-1] * size % 16 == 0 and t.data_ptr() % 16 == 0
+                and all(st * size % 16 == 0 for st in t.stride()[:3]))
+    return all(aligned(t) for t in tensors)
 
-    q, k, v may have any strides on the batch, head and time dims (the
-    head dim must be contiguous); bias is broadcast by strides, never
-    materialised per head.  The causal mask admits key j for row i when
-    ``j <= i + causal_offset``.  Raises on anything the kernel does not
-    take; never falls back to the plain version."""
-    _check_inputs(q, k, v, bias)
+
+def fwd_route(dtype, aligned: bool = True) -> str:
+    """Which forward kernel (#1) runs for q, k, v of ``dtype``:
+    ``"tensor_core"`` (``flash_fwd_tc_kernel``: bf16 operands, f32 sums on
+    mma.sync) for bfloat16 rows that start on 16 bytes
+    (:func:`rows_aligned`), the pooled decode (Tq 1) included, where it
+    beats the scalar template too (PERF.md); ``"scalar"`` (the f32-FMA
+    template) for float32, whose operands the tensor cores would round,
+    and for bf16 rows that do not."""
+    if dtype == torch.bfloat16:
+        return "tensor_core" if aligned else "scalar"
+    if dtype == torch.float32:
+        return "scalar"
+    raise TypeError(f"the forward kernel takes float32 or bfloat16, not "
+                    f"{dtype}")
+
+
+def _launch_fwd(q, k, v, bias, scale, causal, causal_offset, route):
+    """Launch the forward kernel by ``route`` on inputs that
+    :func:`_check_inputs` passed; ``(out, lse)``.  Counts nothing: the
+    wrapper counts its launches."""
     b, h, tq, d = q.shape
     tk = k.shape[2]
     bias, b_strides = _bias_args(bias, (b, h, tq, tk))
@@ -310,16 +332,37 @@ def flash_attention_fwd(q, k, v, bias=None, *, scale: float,
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 None if bias is None else bias.data_ptr(),
                 out.data_ptr(), lse.data_ptr(),
-                int(q.dtype == torch.bfloat16), b, h, tq, tk, d,
+                int(q.dtype == torch.bfloat16), int(route == "tensor_core"),
+                b, h, tq, tk, d,
                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                 *b_strides, float(scale), int(bool(causal)),
                 int(causal_offset), stream)
     _raise_on(rc, "flash_attention_fwd")
-    flash_attention_fwd.launches += 1
     return out, lse
 
 
+def flash_attention_fwd(q, k, v, bias=None, *, scale: float,
+                        causal: bool = False, causal_offset: int = 0):
+    """Launch the CUDA forward kernel on CUDA tensors.  Returns
+    ``(out [B, H, Tq, D] in q's dtype, lse f32 [B*H, Tq])``.
+
+    q, k, v may have any strides on the batch, head and time dims (the
+    head dim must be contiguous); bias is broadcast by strides, never
+    materialised per head.  The causal mask admits key j for row i when
+    ``j <= i + causal_offset``.  bf16 takes the tensor-core route where
+    its rows start on 16 bytes, else the scalar one (:func:`fwd_route`);
+    ``flash_attention_fwd.routes`` counts each.  Raises on anything the
+    kernel does not take; never falls back to the plain version."""
+    _check_inputs(q, k, v, bias)
+    route = fwd_route(q.dtype, rows_aligned(q, k, v))
+    out = _launch_fwd(q, k, v, bias, scale, causal, causal_offset, route)
+    flash_attention_fwd.launches += 1
+    flash_attention_fwd.routes[route] += 1
+    return out
+
+
 flash_attention_fwd.launches = 0
+flash_attention_fwd.routes = {"tensor_core": 0, "scalar": 0}
 
 
 def _launch_bwd(name, q, k, v, bias, do, lse, delta, out0, out1, scale,
@@ -504,7 +547,7 @@ _PARTIAL_FWD_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
                          + [ctypes.c_longlong] * 9
                          + [ctypes.c_float] + [ctypes.c_int] * 3
                          + [ctypes.c_void_p])
-_PARTIAL_BWD_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+_PARTIAL_BWD_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
                          + [ctypes.c_longlong] * 12
                          + [ctypes.c_float] + [ctypes.c_int] * 3
                          + [ctypes.c_void_p])
@@ -524,19 +567,9 @@ def _check_offsets(q_offset, k_offset):
             raise ValueError(f"{label} {x} is not a position in [0, 2^30)")
 
 
-def rows_aligned(q, k, v) -> bool:
-    """Whether every row of q, k and v starts on 16 bytes, as the
-    tensor-core merge's copies need: the head dim a multiple of 8 values,
-    the batch, head and time strides multiples of 8 elements, the data
-    16-byte aligned."""
-    return q.shape[-1] % 8 == 0 and all(
-        t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in t.stride()[:3])
-        for t in (q, k, v))
-
-
 def partial_route(dtype, aligned: bool = True) -> str:
     """Which merge kernel (#5) runs for q, k, v of ``dtype``:
-    ``"tensor_core"`` (``flash_partial_tc_kernel``: bf16 operands, f32
+    ``"tensor_core"`` (``flash_fwd_tc_kernel<true>``: bf16 operands, f32
     sums on mma.sync) for bfloat16 rows that start on 16 bytes
     (:func:`rows_aligned`), ``"scalar"`` (the f32-FMA template) for
     float32, whose operands the tensor cores would round, and for bf16
@@ -591,8 +624,9 @@ flash_attention_partial.routes = {"tensor_core": 0, "scalar": 0}
 
 
 def _launch_partial_bwd(name, q, k, v, do, lse, delta, out0, out1, scale,
-                        causal, q_offset, k_offset):
-    """Check the partial backward's inputs and launch kernel ``name``."""
+                        causal, q_offset, k_offset, route="scalar"):
+    """Check the partial backward's inputs and launch kernel ``name`` by
+    ``route``."""
     _check_inputs(q, k, v, None)
     _check_offsets(q_offset, k_offset)
     b, h, tq, d = q.shape
@@ -609,7 +643,8 @@ def _launch_partial_bwd(name, q, k, v, do, lse, delta, out0, out1, scale,
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                 lse.data_ptr(), delta.data_ptr(), out0.data_ptr(),
                 None if out1 is None else out1.data_ptr(),
-                int(q.dtype == torch.bfloat16), b, h, tq, k.shape[2], d,
+                int(q.dtype == torch.bfloat16), int(route == "tensor_core"),
+                b, h, tq, k.shape[2], d,
                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                 *do.stride()[:3], float(scale), int(bool(causal)),
                 int(q_offset), int(k_offset), stream)
@@ -632,20 +667,42 @@ def flash_attention_dq_partial(q, k, v, do, lse, delta, *, q_offset: int,
 flash_attention_dq_partial.launches = 0
 
 
+def dkv_partial_route(dtype, aligned: bool = True) -> str:
+    """Which ring dK/dV kernel (#7) runs for q, k, v of ``dtype`` (dO is
+    f32): ``"tensor_core"`` (``flash_dkv_partial_tc_kernel``: dO and P in
+    three bf16 pieces each, so the f32 products keep f32's precision) for
+    bfloat16 where every row of q, k, v and dO starts on 16 bytes
+    (:func:`rows_aligned`), ``"scalar"`` (the f32-FMA template) for
+    float32 and for bf16 rows that do not."""
+    if dtype == torch.bfloat16:
+        return "tensor_core" if aligned else "scalar"
+    if dtype == torch.float32:
+        return "scalar"
+    raise TypeError(f"the ring dK/dV kernel takes float32 or bfloat16, not "
+                    f"{dtype}")
+
+
 def flash_attention_dkv_partial(q, k, v, do, lse, delta, *, q_offset: int,
                                 k_offset: int, scale: float,
                                 causal: bool = False):
     """Launch kernel #7 on CUDA tensors: ``(dK, dV)`` of the visiting
-    chunk against these rows' q and dO, f32 [B,H,Tk,D]."""
+    chunk against these rows' q and dO, f32 [B,H,Tk,D].  bf16 takes the
+    tensor-core route where every row starts on 16 bytes, else the scalar
+    one (:func:`dkv_partial_route`); ``flash_attention_dkv_partial.routes``
+    counts each."""
+    route = dkv_partial_route(q.dtype, rows_aligned(q, k, v, do))
     dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
     dv = torch.empty(v.shape, dtype=torch.float32, device=v.device)
     _launch_partial_bwd("flash_attention_dkv_partial", q, k, v, do, lse,
-                        delta, dk, dv, scale, causal, q_offset, k_offset)
+                        delta, dk, dv, scale, causal, q_offset, k_offset,
+                        route)
     flash_attention_dkv_partial.launches += 1
+    flash_attention_dkv_partial.routes[route] += 1
     return dk, dv
 
 
 flash_attention_dkv_partial.launches = 0
+flash_attention_dkv_partial.routes = {"tensor_core": 0, "scalar": 0}
 
 # the ring's kernels and their plain versions, looked up at each call
 _RING_KERNELS = (flash_attention_partial, flash_attention_dq_partial,

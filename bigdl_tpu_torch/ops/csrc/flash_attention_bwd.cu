@@ -1,5 +1,6 @@
 // Flash-attention backward for Hopper (sm_90a), plain C interface: five
-// kernels, dQ, dK/dV and dBias, and the ring's partial dQ and dK/dV.
+// kernels, dQ, dK/dV and dBias, and the ring's partial dQ and dK/dV (dK/dV
+// and the ring's dK/dV with a tensor-core route each for bf16).
 //
 // Replaces the TPU kernels of bigdl_tpu/ops/attention_kernels.py:
 //   flash_attention_dq    <- _bwd_impl / _flash_dq_kernel   (#2, pallas_call :483)
@@ -87,10 +88,17 @@
 // dS to bf16 as the reference does (dO's and Q's dtype), and adds
 // dV += P^T . dO and dK += dS^T . Q with P^T and dS^T taken straight from
 // its registers as the A operand.  Query tiles wholly before the block's
-// first key are skipped.  f32 inputs, and the ring's #7 (dO in f32: two of
-// its products are f32 products), keep the scalar flash_dkv_kernel: the
+// first key are skipped.  f32 inputs keep the scalar flash_dkv_kernel: the
 // entry point flash_attention_dkv routes by dtype and the wrapper counts
 // each route.
+//
+// The ring's dK/dV (#7) with bf16 q, k, v runs on the tensor cores too:
+// flash_dkv_partial_tc_kernel, #3's structure with dO in f32.  Two of its
+// four products have an f32 operand (dP = dO . V^T, dV = P^T . dO with P
+// in dO's dtype), so each f32 operand goes in as three bf16 pieces whose
+// sum is exact, and the products keep f32's precision (the comment above
+// the kernel).  f32 q, k, v keep the scalar template; flash_attention_
+// dkv_partial takes the route as a flag, which the wrapper counts.
 //
 // Work split (fixed tiles; ragged edges masked here):
 //   dQ    grid (B*H, ceil(Tq/16)): 4 warps x 4 query rows; loops over
@@ -100,6 +108,9 @@
 //         tiles, lane = query for s and dP, lane = column for the sums.
 //   dK/dV on the tensor cores (bf16) grid (B*H, ceil(Tk/64)): 4 warps x 16
 //         keys; loops over 32-query tiles, two stages.
+//   the ring's dK/dV on the tensor cores (bf16) grid (B*H, ceil(Tk/64)):
+//         as #3's, with dO's tile split into bf16 pieces in shared memory
+//         once it lands.
 //   dBias grid (B*H, ceil(Tq/16), ceil(Tk/32)): one 16 x 32 tile each.
 
 #include <cuda_bf16.h>
@@ -664,6 +675,295 @@ __global__ void __launch_bounds__(kTcThreads, DMAX <= 64 ? 3 : 1)
     }
 }
 
+// ---- the ring's dK / dV (#7) on the tensor cores (bf16 q, k, v; f32 dO) ---
+
+// #3's tiles; the shared memory holds K and V, Q in two stages, dO's three
+// bf16 pieces, then in f32 dO in two stages and lse and Delta in two
+template <int DMAX>
+struct DkvPartialTc : DkvTc<DMAX> {
+  using Base = DkvTc<DMAX>;
+  static constexpr size_t kSmem =
+      (size_t)(2 * kTcKeys + 5 * Base::kQ) * Base::kLd *
+          sizeof(__nv_bfloat16) +
+      (size_t)(2 * Base::kQ * DMAX + 4 * Base::kQ) * sizeof(float);
+};
+
+// rows [r0, r0 + n) of a [T, D] f32 operand (strided rows, contiguous
+// columns) into shared rows of DMAX floats, zero beyond T and D, by
+// 16-byte cp.async copies
+template <int DMAX>
+__device__ __forceinline__ void load_rows_f32_async(float* dst,
+                                                    const float* src,
+                                                    long long st, int r0,
+                                                    int n, int T_, int D) {
+  constexpr int kChunks = DMAX / 4;
+  for (int i = threadIdx.x; i < n * kChunks; i += kTcThreads) {
+    const int r = i / kChunks, c = (i % kChunks) * 4, t = r0 + r;
+    const bool inside = t < T_ && c < D;
+    tc::cp_async16(dst + r * DMAX + c, inside ? src + t * st + c : src,
+                   inside);
+  }
+}
+
+// The reference's _dkv_accum with dO in f32: dP = dO . V^T and dV = P^T .
+// dO have an f32 operand, which a bf16 product would round.  Each f32
+// operand x goes to the tensor cores as three bf16 pieces, hi = bf16(x),
+// mid = bf16(x - hi), lo = bf16(x - hi - mid), whose sum is x exactly
+// (for normal x whose pieces stay normal); every bf16 x bf16 product is
+// exact in f32, so a product against the pieces is the f32 product up to
+// the order of its sum.  Per 32-query tile: S^T = K . Q^T (one product),
+// dP^T = V . dO^T over dO's pieces (three), dV += P^T . dO over the six
+// terms of P's and dO's pieces down to 2^-24 of the product (hi.hi,
+// hi.mid, mid.hi, hi.lo, mid.mid, lo.hi), dK += dS^T . Q with dS rounded
+// to Q's dtype as #3 does (one): 11 bf16 products where the scalar kernel
+// does 4 in f32.  The tensor cores' f32 sums drop low bits, so each
+// 16-deep step of S, dP and dV is summed into a fresh tile, smallest
+// pieces first, and then added to its running f32 sum.
+template <int DMAX>
+__global__ void __launch_bounds__(kTcThreads, DMAX <= 64 ? 2 : 1)
+    flash_dkv_partial_tc_kernel(const Params p) {
+  using bf16 = __nv_bfloat16;
+  using Cfg = DkvPartialTc<DMAX>;
+  constexpr int kQ = Cfg::kQ, kLd = Cfg::kLd;
+  constexpr int kQTiles = Cfg::kQTiles, kDTiles = Cfg::kDTiles;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* vs = ks + kTcKeys * kLd;
+  bf16* qs = vs + kTcKeys * kLd;               // [2][kQ][kLd]
+  bf16* pieces = qs + 2 * kQ * kLd;            // [3][kQ][kLd]: hi, mid, lo
+  // [2][kQ][DMAX]
+  float* dof = reinterpret_cast<float*>(pieces + 3 * kQ * kLd);
+  float* lse_s = dof + 2 * kQ * DMAX;          // [2][kQ]
+  float* delta_s = lse_s + 2 * kQ;             // [2][kQ]
+
+  const int bh = blockIdx.x;
+  const int b = bh / p.H, h = bh % p.H;
+  const int k0 = blockIdx.y * kTcKeys;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int kw = warp * 16;  // this warp's first key in the block
+
+  const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const float* dout = static_cast<const float*>(p.dout) + b * p.o_sb +
+                      h * p.o_sh;
+
+  // a row that sees none of the block's keys has P = 0 (its lse is the
+  // sequence's): query tiles before the first row that sees key k0 are
+  // skipped, and a block no row sees writes zeros
+  const int n_tiles = (p.Tq + kQ - 1) / kQ;
+  int first = 0;
+  if (p.causal)
+    first = (int)min((long long)n_tiles,
+                     max(0LL, (long long)k0 - p.causal_offset) / kQ);
+
+  auto load_queries = [&](int stage, int tile) {
+    const int i0 = tile * kQ;
+    load_tile_bf16<DMAX>(qs + stage * kQ * kLd, q, p.q_st, i0, kQ, p.Tq, p.D,
+                         1);
+    load_rows_f32_async<DMAX>(dof + stage * kQ * DMAX, dout, p.o_st, i0, kQ,
+                              p.Tq, p.D);
+    for (int i = threadIdx.x; i < kQ; i += kTcThreads) {
+      const int t = i0 + i;
+      const long long row = (long long)bh * p.Tq + t;
+      lse_s[stage * kQ + i] = t < p.Tq ? p.lse[row] : 0.f;
+      delta_s[stage * kQ + i] = t < p.Tq ? p.delta[row] : 0.f;
+    }
+  };
+
+  load_tile_bf16<DMAX>(ks, k, p.k_st, k0, kTcKeys, p.Tk, p.D, 1);
+  load_tile_bf16<DMAX>(vs, v, p.v_st, k0, kTcKeys, p.Tk, p.D, 1);
+  if (first < n_tiles) load_queries(0, first);
+  tc::cp_async_commit();
+
+  float dk[kDTiles][4], dv[kDTiles][4];
+#pragma unroll
+  for (int j = 0; j < kDTiles; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+
+  for (int tile = first; tile < n_tiles; ++tile) {
+    const int stage = (tile - first) & 1;
+    if (tile + 1 < n_tiles) load_queries(stage ^ 1, tile + 1);
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();  // this tile's copies (and K, V) have landed
+    __syncthreads();
+
+    // dO's tile as its three bf16 pieces, in the layout ldmatrix reads
+    const float* dot = dof + stage * kQ * DMAX;
+    for (int i = threadIdx.x; i < kQ * DMAX / 4; i += kTcThreads) {
+      const int r = i / (DMAX / 4), col = (i % (DMAX / 4)) * 4;
+      const float4 x4 =
+          *reinterpret_cast<const float4*>(dot + r * DMAX + col);
+      const float xs[4] = {x4.x, x4.y, x4.z, x4.w};
+      uint32_t hi[2], mid[2], lo[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float a = xs[2 * e], c = xs[2 * e + 1];
+        const __nv_bfloat162 hi2 = __floats2bfloat162_rn(a, c);
+        const float2 do_rest = {a - __low2float(hi2), c - __high2float(hi2)};
+        const __nv_bfloat162 mid2 =
+            __floats2bfloat162_rn(do_rest.x, do_rest.y);
+        hi[e] = tc::bits(hi2);
+        mid[e] = tc::bits(mid2);
+        lo[e] = tc::bits(__floats2bfloat162_rn(
+            do_rest.x - __low2float(mid2), do_rest.y - __high2float(mid2)));
+      }
+      const int at = r * kLd + col;
+      *reinterpret_cast<uint2*>(pieces + at) = make_uint2(hi[0], hi[1]);
+      *reinterpret_cast<uint2*>(pieces + kQ * kLd + at) =
+          make_uint2(mid[0], mid[1]);
+      *reinterpret_cast<uint2*>(pieces + 2 * kQ * kLd + at) =
+          make_uint2(lo[0], lo[1]);
+    }
+    __syncthreads();
+
+    const bf16* qt = qs + stage * kQ * kLd;
+    // S^T = K . Q^T and dP^T = V . dO^T: 16 keys x kQ queries per warp,
+    // dO's pieces lo, mid, hi; each 16-deep step into a fresh tile
+    float s[kQTiles][4], dp[kQTiles][4];
+#pragma unroll
+    for (int j = 0; j < kQTiles; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < DMAX / 16; ++kd) {
+      uint32_t ka[4], va[4];
+      const int a_off = (kw + lane % 16) * kLd + kd * 16 + (lane / 16) * 8;
+      tc::ldmatrix_x4(ka, ks + a_off);
+      tc::ldmatrix_x4(va, vs + a_off);
+#pragma unroll
+      for (int np = 0; np < kQTiles / 2; ++np) {
+        const int b_off = (np * 16 + lane % 8 + (lane / 16) * 8) * kLd +
+                          kd * 16 + ((lane / 8) % 2) * 8;
+        float ts[2][4] = {}, tp[2][4] = {};
+        uint32_t qb[4];
+        tc::ldmatrix_x4(qb, qt + b_off);
+        tc::mma_bf16(ts[0], ka, qb[0], qb[1]);
+        tc::mma_bf16(ts[1], ka, qb[2], qb[3]);
+#pragma unroll
+        for (int piece = 2; piece >= 0; --piece) {
+          uint32_t ob[4];
+          tc::ldmatrix_x4(ob, pieces + piece * kQ * kLd + b_off);
+          tc::mma_bf16(tp[0], va, ob[0], ob[1]);
+          tc::mma_bf16(tp[1], va, ob[2], ob[3]);
+        }
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[2 * np + n][e] += ts[n][e];
+            dp[2 * np + n][e] += tp[n][e];
+          }
+      }
+    }
+
+    // P = exp(s - lse) and dS = P (dP - Delta), each step one rounded f32
+    // operation as torch computes the plain version; -1e9 replaces a score
+    // on global causal positions (P = exp(-1e9 - lse) = 0, dS = 0); a tile
+    // with no edge and no masked pair skips the tests
+    const int i0 = tile * kQ;
+    const bool plain_tile =
+        k0 + kTcKeys <= p.Tk && i0 + kQ <= p.Tq &&
+        (!p.causal || k0 + kTcKeys - 1 <= i0 + p.causal_offset);
+#pragma unroll
+    for (int j = 0; j < kQTiles; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + kw + g + (e / 2) * 8;
+        const int col = j * 8 + 2 * t4 + (e % 2);
+        const int row = i0 + col;
+        const float lse = lse_s[stage * kQ + col];
+        const float delta = delta_s[stage * kQ + col];
+        float pr = 0.f, ds = 0.f;
+        if (plain_tile || (key < p.Tk && row < p.Tq)) {
+          if (!plain_tile && p.causal && key > row + p.causal_offset) {
+            pr = expf(__fsub_rn(kMaskedScore, lse));
+          } else {
+            pr = expf(__fsub_rn(__fmul_rn(s[j][e], p.scale), lse));
+            ds = __fmul_rn(pr, __fsub_rn(dp[j][e], delta));
+          }
+        }
+        s[j][e] = pr;
+        dp[j][e] = ds;
+      }
+    // dS in Q's dtype (bf16, to nearest), as #3 casts it
+    uint32_t ds_a[kQTiles][2];
+#pragma unroll
+    for (int j = 0; j < kQTiles; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        ds_a[j][hh] = tc::pack_bf16(dp[j][2 * hh], dp[j][2 * hh + 1]);
+
+    // dV += P^T . dO over P's and dO's pieces, and dK += dS^T . Q; A from
+    // registers, B through ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < kQ / 16; ++kk) {
+      uint32_t ph[4], pm[4], pl[4];  // P^T's A fragment in three pieces
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const float a = s[2 * kk + i][2 * hh], c = s[2 * kk + i][2 * hh + 1];
+          const __nv_bfloat162 hi2 = __floats2bfloat162_rn(a, c);
+          const float2 p_rest = {a - __low2float(hi2), c - __high2float(hi2)};
+          const __nv_bfloat162 mid2 =
+              __floats2bfloat162_rn(p_rest.x, p_rest.y);
+          const __nv_bfloat162 lo2 =
+              __floats2bfloat162_rn(p_rest.x - __low2float(mid2),
+                                    p_rest.y - __high2float(mid2));
+          ph[2 * i + hh] = tc::bits(hi2);
+          pm[2 * i + hh] = tc::bits(mid2);
+          pl[2 * i + hh] = tc::bits(lo2);
+        }
+      const uint32_t da[4] = {ds_a[2 * kk][0], ds_a[2 * kk][1],
+                              ds_a[2 * kk + 1][0], ds_a[2 * kk + 1][1]};
+#pragma unroll
+      for (int dn = 0; dn < kDTiles / 2; ++dn) {
+        const int b_off = (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * kLd +
+                          dn * 16 + (lane / 16) * 8;
+        uint32_t oh[4], om[4], ol[4], qb[4];
+        tc::ldmatrix_x4_trans(oh, pieces + b_off);
+        tc::ldmatrix_x4_trans(om, pieces + kQ * kLd + b_off);
+        tc::ldmatrix_x4_trans(ol, pieces + 2 * kQ * kLd + b_off);
+        tc::ldmatrix_x4_trans(qb, qt + b_off);
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          float t[4] = {};  // the six terms, smallest first
+          tc::mma_bf16(t, pl, oh[2 * n], oh[2 * n + 1]);
+          tc::mma_bf16(t, pm, om[2 * n], om[2 * n + 1]);
+          tc::mma_bf16(t, ph, ol[2 * n], ol[2 * n + 1]);
+          tc::mma_bf16(t, pm, oh[2 * n], oh[2 * n + 1]);
+          tc::mma_bf16(t, ph, om[2 * n], om[2 * n + 1]);
+          tc::mma_bf16(t, ph, oh[2 * n], oh[2 * n + 1]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dv[2 * dn + n][e] += t[e];
+          tc::mma_bf16(dk[2 * dn + n], da, qb[2 * n], qb[2 * n + 1]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this stage and the pieces
+  }
+  tc::cp_async_wait<0>();
+
+  float* dk_out = static_cast<float*>(p.out0);
+  float* dv_out = static_cast<float*>(p.out1);
+#pragma unroll
+  for (int j = 0; j < kDTiles; ++j)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int key = k0 + kw + g + hh * 8;
+      const int c = j * 8 + 2 * t4;
+      if (key >= p.Tk || c >= p.D) continue;
+      const long long at = ((long long)bh * p.Tk + key) * p.D + c;
+      *reinterpret_cast<float2*>(dk_out + at) =
+          make_float2(dk[j][2 * hh] * p.scale, dk[j][2 * hh + 1] * p.scale);
+      *reinterpret_cast<float2*>(dv_out + at) =
+          make_float2(dv[j][2 * hh], dv[j][2 * hh + 1]);
+    }
+}
+
 // ---- dBias -----------------------------------------------------------------
 
 template <typename T, int DMAX>
@@ -729,7 +1029,8 @@ enum Which {
   kDkv = 1,
   kDbias = 2,
   kDqPartial = 3,
-  kDkvPartial = 4
+  kDkvPartial = 4,
+  kDkvPartialTc = 5
 };
 
 template <typename Kernel>
@@ -771,6 +1072,12 @@ int launch_which(int which, const Params& p, cudaStream_t stream) {
       return launch(flash_dkv_kernel<T, float, DMAX, true>,
                     dim3(p.B * p.H, k_tiles), dkv_smem_floats<DMAX>(), p,
                     stream);
+    case kDkvPartialTc:  // bf16 q, k, v only
+      if constexpr (std::is_same<T, __nv_bfloat16>::value)
+        return launch(flash_dkv_partial_tc_kernel<DMAX>,
+                      dim3(p.B * p.H, (p.Tk + kTcKeys - 1) / kTcKeys), 0, p,
+                      stream, DkvPartialTc<DMAX>::kSmem);
+      return (int)cudaErrorInvalidValue;
     case kDbias:
       return launch(flash_dbias_kernel<T, DMAX>,
                     dim3(p.B * p.H, q_tiles, (p.Tk + kTile - 1) / kTile),
@@ -837,6 +1144,15 @@ int run(int which, const void* q, const void* k, const void* v,
   for (long long st : strides) p.vec = p.vec && st % 8 == 0;
   for (const void* ptr : ptrs)
     p.vec = p.vec && reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+  if (which == kDkvPartialTc) {
+    // 16-byte rows: q, k, v bf16 (8 values), dO f32 (4 values)
+    bool rows = D % 8 == 0;
+    for (int i = 0; i < 12; ++i)
+      rows = rows && strides[i] % (i < 9 ? 8 : 4) == 0;
+    for (const void* ptr : ptrs)
+      rows = rows && reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+    if (!rows || !is_bf16) return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_bf16 ? launch_for_dim<__nv_bfloat16>(which, p, s)
                  : launch_for_dim<float>(which, p, s);
@@ -868,11 +1184,14 @@ extern "C" int flash_attention_dkv(BWD_ARGS) { return BWD_CALL(kDkv); }
 extern "C" int flash_attention_dbias(BWD_ARGS) { return BWD_CALL(kDbias); }
 
 // The partial kernels (#6, #7) take no bias, dO in f32 and the chunks'
-// global positions; out0/out1 are f32 dq/unused and dk/dv.
+// global positions; out0/out1 are f32 dq/unused and dk/dv.  With
+// tensor_cores set, #7 runs flash_dkv_partial_tc_kernel (bf16 q, k, v and
+// 16-byte rows, else an error); #6 has no tensor-core route and refuses it.
 #define PARTIAL_ARGS                                                         \
   const void *q, const void *k, const void *v, const void *dout,            \
       const void *lse, const void *delta, void *out0, void *out1,           \
-      int is_bf16, int B, int H, int Tq, int Tk, int D, long long q_sb,     \
+      int is_bf16, int tensor_cores, int B, int H, int Tq, int Tk, int D,   \
+      long long q_sb,                                                       \
       long long q_sh, long long q_st, long long k_sb, long long k_sh,       \
       long long k_st, long long v_sb, long long v_sh, long long v_st,       \
       long long o_sb, long long o_sh, long long o_st, float scale,          \
@@ -884,8 +1203,9 @@ extern "C" int flash_attention_dbias(BWD_ARGS) { return BWD_CALL(kDbias); }
       stream)
 
 extern "C" int flash_attention_dq_partial(PARTIAL_ARGS) {
+  if (tensor_cores) return (int)cudaErrorInvalidValue;
   return PARTIAL_CALL(kDqPartial);
 }
 extern "C" int flash_attention_dkv_partial(PARTIAL_ARGS) {
-  return PARTIAL_CALL(kDkvPartial);
+  return PARTIAL_CALL(tensor_cores ? kDkvPartialTc : kDkvPartial);
 }

@@ -1,5 +1,6 @@
 // Flash-attention forward for Hopper (sm_90a), plain C interface: two
-// entry points over one kernel template.
+// entry points over two kernel templates, a scalar one (f32, and bf16
+// rows that are not 16-byte aligned) and a tensor-core one (bf16).
 //
 // flash_attention_fwd replaces the TPU kernel #1 of
 // bigdl_tpu/ops/attention_kernels.py: _fwd_impl / _flash_fwd_kernel (the
@@ -24,12 +25,14 @@
 // the pooled decode (Tq = 1 over a max_len cache) does ~0.5 flop per
 // byte of K/V and is bound by device-memory bytes; a 128-wide prefill
 // chunk over a 512-key cache does ~46 flops per byte and is bound by
-// the f32 rate of the CUDA cores (no tensor cores here).  The design
-// answers the first: one block covers a whole 16-row query tile of one
-// (batch, head), so each K/V element is read from device memory once
-// per query tile (once per decode step), the bias is read through its
-// strides and never materialised per head, and no score matrix is ever
-// written to device memory.  Tensor cores (wgmma) and TMA are later work.
+// the f32 rate of the CUDA cores.  Serving runs f32, on the scalar
+// template: one block covers a whole 16-row query tile of one (batch,
+// head), so each K/V element is read from device memory once per query
+// tile (once per decode step), the bias is read through its strides and
+// never materialised per head, and no score matrix is ever written to
+// device memory.  The LM training shape (B8 H8 T2048 D64 causal bf16)
+// does ~34 GFLOP for 8 MB and is bound by the tensor cores: bf16 with
+// 16-byte rows runs flash_fwd_tc_kernel<false, D> (below).
 //
 // Tiles are FIXED (16 query rows, 32 keys) and key tiles always start at
 // position 0, so a row's result depends only on that row, its keys and
@@ -60,25 +63,32 @@
 // once per 16-row query tile, no score matrix in device memory, tiles
 // above the diagonal skipped.
 //
-// For bf16, the sequence-parallel training path, #5 runs on the tensor
-// cores instead: flash_partial_tc_kernel, the FlashAttention-2 forward
-// loop on mma.sync.m16n8k16 (tensor_core.cuh says why not wgmma yet).  A
-// block of 4 warps owns 64 query rows of one (b, h), 16 per warp, with
-// their Q fragments loaded once through ldmatrix and kept in registers;
-// 64-key tiles of K and V stream through two cp.async stages (zeros
-// beyond Tk and D; D padded to 32, 64 or 128).  Per tile each warp forms
-// S = Q . K^T into f32 fragments, scales and masks it as the scalar
-// kernel does (-1e9 replaces a score on global causal positions, -inf
-// excludes a key beyond Tk), takes row maxima and sums by quad shuffles
-// (l from the unrounded P), casts P to bf16 rounding to nearest (the
-// reference's cast to v's dtype) straight from the S fragments into A
-// fragments, and adds P . V (V through ldmatrix.trans) to acc, which
-// starts from acc_in in the C fragments.  Each element of the state is
-// read and written by the one thread that owns its fragment slot (m and l
-// by the first lane of a quad), so the outputs may alias the inputs.
-// The wrapper routes a call here only when the head dim is a multiple of
-// 8 and every row of q, k and v starts on 16 bytes; the entry point
-// refuses it otherwise.
+// For bf16 (the LM and sequence-parallel training paths) #1 and #5 run on
+// the tensor cores instead: flash_fwd_tc_kernel<kPartial, D>, the
+// FlashAttention-2 forward loop on mma.sync.m16n8k16 (tensor_core.cuh says
+// why not wgmma yet).  A block of 4 warps owns 64 query rows of one (b,
+// h), 16 per warp, with their Q fragments loaded once through ldmatrix and
+// kept in registers; 64-key tiles of K and V stream through two cp.async
+// stages (zeros beyond Tk and D; D padded to 32, 64 or 128).  Per tile
+// each warp forms S = Q . K^T into f32 fragments, scales it, adds #1's
+// f32 bias (through its strides; a float2 where the key stride is 1),
+// masks it as the scalar kernel does (-1e9 replaces a score the causal
+// mask hides, -inf excludes a key beyond Tk), takes row maxima and sums by
+// quad shuffles (l from the unrounded P; P = exp2((s - m) log2(e)), which
+// costs fewer instructions than expf), casts P to bf16 rounding to
+// nearest (the reference's cast to v's dtype) straight from the S
+// fragments into A fragments, and adds P . V (V through ldmatrix.trans)
+// to acc in the C fragments.  #1 starts from (-inf, 0, 0) and ends with
+// out = acc / l rounded to bf16 and lse = m + log l; #5 starts from
+// acc_in, m_in, l_in and writes the state back, each element read and
+// written by the one thread that owns its fragment slot (m and l by the
+// first lane of a quad), so its outputs may alias its inputs.  Tiles are
+// fixed and keys start at 0 here too, so a row's result depends on that
+// row alone.  The query blocks launch heaviest first (the last rows of a
+// causal mask see the most keys), so the long blocks do not trail the
+// grid.  The wrapper routes a call here only when the head dim is a
+// multiple of 8 and every row of q, k and v starts on 16 bytes; the entry
+// points refuse it otherwise.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -114,6 +124,7 @@ struct Params {
   float scale;
   int causal;
   int causal_offset;  // key j is visible to row i when j <= i + offset
+  int bias_pairs;     // #1's bias: key stride 1, float2 loads aligned
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -278,15 +289,16 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
-// ---- #5 on the tensor cores (bf16) ------------------------------------------
+// ---- #1 and #5 on the tensor cores (bf16) ----------------------------------
 
 constexpr int kTcWarps = 4;
 constexpr int kTcRows = kTcWarps * 16;  // query rows per block, 16 per warp
 constexpr int kTcKeys = 64;             // keys per K/V tile
 constexpr int kTcStages = 2;
+constexpr float kLog2e = 1.4426950408889634f;  // exp(x) = exp2(x log2(e))
 
 template <int DMAX>
-struct PartialTc {
+struct FwdTc {
   static constexpr int kLd = DMAX + 8;  // padded row: ldmatrix hits 8 banks
   static constexpr size_t kSmem =
       (size_t)(kTcRows + 2 * kTcStages * kTcKeys) * kLd *
@@ -301,7 +313,7 @@ __device__ __forceinline__ void load_rows_async(__nv_bfloat16* dst,
                                                 const __nv_bfloat16* src,
                                                 long long st, int r0, int n,
                                                 int T, int D) {
-  constexpr int kLd = PartialTc<DMAX>::kLd, kChunks = DMAX / 8;
+  constexpr int kLd = FwdTc<DMAX>::kLd, kChunks = DMAX / 8;
   for (int i = threadIdx.x; i < n * kChunks; i += kTcWarps * 32) {
     const int r = i / kChunks, c = (i % kChunks) * 8, t = r0 + r;
     const bool inside = t < T && c < D;
@@ -310,11 +322,32 @@ __device__ __forceinline__ void load_rows_async(__nv_bfloat16* dst,
   }
 }
 
-template <int DMAX>
+// #1's f32 bias of row `row` at keys key and key + 1 (zeros beyond Tq and
+// Tk): one float2 where the key stride is 1 and the pair is 8-byte
+// aligned, else two loads through the strides
+__device__ __forceinline__ float2 bias_pair(const Params& p,
+                                            const float* bias, int row,
+                                            int key) {
+  float2 add = make_float2(0.f, 0.f);
+  if (row >= p.Tq) return add;
+  const float* br = bias + row * p.b_sq;
+  if (p.bias_pairs && key + 1 < p.Tk)
+    return *reinterpret_cast<const float2*>(br + key);
+  if (key < p.Tk) add.x = br[key * p.b_sk];
+  if (key + 1 < p.Tk) add.y = br[(key + 1) * p.b_sk];
+  return add;
+}
+
+// One (b, h) and 64 query rows: the online softmax over 64-key tiles on
+// mma.sync.  #5 (kPartial) starts from the carried state and writes it
+// back; #1 starts from (m, l, acc) = (-inf, 0, 0), adds the optional f32
+// bias after the scale and before the mask, and ends with out = acc / l
+// in bf16 and lse = m + log l.
+template <bool kPartial, int DMAX>
 __global__ void __launch_bounds__(kTcWarps * 32)
-    flash_partial_tc_kernel(const Params p) {
+    flash_fwd_tc_kernel(const Params p) {
   using bf16 = __nv_bfloat16;
-  constexpr int kLd = PartialTc<DMAX>::kLd;
+  constexpr int kLd = FwdTc<DMAX>::kLd;
   constexpr int kDk = DMAX / 16;     // 16-deep steps of Q . K^T
   constexpr int kDn = DMAX / 8;      // n8 tiles of acc
   constexpr int kKn = kTcKeys / 8;   // n8 tiles of S
@@ -325,7 +358,8 @@ __global__ void __launch_bounds__(kTcWarps * 32)
 
   const int bh = blockIdx.x;
   const int b = bh / p.H, h = bh % p.H;
-  const int q0 = blockIdx.y * kTcRows;
+  // the last query blocks first: under a causal mask they see the most keys
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTcRows;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int g = lane / 4, t4 = lane % 4;
   const int r_lo = q0 + warp * 16 + g;  // this thread's rows r_lo, r_lo + 8
@@ -333,14 +367,17 @@ __global__ void __launch_bounds__(kTcWarps * 32)
   const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
   const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
   const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const float* bias = kPartial || p.bias == nullptr
+                          ? nullptr
+                          : p.bias + b * p.b_sb + h * p.b_sh;
 
   // the scalar kernel's rule at 64-row blocks: a chunk no row sees passes
-  // the state through; key tiles wholly above the diagonal of the block's
+  // #5's state through; key tiles wholly above the diagonal of the block's
   // last row are skipped only when every row of the block sees key 0 (a
   // row that sees no key is uniform over ALL keys), that is when its
   // first row does
   int n_tiles = (p.Tk + kTcKeys - 1) / kTcKeys;
-  if (p.causal && (long long)p.Tq - 1 + p.causal_offset < 0) {
+  if (kPartial && p.causal && (long long)p.Tq - 1 + p.causal_offset < 0) {
     n_tiles = 0;
   } else if (p.causal && q0 + p.causal_offset >= 0) {
     const long long last_key =
@@ -358,15 +395,15 @@ __global__ void __launch_bounds__(kTcWarps * 32)
   if (n_tiles > 0) load_kv(0, 0);
   tc::cp_async_commit();
 
-  // the carried state in C fragments: acc (rows g, g + 8 of the warp's 16,
+  // the state in C fragments: acc (rows g, g + 8 of the warp's 16,
   // columns 2 t4, 2 t4 + 1 of each n8 tile), m and l of the two rows
   float m[2], l[2], acc[kDn][4];
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int t = r_lo + hh * 8;
     const long long row = (long long)bh * p.Tq + t;
-    float mv = kMaskedScore, lv = 0.f;
-    if (t4 == 0 && t < p.Tq) {
+    float mv = kPartial ? kMaskedScore : -INFINITY, lv = 0.f;
+    if (kPartial && t4 == 0 && t < p.Tq) {
       mv = p.m_in[row];
       lv = p.l_in[row];
     }
@@ -376,7 +413,7 @@ __global__ void __launch_bounds__(kTcWarps * 32)
     for (int j = 0; j < kDn; ++j) {
       const int c = j * 8 + 2 * t4;
       float2 a = make_float2(0.f, 0.f);
-      if (t < p.Tq && c < p.D)
+      if (kPartial && t < p.Tq && c < p.D)
         a = *reinterpret_cast<const float2*>(p.acc_in + row * p.D + c);
       acc[j][2 * hh] = a.x;
       acc[j][2 * hh + 1] = a.y;
@@ -418,9 +455,25 @@ __global__ void __launch_bounds__(kTcWarps * 32)
         tc::mma_bf16(s[2 * np + 1], qa[kd], kb[2], kb[3]);
       }
 
-    // the scale after the dot, the masks, and the rows' maxima; a tile
-    // whose every key every row of the block sees skips the tests
+    // the scale after the dot, then #1's bias
     const int k0 = tile * kTcKeys;
+#pragma unroll
+    for (int j = 0; j < kKn; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        if (bias != nullptr) {
+          const float2 add =
+              bias_pair(p, bias, r_lo + hh * 8, k0 + j * 8 + 2 * t4);
+          s[j][2 * hh] = s[j][2 * hh] * p.scale + add.x;
+          s[j][2 * hh + 1] = s[j][2 * hh + 1] * p.scale + add.y;
+        } else {
+          s[j][2 * hh] *= p.scale;
+          s[j][2 * hh + 1] *= p.scale;
+        }
+      }
+
+    // the masks and the rows' maxima; a tile whose every key every row of
+    // the block sees skips the tests
     const bool open_tile =
         k0 + kTcKeys <= p.Tk &&
         (!p.causal || k0 + kTcKeys - 1 <= q0 + p.causal_offset);
@@ -429,7 +482,7 @@ __global__ void __launch_bounds__(kTcWarps * 32)
     for (int j = 0; j < kKn; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float x = s[j][e] * p.scale;
+        float x = s[j][e];
         if (!open_tile) {
           const int key = k0 + j * 8 + 2 * t4 + (e % 2);
           if (p.causal && key > r_lo + (e / 2) * 8 + p.causal_offset)
@@ -445,14 +498,15 @@ __global__ void __launch_bounds__(kTcWarps * 32)
       mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
       mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
       const float m_new = fmaxf(m[hh], mx[hh]);  // finite: key k0 exists
-      alpha[hh] = expf(m[hh] - m_new);
+      alpha[hh] = exp2f((m[hh] - m_new) * kLog2e);
       m[hh] = m_new;
     }
 #pragma unroll
     for (int j = 0; j < kKn; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float pr = expf(s[j][e] - m[e / 2]);  // 0 beyond Tk
+        // 0 beyond Tk
+        const float pr = exp2f((s[j][e] - m[e / 2]) * kLog2e);
         s[j][e] = pr;
         rs[e / 2] += pr;
       }
@@ -494,7 +548,6 @@ __global__ void __launch_bounds__(kTcWarps * 32)
   }
   tc::cp_async_wait<0>();
 
-  float* acc_out = static_cast<float*>(p.out);
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int t = r_lo + hh * 8;
@@ -503,28 +556,40 @@ __global__ void __launch_bounds__(kTcWarps * 32)
 #pragma unroll
     for (int j = 0; j < kDn; ++j) {
       const int c = j * 8 + 2 * t4;
-      if (c < p.D)
-        *reinterpret_cast<float2*>(acc_out + row * p.D + c) =
+      if (c >= p.D) continue;
+      if constexpr (kPartial)
+        *reinterpret_cast<float2*>(static_cast<float*>(p.out) + row * p.D +
+                                   c) =
             make_float2(acc[j][2 * hh], acc[j][2 * hh + 1]);
+      else  // #1's epilogue: acc / l in q's dtype
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(p.out) +
+                                           row * p.D + c) =
+            __floats2bfloat162_rn(acc[j][2 * hh] / l[hh],
+                                  acc[j][2 * hh + 1] / l[hh]);
     }
     if (t4 == 0) {
-      p.lse[row] = m[hh];
-      p.l_out[row] = l[hh];
+      if constexpr (kPartial) {
+        p.lse[row] = m[hh];
+        p.l_out[row] = l[hh];
+      } else {
+        p.lse[row] = m[hh] + logf(l[hh]);
+      }
     }
   }
 }
 
-template <int DMAX>
-int launch_partial_tc(const Params& p, cudaStream_t stream) {
-  constexpr size_t smem = PartialTc<DMAX>::kSmem;
+template <bool kPartial, int DMAX>
+int launch_tc(const Params& p, cudaStream_t stream) {
+  constexpr size_t smem = FwdTc<DMAX>::kSmem;
   if (smem > 48 * 1024) {  // above 48 KB only as opted-in dynamic memory
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_partial_tc_kernel<DMAX>,
+        flash_fwd_tc_kernel<kPartial, DMAX>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 grid(p.B * p.H, (p.Tq + kTcRows - 1) / kTcRows);
-  flash_partial_tc_kernel<DMAX><<<grid, kTcWarps * 32, smem, stream>>>(p);
+  flash_fwd_tc_kernel<kPartial, DMAX>
+      <<<grid, kTcWarps * 32, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -539,11 +604,13 @@ bool rows_aligned(const Params& p) {
          (uintptr_t)p.k % 16 == 0 && (uintptr_t)p.v % 16 == 0;
 }
 
-int launch_partial_tc_for_dim(const Params& p, cudaStream_t stream) {
+template <bool kPartial>
+int launch_tc_for_dim(const Params& p, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!rows_aligned(p)) return (int)cudaErrorInvalidValue;
-  if (p.D <= 32) return launch_partial_tc<32>(p, stream);
-  if (p.D <= 64) return launch_partial_tc<64>(p, stream);
-  if (p.D <= 128) return launch_partial_tc<128>(p, stream);
+  if (p.D <= 32) return launch_tc<kPartial, 32>(p, s);
+  if (p.D <= 64) return launch_tc<kPartial, 64>(p, s);
+  if (p.D <= 128) return launch_tc<kPartial, 128>(p, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -571,11 +638,15 @@ int launch_for_type(int is_bf16, const Params& p, void* stream) {
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch (0 = launched).  The
-// caller checks shapes, dtypes and strides before calling.
+// Kernel #1.  Returns cudaGetLastError() after the launch (0 =
+// launched).  The caller checks shapes, dtypes and strides before
+// calling.  bf16 with tensor_cores set runs flash_fwd_tc_kernel<false, D>
+// (an error unless D % 8 == 0 and every row of q, k, v starts on 16
+// bytes), else the scalar template.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, const void* bias, void* out,
-    void* lse, int is_bf16, int B, int H, int Tq, int Tk, int D,
+    void* lse, int is_bf16, int tensor_cores, int B, int H, int Tq, int Tk,
+    int D,
     long long q_sb, long long q_sh, long long q_st, long long k_sb,
     long long k_sh, long long k_st, long long v_sb, long long v_sh,
     long long v_st, long long b_sb, long long b_sh, long long b_sq,
@@ -609,7 +680,11 @@ extern "C" int flash_attention_fwd(
   p.scale = scale;
   p.causal = causal;
   p.causal_offset = causal_offset;
-  return launch_for_type<false>(is_bf16, p, stream);
+  p.bias_pairs = b_sk == 1 && b_sq % 2 == 0 && b_sb % 2 == 0 &&
+                 b_sh % 2 == 0 && (uintptr_t)bias % 8 == 0;
+  if (!tensor_cores) return launch_for_type<false>(is_bf16, p, stream);
+  if (!is_bf16) return (int)cudaErrorInvalidValue;
+  return launch_tc_for_dim<false>(p, stream);
 }
 
 // Kernel #5: merge one visiting K/V chunk into the carried state.  q is
@@ -617,8 +692,8 @@ extern "C" int flash_attention_fwd(
 // acc_in/acc_out [B*H, Tq, D] and m/l [B*H, Tq] are contiguous f32 (the
 // outputs may alias the inputs: each element is read and written by one
 // thread).  q_offset and k_offset are the chunks' global positions.  bf16
-// with tensor_cores set runs flash_partial_tc_kernel (an error unless D %
-// 8 == 0 and every row starts on 16 bytes), else the scalar template.
+// with tensor_cores set runs flash_fwd_tc_kernel<true, D> (an error unless
+// D % 8 == 0 and every row starts on 16 bytes), else the scalar template.
 extern "C" int flash_attention_partial(
     const void* q, const void* k, const void* v, const void* acc_in,
     const void* m_in, const void* l_in, void* acc_out, void* m_out,
@@ -657,5 +732,5 @@ extern "C" int flash_attention_partial(
   p.causal_offset = q_offset - k_offset;  // global q >= global k
   if (!tensor_cores) return launch_for_type<true>(is_bf16, p, stream);
   if (!is_bf16) return (int)cudaErrorInvalidValue;
-  return launch_partial_tc_for_dim(p, static_cast<cudaStream_t>(stream));
+  return launch_tc_for_dim<true>(p, stream);
 }

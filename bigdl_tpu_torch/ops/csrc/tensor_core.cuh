@@ -1,5 +1,6 @@
 // Warp-level tensor-core building blocks for the port's redesigned kernels
-// (conv_bn_tc.cuh, the bf16 dK/dV kernel of flash_attention_bwd.cu):
+// (conv_bn_tc.cuh, the bf16 forward of flash_attention_fwd.cu, the bf16
+// dK/dV kernels of flash_attention_bwd.cu):
 // asynchronous 16-byte copies into shared memory with zero fill, ldmatrix
 // loads of 8x8 bf16 tiles (plain and transposed), and the bf16 x bf16 -> f32
 // mma.sync.m16n8k16.
@@ -81,6 +82,11 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 // reference's cast of an f32 value to a bf16 operand
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// a bf16 pair as the 32 bits of an A or B fragment register
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 

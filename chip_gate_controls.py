@@ -45,11 +45,23 @@ the faults they are there to catch:
    with P packed by truncation in #5's tensor-core route (the top 16 bits
    of each f32 value, the cast's rounding dropped), and
    ``flash_attention_bwd.cu`` with #7's P cast to q's dtype before Pᵀ·dO
-   (the rule of #3, where dO is in q's dtype; the ring's dO is f32).
-   Each runs through chip_smoke's check of #5-#7 at the SP path's
-   off-diagonal bf16 chunk pair; the script fails unless the check passes
-   the sources as they stand and refuses each mutant, and prints the
-   share of entries each moves (and #5's state bias).
+   (the rule of #3, where dO is in q's dtype; the ring's dO is f32): in
+   #7's tensor-core route P's mid and lo pieces dropped; or with dO's mid
+   and lo pieces dropped (dO rounded to bf16, what a bf16 tensor-core
+   backward such as SDPA's computes).  Each runs through chip_smoke's
+   check of #5-#7 at the SP path's off-diagonal bf16 chunk pair; the
+   script fails unless the check passes the sources as they stand and
+   refuses each mutant, and prints the share of entries each moves from
+   the plain version and from the source as it stands (and #5's state
+   bias, #7's dV errors against the f64 sum).
+4b. A forward mutant.  ``flash_attention_fwd.cu`` with P packed by
+   truncation in the tensor-core loop #1 shares with #5, through #1's
+   wrapper at chip_smoke's LM training shape, held by its check
+   (``fwd_held``: the bias of the error refuses it).
+4c. Design variants, timed against the sources as they stand on the same
+   inputs (a reading, not a gate): #1's query blocks in grid order
+   instead of heaviest first, and #7's dV over its three largest terms
+   alone, with whether chip_smoke's check passes each.
 5. A control ResNet-50 step.  chip_smoke's f32 fused step (batch 4,
    64 px, card against a CPU copy) runs as it is and again with the conv
    kernels fed x and W rounded to bf16; the script fails unless the first
@@ -66,8 +78,10 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import json
 import math
+import re
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -147,6 +161,11 @@ CONV_MUTANTS = {
 }
 
 
+# #1's and #5's tensor-core loop packs P to bf16 from f32 fragments; the
+# fault keeps each value's top 16 bits
+PACK_P = "pf[j][hh] = tc::pack_bf16(s[j][2 * hh], s[j][2 * hh + 1]);"
+TRUNCATE_P = ("pf[j][hh] = (__float_as_uint(s[j][2 * hh]) >> 16) | "
+              "(__float_as_uint(s[j][2 * hh + 1]) & 0xffff0000u);")
 # name: (the source with the fault, the line as it stands, the line with
 # the fault, the partial kernel whose check must refuse it)
 RING_MUTANTS = {
@@ -154,28 +173,105 @@ RING_MUTANTS = {
         "flash_attention_fwd", "p.causal_offset = q_offset - k_offset;",
         "p.causal_offset = 0;", "partial"),
     # #5's bf16 route packs P from f32 fragments: the fault packs the top
-    # 16 bits of each value (the cast's rounding dropped)
+    # 16 bits of each value (the cast's rounding dropped).  The line is the
+    # forward loop's that #1 shares (FWD_MUTANTS)
     "p_truncated_in_5": (
-        "flash_attention_fwd",
-        "pf[j][hh] = tc::pack_bf16(s[j][2 * hh], s[j][2 * hh + 1]);",
-        "pf[j][hh] = (__float_as_uint(s[j][2 * hh]) >> 16) | "
-        "(__float_as_uint(s[j][2 * hh + 1]) & 0xffff0000u);", "partial"),
+        "flash_attention_fwd", PACK_P, TRUNCATE_P, "partial"),
+    # #7's bf16 route splits P into three bf16 pieces: without its mid and
+    # lo pieces P reaches Pᵀ·dO in bf16, q's dtype, where the reference
+    # keeps it in dO's (f32)
     "p_cast_to_q_dtype_in_7": (
-        "flash_attention_bwd", "const float pd = round_to<TO>(pr);",
-        "const float pd = round_to<T>(pr);", "dkv_partial"),
+        "flash_attention_bwd",
+        "const float2 p_rest = {a - __low2float(hi2), c - __high2float(hi2)};",
+        "const float2 p_rest = {0.f, 0.f};", "dkv_partial"),
+    # without dO's mid and lo pieces dP and dV see dO rounded to bf16: what
+    # a bf16 tensor-core backward (SDPA's) computes
+    "no_do_split_in_7": (
+        "flash_attention_bwd",
+        "const float2 do_rest = {a - __low2float(hi2), c - __high2float(hi2)};",
+        "const float2 do_rest = {0.f, 0.f};", "dkv_partial"),
 }
 RING_PROBLEM = "offdiag_bf16"     # chip_smoke's B8 H8 Tc512 D64 bf16 pair
+
+# name: (the line as it stands, the line with the fault) in
+# flash_attention_fwd.cu, held by chip_smoke's #1 check at FWD_PROBLEM
+FWD_MUTANTS = {"p_truncated_in_1": (PACK_P, TRUNCATE_P)}
+FWD_PROBLEM = "f_train"           # chip_smoke's B8 H8 T2048 D64 bf16 causal
+
+# design variants timed against the sources as they stand: name: (library,
+# [(the text as it stands, the variant's)], the kernel, chip_smoke's
+# problem).  #1's query blocks in grid order instead of heaviest first;
+# #1's (and #5's) blocks of 128 query rows on 8 warps, which halves the
+# K/V tiles read from shared memory per product; P by expf, or by exp2f in
+# log2 units; #7's dV over its three largest terms (hi.hi, hi.mid,
+# mid.hi) alone
+VARIANTS = {
+    "fwd_blocks_in_grid_order": (
+        "flash_attention_fwd",
+        [("const int q0 = (gridDim.y - 1 - blockIdx.y) * kTcRows;",
+          "const int q0 = blockIdx.y * kTcRows;")], "fwd", FWD_PROBLEM),
+    "fwd_128_rows_on_8_warps": (
+        "flash_attention_fwd",
+        [("constexpr int kTcWarps = 4;", "constexpr int kTcWarps = 8;")],
+        "fwd", FWD_PROBLEM),
+    # P = expf(s - m) as #1 and #5 had it before exp2f
+    "fwd_expf": (
+        "flash_attention_fwd",
+        [("alpha[hh] = exp2f((m[hh] - m_new) * kLog2e);",
+          "alpha[hh] = expf(m[hh] - m_new);"),
+         ("const float pr = exp2f((s[j][e] - m[e / 2]) * kLog2e);",
+          "const float pr = expf(s[j][e] - m[e / 2]);")],
+        "fwd", FWD_PROBLEM),
+    # scores, m and the mask in log2 units (log2(e) folded into the
+    # scale), P = exp2(s - m); m back in natural units for lse and #5's m
+    "fwd_exp2_log2_units": (
+        "flash_attention_fwd",
+        [("constexpr float kLog2e = 1.4426950408889634f;",
+          "constexpr float kLog2e = 1.4426950408889634f, "
+          "kLn2 = 0.6931471805599453f;"),
+         ("s[j][2 * hh] = s[j][2 * hh] * p.scale + add.x;",
+          "s[j][2 * hh] = (s[j][2 * hh] * p.scale + add.x) * kLog2e;"),
+         ("s[j][2 * hh + 1] = s[j][2 * hh + 1] * p.scale + add.y;",
+          "s[j][2 * hh + 1] = (s[j][2 * hh + 1] * p.scale + add.y) * kLog2e;"),
+         ("s[j][2 * hh] *= p.scale;", "s[j][2 * hh] *= p.scale * kLog2e;"),
+         ("s[j][2 * hh + 1] *= p.scale;",
+          "s[j][2 * hh + 1] *= p.scale * kLog2e;"),
+         ("""            x = kMaskedScore;
+          if (key >= p.Tk) x = -INFINITY;  // excluded from the max and sums""",
+          """            x = kMaskedScore * kLog2e;
+          if (key >= p.Tk) x = -INFINITY;  // excluded from the max and sums"""),
+         ("alpha[hh] = exp2f((m[hh] - m_new) * kLog2e);",
+          "alpha[hh] = exp2f(m[hh] - m_new);"),
+         ("const float pr = exp2f((s[j][e] - m[e / 2]) * kLog2e);",
+          "const float pr = exp2f(s[j][e] - m[e / 2]);"),
+         ("float mv = kPartial ? kMaskedScore : -INFINITY, lv = 0.f;",
+          "float mv = kPartial ? kMaskedScore * kLog2e : -INFINITY, "
+          "lv = 0.f;"),
+         ("      mv = p.m_in[row];", "      mv = p.m_in[row] * kLog2e;"),
+         ("        p.lse[row] = m[hh];", "        p.lse[row] = m[hh] * kLn2;"),
+         ("p.lse[row] = m[hh] + logf(l[hh]);",
+          "p.lse[row] = m[hh] * kLn2 + logf(l[hh]);")],
+        "fwd", FWD_PROBLEM),
+    "dv_three_terms_in_7": (
+        "flash_attention_bwd",
+        [("""          tc::mma_bf16(t, pl, oh[2 * n], oh[2 * n + 1]);
+          tc::mma_bf16(t, pm, om[2 * n], om[2 * n + 1]);
+          tc::mma_bf16(t, ph, ol[2 * n], ol[2 * n + 1]);
+""", "")], "dkv_partial", RING_PROBLEM),
+}
 
 
 def _nvcc(cu, so):
     """Build ``cu`` with the port's flags; headers that are not beside it
-    come from csrc/."""
+    come from csrc/.  The compiler's resource report is kept beside the
+    library as ``.ptxas.txt``."""
     from bigdl_tpu_torch.ops.build import CSRC_DIR, NVCC_FLAGS, find_nvcc
     proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR),
                            "-o", str(so), str(cu)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {cu.name}:\n{proc.stderr}")
+    so.with_suffix(".ptxas.txt").write_text(proc.stdout + proc.stderr)
     return ctypes.CDLL(str(so))
 
 
@@ -230,19 +326,29 @@ def backward_from(lib):
         ak._bound.update(saved)
 
 
-def build_ring_mutant(tag: str) -> ctypes.CDLL:
-    """The source of RING_MUTANTS[tag] with its fault, built into
+def build_source_variant(library: str, edits, tag: str) -> ctypes.CDLL:
+    """``csrc/<library>.cu`` with each (text as it stands, replacement) of
+    ``edits`` applied (each text must occur once), built into
     ``_build/mutants/``."""
     from bigdl_tpu_torch.ops.build import BUILD_DIR, CSRC_DIR
-    library, before, after, _ = RING_MUTANTS[tag]
     src = (CSRC_DIR / f"{library}.cu").read_text()
-    if src.count(before) != 1:
-        raise RuntimeError(f"{tag}: {before!r} is not in {library}.cu once")
+    for before, after in edits:
+        if src.count(before) != 1:
+            raise RuntimeError(f"{tag}: {before!r} is not in {library}.cu "
+                               "once")
+        src = src.replace(before, after)
     out_dir = BUILD_DIR / "mutants"
     out_dir.mkdir(parents=True, exist_ok=True)
     cu = out_dir / f"{library}_{tag}.cu"
-    cu.write_text(src.replace(before, after))
+    cu.write_text(src)
     return _nvcc(cu, cu.with_suffix(".so"))
+
+
+def build_ring_mutant(tag: str) -> ctypes.CDLL:
+    """The source of RING_MUTANTS[tag] with its fault, built into
+    ``_build/mutants/``."""
+    library, before, after, _ = RING_MUTANTS[tag]
+    return build_source_variant(library, [(before, after)], tag)
 
 
 @contextlib.contextmanager
@@ -279,11 +385,14 @@ def phase_ring_mutants():
         print(f"ring mutant {tag} at ({RING_PROBLEM}) {problem[1]}, check "
               f"tolerances {chip_smoke.partial_tols(name, problem)}")
         readings[tag] = {}
+        base = _ring_outputs(name, calls, problem)
         for label, lib in (("as_it_stands", None), (tag, libs[tag])):
             with (ring_kernel_from(name, lib) if lib is not None
                   else contextlib.nullcontext()):
                 checks, same, extra = chip_smoke.check_partial(name, calls,
                                                                problem)
+                moved = [float((o != b).float().mean()) for o, b in
+                         zip(_ring_outputs(name, calls, problem), base)]
             q, k = calls[name][2][:2]
             sizes = {"acc/l": q.numel(), "m": q[..., 0].numel(),
                      "l": q[..., 0].numel(), "dk": k.numel(),
@@ -291,8 +400,9 @@ def phase_ring_mutants():
             outputs = ("acc/l", "m", "l") if name == "partial" \
                 else ("dk", "dv")
             r = {o: dict(max_abs_err=err, entries_differ=differ,
-                         share_differ=differ / sizes[o], check_passes=ok)
-                 for o, (err, differ, ok) in zip(outputs, checks)}
+                         share_differ=differ / sizes[o], share_moved=mv,
+                         check_passes=ok)
+                 for o, (err, differ, ok), mv in zip(outputs, checks, moved)}
             r.update(extra)
             readings[tag][label] = r
             for o, v in r.items():
@@ -300,7 +410,9 @@ def phase_ring_mutants():
                     print(f"  {label:24s} {o}: {v:+.3e}")
                     continue
                 print(f"  {label:24s} {o:5s}: {v['entries_differ']} entries "
-                      f"differ ({v['share_differ']:.4%}), max abs err "
+                      f"differ from the plain version "
+                      f"({v['share_differ']:.4%}), {v['share_moved']:.4%} "
+                      f"moved from the source as it stands, max abs err "
                       f"{v['max_abs_err']:.3e}; check "
                       f"{'passes' if v['check_passes'] else 'REFUSES'}")
             passes = same and all(v["check_passes"] for o, v in r.items()
@@ -311,6 +423,156 @@ def phase_ring_mutants():
             if lib is not None and passes:
                 failures.append(f"the ring check passes {tag}")
     return readings, failures
+
+
+def _ring_outputs(name, calls, problem):
+    """The outputs of partial kernel ``name`` as its check reads them (#5's
+    acc / l, m, l)."""
+    kernel, _, args, _ = calls[name]
+    with torch.no_grad():
+        out = kernel(*args, **chip_smoke.partial_cfg(problem))
+    out = list(out) if isinstance(out, tuple) else [out]
+    if name == "partial":
+        out[0] = out[0] / out[2][..., None]
+    return out
+
+
+@contextlib.contextmanager
+def fwd_kernel_from(lib):
+    """The port's forward wrapper (#1) launches ``lib``'s kernel."""
+    from bigdl_tpu_torch.ops import attention_kernels as ak
+    saved = dict(ak._bound)
+    fn = lib.flash_attention_fwd
+    fn.argtypes = ak._FWD_ARGTYPES
+    fn.restype = ctypes.c_int
+    ak._bound[("flash_attention_fwd", "flash_attention_fwd")] = fn
+    try:
+        yield
+    finally:
+        ak._bound.clear()
+        ak._bound.update(saved)
+
+
+def _fwd_problem():
+    """chip_smoke's #1 problem FWD_PROBLEM: (q, k, v, bias, causal)."""
+    gen = torch.Generator(device="cuda").manual_seed(1)   # chip_smoke's
+    return next(r for r in chip_smoke._inputs(gen) if r[0] == FWD_PROBLEM)
+
+
+def phase_fwd_mutants():
+    """Each FWD_MUTANTS fault through #1's wrapper at FWD_PROBLEM, held by
+    chip_smoke's #1 check (fwd_held) against the plain version."""
+    from bigdl_tpu_torch.ops import attention_kernels as ak
+    with ThreadPoolExecutor(len(FWD_MUTANTS)) as pool:
+        libs = dict(zip(FWD_MUTANTS, pool.map(
+            lambda t: build_source_variant("flash_attention_fwd",
+                                           [FWD_MUTANTS[t]], t),
+            FWD_MUTANTS)))
+    _, desc, (q, k, v, bias, causal), _ = _fwd_problem()
+    with torch.no_grad():
+        want = ak.plain_attention(q, k, v, bias, causal=causal)
+        base = ak.dot_product_attention(q, k, v, bias, causal=causal)
+    readings, failures = {}, []
+    for tag, lib in libs.items():
+        print(f"fwd mutant {tag} at ({FWD_PROBLEM}) {desc}")
+        readings[tag] = {}
+        for label, built in (("as_it_stands", None), (tag, lib)):
+            with (fwd_kernel_from(built) if built is not None
+                  else contextlib.nullcontext()), torch.no_grad():
+                got = ak.dot_product_attention(q, k, v, bias, causal=causal)
+            torch.cuda.synchronize()
+            err, differ, ok = chip_smoke.fwd_held(got, want)
+            r = dict(max_abs_err=err, entries_differ=differ,
+                     share_differ=differ / want.numel(),
+                     share_moved=float((got != base).float().mean()),
+                     error_bias=chip_smoke.state_bias(got, want),
+                     check_passes=ok)
+            readings[tag][label] = r
+            print(f"  {label:24s} out: {differ} entries differ from the "
+                  f"plain version ({r['share_differ']:.4%}), "
+                  f"{r['share_moved']:.4%} moved from the source as it "
+                  f"stands, max abs err {err:.3e}, error bias "
+                  f"{r['error_bias']:+.3e}; check "
+                  f"{'passes' if ok else 'REFUSES'}")
+            if built is None and not ok:
+                failures.append("the #1 check refuses the source as it "
+                                "stands")
+            if built is not None and ok:
+                failures.append(f"the #1 check passes {tag}")
+    return readings, failures
+
+
+def phase_variants():
+    """Each of VARIANTS against the source as it stands on the same inputs
+    in one run: device times (as it stands, the variant, as it stands
+    again) and whether chip_smoke's check passes it.  A reading, not a
+    gate: it records what a design choice buys."""
+    from bigdl_tpu_torch.ops import attention_kernels as ak
+    with ThreadPoolExecutor(len(VARIANTS)) as pool:
+        libs = dict(zip(VARIANTS, pool.map(
+            lambda t: build_source_variant(VARIANTS[t][0], VARIANTS[t][1], t),
+            VARIANTS)))
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    _, _, (q, k, v, bias, causal), _ = _fwd_problem()
+    problem = next(p for p in chip_smoke._partial_problems()
+                   if p[0] == RING_PROBLEM)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    calls = chip_smoke.partial_calls(*chip_smoke.partial_inputs(problem,
+                                                                gen))
+    readings = {}
+    for tag, (_, _, kernel, key) in VARIANTS.items():
+        if kernel == "fwd":
+            def run():
+                return ak.dot_product_attention(q, k, v, bias, causal=causal)
+            want = ak.plain_attention(q, k, v, bias, causal=causal)
+
+            def held():
+                return chip_smoke.fwd_held(run(), want)[2]
+            context = fwd_kernel_from
+        else:
+            fn, _, args, _ = calls[kernel]
+            cfg = chip_smoke.partial_cfg(problem)
+
+            def run():
+                return fn(*args, **cfg)
+
+            def held():
+                checks, _, _ = chip_smoke.check_partial(kernel, calls,
+                                                        problem)
+                return all(ok for _, _, ok in checks)
+            context = functools.partial(ring_kernel_from, kernel)
+        r = {}
+        with torch.no_grad():
+            base = run()
+            for label, lib in (("as_it_stands", None), (tag, libs[tag]),
+                               ("as_it_stands_again", None)):
+                with (context(lib) if lib is not None
+                      else contextlib.nullcontext()):
+                    out = run()
+                    same = all(torch.equal(a, b) for a, b in zip(
+                        out if isinstance(out, tuple) else (out,),
+                        base if isinstance(base, tuple) else (base,)))
+                    r[label] = dict(
+                        ms=chip_smoke.time_ms(run, flush, runs=30),
+                        check_passes=held(), same_bits_as_it_stands=same)
+        from bigdl_tpu_torch.ops.build import BUILD_DIR
+        report = chip_smoke.ptxas_report(
+            (BUILD_DIR / "mutants" / f"{VARIANTS[tag][0]}_{tag}.ptxas.txt")
+            .read_text())
+        r["build"] = {k: v for k, v in report.items()
+                      if any(n in k for n in chip_smoke.TC_KERNELS)}
+        readings[tag] = r
+        print(f"variant {tag} build: " + "; ".join(
+            f"{re.search(r'(flash_[a-z_]+kernel\w*?)EEEv', k).group(1)} "
+            f"{v['registers']} "
+            f"registers, spills {v['spill_stores']}/{v['spill_loads']}"
+            for k, v in r["build"].items()))
+        print(f"variant {tag} at ({key}): " + "; ".join(
+            f"{label} {x['ms']:.5f} ms, check "
+            f"{'passes' if x['check_passes'] else 'REFUSES'}, "
+            f"{'the same' if x['same_bits_as_it_stands'] else 'other'} bits"
+            for label, x in r.items() if label != "build"))
+    return readings
 
 
 def _ulp(x: torch.Tensor) -> float:
@@ -544,6 +806,9 @@ def main() -> int:
     failures += more
     ring_mutants, more = phase_ring_mutants()
     failures += more
+    fwd_mutants, more = phase_fwd_mutants()
+    failures += more
+    variants = phase_variants()
     resnet_control, more = phase_resnet_control_step()
     failures += more
     print(json.dumps({"mutants": mutants, "control_step": control,
@@ -551,6 +816,7 @@ def main() -> int:
                                  "grad_max_rel": chip_smoke.GRAD_MAX_REL},
                       "conv_mutants": conv_mutants,
                       "ring_mutants": ring_mutants,
+                      "fwd_mutants": fwd_mutants, "variants": variants,
                       "resnet_control_step": resnet_control,
                       "resnet_bounds": chip_smoke.RESNET_PARITY_BOUNDS,
                       "failures": failures}))

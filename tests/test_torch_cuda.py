@@ -21,12 +21,18 @@ each entry within one bf16 ulp of the plain version's or of its largest
 entry (or within the f32 rounding of the sums that feed it, where dP - Delta
 cancels), at most 1% of the entries, or one key row a head, differing
 (chip_smoke.bwd_held, chip_smoke.bwd_floors).
+The bfloat16 forward (#1) runs on the tensor cores where its rows start
+on 16 bytes and is held besides by the bias of its error
+(chip_smoke.fwd_held), two launches bit for bit.
 The ring kernels: #5's merged state as the forward (acc / l at the
 dtype's tolerance, m and l at float32's); in bf16 #5 runs on the tensor
 cores, and its state is held besides by the bias of its error
-(chip_smoke.partial_state_held); #6 and #7 write float32, held
-bit for bit with bf16 inputs at D 64 and to the backward's float32
-tolerance elsewhere.
+(chip_smoke.partial_state_held); #6 and #7 write float32, #6 held bit
+for bit with bf16 inputs at D 64 and to the backward's float32
+tolerance elsewhere; bf16 #7 runs on the tensor cores with its f32
+operands split into bf16 pieces: dK within one bf16 ulp, at most 1% (or
+1/Tk) differing in bf16, dV within 4x the plain version's own error
+against an f64 sum (chip_smoke.dkv_partial_held).
 The conv+BN kernels sum their products in another order than cuBLAS and
 cuDNN: float32 outputs within 1e-4 of the plain output's largest entry;
 bfloat16 outputs within one bf16 ulp of the plain version's entry (or
@@ -79,6 +85,16 @@ def rnd(*shape, seed=0, device="cpu", dtype=torch.float32):
     (2, 8, 256, 256, 64, True, None, torch.bfloat16),
     (1, 2, 33, 70, 128, True, (70,), torch.float32),
     (3, 2, 5, 1, 8, False, None, torch.float32),
+    # bf16 #1 on the tensor cores: causal offsets tk - tq of either sign,
+    # D 32, 64 (padded from 40) and 128, Tq not a multiple of 64, biases
+    # broadcast by strides (key stride 1 and not)
+    (2, 4, 100, 300, 32, True, None, torch.bfloat16),
+    (2, 4, 300, 100, 40, True, None, torch.bfloat16),
+    (1, 2, 200, 250, 128, True, None, torch.bfloat16),
+    (2, 8, 256, 256, 64, False, (2, 1, 256, 256), torch.bfloat16),
+    (1, 2, 33, 70, 128, True, (70,), torch.bfloat16),
+    (16, 8, 1, 512, 64, False, (16, 1, 1, 512), torch.bfloat16),
+    (3, 2, 5, 1, 8, False, None, torch.bfloat16),
 ])
 def test_kernel_matches_plain(cuda, b, h, tq, tk, d, causal, bias_shape,
                               dtype):
@@ -88,13 +104,21 @@ def test_kernel_matches_plain(cuda, b, h, tq, tk, d, causal, bias_shape,
     bias = (None if bias_shape is None
             else rnd(*bias_shape, seed=4, device=cuda))
     before = ak.flash_attention_fwd.launches
+    routes = dict(ak.flash_attention_fwd.routes)
     got = ak.dot_product_attention(q, k, v, bias, causal=causal)
     want = ak.plain_attention(q, k, v, bias, causal=causal)
     torch.cuda.synchronize()
     assert ak.flash_attention_fwd.launches == before + 1
+    routes["tensor_core" if dtype == torch.bfloat16 else "scalar"] += 1
+    assert ak.flash_attention_fwd.routes == routes
     assert got.dtype == dtype and got.shape == (b, h, tq, d)
     tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
     torch.testing.assert_close(got.float(), want.float(), **tol)
+    # bf16: besides, no bias in the error (chip_smoke.fwd_held)
+    assert chip_smoke.fwd_held(got, want,
+                               chip_smoke.seen_rows(tq, tk, causal))[2]
+    again = ak.dot_product_attention(q, k, v, bias, causal=causal)
+    assert torch.equal(got, again)
 
 
 def test_kernel_reads_strided_heads_and_writes_lse(cuda):
@@ -265,19 +289,22 @@ def _one_step(model, x, y, dtype):
 @pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "tensor_core"),
                                          (torch.float32, "scalar")])
 def test_lm_step_takes_one_dkv_route(cuda, dtype, route):
-    """A bf16 LM step launches only the tensor-core dK/dV, an f32 step
-    only the scalar one: one launch per layer."""
+    """A bf16 LM step launches only the tensor-core forward (#1) and dK/dV
+    (#3), an f32 step only the scalar ones: one launch each per layer."""
     lm = TransformerLM(64, hidden_size=64, num_layers=2, num_heads=4,
                        filter_size=128, max_len=64, padded_inputs=False,
                        generator=torch.Generator().manual_seed(0),
                        device=cuda)
     rng = np.random.default_rng(1)
-    before = dict(ak.flash_attention_dkv.routes)
+    wrappers = (ak.flash_attention_fwd, ak.flash_attention_dkv)
+    before = [dict(w.routes) for w in wrappers]
     _one_step(FlatLM(lm), rng.integers(1, 65, (4, 64)),
               rng.integers(1, 65, (256,)), dtype)
     torch.cuda.synchronize()
-    used = {r: ak.flash_attention_dkv.routes[r] - before[r] for r in before}
-    assert used == {"tensor_core": 0, "scalar": 0, route: 2}
+    for w, was in zip(wrappers, before):
+        used = {r: w.routes[r] - was[r] for r in was}
+        assert used == {"tensor_core": 0, "scalar": 0, route: 2}, \
+            w.__name__
 
 
 @pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "tensor_core"),
@@ -304,8 +331,8 @@ def test_fused_resnet_step_takes_one_conv3x3_route(cuda, dtype, route):
                                          (torch.float32, "scalar")])
 def test_ring_lm_step_takes_one_partial_route(cuda, dtype, route):
     """A step of an LM through ring attention over 4 shards launches #5
-    once per layer and visible chunk pair (2 x 10), all by the route of
-    its dtype."""
+    and #7 once per layer and visible chunk pair (2 x 10), all by the
+    route of its dtype."""
     from bigdl_tpu_torch.parallel import make_mesh
     lm = TransformerLM(64, hidden_size=64, num_layers=2, num_heads=4,
                        filter_size=128, max_len=128, padded_inputs=False,
@@ -313,13 +340,15 @@ def test_ring_lm_step_takes_one_partial_route(cuda, dtype, route):
                        device=cuda)
     lm.set_sequence_parallel(make_mesh({"seq": 4}, ["cuda"] * 4))
     rng = np.random.default_rng(1)
-    before = dict(ak.flash_attention_partial.routes)
+    wrappers = (ak.flash_attention_partial, ak.flash_attention_dkv_partial)
+    before = [dict(w.routes) for w in wrappers]
     _one_step(FlatLM(lm), rng.integers(1, 65, (2, 128)),
               rng.integers(1, 65, (256,)), dtype)
     torch.cuda.synchronize()
-    used = {r: ak.flash_attention_partial.routes[r] - before[r]
-            for r in before}
-    assert used == {"tensor_core": 0, "scalar": 0, route: 20}
+    for w, was in zip(wrappers, before):
+        used = {r: w.routes[r] - was[r] for r in was}
+        assert used == {"tensor_core": 0, "scalar": 0, route: 20}, \
+            w.__name__
 
 
 @pytest.mark.parametrize("bias_grad", [False, True])
@@ -389,6 +418,11 @@ def test_training_steps_on_the_card_match_the_cpu(cuda):
     (2, 8, 256, 256, 64, 256, 256, True, torch.float32),
     (2, 4, 200, 200, 40, 200, 0, True, torch.float32),
     (1, 2, 70, 33, 16, 0, 100, False, torch.bfloat16),
+    # bf16 #7 on the tensor cores: ragged D40, D128, a diagonal pair, a
+    # pair whose first rows see no key
+    (2, 4, 200, 200, 40, 200, 0, True, torch.bfloat16),
+    (1, 4, 128, 128, 128, 256, 256, True, torch.bfloat16),
+    (2, 2, 96, 160, 32, 0, 40, True, torch.bfloat16),
 ])
 def test_ring_kernels_match_plain_and_repeat(cuda, b, h, tq, tk, d, q_off,
                                              k_off, causal, dtype):
@@ -424,7 +458,8 @@ def test_ring_kernels_match_plain_and_repeat(cuda, b, h, tq, tk, d, q_off,
     lse = m + torch.log(l)
     delta = (do * (acc / l[..., None]).to(dtype).float()).sum(-1)
     args = (q, k, v, do, lse, delta)
-    exact = dtype == torch.bfloat16 and d == 64
+    bf16 = dtype == torch.bfloat16
+    routes = dict(ak.flash_attention_dkv_partial.routes)
     for kernel, plain in ((ak.flash_attention_dq_partial,
                            ak.plain_attention_dq_partial),
                           (ak.flash_attention_dkv_partial,
@@ -437,10 +472,19 @@ def test_ring_kernels_match_plain_and_repeat(cuda, b, h, tq, tk, d, q_off,
         for g, a, w in zip(got, again, want):
             assert torch.equal(g, a), kernel.__name__
             assert g.dtype == torch.float32 == w.dtype
-            if exact:
+        if bf16 and kernel is ak.flash_attention_dkv_partial:
+            # #7 on the tensor cores: chip_smoke's dK and dV rules
+            exact = chip_smoke.dkv_partial_exact_dv(*args, **cfg)
+            checks, readings = chip_smoke.dkv_partial_held(got, want, exact)
+            assert all(ok for _, _, ok in checks), (checks, readings)
+            continue
+        for g, w in zip(got, want):
+            if bf16 and d == 64:     # #6: bit for bit
                 assert torch.equal(g, w), kernel.__name__
             else:
                 torch.testing.assert_close(g, w, **BWD_F32_TOL)
+    routes[ak.dkv_partial_route(dtype)] += 2
+    assert ak.flash_attention_dkv_partial.routes == routes
 
 
 def _bf16_partial_problems():
@@ -495,6 +539,36 @@ def test_bf16_partial_merge_of_unaligned_rows_takes_the_scalar_kernel(cuda):
     torch.testing.assert_close(l, want[2], **F32_TOL)
     torch.testing.assert_close(acc / l[..., None],
                                want[0] / want[2][..., None], **BF16_TOL)
+
+
+def test_unaligned_bf16_calls_take_the_scalar_route(cuda):
+    """bf16 rows that do not start on 16 bytes (D 36) cannot take the
+    tensor cores' 16-byte copies: #1 and #7 launch their scalar templates
+    and count them, and hold against the plain versions."""
+    bf = torch.bfloat16
+    q, k, v = (rnd(2, 4, t, 36, seed=s, device=cuda, dtype=bf)
+               for s, t in ((84, 70), (85, 90), (86, 90)))
+    assert not ak.rows_aligned(q, k, v)
+    before = dict(ak.flash_attention_fwd.routes)
+    got = ak.dot_product_attention(q, k, v, causal=True)
+    want = ak.plain_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert {r: ak.flash_attention_fwd.routes[r] - before[r]
+            for r in before} == {"tensor_core": 0, "scalar": 1}
+    torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+    qc = q[:, :, :64]
+    do = rnd(2, 4, 64, 36, seed=87, device=cuda)
+    lse = rnd(2, 4, 64, seed=88, device=cuda).abs() + 4.0
+    delta = rnd(2, 4, 64, seed=89, device=cuda) * 0.1
+    cfg = dict(q_offset=64, k_offset=0, scale=36 ** -0.5, causal=True)
+    before = dict(ak.flash_attention_dkv_partial.routes)
+    dk, dv = ak.flash_attention_dkv_partial(qc, k, v, do, lse, delta, **cfg)
+    want = ak.plain_attention_dkv_partial(qc, k, v, do, lse, delta, **cfg)
+    torch.cuda.synchronize()
+    assert {r: ak.flash_attention_dkv_partial.routes[r] - before[r]
+            for r in before} == {"tensor_core": 0, "scalar": 1}
+    for g, w in zip((dk, dv), want):
+        torch.testing.assert_close(g, w, **BWD_F32_TOL)
 
 
 def test_ring_kernel_wrappers_refuse_what_they_do_not_take(cuda):

@@ -1,14 +1,20 @@
-"""The planning of the redesigned kernels #3, #5, #10 and #11, on the
-CPU: the dtype routes, the dW split and scratch of #11's tensor-core
+"""The planning of the redesigned kernels #1, #3, #5, #7, #10 and #11, on
+the CPU: the dtype routes, the dW split and scratch of #11's tensor-core
 route and the scratch of #10's, the checks chip_smoke.py holds them to
-(with a CPU model of #5's tiled merge for its bf16 rule), and the source
-lines the fault controls of chip_gate_controls.py edit.  The kernels
-themselves run only on the card (tests/test_torch_cuda.py)."""
+(with CPU models of #5's tiled merge and #1's tiled forward for their
+bf16 bias rule, and of #7's split-bf16 route for its dK and dV rules),
+the three-piece bf16 split #7 rests on, and the source lines the fault
+controls of chip_gate_controls.py edit.  The kernels themselves run only
+on the card (tests/test_torch_cuda.py).  Only the test that holds #7's
+model against the Pallas kernel imports JAX, inside it."""
 
 import math
 
+import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 import chip_gate_controls as gates
 import chip_smoke
@@ -31,6 +37,11 @@ def _mutant_sources():
              for n, (path, _, before, _, _, _) in gates.CONV_MUTANTS.items()]
     rows += [(n, f"{lib}.cu", before)
              for n, (lib, before, _, _) in gates.RING_MUTANTS.items()]
+    rows += [(n, "flash_attention_fwd.cu", before)
+             for n, (before, _) in gates.FWD_MUTANTS.items()]
+    rows += [(f"{n}_{i}", f"{lib}.cu", before)
+             for n, (lib, edits, _, _) in gates.VARIANTS.items()
+             for i, (before, _) in enumerate(edits)]
     return rows
 
 
@@ -42,19 +53,24 @@ def test_each_fault_control_edits_one_line_of_its_source(name, path, before):
 
 
 def test_mutants_of_the_redesigned_kernels_edit_their_sources():
-    """The #3 controls edit the tensor-core kernel, #7's the scalar
-    template, the #10 and #11 tensor-core controls the tensor-core header
-    (each built into its own library), #10's halo-before-norm control the
-    f32 route, #5's truncation the tensor-core kernel and its causal
-    offset the entry point that sets it for both routes."""
+    """The #3 controls edit its tensor-core kernel, #7's its split
+    tensor-core kernel (P's pieces, dO's pieces), the #10 and #11
+    tensor-core controls the tensor-core header (each built into its own
+    library), #10's halo-before-norm control the f32 route, #5's and #1's
+    truncation the tensor-core loop they share and #5's causal offset the
+    entry point that sets it for both routes."""
     tc = (CSRC_DIR / "flash_attention_bwd.cu").read_text()
     start = tc.index("flash_dkv_tc_kernel(const Params p)")
-    end = tc.index("// ---- dBias")
+    end = tc.index("// ---- the ring's dK / dV (#7) on the tensor cores")
     for name in ("no_ds_cast_in_dk", "no_p_cast_in_dv"):
         at = tc.index(gates.MUTANTS[name][0])
         assert start < at < end, name
-    ring = gates.RING_MUTANTS["p_cast_to_q_dtype_in_7"][1]
-    assert tc.index(ring) < tc.index("// ---- dK / dV on the tensor cores")
+    start = tc.index("flash_dkv_partial_tc_kernel(const Params p)")
+    end = tc.index("// ---- dBias")
+    for name in ("p_cast_to_q_dtype_in_7", "no_do_split_in_7"):
+        library, before, _, kernel = gates.RING_MUTANTS[name]
+        assert (library, kernel) == ("flash_attention_bwd", "dkv_partial")
+        assert start < tc.index(before) < end, name
     for name, library in (("no_dyl_cast_in_11_prepass", "conv_bn_bwd"),
                           ("halo_copied_in_11", "conv_bn_bwd"),
                           ("no_z_cast_in_10_prepass", "conv_bn_fwd"),
@@ -68,27 +84,34 @@ def test_mutants_of_the_redesigned_kernels_edit_their_sources():
         key for key, _, _, dtype, _ in chip_smoke.conv_problems()
         if dtype == torch.float32}
     fwd = (CSRC_DIR / "flash_attention_fwd.cu").read_text()
-    start = fwd.index("flash_partial_tc_kernel(const Params p)")
-    end = fwd.index("int launch_partial_tc(")
+    start = fwd.index("flash_fwd_tc_kernel(const Params p)")
+    end = fwd.index("int launch_tc(")
     assert start < fwd.index(gates.RING_MUTANTS["p_truncated_in_5"][1]) < end
+    assert gates.FWD_MUTANTS["p_truncated_in_1"][0] == \
+        gates.RING_MUTANTS["p_truncated_in_5"][1]
     entry = fwd.index('extern "C" int flash_attention_partial(')
     assert entry < fwd.index(gates.RING_MUTANTS["local_mask_in_5"][1])
 
 
 # the route functions of the redesigned kernels, beside their wrappers:
-# #11 and #3, then #10 and #5
+# #11 and #3, then #10 and #5, then #1 and #7
 ROUTES = [(ck.conv3x3_bwd_route, ck.conv3x3_bn_bwd),
           (ak.dkv_route, ak.flash_attention_dkv),
           (ck.conv3x3_fwd_route, ck.conv3x3_bn_fwd),
-          (ak.partial_route, ak.flash_attention_partial)]
+          (ak.partial_route, ak.flash_attention_partial),
+          (ak.fwd_route, ak.flash_attention_fwd),
+          (ak.dkv_partial_route, ak.flash_attention_dkv_partial)]
 
 
 @pytest.mark.parametrize("fns,dtype,route", [
     (ROUTES[:2], torch.bfloat16, "tensor_core"),
     (ROUTES[:2], torch.float32, "scalar"),
-    (ROUTES[2:], torch.bfloat16, "tensor_core"),
-    (ROUTES[2:], torch.float32, "scalar"),
-], ids=["dtype0-tensor_core", "dtype1-scalar", "fwd-bf16", "fwd-f32"])
+    (ROUTES[2:4], torch.bfloat16, "tensor_core"),
+    (ROUTES[2:4], torch.float32, "scalar"),
+    (ROUTES[4:], torch.bfloat16, "tensor_core"),
+    (ROUTES[4:], torch.float32, "scalar"),
+], ids=["dtype0-tensor_core", "dtype1-scalar", "fwd-bf16", "fwd-f32",
+        "ring-bf16", "ring-f32"])
 def test_dtype_routes(fns, dtype, route):
     for fn, _ in fns:
         assert fn(dtype) == route, fn.__name__
@@ -124,6 +147,26 @@ def test_partial_route_sends_unaligned_bf16_rows_to_the_scalar_kernel():
     ragged = torch.zeros(2 * 4 * 96 * 40 + 4, dtype=torch.bfloat16)[4:] \
         .reshape(2, 4, 96, 40)                                 # 8-byte start
     assert not ak.rows_aligned(ragged, x[..., :40], x[..., :40])
+
+
+@pytest.mark.parametrize("route", [ak.fwd_route, ak.dkv_partial_route])
+def test_fwd_and_ring_dkv_routes_send_unaligned_bf16_rows_to_the_scalar_kernel(
+        route):
+    """#1's and #7's tensor-core copies move 16 bytes: bf16 rows that do
+    not start on 16 bytes (q, k, v at D36; #7's f32 dO at a stride that is
+    not a whole number of 16 bytes) take the scalar kernel, never the
+    plain version."""
+    assert route(torch.bfloat16, False) == "scalar"
+    assert route(torch.float32, False) == "scalar"
+    odd = torch.zeros(2, 4, 96, 36, dtype=torch.bfloat16)
+    assert not ak.rows_aligned(odd, odd, odd)
+    x = torch.zeros(2, 4, 96, 64, dtype=torch.bfloat16)
+    do = torch.zeros(2, 4, 96, 64)
+    assert ak.rows_aligned(x, x, x, do)
+    assert ak.rows_aligned(x, x, x, torch.zeros(2, 4, 96, 36)[..., :36])
+    assert not ak.rows_aligned(x, x, x, torch.zeros(2, 4, 96, 66)[..., :64])
+    assert not ak.rows_aligned(x, x, x, torch.zeros(4 * 96 * 128 + 2)[2:]
+                               .reshape(1, 4, 96, 128)[..., :64])
 
 
 def tc_splits(m, c, co):
@@ -326,13 +369,15 @@ def _truncated(p):
 
 
 def _tiled_merge(q, k, v, acc, m, l, cast, *, q_offset, k_offset, scale,
-                 causal, tile=64):
+                 causal, tile=64, bias=None):
     """A model of the tensor-core merge's arithmetic: the online softmax
     over 64-key tiles, P cast by ``cast`` before P.V, l from the
-    unrounded P."""
+    unrounded P; ``bias`` (#1's) added to the scaled scores."""
     if causal and q_offset + q.shape[-2] - 1 < k_offset:
         return acc, m, l
     s_all = ak._partial_scores(q, k, scale, causal, q_offset, k_offset)
+    if bias is not None:
+        s_all = s_all + bias.float()
     for k0 in range(0, k.shape[-2], tile):
         s = s_all[..., k0:k0 + tile]
         m_new = torch.maximum(m, s.amax(-1))
@@ -401,6 +446,234 @@ def test_partial_rule_keeps_f32_at_its_tolerance():
                                          torch.float32)[2]
     assert not chip_smoke.partial_state_held(want * (1 + 1e-3), want,
                                              torch.float32)[2]
+
+
+# ---- #1's tiled forward, held by the bias rule -----------------------------
+
+def _tiled_forward(q, k, v, bias, cast, *, causal, causal_offset):
+    """A model of #1's tensor-core route: _tiled_merge from the fresh state
+    (acc 0, m -inf, l 0) over 64-key tiles, then the epilogue out = acc / l
+    rounded to q's dtype."""
+    b, h, tq, d = q.shape
+    state = (torch.zeros(b, h, tq, d), torch.full((b, h, tq), -math.inf),
+             torch.zeros(b, h, tq))
+    acc, _, l = _tiled_merge(q, k, v, *state, cast, q_offset=causal_offset,
+                             k_offset=0, scale=d ** -0.5, causal=causal,
+                             bias=bias)
+    return (acc / l[..., None]).to(q.dtype)
+
+
+def _padded_lm_bias(t, lengths):
+    """The padded LM's bias (models/transformer_lm.py): causal plus -1e9 on
+    the padding keys of each row, [B, 1, T, T]."""
+    from bigdl_tpu_torch.nn.attention import causal_bias, padding_bias
+    tokens = torch.ones(len(lengths), t, dtype=torch.long)
+    for i, n in enumerate(lengths):
+        tokens[i, n:] = 0
+    return causal_bias(t) + padding_bias(tokens)
+
+
+# (b, h, tq, tk, d, causal, bias lengths): chip_smoke's training shape cut
+# in length, its ragged bf16 row, rows that see no key, the padded LM;
+# each with at least chip_smoke.FWD_BIAS_ROWS rows that see a key
+FWD_CASES = [(2, 8, 256, 256, 64, True, None),
+             (4, 16, 100, 300, 40, True, None),
+             (8, 8, 300, 100, 32, True, None),
+             (2, 8, 256, 256, 64, False, (200, 17))]
+
+
+def _fwd_pair(case, cast):
+    """(the model's bf16 output, plain_attention's, the rows that see a
+    key) for one case."""
+    b, h, tq, tk, d, causal, lengths = case
+    g = torch.Generator().manual_seed(11)
+    q, k, v = (torch.randn(b, h, t, d, generator=g).to(torch.bfloat16)
+               for t in (tq, tk, tk))
+    bias = None if lengths is None else _padded_lm_bias(tk, lengths)
+    got = _tiled_forward(q, k, v, bias, cast, causal=causal,
+                         causal_offset=tk - tq)
+    return (got, ak.plain_attention(q, k, v, bias, causal=causal),
+            chip_smoke.seen_rows(tq, tk, causal))
+
+
+@pytest.mark.parametrize("case", FWD_CASES)
+def test_fwd_rule_passes_the_tiled_forward_rounded_to_nearest(case):
+    got, want, seen = _fwd_pair(case, lambda p: p.to(torch.bfloat16).float())
+    assert chip_smoke.fwd_held(got, want, seen)[2]
+    assert abs(chip_smoke.seen_bias(got, want, seen)[0]) < \
+        chip_smoke.PARTIAL_BF16_BIAS / 4
+
+
+@pytest.mark.parametrize("case", FWD_CASES)
+def test_fwd_rule_refuses_p_truncated(case):
+    """P cut short stays within BF16_TOL, but the error's bias is several
+    times the rule's bound."""
+    got, want, seen = _fwd_pair(case, _truncated)
+    assert torch.allclose(got.float(), want.float(), **chip_smoke.BF16_TOL)
+    assert not chip_smoke.fwd_held(got, want, seen)[2]
+    assert chip_smoke.seen_bias(got, want, seen)[0] < \
+        -3 * chip_smoke.PARTIAL_BF16_BIAS
+
+
+def test_fwd_rule_reads_no_bias_below_its_rows():
+    """At the 128 rows of a pooled decode the bias of rounding noise
+    reaches the bound, so there BF16_TOL holds alone; rows that see no key
+    are left out of the count and the bias."""
+    want = torch.randn(16, 8, 1, 64, generator=torch.Generator()
+                       .manual_seed(3)).to(torch.bfloat16)
+    off = (want.float() * (1 - 2.0 ** -8)).to(torch.bfloat16)
+    assert chip_smoke.fwd_held(off, want)[2]
+    wide = want.expand(16, 8, 32, 64)
+    assert not chip_smoke.fwd_held(
+        (wide.float() * (1 - 2.0 ** -8)).to(torch.bfloat16), wide)[2]
+    seen = chip_smoke.seen_rows(32, 8, True)
+    assert int(seen.sum()) == 8
+    assert chip_smoke.fwd_held(
+        (wide.float() * (1 - 2.0 ** -8)).to(torch.bfloat16), wide, seen)[2]
+
+
+# ---- #7's split-bf16 route, held by the dK and dV rules --------------------
+
+def _split3(x):
+    """f32 x as three bf16 pieces (kept in f32): hi = bf16(x), mid =
+    bf16(x - hi), lo = bf16(x - hi - mid), each rounded to nearest."""
+    hi = x.to(torch.bfloat16).float()
+    rest = x - hi
+    mid = rest.to(torch.bfloat16).float()
+    return hi, mid, (rest - mid).to(torch.bfloat16).float()
+
+
+# The three pieces sum to x exactly from 2^-110 (7.7e-34: below it the last
+# piece falls under bf16's smallest subnormal step, 2^-133) up to bf16's
+# largest finite value (3.3895e38: above it hi rounds to inf).  dO and P
+# (at most 1; an exp(s - lse) under 2^-110 weighs nothing) stay inside.
+@settings(max_examples=400, deadline=None)
+@given(st.floats(min_value=float(np.float32(1e-30)),
+                 max_value=float(np.float32(3.38e38)), width=32),
+       st.booleans())
+def test_three_bf16_pieces_sum_to_the_f32_value_exactly(x, negative):
+    t = torch.tensor([-x if negative else x], dtype=torch.float32)
+    pieces = _split3(t)
+    assert all(bool((p.to(torch.bfloat16).float() == p).all())
+               for p in pieces)
+    assert float(sum(p.double() for p in pieces)) == float(t.double())
+
+
+def test_three_bf16_pieces_stop_being_exact_below_two_to_the_minus_110():
+    for e, exact in ((-110, True), (-111, False)):
+        t = torch.tensor([2.0 ** e * (1 + 2 ** -22 + 2 ** -23)])
+        got = float(sum(p.double() for p in _split3(t)))
+        assert (got == float(t.double())) is exact, e
+
+
+def _dkv_partial_model(q, k, v, do, lse, delta, *, q_offset, k_offset,
+                       scale, causal, do_pieces=3):
+    """A model of #7's tensor-core route: bf16 pieces, f32 sums, 32-query
+    tiles (every key row of a 64-key block is summed on its own, so the
+    key tiling changes no sum).  dP over dO's pieces smallest first; dV
+    per 16-query step over the six terms of P's and dO's pieces down to
+    2^-24, smallest first, into a fresh sum added to the running one; dK
+    from dS rounded to bf16.  ``do_pieces=1`` rounds dO to bf16 instead."""
+    b, h, tq, d = q.shape
+    s = ak._partial_scores(q, k, scale, causal, q_offset, k_offset)
+    dop = _split3(do)[:do_pieces]
+    vf = v.float()
+    dp = sum(torch.matmul(x, vf.transpose(-1, -2)) for x in dop[::-1])
+    p = torch.exp(s - lse[..., None])
+    ds = p * (dp - delta[..., None])
+    if causal:
+        rows = q_offset + torch.arange(tq)
+        keys = k_offset + torch.arange(k.shape[-2])
+        ds = ds.masked_fill(rows[:, None] < keys[None, :], 0.0)
+    pp = _split3(p)
+    terms = [(i, j) for i in range(3) for j in range(len(dop)) if i + j <= 2]
+    terms.sort(key=lambda t: -(t[0] + t[1]))     # smallest first
+    dk = torch.zeros(b, h, k.shape[-2], d)
+    dv = torch.zeros(b, h, k.shape[-2], d)
+    dsq = ds.to(torch.bfloat16).float()
+    for i0 in range(0, tq, 16):
+        rows = slice(i0, i0 + 16)
+        fresh = torch.zeros_like(dv)
+        for i, j in terms:
+            fresh = fresh + torch.matmul(pp[i][..., rows, :].transpose(-1, -2),
+                                         dop[j][..., rows, :])
+        dv = dv + fresh
+        dk = dk + torch.matmul(dsq[..., rows, :].transpose(-1, -2),
+                               q[..., rows, :].float())
+    return dk * scale, dv
+
+
+def _ring_lse_delta(q, v, tdt, q_off, causal, tc, d):
+    """A finite whole-sequence lse and Δ for the rows of q: the diagonal
+    chunk's own logsumexp plus log 2 (as if other chunks weighed as much),
+    Δ small and random (tests/test_torch_ring_attention.py's)."""
+    acc = torch.zeros(1, 2, tc, d)
+    m = torch.full((1, 2, tc), ak.NEG_INF)
+    _, m, l = ak.plain_attention_partial(
+        q.to(tdt), q.to(tdt), v.to(tdt), acc, m, torch.zeros(1, 2, tc),
+        q_offset=q_off, k_offset=q_off, scale=d ** -0.5, causal=causal)
+    lse = m + torch.log(torch.where(l == 0, 1.0, l)) + float(np.log(2.0))
+    delta = torch.from_numpy(np.random.RandomState(9).randn(1, 2, tc)
+                             .astype(np.float32) * 0.1)
+    return lse, delta
+
+
+# the ring tests' B1 H2 Tc16 D8 pairs (name, q_offset, k_offset, causal),
+# then an off-diagonal D64 pair at Tc128 (four 32-query tiles)
+DKV_PAIRS = [("diagonal", 16, 16, True, 16, 8),
+             ("off_diagonal", 32, 0, True, 16, 8),
+             ("non_causal", 16, 48, False, 16, 8),
+             ("off_diagonal_d64", 256, 128, True, 128, 64)]
+
+
+def _dkv_inputs(pair):
+    _, q_off, k_off, causal, tc, d = pair
+    rs = [np.random.RandomState(s) for s in (11, 12, 13, 14)]
+    q, k, v, do = (torch.from_numpy(r.randn(1, 2, tc, d).astype(np.float32))
+                   for r in rs)
+    bf = torch.bfloat16
+    lse, delta = _ring_lse_delta(q, v, bf, q_off, causal, tc, d)
+    cfg = dict(q_offset=q_off, k_offset=k_off, scale=d ** -0.5,
+               causal=causal)
+    return (q.to(bf), k.to(bf), v.to(bf), do, lse, delta), cfg
+
+
+def _pallas_dkv_partial(args, cfg):
+    """The reference's Pallas #7 in interpret mode on the same inputs."""
+    import jax.numpy as jnp
+    from bigdl_tpu.ops import attention_kernels as jak
+    q, k, v, do, lse, delta = args
+    j = [jnp.asarray(t.float().numpy()).astype(
+        jnp.bfloat16 if t.dtype == torch.bfloat16 else jnp.float32)
+        for t in args]
+    dk, dv = jak.flash_attention_dkv_partial(
+        *j, q_offset=cfg["q_offset"], k_offset=cfg["k_offset"],
+        causal=cfg["causal"], scale=cfg["scale"], block_q=None,
+        block_k=None, interpret=True)
+    return tuple(torch.from_numpy(np.array(x, dtype=np.float32))
+                 for x in (dk, dv))
+
+
+@pytest.mark.parametrize("pair", DKV_PAIRS, ids=[p[0] for p in DKV_PAIRS])
+def test_dkv_partial_rule_passes_the_split_model_refuses_one_piece(pair):
+    """#7's split route (modelled) holds against the plain version and
+    against the Pallas kernel in interpret mode by chip_smoke's rule: dK
+    within one bf16 ulp, at most max(1%, 1/Tk) differing in bf16, dV
+    within 4x the reference's own error against an f64 sum.  The same
+    model with dO rounded to bf16 (what a bf16 tensor-core backward
+    computes) is refused: its dV error is about 2^-9."""
+    args, cfg = _dkv_inputs(pair)
+    exact = chip_smoke.dkv_partial_exact_dv(*args, **cfg)
+    got = _dkv_partial_model(*args, **cfg)
+    one_piece = _dkv_partial_model(*args, **cfg, do_pieces=1)
+    for want in (ak.plain_attention_dkv_partial(*args, **cfg),
+                 _pallas_dkv_partial(args, cfg)):
+        checks, readings = chip_smoke.dkv_partial_held(got, want, exact)
+        assert all(ok for _, _, ok in checks), (checks, readings)
+        checks, readings = chip_smoke.dkv_partial_held(one_piece, want,
+                                                       exact)
+        assert not checks[1][2], readings
+        assert readings["dv_err"] > 100 * readings["dv_plain_err"]
 
 
 # ---- chip_smoke's build report ----------------------------------------------
