@@ -25,11 +25,12 @@ Counterpart of ``bigdl_tpu/ops/attention_kernels.py``.  Shapes follow
   the Pallas ``_flash_partial_kernel``, ``_flash_dq_partial_kernel`` and
   ``_flash_dkv_partial_kernel``); ``plain_attention_partial``/
   ``_dq_partial``/``_dkv_partial`` are their plain versions.  The ring
-  (``bigdl_tpu_torch.parallel.ring_attention``) chains them.  Two
-  kernels route by dtype: bf16 dK/dV (#3) and the bf16 partial merge
-  (#5) run on the tensor cores, f32 on scalar kernels
-  (:func:`dkv_route`, :func:`partial_route`); their wrappers count each
-  route in ``<wrapper>.routes``.
+  (``bigdl_tpu_torch.parallel.ring_attention``) chains them.  Five
+  kernels route by dtype: bf16 #1, dQ (#2), dK/dV (#3), the partial
+  merge (#5) and the ring's dK/dV (#7) run on the tensor cores, f32 on
+  scalar kernels (:func:`fwd_route`, :func:`dq_route`, :func:`dkv_route`,
+  :func:`partial_route`, :func:`dkv_partial_route`); their wrappers count
+  each route in ``<wrapper>.routes``.
 * :func:`flash_attention_with_grad` — the ``torch.autograd.Function``
   whose forward is the forward kernel and whose backward launches dQ and
   dK/dV (and dBias only when the bias needs a gradient), reading the
@@ -65,8 +66,8 @@ __all__ = ["plain_attention", "plain_attention_fwd", "attention_delta",
            "plain_attention_partial", "plain_attention_dq_partial",
            "plain_attention_dkv_partial", "flash_attention_partial",
            "flash_attention_dq_partial", "flash_attention_dkv_partial",
-           "dkv_route", "partial_route", "fwd_route", "dkv_partial_route",
-           "rows_aligned"]
+           "dq_route", "dkv_route", "partial_route", "fwd_route",
+           "dkv_partial_route", "rows_aligned"]
 
 NEG_INF = -1e9  # the reference's attention mask fill (_NEG_INF)
 MAX_HEAD_DIM = 128
@@ -397,20 +398,39 @@ def _launch_bwd(name, q, k, v, bias, do, lse, delta, out0, out1, scale,
     _raise_on(rc, name)
 
 
+def dq_route(dtype) -> str:
+    """Which dQ kernel (#2) runs for q, k, v and dO of ``dtype``:
+    ``"tensor_core"`` (``flash_dq_tc_kernel``: bf16 operands, f32 sums on
+    mma.sync) for bfloat16, ``"scalar"`` (``flash_dq_kernel``: f32 FMAs)
+    for float32, whose operands the tensor cores would round.  The C entry
+    picks the same kernel by dtype; this names it for the route
+    counter."""
+    if dtype == torch.bfloat16:
+        return "tensor_core"
+    if dtype == torch.float32:
+        return "scalar"
+    raise TypeError(f"the dQ kernel takes float32 or bfloat16, not {dtype}")
+
+
 def flash_attention_dq(q, k, v, bias, do, lse, delta, *, scale: float,
                        causal: bool = False, causal_offset: int = 0):
     """Launch the dQ kernel (#2) on CUDA tensors: dq [B, H, Tq, D] in q's
     dtype.  ``lse`` is the forward kernel's, ``delta`` is
-    :func:`attention_delta`; q, k, v, dO are read through their strides."""
+    :func:`attention_delta`; q, k, v, dO are read through their strides.
+    bf16 takes the tensor-core route, f32 the scalar one
+    (:func:`dq_route`); ``flash_attention_dq.routes`` counts each."""
+    route = dq_route(q.dtype)
     b, h, tq, d = q.shape
     dq = torch.empty((b, h, tq, d), dtype=q.dtype, device=q.device)
     _launch_bwd("flash_attention_dq", q, k, v, bias, do, lse, delta, dq,
                 None, scale, causal, causal_offset)
     flash_attention_dq.launches += 1
+    flash_attention_dq.routes[route] += 1
     return dq
 
 
 flash_attention_dq.launches = 0
+flash_attention_dq.routes = {"tensor_core": 0, "scalar": 0}
 
 
 def dkv_route(dtype) -> str:

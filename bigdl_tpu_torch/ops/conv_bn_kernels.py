@@ -53,7 +53,8 @@ __all__ = ["shifted_batch_stats", "fused_matmul_bn_reference",
            "conv3x3_bn_bwd", "plain_matmul_bn_fwd", "plain_matmul_bn_bwd",
            "plain_conv3x3_bn_fwd", "plain_conv3x3_bn_bwd", "dw_splits",
            "tc_channels", "conv3x3_fwd_route", "conv3x3_bwd_route",
-           "tc_split_chunk"]
+           "matmul_bwd_route", "matmul_bwd_scratch", "tc_split_chunk",
+           "tc_split_plan"]
 
 _SUPPORTED = (torch.float32, torch.bfloat16)
 _TILE = 64                        # the kernels' fixed output tile
@@ -61,7 +62,7 @@ _MAX_PART_BYTES = 256 * 2 ** 20   # the dW partials' scratch, at most
 _TARGET_BLOCKS = 4 * 132          # four blocks per SM of an H100
 _MIN_SPLIT_ROWS = 256             # rows a dW split sums, at least
 _MAX_GRID_Y = 65535
-# the tensor-core routes of #10 and #11 (csrc/conv_bn_tc.cuh)
+# the tensor-core routes of #9, #10 and #11 (csrc/conv_bn_tc.cuh)
 _TC_PAD = 64                      # channels of its scratch, rounded up to
 _TC_ROWS = 128                    # rows of its product tiles
 _TC_MIN_SPLIT_ROWS = 512          # positions a dW split sums, at least
@@ -180,6 +181,18 @@ def conv3x3_bwd_route(dtype) -> str:
     raise TypeError(f"kernel #11 takes float32 or bfloat16, not {dtype}")
 
 
+def matmul_bwd_route(dtype) -> str:
+    """Which kernel #9 runs for inputs of ``dtype``: ``"tensor_core"``
+    (the one-tap route of csrc/conv_bn_tc.cuh: bf16 operands, f32 sums on
+    mma.sync) for bfloat16, ``"scalar"`` (f32 FMAs) for float32, whose
+    operands the tensor cores would round."""
+    if dtype == torch.bfloat16:
+        return "tensor_core"
+    if dtype == torch.float32:
+        return "scalar"
+    raise TypeError(f"kernel #9 takes float32 or bfloat16, not {dtype}")
+
+
 def tc_channels(n: int) -> int:
     """A channel count rounded up to the tensor-core route's padding."""
     return -(-n // _TC_PAD) * _TC_PAD
@@ -191,6 +204,17 @@ def tc_split_chunk(rows: int, splits: int) -> int:
     whole stages of the kernel's 32 positions, the last one short."""
     chunk = -(-rows // splits)
     return -(-chunk // _TC_DEPTH) * _TC_DEPTH
+
+
+def tc_split_plan(rows: int, out_rows: int, cols: int) -> tuple:
+    """``(splits, chunk)`` of a tensor-core dW sum over ``rows`` positions
+    into an [out_rows, cols] dW (padded channels): :func:`dw_splits` with
+    the route's 128-row tiles, the parts of :func:`tc_split_chunk`, and no
+    part past the last position (rounding the parts up to whole stages can
+    leave the last few empty; they are dropped)."""
+    splits = dw_splits(rows, out_rows, cols, _TC_ROWS, _TC_MIN_SPLIT_ROWS)
+    chunk = tc_split_chunk(rows, splits)
+    return -(-rows // chunk), chunk
 
 
 def _grid_ok(rows: int, cols: int) -> bool:
@@ -349,7 +373,9 @@ _ARGTYPES = {
     ("conv_bn_fwd", "conv_bn_conv3x3_fwd"):
         [_P] * 13 + [_I] * 10 + [_P],
     ("conv_bn_bwd", "conv_bn_matmul_bwd"):
-        [_P] * 17 + [_I, _L, _I, _I, _I, _I, _I, _P],
+        [_P] * 17 + [_L, _I, _I, _I, _I, _I, _P],
+    ("conv_bn_bwd", "conv_bn_matmul_bwd_tc"):
+        [_P] * 19 + [_L] + [_I] * 7 + [_L, _P],
     ("conv_bn_bwd", "conv_bn_conv3x3_bwd"):
         [_P] * 17 + [_I] * 8 + [_P],
     ("conv_bn_bwd", "conv_bn_conv3x3_bwd_tc"):
@@ -475,16 +501,19 @@ conv3x3_bn_fwd.launches = 0
 conv3x3_bn_fwd.routes = {"tensor_core": 0, "scalar": 0}
 
 
-def _grad_outputs(x, w, c, fuse_input, rows_w, cols_w, rows):
-    """dx, dw, dsx, dsu and the scratch of a backward launch."""
+def _grad_outputs(x, w, c, fuse_input, splits, rows_w, cols_w, rows,
+                  tile_rows=_TILE):
+    """dx, dw, dsx, dsu and the f32 scratch of a backward launch: the dW
+    partials [splits, rows_w, cols_w] and, with a norm, the channel
+    partials of ``tile_rows``-row tiles."""
     dev = x.device
-    splits = dw_splits(rows, rows_w, cols_w)
     part = torch.empty((splits, rows_w, cols_w), dtype=torch.float32,
                        device=dev)
-    psx, psu = _stats_scratch(rows, c, dev) if fuse_input else (None, None)
+    psx, psu = (_stats_scratch(rows, c, dev, tile_rows) if fuse_input
+                else (None, None))
     dsx, dsu = torch.zeros(c, device=dev), torch.zeros(c, device=dev)
     return (torch.empty_like(x), torch.empty_like(w), dsx, dsu, part, psx,
-            psu, splits)
+            psu)
 
 
 def matmul_bn_bwd(x, w, mean, scale, beta, kshift, dy, gm, gs, *,
@@ -493,7 +522,9 @@ def matmul_bn_bwd(x, w, mean, scale, beta, kshift, dy, gm, gs, *,
     x's dtype and the f32 cotangents gm, gs [N] of s1 and s2 (gs already
     doubled; zeros without stats).  Returns ``(dx [M, K], dw [K, N],
     dsx [K], dsu [K])``: dx and dw in the inputs' dtype, the channel sums
-    sum du*x and sum du in f32 (zeros without a norm)."""
+    sum du*x and sum du in f32 (zeros without a norm).  bf16 takes the
+    tensor-core route, f32 the scalar one (:func:`matmul_bwd_route`);
+    ``matmul_bn_bwd.routes`` counts each."""
     name = "conv_bn_matmul_bwd"
     _check_main(name, x, w)
     m, k = x.shape
@@ -509,21 +540,72 @@ def matmul_bn_bwd(x, w, mean, scale, beta, kshift, dy, gm, gs, *,
         "kshift": (kshift, n), "gm": (gm, n), "gs": (gs, n)})
     if not fused_block_supported(m, k, n, x.element_size()):
         raise ValueError(f"{name} cannot take M={m} K={k} N={n}")
-    dx, dw, dsx, dsu, part, psx, psu, splits = _grad_outputs(
-        x, w, k, fuse_input, k, n, m)
-    yr = torch.empty_like(dy) if emit_stats else None
-    _launch("conv_bn_bwd", name, x.device, x.data_ptr(), w.data_ptr(),
-            mean.data_ptr(), scale.data_ptr(), beta.data_ptr(),
-            kshift.data_ptr(), dy.data_ptr(), gm.data_ptr(), gs.data_ptr(),
-            _ptr(yr), dx.data_ptr(), part.data_ptr(), dw.data_ptr(),
-            _ptr(psx), _ptr(psu), dsx.data_ptr(), dsu.data_ptr(),
-            int(x.dtype == torch.bfloat16), m, k, n, int(fuse_input),
-            int(emit_stats), splits)
+    route = matmul_bwd_route(x.dtype)
+    if route == "tensor_core":
+        grads = _matmul_bwd_tc(x, w, mean, scale, beta, kshift, dy, gm, gs,
+                               fuse_input, emit_stats)
+    else:
+        splits = dw_splits(m, k, n)
+        dx, dw, dsx, dsu, part, psx, psu = _grad_outputs(
+            x, w, k, fuse_input, splits, k, n, m)
+        yr = torch.empty_like(dy) if emit_stats else None
+        _launch("conv_bn_bwd", name, x.device, x.data_ptr(), w.data_ptr(),
+                mean.data_ptr(), scale.data_ptr(), beta.data_ptr(),
+                kshift.data_ptr(), dy.data_ptr(), gm.data_ptr(),
+                gs.data_ptr(), _ptr(yr), dx.data_ptr(), part.data_ptr(),
+                dw.data_ptr(), _ptr(psx), _ptr(psu), dsx.data_ptr(),
+                dsu.data_ptr(), m, k, n, int(fuse_input), int(emit_stats),
+                splits)
+        grads = dx, dw, dsx, dsu
     matmul_bn_bwd.launches += 1
+    matmul_bn_bwd.routes[route] += 1
+    return grads
+
+
+def _matmul_bwd_tc(x, w, mean, scale, beta, kshift, dy, gm, gs, fuse_input,
+                   emit_stats):
+    """The tensor-core launch of #9 (bf16), its scratch allocated here.  z
+    is x itself, and dyl dy itself, where nothing is folded into them and
+    their rows are already whole 64-channel tiles on 16 bytes: then the
+    kernels read them in place (:func:`matmul_bwd_scratch`)."""
+    m, k = x.shape
+    n, dev = w.shape[1], x.device
+    kp, np_ = tc_channels(k), tc_channels(n)
+    splits, chunk = tc_split_plan(m, kp, np_)
+    own_z, own_dyl = matmul_bwd_scratch(k, n, fuse_input, emit_stats,
+                                        x.data_ptr() % 16 == 0,
+                                        dy.data_ptr() % 16 == 0)
+    z = torch.empty((m, kp), dtype=x.dtype, device=dev) if own_z else None
+    dyl = (torch.empty((m, np_), dtype=x.dtype, device=dev) if own_dyl
+           else None)
+    wp = torch.empty((kp, np_), dtype=x.dtype, device=dev)
+    dx, dw, dsx, dsu, part, psx, psu = _grad_outputs(
+        x, w, k, fuse_input, splits, kp, np_, m, _TC_ROWS)
+    _launch("conv_bn_bwd", "conv_bn_matmul_bwd_tc", dev, x.data_ptr(),
+            w.data_ptr(), mean.data_ptr(), scale.data_ptr(), beta.data_ptr(),
+            kshift.data_ptr(), dy.data_ptr(), gm.data_ptr(), gs.data_ptr(),
+            dx.data_ptr(), _ptr(z), _ptr(dyl), wp.data_ptr(), part.data_ptr(),
+            dw.data_ptr(), _ptr(psx), _ptr(psu), dsx.data_ptr(),
+            dsu.data_ptr(), m, k, n, int(fuse_input), int(emit_stats),
+            splits, kp, np_, chunk)
     return dx, dw, dsx, dsu
 
 
+def matmul_bwd_scratch(k: int, n: int, fuse_input: bool, emit_stats: bool,
+                       x_aligned: bool = True,
+                       dy_aligned: bool = True) -> tuple:
+    """Whether #9's tensor-core route needs its own z and dyl: z is x
+    itself without a norm where K is a whole number of 64-channel tiles
+    and x starts on 16 bytes; dyl is dy itself without statistics where N
+    is and dy does.  Else the prepass stores z, and the prepass (without
+    statistics) or the fused fprop (with them) stores dyl."""
+    own_z = fuse_input or k != tc_channels(k) or not x_aligned
+    own_dyl = emit_stats or n != tc_channels(n) or not dy_aligned
+    return own_z, own_dyl
+
+
 matmul_bn_bwd.launches = 0
+matmul_bn_bwd.routes = {"tensor_core": 0, "scalar": 0}
 
 
 def conv3x3_bn_bwd(x, w, mean, scale, beta, kshift, y, dy, gm, gs, *,
@@ -547,8 +629,9 @@ def conv3x3_bn_bwd(x, w, mean, scale, beta, kshift, y, dy, gm, gs, *,
         grads = _conv3x3_bwd_tc(x, w, mean, scale, beta, kshift, y, dy, gm,
                                 gs, fuse_input, emit_stats)
     else:
-        dx, dw, dsx, dsu, part, psx, psu, splits = _grad_outputs(
-            x, w, c, fuse_input, 9 * c, co, m)
+        splits = dw_splits(m, 9 * c, co)
+        dx, dw, dsx, dsu, part, psx, psu = _grad_outputs(
+            x, w, c, fuse_input, splits, 9 * c, co, m)
         _launch("conv_bn_bwd", name, x.device, x.data_ptr(), w.data_ptr(),
                 mean.data_ptr(), scale.data_ptr(), beta.data_ptr(),
                 kshift.data_ptr(), y.data_ptr(), dy.data_ptr(),
@@ -568,24 +651,19 @@ def _conv3x3_bwd_tc(x, w, mean, scale, beta, kshift, y, dy, gm, gs,
     b, h, wd, c = x.shape
     co, m, dev = w.shape[3], b * h * wd, x.device
     cp, cop = tc_channels(c), tc_channels(co)
-    splits = dw_splits(m, 9 * cp, cop, _TC_ROWS, _TC_MIN_SPLIT_ROWS)
+    splits, chunk = tc_split_plan(m, 9 * cp, cop)
     z = torch.empty((m, cp), dtype=x.dtype, device=dev)
     dyl = torch.empty((m, cop), dtype=x.dtype, device=dev)
     wp = torch.empty((9, cp, cop), dtype=x.dtype, device=dev)
-    part = torch.empty((splits, 9 * cp, cop), dtype=torch.float32,
-                       device=dev)
-    psx, psu = (_stats_scratch(m, c, dev, _TC_ROWS) if fuse_input
-                else (None, None))
-    dsx, dsu = torch.zeros(c, device=dev), torch.zeros(c, device=dev)
-    dx, dw = torch.empty_like(x), torch.empty_like(w)
+    dx, dw, dsx, dsu, part, psx, psu = _grad_outputs(
+        x, w, c, fuse_input, splits, 9 * cp, cop, m, _TC_ROWS)
     _launch("conv_bn_bwd", "conv_bn_conv3x3_bwd_tc", dev, x.data_ptr(),
             w.data_ptr(), mean.data_ptr(), scale.data_ptr(), beta.data_ptr(),
             kshift.data_ptr(), y.data_ptr(), dy.data_ptr(), gm.data_ptr(),
             gs.data_ptr(), dx.data_ptr(), z.data_ptr(), dyl.data_ptr(),
             wp.data_ptr(), part.data_ptr(), dw.data_ptr(), _ptr(psx),
             _ptr(psu), dsx.data_ptr(), dsu.data_ptr(), b, h, wd, c, co,
-            int(fuse_input), int(emit_stats), splits, cp, cop,
-            tc_split_chunk(m, splits))
+            int(fuse_input), int(emit_stats), splits, cp, cop, chunk)
     return dx, dw, dsx, dsu
 
 

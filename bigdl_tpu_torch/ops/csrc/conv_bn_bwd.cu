@@ -41,15 +41,20 @@
 //             dsu = the per-tile sums added in order.
 // No float atomics: two launches give the same bits.
 //
-// What bounds them on an H100: operations (4 or, with the recomputed y,
-// 6 * M * K * N for the 1x1; 36 * B * H * W * C * Co for the 3x3) at the
-// bf16 tensor-core rate.  conv_bn_matmul_bwd and conv_bn_conv3x3_bwd run
-// scalar f32 FMAs on the CUDA cores; z and dyl are recomputed where they
-// are loaded instead of stored.  The 3x3 in bf16 has a tensor-core route,
-// conv_bn_conv3x3_bwd_tc (conv_bn_tc.cuh: a prepass that stores z and dyl
-// once, then implicit GEMMs on mma.sync); the wrapper takes it for bf16
-// and the scalar entry for f32.  The entry points return
-// cudaGetLastError().
+// What bounds them on an H100.  The 3x3: operations (36 * B * H * W * C *
+// Co) at the bf16 tensor-core rate.  The 1x1: bytes at ResNet-50's widths
+// (4 or, with the recomputed y, 6 * M * K * N operations on M * (K + N)
+// rows of inputs and outputs: K and N of 64-2048 leave it under the
+// card's 295 operations a byte).  conv_bn_matmul_bwd and
+// conv_bn_conv3x3_bwd run scalar f32 FMAs on the CUDA cores, f32 only; z
+// and dyl are recomputed where they are loaded instead of stored.  bf16
+// takes the tensor-core routes of conv_bn_tc.cuh: conv_bn_matmul_bwd_tc
+// (#9: the prepass stores z and a padded W; with statistics, a one-tap
+// fprop recomputes y and folds its rounded value into dyl in registers,
+// so y is never stored; then one-tap implicit GEMMs on mma.sync) and
+// conv_bn_conv3x3_bwd_tc (#11: a prepass that stores z and dyl once, then
+// nine-tap implicit GEMMs).  The wrappers take them for bf16 and the
+// scalar entries for f32.  The entry points return cudaGetLastError().
 
 #include "conv_bn_common.cuh"
 #include "conv_bn_tc.cuh"
@@ -340,30 +345,123 @@ int conv3_bwd(const void* x, const void* w, const Vecs& v, const void* y,
   return (int)cudaGetLastError();
 }
 
+// the tensor-core prepass: one thread per 16-byte chunk of what it stores,
+// at most 16 blocks an SM
+template <int kTaps>
+void launch_prepass(const tcconv::Problem& p, cudaStream_t stream) {
+  const long long chunks = (p.pre_z ? p.M * (p.Cp / 8) : 0) +
+                           (p.pre_dyl ? p.M * (p.Cop / 8) : 0) +
+                           (long long)kTaps * p.Cp * (p.Cop / 8);
+  const long long blocks = (chunks + 255) / 256;
+  tcconv::prepass<kTaps>
+      <<<(unsigned)(blocks < 132 * 16 ? blocks : 132 * 16), 256, 0, stream>>>(
+          p);
+}
+
+// the tensor-core backward once z, dyl and wp are in place: dgrad with
+// dx and the channel partials, wgrad's split dW partials, their sum, and
+// the channel sums
+template <int kTaps>
+void launch_tc_grads(const tcconv::Problem& p, float* dsx, float* dsu,
+                     cudaStream_t stream) {
+  namespace t = tcconv;
+  const long long m_tiles = (p.M + t::kBM - 1) / t::kBM;
+  t::dgrad<kTaps><<<dim3((unsigned)m_tiles, p.Cp / t::kBN), t::kThreads, 0,
+                    stream>>>(p);
+  t::wgrad<kTaps><<<dim3((kTaps * p.Cp + t::kBM - 1) / t::kBM,
+                         p.Cop / t::kBN, p.splits),
+                    t::kThreads, 0, stream>>>(p);
+  const long long n_dw = (long long)kTaps * p.C * p.Co;
+  t::reduce_dw<kTaps><<<(unsigned)((n_dw + 255) / 256), 256, 0, stream>>>(p);
+  if (p.fuse) {
+    launch_reduce<float>(p.psx, m_tiles, p.C, dsx, stream);
+    launch_reduce<float>(p.psu, m_tiles, p.C, dsu, stream);
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// x [M,K], w [K,N], dy [M,N], dx [M,K], dw [K,N] (dtype: bf16 ? bfloat16
-// : float32); mean, scale, beta [K] and kshift, gm, gs [N] f32 (gs
-// doubled); yr [M,N] scratch in x's dtype (used with stats only);
-// dw_part f32 [splits, K, N]; psx, psu f32 [ceil(M/64), K]; dsx, dsu f32
-// [K] (written with a norm only).
+// x [M,K], w [K,N], dy [M,N], dx [M,K], dw [K,N], all f32 (bf16 takes
+// conv_bn_matmul_bwd_tc); mean, scale, beta [K] and kshift, gm, gs [N] f32
+// (gs doubled); yr [M,N] f32 scratch (used with stats only); dw_part f32
+// [splits, K, N]; psx, psu f32 [ceil(M/64), K]; dsx, dsu f32 [K] (written
+// with a norm only).
 int conv_bn_matmul_bwd(const void* x, const void* w, const float* mean,
                        const float* scale, const float* beta,
                        const float* kshift, const void* dy, const float* gm,
                        const float* gs, void* yr, void* dx, float* dw_part,
                        void* dw, float* psx, float* psu, float* dsx,
-                       float* dsu, int bf16, long long M, int K, int N,
-                       int fuse_input, int emit_stats, int splits,
-                       void* stream) {
+                       float* dsu, long long M, int K, int N, int fuse_input,
+                       int emit_stats, int splits, void* stream) {
   const Vecs v{mean, scale, beta, kshift, gm, gs, fuse_input, emit_stats};
+  return matmul_bwd<float>(x, w, v, dy, yr, dx, dw_part, dw, psx, psu, dsx,
+                           dsu, M, K, N, splits,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// The 1x1 on the tensor cores, bf16 only: the arguments of
+// conv_bn_matmul_bwd without yr, and scratch z [M, Kp] (nullptr: x itself,
+// only without a norm and with K == Kp), dyl [M, Np] (nullptr: dy itself,
+// only without stats and with N == Np), wp [Kp, Np] (bf16; Kp, Np: K, N
+// rounded up to a multiple of 64), dw_part f32 [splits, Kp, Np], psx, psu
+// f32 [ceil(M/128), K]; split s of the dW sum adds rows [s * chunk,
+// (s + 1) * chunk).
+int conv_bn_matmul_bwd_tc(const void* x, const void* w, const float* mean,
+                          const float* scale, const float* beta,
+                          const float* kshift, const void* dy,
+                          const float* gm, const float* gs, void* dx, void* z,
+                          void* dyl, void* wp, float* dw_part, void* dw,
+                          float* psx, float* psu, float* dsx, float* dsu,
+                          long long M, int K, int N, int fuse_input,
+                          int emit_stats, int splits, int Kp, int Np,
+                          long long chunk, void* stream) {
+  namespace t = convbn::tcconv;
+  using bf16 = __nv_bfloat16;
+  const bool z_is_x = z == nullptr, dyl_is_dy = dyl == nullptr;
+  if (Kp % t::kBN != 0 || Kp < K || Np % t::kBN != 0 || Np < N ||
+      chunk < 1 || chunk * splits < M ||
+      (z_is_x && (fuse_input || K != Kp || (uintptr_t)x % 16 != 0)) ||
+      (dyl_is_dy && (emit_stats || N != Np || (uintptr_t)dy % 16 != 0)))
+    return (int)cudaErrorInvalidValue;
+  t::Problem p{};
+  p.x = static_cast<const bf16*>(x);
+  p.w = static_cast<const bf16*>(w);
+  p.dy = static_cast<const bf16*>(dy);
+  p.z = static_cast<bf16*>(z_is_x ? const_cast<void*>(x) : z);
+  p.dyl = static_cast<bf16*>(dyl_is_dy ? const_cast<void*>(dy) : dyl);
+  p.wp = static_cast<bf16*>(wp);
+  p.dx = static_cast<bf16*>(dx);
+  p.dw = static_cast<bf16*>(dw);
+  p.part = dw_part;
+  p.psx = psx;
+  p.psu = psu;
+  p.mean = mean;
+  p.scale = scale;
+  p.beta = beta;
+  p.kshift = kshift;
+  p.gm = gm;
+  p.gs = gs;
+  p.M = M;
+  p.chunk = chunk;
+  p.C = K;
+  p.Co = N;
+  p.Cp = Kp;
+  p.Cop = Np;
+  p.splits = splits;
+  p.fuse = fuse_input;
+  p.stats = emit_stats;
+  p.pre_z = !z_is_x;
+  p.pre_dyl = !dyl_is_dy && !emit_stats;  // with stats fprop writes dyl
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? matmul_bwd<__nv_bfloat16>(x, w, v, dy, yr, dx, dw_part, dw,
-                                          psx, psu, dsx, dsu, M, K, N,
-                                          splits, s)
-              : matmul_bwd<float>(x, w, v, dy, yr, dx, dw_part, dw, psx, psu,
-                                  dsx, dsu, M, K, N, splits, s);
+  launch_prepass<1>(p, s);
+  if (emit_stats)
+    t::fprop<1, true><<<dim3((unsigned)((M + t::kBM - 1) / t::kBM),
+                             Np / t::kBN),
+                        t::kThreads, 0, s>>>(p);
+  launch_tc_grads<1>(p, dsx, dsu, s);
+  return (int)cudaGetLastError();
 }
 
 // x [B,H,W,C], w [3,3,C,Co], y and dy [B,H,W,Co] (y: the forward's saved
@@ -434,23 +532,11 @@ int conv_bn_conv3x3_bwd_tc(const void* x, const void* w, const float* mean,
   p.splits = splits;
   p.fuse = fuse_input;
   p.stats = emit_stats;
+  p.pre_z = 1;
+  p.pre_dyl = 1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long chunks =
-      p.M * (p.Cp / 8) + p.M * (p.Cop / 8) + 9LL * p.Cp * (p.Cop / 8);
-  const long long pre_blocks = (chunks + 255) / 256;
-  t::prepass<true><<<(unsigned)(pre_blocks < 132 * 16 ? pre_blocks
-                                                      : 132 * 16),
-                     256, 0, s>>>(p);
-  const long long m_tiles = (p.M + t::kBM - 1) / t::kBM;
-  t::dgrad<<<dim3((unsigned)m_tiles, p.Cp / t::kBN), t::kThreads, 0, s>>>(p);
-  t::wgrad<<<dim3((9 * p.Cp + t::kBM - 1) / t::kBM, p.Cop / t::kBN, splits),
-             t::kThreads, 0, s>>>(p);
-  const long long n_dw = 9LL * C * Co;
-  t::reduce_dw<<<(unsigned)((n_dw + 255) / 256), 256, 0, s>>>(p);
-  if (fuse_input) {
-    convbn::launch_reduce<float>(psx, m_tiles, C, dsx, s);
-    convbn::launch_reduce<float>(psu, m_tiles, C, dsu, s);
-  }
+  launch_prepass<9>(p, s);
+  launch_tc_grads<9>(p, dsx, dsu, s);
   return (int)cudaGetLastError();
 }
 

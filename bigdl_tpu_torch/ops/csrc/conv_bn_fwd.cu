@@ -208,14 +208,14 @@ int conv3_fwd_tc(const void* x, const void* w, const float* mean,
   p.Cop = Cop;
   p.fuse = fuse;
   p.stats = stats;
+  p.pre_z = 1;
   const long long chunks = p.M * (Cp / 8) + 9LL * Cp * (Cop / 8);
   const long long pre_blocks = (chunks + 255) / 256;
-  t::prepass<false><<<(unsigned)(pre_blocks < 132 * 16 ? pre_blocks
-                                                       : 132 * 16),
-                      256, 0, stream>>>(p);
+  t::prepass<9><<<(unsigned)(pre_blocks < 132 * 16 ? pre_blocks : 132 * 16),
+                  256, 0, stream>>>(p);
   const long long m_tiles = (p.M + t::kBM - 1) / t::kBM;
-  t::fprop<<<dim3((unsigned)m_tiles, Cop / t::kBN), t::kThreads, 0,
-             stream>>>(p);
+  t::fprop<9, false><<<dim3((unsigned)m_tiles, Cop / t::kBN), t::kThreads, 0,
+                       stream>>>(p);
   if (stats) {
     launch_reduce<float>(p1, m_tiles, Co, s1, stream);
     launch_reduce<float>(p2, m_tiles, Co, s2, stream);

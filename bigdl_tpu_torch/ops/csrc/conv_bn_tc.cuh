@@ -1,10 +1,13 @@
-// Kernels #10 and #11 on the tensor cores: the forward and the backward
-// of the fused 3x3 conv+BN (conv_bn_conv3x3_fwd in conv_bn_fwd.cu and
-// conv_bn_conv3x3_bwd_tc in conv_bn_bwd.cu), for bf16 inputs, the
-// `--fused --bf16` training path.  They compute what the scalar routes
-// (Conv3Fwd, Conv3Dz / Conv3Dw over tile_product) compute, at the same
-// rounding points, and replace the same TPU kernels (_conv3_fwd_kernel,
-// _conv3_bwd_kernel).
+// Kernels #9, #10 and #11 on the tensor cores: the backward of the fused
+// 1x1 conv+BN (conv_bn_matmul_bwd_tc in conv_bn_bwd.cu) and the forward and
+// the backward of the fused 3x3 (conv_bn_conv3x3_fwd in conv_bn_fwd.cu and
+// conv_bn_conv3x3_bwd_tc), for bf16 inputs, the `--fused --bf16` training
+// path.  They compute what the scalar routes (MatmulRecompute / MatmulDz /
+// MatmulDw, Conv3Fwd, Conv3Dz / Conv3Dw over tile_product) compute, at the
+// same rounding points, and replace the same TPU kernels (_bwd_kernel,
+// _conv3_fwd_kernel, _conv3_bwd_kernel).  The tap count is a template
+// parameter of every kernel here: 9 for the 3x3, 1 for the 1x1, which is a
+// 3x3 with one tap and no halo (no shifted position, no Pos arithmetic).
 //
 // Why a redesign.  The scalar routes normalise x (and fold dy) again at
 // every load of every pass (each element 9 x ceil(C/64) times), with
@@ -44,7 +47,23 @@
 //    columns, and forms the statistics s1 = sum (y - K) and s2 =
 //    sum (y - K)^2 from the rounded y as per-tile partials in dgrad's
 //    fixed order; launch_reduce adds them.
-// 5. bf16 x bf16 -> f32 on mma.sync.m16n8k16 (tensor_core.cuh says why
+// 5. #9 (one tap): the prepass stores z (or none: without a norm and with
+//    K a multiple of 64, z is x itself) and wp; with statistics, fprop
+//    recomputes y = z . W in f32, rounds it to bf16 as the forward did
+//    (_bwd_kernel :203-204) and folds it in registers into dyl = dy + gm +
+//    gs (y_r - K) cast to bf16, which it stores; y itself is never stored
+//    and no statistics are formed.  The fold needs the forward's rounded y
+//    bit for bit: a y summed in another order rounds to its other bf16
+//    neighbour now and then, which moves that dyl entry by a whole ulp
+//    and a small dx entry by more than one of its own (even the exact sum
+//    does, against an in-order one).  #8, the forward, sums k in order
+//    with f32 FMAs on the CUDA cores, as cuBLAS's f32 product does here,
+//    so fprop's fold (kFold) sums y in that order with FMAs from the same
+//    shared-memory tiles; only this product leaves the tensor cores.
+//    Without statistics dyl is dy (copied padded by the prepass only where
+//    N is not a multiple of 64).  Then dgrad, wgrad and the dW sum as for
+//    #11, with one tap.
+// 6. bf16 x bf16 -> f32 on mma.sync.m16n8k16 (tensor_core.cuh says why
 //    not wgmma yet).  No float atomics: two launches give the same bits.
 //
 // f32 inputs keep the scalar routes (TF32 would round the operands to 10
@@ -69,24 +88,26 @@ constexpr int kLdK = kBK + 8;  // K-contiguous smem rows (dgrad)
 constexpr int kLdA = kBM + 8;  // row-contiguous smem rows (wgrad A)
 constexpr int kLdB = kBN + 8;  // column-contiguous smem rows (wgrad B)
 
+// the arrays of one launch; kTaps is 9 (3x3) or 1 (1x1)
 struct Problem {
   const bf16* x;    // [M, C]
-  const bf16* w;    // [9, C, Co]
-  const bf16* y;    // [M, Co], the forward's saved output
+  const bf16* w;    // [kTaps, C, Co]
+  const bf16* y;    // [M, Co], the 3x3's saved forward output
   const bf16* dy;   // [M, Co]
-  bf16* z;          // [M, Cp] scratch
-  bf16* dyl;        // [M, Cop] scratch
-  bf16* wp;         // [9, Cp, Cop] scratch
+  bf16* z;          // [M, Cp] scratch (#9: x itself where pre_z is 0)
+  bf16* dyl;        // [M, Cop] scratch (#9: dy itself without it)
+  bf16* wp;         // [kTaps, Cp, Cop] scratch
   bf16* dx;         // [M, C]
-  bf16* dw;         // [9, C, Co]
-  float* part;      // [splits, 9 Cp, Cop]
+  bf16* dw;         // [kTaps, C, Co]
+  float* part;      // [splits, kTaps Cp, Cop]
   float *psx, *psu; // [ceil(M / 128), C]
   bf16* yf;         // [M, Co], the forward's output
   float *ps1, *ps2; // [ceil(M / 128), Co], the forward's statistics
   const float *mean, *scale, *beta, *kshift, *gm, *gs;
-  Image img;
+  Image img;           // the 3x3's image batch (unused with one tap)
   long long M, chunk;  // positions, and positions per dW split
   int C, Co, Cp, Cop, splits, fuse, stats;
+  int pre_z, pre_dyl;  // whether the prepass stores z and dyl
 };
 
 // ---- 1. the prepass -------------------------------------------------------
@@ -105,13 +126,13 @@ __device__ __forceinline__ bf16 dyl_entry(float dy, float y, float gm,
   return from_f32<bf16>(fold_dy<bf16>(dy, y, gm, gs, k, stats));
 }
 
-// one thread per 8 consecutive channels of a row of z, dyl (with kDyl:
-// the backward) or wp
-template <bool kDyl>
+// one thread per 8 consecutive channels of a row of z (with pre_z), dyl
+// (with pre_dyl: the backward) or wp
+template <int kTaps>
 __global__ void __launch_bounds__(256) prepass(const Problem p) {
-  const long long nz = p.M * (p.Cp / 8);
-  const long long ndy = kDyl ? p.M * (p.Cop / 8) : 0;
-  const long long total = nz + ndy + 9LL * p.Cp * (p.Cop / 8);
+  const long long nz = p.pre_z ? p.M * (p.Cp / 8) : 0;
+  const long long ndy = p.pre_dyl ? p.M * (p.Cop / 8) : 0;
+  const long long total = nz + ndy + (long long)kTaps * p.Cp * (p.Cop / 8);
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        i < total; i += (long long)gridDim.x * blockDim.x) {
     __align__(16) bf16 out[8];
@@ -174,32 +195,39 @@ __device__ __forceinline__ void load_row16(bf16* dst, const bf16* base,
 
 // A position m of the image batch with its row h and column w, so that a
 // shift costs no division: the main loops move it along by additions.
+// With one tap (the 1x1) only m is kept, and a shift is the position.
+template <int kTaps>
 struct Pos {
   long long m;
   int h, w;
   __device__ __forceinline__ void set(const Image& img, long long at) {
     m = at;
-    w = (int)(at % img.W);
-    h = (int)(at / img.W % img.H);
+    if constexpr (kTaps > 1) {
+      w = (int)(at % img.W);
+      h = (int)(at / img.W % img.H);
+    }
   }
   // m + step, with step % W and step / W % H given as dw and dh
   __device__ __forceinline__ void advance(const Image& img, long long step,
                                           int dh, int dw) {
     m += step;
-    w += dw;
-    const int carry = w >= img.W;
-    w -= carry ? img.W : 0;
-    h += dh + carry;
-    h -= h >= img.H ? img.H : 0;
+    if constexpr (kTaps > 1) {
+      w += dw;
+      const int carry = w >= img.W;
+      w -= carry ? img.W : 0;
+      h += dh + carry;
+      h -= h >= img.H ? img.H : 0;
+    }
   }
   // the flat index of this position shifted by (dh, dw), or -1 outside
   // the image or at m >= end
   __device__ __forceinline__ long long shifted(const Image& img,
                                                long long end, int dh,
                                                int dw) const {
+    if (m >= end) return -1;
+    if constexpr (kTaps == 1) return m;
     const int hh = h + dh, ww = w + dw;
-    if (m >= end || hh < 0 || hh >= img.H || ww < 0 || ww >= img.W)
-      return -1;
+    if (hh < 0 || hh >= img.H || ww < 0 || ww >= img.W) return -1;
     return m + (long long)dh * img.W + dw;
   }
 };
@@ -238,6 +266,7 @@ __device__ __forceinline__ void mainloop(int nk, Load load, Compute compute) {
 
 // ---- 2. dgrad -------------------------------------------------------------
 
+template <int kTaps>
 __global__ void __launch_bounds__(kThreads, 3) dgrad(const Problem p) {
   __shared__ __align__(16) bf16 As[kStages][kBM][kLdK];
   __shared__ __align__(16) bf16 Bs[kStages][kBN][kLdK];
@@ -250,7 +279,7 @@ __global__ void __launch_bounds__(kThreads, 3) dgrad(const Problem p) {
 
   // this thread's two A rows (fixed over K) and its B row
   const int a_ch = tid % 4;
-  Pos a_m[2];
+  Pos<kTaps> a_m[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) a_m[i].set(p.img, m0 + (tid + i * kThreads) / 4);
 
@@ -310,7 +339,7 @@ __global__ void __launch_bounds__(kThreads, 3) dgrad(const Problem p) {
         for (int e = 0; e < 4; ++e)
           acc[mi][ni][e] = __fadd_rn(acc[mi][ni][e], part[mi][ni][e]);
   };
-  mainloop(9 * nco, load, compute);
+  mainloop(kTaps * nco, load, compute);
 
   // epilogue: du, dx and the per-tile channel partials
   float c1[4][2], c2[4][2];
@@ -379,6 +408,7 @@ __global__ void __launch_bounds__(kThreads, 3) dgrad(const Problem p) {
 
 // ---- 3. wgrad -------------------------------------------------------------
 
+template <int kTaps>
 __global__ void __launch_bounds__(kThreads) wgrad(const Problem p) {
   __shared__ __align__(16) bf16 As[kStages][kBK][kLdA];  // [position][row]
   __shared__ __align__(16) bf16 Bs[kStages][kBK][kLdB];  // [position][col]
@@ -386,7 +416,7 @@ __global__ void __launch_bounds__(kThreads) wgrad(const Problem p) {
   const int wm = warp % 4, wn = warp / 4, g = lane / 4, t4 = lane % 4;
   const int r0 = blockIdx.x * kBM;  // rows (tap, c) of dW
   const int n0 = blockIdx.y * kBN;  // output channels
-  const int rows = 9 * p.Cp;
+  const int rows = kTaps * p.Cp;
 
   const long long begin = blockIdx.z * p.chunk;
   const long long end = begin + p.chunk < p.M ? begin + p.chunk : p.M;
@@ -401,11 +431,15 @@ __global__ void __launch_bounds__(kThreads) wgrad(const Problem p) {
   const int b_ch = tid % 8;
   // this thread's two A positions of the next stage to load (the stages
   // are loaded in order, kBK positions apart)
-  Pos a_m[2];
+  Pos<kTaps> a_m[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
     a_m[i].set(p.img, begin + (tid + i * kThreads) / 16);
-  const int step_w = kBK % p.img.W, step_h = kBK / p.img.W % p.img.H;
+  int step_w = 0, step_h = 0;
+  if constexpr (kTaps > 1) {
+    step_w = kBK % p.img.W;
+    step_h = kBK / p.img.W % p.img.H;
+  }
 
   auto load = [&](int st, int kt) {
     const long long kbase = begin + (long long)kt * kBK;
@@ -468,23 +502,30 @@ __global__ void __launch_bounds__(kThreads) wgrad(const Problem p) {
     }
 }
 
-// dW [9, C, Co] = the splits' partials added in order, cast to W's dtype
+// dW [kTaps, C, Co] = the splits' partials added in order, cast to W's
+// dtype
+template <int kTaps>
 __global__ void reduce_dw(const Problem p) {
-  const long long n = 9LL * p.C * p.Co;
+  const long long n = (long long)kTaps * p.C * p.Co;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const int co = (int)(i % p.Co);
   const long long t = i / p.Co;
   const int c = (int)(t % p.C), tap = (int)(t / p.C);
   const long long at = ((long long)tap * p.Cp + c) * p.Cop + co;
-  const long long step = 9LL * p.Cp * p.Cop;
+  const long long step = (long long)kTaps * p.Cp * p.Cop;
   float tot = 0.f;
   for (int s = 0; s < p.splits; ++s) tot += p.part[s * step + at];
   p.dw[i] = from_f32<bf16>(tot);
 }
 
-// ---- 4. fprop (#10) -------------------------------------------------------
+// ---- 4. fprop (#10; #9's recomputed y with kFold) ------------------------
 
+// kFold (#9): y summed over k in order with f32 FMAs (#8's order, item 5
+// above), and the epilogue folds y, rounded, into dyl and forms no
+// statistics; else (#10) y on the tensor cores, and the epilogue stores y
+// and its statistics partials
+template <int kTaps, bool kFold>
 __global__ void __launch_bounds__(kThreads, 2) fprop(const Problem p) {
   __shared__ __align__(16) bf16 As[kStages][kBM][kLdK];  // [position][c]
   __shared__ __align__(16) bf16 Bs[kStages][kBK][kLdB];  // [c][co]
@@ -498,7 +539,7 @@ __global__ void __launch_bounds__(kThreads, 2) fprop(const Problem p) {
   // this thread's two A rows (fixed over K), each with its own h and w:
   // a tile may span several images
   const int a_ch = tid % 4, b_ch = tid % 8;
-  Pos a_m[2];
+  Pos<kTaps> a_m[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) a_m[i].set(p.img, m0 + (tid + i * kThreads) / 4);
 
@@ -520,30 +561,126 @@ __global__ void __launch_bounds__(kThreads, 2) fprop(const Problem p) {
                    true);
   };
 
+  // #9: this thread's pairs of dy (columns c, c + 1 of each entry pair),
+  // loaded ahead of the product so that their latency hides behind it
+  uint32_t dy2[2][2][4] = {};  // [mi][half][ni], bf16 pairs
+  if constexpr (kFold) {
+    const bool pairs =
+        p.Co % 2 == 0 && (reinterpret_cast<uintptr_t>(p.dy) & 3) == 0;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const long long m = m0 + wm * 32 + mi * 16 + g + half * 8;
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          const int c = n0 + wn * 32 + ni * 8 + 2 * t4;
+          if (m >= p.M || c >= p.Co) continue;
+          const bf16* at = p.dy + m * p.Co + c;
+          dy2[mi][half][ni] =
+              pairs ? *reinterpret_cast<const uint32_t*>(at)
+                    : tc::bits(__halves2bfloat162(
+                          at[0], c + 1 < p.Co ? at[1] : from_f32<bf16>(0.f)));
+        }
+      }
+  }
+
   Acc acc;
   zero(acc);
   auto compute = [&](int st) {
+    if constexpr (kFold) {
+      // this thread's entries of the mma layout (rows g + 8 (2 mi + half),
+      // columns 8 ni + 2 t4 + e of its warp's 32 x 32), k pairs in order
+#pragma unroll 4
+      for (int kk = 0; kk < kBK; kk += 2) {
+        float a[2][2][2], b[2][4][2];  // [mi][half][k], [k][ni][e]
 #pragma unroll
-    for (int ks = 0; ks < kBK / 16; ++ks) {
-      uint32_t a[2][4], b[2][4];
+        for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-        tc::ldmatrix_x4(a[mi], &As[st][wm * 32 + mi * 16 + lane % 16]
-                                  [ks * 16 + (lane / 16) * 8]);
+          for (int half = 0; half < 2; ++half) {
+            const __nv_bfloat162 a2 = *reinterpret_cast<const __nv_bfloat162*>(
+                &As[st][wm * 32 + mi * 16 + g + half * 8][kk]);
+            a[mi][half][0] = __low2float(a2);
+            a[mi][half][1] = __high2float(a2);
+          }
 #pragma unroll
-      for (int np = 0; np < 2; ++np)
-        tc::ldmatrix_x4_trans(
-            b[np], &Bs[st][ks * 16 + lane % 8 + ((lane / 8) % 2) * 8]
-                      [wn * 32 + np * 16 + (lane / 16) * 8]);
+        for (int k = 0; k < 2; ++k)
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
+          for (int ni = 0; ni < 4; ++ni) {
+            const __nv_bfloat162 b2 = *reinterpret_cast<const __nv_bfloat162*>(
+                &Bs[st][kk + k][wn * 32 + ni * 8 + 2 * t4]);
+            b[k][ni][0] = __low2float(b2);
+            b[k][ni][1] = __high2float(b2);
+          }
 #pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-          tc::mma_bf16(acc[mi][ni], a[mi], b[ni / 2][(ni % 2) * 2],
-                       b[ni / 2][(ni % 2) * 2 + 1]);
+        for (int k = 0; k < 2; ++k)
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+            for (int half = 0; half < 2; ++half)
+#pragma unroll
+              for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+                for (int e = 0; e < 2; ++e)
+                  acc[mi][ni][half * 2 + e] =
+                      fmaf(a[mi][half][k], b[k][ni][e],
+                           acc[mi][ni][half * 2 + e]);
+      }
+    } else {
+#pragma unroll
+      for (int ks = 0; ks < kBK / 16; ++ks) {
+        uint32_t a[2][4], b[2][4];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+          tc::ldmatrix_x4(a[mi], &As[st][wm * 32 + mi * 16 + lane % 16]
+                                    [ks * 16 + (lane / 16) * 8]);
+#pragma unroll
+        for (int np = 0; np < 2; ++np)
+          tc::ldmatrix_x4_trans(
+              b[np], &Bs[st][ks * 16 + lane % 8 + ((lane / 8) % 2) * 8]
+                        [wn * 32 + np * 16 + (lane / 16) * 8]);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni)
+            tc::mma_bf16(acc[mi][ni], a[mi], b[ni / 2][(ni % 2) * 2],
+                         b[ni / 2][(ni % 2) * 2 + 1]);
+      }
     }
   };
-  mainloop(9 * ncp, load, compute);
+  mainloop(kTaps * ncp, load, compute);
+
+  if constexpr (kFold) {
+    // dyl = dy + gm + gs (y_r - K) cast to dy's dtype, y_r the recomputed
+    // y rounded as the forward rounds it; zeros in the padded columns
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const long long m = m0 + wm * 32 + mi * 16 + g + half * 8;
+        if (m >= p.M) continue;
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          const int c = n0 + wn * 32 + ni * 8 + 2 * t4;
+          const __nv_bfloat162 dyp =
+              *reinterpret_cast<const __nv_bfloat162*>(&dy2[mi][half][ni]);
+          const float dyv[2] = {__low2float(dyp), __high2float(dyp)};
+          float fold[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int co = c + e;
+            fold[e] = 0.f;
+            if (co >= p.Co) continue;
+            const float yr = round_to<bf16>(acc[mi][ni][half * 2 + e]);
+            fold[e] = fold_dy<float>(dyv[e], yr, p.gm[co], p.gs[co],
+                                     p.kshift[co], 1);
+          }
+          *reinterpret_cast<__nv_bfloat162*>(p.dyl + m * p.Cop + c) =
+              __floats2bfloat162_rn(fold[0], fold[1]);
+        }
+      }
+    return;
+  }
 
   // epilogue: y cast to bf16, and the statistics of the rounded y
   float c1[4][2], c2[4][2];

@@ -1,9 +1,10 @@
 // Flash-attention backward for Hopper (sm_90a), plain C interface: five
-// kernels, dQ, dK/dV and dBias, and the ring's partial dQ and dK/dV (dK/dV
-// and the ring's dK/dV with a tensor-core route each for bf16).
+// kernels, dQ, dK/dV and dBias, and the ring's partial dQ and dK/dV (dQ,
+// dK/dV and the ring's dK/dV with a tensor-core route each for bf16).
 //
 // Replaces the TPU kernels of bigdl_tpu/ops/attention_kernels.py:
-//   flash_attention_dq    <- _bwd_impl / _flash_dq_kernel   (#2, pallas_call :483)
+//   flash_attention_dq    <- _bwd_impl / _flash_dq_kernel   (#2, pallas_call :483:
+//                          scalar FMAs for f32, the tensor cores for bf16)
 //   flash_attention_dkv   <- _bwd_impl / _flash_dkv_kernel  (#3, pallas_call :515:
 //                          scalar FMAs for f32, the tensor cores for bf16)
 //   flash_attention_dbias <- _dbias_impl / _flash_dbias_kernel (#4, pallas_call :549)
@@ -17,7 +18,7 @@
 //   s   = (q . k) * scale (+ bias)    the forward's score: bit for bit in the
 //                                     scalar kernels (the same f32 FMA order
 //                                     over the head dim); in the bf16
-//                                     tensor-core dK/dV kernel every product
+//                                     tensor-core kernels every product
 //                                     of two bf16 values is exact in f32 and
 //                                     only the order of the head-dim sum
 //                                     differs from kernel #1's
@@ -74,8 +75,10 @@
 // work, 8x smaller than the whole causal sequence, so the same holds for
 // them.
 //
-// dK/dV in bf16 (#3 on the LM training path) runs on the tensor cores
-// instead: flash_dkv_tc_kernel, the FlashAttention-2 dK/dV structure on
+// dQ in bf16 (#2 on the LM training path) runs on the tensor cores:
+// flash_dq_tc_kernel, the FlashAttention-2 forward loop of #1 turned to dQ
+// (the comment above the kernel).  dK/dV in bf16 (#3) runs on the tensor
+// cores too: flash_dkv_tc_kernel, the FlashAttention-2 dK/dV structure on
 // mma.sync.m16n8k16 (tensor_core.cuh says why not wgmma yet).  A block of
 // 4 warps owns 64 keys of one (b, h), 16 per warp, with K and V in shared
 // memory; tiles of 32 queries of Q and dO, with their lse
@@ -88,9 +91,9 @@
 // dS to bf16 as the reference does (dO's and Q's dtype), and adds
 // dV += P^T . dO and dK += dS^T . Q with P^T and dS^T taken straight from
 // its registers as the A operand.  Query tiles wholly before the block's
-// first key are skipped.  f32 inputs keep the scalar flash_dkv_kernel: the
-// entry point flash_attention_dkv routes by dtype and the wrapper counts
-// each route.
+// first key are skipped.  f32 inputs keep the scalar flash_dq_kernel and
+// flash_dkv_kernel: the entry points flash_attention_dq and
+// flash_attention_dkv route by dtype and the wrappers count each route.
 //
 // The ring's dK/dV (#7) with bf16 q, k, v runs on the tensor cores too:
 // flash_dkv_partial_tc_kernel, #3's structure with dO in f32.  Two of its
@@ -106,6 +109,8 @@
 //         for the dS . K accumulation.
 //   dK/dV grid (B*H, ceil(Tk/16)): 4 warps x 4 keys; loops over 32-query
 //         tiles, lane = query for s and dP, lane = column for the sums.
+//   dQ on the tensor cores (bf16) grid (B*H, ceil(Tq/64)): 4 warps x 16
+//         rows; loops over 32-key tiles (64 at D 32), two stages.
 //   dK/dV on the tensor cores (bf16) grid (B*H, ceil(Tk/64)): 4 warps x 16
 //         keys; loops over 32-query tiles, two stages.
 //   the ring's dK/dV on the tensor cores (bf16) grid (B*H, ceil(Tk/64)):
@@ -675,6 +680,207 @@ __global__ void __launch_bounds__(kTcThreads, DMAX <= 64 ? 3 : 1)
     }
 }
 
+// ---- dQ on the tensor cores (bf16) -------------------------------------------
+
+constexpr int kTcRows = kTcWarps * 16;  // query rows per dQ block, 16 per warp
+
+// 32-key K/V tiles from D 64 up (at D 64: 163 registers and 0.43 ms at
+// the LM training shape, against 175 and 0.56 with 64-key tiles; PERF.md),
+// 64 at D 32
+template <int DMAX>
+struct DqTc {
+  static constexpr int kKeys = DMAX <= 32 ? 64 : 32;  // keys per K/V tile
+  static constexpr int kLd = DkvTc<DMAX>::kLd;
+  static constexpr int kKn = kKeys / 8;  // n8 tiles of S and dP per warp
+  static constexpr int kDk = DMAX / 16;  // 16-deep steps of Q.K^T, dO.V^T
+  static constexpr int kDn = DMAX / 8;   // n8 tiles of dQ per warp
+  static constexpr size_t kSmem =
+      (size_t)(2 * kTcRows + 4 * kKeys) * kLd * sizeof(__nv_bfloat16);
+};
+
+// #1's FlashAttention-2 loop turned to dQ.  One (b, h) and 64 query rows a
+// block, 16 a warp, query blocks heaviest first under a causal mask.  Q's
+// and dO's A fragments, the rows' lse and Delta and the dQ sum stay in
+// registers for the whole sweep; K and V tiles stream through two
+// cp.async stages (element loads where p.vec is 0), zero beyond Tk and D.
+// Per tile: S = Q . K^T and dP = dO . V^T on the tensor cores (K and V
+// through ldmatrix), P and dS per element with every step one rounded f32
+// operation (p_and_ds_rn), dS rounded to K's dtype and repacked from its C
+// fragments into A fragments, dQ += dS . K with K through ldmatrix.trans
+// from the same tile.  Key tiles wholly above the block's last row are
+// skipped (they add dS = 0, as does every key of a row that sees none).
+// Each block owns its rows: no float atomics, the same bits every launch.
+// The steps are #6's too, bar its f32 dO: with #7's split of dO in shared
+// memory, dP = dO . V^T over dO's pieces is the one product that changes.
+template <int DMAX>
+__global__ void __launch_bounds__(kTcThreads)
+    flash_dq_tc_kernel(const Params p) {
+  using bf16 = __nv_bfloat16;
+  using Cfg = DqTc<DMAX>;
+  constexpr int kKeys = Cfg::kKeys, kLd = Cfg::kLd;
+  constexpr int kKn = Cfg::kKn, kDk = Cfg::kDk, kDn = Cfg::kDn;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [kTcRows][kLd]
+  bf16* dos = qs + kTcRows * kLd;                // [kTcRows][kLd]
+  bf16* ks = dos + kTcRows * kLd;                // [2][kKeys][kLd]
+  bf16* vs = ks + 2 * kKeys * kLd;               // [2][kKeys][kLd]
+
+  const int bh = blockIdx.x;
+  const int b = bh / p.H, h = bh % p.H;
+  // the last query blocks first: under a causal mask they see the most keys
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTcRows;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int r_lo = q0 + warp * 16 + g;  // this thread's rows r_lo, r_lo + 8
+
+  const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const bf16* dout = static_cast<const bf16*>(p.dout) + b * p.o_sb +
+                     h * p.o_sh;
+  const float* bias =
+      p.bias == nullptr ? nullptr : p.bias + b * p.b_sb + h * p.b_sh;
+
+  int n_tiles = (p.Tk + kKeys - 1) / kKeys;
+  if (p.causal) {
+    const long long last_key =
+        (long long)min(q0 + kTcRows, p.Tq) - 1 + p.causal_offset;
+    n_tiles = last_key < 0
+                  ? 0
+                  : (int)min((long long)n_tiles, last_key / kKeys + 1);
+  }
+
+  auto load_kv = [&](int stage, int tile) {
+    load_tile_bf16<DMAX>(ks + stage * kKeys * kLd, k, p.k_st, tile * kKeys,
+                         kKeys, p.Tk, p.D, p.vec);
+    load_tile_bf16<DMAX>(vs + stage * kKeys * kLd, v, p.v_st, tile * kKeys,
+                         kKeys, p.Tk, p.D, p.vec);
+  };
+  load_tile_bf16<DMAX>(qs, q, p.q_st, q0, kTcRows, p.Tq, p.D, p.vec);
+  load_tile_bf16<DMAX>(dos, dout, p.o_st, q0, kTcRows, p.Tq, p.D, p.vec);
+  if (n_tiles > 0) load_kv(0, 0);
+  tc::cp_async_commit();
+
+  float lse[2], delta[2], acc[kDn][4];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int t = r_lo + hh * 8;
+    const long long row = (long long)bh * p.Tq + t;
+    lse[hh] = t < p.Tq ? p.lse[row] : 0.f;
+    delta[hh] = t < p.Tq ? p.delta[row] : 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < kDn; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  tc::cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qa[kDk][4], oa[kDk][4];  // this warp's 16 rows of Q and dO
+#pragma unroll
+  for (int kd = 0; kd < kDk; ++kd) {
+    const int a_off = (warp * 16 + lane % 16) * kLd + kd * 16 + (lane / 16) * 8;
+    tc::ldmatrix_x4(qa[kd], qs + a_off);
+    tc::ldmatrix_x4(oa[kd], dos + a_off);
+  }
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int stage = tile & 1;
+    if (tile + 1 < n_tiles) load_kv(stage ^ 1, tile + 1);
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();  // this tile's copies have landed
+    __syncthreads();
+    const bf16* kt = ks + stage * kKeys * kLd;
+    const bf16* vt = vs + stage * kKeys * kLd;
+
+    // S = Q . K^T and dP = dO . V^T: 16 rows x kKeys keys per warp, f32
+    float s[kKn][4], dp[kKn][4];
+#pragma unroll
+    for (int j = 0; j < kKn; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < kDk; ++kd)
+#pragma unroll
+      for (int np = 0; np < kKn / 2; ++np) {
+        const int b_off = (np * 16 + lane % 8 + (lane / 16) * 8) * kLd +
+                          kd * 16 + ((lane / 8) % 2) * 8;
+        uint32_t kb[4], vb[4];
+        tc::ldmatrix_x4(kb, kt + b_off);
+        tc::ldmatrix_x4(vb, vt + b_off);
+        tc::mma_bf16(s[2 * np], qa[kd], kb[0], kb[1]);
+        tc::mma_bf16(s[2 * np + 1], qa[kd], kb[2], kb[3]);
+        tc::mma_bf16(dp[2 * np], oa[kd], vb[0], vb[1]);
+        tc::mma_bf16(dp[2 * np + 1], oa[kd], vb[2], vb[3]);
+      }
+
+    // dS in dp's registers; a tile with no bias, no edge and no masked
+    // pair skips the tests
+    const int k0 = tile * kKeys;
+    const bool plain_tile =
+        bias == nullptr && k0 + kKeys <= p.Tk && q0 + kTcRows <= p.Tq &&
+        (!p.causal || k0 + kKeys - 1 <= q0 + p.causal_offset);
+#pragma unroll
+    for (int j = 0; j < kKn; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + j * 8 + 2 * t4 + (e % 2);
+        const int row = r_lo + (e / 2) * 8;
+        float pr = 0.f, ds = 0.f;
+        if (plain_tile) {
+          pr = expf(__fsub_rn(__fmul_rn(s[j][e], p.scale), lse[e / 2]));
+          ds = __fmul_rn(pr, __fsub_rn(dp[j][e], delta[e / 2]));
+        } else if (key < p.Tk && row < p.Tq) {
+          p_and_ds_rn(p, bias, s[j][e], dp[j][e], lse[e / 2], delta[e / 2],
+                      row, key, &pr, &ds);
+        }
+        dp[j][e] = ds;
+      }
+    // dS in K's dtype (bf16, to nearest), packed as A fragments
+    uint32_t dsa[kKn][2];
+#pragma unroll
+    for (int j = 0; j < kKn; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        dsa[j][hh] = tc::pack_bf16(dp[j][2 * hh], dp[j][2 * hh + 1]);
+
+    // dQ += dS . K, K through ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk) {
+      const uint32_t da[4] = {dsa[2 * kk][0], dsa[2 * kk][1],
+                              dsa[2 * kk + 1][0], dsa[2 * kk + 1][1]};
+#pragma unroll
+      for (int dn = 0; dn < kDn / 2; ++dn) {
+        uint32_t kb[4];
+        tc::ldmatrix_x4_trans(
+            kb, kt + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * kLd +
+                    dn * 16 + (lane / 16) * 8);
+        tc::mma_bf16(acc[2 * dn], da, kb[0], kb[1]);
+        tc::mma_bf16(acc[2 * dn + 1], da, kb[2], kb[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage
+  }
+  tc::cp_async_wait<0>();
+
+  // dQ = scale * sum, in q's dtype
+  bf16* dq = static_cast<bf16*>(p.out0);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int t = r_lo + hh * 8;
+    if (t >= p.Tq) continue;
+    const long long row = (long long)bh * p.Tq + t;
+#pragma unroll
+    for (int j = 0; j < kDn; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = j * 8 + 2 * t4 + e;
+        if (c < p.D)
+          dq[row * p.D + c] = __float2bfloat16_rn(acc[j][2 * hh + e] * p.scale);
+      }
+  }
+}
+
 // ---- the ring's dK / dV (#7) on the tensor cores (bf16 q, k, v; f32 dO) ---
 
 // #3's tiles; the shared memory holds K and V, Q in two stages, dO's three
@@ -1051,10 +1257,15 @@ int launch_which(int which, const Params& p, cudaStream_t stream) {
   const int q_tiles = (p.Tq + kBlockRows - 1) / kBlockRows;
   const int k_tiles = (p.Tk + kBlockRows - 1) / kBlockRows;
   switch (which) {
-    case kDq:
-      return launch(flash_dq_kernel<T, T, DMAX, false>,
-                    dim3(p.B * p.H, q_tiles), dq_smem_floats<DMAX>(), p,
-                    stream);
+    case kDq:  // bf16 on the tensor cores, f32 on the scalar kernel
+      if constexpr (std::is_same<T, __nv_bfloat16>::value)
+        return launch(flash_dq_tc_kernel<DMAX>,
+                      dim3(p.B * p.H, (p.Tq + kTcRows - 1) / kTcRows), 0, p,
+                      stream, DqTc<DMAX>::kSmem);
+      else
+        return launch(flash_dq_kernel<T, T, DMAX, false>,
+                      dim3(p.B * p.H, q_tiles), dq_smem_floats<DMAX>(), p,
+                      stream);
     case kDkv:  // bf16 on the tensor cores, f32 on the scalar kernel
       if constexpr (std::is_same<T, __nv_bfloat16>::value)
         return launch(flash_dkv_tc_kernel<DMAX>,
@@ -1178,8 +1389,8 @@ int run(int which, const void* q, const void* k, const void* v,
       o_sh, o_st, b_sb, b_sh, b_sq, b_sk, scale, causal, causal_offset,      \
       stream)
 
+// #2 and #3: f32 on the scalar kernels, bf16 on the tensor cores
 extern "C" int flash_attention_dq(BWD_ARGS) { return BWD_CALL(kDq); }
-// #3: f32 on the scalar kernel, bf16 on the tensor cores
 extern "C" int flash_attention_dkv(BWD_ARGS) { return BWD_CALL(kDkv); }
 extern "C" int flash_attention_dbias(BWD_ARGS) { return BWD_CALL(kDbias); }
 

@@ -6,10 +6,10 @@ the faults they are there to catch:
 
 1. Kernel mutants.  ``flash_attention_bwd.cu`` is rebuilt, into the
    git-ignored build directory, with one of the reference's bf16 rounding
-   points taken out: dS before dS·K (the scalar dQ kernel), dS before
-   dSᵀ·Q (dK), P before Pᵀ·dO (dV).  dK/dV in bf16 runs on the tensor
-   cores, where P and dS reach the product as bf16 operands: there the
-   fault packs each f32 value's top 16 bits, the cast's rounding dropped.
+   points taken out: dS before dS·K (dQ), dS before dSᵀ·Q (dK), P before
+   Pᵀ·dO (dV).  dQ and dK/dV in bf16 run on the tensor cores, where P and
+   dS reach the product as bf16 operands: there the fault packs each f32
+   value's top 16 bits, the cast's rounding dropped.
    Each mutant runs through the port's own wrappers at chip_smoke's
    training shape (t), and its outputs go through chip_smoke's check
    against the plain versions (``bwd_held``).  The script
@@ -28,13 +28,13 @@ the faults they are there to catch:
    border then reads relu(beta - mean * scale)); in #10's tensor-core
    route z stored cut to bf16 instead of rounded (its cast dropped) and
    the halo of a shifted row copied from the position's own row instead
-   of zero-filled; the cast of the folded dy before the products dropped
-   in #9 (``fold_dy``, which #11's tensor-core prepass calls too; there
-   the bf16 store rounds the same value again, so this fault reaches #9
-   alone); and in #11's tensor-core route the folded dy stored cut to
-   bf16 instead of rounded and the halo copied.  The two halo faults edit
-   the one line of ``conv_bn_tc.cuh`` that #10 and #11 share, each built
-   into its own library.  Each runs through chip_smoke's conv check at a
+   of zero-filled; in #9's tensor-core route the recomputed y folded into
+   dyl unrounded (the reference folds the y the forward rounded), or the
+   folded dy stored cut to bf16 instead of rounded; and in #11's
+   tensor-core route the folded dy stored cut to bf16 instead of rounded
+   and the halo copied.  The two halo faults edit the one line of
+   ``conv_bn_tc.cuh`` that #10 and #11 share, each built into its own
+   library.  Each runs through chip_smoke's conv check at a
    ResNet-50 b128 shape in bf16 (the f32 halo fault at a ragged f32
    shape); the script fails unless the check passes the sources as they
    stand and refuses every mutant, and prints the share of entries each
@@ -60,8 +60,9 @@ the faults they are there to catch:
    (``fwd_held``: the bias of the error refuses it).
 4c. Design variants, timed against the sources as they stand on the same
    inputs (a reading, not a gate): #1's query blocks in grid order
-   instead of heaviest first, and #7's dV over its three largest terms
-   alone, with whether chip_smoke's check passes each.
+   instead of heaviest first, #7's dV over its three largest terms
+   alone, and #2's K/V tiles of 64 keys at D64, with whether chip_smoke's
+   check passes each.
 5. A control ResNet-50 step.  chip_smoke's f32 fused step (batch 4,
    64 px, card against a CPU copy) runs as it is and again with the conv
    kernels fed x and W rounded to bf16; the script fails unless the first
@@ -91,13 +92,15 @@ import torch
 import chip_smoke
 
 # name: (the line as it stands, the line without the cast, the output).
-# #2's cast is a line of the scalar dQ kernel.  #3's bf16 route runs on
-# the tensor cores, where P and dS reach the product as bf16 operands
-# packed from f32: the cast is the packing's rounding, and the fault
-# packs the top 16 bits of each f32 value (the cast's rounding dropped)
+# #2's and #3's bf16 routes run on the tensor cores, where P and dS reach
+# the product as bf16 operands packed from f32: the cast is the packing's
+# rounding, and the fault packs the top 16 bits of each f32 value (the
+# cast's rounding dropped)
 MUTANTS = {
-    "no_ds_cast_in_dq": ("const float dsk = round_to<T>(ds);",
-                         "const float dsk = ds;", "dq"),
+    "no_ds_cast_in_dq": (
+        "dsa[j][hh] = tc::pack_bf16(dp[j][2 * hh], dp[j][2 * hh + 1]);",
+        "dsa[j][hh] = (__float_as_uint(dp[j][2 * hh]) >> 16) | "
+        "(__float_as_uint(dp[j][2 * hh + 1]) & 0xffff0000u);", "dq"),
     "no_ds_cast_in_dk": (
         "df[j][hh] = tc::pack_bf16(dp[j][2 * hh], dp[j][2 * hh + 1]);",
         "df[j][hh] = (__float_as_uint(dp[j][2 * hh]) >> 16) | "
@@ -138,11 +141,19 @@ CONV_MUTANTS = {
         "tc::cp_async16(dst, base + (halo ? own : pos) * ld + c, !halo);",
         "tc::cp_async16(dst, base + (halo ? own : pos) * ld + c, true);",
         "s1_conv2", ("y",)),
-    "no_dy_cast_in_9": (
-        "conv_bn_common.cuh", "conv_bn_bwd",
-        "return round_to<T>(__fadd_rn(__fadd_rn(dy, gm), __fmul_rn(gs, "
-        "__fsub_rn(y, k))));",
-        "return __fadd_rn(__fadd_rn(dy, gm), __fmul_rn(gs, __fsub_rn(y, k)));",
+    # #9's tensor-core route folds the recomputed y into dyl in fprop's
+    # epilogue: the faults fold y unrounded, or store the fold cut to its
+    # top 16 bits (the dyl cast dropped)
+    "y_not_rounded_in_9": (
+        "conv_bn_tc.cuh", "conv_bn_bwd",
+        "const float yr = round_to<bf16>(acc[mi][ni][half * 2 + e]);",
+        "const float yr = acc[mi][ni][half * 2 + e];",
+        "s1_conv3", ("dx", "dw")),
+    "no_dyl_cast_in_9": (
+        "conv_bn_tc.cuh", "conv_bn_bwd",
+        "__floats2bfloat162_rn(fold[0], fold[1]);",
+        "__halves2bfloat162(__float2bfloat16_rz(fold[0]), "
+        "__float2bfloat16_rz(fold[1]));",
         "s1_conv3", ("dx", "dw")),
     # #11's tensor-core route stores dyl as a bf16 operand: the fault
     # stores the unrounded fold cut to its top 16 bits (the cast dropped)
@@ -192,6 +203,7 @@ RING_MUTANTS = {
         "const float2 do_rest = {0.f, 0.f};", "dkv_partial"),
 }
 RING_PROBLEM = "offdiag_bf16"     # chip_smoke's B8 H8 Tc512 D64 bf16 pair
+DQ_PROBLEM = "t_train"            # chip_smoke's B8 H8 T2048 D64 bf16 causal
 
 # name: (the line as it stands, the line with the fault) in
 # flash_attention_fwd.cu, held by chip_smoke's #1 check at FWD_PROBLEM
@@ -204,7 +216,7 @@ FWD_PROBLEM = "f_train"           # chip_smoke's B8 H8 T2048 D64 bf16 causal
 # #1's (and #5's) blocks of 128 query rows on 8 warps, which halves the
 # K/V tiles read from shared memory per product; P by expf, or by exp2f in
 # log2 units; #7's dV over its three largest terms (hi.hi, hi.mid,
-# mid.hi) alone
+# mid.hi) alone; #2's K/V tiles of 64 keys at D64 instead of 32
 VARIANTS = {
     "fwd_blocks_in_grid_order": (
         "flash_attention_fwd",
@@ -258,6 +270,11 @@ VARIANTS = {
           tc::mma_bf16(t, pm, om[2 * n], om[2 * n + 1]);
           tc::mma_bf16(t, ph, ol[2 * n], ol[2 * n + 1]);
 """, "")], "dkv_partial", RING_PROBLEM),
+    "dq_64_key_tiles_at_d64": (
+        "flash_attention_bwd",
+        [("static constexpr int kKeys = DMAX <= 32 ? 64 : 32;",
+          "static constexpr int kKeys = DMAX <= 64 ? 64 : 32;")],
+        "dq", DQ_PROBLEM),
 }
 
 
@@ -519,9 +536,18 @@ def phase_variants():
     gen = torch.Generator(device="cuda").manual_seed(7)
     calls = chip_smoke.partial_calls(*chip_smoke.partial_inputs(problem,
                                                                 gen))
+    dq_args, dq_cfg, dq_want, dq_floor = _dq_problem()
     readings = {}
     for tag, (_, _, kernel, key) in VARIANTS.items():
-        if kernel == "fwd":
+        if kernel == "dq":
+            def run():
+                return ak.flash_attention_dq(*dq_args, **dq_cfg)
+
+            def held():
+                return chip_smoke.bwd_held("dq", run(), dq_want,
+                                           dq_floor)[2]
+            context = backward_from
+        elif kernel == "fwd":
             def run():
                 return ak.dot_product_attention(q, k, v, bias, causal=causal)
             want = ak.plain_attention(q, k, v, bias, causal=causal)
@@ -573,6 +599,23 @@ def phase_variants():
             f"{'the same' if x['same_bits_as_it_stands'] else 'other'} bits"
             for label, x in r.items() if label != "build"))
     return readings
+
+
+def _dq_problem():
+    """chip_smoke's #2 problem DQ_PROBLEM: (args, cfg, the plain dQ, its
+    rounding floor)."""
+    from bigdl_tpu_torch.ops import attention_kernels as ak
+    gen = torch.Generator(device="cuda").manual_seed(2)   # chip_smoke's
+    _, _, (q, k, v), bias, causal, _ = next(
+        r for r in chip_smoke._bwd_inputs(gen) if r[0] == DQ_PROBLEM)
+    cfg = dict(scale=q.shape[-1] ** -0.5, causal=causal,
+               causal_offset=k.shape[2] - q.shape[2])
+    with torch.no_grad():
+        out, lse = ak.flash_attention_fwd(q, k, v, bias, **cfg)
+        do = torch.randn(out.shape, generator=gen, device="cuda").to(q.dtype)
+        args = (q, k, v, bias, do, lse, ak.attention_delta(out, do))
+        return (args, cfg, ak.plain_attention_dq(*args, **cfg),
+                chip_smoke.bwd_floors(*args, **cfg)[0])
 
 
 def _ulp(x: torch.Tensor) -> float:

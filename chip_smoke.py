@@ -12,9 +12,9 @@ Phases, each raising on failure (the script then exits non-zero):
    #2-#4 and the ring's partial dQ #6 and dK/dV #7; the fused conv+BN
    forward kernels #8 and #10 and backward kernels #9 and #11), one
    ``nvcc`` each in parallel, with their register and spill reports, and
-   for the tensor-core kernels (the bf16 routes of #1, #3, #5, #7, #10
-   and #11) their registers, shared memory, spills and count of HMMA
-   instructions (``cuobjdump``), which must not be 0;
+   for the tensor-core kernels (the bf16 routes of #1, #2, #3, #5, #7,
+   #9, #10 and #11) their registers, shared memory, spills and count of
+   HMMA instructions (``cuobjdump``), which must not be 0;
 3. the forward kernel against its plain PyTorch version at the serving
    path's shapes, with times (CUDA events, median of 60 runs, L2 flushed
    before each): the kernel, the plain version,
@@ -27,10 +27,11 @@ Phases, each raising on failure (the script then exits non-zero):
    (``fwd_held``) and timed beside the scalar template;
 4. the backward kernels (dQ, dK/dV, dBias) against their plain versions
    on the same inputs and the forward kernel's lse, at the training
-   shape, four bf16 edge shapes of #3's tensor-core route and six f32
-   edge shapes, each launched twice to show the same bits, with times
-   beside the plain version, SDPA's backward and the bound (bf16 dQ bit
-   for bit; bf16 dK/dV by the rule of ``bwd_held``);
+   shape, bf16 edge shapes of #2's and #3's tensor-core routes and six
+   f32 edge shapes, each launched twice to show the same bits, with times
+   beside the plain version, SDPA's backward and the bound (bf16 dQ and
+   dK/dV by the rule of ``bwd_held``; the tensor-core dQ rows' device
+   time from ``torch.profiler``);
 4b. the ring-attention kernels #5-#7 against their plain versions, f32
    and bf16, at the sequence-parallel training path's chunk pairs (B8 H8
    Tc512 D64: a diagonal pair from the fresh state, an off-diagonal and a
@@ -54,11 +55,11 @@ Phases, each raising on failure (the script then exits non-zero):
    filter 2048, bf16 compute) through ``Optimizer.optimize()``; the loss
    must stay finite and fall, and every step must launch the forward,
    dQ and dK/dV kernels once per layer (dBias never: no bias), every
-   forward and dK/dV launch by the tensor-core route; the step's time is
-   split into #1-#3 and the rest;
+   forward, dQ and dK/dV launch by the tensor-core route; the step's time
+   is split into #1-#3 and the rest;
 7. one f32 training step at batch 2, on the card and on a CPU copy of
    the same model (plain attention): loss and every gradient must agree;
-   its forward and dK/dV launches take the scalar route;
+   its forward, dQ and dK/dV launches take the scalar route;
 7b. sequence-parallel training: the same LM and run with every block's
    attention through ring attention over a 4-shard ``seq`` mesh on the
    one card (``set_sequence_parallel``); every step must launch #5, #6
@@ -74,11 +75,11 @@ Phases, each raising on failure (the script then exits non-zero):
    shapes and at ragged small ones in f32 and bf16, each launched twice
    to show the same bits, with times beside the plain version, the
    cuBLAS/cuDNN product alone and the bound, and for the tensor-core
-   routes (#10, #11 in bf16) the device time split among their prepass,
-   products and reductions (``torch.profiler``);
+   routes (#9, #10, #11 in bf16) the device time split among their
+   prepass, products and reductions (``torch.profiler``);
 9. ResNet-50 training: ``examples.perf`` with ``--model resnet50 --fused
    --bf16 -b 128 --image-size 224 --classes 1000``; every step must
-   launch #8/#9/#10/#11 exactly 32/32/13/13 times, #10 and #11 by the
+   launch #8/#9/#10/#11 exactly 32/32/13/13 times, #9, #10 and #11 by the
    tensor-core route, the loss must stay finite and fall; the step's time
    is split into the four kernels and the rest;
 10. one bf16 step with the fused path and one with
@@ -86,11 +87,11 @@ Phases, each raising on failure (the script then exits non-zero):
    losses and every BatchNorm running statistic must agree;
 11. one f32 fused ResNet-50 step at batch 4, 64 px, on the card and on a
    CPU copy (the kernels' plain versions): loss and every gradient must
-   agree; #10 and #11 by the scalar route;
+   agree; #9, #10 and #11 by the scalar route;
 12. a ``{"kernels": [...]}`` line (eleven kernels, launches by path; #1,
-   #3, #5, #7, #10 and #11 also their design, launches by route and build
-   report; #1 its row at the training shape beside the decode row), then
-   the ``{"ok": true, ...}`` line.
+   #2, #3, #5, #7, #9, #10 and #11 also their design, launches by route
+   and build report; #1 its row at the training shape beside the decode
+   row), then the ``{"ok": true, ...}`` line.
 
 Imports torch, numpy and ``bigdl_tpu_torch`` only.
 """
@@ -156,7 +157,8 @@ def _read_counts():
 
 def _read_routes():
     """{wrapper: {route: launches}} of the wrappers with two routes (#1,
-    #3, #5, #7, #10 and #11: tensor cores for bf16, scalar for f32)."""
+    #2, #3, #5, #7, #9, #10 and #11: tensor cores for bf16, scalar for
+    f32)."""
     return {w.__name__: dict(w.routes) for w in _wrappers()
             if hasattr(w, "routes")}
 
@@ -235,30 +237,38 @@ def tensor_core_counts(sass: str) -> dict:
 
 
 # the kernels redesigned for the tensor cores, by a part of their
-# (mangled) names: #3's dK/dV, #1's and #5's forward loop
+# (mangled) names: #2's dQ, #3's dK/dV, #1's and #5's forward loop
 # (flash_fwd_tc_kernel<false|true, D>), #7's split dK/dV, and the conv
-# kernels of conv_bn_tc.cuh (#10's prepass and fprop, #11's prepass,
-# dgrad, wgrad and dW sum); the products (all but the prepasses and the
-# sum) must hold HMMA instructions
-TC_KERNELS = ("flash_dkv_tc_kernel", "flash_fwd_tc_kernel",
-              "flash_dkv_partial_tc_kernel", "tcconv")
-TC_PRODUCTS = ("flash_dkv_tc_kernel", "flash_fwd_tc_kernel",
-               "flash_dkv_partial_tc_kernel", "tcconv5fprop", "tcconv5dgrad",
-               "tcconv5wgrad")
+# kernels of conv_bn_tc.cuh by their tap count (#10's prepass and fprop,
+# #11's prepass, dgrad, wgrad and dW sum with 9 taps; #9's prepass, fprop
+# with the fold, dgrad, wgrad and dW sum with 1); the products on the
+# tensor cores (all but the prepasses, the sums and #9's fold, whose y
+# sums k in order with FMAs) must hold HMMA instructions
+TC_KERNELS = ("flash_dq_tc_kernel", "flash_dkv_tc_kernel",
+              "flash_fwd_tc_kernel", "flash_dkv_partial_tc_kernel", "tcconv")
+TC_PRODUCTS = ("flash_dq_tc_kernel", "flash_dkv_tc_kernel",
+               "flash_fwd_tc_kernel", "flash_dkv_partial_tc_kernel",
+               "tcconv5fpropILi9E", "tcconv5dgrad", "tcconv5wgrad")
 # each redesigned wrapper's kernels among them: (library, name parts)
 TC_BUILD = {
     "flash_attention_fwd": ("flash_attention_fwd",
                             ("flash_fwd_tc_kernelILb0E",)),
+    "flash_attention_dq": ("flash_attention_bwd", ("flash_dq_tc_kernel",)),
     "flash_attention_dkv": ("flash_attention_bwd", ("flash_dkv_tc_kernel",)),
     "flash_attention_partial": ("flash_attention_fwd",
                                 ("flash_fwd_tc_kernelILb1E",)),
     "flash_attention_dkv_partial": ("flash_attention_bwd",
                                     ("flash_dkv_partial_tc_kernel",)),
-    "conv3x3_bn_fwd": ("conv_bn_fwd", ("tcconv7prepassILb0E",
-                                       "tcconv5fprop")),
-    "conv3x3_bn_bwd": ("conv_bn_bwd", ("tcconv7prepassILb1E",
-                                       "tcconv5dgrad", "tcconv5wgrad",
-                                       "tcconv9reduce_dw")),
+    "matmul_bn_bwd": ("conv_bn_bwd", ("tcconv7prepassILi1E",
+                                      "tcconv5fpropILi1E", "tcconv5dgradILi1E",
+                                      "tcconv5wgradILi1E",
+                                      "tcconv9reduce_dwILi1E")),
+    "conv3x3_bn_fwd": ("conv_bn_fwd", ("tcconv7prepassILi9E",
+                                       "tcconv5fpropILi9E")),
+    "conv3x3_bn_bwd": ("conv_bn_bwd", ("tcconv7prepassILi9E",
+                                       "tcconv5dgradILi9E",
+                                       "tcconv5wgradILi9E",
+                                       "tcconv9reduce_dwILi9E")),
 }
 
 
@@ -639,7 +649,7 @@ def phase_kernel_checks(rates):
 # rounding noise, held by the same floor
 F32_BWD_TOL = dict(rtol=1e-4, atol=1e-4)
 BF16_BWD_TOL = None
-DKV_BF16_SHARE = 0.01
+BWD_BF16_SHARE = 0.01
 BWD_RUNS = 15                      # timed runs per kernel (median)
 # flops per visible (query, key) pair: 2·D for each product
 BWD_PRODUCTS = {"dq": 3, "dkv": 4, "dbias": 2}
@@ -648,7 +658,8 @@ BWD_PRODUCTS = {"dq": 3, "dkv": 4, "dbias": 2}
 def _bwd_inputs(gen):
     """The backward shapes, as (key, what, (q, k, v), bias, causal,
     bias needs a gradient): (t) is the training path's, and the (t_*)
-    rows take bf16 through #3's tensor-core route at its edges: a bias,
+    rows take bf16 through #2's and #3's tensor-core routes at their
+    edges: a bias,
     ragged causal tq != tk, D 8, 16, 32 and 128, rows that see no key, a
     one-key output of 48 entries; (v)
     launches dBias with a learnable bias; (w) and (x) are ragged and
@@ -768,18 +779,21 @@ def bwd_floors(q, k, v, bias, do, lse, delta, *, scale, causal=False,
 def bwd_held(kernel, got, want, floor=None):
     """(max abs err, entries that differ, held) of one output of backward
     kernel ``kernel`` ("dq", "dkv" or "dbias"): f32 within F32_BWD_TOL;
-    bf16 dK/dV by the tensor-core rule above; bf16 dQ bit for bit.  Where
-    a ``floor`` (bwd_floors) is given, an entry within it also holds."""
+    bf16 dQ and dK/dV by the tensor-core rule: each entry within one bf16
+    ulp of itself or of the largest entry, at most max(1%, one row a head)
+    of the entries differing (1/Tq for dQ, 1/Tk for dK and dV); bf16 dS
+    (dBias) bit for bit.  Where a ``floor`` (bwd_floors) is given, an
+    entry within it also holds."""
     if want.dtype == torch.float32:
         return _close(got, want, F32_BWD_TOL)
     g, w = got.float(), want.float()
     diff = (g - w).abs()
     bound = torch.zeros_like(w) if floor is None else floor
     share = 1.0
-    if kernel == "dkv":
+    if kernel in ("dq", "dkv"):
         bound = torch.maximum(bound, torch.maximum(
             _bf16_ulp(w), _bf16_ulp(w.abs().max())))
-        share = max(DKV_BF16_SHARE, 1 / want.shape[-2])
+        share = max(BWD_BF16_SHARE, 1 / want.shape[-2])
     differ = int((got != want).sum())
     ok = bool((diff <= bound).all()) and differ <= share * want.numel()
     return float(diff.max()), differ, ok
@@ -789,10 +803,11 @@ def bwd_rule(kernel, dtype):
     """The rule bwd_held holds an output of ``kernel`` in ``dtype`` to."""
     if dtype == torch.float32:
         return f"f32 {F32_BWD_TOL}"
-    if kernel == "dkv":
+    if kernel in ("dq", "dkv"):
         return (f"bf16 tensor cores: one ulp of the entry or of the largest "
-                f"or the rounding floor, at most {DKV_BF16_SHARE:.0%} (or "
-                f"one key row a head, 1/Tk) differing")
+                f"or the rounding floor, at most {BWD_BF16_SHARE:.0%} (or "
+                f"one row a head, 1/T{'q' if kernel == 'dq' else 'k'}) "
+                f"differing")
     return "bit for bit, or within the rounding floor"
 
 
@@ -870,8 +885,8 @@ def phase_bwd_kernel_checks(rates):
                     "max_abs_err": err, "entries_differ": differ,
                     "share_differ": differ / sum(g.numel() for g in got),
                     "rule": bwd_rule(name, q.dtype),
-                    "route": (ak.dkv_route(q.dtype) if name == "dkv"
-                              else "scalar"),
+                    "route": {"dq": ak.dq_route, "dkv": ak.dkv_route}.get(
+                        name, lambda _: "scalar")(q.dtype),
                     "bitwise_repeatable": True,
                     "ms": time_ms(lambda: kernel(*args, **cfg), flush,
                                   runs=BWD_RUNS, warmup=2),
@@ -881,13 +896,16 @@ def phase_bwd_kernel_checks(rates):
                 }
             row["bound_ms"], row["bound_by"] = bwd_bound(
                 name, q, k, bias, causal, rates)
+            if name == "dq" and row["route"] == "tensor_core":
+                row["device_split_ms"] = device_split(
+                    lambda: kernel(*args, **cfg))
             results.append(row)
-            print(f"bwd {name:5s} {key:13s} {desc:44s} max_abs_err "
-                  f"{err:.3e} ({differ} differ) repeatable  kernel_ms "
-                  f"{row['ms']:.5f}  "
+            print(f"bwd {name:5s} {key:13s} {desc:44s} {row['route']} "
+                  f"max_abs_err {err:.3e} ({differ} differ) repeatable  "
+                  f"kernel_ms {row['ms']:.5f}  "
                   f"plain_ms {row['plain_ms']:.5f}  library_ms "
                   f"{library_ms:.5f}  bound_ms {row['bound_ms']:.5f} "
-                  f"({row['bound_by']})")
+                  f"({row['bound_by']})" + _split_text(row))
         if not learnable:
             print(f"bwd dbias {key:13s} not launched: the bias is "
                   f"{'absent' if bias is None else 'a constant mask'}")
@@ -1077,7 +1095,7 @@ def partial_tols(name, problem):
         return [state, F32_TOL, F32_TOL]
     if name == "dkv_partial" and dtype == torch.bfloat16:
         return [f"one bf16 ulp of the entry or the largest, at most "
-                f"{DKV_BF16_SHARE:.0%} (or 1/Tk) differing in bf16",
+                f"{BWD_BF16_SHARE:.0%} (or 1/Tk) differing in bf16",
                 f"error against the f64 sum at most {DV_F32_MULTIPLE}x the "
                 f"plain version's"]
     tol = BF16_BWD_TOL if dtype == torch.bfloat16 and d == 64 \
@@ -1116,7 +1134,7 @@ def dkv_partial_held(got, want, exact_dv):
     diff = (gk - wk).abs()
     ulp = torch.maximum(_bf16_ulp(wk), _bf16_ulp(wk.abs().max()))
     differ = int((gk.to(torch.bfloat16) != wk.to(torch.bfloat16)).sum())
-    share = max(DKV_BF16_SHARE, 1 / wk.shape[-2])
+    share = max(BWD_BF16_SHARE, 1 / wk.shape[-2])
     dk = (float(diff.max()), differ,
           bool((diff <= ulp).all()) and differ <= share * wk.numel())
     err, plain_err = dv_rel_err(gv, exact_dv), dv_rel_err(wv, exact_dv)
@@ -1486,8 +1504,9 @@ def phase_training():
                            f"{steps} steps = {want} each")
     if launches["flash_attention_dbias"] != 0:
         raise RuntimeError("dBias launched on a path without a bias")
-    # every bf16 forward and dK/dV launch of the path took the tensor cores
-    for name in ("flash_attention_fwd", "flash_attention_dkv"):
+    # every bf16 forward, dQ and dK/dV launch of the path took the tensor
+    # cores
+    for name in DENSE_NAMES[:3]:
         _check_routes(routes, name, {"tensor_core": want, "scalar": 0},
                       "bf16 LM training")
     return dict(out, tokens_per_sec=tokens_s, steps=steps,
@@ -1586,8 +1605,8 @@ def phase_train_parity():
             [LAYERS] * 3:
         raise RuntimeError(f"the card step launched {used}, not "
                            f"{LAYERS} forward, dQ and dK/dV each")
-    # f32 keeps the scalar forward and dK/dV
-    for name in ("flash_attention_fwd", "flash_attention_dkv"):
+    # f32 keeps the scalar forward, dQ and dK/dV
+    for name in DENSE_NAMES[:3]:
         _check_routes(routes, name, {"tensor_core": 0, "scalar": LAYERS},
                       "f32 LM step")
     print(f"train parity: card {t1 - t0:.2f} s, cpu {t2 - t1:.2f} s")
@@ -1699,8 +1718,9 @@ def phase_sp_parity():
     _zero_counts()
     dense_step = step(dense, "cuda")
     used_dense = _read_counts()
-    _check_routes(_read_routes(), "flash_attention_fwd",
-                  {"tensor_core": 0, "scalar": LAYERS}, "f32 dense step")
+    for name in DENSE_NAMES[:3]:
+        _check_routes(_read_routes(), name,
+                      {"tensor_core": 0, "scalar": LAYERS}, "f32 dense step")
     want_ring = {n: (LAYERS * SP_PAIRS if n in RING_NAMES else 0)
                  for n in used_ring}
     want_dense = {n: (LAYERS if n in DENSE_NAMES[:3] else 0)
@@ -1939,7 +1959,8 @@ def phase_conv_kernel_checks(rates):
                 outs = ("y",) if direction == "fwd" else CONV_OUTPUTS[1:]
                 row = {
                     "kernel": kernel.__name__, "shape": key, "what": what,
-                    "route": {"conv3x3_bn_fwd": ck.conv3x3_fwd_route,
+                    "route": {"matmul_bn_bwd": ck.matmul_bwd_route,
+                              "conv3x3_bn_fwd": ck.conv3x3_fwd_route,
                               "conv3x3_bn_bwd": ck.conv3x3_bwd_route}.get(
                                   kernel.__name__, lambda _: "scalar")(dtype),
                     "max_abs_err": max(held[o][0] for o in outs),
@@ -1988,6 +2009,8 @@ RESNET_ARGV = ["--model", "resnet50", "--fused", "--bf16",
 # bottlenecks, conv2 of the 13 whose 3x3 has stride 1
 RESNET_LAUNCHES = {"matmul_bn_fwd": 32, "matmul_bn_bwd": 32,
                    "conv3x3_bn_fwd": 13, "conv3x3_bn_bwd": 13}
+# the conv kernels with a tensor-core route for bf16 (#9, #10, #11)
+TC_CONV = ("matmul_bn_bwd", "conv3x3_bn_fwd", "conv3x3_bn_bwd")
 # fused against plain, one bf16 step (bench.py's own cross-check of the
 # fused step: 5% of the loss); each running statistic within 1e-2 of its
 # tensor's largest entry: the two paths round at the same points, so only
@@ -2058,8 +2081,8 @@ def phase_resnet_training():
     if launches != want:
         raise RuntimeError(f"launches {launches} != {want} ({steps} steps)")
     print(f"resnet training: routes {routes}")
-    # every bf16 launch of #10 and #11 took the tensor cores
-    for name in ("conv3x3_bn_fwd", "conv3x3_bn_bwd"):
+    # every bf16 launch of #9, #10 and #11 took the tensor cores
+    for name in TC_CONV:
         _check_routes(routes, name, {"tensor_core": want[name], "scalar": 0},
                       "bf16 ResNet-50 training")
     return dict(out, steps=steps, first_loss=losses[0],
@@ -2100,7 +2123,7 @@ def phase_fused_vs_plain():
     _zero_counts()
     loss_fused = _one_step(fused, x, y, torch.bfloat16)
     used = _read_counts()
-    for name in ("conv3x3_bn_fwd", "conv3x3_bn_bwd"):
+    for name in TC_CONV:
         _check_routes(_read_routes(), name,
                       {"tensor_core": RESNET_LAUNCHES[name], "scalar": 0},
                       "fused bf16 step")
@@ -2192,8 +2215,8 @@ def phase_resnet_parity():
     t2 = time.perf_counter()
     if used != {n: RESNET_LAUNCHES.get(n, 0) for n in used}:
         raise RuntimeError(f"the card step launched {used}")
-    # f32 keeps the scalar #10 and #11
-    for name in ("conv3x3_bn_fwd", "conv3x3_bn_bwd"):
+    # f32 keeps the scalar #9, #10 and #11
+    for name in TC_CONV:
         _check_routes(routes, name,
                       {"tensor_core": 0, "scalar": RESNET_LAUNCHES[name]},
                       "f32 ResNet-50 step")
@@ -2267,6 +2290,8 @@ def main() -> int:
             f"flash_attention_{name}", csrc + "flash_attention_bwd.cu",
             replaces, train["launches"][f"flash_attention_{name}"],
             row(bwd, name, shape))
+        entry["ms_per_training_step"] = train["kernel_ms_per_step"].get(
+            f"flash_attention_{name}")
         entry["shapes"] = [r for r in bwd if r["kernel"] == name]
         kernels.append(entry)
     for name, source, line in (
@@ -2308,6 +2333,14 @@ def main() -> int:
              "cp.async stages, the f32 bias through its strides, P "
              "rounded to bf16 from the S fragments, out = acc / l and lse "
              "in the epilogue); scalar f32 FMAs for f32 (serving)"),
+            ("flash_attention_dq",
+             "tensor cores for bf16 (mma.sync.m16n8k16 bf16->f32, #1's "
+             "FlashAttention-2 loop turned to dQ: 64 query rows per block, "
+             "heaviest blocks first, Q and dO fragments, lse, Delta and the "
+             "dQ sum in registers, 32-key K/V tiles (64 at D32) through two "
+             "cp.async stages, S and dP on the tensor cores, dS rounded to "
+             "bf16 and repacked from the C into A fragments, dQ += dS.K "
+             "with K through ldmatrix.trans); scalar f32 FMAs for f32"),
             ("flash_attention_dkv",
              "tensor cores for bf16 (mma.sync.m16n8k16 bf16->f32, "
              "FlashAttention-2 dK/dV: 64 keys per block, 32-query tiles "
@@ -2334,6 +2367,16 @@ def main() -> int:
              "m16n8k16 bf16->f32, 128x64 tiles, three cp.async stages, "
              "zero-filled halo, statistics of the rounded y in a fixed "
              "order); scalar f32 FMAs for f32"),
+            ("matmul_bn_bwd",
+             "tensor cores for bf16 (#11's route with one tap: a prepass "
+             "storing z (none: x itself without a norm at K % 64 == 0) and "
+             "a padded W; with statistics a one-tap fprop recomputes y "
+             "with f32 FMAs over k in order, #8's order, so its bf16 "
+             "rounding is the forward's bit for bit, and folds it into dyl "
+             "in registers, y never stored; then one-tap dgrad and wgrad "
+             "on mma.sync.m16n8k16 bf16->f32, 128x64 tiles, three cp.async "
+             "stages, dW split over rows and summed in order); scalar f32 "
+             "FMAs for f32"),
             ("conv3x3_bn_bwd",
              "tensor cores for bf16 (a prepass storing z and dyl once, "
              "then dgrad and wgrad as implicit GEMMs on mma.sync."

@@ -10,17 +10,14 @@ installed:
 
 Tolerances: float32 rtol 1e-4, atol 2e-5 (the kernel sums in another
 order than cuBLAS; 1e-4 for the backward's longer sums); the bfloat16
-forward 2e-2 (one bf16 ulp near 1).  The bfloat16 dQ must equal its
-plain version bit for bit: both round P and dS to bf16 at the same points
-and sum in f32, and a missing cast moves a sum by less than an ulp; only
-where dS cancels to rounding noise (a row that sees one key) an entry may
-differ within the f32 rounding of the sums that feed it.
-The bfloat16 dK/dV runs on the tensor cores, which sum s and dP in another
-order, so a P or dS now and then rounds to the neighbouring bf16 value:
-each entry within one bf16 ulp of the plain version's or of its largest
-entry (or within the f32 rounding of the sums that feed it, where dP - Delta
-cancels), at most 1% of the entries, or one key row a head, differing
-(chip_smoke.bwd_held, chip_smoke.bwd_floors).
+forward 2e-2 (one bf16 ulp near 1).
+The bfloat16 dQ and dK/dV run on the tensor cores, which sum s and dP in
+another order, so a P or dS now and then rounds to the neighbouring bf16
+value: each entry within one bf16 ulp of the plain version's or of its
+largest entry (or within the f32 rounding of the sums that feed it, where
+dP - Delta cancels), at most 1% of the entries, or one query (dQ) or key
+(dK, dV) row a head, differing (chip_smoke.bwd_held,
+chip_smoke.bwd_floors); two launches bit for bit.
 The bfloat16 forward (#1) runs on the tensor cores where its rows start
 on 16 bytes and is held besides by the bias of its error
 (chip_smoke.fwd_held), two launches bit for bit.
@@ -240,7 +237,8 @@ def _check_backward(q, k, v, bias, causal):
     if bias is not None:
         pairs.append((ak.flash_attention_dbias, ak.plain_attention_dbias))
     all_floors = chip_smoke.bwd_floors(*args, **cfg)
-    routes = dict(ak.flash_attention_dkv.routes)
+    routes = [dict(w.routes) for w in (ak.flash_attention_dq,
+                                       ak.flash_attention_dkv)]
     for kernel, plain in pairs:
         before = kernel.launches
         got, again = kernel(*args, **cfg), kernel(*args, **cfg)
@@ -260,9 +258,12 @@ def _check_backward(q, k, v, bias, causal):
             else:
                 torch.testing.assert_close(g.float(), w.float(),
                                            **BWD_F32_TOL)
-    # both dK/dV launches took the route of the dtype
-    routes[ak.dkv_route(dtype)] += 2
-    assert ak.flash_attention_dkv.routes == routes
+    # both dQ and both dK/dV launches took the route of the dtype
+    for was, route, wrapper in zip(routes, (ak.dq_route, ak.dkv_route),
+                                   (ak.flash_attention_dq,
+                                    ak.flash_attention_dkv)):
+        was[route(dtype)] += 2
+        assert wrapper.routes == was, wrapper.__name__
 
 
 def test_bf16_backward_holds_at_one_key_over_seeds(cuda):
@@ -305,6 +306,41 @@ def test_lm_step_takes_one_dkv_route(cuda, dtype, route):
         used = {r: w.routes[r] - was[r] for r in was}
         assert used == {"tensor_core": 0, "scalar": 0, route: 2}, \
             w.__name__
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "tensor_core"),
+                                         (torch.float32, "scalar")])
+def test_lm_step_takes_one_dq_route(cuda, dtype, route):
+    """A bf16 LM step launches only the tensor-core dQ (#2), an f32 step
+    only the scalar one: one launch per layer."""
+    lm = TransformerLM(64, hidden_size=64, num_layers=2, num_heads=4,
+                       filter_size=128, max_len=64, padded_inputs=False,
+                       generator=torch.Generator().manual_seed(0),
+                       device=cuda)
+    rng = np.random.default_rng(1)
+    was = dict(ak.flash_attention_dq.routes)
+    _one_step(FlatLM(lm), rng.integers(1, 65, (4, 64)),
+              rng.integers(1, 65, (256,)), dtype)
+    torch.cuda.synchronize()
+    used = {r: ak.flash_attention_dq.routes[r] - was[r] for r in was}
+    assert used == {"tensor_core": 0, "scalar": 0, route: 2}
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "tensor_core"),
+                                         (torch.float32, "scalar")])
+def test_fused_resnet_step_takes_one_matmul_bwd_route(cuda, dtype, route):
+    """A fused ResNet-50 step launches #9 32 times, all by the route of its
+    dtype."""
+    model = presnet.resnet50(10, fused=True,
+                             generator=torch.Generator().manual_seed(0),
+                             device=cuda)
+    rng = np.random.default_rng(2)
+    was = dict(ck.matmul_bn_bwd.routes)
+    _one_step(model, rng.normal(size=(2, 32, 32, 3)).astype(np.float32),
+              rng.integers(1, 11, (2,)), dtype)
+    torch.cuda.synchronize()
+    used = {r: ck.matmul_bn_bwd.routes[r] - was[r] for r in was}
+    assert used == {"tensor_core": 0, "scalar": 0, route: 32}
 
 
 @pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "tensor_core"),
@@ -724,8 +760,10 @@ def _check_conv_kernels(fwd, bwd, pfwd, pbwd, x, w, vec, fuse, stats):
     torch.cuda.synchronize()
     assert (fwd.launches, bwd.launches) == (launched[0] + 2,
                                             launched[1] + 2)
-    if routes:      # #11: both launches took the route of the dtype
-        routes[ck.conv3x3_bwd_route(x.dtype)] += 2
+    if routes:      # #9 and #11: both launches took the route of the dtype
+        route = (ck.matmul_bwd_route if w.dim() == 2
+                 else ck.conv3x3_bwd_route)(x.dtype)
+        routes[route] += 2
         assert bwd.routes == routes
     exact = (_exact_grads(x, w, vec, y, dy, gm, gs, fuse, stats)
              if x.dtype == torch.bfloat16 else {})
@@ -738,8 +776,9 @@ def _check_conv_kernels(fwd, bwd, pfwd, pbwd, x, w, vec, fuse, stats):
             _held(g, p, what, exact.get(what))
 
 
-@pytest.mark.parametrize("m,k,n", [(100, 24, 40), (4096, 64, 256),
-                                   (6272, 512, 2048)])
+@pytest.mark.parametrize("m,k,n", [(100, 24, 40), (100, 24, 72),
+                                   (4096, 64, 256), (6272, 512, 2048),
+                                   (25088, 1024, 256)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("fuse,stats", [(False, True), (True, True),
                                         (True, False)])

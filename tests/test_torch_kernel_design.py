@@ -1,10 +1,11 @@
-"""The planning of the redesigned kernels #1, #3, #5, #7, #10 and #11, on
-the CPU: the dtype routes, the dW split and scratch of #11's tensor-core
-route and the scratch of #10's, the checks chip_smoke.py holds them to
-(with CPU models of #5's tiled merge and #1's tiled forward for their
-bf16 bias rule, and of #7's split-bf16 route for its dK and dV rules),
-the three-piece bf16 split #7 rests on, and the source lines the fault
-controls of chip_gate_controls.py edit.  The kernels themselves run only
+"""The planning of the redesigned kernels #1, #2, #3, #5, #7, #9, #10 and
+#11, on the CPU: the dtype routes, the dW split and scratch of #11's and
+#9's tensor-core routes and the scratch of #10's, the checks
+chip_smoke.py holds them to (with CPU models of #5's tiled merge and #1's
+tiled forward for their bf16 bias rule, of #7's split-bf16 route for its
+dK and dV rules, of #2 with dS truncated and of #9's fold of the
+recomputed y), the three-piece bf16 split #7 rests on, and the source
+lines the fault controls of chip_gate_controls.py edit.  The kernels themselves run only
 on the card (tests/test_torch_cuda.py).  Only the test that holds #7's
 model against the Pallas kernel imports JAX, inside it."""
 
@@ -27,6 +28,15 @@ from bigdl_tpu_torch.ops.build import CSRC_DIR
 CONV3_SHAPES = [(128, 56, 56, 64, 64), (128, 28, 28, 128, 128),
                 (128, 14, 14, 256, 256), (128, 7, 7, 512, 512),
                 (3, 3, 7, 20, 72), (2, 3, 7, 4, 8), (1, 1, 1, 1, 1)]
+# ResNet-50's 1x1 convs at b128 as (M, K, N): each stage's conv1 and conv3
+# and the widths of its first block's conv1, then chip_smoke's ragged one
+# and a one-row one
+MATMUL_SHAPES = [(128 * 56 * 56, 64, 64), (128 * 56 * 56, 64, 256),
+                 (128 * 56 * 56, 256, 64), (128 * 28 * 28, 256, 128),
+                 (128 * 28 * 28, 512, 128), (128 * 28 * 28, 128, 512),
+                 (128 * 14 * 14, 1024, 256), (128 * 14 * 14, 256, 1024),
+                 (128 * 7 * 7, 2048, 512), (128 * 7 * 7, 512, 2048),
+                 (100, 24, 72), (1, 1, 1)]
 
 
 def _mutant_sources():
@@ -53,18 +63,30 @@ def test_each_fault_control_edits_one_line_of_its_source(name, path, before):
 
 
 def test_mutants_of_the_redesigned_kernels_edit_their_sources():
-    """The #3 controls edit its tensor-core kernel, #7's its split
-    tensor-core kernel (P's pieces, dO's pieces), the #10 and #11
-    tensor-core controls the tensor-core header (each built into its own
-    library), #10's halo-before-norm control the f32 route, #5's and #1's
+    """The #3 controls edit its tensor-core kernel, #2's its tensor-core
+    kernel, #7's its split tensor-core kernel (P's pieces, dO's pieces),
+    the #9, #10 and #11 tensor-core controls the tensor-core header (each
+    built into its own library; #9's in the fold of fprop's epilogue),
+    #10's halo-before-norm control the f32 route, #5's and #1's
     truncation the tensor-core loop they share and #5's causal offset the
     entry point that sets it for both routes."""
     tc = (CSRC_DIR / "flash_attention_bwd.cu").read_text()
     start = tc.index("flash_dkv_tc_kernel(const Params p)")
-    end = tc.index("// ---- the ring's dK / dV (#7) on the tensor cores")
+    end = tc.index("// ---- dQ on the tensor cores")
     for name in ("no_ds_cast_in_dk", "no_p_cast_in_dv"):
         at = tc.index(gates.MUTANTS[name][0])
         assert start < at < end, name
+    start = tc.index("flash_dq_tc_kernel(const Params p)")
+    end = tc.index("// ---- the ring's dK / dV (#7) on the tensor cores")
+    assert start < tc.index(gates.MUTANTS["no_ds_cast_in_dq"][0]) < end
+    header = (CSRC_DIR / "conv_bn_tc.cuh").read_text()
+    start = header.index("if constexpr (kFold) {")
+    end = header.index("// epilogue: y cast to bf16, and the statistics")
+    for name in ("y_not_rounded_in_9", "no_dyl_cast_in_9"):
+        path, library, before, _, key, _ = gates.CONV_MUTANTS[name]
+        assert (path, library, key) == ("conv_bn_tc.cuh", "conv_bn_bwd",
+                                        "s1_conv3"), name
+        assert start < header.index(before) < end, name
     start = tc.index("flash_dkv_partial_tc_kernel(const Params p)")
     end = tc.index("// ---- dBias")
     for name in ("p_cast_to_q_dtype_in_7", "no_do_split_in_7"):
@@ -94,13 +116,15 @@ def test_mutants_of_the_redesigned_kernels_edit_their_sources():
 
 
 # the route functions of the redesigned kernels, beside their wrappers:
-# #11 and #3, then #10 and #5, then #1 and #7
+# #11 and #3, then #10 and #5, then #1 and #7, then #2 and #9
 ROUTES = [(ck.conv3x3_bwd_route, ck.conv3x3_bn_bwd),
           (ak.dkv_route, ak.flash_attention_dkv),
           (ck.conv3x3_fwd_route, ck.conv3x3_bn_fwd),
           (ak.partial_route, ak.flash_attention_partial),
           (ak.fwd_route, ak.flash_attention_fwd),
-          (ak.dkv_partial_route, ak.flash_attention_dkv_partial)]
+          (ak.dkv_partial_route, ak.flash_attention_dkv_partial),
+          (ak.dq_route, ak.flash_attention_dq),
+          (ck.matmul_bwd_route, ck.matmul_bn_bwd)]
 
 
 @pytest.mark.parametrize("fns,dtype,route", [
@@ -108,10 +132,13 @@ ROUTES = [(ck.conv3x3_bwd_route, ck.conv3x3_bn_bwd),
     (ROUTES[:2], torch.float32, "scalar"),
     (ROUTES[2:4], torch.bfloat16, "tensor_core"),
     (ROUTES[2:4], torch.float32, "scalar"),
-    (ROUTES[4:], torch.bfloat16, "tensor_core"),
-    (ROUTES[4:], torch.float32, "scalar"),
+    (ROUTES[4:6], torch.bfloat16, "tensor_core"),
+    (ROUTES[4:6], torch.float32, "scalar"),
+    (ROUTES[6:], torch.bfloat16, "tensor_core"),
+    (ROUTES[6:], torch.float32, "scalar"),
 ], ids=["dtype0-tensor_core", "dtype1-scalar", "fwd-bf16", "fwd-f32",
-        "ring-bf16", "ring-f32"])
+        "ring-bf16", "ring-f32", "dq-matmul-bwd-bf16",
+        "dq-matmul-bwd-f32"])
 def test_dtype_routes(fns, dtype, route):
     for fn, _ in fns:
         assert fn(dtype) == route, fn.__name__
@@ -170,11 +197,10 @@ def test_fwd_and_ring_dkv_routes_send_unaligned_bf16_rows_to_the_scalar_kernel(
 
 
 def tc_splits(m, c, co):
-    """The dW split count of #11's tensor-core route, as its wrapper asks
-    dw_splits for it: 128-row tiles of the padded [9*Cp, Cop] dW, at least
-    512 positions a part."""
-    return ck.dw_splits(m, 9 * ck.tc_channels(c), ck.tc_channels(co),
-                        ck._TC_ROWS, ck._TC_MIN_SPLIT_ROWS)
+    """The dW split count of #11's tensor-core route, as its wrapper plans
+    it: 128-row tiles of the padded [9*Cp, Cop] dW, at least 512 positions
+    a part."""
+    return ck.tc_split_plan(m, 9 * ck.tc_channels(c), ck.tc_channels(co))[0]
 
 
 @pytest.mark.parametrize("shape", CONV3_SHAPES)
@@ -184,8 +210,9 @@ def test_tc_dw_splits_sum_every_position_once(shape):
     stages but the last."""
     b, h, w, c, co = shape
     m = b * h * w
-    splits = tc_splits(m, c, co)
-    chunk = ck.tc_split_chunk(m, splits)
+    splits, chunk = ck.tc_split_plan(m, 9 * ck.tc_channels(c),
+                                     ck.tc_channels(co))
+    assert splits == tc_splits(m, c, co)
     assert 1 <= splits <= 65535 and chunk % 32 == 0
     covered = []
     for s in range(splits):
@@ -229,6 +256,102 @@ def test_tc_dw_splits_fill_the_card_at_resnet_widths():
         splits = tc_splits(b * h * w, c, co)
         tiles = -(-9 * ck.tc_channels(c) // 128) * (ck.tc_channels(co) // 64)
         assert splits * tiles >= 132, (c, splits, tiles)
+
+
+def matmul_splits(m, k, n):
+    """``(splits, chunk)`` of #9's tensor-core dW sum, as its wrapper plans
+    it: 128-row tiles of the padded [Kp, Np] dW, at least 512 rows a
+    part."""
+    return ck.tc_split_plan(m, ck.tc_channels(k), ck.tc_channels(n))
+
+
+@pytest.mark.parametrize("shape", MATMUL_SHAPES)
+def test_one_tap_dw_splits_sum_every_row_once(shape):
+    """#9's wgrad cuts M as #11's cuts its positions: part s adds rows
+    [s * chunk, (s + 1) * chunk), every row once, whole 32-row stages but
+    the last, no part empty."""
+    m, k, n = shape
+    splits, chunk = matmul_splits(m, k, n)
+    assert 1 <= splits <= 65535 and chunk % 32 == 0
+    covered = []
+    for s in range(splits):
+        covered.extend(range(s * chunk, min((s + 1) * chunk, m)))
+    assert covered == list(range(m))
+    assert (splits - 1) * chunk < m
+
+
+@pytest.mark.parametrize("shape", MATMUL_SHAPES)
+def test_one_tap_scratch_within_budget(shape):
+    """#9's tensor-core scratch as its wrapper allocates it: the f32 dW
+    partials within the budget; z, dyl and the padded W in bf16 no larger
+    than the partials' budget; at ResNet-50's widths (multiples of 64) z
+    and dyl are exactly x's and dy's size, and the card is filled."""
+    m, k, n = shape
+    kp, np_ = ck.tc_channels(k), ck.tc_channels(n)
+    splits, _ = matmul_splits(m, k, n)
+    assert splits * kp * np_ * 4 <= ck._MAX_PART_BYTES
+    assert (m * (kp + np_) + kp * np_) * 2 <= ck._MAX_PART_BYTES
+    if k % 64 == 0 and n % 64 == 0:
+        assert (kp, np_) == (k, n)
+    if m >= 128 * 7 * 7:
+        tiles = -(-kp // ck._TC_ROWS) * (np_ // 64)
+        assert splits * tiles >= 132, (shape, splits, tiles)
+
+
+@pytest.mark.parametrize("k,n,fuse,stats,own", [
+    (64, 256, False, False, (False, False)),   # x and dy read in place
+    (64, 256, True, True, (True, True)),       # z normalised, dyl folded
+    (1024, 256, False, True, (False, True)),   # s3_conv1: x in place
+    (24, 72, False, False, (True, True)),      # ragged: both padded
+    (64, 72, False, False, (False, True)),
+])
+def test_one_tap_scratch_reads_x_and_dy_in_place_where_it_can(k, n, fuse,
+                                                              stats, own):
+    assert ck.matmul_bwd_scratch(k, n, fuse, stats) == own
+    # an input that does not start on 16 bytes gets its own copy
+    assert ck.matmul_bwd_scratch(k, n, fuse, stats, False, False) == (
+        True, True)
+
+
+def _fold_model(x, w, vec, dy, gm, gs, y_rounded=True):
+    """A model of #9's tensor-core route with statistics: y = z.W with f32
+    sums, rounded to bf16 as the forward rounded it (or left unrounded),
+    folded into dyl = dy + gm + gs (y - K) cast to bf16, then dz = dyl.W^T,
+    dW = z^T.dyl and dx; ``(dx, dw)``."""
+    mean, scale, beta, kshift = vec
+    z = ck._z(x, (mean, scale, beta)).float()
+    y = z @ w.float()
+    if y_rounded:
+        y = y.to(torch.bfloat16).float()
+    dyl = (dy.float() + gm + gs * (y - kshift)).to(torch.bfloat16).float()
+    dz = dyl @ w.float().t()
+    dx = ck._input_side(x, dz, mean, scale, beta, True, (0,))[0]
+    return dx, (z.t() @ dyl).to(w.dtype)
+
+
+@pytest.mark.parametrize("m,k,n", [(4096, 64, 256), (2048, 256, 64)])
+def test_conv_rule_refuses_the_fold_of_an_unrounded_y(m, k, n):
+    """conv_held passes #9's fold of the recomputed y rounded to bf16 and
+    refuses it unrounded (chip_gate_controls.py's y_not_rounded_in_9),
+    where gs (y_r - y) moves a few percent of the folded dy to its other
+    bf16 neighbour, at chip_smoke.conv_inputs' scales."""
+    rs = np.random.RandomState(5)
+
+    def rnd(*shape, scale=1.0):
+        return torch.from_numpy(rs.randn(*shape).astype(np.float32) * scale)
+    bf = torch.bfloat16
+    x = (rnd(m, k, scale=1.5) + 0.3).to(bf)
+    w = rnd(k, n, scale=(2.0 / k) ** 0.5).to(bf)
+    vec = (rnd(k, scale=0.1), rnd(k).abs() + 0.5, rnd(k, scale=0.2),
+           rnd(n, scale=0.05))
+    dy, gm, gs = rnd(m, n).to(bf), rnd(n, scale=0.1), rnd(n, scale=0.1)
+    dx, dw, _, _ = ck.plain_matmul_bn_bwd(x, w, *vec, dy, gm, gs,
+                                          fuse_input=True, emit_stats=True)
+    for got, want in zip(_fold_model(x, w, vec, dy, gm, gs), (dx, dw)):
+        assert chip_smoke.conv_held(got, want)[2]
+    got_dx, got_dw = _fold_model(x, w, vec, dy, gm, gs, y_rounded=False)
+    assert not chip_smoke.conv_held(got_dx, dx)[2]
+    assert not chip_smoke.conv_held(got_dw, dw)[2]
 
 
 def test_conv3x3_supported_takes_every_shape_it_took():
@@ -351,13 +474,90 @@ def test_bwd_floors_take_rounding_noise_where_dp_minus_delta_cancels(
 
 
 def test_bwd_rule_keeps_dq_and_f32_exact_or_at_their_tolerance():
+    """bf16 dQ runs on the tensor cores and takes dK/dV's rule: an entry
+    one ulp off holds, as does every one of the 1% that may differ; f32
+    keeps its tolerance for both."""
     want = _bf16_grid(4)
     got = want.clone()
     got.view(-1)[0] = _next_up(want.view(-1)[0])
-    assert not chip_smoke.bwd_held("dq", got, want)[2]   # bit for bit
+    assert chip_smoke.bwd_held("dq", got, want)[2]
+    got.view(-1)[:40] = _next_up(want.view(-1)[:40])     # 0.98% of them
+    assert chip_smoke.bwd_held("dq", got, want)[2]
     f32 = want.float()
-    assert chip_smoke.bwd_held("dkv", f32 * (1 + 1e-6), f32)[2]
-    assert not chip_smoke.bwd_held("dkv", f32 * (1 + 1e-3), f32)[2]
+    for kernel in ("dq", "dkv"):
+        assert chip_smoke.bwd_held(kernel, f32 * (1 + 1e-6), f32)[2]
+        assert not chip_smoke.bwd_held(kernel, f32 * (1 + 1e-3), f32)[2]
+
+
+def test_bwd_rule_refuses_many_dq_entries_one_ulp_off():
+    """A truncated dS cast moves a large share of dQ's entries by about an
+    ulp: the share refuses it, as the bound refuses one entry far off."""
+    want = _bf16_grid(6)
+    assert not chip_smoke.bwd_held("dq", _next_up(want), want)[2]
+    got = want.clone()
+    got.view(-1)[:60] = _next_up(want.view(-1)[:60])     # 1.5%
+    assert not chip_smoke.bwd_held("dq", got, want)[2]
+    got = want.clone()
+    top = float(want.float().abs().max())
+    got.view(-1)[3] = (want.view(-1)[3].float()
+                       + 4 * 2.0 ** (math.floor(math.log2(top)) - 7)
+                       ).to(torch.bfloat16)
+    assert not chip_smoke.bwd_held("dq", got, want)[2]
+
+
+@pytest.mark.parametrize("shape,rows,held", [
+    ((3, 2, 5, 8), 6, True),       # Tq 5: one query row a head
+    ((3, 2, 5, 8), 7, False),
+    ((1, 2, 4, 8), 2, True),       # Tq 4: one query row a head
+    ((1, 2, 4, 8), 3, False),
+    ((1, 1, 200, 8), 2, True),     # Tq 200: 1% (16 entries) still rules
+    ((1, 1, 200, 8), 3, False),
+])
+def test_bwd_rule_takes_one_query_row_a_head_where_tq_is_short(shape, rows,
+                                                               held):
+    """dQ's share counts query rows: one dS on its other bf16 neighbour
+    moves a row of D entries, so where Tq < 100 the share is one such row
+    of each head (1/Tq of the entries)."""
+    want = _bf16_grid(8, shape)
+    got = want.clone()
+    flat_rows = got.view(-1, shape[-1])
+    flat_rows[:rows] = _next_up(want.view(-1, shape[-1])[:rows])
+    assert chip_smoke.bwd_held("dq", got, want)[2] is held
+
+
+def _dq_with_ds(args, cfg, cast, dtype=torch.float32):
+    """#2's plain arithmetic with dS cast by ``cast`` before dS.K, the sum
+    taken in ``dtype`` and rounded to f32."""
+    q, k = args[0], args[1]
+    _, ds = ak._p_and_ds(*args, cfg["scale"], cfg["causal"],
+                         cfg["causal_offset"])
+    dq = torch.matmul(cast(ds).to(dtype), k.to(dtype)).float()
+    return (dq * cfg["scale"]).to(q.dtype)
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 256, 256, 64),
+                                   (2, 2, 100, 300, 32)])
+def test_bwd_rule_refuses_dq_with_ds_truncated(shape):
+    """dS cut to its top 16 bits before dS.K (chip_gate_controls.py's
+    no_ds_cast_in_dq) moves more than 1% of dQ's entries: refused, where
+    dS rounded to nearest, summed in another order, holds."""
+    b, h, tq, tk, d = shape
+    g = torch.Generator().manual_seed(12)
+    q, k, v = (torch.randn(b, h, t, d, generator=g).to(torch.bfloat16)
+               for t in (tq, tk, tk))
+    cfg = dict(scale=d ** -0.5, causal=True, causal_offset=tk - tq)
+    out, lse = ak.plain_attention_fwd(q, k, v, None, **cfg)
+    do = torch.randn(out.shape, generator=g).to(torch.bfloat16)
+    args = (q, k, v, None, do, lse, ak.attention_delta(out, do))
+    want = ak.plain_attention_dq(*args, **cfg)
+    floor = chip_smoke.bwd_floors(*args, **cfg)[0]
+    # dS rounded as the kernel rounds it, dS.K summed in f64 then f32
+    rounded = _dq_with_ds(args, cfg, lambda x: x.to(torch.bfloat16),
+                          torch.float64)
+    assert chip_smoke.bwd_held("dq", rounded, want, floor)[2]
+    truncated = _dq_with_ds(args, cfg, _truncated)
+    err, differ, ok = chip_smoke.bwd_held("dq", truncated, want, floor)
+    assert not ok and differ > 0.01 * want.numel()
 
 
 # ---- chip_smoke's rule for #5's bf16 state -----------------------------------
