@@ -25,12 +25,13 @@ Counterpart of ``bigdl_tpu/ops/attention_kernels.py``.  Shapes follow
   the Pallas ``_flash_partial_kernel``, ``_flash_dq_partial_kernel`` and
   ``_flash_dkv_partial_kernel``); ``plain_attention_partial``/
   ``_dq_partial``/``_dkv_partial`` are their plain versions.  The ring
-  (``bigdl_tpu_torch.parallel.ring_attention``) chains them.  Five
+  (``bigdl_tpu_torch.parallel.ring_attention``) chains them.  Six
   kernels route by dtype: bf16 #1, dQ (#2), dK/dV (#3), the partial
-  merge (#5) and the ring's dK/dV (#7) run on the tensor cores, f32 on
-  scalar kernels (:func:`fwd_route`, :func:`dq_route`, :func:`dkv_route`,
-  :func:`partial_route`, :func:`dkv_partial_route`); their wrappers count
-  each route in ``<wrapper>.routes``.
+  merge (#5), the ring's dQ (#6) and dK/dV (#7) run on the tensor cores,
+  f32 on scalar kernels (:func:`fwd_route`, :func:`dq_route`,
+  :func:`dkv_route`, :func:`partial_route`, :func:`dq_partial_route`,
+  :func:`dkv_partial_route`); their wrappers count each route in
+  ``<wrapper>.routes``.
 * :func:`flash_attention_with_grad` — the ``torch.autograd.Function``
   whose forward is the forward kernel and whose backward launches dQ and
   dK/dV (and dBias only when the bias needs a gradient), reading the
@@ -67,7 +68,7 @@ __all__ = ["plain_attention", "plain_attention_fwd", "attention_delta",
            "plain_attention_dkv_partial", "flash_attention_partial",
            "flash_attention_dq_partial", "flash_attention_dkv_partial",
            "dq_route", "dkv_route", "partial_route", "fwd_route",
-           "dkv_partial_route", "rows_aligned"]
+           "dkv_partial_route", "dq_partial_route", "rows_aligned"]
 
 NEG_INF = -1e9  # the reference's attention mask fill (_NEG_INF)
 MAX_HEAD_DIM = 128
@@ -671,20 +672,42 @@ def _launch_partial_bwd(name, q, k, v, do, lse, delta, out0, out1, scale,
     _raise_on(rc, name)
 
 
+def dq_partial_route(dtype, aligned: bool = True) -> str:
+    """Which ring dQ kernel (#6) runs for q, k, v of ``dtype`` (dO is
+    f32): ``"tensor_core"`` (``flash_dq_tc_kernel<D, true>``: #2's loop
+    with dO in three bf16 pieces, so dP keeps f32's precision) for
+    bfloat16 where every row of q, k, v and dO starts on 16 bytes
+    (:func:`rows_aligned`), ``"scalar"`` (the f32-FMA template) for
+    float32 and for bf16 rows that do not."""
+    if dtype == torch.bfloat16:
+        return "tensor_core" if aligned else "scalar"
+    if dtype == torch.float32:
+        return "scalar"
+    raise TypeError(f"the ring dQ kernel takes float32 or bfloat16, not "
+                    f"{dtype}")
+
+
 def flash_attention_dq_partial(q, k, v, do, lse, delta, *, q_offset: int,
                                k_offset: int, scale: float,
                                causal: bool = False):
     """Launch kernel #6 on CUDA tensors: the visiting chunk's dQ
     contribution, f32 [B,H,Tq,D].  dO is f32 [B,H,Tq,D]; lse and Δ are the
-    whole sequence's rows of q, contiguous f32 [B,H,Tq]."""
+    whole sequence's rows of q, contiguous f32 [B,H,Tq].  bf16 takes the
+    tensor-core route where every row starts on 16 bytes, else the scalar
+    one (:func:`dq_partial_route`); ``flash_attention_dq_partial.routes``
+    counts each."""
+    route = dq_partial_route(q.dtype, rows_aligned(q, k, v, do))
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     _launch_partial_bwd("flash_attention_dq_partial", q, k, v, do, lse,
-                        delta, dq, None, scale, causal, q_offset, k_offset)
+                        delta, dq, None, scale, causal, q_offset, k_offset,
+                        route)
     flash_attention_dq_partial.launches += 1
+    flash_attention_dq_partial.routes[route] += 1
     return dq
 
 
 flash_attention_dq_partial.launches = 0
+flash_attention_dq_partial.routes = {"tensor_core": 0, "scalar": 0}
 
 
 def dkv_partial_route(dtype, aligned: bool = True) -> str:

@@ -9,7 +9,12 @@ keeps: NHWC activations, HWIO weights (a 1x1 weight sliced to [K, N]).
   (:func:`matmul_bn_fwd`, ``csrc/conv_bn_fwd.cu``, replacing the Pallas
   ``_fused_fwd``/``_fwd_kernel``) and whose backward is kernel #9
   (:func:`matmul_bn_bwd`, ``csrc/conv_bn_bwd.cu``, replacing
-  ``_fused_bwd``/``_bwd_kernel``).
+  ``_fused_bwd``/``_bwd_kernel``), folding the forward's saved y.
+* Four kernels route by dtype: bf16 #8-#11 run on the tensor cores
+  (``csrc/conv_bn_tc.cuh``), f32 on scalar kernels
+  (:func:`matmul_fwd_route`, :func:`matmul_bwd_route`,
+  :func:`conv3x3_fwd_route`, :func:`conv3x3_bwd_route`); their wrappers
+  count each route in ``<wrapper>.routes``.
 * :func:`fused_conv3x3_bn` — the same around a 3x3 stride-1 SAME conv:
   kernels #10 (:func:`conv3x3_bn_fwd`, replacing ``_conv3_fwd``) and #11
   (:func:`conv3x3_bn_bwd`, replacing ``_conv3_bwd``).
@@ -53,8 +58,8 @@ __all__ = ["shifted_batch_stats", "fused_matmul_bn_reference",
            "conv3x3_bn_bwd", "plain_matmul_bn_fwd", "plain_matmul_bn_bwd",
            "plain_conv3x3_bn_fwd", "plain_conv3x3_bn_bwd", "dw_splits",
            "tc_channels", "conv3x3_fwd_route", "conv3x3_bwd_route",
-           "matmul_bwd_route", "matmul_bwd_scratch", "tc_split_chunk",
-           "tc_split_plan"]
+           "matmul_fwd_route", "matmul_bwd_route", "matmul_fwd_scratch",
+           "matmul_bwd_scratch", "tc_split_chunk", "tc_split_plan"]
 
 _SUPPORTED = (torch.float32, torch.bfloat16)
 _TILE = 64                        # the kernels' fixed output tile
@@ -63,6 +68,7 @@ _TARGET_BLOCKS = 4 * 132          # four blocks per SM of an H100
 _MIN_SPLIT_ROWS = 256             # rows a dW split sums, at least
 _MAX_GRID_Y = 65535
 # the tensor-core routes of #9, #10 and #11 (csrc/conv_bn_tc.cuh)
+# the tensor-core routes of #8 and #9 too
 _TC_PAD = 64                      # channels of its scratch, rounded up to
 _TC_ROWS = 128                    # rows of its product tiles
 _TC_MIN_SPLIT_ROWS = 512          # positions a dW split sums, at least
@@ -181,6 +187,19 @@ def conv3x3_bwd_route(dtype) -> str:
     raise TypeError(f"kernel #11 takes float32 or bfloat16, not {dtype}")
 
 
+def matmul_fwd_route(dtype) -> str:
+    """Which kernel #8 runs for inputs of ``dtype``: ``"tensor_core"``
+    (#10's route with one tap: bf16 operands, f32 sums on mma.sync) for
+    bfloat16, ``"scalar"`` (f32 FMAs) for float32, whose operands the
+    tensor cores would round.  The C entry picks the same kernel by dtype;
+    this names it for the route counter."""
+    if dtype == torch.bfloat16:
+        return "tensor_core"
+    if dtype == torch.float32:
+        return "scalar"
+    raise TypeError(f"kernel #8 takes float32 or bfloat16, not {dtype}")
+
+
 def matmul_bwd_route(dtype) -> str:
     """Which kernel #9 runs for inputs of ``dtype``: ``"tensor_core"``
     (the one-tap route of csrc/conv_bn_tc.cuh: bf16 operands, f32 sums on
@@ -292,15 +311,15 @@ def _input_side(x, dz, mean, scale, beta, fuse_input, dims):
     return ((du * scale).to(x.dtype), (du * xf).sum(dims), du.sum(dims))
 
 
-def plain_matmul_bn_bwd(x, w, mean, scale, beta, kshift, dy, gm, gs, *,
+def plain_matmul_bn_bwd(x, w, mean, scale, beta, kshift, y, dy, gm, gs, *,
                         fuse_input: bool, emit_stats: bool):
-    """Plain version of :func:`matmul_bn_bwd`: ``(dx, dw, dsx, dsu)``;
-    ``gs`` is the doubled cotangent of s2."""
+    """Plain version of :func:`matmul_bn_bwd`: ``(dx, dw, dsx, dsu)``,
+    folding the statistics cotangents with the forward's saved ``y`` (the
+    reference recomputes it, :203-205: the same values); ``gs`` is the
+    doubled cotangent of s2."""
     z = _z(x, _vectors(mean, scale, beta, fuse_input))
+    dyl = _fold(dy, y, kshift, gm, gs, emit_stats).float()
     with _full_f32():
-        yr = torch.matmul(z.float(), w.float()).to(dy.dtype) \
-            if emit_stats else None
-        dyl = _fold(dy, yr, kshift, gm, gs, emit_stats).float()
         dw = torch.matmul(z.float().t(), dyl).to(w.dtype)
         dz = torch.matmul(dyl, w.float().t())
     dx, dsx, dsu = _input_side(x, dz, mean, scale, beta, fuse_input, (0,))
@@ -369,13 +388,13 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _ARGTYPES = {
     ("conv_bn_fwd", "conv_bn_matmul_fwd"):
-        [_P] * 11 + [_I, _L, _I, _I, _I, _I, _P],
+        [_P] * 13 + [_I, _L] + [_I] * 6 + [_P],
     ("conv_bn_fwd", "conv_bn_conv3x3_fwd"):
         [_P] * 13 + [_I] * 10 + [_P],
     ("conv_bn_bwd", "conv_bn_matmul_bwd"):
         [_P] * 17 + [_L, _I, _I, _I, _I, _I, _P],
     ("conv_bn_bwd", "conv_bn_matmul_bwd_tc"):
-        [_P] * 19 + [_L] + [_I] * 7 + [_L, _P],
+        [_P] * 20 + [_L] + [_I] * 7 + [_L, _P],
     ("conv_bn_bwd", "conv_bn_conv3x3_bwd"):
         [_P] * 17 + [_I] * 8 + [_P],
     ("conv_bn_bwd", "conv_bn_conv3x3_bwd_tc"):
@@ -419,7 +438,9 @@ def matmul_bn_fwd(x, w, mean, scale, beta, kshift, *, fuse_input: bool,
     """Launch kernel #8 on CUDA tensors: x [M, K], w [K, N] (one dtype),
     f32 mean, scale, beta [K] and kshift [N] (zeros where unused).
     Returns ``(y [M, N] in x's dtype, s1, s2)``, the sums f32 [N] or
-    None without stats.  Raises on what the kernel does not take."""
+    None without stats.  bf16 takes the tensor-core route, f32 the scalar
+    one (:func:`matmul_fwd_route`); ``matmul_bn_fwd.routes`` counts each.
+    Raises on what the kernel does not take."""
     name = "conv_bn_matmul_fwd"
     _check_main(name, x, w)
     m, k = x.shape
@@ -431,20 +452,47 @@ def matmul_bn_fwd(x, w, mean, scale, beta, kshift, *, fuse_input: bool,
                                     "beta": (beta, k), "kshift": (kshift, n)})
     if not fused_block_supported(m, k, n, x.element_size()):
         raise ValueError(f"{name} cannot take M={m} K={k} N={n}")
-    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    p1, p2 = _stats_scratch(m, n, x.device) if emit_stats else (None, None)
-    s1, s2 = ((torch.empty(n, device=x.device) for _ in range(2))
+    dev = x.device
+    route = matmul_fwd_route(x.dtype)
+    kp, np_, z, wp, tile_rows = 0, 0, None, None, _TILE
+    if route == "tensor_core":   # z and W padded to 64 channels, or read
+        kp, np_, tile_rows = tc_channels(k), tc_channels(n), _TC_ROWS
+        own_z, own_w = matmul_fwd_scratch(k, n, fuse_input,
+                                          x.data_ptr() % 16 == 0,
+                                          w.data_ptr() % 16 == 0)
+        z = torch.empty((m, kp), dtype=x.dtype, device=dev) if own_z \
+            else None
+        wp = torch.empty((kp, np_), dtype=x.dtype, device=dev) if own_w \
+            else None
+    y = torch.empty((m, n), dtype=x.dtype, device=dev)
+    p1, p2 = (_stats_scratch(m, n, dev, tile_rows) if emit_stats
+              else (None, None))
+    s1, s2 = ((torch.empty(n, device=dev) for _ in range(2))
               if emit_stats else (None, None))
-    _launch("conv_bn_fwd", name, x.device, x.data_ptr(), w.data_ptr(),
+    _launch("conv_bn_fwd", name, dev, x.data_ptr(), w.data_ptr(),
             mean.data_ptr(), scale.data_ptr(), beta.data_ptr(),
             kshift.data_ptr(), y.data_ptr(), _ptr(p1), _ptr(p2), _ptr(s1),
-            _ptr(s2), int(x.dtype == torch.bfloat16), m, k, n,
-            int(fuse_input), int(emit_stats))
+            _ptr(s2), _ptr(z), _ptr(wp), int(x.dtype == torch.bfloat16), m,
+            k, n, kp, np_, int(fuse_input), int(emit_stats))
     matmul_bn_fwd.launches += 1
+    matmul_bn_fwd.routes[route] += 1
     return y, s1, s2
 
 
+def matmul_fwd_scratch(k: int, n: int, fuse_input: bool,
+                       x_aligned: bool = True,
+                       w_aligned: bool = True) -> tuple:
+    """Whether #8's tensor-core route needs its own z and padded W: z is
+    x itself without a norm where K is a whole number of 64-channel tiles
+    and x starts on 16 bytes; W is read in place where K and N are and w
+    does.  Else the prepass stores them."""
+    own_z = fuse_input or k != tc_channels(k) or not x_aligned
+    own_w = k != tc_channels(k) or n != tc_channels(n) or not w_aligned
+    return own_z, own_w
+
+
 matmul_bn_fwd.launches = 0
+matmul_bn_fwd.routes = {"tensor_core": 0, "scalar": 0}
 
 
 def _check_image(name, x, w):
@@ -516,11 +564,12 @@ def _grad_outputs(x, w, c, fuse_input, splits, rows_w, cols_w, rows,
             psu)
 
 
-def matmul_bn_bwd(x, w, mean, scale, beta, kshift, dy, gm, gs, *,
+def matmul_bn_bwd(x, w, mean, scale, beta, kshift, y, dy, gm, gs, *,
                   fuse_input: bool, emit_stats: bool):
-    """Launch kernel #9 on CUDA tensors: the inputs of #8, dy [M, N] in
-    x's dtype and the f32 cotangents gm, gs [N] of s1 and s2 (gs already
-    doubled; zeros without stats).  Returns ``(dx [M, K], dw [K, N],
+    """Launch kernel #9 on CUDA tensors: the inputs of #8, the forward's
+    saved y and dy [M, N] in x's dtype (y is read with stats only) and the
+    f32 cotangents gm, gs [N] of s1 and s2 (gs already doubled; zeros
+    without stats).  Returns ``(dx [M, K], dw [K, N],
     dsx [K], dsu [K])``: dx and dw in the inputs' dtype, the channel sums
     sum du*x and sum du in f32 (zeros without a norm).  bf16 takes the
     tensor-core route, f32 the scalar one (:func:`matmul_bwd_route`);
@@ -532,9 +581,9 @@ def matmul_bn_bwd(x, w, mean, scale, beta, kshift, dy, gm, gs, *,
         raise ValueError(f"{name}: w {tuple(w.shape)} does not match x "
                          f"{tuple(x.shape)}")
     n = w.shape[1]
-    _check(name, (("dy", dy),), x.dtype, x.device)
-    if dy.shape != (m, n):
-        raise ValueError(f"{name}: dy must be [{m}, {n}]")
+    _check(name, (("y", y), ("dy", dy)), x.dtype, x.device)
+    if y.shape != (m, n) or dy.shape != (m, n):
+        raise ValueError(f"{name}: y and dy must be [{m}, {n}]")
     _check_vectors(name, x.device, {
         "mean": (mean, k), "scale": (scale, k), "beta": (beta, k),
         "kshift": (kshift, n), "gm": (gm, n), "gs": (gs, n)})
@@ -542,17 +591,16 @@ def matmul_bn_bwd(x, w, mean, scale, beta, kshift, dy, gm, gs, *,
         raise ValueError(f"{name} cannot take M={m} K={k} N={n}")
     route = matmul_bwd_route(x.dtype)
     if route == "tensor_core":
-        grads = _matmul_bwd_tc(x, w, mean, scale, beta, kshift, dy, gm, gs,
-                               fuse_input, emit_stats)
+        grads = _matmul_bwd_tc(x, w, mean, scale, beta, kshift, y, dy, gm,
+                               gs, fuse_input, emit_stats)
     else:
         splits = dw_splits(m, k, n)
         dx, dw, dsx, dsu, part, psx, psu = _grad_outputs(
             x, w, k, fuse_input, splits, k, n, m)
-        yr = torch.empty_like(dy) if emit_stats else None
         _launch("conv_bn_bwd", name, x.device, x.data_ptr(), w.data_ptr(),
                 mean.data_ptr(), scale.data_ptr(), beta.data_ptr(),
-                kshift.data_ptr(), dy.data_ptr(), gm.data_ptr(),
-                gs.data_ptr(), _ptr(yr), dx.data_ptr(), part.data_ptr(),
+                kshift.data_ptr(), y.data_ptr(), dy.data_ptr(),
+                gm.data_ptr(), gs.data_ptr(), dx.data_ptr(), part.data_ptr(),
                 dw.data_ptr(), _ptr(psx), _ptr(psu), dsx.data_ptr(),
                 dsu.data_ptr(), m, k, n, int(fuse_input), int(emit_stats),
                 splits)
@@ -562,8 +610,8 @@ def matmul_bn_bwd(x, w, mean, scale, beta, kshift, dy, gm, gs, *,
     return grads
 
 
-def _matmul_bwd_tc(x, w, mean, scale, beta, kshift, dy, gm, gs, fuse_input,
-                   emit_stats):
+def _matmul_bwd_tc(x, w, mean, scale, beta, kshift, y, dy, gm, gs,
+                   fuse_input, emit_stats):
     """The tensor-core launch of #9 (bf16), its scratch allocated here.  z
     is x itself, and dyl dy itself, where nothing is folded into them and
     their rows are already whole 64-channel tiles on 16 bytes: then the
@@ -583,8 +631,9 @@ def _matmul_bwd_tc(x, w, mean, scale, beta, kshift, dy, gm, gs, fuse_input,
         x, w, k, fuse_input, splits, kp, np_, m, _TC_ROWS)
     _launch("conv_bn_bwd", "conv_bn_matmul_bwd_tc", dev, x.data_ptr(),
             w.data_ptr(), mean.data_ptr(), scale.data_ptr(), beta.data_ptr(),
-            kshift.data_ptr(), dy.data_ptr(), gm.data_ptr(), gs.data_ptr(),
-            dx.data_ptr(), _ptr(z), _ptr(dyl), wp.data_ptr(), part.data_ptr(),
+            kshift.data_ptr(), y.data_ptr(), dy.data_ptr(), gm.data_ptr(),
+            gs.data_ptr(), dx.data_ptr(), _ptr(z), _ptr(dyl), wp.data_ptr(),
+            part.data_ptr(),
             dw.data_ptr(), _ptr(psx), _ptr(psu), dsx.data_ptr(),
             dsu.data_ptr(), m, k, n, int(fuse_input), int(emit_stats),
             splits, kp, np_, chunk)
@@ -597,8 +646,8 @@ def matmul_bwd_scratch(k: int, n: int, fuse_input: bool, emit_stats: bool,
     """Whether #9's tensor-core route needs its own z and dyl: z is x
     itself without a norm where K is a whole number of 64-channel tiles
     and x starts on 16 bytes; dyl is dy itself without statistics where N
-    is and dy does.  Else the prepass stores z, and the prepass (without
-    statistics) or the fused fprop (with them) stores dyl."""
+    is and dy does.  Else the prepass stores them (dyl folded with the
+    forward's saved y)."""
     own_z = fuse_input or k != tc_channels(k) or not x_aligned
     own_dyl = emit_stats or n != tc_channels(n) or not dy_aligned
     return own_z, own_dyl
@@ -702,25 +751,29 @@ def _norm_grads(mean, scale, dsx, dsu, fuse_input):
 
 class _MatmulBN(torch.autograd.Function):
     """Forward kernel #8, backward kernel #9 (their plain versions on CPU
-    tensors)."""
+    tensors); the forward's y is saved for the backward's statistics fold,
+    as _Conv3x3BN saves its y.  The reference's 1x1 saves (x, w, mean,
+    scale, beta, kshift) and recomputes y (:296, :203-204): the same
+    values, since the statistics were taken on the rounded y the forward
+    stored, and #8's tensor-core sum is that y only where it is saved."""
 
     @staticmethod
     def forward(ctx, x, w, mean, scale, beta, kshift, fuse_input,
                 emit_stats):
         y, s1, s2 = _ops(x)[0](x, w, mean, scale, beta, kshift,
                                fuse_input=fuse_input, emit_stats=emit_stats)
-        ctx.save_for_backward(x, w, mean, scale, beta, kshift)
+        ctx.save_for_backward(x, w, mean, scale, beta, kshift, y)
         ctx.flags = dict(fuse_input=fuse_input, emit_stats=emit_stats)
         return (y, s1, s2) if emit_stats else y
 
     @staticmethod
     def backward(ctx, dy, gm=None, gs=None):
-        x, w, mean, scale, beta, kshift = ctx.saved_tensors
+        x, w, mean, scale, beta, kshift, y = ctx.saved_tensors
         fuse, stats = ctx.flags["fuse_input"], ctx.flags["emit_stats"]
         gm, gs = _cotangents(gm, gs, w.shape[1], x.device, stats)
         dx, dw, dsx, dsu = _ops(x)[1](
-            x, w, mean, scale, beta, kshift, dy.to(x.dtype).contiguous(), gm,
-            gs, **ctx.flags)
+            x, w, mean, scale, beta, kshift, y, dy.to(x.dtype).contiguous(),
+            gm, gs, **ctx.flags)
         return (dx, dw, *_norm_grads(mean, scale, dsx, dsu, fuse), None,
                 None, None)
 

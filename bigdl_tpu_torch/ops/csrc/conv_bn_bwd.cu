@@ -11,9 +11,10 @@
 //   z    = relu((x - mean) * scale + beta) cast to x's dtype (or x)
 //   dyl  = (dy + gm + gs * (y - K)) cast to dy's dtype       (with stats)
 //        = dy                                                (without)
-//          where y is the forward's rounded output: recomputed as
-//          (z . W) cast to dy's dtype for the 1x1 (:203-205), the saved
-//          forward y for the 3x3 (:549-556)
+//          where y is the forward's rounded output, saved by the
+//          forward: the reference saves the 3x3's (:549-556) and
+//          recomputes the 1x1's as (z . W) cast to dy's dtype (:203-205),
+//          the same values; the port saves both
 //   dW   = z^T . dyl (the 3x3: nine shifted tiles), f32, cast to W's dtype
 //   dz   = dyl . W^T (the 3x3: the transposed conv, taps flipped)
 //   du   = dz where u = (x - mean) * scale + beta > 0, else 0
@@ -29,7 +30,6 @@
 // blocks with dW and the channel sums resident.  Here each entry point
 // runs the products as separate passes over a parallel grid (the shared
 // tiled product of conv_bn_common.cuh), then fixed-order reductions:
-//   1x1 with stats: y recomputed into `yr` (rows x N, dy's dtype);
 //   dz pass:  one block per 64 x 64 tile of dx; dyl is folded as it is
 //             loaded (never stored), dx and the per-tile channel sums are
 //             written from registers;
@@ -43,17 +43,15 @@
 //
 // What bounds them on an H100.  The 3x3: operations (36 * B * H * W * C *
 // Co) at the bf16 tensor-core rate.  The 1x1: bytes at ResNet-50's widths
-// (4 or, with the recomputed y, 6 * M * K * N operations on M * (K + N)
-// rows of inputs and outputs: K and N of 64-2048 leave it under the
-// card's 295 operations a byte).  conv_bn_matmul_bwd and
-// conv_bn_conv3x3_bwd run scalar f32 FMAs on the CUDA cores, f32 only; z
-// and dyl are recomputed where they are loaded instead of stored.  bf16
-// takes the tensor-core routes of conv_bn_tc.cuh: conv_bn_matmul_bwd_tc
-// (#9: the prepass stores z and a padded W; with statistics, a one-tap
-// fprop recomputes y and folds its rounded value into dyl in registers,
-// so y is never stored; then one-tap implicit GEMMs on mma.sync) and
-// conv_bn_conv3x3_bwd_tc (#11: a prepass that stores z and dyl once, then
-// nine-tap implicit GEMMs).  The wrappers take them for bf16 and the
+// (4 * M * K * N operations on M * (K + 2N) rows of inputs and outputs:
+// K and N of 64-2048 leave it under the card's 295 operations a byte).
+// conv_bn_matmul_bwd and conv_bn_conv3x3_bwd run scalar f32 FMAs on the
+// CUDA cores, f32 only; z and dyl are recomputed where they are loaded
+// instead of stored.  bf16 takes the tensor-core routes of conv_bn_tc.cuh:
+// conv_bn_matmul_bwd_tc (#9: a prepass that stores z, dyl folded from the
+// saved y and a padded W where x and dy cannot be read in place, then
+// one-tap implicit GEMMs on mma.sync) and conv_bn_conv3x3_bwd_tc (#11: a
+// prepass that stores z and dyl once, then nine-tap implicit GEMMs).  The wrappers take them for bf16 and the
 // scalar entries for f32.  The entry points return cudaGetLastError().
 
 #include "conv_bn_common.cuh"
@@ -115,46 +113,13 @@ __device__ __forceinline__ void store_part(const float (&acc)[4][4], Tile t,
 
 // ---- the 1x1: x [M,K], W [K,N], dy and yr [M,N] ---------------------------
 
-// y recomputed as the forward computes it, rounded to dy's dtype
-template <typename T>
-struct MatmulRecompute {
-  const T* x;
-  const T* w;
-  Vecs v;
-  T* yr;
-  long long rows;  // M
-  int cols;        // N
-  int depth;       // K
-  static constexpr bool kAFastR = true;
-  static constexpr bool kBFastR = false;
-  __device__ void range(int, long long* b, long long* e) const {
-    *b = 0;
-    *e = depth;
-  }
-  __device__ float a(long long m, long long k) const {
-    const float xv = to_f32(x[m * depth + k]);
-    return v.fuse ? norm_relu<T>(xv, v.mean[k], v.scale[k], v.beta[k]) : xv;
-  }
-  __device__ float b(long long k, int n) const {
-    return to_f32(w[k * cols + n]);
-  }
-  __device__ void epilogue(const float (&acc)[4][4], Tile t, float*) const {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (t.row + i < rows && t.col + j < cols)
-          yr[(t.row + i) * cols + t.col + j] = from_f32<T>(acc[i][j]);
-  }
-};
-
 // dz [M,K] = dyl [M,N] . W^T
 template <typename T>
 struct MatmulDz {
   const T* x;
   const T* w;
   const T* dy;
-  const T* yr;
+  const T* y;
   Vecs v;
   T* dx;
   float *psx, *psu;
@@ -169,7 +134,7 @@ struct MatmulDz {
   }
   __device__ float a(long long m, long long n) const {
     const long long at = m * depth + n;
-    return fold_dy<T>(to_f32(dy[at]), v.stats ? to_f32(yr[at]) : 0.f,
+    return fold_dy<T>(to_f32(dy[at]), v.stats ? to_f32(y[at]) : 0.f,
                       v.gm[n], v.gs[n], v.kshift[n], v.stats);
   }
   __device__ float b(long long n, int k) const {
@@ -186,7 +151,7 @@ template <typename T>
 struct MatmulDw {
   const T* x;
   const T* dy;
-  const T* yr;
+  const T* y;
   Vecs v;
   float* part;
   long long rows;  // K
@@ -204,7 +169,7 @@ struct MatmulDw {
   }
   __device__ float b(long long m, int n) const {
     const long long at = m * cols + n;
-    return fold_dy<T>(to_f32(dy[at]), v.stats ? to_f32(yr[at]) : 0.f,
+    return fold_dy<T>(to_f32(dy[at]), v.stats ? to_f32(y[at]) : 0.f,
                       v.gm[n], v.gs[n], v.kshift[n], v.stats);
   }
   __device__ void epilogue(const float (&acc)[4][4], Tile t, float*) const {
@@ -304,20 +269,18 @@ void reduce_grads(const Vecs& v, const float* dw_part, int splits,
 }
 
 template <typename T>
-int matmul_bwd(const void* x, const void* w, const Vecs& v, const void* dy,
-               void* yr, void* dx, float* dw_part, void* dw, float* psx,
+int matmul_bwd(const void* x, const void* w, const Vecs& v, const void* y,
+               const void* dy, void* dx, float* dw_part, void* dw, float* psx,
                float* psu, float* dsx, float* dsu, long long M, int K, int N,
                int splits, cudaStream_t stream) {
   const T* xt = static_cast<const T*>(x);
   const T* wt = static_cast<const T*>(w);
   const T* dyt = static_cast<const T*>(dy);
-  T* yrt = static_cast<T*>(yr);
-  if (v.stats) launch_product(MatmulRecompute<T>{xt, wt, v, yrt, M, N, K}, 1,
-                              stream);
-  launch_product(MatmulDz<T>{xt, wt, dyt, yrt, v, static_cast<T*>(dx), psx,
+  const T* yt = static_cast<const T*>(y);
+  launch_product(MatmulDz<T>{xt, wt, dyt, yt, v, static_cast<T*>(dx), psx,
                              psu, M, K, N},
                  1, stream);
-  launch_product(MatmulDw<T>{xt, dyt, yrt, v, dw_part, K, N, M, splits},
+  launch_product(MatmulDw<T>{xt, dyt, yt, v, dw_part, K, N, M, splits},
                  splits, stream);
   reduce_grads<T>(v, dw_part, splits, (long long)K * N, dw, psx, psu,
                   (M + kBM - 1) / kBM, K, dsx, dsu, stream);
@@ -351,7 +314,8 @@ template <int kTaps>
 void launch_prepass(const tcconv::Problem& p, cudaStream_t stream) {
   const long long chunks = (p.pre_z ? p.M * (p.Cp / 8) : 0) +
                            (p.pre_dyl ? p.M * (p.Cop / 8) : 0) +
-                           (long long)kTaps * p.Cp * (p.Cop / 8);
+                           (p.pre_w ? (long long)kTaps * p.Cp * (p.Cop / 8)
+                                    : 0);
   const long long blocks = (chunks + 255) / 256;
   tcconv::prepass<kTaps>
       <<<(unsigned)(blocks < 132 * 16 ? blocks : 132 * 16), 256, 0, stream>>>(
@@ -383,34 +347,35 @@ void launch_tc_grads(const tcconv::Problem& p, float* dsx, float* dsu,
 
 extern "C" {
 
-// x [M,K], w [K,N], dy [M,N], dx [M,K], dw [K,N], all f32 (bf16 takes
+// x [M,K], w [K,N], y and dy [M,N] (y: the forward's saved output, read
+// with stats only), dx [M,K], dw [K,N], all f32 (bf16 takes
 // conv_bn_matmul_bwd_tc); mean, scale, beta [K] and kshift, gm, gs [N] f32
-// (gs doubled); yr [M,N] f32 scratch (used with stats only); dw_part f32
-// [splits, K, N]; psx, psu f32 [ceil(M/64), K]; dsx, dsu f32 [K] (written
-// with a norm only).
+// (gs doubled); dw_part f32 [splits, K, N]; psx, psu f32 [ceil(M/64), K];
+// dsx, dsu f32 [K] (written with a norm only).
 int conv_bn_matmul_bwd(const void* x, const void* w, const float* mean,
                        const float* scale, const float* beta,
-                       const float* kshift, const void* dy, const float* gm,
-                       const float* gs, void* yr, void* dx, float* dw_part,
-                       void* dw, float* psx, float* psu, float* dsx,
-                       float* dsu, long long M, int K, int N, int fuse_input,
-                       int emit_stats, int splits, void* stream) {
+                       const float* kshift, const void* y, const void* dy,
+                       const float* gm, const float* gs, void* dx,
+                       float* dw_part, void* dw, float* psx, float* psu,
+                       float* dsx, float* dsu, long long M, int K, int N,
+                       int fuse_input, int emit_stats, int splits,
+                       void* stream) {
   const Vecs v{mean, scale, beta, kshift, gm, gs, fuse_input, emit_stats};
-  return matmul_bwd<float>(x, w, v, dy, yr, dx, dw_part, dw, psx, psu, dsx,
+  return matmul_bwd<float>(x, w, v, y, dy, dx, dw_part, dw, psx, psu, dsx,
                            dsu, M, K, N, splits,
                            static_cast<cudaStream_t>(stream));
 }
 
 // The 1x1 on the tensor cores, bf16 only: the arguments of
-// conv_bn_matmul_bwd without yr, and scratch z [M, Kp] (nullptr: x itself,
-// only without a norm and with K == Kp), dyl [M, Np] (nullptr: dy itself,
-// only without stats and with N == Np), wp [Kp, Np] (bf16; Kp, Np: K, N
-// rounded up to a multiple of 64), dw_part f32 [splits, Kp, Np], psx, psu
-// f32 [ceil(M/128), K]; split s of the dW sum adds rows [s * chunk,
+// conv_bn_matmul_bwd, and scratch z [M, Kp] (nullptr: x itself, only
+// without a norm and with K == Kp), dyl [M, Np] (nullptr: dy itself, only
+// without stats and with N == Np), wp [Kp, Np] (bf16; Kp, Np: K, N rounded
+// up to a multiple of 64), dw_part f32 [splits, Kp, Np], psx, psu f32
+// [ceil(M/128), K]; split s of the dW sum adds rows [s * chunk,
 // (s + 1) * chunk).
 int conv_bn_matmul_bwd_tc(const void* x, const void* w, const float* mean,
                           const float* scale, const float* beta,
-                          const float* kshift, const void* dy,
+                          const float* kshift, const void* y, const void* dy,
                           const float* gm, const float* gs, void* dx, void* z,
                           void* dyl, void* wp, float* dw_part, void* dw,
                           float* psx, float* psu, float* dsx, float* dsu,
@@ -428,6 +393,7 @@ int conv_bn_matmul_bwd_tc(const void* x, const void* w, const float* mean,
   t::Problem p{};
   p.x = static_cast<const bf16*>(x);
   p.w = static_cast<const bf16*>(w);
+  p.y = static_cast<const bf16*>(y);
   p.dy = static_cast<const bf16*>(dy);
   p.z = static_cast<bf16*>(z_is_x ? const_cast<void*>(x) : z);
   p.dyl = static_cast<bf16*>(dyl_is_dy ? const_cast<void*>(dy) : dyl);
@@ -453,13 +419,10 @@ int conv_bn_matmul_bwd_tc(const void* x, const void* w, const float* mean,
   p.fuse = fuse_input;
   p.stats = emit_stats;
   p.pre_z = !z_is_x;
-  p.pre_dyl = !dyl_is_dy && !emit_stats;  // with stats fprop writes dyl
+  p.pre_dyl = !dyl_is_dy;  // with stats the fold of the saved y
+  p.pre_w = 1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   launch_prepass<1>(p, s);
-  if (emit_stats)
-    t::fprop<1, true><<<dim3((unsigned)((M + t::kBM - 1) / t::kBM),
-                             Np / t::kBN),
-                        t::kThreads, 0, s>>>(p);
   launch_tc_grads<1>(p, dsx, dsu, s);
   return (int)cudaGetLastError();
 }
@@ -534,6 +497,7 @@ int conv_bn_conv3x3_bwd_tc(const void* x, const void* w, const float* mean,
   p.stats = emit_stats;
   p.pre_z = 1;
   p.pre_dyl = 1;
+  p.pre_w = 1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   launch_prepass<9>(p, s);
   launch_tc_grads<9>(p, dsx, dsu, s);

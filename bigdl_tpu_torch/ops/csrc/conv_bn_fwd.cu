@@ -18,18 +18,21 @@
 // :472-478, _wshift :448-457); zero-padding x would give relu(beta -
 // mean * scale) on the border instead.
 //
-// What bounds them on an H100.  At ResNet-50's b128 shapes the products
-// do 2*M*K*N (1x1) or 18*B*H*W*C*Co (3x3) operations on a few hundred MB
-// at most, so the bound is the bf16 tensor-core rate (operations).  These
-// kernels run scalar f32 FMAs on the CUDA cores (conv_bn_common.cuh): each
-// block keeps a 64 x 64 tile of y in registers, loads each input slice once
-// into shared memory with the normalize+ReLU applied on the way, and never
-// writes z to device memory; the statistics are summed from the tile in
-// registers, so y is not read back.  The 3x3 in bf16 (the `--fused --bf16`
-// path) runs on the tensor cores instead (conv_bn_tc.cuh: a prepass that
-// stores z and a padded W once, then an implicit GEMM on mma.sync): the
-// entry point conv_bn_conv3x3_fwd picks that route for bf16 and the
-// scalar one for f32, whose operands the tensor cores would round.
+// What bounds them on an H100.  At ResNet-50's b128 shapes the 3x3 does
+// 18*B*H*W*C*Co operations on a few hundred MB, so its bound is the bf16
+// tensor-core rate (operations); the 1x1 does 2*M*K*N on M*(K+N) rows, at
+// K and N of 64-2048 under the card's 295 operations a byte, so its bound
+// is bytes (y, written once, is the most of them).  In f32 both run scalar
+// f32 FMAs on the CUDA cores (conv_bn_common.cuh): each block keeps a
+// 64 x 64 tile of y in registers, loads each input slice once into shared
+// memory with the normalize+ReLU applied on the way, and never writes z to
+// device memory; the statistics are summed from the tile in registers, so
+// y is not read back.  In bf16 (the `--fused --bf16` path) both run on the
+// tensor cores instead (conv_bn_tc.cuh: a prepass that stores z and a
+// padded W once where x and W cannot be read in place, then an implicit
+// GEMM on mma.sync, one tap for the 1x1): the entry points pick that
+// route for bf16 and the scalar one for f32, whose operands the tensor
+// cores would round.
 //
 // Routing differs from the TPU in one place: the reference's VMEM budget
 // refuses the 3x3 at C = Co = 512 (stage 4: 9 * 512 * 512 * 6 B > 11 MiB),
@@ -38,9 +41,9 @@
 // count differs.
 //
 // Each entry point launches the product (one block per 64 x 64 tile of y;
-// the bf16 3x3: its prepass, then one block per 128 x 64 tile) and, with a
-// kshift, one fixed-order reduction of the per-tile statistics.  It
-// returns cudaGetLastError().
+// bf16: the prepass where it has anything to store, then one block per
+// 128 x 64 tile) and, with a kshift, one fixed-order reduction of the
+// per-tile statistics.  It returns cudaGetLastError().
 
 #include "conv_bn_common.cuh"
 #include "conv_bn_tc.cuh"
@@ -177,6 +180,31 @@ int conv3_fwd(const void* x, const void* w, const float* mean,
   return run_fwd(p, s1, s2, stream);
 }
 
+// The tensor-core forward once its Problem is set: the prepass (where it
+// has anything to store), the implicit GEMM with the statistics partials,
+// their reduction
+template <int kTaps>
+int run_fwd_tc(const tcconv::Problem& p, float* s1, float* s2,
+               cudaStream_t stream) {
+  namespace t = tcconv;
+  const long long chunks = (p.pre_z ? p.M * (p.Cp / 8) : 0) +
+                           (p.pre_w ? kTaps * (long long)p.Cp * (p.Cop / 8)
+                                    : 0);
+  if (chunks > 0) {
+    const long long blocks = (chunks + 255) / 256;
+    t::prepass<kTaps><<<(unsigned)(blocks < 132 * 16 ? blocks : 132 * 16),
+                        256, 0, stream>>>(p);
+  }
+  const long long m_tiles = (p.M + t::kBM - 1) / t::kBM;
+  t::fprop<kTaps><<<dim3((unsigned)m_tiles, p.Cop / t::kBN), t::kThreads, 0,
+                    stream>>>(p);
+  if (p.stats) {
+    launch_reduce<float>(p.ps1, m_tiles, p.Co, s1, stream);
+    launch_reduce<float>(p.ps2, m_tiles, p.Co, s2, stream);
+  }
+  return (int)cudaGetLastError();
+}
+
 // #10 on the tensor cores (bf16): the prepass of z and wp, the implicit
 // GEMM with the statistics partials, their reduction
 int conv3_fwd_tc(const void* x, const void* w, const float* mean,
@@ -209,18 +237,49 @@ int conv3_fwd_tc(const void* x, const void* w, const float* mean,
   p.fuse = fuse;
   p.stats = stats;
   p.pre_z = 1;
-  const long long chunks = p.M * (Cp / 8) + 9LL * Cp * (Cop / 8);
-  const long long pre_blocks = (chunks + 255) / 256;
-  t::prepass<9><<<(unsigned)(pre_blocks < 132 * 16 ? pre_blocks : 132 * 16),
-                  256, 0, stream>>>(p);
-  const long long m_tiles = (p.M + t::kBM - 1) / t::kBM;
-  t::fprop<9, false><<<dim3((unsigned)m_tiles, Cop / t::kBN), t::kThreads, 0,
-                       stream>>>(p);
-  if (stats) {
-    launch_reduce<float>(p1, m_tiles, Co, s1, stream);
-    launch_reduce<float>(p2, m_tiles, Co, s2, stream);
-  }
-  return (int)cudaGetLastError();
+  p.pre_w = 1;
+  return run_fwd_tc<9>(p, s1, s2, stream);
+}
+
+// #8 on the tensor cores (bf16): #10's route with one tap.  z is x itself
+// (z == nullptr) without a norm where K is a multiple of 64 and x starts
+// on 16 bytes, wp is w itself (wp == nullptr) where K and N are multiples
+// of 64 and w starts on 16 bytes; else the prepass stores them padded.
+int matmul_fwd_tc(const void* x, const void* w, const float* mean,
+                  const float* scale, const float* beta, const float* kshift,
+                  void* y, float* p1, float* p2, float* s1, float* s2,
+                  void* z, void* wp, long long M, int K, int N, int Kp,
+                  int Np, int fuse, int stats, cudaStream_t stream) {
+  namespace t = tcconv;
+  using bf16 = __nv_bfloat16;
+  const bool z_is_x = z == nullptr, wp_is_w = wp == nullptr;
+  if (Kp % t::kBN != 0 || Kp < K || Np % t::kBN != 0 || Np < N ||
+      (z_is_x && (fuse || K != Kp || (uintptr_t)x % 16 != 0)) ||
+      (wp_is_w && (K != Kp || N != Np || (uintptr_t)w % 16 != 0)))
+    return (int)cudaErrorInvalidValue;
+  t::Problem p{};
+  p.x = static_cast<const bf16*>(x);
+  p.w = static_cast<const bf16*>(w);
+  p.z = static_cast<bf16*>(z_is_x ? const_cast<void*>(x) : z);
+  p.wp = static_cast<bf16*>(wp_is_w ? const_cast<void*>(w) : wp);
+  p.yf = static_cast<bf16*>(y);
+  p.ps1 = p1;
+  p.ps2 = p2;
+  p.mean = mean;
+  p.scale = scale;
+  p.beta = beta;
+  p.kshift = kshift;
+  p.img = Image{1, 1, 1};  // unused with one tap
+  p.M = M;
+  p.C = K;
+  p.Co = N;
+  p.Cp = Kp;
+  p.Cop = Np;
+  p.fuse = fuse;
+  p.stats = stats;
+  p.pre_z = !z_is_x;
+  p.pre_w = !wp_is_w;
+  return run_fwd_tc<1>(p, s1, s2, stream);
 }
 
 }  // namespace
@@ -228,17 +287,23 @@ int conv3_fwd_tc(const void* x, const void* w, const float* mean,
 extern "C" {
 
 // x [M,K], w [K,N], y [M,N] (dtype: bf16 ? bfloat16 : float32); mean,
-// scale, beta [K] and kshift [N] f32; p1, p2 f32 [ceil(M/64), N] scratch;
-// s1, s2 f32 [N].  Without a kshift (stats = 0) p1, p2, s1, s2 are unused.
+// scale, beta [K] and kshift [N] f32; s1, s2 f32 [N].  f32 takes the
+// scalar route: p1, p2 f32 [ceil(M/64), N], z, wp, Kp and Np unused.
+// bf16 takes the tensor cores: p1, p2 f32 [ceil(M/128), N], scratch z
+// [M, Kp] (nullptr: x itself, only without a norm, with K == Kp and x on
+// 16 bytes) and wp [Kp, Np] (nullptr: w itself, only with K == Kp, N ==
+// Np and w on 16 bytes), bf16, Kp and Np: K and N rounded up to a
+// multiple of 64.  Without a kshift (stats = 0) p1, p2, s1, s2 are unused.
 int conv_bn_matmul_fwd(const void* x, const void* w, const float* mean,
                        const float* scale, const float* beta,
                        const float* kshift, void* y, float* p1, float* p2,
-                       float* s1, float* s2, int bf16, long long M, int K,
-                       int N, int fuse_input, int emit_stats, void* stream) {
+                       float* s1, float* s2, void* z, void* wp, int bf16,
+                       long long M, int K, int N, int Kp, int Np,
+                       int fuse_input, int emit_stats, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? matmul_fwd<__nv_bfloat16>(x, w, mean, scale, beta, kshift,
-                                          y, p1, p2, s1, s2, M, K, N,
-                                          fuse_input, emit_stats, s)
+  return bf16 ? matmul_fwd_tc(x, w, mean, scale, beta, kshift, y, p1, p2, s1,
+                              s2, z, wp, M, K, N, Kp, Np, fuse_input,
+                              emit_stats, s)
               : matmul_fwd<float>(x, w, mean, scale, beta, kshift, y, p1,
                                   p2, s1, s2, M, K, N, fuse_input,
                                   emit_stats, s);

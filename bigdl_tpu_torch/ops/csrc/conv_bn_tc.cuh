@@ -1,13 +1,14 @@
-// Kernels #9, #10 and #11 on the tensor cores: the backward of the fused
-// 1x1 conv+BN (conv_bn_matmul_bwd_tc in conv_bn_bwd.cu) and the forward and
-// the backward of the fused 3x3 (conv_bn_conv3x3_fwd in conv_bn_fwd.cu and
-// conv_bn_conv3x3_bwd_tc), for bf16 inputs, the `--fused --bf16` training
-// path.  They compute what the scalar routes (MatmulRecompute / MatmulDz /
-// MatmulDw, Conv3Fwd, Conv3Dz / Conv3Dw over tile_product) compute, at the
-// same rounding points, and replace the same TPU kernels (_bwd_kernel,
-// _conv3_fwd_kernel, _conv3_bwd_kernel).  The tap count is a template
-// parameter of every kernel here: 9 for the 3x3, 1 for the 1x1, which is a
-// 3x3 with one tap and no halo (no shifted position, no Pos arithmetic).
+// Kernels #8, #9, #10 and #11 on the tensor cores: the forward and the
+// backward of the fused 1x1 conv+BN (conv_bn_matmul_fwd in conv_bn_fwd.cu,
+// conv_bn_matmul_bwd_tc in conv_bn_bwd.cu) and of the fused 3x3
+// (conv_bn_conv3x3_fwd, conv_bn_conv3x3_bwd_tc), for bf16 inputs, the
+// `--fused --bf16` training path.  They compute what the scalar routes
+// (MatmulFwd, MatmulDz / MatmulDw, Conv3Fwd, Conv3Dz / Conv3Dw over
+// tile_product) compute, at the same rounding points, and replace the same
+// TPU kernels (_fwd_kernel, _bwd_kernel, _conv3_fwd_kernel,
+// _conv3_bwd_kernel).  The tap count is a template parameter of every
+// kernel here: 9 for the 3x3, 1 for the 1x1, which is a 3x3 with one tap
+// and no halo (no shifted position, no Pos arithmetic).
 //
 // Why a redesign.  The scalar routes normalise x (and fold dy) again at
 // every load of every pass (each element 9 x ceil(C/64) times), with
@@ -16,12 +17,14 @@
 // 1. A prepass forms each operand once, with the scalar routes' own
 //    functions (norm_relu, fold_dy), into scratch the wrapper allocates:
 //      z   [M, Cp]  bf16  relu((x - mean) * scale + beta) cast to x's dtype
-//      dyl [M, Cop] bf16  dy + gm + gs (y - K) cast to dy's dtype
-//                         (the backward only)
+//      dyl [M, Cop] bf16  dy + gm + gs (y - K) cast to dy's dtype, y the
+//                         forward's saved output (the backward only)
 //      wp  [9, Cp, Cop] bf16, W with its channels padded
 //    Cp and Cop are C and Co rounded up to 64 with zeros (the wrapper
 //    picks them, tc_channels), so every 16-byte copy and every product
-//    tile below is whole in the channel dims.
+//    tile below is whole in the channel dims.  The 1x1 reads x as z where
+//    there is no norm and K is a multiple of 64, dy as dyl where there
+//    are no statistics and N is, and (#8) w as wp where K and N are.
 // 2. dgrad: dz [M, C] = sum over (tap, co) of dyl(position shifted by the
 //    tap) . W[tap]^T, an implicit GEMM: 128 positions x 64 channels per
 //    block of 8 warps (32 x 32 each), K in 32-wide chunks of one tap,
@@ -39,30 +42,22 @@
 //    tc_split_chunk); each split writes its f32 partial and reduce_dw
 //    adds them in order and casts to W's dtype.  Both operands are
 //    position-major in memory, so they come through ldmatrix.trans.
-// 4. fprop (#10): y [M, Co] = sum over (tap, c) of z(position shifted by
-//    the tap) . wp[tap], the same implicit GEMM as dgrad with B (wp,
-//    contiguous along Co) through ldmatrix.trans.  The halo reads zeros
-//    of z, which is exactly the reference's SAME padding of z after
-//    normalize+ReLU.  The epilogue rounds y to bf16, stores the real
-//    columns, and forms the statistics s1 = sum (y - K) and s2 =
+// 4. fprop (#10; #8 with one tap): y [M, Co] = sum over (tap, c) of
+//    z(position shifted by the tap) . wp[tap], the same implicit GEMM as
+//    dgrad with B (wp, contiguous along Co) through ldmatrix.trans.  The
+//    halo reads zeros of z, which is exactly the reference's SAME padding
+//    of z after normalize+ReLU.  The epilogue rounds y to bf16, stores the
+//    real columns, and forms the statistics s1 = sum (y - K) and s2 =
 //    sum (y - K)^2 from the rounded y as per-tile partials in dgrad's
 //    fixed order; launch_reduce adds them.
-// 5. #9 (one tap): the prepass stores z (or none: without a norm and with
-//    K a multiple of 64, z is x itself) and wp; with statistics, fprop
-//    recomputes y = z . W in f32, rounds it to bf16 as the forward did
-//    (_bwd_kernel :203-204) and folds it in registers into dyl = dy + gm +
-//    gs (y_r - K) cast to bf16, which it stores; y itself is never stored
-//    and no statistics are formed.  The fold needs the forward's rounded y
-//    bit for bit: a y summed in another order rounds to its other bf16
-//    neighbour now and then, which moves that dyl entry by a whole ulp
-//    and a small dx entry by more than one of its own (even the exact sum
-//    does, against an in-order one).  #8, the forward, sums k in order
-//    with f32 FMAs on the CUDA cores, as cuBLAS's f32 product does here,
-//    so fprop's fold (kFold) sums y in that order with FMAs from the same
-//    shared-memory tiles; only this product leaves the tensor cores.
-//    Without statistics dyl is dy (copied padded by the prepass only where
-//    N is not a multiple of 64).  Then dgrad, wgrad and the dW sum as for
-//    #11, with one tap.
+// 5. #9 (one tap) folds the forward's saved y: the statistics were taken
+//    on the rounded y the forward stored, and the fold needs that y bit
+//    for bit (a y summed again in another order rounds to its other bf16
+//    neighbour now and then, which moves that dyl entry by a whole ulp).
+//    The reference's 1x1 recomputes y (_bwd_kernel :203-204); the port
+//    saves it, as both packages save the 3x3's, so the prepass forms dyl
+//    as #11's does.  Then dgrad, wgrad and the dW sum as for #11, with
+//    one tap.
 // 6. bf16 x bf16 -> f32 on mma.sync.m16n8k16 (tensor_core.cuh says why
 //    not wgmma yet).  No float atomics: two launches give the same bits.
 //
@@ -92,11 +87,12 @@ constexpr int kLdB = kBN + 8;  // column-contiguous smem rows (wgrad B)
 struct Problem {
   const bf16* x;    // [M, C]
   const bf16* w;    // [kTaps, C, Co]
-  const bf16* y;    // [M, Co], the 3x3's saved forward output
+  const bf16* y;    // [M, Co], the saved forward output (#9, #11)
   const bf16* dy;   // [M, Co]
-  bf16* z;          // [M, Cp] scratch (#9: x itself where pre_z is 0)
-  bf16* dyl;        // [M, Cop] scratch (#9: dy itself without it)
-  bf16* wp;         // [kTaps, Cp, Cop] scratch
+  bf16* z;          // [M, Cp] scratch (#8, #9: x itself where pre_z is 0)
+  bf16* dyl;        // [M, Cop] scratch (#9: dy itself where pre_dyl is 0)
+  bf16* wp;         // [kTaps, Cp, Cop] scratch (#8: w itself where pre_w
+                    // is 0)
   bf16* dx;         // [M, C]
   bf16* dw;         // [kTaps, C, Co]
   float* part;      // [splits, kTaps Cp, Cop]
@@ -107,7 +103,7 @@ struct Problem {
   Image img;           // the 3x3's image batch (unused with one tap)
   long long M, chunk;  // positions, and positions per dW split
   int C, Co, Cp, Cop, splits, fuse, stats;
-  int pre_z, pre_dyl;  // whether the prepass stores z and dyl
+  int pre_z, pre_dyl, pre_w;  // whether the prepass stores z, dyl and wp
 };
 
 // ---- 1. the prepass -------------------------------------------------------
@@ -126,13 +122,59 @@ __device__ __forceinline__ bf16 dyl_entry(float dy, float y, float gm,
   return from_f32<bf16>(fold_dy<bf16>(dy, y, gm, gs, k, stats));
 }
 
+// 8 consecutive entries of a row, from element `at` on, in f32, zero from
+// the n-th on: one 16-byte load where `vec` (rows a multiple of 8 entries
+// long, on 16 bytes) and all 8 are real, else entry by entry
+__device__ __forceinline__ void load8(float (&v)[8], const bf16* src,
+                                      long long at, int n, bool vec) {
+  if (vec && n >= 8) {
+    const uint4 u = *reinterpret_cast<const uint4*>(src + at);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      v[2 * j] = __low2float(h[j]);
+      v[2 * j + 1] = __high2float(h[j]);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = j < n ? to_f32(src[at + j]) : 0.f;
+  }
+}
+
+// 8 consecutive f32 entries of a per-channel vector from c0 on, zero from
+// the n-th on: two 16-byte loads where `vec` and all 8 are real
+__device__ __forceinline__ void load8(float (&v)[8], const float* src,
+                                      int c0, int n, bool vec) {
+  if (vec && n >= 8) {
+    const float4 a = *reinterpret_cast<const float4*>(src + c0);
+    const float4 b = *reinterpret_cast<const float4*>(src + c0 + 4);
+    v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+    v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = j < n ? src[c0 + j] : 0.f;
+  }
+}
+
+// whether rows of `row` entries from `base` on start on 16 bytes, in
+// whole 8-entry chunks, for each base given
+template <typename... Ptrs>
+__device__ __forceinline__ bool rows16(int row, const Ptrs*... bases) {
+  return row % 8 == 0 &&
+         ((reinterpret_cast<uintptr_t>(bases) % 16 == 0) && ...);
+}
+
 // one thread per 8 consecutive channels of a row of z (with pre_z), dyl
-// (with pre_dyl: the backward) or wp
+// (with pre_dyl: the backward) or wp (with pre_w)
 template <int kTaps>
 __global__ void __launch_bounds__(256) prepass(const Problem p) {
   const long long nz = p.pre_z ? p.M * (p.Cp / 8) : 0;
   const long long ndy = p.pre_dyl ? p.M * (p.Cop / 8) : 0;
-  const long long total = nz + ndy + (long long)kTaps * p.Cp * (p.Cop / 8);
+  const long long nw = p.pre_w ? (long long)kTaps * p.Cp * (p.Cop / 8) : 0;
+  const long long total = nz + ndy + nw;
+  const bool x_vec = rows16(p.C, p.x, p.mean, p.scale, p.beta);
+  const bool dy_vec = ndy > 0 && rows16(p.Co, p.dy, p.gm, p.gs, p.kshift) &&
+                      (!p.stats || rows16(p.Co, p.y));
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        i < total; i += (long long)gridDim.x * blockDim.x) {
     __align__(16) bf16 out[8];
@@ -140,28 +182,34 @@ __global__ void __launch_bounds__(256) prepass(const Problem p) {
     if (i < nz) {
       const long long m = i / (p.Cp / 8);
       const int c0 = (int)(i % (p.Cp / 8)) * 8;
+      float xv[8], mean[8], scale[8], beta[8];
+      load8(xv, p.x, m * p.C + c0, p.C - c0, x_vec);
+      load8(mean, p.mean, c0, p.C - c0, x_vec);
+      load8(scale, p.scale, c0, p.C - c0, x_vec);
+      load8(beta, p.beta, c0, p.C - c0, x_vec);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = c0 + j;
-        out[j] = c < p.C ? z_entry(to_f32(p.x[m * p.C + c]), p.mean[c],
-                                   p.scale[c], p.beta[c], p.fuse)
-                         : from_f32<bf16>(0.f);
-      }
+      for (int j = 0; j < 8; ++j)
+        out[j] = c0 + j < p.C
+                     ? z_entry(xv[j], mean[j], scale[j], beta[j], p.fuse)
+                     : from_f32<bf16>(0.f);
       dst = p.z + m * p.Cp + c0;
     } else if (i < nz + ndy) {
       const long long r = i - nz;
       const long long m = r / (p.Cop / 8);
       const int c0 = (int)(r % (p.Cop / 8)) * 8;
+      float dyv[8], yv[8] = {}, gm[8], gs[8], kshift[8];
+      load8(dyv, p.dy, m * p.Co + c0, p.Co - c0, dy_vec);
+      if (p.stats) load8(yv, p.y, m * p.Co + c0, p.Co - c0, dy_vec);
+      load8(gm, p.gm, c0, p.Co - c0, dy_vec);
+      load8(gs, p.gs, c0, p.Co - c0, dy_vec);
+      load8(kshift, p.kshift, c0, p.Co - c0, dy_vec);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int co = c0 + j;
-        const long long at = m * p.Co + co;
-        out[j] = co < p.Co
-                     ? dyl_entry(to_f32(p.dy[at]),
-                                 p.stats ? to_f32(p.y[at]) : 0.f, p.gm[co],
-                                 p.gs[co], p.kshift[co], p.stats)
+      for (int j = 0; j < 8; ++j)
+        out[j] = c0 + j < p.Co
+                     ? dyl_entry(dyv[j],
+                                 p.stats ? yv[j] : 0.f, gm[j],
+                                 gs[j], kshift[j], p.stats)
                      : from_f32<bf16>(0.f);
-      }
       dst = p.dyl + m * p.Cop + c0;
     } else {
       const long long r = i - nz - ndy;
@@ -519,13 +567,11 @@ __global__ void reduce_dw(const Problem p) {
   p.dw[i] = from_f32<bf16>(tot);
 }
 
-// ---- 4. fprop (#10; #9's recomputed y with kFold) ------------------------
+// ---- 4. fprop (#10, #8) -----------------------------------------------------
 
-// kFold (#9): y summed over k in order with f32 FMAs (#8's order, item 5
-// above), and the epilogue folds y, rounded, into dyl and forms no
-// statistics; else (#10) y on the tensor cores, and the epilogue stores y
-// and its statistics partials
-template <int kTaps, bool kFold>
+// y on the tensor cores, then the epilogue stores y and its statistics
+// partials
+template <int kTaps>
 __global__ void __launch_bounds__(kThreads, 2) fprop(const Problem p) {
   __shared__ __align__(16) bf16 As[kStages][kBM][kLdK];  // [position][c]
   __shared__ __align__(16) bf16 Bs[kStages][kBK][kLdB];  // [c][co]
@@ -561,128 +607,36 @@ __global__ void __launch_bounds__(kThreads, 2) fprop(const Problem p) {
                    true);
   };
 
-  // #9: this thread's pairs of dy (columns c, c + 1 of each entry pair),
-  // loaded ahead of the product so that their latency hides behind it
-  uint32_t dy2[2][2][4] = {};  // [mi][half][ni], bf16 pairs
-  if constexpr (kFold) {
-    const bool pairs =
-        p.Co % 2 == 0 && (reinterpret_cast<uintptr_t>(p.dy) & 3) == 0;
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const long long m = m0 + wm * 32 + mi * 16 + g + half * 8;
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-          const int c = n0 + wn * 32 + ni * 8 + 2 * t4;
-          if (m >= p.M || c >= p.Co) continue;
-          const bf16* at = p.dy + m * p.Co + c;
-          dy2[mi][half][ni] =
-              pairs ? *reinterpret_cast<const uint32_t*>(at)
-                    : tc::bits(__halves2bfloat162(
-                          at[0], c + 1 < p.Co ? at[1] : from_f32<bf16>(0.f)));
-        }
-      }
-  }
-
   Acc acc;
   zero(acc);
   auto compute = [&](int st) {
-    if constexpr (kFold) {
-      // this thread's entries of the mma layout (rows g + 8 (2 mi + half),
-      // columns 8 ni + 2 t4 + e of its warp's 32 x 32), k pairs in order
-#pragma unroll 4
-      for (int kk = 0; kk < kBK; kk += 2) {
-        float a[2][2][2], b[2][4][2];  // [mi][half][k], [k][ni][e]
 #pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
+    for (int ks = 0; ks < kBK / 16; ++ks) {
+      uint32_t a[2][4], b[2][4];
 #pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const __nv_bfloat162 a2 = *reinterpret_cast<const __nv_bfloat162*>(
-                &As[st][wm * 32 + mi * 16 + g + half * 8][kk]);
-            a[mi][half][0] = __low2float(a2);
-            a[mi][half][1] = __high2float(a2);
-          }
+      for (int mi = 0; mi < 2; ++mi)
+        tc::ldmatrix_x4(a[mi], &As[st][wm * 32 + mi * 16 + lane % 16]
+                                  [ks * 16 + (lane / 16) * 8]);
 #pragma unroll
-        for (int k = 0; k < 2; ++k)
+      for (int np = 0; np < 2; ++np)
+        tc::ldmatrix_x4_trans(
+            b[np], &Bs[st][ks * 16 + lane % 8 + ((lane / 8) % 2) * 8]
+                      [wn * 32 + np * 16 + (lane / 16) * 8]);
 #pragma unroll
-          for (int ni = 0; ni < 4; ++ni) {
-            const __nv_bfloat162 b2 = *reinterpret_cast<const __nv_bfloat162*>(
-                &Bs[st][kk + k][wn * 32 + ni * 8 + 2 * t4]);
-            b[k][ni][0] = __low2float(b2);
-            b[k][ni][1] = __high2float(b2);
-          }
+      for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-        for (int k = 0; k < 2; ++k)
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-            for (int half = 0; half < 2; ++half)
-#pragma unroll
-              for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-                for (int e = 0; e < 2; ++e)
-                  acc[mi][ni][half * 2 + e] =
-                      fmaf(a[mi][half][k], b[k][ni][e],
-                           acc[mi][ni][half * 2 + e]);
-      }
-    } else {
-#pragma unroll
-      for (int ks = 0; ks < kBK / 16; ++ks) {
-        uint32_t a[2][4], b[2][4];
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-          tc::ldmatrix_x4(a[mi], &As[st][wm * 32 + mi * 16 + lane % 16]
-                                    [ks * 16 + (lane / 16) * 8]);
-#pragma unroll
-        for (int np = 0; np < 2; ++np)
-          tc::ldmatrix_x4_trans(
-              b[np], &Bs[st][ks * 16 + lane % 8 + ((lane / 8) % 2) * 8]
-                        [wn * 32 + np * 16 + (lane / 16) * 8]);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-          for (int ni = 0; ni < 4; ++ni)
-            tc::mma_bf16(acc[mi][ni], a[mi], b[ni / 2][(ni % 2) * 2],
-                         b[ni / 2][(ni % 2) * 2 + 1]);
-      }
+        for (int ni = 0; ni < 4; ++ni)
+          tc::mma_bf16(acc[mi][ni], a[mi], b[ni / 2][(ni % 2) * 2],
+                       b[ni / 2][(ni % 2) * 2 + 1]);
     }
   };
   mainloop(kTaps * ncp, load, compute);
 
-  if constexpr (kFold) {
-    // dyl = dy + gm + gs (y_r - K) cast to dy's dtype, y_r the recomputed
-    // y rounded as the forward rounds it; zeros in the padded columns
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const long long m = m0 + wm * 32 + mi * 16 + g + half * 8;
-        if (m >= p.M) continue;
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-          const int c = n0 + wn * 32 + ni * 8 + 2 * t4;
-          const __nv_bfloat162 dyp =
-              *reinterpret_cast<const __nv_bfloat162*>(&dy2[mi][half][ni]);
-          const float dyv[2] = {__low2float(dyp), __high2float(dyp)};
-          float fold[2];
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int co = c + e;
-            fold[e] = 0.f;
-            if (co >= p.Co) continue;
-            const float yr = round_to<bf16>(acc[mi][ni][half * 2 + e]);
-            fold[e] = fold_dy<float>(dyv[e], yr, p.gm[co], p.gs[co],
-                                     p.kshift[co], 1);
-          }
-          *reinterpret_cast<__nv_bfloat162*>(p.dyl + m * p.Cop + c) =
-              __floats2bfloat162_rn(fold[0], fold[1]);
-        }
-      }
-    return;
-  }
-
-  // epilogue: y cast to bf16, and the statistics of the rounded y
+  // epilogue: y cast to bf16 into a [kBM][kBN] tile in shared memory (A's
+  // stages, free once the main loop is done), with the statistics of the
+  // rounded y; then the tile's rows to y, 16 bytes a thread where Co is a
+  // multiple of 8 (whole 128-byte rows of a warp), else entry by entry
+  bf16(*ys)[kBN + 8] = reinterpret_cast<bf16(*)[kBN + 8]>(&As[0][0][0]);
   float c1[4][2], c2[4][2];
 #pragma unroll
   for (int ni = 0; ni < 4; ++ni)
@@ -692,21 +646,40 @@ __global__ void __launch_bounds__(kThreads, 2) fprop(const Problem p) {
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const long long m = m0 + wm * 32 + mi * 16 + g + half * 8;
-      if (m >= p.M) continue;
+      const int r = wm * 32 + mi * 16 + g + half * 8;
+      const bool real = m0 + r < p.M;
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
+      for (int ni = 0; ni < 4; ++ni) {
+        const int col = wn * 32 + ni * 8 + 2 * t4;
+        const float y0 = acc[mi][ni][half * 2], y1 = acc[mi][ni][half * 2 + 1];
+        const __nv_bfloat162 y2 = __floats2bfloat162_rn(y0, y1);
+        *reinterpret_cast<__nv_bfloat162*>(&ys[r][col]) = y2;
+        const float yv[2] = {__low2float(y2), __high2float(y2)};
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int co = n0 + wn * 32 + ni * 8 + 2 * t4 + e;
-          if (co >= p.Co) continue;
-          const bf16 yv = from_f32<bf16>(acc[mi][ni][half * 2 + e]);
-          p.yf[m * p.Co + co] = yv;
-          const float d = __fsub_rn(to_f32(yv), p.kshift[co]);
+          const int co = n0 + col + e;
+          if (!real || co >= p.Co) continue;
+          const float d = __fsub_rn(yv[e], p.kshift[co]);
           c1[ni][e] += d;
           c2[ni][e] += __fmul_rn(d, d);
         }
+      }
     }
+  __syncthreads();
+  const bool vec = p.Co % 8 == 0 &&
+                   reinterpret_cast<uintptr_t>(p.yf) % 16 == 0;
+  for (int i = tid; i < kBM * (kBN / 8); i += kThreads) {
+    const int r = i / (kBN / 8), c = (i % (kBN / 8)) * 8;
+    const long long m = m0 + r;
+    const int co = n0 + c;
+    if (m >= p.M || co >= p.Co) continue;
+    bf16* dst = p.yf + m * p.Co + co;
+    if (vec) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(&ys[r][c]);
+    } else {
+      for (int j = 0; j < 8 && co + j < p.Co; ++j) dst[j] = ys[r][c + j];
+    }
+  }
   if (!p.stats) return;  // uniform over the block
   // over the warp's 8 row groups, then its 4 warps along the rows
 #pragma unroll

@@ -1,6 +1,6 @@
 // Flash-attention backward for Hopper (sm_90a), plain C interface: five
-// kernels, dQ, dK/dV and dBias, and the ring's partial dQ and dK/dV (dQ,
-// dK/dV and the ring's dK/dV with a tensor-core route each for bf16).
+// kernels, dQ, dK/dV and dBias, and the ring's partial dQ and dK/dV (all
+// but dBias with a tensor-core route for bf16).
 //
 // Replaces the TPU kernels of bigdl_tpu/ops/attention_kernels.py:
 //   flash_attention_dq    <- _bwd_impl / _flash_dq_kernel   (#2, pallas_call :483:
@@ -100,8 +100,11 @@
 // four products have an f32 operand (dP = dO . V^T, dV = P^T . dO with P
 // in dO's dtype), so each f32 operand goes in as three bf16 pieces whose
 // sum is exact, and the products keep f32's precision (the comment above
-// the kernel).  f32 q, k, v keep the scalar template; flash_attention_
-// dkv_partial takes the route as a flag, which the wrapper counts.
+// the kernel).  The ring's dQ (#6) runs #2's loop with dO in f32 in the
+// same way: flash_dq_tc_kernel<D, true>, dP over dO's three pieces.  f32
+// q, k, v keep the scalar templates; flash_attention_dq_partial and
+// flash_attention_dkv_partial take the route as a flag, which the
+// wrappers count.
 //
 // Work split (fixed tiles; ragged edges masked here):
 //   dQ    grid (B*H, ceil(Tq/16)): 4 warps x 4 query rows; loops over
@@ -110,7 +113,9 @@
 //   dK/dV grid (B*H, ceil(Tk/16)): 4 warps x 4 keys; loops over 32-query
 //         tiles, lane = query for s and dP, lane = column for the sums.
 //   dQ on the tensor cores (bf16) grid (B*H, ceil(Tq/64)): 4 warps x 16
-//         rows; loops over 32-key tiles (64 at D 32), two stages.
+//         rows; loops over 32-key tiles (64 at D 32), two stages; the
+//         ring's dQ the same, with dO's rows split into bf16 pieces in
+//         shared memory once they land.
 //   dK/dV on the tensor cores (bf16) grid (B*H, ceil(Tk/64)): 4 warps x 16
 //         keys; loops over 32-query tiles, two stages.
 //   the ring's dK/dV on the tensor cores (bf16) grid (B*H, ceil(Tk/64)):
@@ -680,22 +685,85 @@ __global__ void __launch_bounds__(kTcThreads, DMAX <= 64 ? 3 : 1)
     }
 }
 
-// ---- dQ on the tensor cores (bf16) -------------------------------------------
+// ---- f32 operands as bf16 pieces (the ring's dO, #6 and #7) ----------------
+
+// rows [r0, r0 + n) of a [T, D] f32 operand (strided rows, contiguous
+// columns) into shared rows of DMAX floats, zero beyond T and D, by
+// 16-byte cp.async copies
+template <int DMAX>
+__device__ __forceinline__ void load_rows_f32_async(float* dst,
+                                                    const float* src,
+                                                    long long st, int r0,
+                                                    int n, int T_, int D) {
+  constexpr int kChunks = DMAX / 4;
+  for (int i = threadIdx.x; i < n * kChunks; i += kTcThreads) {
+    const int r = i / kChunks, c = (i % kChunks) * 4, t = r0 + r;
+    const bool inside = t < T_ && c < D;
+    tc::cp_async16(dst + r * DMAX + c, inside ? src + t * st + c : src,
+                   inside);
+  }
+}
+
+// An f32 operand x goes to the tensor cores as three bf16 pieces, hi =
+// bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid), whose sum is x
+// exactly (for normal x whose pieces stay normal); every bf16 x bf16
+// product is exact in f32, so a product against the pieces is the f32
+// product up to the order of its sum.  Here the n rows of DMAX floats at
+// src (landed in shared memory) become three [n][kLd] bf16 tiles at dst,
+// hi, mid, lo, in the layout ldmatrix reads.
+template <int DMAX>
+__device__ __forceinline__ void split_rows(const float* src,
+                                           __nv_bfloat16* dst, int n) {
+  constexpr int kLd = DkvTc<DMAX>::kLd;
+  for (int i = threadIdx.x; i < n * DMAX / 4; i += kTcThreads) {
+    const int r = i / (DMAX / 4), col = (i % (DMAX / 4)) * 4;
+    const float4 x4 = *reinterpret_cast<const float4*>(src + r * DMAX + col);
+    const float xs[4] = {x4.x, x4.y, x4.z, x4.w};
+    uint32_t hi[2], mid[2], lo[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float a = xs[2 * e], c = xs[2 * e + 1];
+      const __nv_bfloat162 hi2 = __floats2bfloat162_rn(a, c);
+      const float2 do_rest = {a - __low2float(hi2), c - __high2float(hi2)};
+      const __nv_bfloat162 mid2 =
+          __floats2bfloat162_rn(do_rest.x, do_rest.y);
+      hi[e] = tc::bits(hi2);
+      mid[e] = tc::bits(mid2);
+      lo[e] = tc::bits(__floats2bfloat162_rn(
+          do_rest.x - __low2float(mid2), do_rest.y - __high2float(mid2)));
+    }
+    const int at = r * kLd + col;
+    *reinterpret_cast<uint2*>(dst + at) = make_uint2(hi[0], hi[1]);
+    *reinterpret_cast<uint2*>(dst + n * kLd + at) = make_uint2(mid[0], mid[1]);
+    *reinterpret_cast<uint2*>(dst + 2 * n * kLd + at) =
+        make_uint2(lo[0], lo[1]);
+  }
+}
+
+// ---- dQ on the tensor cores (bf16; #2, and #6 with dO in f32) ----------------
 
 constexpr int kTcRows = kTcWarps * 16;  // query rows per dQ block, 16 per warp
 
 // 32-key K/V tiles from D 64 up (at D 64: 163 registers and 0.43 ms at
 // the LM training shape, against 175 and 0.56 with 64-key tiles; PERF.md),
-// 64 at D 32
-template <int DMAX>
+// 64 at D 32.  kPartial (#6): dO in f32, as three bf16 pieces; the shared
+// memory holds Q, dO's pieces, K and V in two stages each, and dO's f32
+// rows before the split.  The pieces' A fragments stay in registers up to
+// D 64 (#6's SP path); at D 128 they would spill, so each key tile reads
+// them from shared memory through ldmatrix, as #7 does.
+template <int DMAX, bool kPartial = false>
 struct DqTc {
   static constexpr int kKeys = DMAX <= 32 ? 64 : 32;  // keys per K/V tile
   static constexpr int kLd = DkvTc<DMAX>::kLd;
   static constexpr int kKn = kKeys / 8;  // n8 tiles of S and dP per warp
   static constexpr int kDk = DMAX / 16;  // 16-deep steps of Q.K^T, dO.V^T
   static constexpr int kDn = DMAX / 8;   // n8 tiles of dQ per warp
+  static constexpr int kPieces = kPartial ? 3 : 1;  // dO's bf16 pieces
+  static constexpr bool kDoInRegs = !kPartial || DMAX <= 64;
   static constexpr size_t kSmem =
-      (size_t)(2 * kTcRows + 4 * kKeys) * kLd * sizeof(__nv_bfloat16);
+      (size_t)((1 + kPieces) * kTcRows + 4 * kKeys) * kLd *
+          sizeof(__nv_bfloat16) +
+      (kPartial ? (size_t)kTcRows * DMAX * sizeof(float) : 0);
 };
 
 // #1's FlashAttention-2 loop turned to dQ.  One (b, h) and 64 query rows a
@@ -710,20 +778,33 @@ struct DqTc {
 // from the same tile.  Key tiles wholly above the block's last row are
 // skipped (they add dS = 0, as does every key of a row that sees none).
 // Each block owns its rows: no float atomics, the same bits every launch.
-// The steps are #6's too, bar its f32 dO: with #7's split of dO in shared
-// memory, dP = dO . V^T over dO's pieces is the one product that changes.
-template <int DMAX>
+// kPartial (#6, the ring's dQ of one chunk pair): dO comes in f32, so its
+// row block is split once into three bf16 pieces whose sum is exact
+// (split_rows, #7's split), and dP = dO . V^T is three products over the
+// pieces, smallest first, each 16-deep step summed into a fresh tile and
+// then added to the running f32 sum (the tensor cores' f32 accumulation
+// drops low bits); S and dQ stay one product each, dS rounded to K's
+// dtype, bf16: 5 bf16 products a tile where #2 issues 3.  lse and Delta
+// are the whole sequence's rows, the causal mask is on global positions
+// (causal_offset = q_offset - k_offset), a row that sees no key of the
+// chunk has dS = 0 as everywhere, and dQ is written in f32.
+template <int DMAX, bool kPartial>
 __global__ void __launch_bounds__(kTcThreads)
     flash_dq_tc_kernel(const Params p) {
   using bf16 = __nv_bfloat16;
-  using Cfg = DqTc<DMAX>;
+  using Cfg = DqTc<DMAX, kPartial>;
   constexpr int kKeys = Cfg::kKeys, kLd = Cfg::kLd;
   constexpr int kKn = Cfg::kKn, kDk = Cfg::kDk, kDn = Cfg::kDn;
+  constexpr int kPieces = Cfg::kPieces;
+  constexpr bool kDoInRegs = Cfg::kDoInRegs;
+  using TO = std::conditional_t<kPartial, float, bf16>;  // dO's dtype
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [kTcRows][kLd]
-  bf16* dos = qs + kTcRows * kLd;                // [kTcRows][kLd]
-  bf16* ks = dos + kTcRows * kLd;                // [2][kKeys][kLd]
+  bf16* dos = qs + kTcRows * kLd;                // [kPieces][kTcRows][kLd]
+  bf16* ks = dos + kPieces * kTcRows * kLd;      // [2][kKeys][kLd]
   bf16* vs = ks + 2 * kKeys * kLd;               // [2][kKeys][kLd]
+  // kPartial: dO's f32 rows [kTcRows][DMAX], split into dos once landed
+  float* dof = reinterpret_cast<float*>(vs + 2 * kKeys * kLd);
 
   const int bh = blockIdx.x;
   const int b = bh / p.H, h = bh % p.H;
@@ -736,8 +817,7 @@ __global__ void __launch_bounds__(kTcThreads)
   const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
   const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
   const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const bf16* dout = static_cast<const bf16*>(p.dout) + b * p.o_sb +
-                     h * p.o_sh;
+  const TO* dout = static_cast<const TO*>(p.dout) + b * p.o_sb + h * p.o_sh;
   const float* bias =
       p.bias == nullptr ? nullptr : p.bias + b * p.b_sb + h * p.b_sh;
 
@@ -757,7 +837,10 @@ __global__ void __launch_bounds__(kTcThreads)
                          kKeys, p.Tk, p.D, p.vec);
   };
   load_tile_bf16<DMAX>(qs, q, p.q_st, q0, kTcRows, p.Tq, p.D, p.vec);
-  load_tile_bf16<DMAX>(dos, dout, p.o_st, q0, kTcRows, p.Tq, p.D, p.vec);
+  if constexpr (kPartial)
+    load_rows_f32_async<DMAX>(dof, dout, p.o_st, q0, kTcRows, p.Tq, p.D);
+  else
+    load_tile_bf16<DMAX>(dos, dout, p.o_st, q0, kTcRows, p.Tq, p.D, p.vec);
   if (n_tiles > 0) load_kv(0, 0);
   tc::cp_async_commit();
 
@@ -776,12 +859,23 @@ __global__ void __launch_bounds__(kTcThreads)
 
   tc::cp_async_wait<0>();
   __syncthreads();
-  uint32_t qa[kDk][4], oa[kDk][4];  // this warp's 16 rows of Q and dO
+  if constexpr (kPartial) {  // dO's rows as their three bf16 pieces
+    split_rows<DMAX>(dof, dos, kTcRows);
+    __syncthreads();
+  }
+  auto a_off = [&](int kd) {  // this warp's 16 rows, 16-deep step kd
+    return (warp * 16 + lane % 16) * kLd + kd * 16 + (lane / 16) * 8;
+  };
+  // this warp's 16 rows of Q and of dO (each of dO's pieces: hi, mid, lo)
+  uint32_t qa[kDk][4], oa[kDoInRegs ? kDk : 1][kPieces][4];
 #pragma unroll
   for (int kd = 0; kd < kDk; ++kd) {
-    const int a_off = (warp * 16 + lane % 16) * kLd + kd * 16 + (lane / 16) * 8;
-    tc::ldmatrix_x4(qa[kd], qs + a_off);
-    tc::ldmatrix_x4(oa[kd], dos + a_off);
+    tc::ldmatrix_x4(qa[kd], qs + a_off(kd));
+    if constexpr (kDoInRegs)
+#pragma unroll
+      for (int piece = 0; piece < kPieces; ++piece)
+        tc::ldmatrix_x4(oa[kd][piece],
+                        dos + piece * kTcRows * kLd + a_off(kd));
   }
 
   for (int tile = 0; tile < n_tiles; ++tile) {
@@ -800,7 +894,17 @@ __global__ void __launch_bounds__(kTcThreads)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
 #pragma unroll
-    for (int kd = 0; kd < kDk; ++kd)
+    for (int kd = 0; kd < kDk; ++kd) {
+      uint32_t oak[kPieces][4];  // dO's pieces at step kd
+#pragma unroll
+      for (int piece = 0; piece < kPieces; ++piece) {
+        if constexpr (kDoInRegs) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) oak[piece][i] = oa[kd][piece][i];
+        } else {
+          tc::ldmatrix_x4(oak[piece], dos + piece * kTcRows * kLd + a_off(kd));
+        }
+      }
 #pragma unroll
       for (int np = 0; np < kKn / 2; ++np) {
         const int b_off = (np * 16 + lane % 8 + (lane / 16) * 8) * kLd +
@@ -810,9 +914,24 @@ __global__ void __launch_bounds__(kTcThreads)
         tc::ldmatrix_x4(vb, vt + b_off);
         tc::mma_bf16(s[2 * np], qa[kd], kb[0], kb[1]);
         tc::mma_bf16(s[2 * np + 1], qa[kd], kb[2], kb[3]);
-        tc::mma_bf16(dp[2 * np], oa[kd], vb[0], vb[1]);
-        tc::mma_bf16(dp[2 * np + 1], oa[kd], vb[2], vb[3]);
+        if constexpr (kPartial) {
+          // dO's pieces lo, mid, hi into a fresh tile, then the sum
+          float tp[2][4] = {};
+#pragma unroll
+          for (int piece = kPieces - 1; piece >= 0; --piece) {
+            tc::mma_bf16(tp[0], oak[piece], vb[0], vb[1]);
+            tc::mma_bf16(tp[1], oak[piece], vb[2], vb[3]);
+          }
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) dp[2 * np + n][e] += tp[n][e];
+        } else {
+          tc::mma_bf16(dp[2 * np], oak[0], vb[0], vb[1]);
+          tc::mma_bf16(dp[2 * np + 1], oak[0], vb[2], vb[3]);
+        }
       }
+    }
 
     // dS in dp's registers; a tile with no bias, no edge and no masked
     // pair skips the tests
@@ -863,21 +982,31 @@ __global__ void __launch_bounds__(kTcThreads)
   }
   tc::cp_async_wait<0>();
 
-  // dQ = scale * sum, in q's dtype
-  bf16* dq = static_cast<bf16*>(p.out0);
+  // dQ = scale * sum, in q's dtype (#6: in f32, pairs of columns; D is a
+  // multiple of 8 there)
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int t = r_lo + hh * 8;
     if (t >= p.Tq) continue;
     const long long row = (long long)bh * p.Tq + t;
 #pragma unroll
-    for (int j = 0; j < kDn; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int c = j * 8 + 2 * t4 + e;
+    for (int j = 0; j < kDn; ++j) {
+      const int c = j * 8 + 2 * t4;
+      if constexpr (kPartial) {
         if (c < p.D)
-          dq[row * p.D + c] = __float2bfloat16_rn(acc[j][2 * hh + e] * p.scale);
+          *reinterpret_cast<float2*>(static_cast<float*>(p.out0) +
+                                     row * p.D + c) =
+              make_float2(acc[j][2 * hh] * p.scale,
+                          acc[j][2 * hh + 1] * p.scale);
+      } else {
+        bf16* dq = static_cast<bf16*>(p.out0);
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (c + e < p.D)
+            dq[row * p.D + c + e] =
+                __float2bfloat16_rn(acc[j][2 * hh + e] * p.scale);
       }
+    }
   }
 }
 
@@ -894,30 +1023,11 @@ struct DkvPartialTc : DkvTc<DMAX> {
       (size_t)(2 * Base::kQ * DMAX + 4 * Base::kQ) * sizeof(float);
 };
 
-// rows [r0, r0 + n) of a [T, D] f32 operand (strided rows, contiguous
-// columns) into shared rows of DMAX floats, zero beyond T and D, by
-// 16-byte cp.async copies
-template <int DMAX>
-__device__ __forceinline__ void load_rows_f32_async(float* dst,
-                                                    const float* src,
-                                                    long long st, int r0,
-                                                    int n, int T_, int D) {
-  constexpr int kChunks = DMAX / 4;
-  for (int i = threadIdx.x; i < n * kChunks; i += kTcThreads) {
-    const int r = i / kChunks, c = (i % kChunks) * 4, t = r0 + r;
-    const bool inside = t < T_ && c < D;
-    tc::cp_async16(dst + r * DMAX + c, inside ? src + t * st + c : src,
-                   inside);
-  }
-}
-
 // The reference's _dkv_accum with dO in f32: dP = dO . V^T and dV = P^T .
-// dO have an f32 operand, which a bf16 product would round.  Each f32
-// operand x goes to the tensor cores as three bf16 pieces, hi = bf16(x),
-// mid = bf16(x - hi), lo = bf16(x - hi - mid), whose sum is x exactly
-// (for normal x whose pieces stay normal); every bf16 x bf16 product is
-// exact in f32, so a product against the pieces is the f32 product up to
-// the order of its sum.  Per 32-query tile: S^T = K . Q^T (one product),
+// dO have an f32 operand, which a bf16 product would round, so each goes
+// to the tensor cores as three bf16 pieces whose sum is exact (split_rows
+// for dO, the same steps in registers for P).  Per 32-query tile: S^T =
+// K . Q^T (one product),
 // dP^T = V . dO^T over dO's pieces (three), dV += P^T . dO over the six
 // terms of P's and dO's pieces down to 2^-24 of the product (hi.hi,
 // hi.mid, mid.hi, hi.lo, mid.mid, lo.hi), dK += dS^T . Q with dS rounded
@@ -997,32 +1107,7 @@ __global__ void __launch_bounds__(kTcThreads, DMAX <= 64 ? 2 : 1)
     __syncthreads();
 
     // dO's tile as its three bf16 pieces, in the layout ldmatrix reads
-    const float* dot = dof + stage * kQ * DMAX;
-    for (int i = threadIdx.x; i < kQ * DMAX / 4; i += kTcThreads) {
-      const int r = i / (DMAX / 4), col = (i % (DMAX / 4)) * 4;
-      const float4 x4 =
-          *reinterpret_cast<const float4*>(dot + r * DMAX + col);
-      const float xs[4] = {x4.x, x4.y, x4.z, x4.w};
-      uint32_t hi[2], mid[2], lo[2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float a = xs[2 * e], c = xs[2 * e + 1];
-        const __nv_bfloat162 hi2 = __floats2bfloat162_rn(a, c);
-        const float2 do_rest = {a - __low2float(hi2), c - __high2float(hi2)};
-        const __nv_bfloat162 mid2 =
-            __floats2bfloat162_rn(do_rest.x, do_rest.y);
-        hi[e] = tc::bits(hi2);
-        mid[e] = tc::bits(mid2);
-        lo[e] = tc::bits(__floats2bfloat162_rn(
-            do_rest.x - __low2float(mid2), do_rest.y - __high2float(mid2)));
-      }
-      const int at = r * kLd + col;
-      *reinterpret_cast<uint2*>(pieces + at) = make_uint2(hi[0], hi[1]);
-      *reinterpret_cast<uint2*>(pieces + kQ * kLd + at) =
-          make_uint2(mid[0], mid[1]);
-      *reinterpret_cast<uint2*>(pieces + 2 * kQ * kLd + at) =
-          make_uint2(lo[0], lo[1]);
-    }
+    split_rows<DMAX>(dof + stage * kQ * DMAX, pieces, kQ);
     __syncthreads();
 
     const bf16* qt = qs + stage * kQ * kLd;
@@ -1236,7 +1321,8 @@ enum Which {
   kDbias = 2,
   kDqPartial = 3,
   kDkvPartial = 4,
-  kDkvPartialTc = 5
+  kDkvPartialTc = 5,
+  kDqPartialTc = 6
 };
 
 template <typename Kernel>
@@ -1259,7 +1345,7 @@ int launch_which(int which, const Params& p, cudaStream_t stream) {
   switch (which) {
     case kDq:  // bf16 on the tensor cores, f32 on the scalar kernel
       if constexpr (std::is_same<T, __nv_bfloat16>::value)
-        return launch(flash_dq_tc_kernel<DMAX>,
+        return launch(flash_dq_tc_kernel<DMAX, false>,
                       dim3(p.B * p.H, (p.Tq + kTcRows - 1) / kTcRows), 0, p,
                       stream, DqTc<DMAX>::kSmem);
       else
@@ -1279,6 +1365,12 @@ int launch_which(int which, const Params& p, cudaStream_t stream) {
       return launch(flash_dq_kernel<T, float, DMAX, true>,
                     dim3(p.B * p.H, q_tiles), dq_smem_floats<DMAX>(), p,
                     stream);
+    case kDqPartialTc:  // bf16 q, k, v only
+      if constexpr (std::is_same<T, __nv_bfloat16>::value)
+        return launch(flash_dq_tc_kernel<DMAX, true>,
+                      dim3(p.B * p.H, (p.Tq + kTcRows - 1) / kTcRows), 0, p,
+                      stream, DqTc<DMAX, true>::kSmem);
+      return (int)cudaErrorInvalidValue;
     case kDkvPartial:
       return launch(flash_dkv_kernel<T, float, DMAX, true>,
                     dim3(p.B * p.H, k_tiles), dkv_smem_floats<DMAX>(), p,
@@ -1355,7 +1447,7 @@ int run(int which, const void* q, const void* k, const void* v,
   for (long long st : strides) p.vec = p.vec && st % 8 == 0;
   for (const void* ptr : ptrs)
     p.vec = p.vec && reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
-  if (which == kDkvPartialTc) {
+  if (which == kDkvPartialTc || which == kDqPartialTc) {
     // 16-byte rows: q, k, v bf16 (8 values), dO f32 (4 values)
     bool rows = D % 8 == 0;
     for (int i = 0; i < 12; ++i)
@@ -1363,6 +1455,7 @@ int run(int which, const void* q, const void* k, const void* v,
     for (const void* ptr : ptrs)
       rows = rows && reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
     if (!rows || !is_bf16) return (int)cudaErrorInvalidValue;
+    p.vec = 1;  // every bf16 row copies in 16-byte pieces
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_bf16 ? launch_for_dim<__nv_bfloat16>(which, p, s)
@@ -1396,8 +1489,9 @@ extern "C" int flash_attention_dbias(BWD_ARGS) { return BWD_CALL(kDbias); }
 
 // The partial kernels (#6, #7) take no bias, dO in f32 and the chunks'
 // global positions; out0/out1 are f32 dq/unused and dk/dv.  With
-// tensor_cores set, #7 runs flash_dkv_partial_tc_kernel (bf16 q, k, v and
-// 16-byte rows, else an error); #6 has no tensor-core route and refuses it.
+// tensor_cores set, #6 runs flash_dq_tc_kernel<D, true> and #7
+// flash_dkv_partial_tc_kernel (bf16 q, k, v and 16-byte rows, else an
+// error); else the scalar templates.
 #define PARTIAL_ARGS                                                         \
   const void *q, const void *k, const void *v, const void *dout,            \
       const void *lse, const void *delta, void *out0, void *out1,           \
@@ -1414,8 +1508,7 @@ extern "C" int flash_attention_dbias(BWD_ARGS) { return BWD_CALL(kDbias); }
       stream)
 
 extern "C" int flash_attention_dq_partial(PARTIAL_ARGS) {
-  if (tensor_cores) return (int)cudaErrorInvalidValue;
-  return PARTIAL_CALL(kDqPartial);
+  return PARTIAL_CALL(tensor_cores ? kDqPartialTc : kDqPartial);
 }
 extern "C" int flash_attention_dkv_partial(PARTIAL_ARGS) {
   return PARTIAL_CALL(tensor_cores ? kDkvPartialTc : kDkvPartial);

@@ -23,22 +23,24 @@ the faults they are there to catch:
    dQ and dK/dV kernels.  The script fails unless the first stays within
    chip_smoke's bounds and the second does not.
 3. Conv+BN mutants.  ``conv_bn_fwd.cu`` or ``conv_bn_bwd.cu`` is rebuilt
-   with one fault: the cast of z to x's dtype dropped in #8; in #10's
-   scalar route (f32) the 3x3's halo zeroed before normalize+ReLU (the
-   border then reads relu(beta - mean * scale)); in #10's tensor-core
-   route z stored cut to bf16 instead of rounded (its cast dropped) and
-   the halo of a shifted row copied from the position's own row instead
-   of zero-filled; in #9's tensor-core route the recomputed y folded into
-   dyl unrounded (the reference folds the y the forward rounded), or the
-   folded dy stored cut to bf16 instead of rounded; and in #11's
-   tensor-core route the folded dy stored cut to bf16 instead of rounded
-   and the halo copied.  The two halo faults edit the one line of
-   ``conv_bn_tc.cuh`` that #10 and #11 share, each built into its own
-   library.  Each runs through chip_smoke's conv check at a
-   ResNet-50 b128 shape in bf16 (the f32 halo fault at a ragged f32
-   shape); the script fails unless the check passes the sources as they
-   stand and refuses every mutant, and prints the share of entries each
-   fault moves.
+   with one fault: in #8's tensor-core route z stored cut to bf16 instead
+   of rounded (the prepass's cast dropped) or y stored cut to bf16 (the
+   one-tap epilogue's cast dropped), in its f32 route z cast to bf16
+   (where the cast to x's dtype, f32, is the identity); in #10's scalar
+   route (f32) the 3x3's halo zeroed before normalize+ReLU (the border
+   then reads relu(beta - mean * scale)); in #10's tensor-core route z
+   stored cut to bf16 and the halo of a shifted row copied from the
+   position's own row instead of zero-filled; in #9's tensor-core route
+   the fold blind to the forward's saved y (y = K, so the gs term
+   vanishes), or the folded dy stored cut to bf16 instead of rounded;
+   and in #11's tensor-core route the folded dy stored cut to bf16 and
+   the halo copied.  Faults in a line two kernels share (the prepass's z
+   and dyl casts, the halo, the epilogue's y cast) are each built into
+   the library of the kernel whose check must refuse them.  Each runs
+   through chip_smoke's conv check at a ResNet-50 b128 shape in bf16 (the
+   f32 faults at a ragged f32 shape); the script fails unless the check
+   passes the sources as they stand and refuses every mutant, and prints
+   the share of entries each fault moves.
 4. Ring-attention mutants.  ``flash_attention_fwd.cu`` is rebuilt with
    #5's causal test on local rather than global positions (the offset
    q_offset - k_offset taken as 0, which both of #5's routes read), or
@@ -47,13 +49,15 @@ the faults they are there to catch:
    ``flash_attention_bwd.cu`` with #7's P cast to q's dtype before Pᵀ·dO
    (the rule of #3, where dO is in q's dtype; the ring's dO is f32): in
    #7's tensor-core route P's mid and lo pieces dropped; or with dO's mid
-   and lo pieces dropped (dO rounded to bf16, what a bf16 tensor-core
-   backward such as SDPA's computes).  Each runs through chip_smoke's
-   check of #5-#7 at the SP path's off-diagonal bf16 chunk pair; the
-   script fails unless the check passes the sources as they stand and
-   refuses each mutant, and prints the share of entries each moves from
-   the plain version and from the source as it stands (and #5's state
-   bias, #7's dV errors against the f64 sum).
+   and lo pieces dropped in the split #6 and #7 share (dO rounded to
+   bf16, what a bf16 tensor-core backward such as SDPA's computes), built
+   once for each kernel's check; or with #6's dS packed by truncation (the
+   line #6 shares with #2).  Each runs through chip_smoke's check of
+   #5-#7 at the SP path's off-diagonal bf16 chunk pair; the script fails
+   unless the check passes the sources as they stand and refuses each
+   mutant, and prints the share of entries each moves from the plain
+   version and from the source as it stands (and #5's state bias, #7's dV
+   errors against the f64 sum).
 4b. A forward mutant.  ``flash_attention_fwd.cu`` with P packed by
    truncation in the tensor-core loop #1 shares with #5, through #1's
    wrapper at chip_smoke's LM training shape, held by its check
@@ -117,11 +121,29 @@ BWD_ENTRIES = ("flash_attention_dq", "flash_attention_dkv")
 # it stands, the line with the fault, chip_smoke's conv problem, the
 # output whose check must refuse it)
 CONV_MUTANTS = {
+    # #8's tensor-core route stores z in the prepass it shares with #10:
+    # the fault stores the unrounded normalize+ReLU cut to its top 16 bits
     "no_z_cast_in_8": (
+        "conv_bn_tc.cuh", "conv_bn_fwd",
+        "return from_f32<bf16>(fuse ? norm_relu<bf16>(x, mean, scale, beta) "
+        ": x);",
+        "return __float2bfloat16_rz(fuse ? fmaxf(bn_input(x, mean, scale, "
+        "beta), 0.f) : x);", "s1_conv3", ("y",)),
+    # #8's scalar route runs in f32 only, where z's cast to x's dtype is
+    # the identity (dropping it changes no bit): the fault casts z to bf16
+    # instead, the rounding point of the bf16 route taken at the wrong type
+    "z_cast_to_bf16_in_8_f32": (
         "conv_bn_fwd.cu", "conv_bn_fwd",
         "return fuse ? norm_relu<T>(xv, mean[k], scale[k], beta[k]) : xv;",
-        "return fuse ? fmaxf(bn_input(xv, mean[k], scale[k], beta[k]), 0.f)"
-        " : xv;", "s1_conv3", ("y",)),
+        "return fuse ? norm_relu<__nv_bfloat16>(xv, mean[k], scale[k], "
+        "beta[k]) : xv;", "r1_f32_norm", ("y",)),
+    # the one-tap (and #10's) epilogue stores y cut to its top 16 bits
+    "no_y_cast_in_8": (
+        "conv_bn_tc.cuh", "conv_bn_fwd",
+        "const __nv_bfloat162 y2 = __floats2bfloat162_rn(y0, y1);",
+        "const __nv_bfloat162 y2 = __halves2bfloat162("
+        "__float2bfloat16_rz(y0), __float2bfloat16_rz(y1));",
+        "s1_conv3", ("y",)),
     # #10's scalar route runs in f32 only: a ragged f32 problem
     "halo_zeroed_before_norm_in_10": (
         "conv_bn_fwd.cu", "conv_bn_fwd",
@@ -141,20 +163,20 @@ CONV_MUTANTS = {
         "tc::cp_async16(dst, base + (halo ? own : pos) * ld + c, !halo);",
         "tc::cp_async16(dst, base + (halo ? own : pos) * ld + c, true);",
         "s1_conv2", ("y",)),
-    # #9's tensor-core route folds the recomputed y into dyl in fprop's
-    # epilogue: the faults fold y unrounded, or store the fold cut to its
-    # top 16 bits (the dyl cast dropped)
-    "y_not_rounded_in_9": (
+    # #9's tensor-core route folds the forward's saved y into dyl in the
+    # prepass it shares with #11: the faults fold y = K (the saved y
+    # ignored: the gs term vanishes), or store the fold cut to its top 16
+    # bits (the dyl cast dropped; #11's control edits the same line)
+    "saved_y_ignored_in_9": (
         "conv_bn_tc.cuh", "conv_bn_bwd",
-        "const float yr = round_to<bf16>(acc[mi][ni][half * 2 + e]);",
-        "const float yr = acc[mi][ni][half * 2 + e];",
+        "p.stats ? yv[j] : 0.f, gm[j],",
+        "p.stats ? kshift[j] : 0.f, gm[j],",
         "s1_conv3", ("dx", "dw")),
     "no_dyl_cast_in_9": (
         "conv_bn_tc.cuh", "conv_bn_bwd",
-        "__floats2bfloat162_rn(fold[0], fold[1]);",
-        "__halves2bfloat162(__float2bfloat16_rz(fold[0]), "
-        "__float2bfloat16_rz(fold[1]));",
-        "s1_conv3", ("dx", "dw")),
+        "return from_f32<bf16>(fold_dy<bf16>(dy, y, gm, gs, k, stats));",
+        "return __float2bfloat16_rz(fold_dy<float>(dy, y, gm, gs, k, "
+        "stats));", "s1_conv3", ("dx", "dw")),
     # #11's tensor-core route stores dyl as a bf16 operand: the fault
     # stores the unrounded fold cut to its top 16 bits (the cast dropped)
     "no_dyl_cast_in_11_prepass": (
@@ -172,6 +194,10 @@ CONV_MUTANTS = {
 }
 
 
+# split_rows (#6 and #7) splits dO into bf16 pieces; the fault keeps hi
+DO_SPLIT = ("const float2 do_rest = {a - __low2float(hi2), "
+            "c - __high2float(hi2)};")
+NO_DO_SPLIT = "const float2 do_rest = {0.f, 0.f};"
 # #1's and #5's tensor-core loop packs P to bf16 from f32 fragments; the
 # fault keeps each value's top 16 bits
 PACK_P = "pf[j][hh] = tc::pack_bf16(s[j][2 * hh], s[j][2 * hh + 1]);"
@@ -198,9 +224,14 @@ RING_MUTANTS = {
     # without dO's mid and lo pieces dP and dV see dO rounded to bf16: what
     # a bf16 tensor-core backward (SDPA's) computes
     "no_do_split_in_7": (
-        "flash_attention_bwd",
-        "const float2 do_rest = {a - __low2float(hi2), c - __high2float(hi2)};",
-        "const float2 do_rest = {0.f, 0.f};", "dkv_partial"),
+        "flash_attention_bwd", DO_SPLIT, NO_DO_SPLIT, "dkv_partial"),
+    # the same line of split_rows, which #6 calls too: dP sees dO in bf16
+    "no_do_split_in_6": (
+        "flash_attention_bwd", DO_SPLIT, NO_DO_SPLIT, "dq_partial"),
+    # dS packed by truncation before dS.K, in the loop #6 shares with #2
+    "no_ds_cast_in_6": (
+        "flash_attention_bwd", *MUTANTS["no_ds_cast_in_dq"][:2],
+        "dq_partial"),
 }
 RING_PROBLEM = "offdiag_bf16"     # chip_smoke's B8 H8 Tc512 D64 bf16 pair
 DQ_PROBLEM = "t_train"            # chip_smoke's B8 H8 T2048 D64 bf16 causal
@@ -412,10 +443,10 @@ def phase_ring_mutants():
                          zip(_ring_outputs(name, calls, problem), base)]
             q, k = calls[name][2][:2]
             sizes = {"acc/l": q.numel(), "m": q[..., 0].numel(),
-                     "l": q[..., 0].numel(), "dk": k.numel(),
-                     "dv": k.numel()}
-            outputs = ("acc/l", "m", "l") if name == "partial" \
-                else ("dk", "dv")
+                     "l": q[..., 0].numel(), "dq": q.numel(),
+                     "dk": k.numel(), "dv": k.numel()}
+            outputs = {"partial": ("acc/l", "m", "l"), "dq_partial": ("dq",),
+                       "dkv_partial": ("dk", "dv")}[name]
             r = {o: dict(max_abs_err=err, entries_differ=differ,
                          share_differ=differ / sizes[o], share_moved=mv,
                          check_passes=ok)

@@ -2,6 +2,7 @@
 """Drive the PyTorch port (``bigdl_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root; one card
+    python3 chip_smoke.py --step resnet|sp   # one path's step alone
 
 Phases, each raising on failure (the script then exits non-zero):
 
@@ -12,9 +13,9 @@ Phases, each raising on failure (the script then exits non-zero):
    #2-#4 and the ring's partial dQ #6 and dK/dV #7; the fused conv+BN
    forward kernels #8 and #10 and backward kernels #9 and #11), one
    ``nvcc`` each in parallel, with their register and spill reports, and
-   for the tensor-core kernels (the bf16 routes of #1, #2, #3, #5, #7,
-   #9, #10 and #11) their registers, shared memory, spills and count of
-   HMMA instructions (``cuobjdump``), which must not be 0;
+   for the tensor-core kernels (the bf16 routes of #1-#3 and #5-#11)
+   their registers, shared memory, spills and count of HMMA instructions
+   (``cuobjdump``), which must not be 0;
 3. the forward kernel against its plain PyTorch version at the serving
    path's shapes, with times (CUDA events, median of 60 runs, L2 flushed
    before each): the kernel, the plain version,
@@ -39,10 +40,11 @@ Phases, each raising on failure (the script then exits non-zero):
    offsets are not tile multiples; each launched twice to show the same
    bits, with times beside the plain version, SDPA on the same chunk pair
    and mask (which merges no carried state) and the bound (bf16 #5 on the
-   tensor cores, held by the rule of ``partial_state_held``; bf16 #7 on
-   the tensor cores with its f32 operands in bf16 pieces, held by
-   ``dkv_partial_held`` and timed beside its scalar template; the
-   tensor-core rows' device time split by kernel with ``torch.profiler``);
+   tensor cores, held by the rule of ``partial_state_held``; bf16 #6 and
+   #7 on the tensor cores with their f32 operands in bf16 pieces, held by
+   ``partial_ulp_held`` and ``dkv_partial_held`` and timed beside their
+   scalar templates; the tensor-core rows' device time split by kernel
+   with ``torch.profiler``);
 5. serving: a TransformerLM at the width of the largest LM the repo
    serves (vocab 32000, hidden 512, 6 layers, 8 heads, filter 1024,
    max_len 512; random weights from a seed) behind ``ModelServer`` and
@@ -64,34 +66,35 @@ Phases, each raising on failure (the script then exits non-zero):
    attention through ring attention over a 4-shard ``seq`` mesh on the
    one card (``set_sequence_parallel``); every step must launch #5, #6
    and #7 once per layer and visible chunk pair (6 x 10) and #1-#4 never,
-   and the loss must stay finite and fall, every #5 and #7 launch by the
-   tensor-core route; the step's time is split into the three kernels and
-   the rest;
+   and the loss must stay finite and fall, every #5, #6 and #7 launch by
+   the tensor-core route; the step's time is split into the three kernels
+   and the rest;
 7c. one f32 step at batch 2, the ring LM (#5-#7) against the dense LM
    (#1-#3) from the same weights and tokens: loss and every gradient must
-   agree within phase 7's bounds; #1, #5 and #7 by the scalar route;
+   agree within phase 7's bounds; #1-#3 and #5-#7 by the scalar route;
 8. the conv+BN kernels #8-#11 against their plain versions, forward and
    backward, with nonzero statistics cotangents, at ResNet-50's own b128
    shapes and at ragged small ones in f32 and bf16, each launched twice
    to show the same bits, with times beside the plain version, the
    cuBLAS/cuDNN product alone and the bound, and for the tensor-core
-   routes (#9, #10, #11 in bf16) the device time split among their
-   prepass, products and reductions (``torch.profiler``);
+   routes (#8-#11 in bf16) the device time split among their prepass,
+   products and reductions (``torch.profiler``); both backwards fold the
+   forward kernel's y, as the autograd Functions save it;
 9. ResNet-50 training: ``examples.perf`` with ``--model resnet50 --fused
    --bf16 -b 128 --image-size 224 --classes 1000``; every step must
-   launch #8/#9/#10/#11 exactly 32/32/13/13 times, #9, #10 and #11 by the
-   tensor-core route, the loss must stay finite and fall; the step's time
-   is split into the four kernels and the rest;
+   launch #8/#9/#10/#11 exactly 32/32/13/13 times, all by the tensor-core
+   route, the loss must stay finite and fall; the step's time is split
+   into the four kernels and the rest, and the run's peak memory printed;
 10. one bf16 step with the fused path and one with
    ``BIGDL_TPU_TORCH_FUSED_CONVBN=0``, from the same weights and batch:
    losses and every BatchNorm running statistic must agree;
 11. one f32 fused ResNet-50 step at batch 4, 64 px, on the card and on a
    CPU copy (the kernels' plain versions): loss and every gradient must
-   agree; #9, #10 and #11 by the scalar route;
-12. a ``{"kernels": [...]}`` line (eleven kernels, launches by path; #1,
-   #2, #3, #5, #7, #9, #10 and #11 also their design, launches by route
-   and build report; #1 its row at the training shape beside the decode
-   row), then the ``{"ok": true, ...}`` line.
+   agree; #8-#11 by the scalar route;
+12. a ``{"kernels": [...]}`` line (eleven kernels, launches by path; all
+   but #4 also their design, launches by route and build report; #1 its
+   row at the training shape beside the decode row), then the
+   ``{"ok": true, ...}`` line.
 
 Imports torch, numpy and ``bigdl_tpu_torch`` only.
 """
@@ -237,30 +240,37 @@ def tensor_core_counts(sass: str) -> dict:
 
 
 # the kernels redesigned for the tensor cores, by a part of their
-# (mangled) names: #2's dQ, #3's dK/dV, #1's and #5's forward loop
-# (flash_fwd_tc_kernel<false|true, D>), #7's split dK/dV, and the conv
-# kernels of conv_bn_tc.cuh by their tap count (#10's prepass and fprop,
-# #11's prepass, dgrad, wgrad and dW sum with 9 taps; #9's prepass, fprop
-# with the fold, dgrad, wgrad and dW sum with 1); the products on the
-# tensor cores (all but the prepasses, the sums and #9's fold, whose y
-# sums k in order with FMAs) must hold HMMA instructions
+# (mangled) names: #2's and #6's dQ loop (flash_dq_tc_kernel<D, false|true>),
+# #3's dK/dV, #1's and #5's forward loop (flash_fwd_tc_kernel<false|true,
+# D>), #7's split dK/dV, and the conv kernels of conv_bn_tc.cuh by their
+# tap count (#10's prepass and fprop, #11's prepass, dgrad, wgrad and dW
+# sum with 9 taps; #8's prepass and fprop, #9's prepass, dgrad, wgrad and
+# dW sum with 1); the products on the tensor cores (all but the prepasses
+# and the sums) must hold HMMA instructions
 TC_KERNELS = ("flash_dq_tc_kernel", "flash_dkv_tc_kernel",
               "flash_fwd_tc_kernel", "flash_dkv_partial_tc_kernel", "tcconv")
 TC_PRODUCTS = ("flash_dq_tc_kernel", "flash_dkv_tc_kernel",
                "flash_fwd_tc_kernel", "flash_dkv_partial_tc_kernel",
-               "tcconv5fpropILi9E", "tcconv5dgrad", "tcconv5wgrad")
+               "tcconv5fprop", "tcconv5dgrad", "tcconv5wgrad")
 # each redesigned wrapper's kernels among them: (library, name parts)
 TC_BUILD = {
     "flash_attention_fwd": ("flash_attention_fwd",
                             ("flash_fwd_tc_kernelILb0E",)),
-    "flash_attention_dq": ("flash_attention_bwd", ("flash_dq_tc_kernel",)),
+    "flash_attention_dq": ("flash_attention_bwd",
+                           tuple(f"flash_dq_tc_kernelILi{d}ELb0E"
+                                 for d in (32, 64, 128))),
+    "flash_attention_dq_partial": ("flash_attention_bwd",
+                                   tuple(f"flash_dq_tc_kernelILi{d}ELb1E"
+                                         for d in (32, 64, 128))),
     "flash_attention_dkv": ("flash_attention_bwd", ("flash_dkv_tc_kernel",)),
     "flash_attention_partial": ("flash_attention_fwd",
                                 ("flash_fwd_tc_kernelILb1E",)),
     "flash_attention_dkv_partial": ("flash_attention_bwd",
                                     ("flash_dkv_partial_tc_kernel",)),
+    "matmul_bn_fwd": ("conv_bn_fwd", ("tcconv7prepassILi1E",
+                                      "tcconv5fpropILi1E")),
     "matmul_bn_bwd": ("conv_bn_bwd", ("tcconv7prepassILi1E",
-                                      "tcconv5fpropILi1E", "tcconv5dgradILi1E",
+                                      "tcconv5dgradILi1E",
                                       "tcconv5wgradILi1E",
                                       "tcconv9reduce_dwILi1E")),
     "conv3x3_bn_fwd": ("conv_bn_fwd", ("tcconv7prepassILi9E",
@@ -648,7 +658,6 @@ def phase_kernel_checks(rates):
 # (t_d8_tiny_bf16) every dK entry is dS times Q, and dS cancels to
 # rounding noise, held by the same floor
 F32_BWD_TOL = dict(rtol=1e-4, atol=1e-4)
-BF16_BWD_TOL = None
 BWD_BF16_SHARE = 0.01
 BWD_RUNS = 15                      # timed runs per kernel (median)
 # flops per visible (query, key) pair: 2·D for each product
@@ -929,18 +938,18 @@ SP_CHUNK = 2048 // SP_SHARDS       # Tc of one shard at T2048
 # bias, the error's projection on the plain value, sum (got - want) * want
 # / sum want^2: near 1e-6 for P rounded to nearest, near -1.5e-3 for P
 # truncated (a CPU model of the tiled merge,
-# tests/test_torch_kernel_design.py), against PARTIAL_BF16_BIAS.  #6 as
-# #2 is: bit for bit in bf16 at the training chunk, where kernel and plain
-# version round at the same points and cuBLAS sums the head dim in the
-# kernel's order (tolerance None); F32_BWD_TOL elsewhere.
-# #7 in bf16 runs on the tensor cores with dO and P split into three bf16
-# pieces (dkv_partial_route): its sums run in another order, so it is held
-# by dkv_partial_held.  dK (dS rounded to bf16 before dSᵀ·Q): each entry
-# within one bf16 ulp of the plain entry or of the largest, and at most
-# max(1%, 1/Tk) of the entries differing once rounded to bf16, the dtype
-# the ring casts the summed dK to: another order of s and dP now and then
-# puts a dS on its other bf16 neighbour, which moves a key row of the f32
-# dK by a fraction of an ulp of the largest entry.  dV (Pᵀ·dO with both in
+# tests/test_torch_kernel_design.py), against PARTIAL_BF16_BIAS.
+# #6 and #7 in bf16 run on the tensor cores with dO (and #7's P) split into
+# three bf16 pieces (dq_partial_route, dkv_partial_route): their sums run
+# in another order, so #6's dQ and #7's dK (dS rounded to bf16 before dS·K
+# and dSᵀ·Q) are held by partial_ulp_held: each entry within one bf16 ulp
+# of the plain entry or of the largest, and at most max(1%, one row a
+# head) of the entries differing once rounded to bf16, the dtype the ring
+# casts the summed dQ and dK to: another order of s and dP now and then
+# puts a dS on its other bf16 neighbour, which moves a row of the f32
+# output by a fraction of an ulp of the largest entry, where dO in one
+# bf16 piece or dS truncated moves 40-66% of the entries (a CPU model of
+# #6, tests/test_torch_kernel_design.py).  #7's dV (Pᵀ·dO with both in
 # f32): its largest error against dkv_partial_exact_dv (every step in f64
 # from the same inputs), relative to the largest entry, at most
 # DV_F32_MULTIPLE times the plain version's own (at least one f32
@@ -983,13 +992,13 @@ def _partial_pairs(tq, tk, q_offset, k_offset, causal) -> int:
 
 # products per visible pair, as (bf16-able, f32): #5 q·k and P·V; #6 q·k,
 # dS·K and dP = dO·v (dO is f32); #7 q·k, dSᵀ·Q, dP and Pᵀ·dO (P and dO
-# f32).  A product of two bf16 operands runs at the bf16 rate.  #7's bf16
-# route issues its two f32 products as bf16 pieces, 3 for dP and 6 for dV
-# (SPLIT_PRODUCTS): the least time for that work counts them all at the
-# bf16 rate, not the f32 products at the f32 rate.
+# f32).  A product of two bf16 operands runs at the bf16 rate.  The bf16
+# routes of #6 and #7 issue their f32 products as bf16 pieces, 3 for dP
+# and 6 for #7's dV (SPLIT_PRODUCTS): the least time for that work counts
+# them all at the bf16 rate, not the f32 products at the f32 rate.
 PARTIAL_PRODUCTS = {"partial": (2, 0), "dq_partial": (2, 1),
                     "dkv_partial": (2, 2)}
-SPLIT_PRODUCTS = {"dkv_partial": 11}
+SPLIT_PRODUCTS = {"dq_partial": 5, "dkv_partial": 11}
 
 
 def partial_bound(kernel, shape, q_offset, k_offset, causal, dtype, rates):
@@ -1088,19 +1097,19 @@ def partial_cfg(problem):
 def partial_tols(name, problem):
     """The rule of each held output: #5's acc / l (and in bf16 its bias),
     m, l; #6's dq; #7's dk, dv."""
-    dtype, d = problem[6], problem[2][4]
+    dtype = problem[6]
     if name == "partial":
         state = (f"{BF16_TOL}, bias within {PARTIAL_BF16_BIAS:.3e}"
                  if dtype == torch.bfloat16 else F32_TOL)
         return [state, F32_TOL, F32_TOL]
+    ulp_rule = (f"one bf16 ulp of the entry or the largest, at most "
+                f"{BWD_BF16_SHARE:.0%} (or one row a head) differing in bf16")
     if name == "dkv_partial" and dtype == torch.bfloat16:
-        return [f"one bf16 ulp of the entry or the largest, at most "
-                f"{BWD_BF16_SHARE:.0%} (or 1/Tk) differing in bf16",
-                f"error against the f64 sum at most {DV_F32_MULTIPLE}x the "
-                f"plain version's"]
-    tol = BF16_BWD_TOL if dtype == torch.bfloat16 and d == 64 \
-        else F32_BWD_TOL
-    return [tol] * (1 if name == "dq_partial" else 2)
+        return [ulp_rule, f"error against the f64 sum at most "
+                f"{DV_F32_MULTIPLE}x the plain version's"]
+    if dtype == torch.bfloat16:
+        return [ulp_rule]
+    return [F32_BWD_TOL] * (1 if name == "dq_partial" else 2)
 
 
 def dkv_partial_exact_dv(q, k, v, do, lse, delta, *, q_offset, k_offset,
@@ -1125,18 +1134,25 @@ def dv_rel_err(got, exact):
                  / exact.abs().max().clamp_min(1e-300))
 
 
+def partial_ulp_held(got, want):
+    """(max abs err, entries that differ, held) of #6's f32 dQ or #7's
+    f32 dK in bf16 by the rule above: bwd_held's ulp rule on the f32
+    entries, the share (max(1%, one row a head)) counted on their bf16
+    roundings."""
+    diff = (got - want).abs()
+    ulp = torch.maximum(_bf16_ulp(want), _bf16_ulp(want.abs().max()))
+    differ = int((got.to(torch.bfloat16) != want.to(torch.bfloat16)).sum())
+    share = max(BWD_BF16_SHARE, 1 / want.shape[-2])
+    return (float(diff.max()), differ,
+            bool((diff <= ulp).all()) and differ <= share * want.numel())
+
+
 def dkv_partial_held(got, want, exact_dv):
     """[(max abs err, entries that differ, held) of dK, of dV] and the dV
     readings {dv_err, dv_plain_err} of #7 in bf16, by the rule above:
-    dK at bf16 granularity (bwd_held's ulp rule on the f32 entries, the
-    share counted on their bf16 roundings), dV against the f64 anchor."""
+    dK by partial_ulp_held, dV against the f64 anchor."""
     (gk, gv), (wk, wv) = got, want
-    diff = (gk - wk).abs()
-    ulp = torch.maximum(_bf16_ulp(wk), _bf16_ulp(wk.abs().max()))
-    differ = int((gk.to(torch.bfloat16) != wk.to(torch.bfloat16)).sum())
-    share = max(BWD_BF16_SHARE, 1 / wk.shape[-2])
-    dk = (float(diff.max()), differ,
-          bool((diff <= ulp).all()) and differ <= share * wk.numel())
+    dk = partial_ulp_held(gk, wk)
     err, plain_err = dv_rel_err(gv, exact_dv), dv_rel_err(wv, exact_dv)
     dv = (float((gv - wv).abs().max()), int((gv != wv).sum()),
           err <= DV_F32_MULTIPLE * max(plain_err, 2.0 ** -24))
@@ -1165,8 +1181,9 @@ def check_partial(name, calls, problem):
     """One partial kernel against its plain version: ([(max abs err,
     entries that differ, held)] per output, two launches equal bit for
     bit, readings).  #5 is held on its normalised state acc / l
-    (partial_state_held), and m and l, with {"state_bias": ...}; #7 in
-    bf16 by dkv_partial_held, with its dV readings."""
+    (partial_state_held), and m and l, with {"state_bias": ...}; #6 in
+    bf16 by partial_ulp_held; #7 in bf16 by dkv_partial_held, with its dV
+    readings."""
     kernel, plain, args, _ = calls[name]
     cfg = partial_cfg(problem)
     with torch.no_grad():
@@ -1182,6 +1199,8 @@ def check_partial(name, calls, problem):
             exact = dkv_partial_exact_dv(*args, **cfg)
         checks, extra = dkv_partial_held(got, want, exact)
         return checks, same, extra
+    if name == "dq_partial" and problem[6] == torch.bfloat16:
+        return [partial_ulp_held(got[0], want[0])], same, {}
     if name != "partial":
         return [_close(g, w, tol) for g, w, tol in
                 zip(got, want, partial_tols(name, problem))], same, {}
@@ -1191,16 +1210,23 @@ def check_partial(name, calls, problem):
     return checks, same, {"state_bias": state_bias(state, ref)}
 
 
-def _dkv_partial_scalar(q, k, v, do, lse, delta, **cfg):
-    """#7 by its scalar template whatever the dtype (uncounted): the kernel
-    the bf16 tensor-core route replaced, timed beside it."""
+def _partial_scalar(name):
+    """Partial kernel ``name`` (#6's "dq_partial" or #7's "dkv_partial")
+    by its scalar template whatever the dtype (uncounted): the kernel the
+    bf16 tensor-core route replaced, timed beside it."""
     from bigdl_tpu_torch.ops import attention_kernels as ak
-    dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
-    dv = torch.empty(v.shape, dtype=torch.float32, device=v.device)
-    ak._launch_partial_bwd("flash_attention_dkv_partial", q, k, v, do, lse,
-                           delta, dk, dv, cfg["scale"], cfg["causal"],
-                           cfg["q_offset"], cfg["k_offset"], "scalar")
-    return dk, dv
+
+    def run(q, k, v, do, lse, delta, **cfg):
+        out0 = torch.empty((k if name == "dkv_partial" else q).shape,
+                           dtype=torch.float32, device=q.device)
+        out1 = (torch.empty(v.shape, dtype=torch.float32, device=v.device)
+                if name == "dkv_partial" else None)
+        ak._launch_partial_bwd(f"flash_attention_{name}", q, k, v, do, lse,
+                               delta, out0, out1, cfg["scale"],
+                               cfg["causal"], cfg["q_offset"],
+                               cfg["k_offset"], "scalar")
+        return out0 if out1 is None else (out0, out1)
+    return run
 
 
 def phase_partial_kernel_checks(rates):
@@ -1244,9 +1270,10 @@ def phase_partial_kernel_checks(rates):
             with torch.no_grad():
                 route = {"partial": ak.partial_route(
                              dtype, ak.rows_aligned(q, k, v)),
+                         "dq_partial": ak.dq_partial_route(
+                             dtype, ak.rows_aligned(q, k, v, do)),
                          "dkv_partial": ak.dkv_partial_route(
-                             dtype, ak.rows_aligned(q, k, v, do))}.get(
-                                 name, "scalar")
+                             dtype, ak.rows_aligned(q, k, v, do))}[name]
                 row = {
                     "kernel": name, "shape": key, "what": what,
                     "route": route,
@@ -1265,9 +1292,9 @@ def phase_partial_kernel_checks(rates):
             if row["route"] == "tensor_core":
                 row["device_split_ms"] = device_split(
                     lambda: kernel(*args, **cfg))
-                if name == "dkv_partial":
+                if name != "partial":
                     row["scalar_ms"] = time_ms(
-                        lambda: _dkv_partial_scalar(*args, **cfg), flush,
+                        lambda: _partial_scalar(name)(*args, **cfg), flush,
                         runs=PARTIAL_RUNS, warmup=2)
             results.append(row)
             bias = "".join(f" {n} {x:+.3e}" for n, x in extra.items())
@@ -1629,6 +1656,39 @@ DENSE_NAMES = ("flash_attention_fwd", "flash_attention_dq",
                "flash_attention_dkv", "flash_attention_dbias")
 
 
+# a short profiled run after a timed training run: device time per step,
+# beside the unprofiled run's step time, gives the device's idle share
+BUSY_ITERS, BUSY_EPOCHS = 2, 2
+
+
+def device_busy_per_step(args, model, criterion, make_batch):
+    """Device ms per step of a short run (BUSY_ITERS x BUSY_EPOCHS steps)
+    of the same training on the warmed model, under ``torch.profiler``:
+    every kernel, set and copy on the one stream but the dataset's upload
+    (Memcpy HtoD), summed.  Launches it makes are counted by the
+    wrappers, so it runs after a phase has read its counts."""
+    import argparse
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from bigdl_tpu_torch.examples import perf
+    short = argparse.Namespace(**{**vars(args), "iterations": BUSY_ITERS,
+                                  "epochs": BUSY_EPOCHS})
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        perf.run(short, model, criterion, make_batch)
+        torch.cuda.synchronize()
+    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and "HtoD" not in e.name)
+    return busy_us / (BUSY_ITERS * BUSY_EPOCHS) / 1e3
+
+
+def _busy_text(label, busy_ms, step_ms):
+    return (f"{label}: device busy {busy_ms:.3f} ms per step (torch."
+            f"profiler over {BUSY_ITERS * BUSY_EPOCHS} steps) of the "
+            f"{step_ms} ms step: idle share {1 - busy_ms / step_ms:.3f}")
+
+
 def seq_mesh():
     """The SP phases' mesh: SP_SHARDS shards of the sequence, all on the
     one card."""
@@ -1690,14 +1750,17 @@ def phase_sp_training():
     if launches != want:
         raise RuntimeError(f"launches {launches} != {want} ({LAYERS} layers "
                            f"x {SP_PAIRS} chunk pairs x {steps} steps)")
-    # every bf16 launch of #5 and #7 took the tensor cores
-    for name in ("flash_attention_partial", "flash_attention_dkv_partial"):
+    # every bf16 launch of #5, #6 and #7 took the tensor cores
+    for name in RING_NAMES:
         _check_routes(routes, name, {"tensor_core": want[name], "scalar": 0},
                       "bf16 SP LM training")
+    busy = device_busy_per_step(args, model, criterion, make_batch)
+    print(_busy_text("sp training", busy, out["ms_per_iteration"]))
     return dict(out, tokens_per_sec=tokens_s, steps=steps,
                 first_loss=losses[0], last_loss=losses[-1],
                 peak_memory_gib=peak_gb, launches=launches, routes=routes,
-                kernel_ms_per_step=kernel_ms, rest_ms_per_step=rest_ms)
+                kernel_ms_per_step=kernel_ms, rest_ms_per_step=rest_ms,
+                device_busy_ms_per_step=busy)
 
 
 def phase_sp_parity():
@@ -1711,7 +1774,7 @@ def phase_sp_parity():
     _zero_counts()
     ring_step = step(ring, "cuda")
     used_ring = _read_counts()
-    for name in ("flash_attention_partial", "flash_attention_dkv_partial"):
+    for name in RING_NAMES:
         _check_routes(_read_routes(), name,
                       {"tensor_core": 0, "scalar": LAYERS * SP_PAIRS},
                       "f32 ring step")
@@ -1855,19 +1918,19 @@ def conv_stats_held(s1, s2, y, kshift):
 
 def check_conv(kind, x, w, vec, dy, gm, gs, fuse):
     """Kernels #8/#9 (1x1) or #10/#11 (3x3), with statistics, against their
-    plain versions on the same inputs (the backward of a 3x3 folds with the
-    forward kernel's y); each launched twice.  Returns ({output: (max abs
-    err, entries that differ, held)}, (stats error, held), same bits)."""
+    plain versions on the same inputs (both backwards fold with the forward
+    kernel's y, as the Functions save it); each launched twice.  Returns
+    ({output: (max abs err, entries that differ, held)}, (stats error,
+    held), same bits)."""
     fwd, bwd, plain_fwd, plain_bwd = _conv_ops(kind)
     flags = dict(fuse_input=fuse, emit_stats=True)
     with torch.no_grad():
         got = fwd(x, w, *vec, **flags)
         again = fwd(x, w, *vec, **flags)
         want = plain_fwd(x, w, *vec, **flags)
-        saved_y = (got[0],) if kind == "3x3" else ()
-        grads = bwd(x, w, *vec, *saved_y, dy, gm, gs, **flags)
-        grads_again = bwd(x, w, *vec, *saved_y, dy, gm, gs, **flags)
-        grads_want = plain_bwd(x, w, *vec, *saved_y, dy, gm, gs, **flags)
+        grads = bwd(x, w, *vec, got[0], dy, gm, gs, **flags)
+        grads_again = bwd(x, w, *vec, got[0], dy, gm, gs, **flags)
+        grads_want = plain_bwd(x, w, *vec, got[0], dy, gm, gs, **flags)
     torch.cuda.synchronize()
     outs = (*got, *grads)
     if not all(torch.isfinite(t).all() for t in outs):
@@ -1881,9 +1944,9 @@ def check_conv(kind, x, w, vec, dy, gm, gs, fuse):
 
 def conv_bound(kind, direction, shape, dtype, rates):
     """Least device time of one call: each input read once and each output
-    written once (the backward's dW counted as f32) over the memory rate,
-    or its operations over the peak rate of its type: 2 per multiply-add
-    of the product, forward; 4 backward, 6 for a 1x1 that recomputes y."""
+    written once (the backward's dW counted as f32; it reads the saved y)
+    over the memory rate, or its operations over the peak rate of its
+    type: 2 per multiply-add of the product, forward; 4 backward."""
     mem_rate, f32_rate, bf16_rate = rates
     size = 2 if dtype == torch.bfloat16 else 4
     if kind == "1x1":
@@ -1896,10 +1959,9 @@ def conv_bound(kind, direction, shape, dtype, rates):
     if direction == "fwd":
         nbytes, ops = x_b + w_b + y_b, 2 * macs
     else:
-        # x, dy, W in; dx and the f32 dW out; the 3x3 reads its saved y
-        nbytes = 2 * x_b + y_b + w_b + taps * c * co * 4
-        nbytes += y_b if kind == "3x3" else 0
-        ops = (6 if kind == "1x1" else 4) * macs
+        # x, y, dy, W in; dx and the f32 dW out
+        nbytes = 2 * x_b + 2 * y_b + w_b + taps * c * co * 4
+        ops = 4 * macs
     peak = bf16_rate if dtype == torch.bfloat16 else f32_rate
     t_bytes, t_ops = nbytes / mem_rate * 1e3, ops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -1949,8 +2011,7 @@ def phase_conv_kernel_checks(rates):
         flags = dict(fuse_input=norm, emit_stats=True)
         with torch.no_grad():
             y = fwd(x, w, *vec, **flags)[0]
-            saved_y = (y,) if kind == "3x3" else ()
-            bwd_args = (x, w, *vec, *saved_y, dy, gm, gs)
+            bwd_args = (x, w, *vec, y, dy, gm, gs)
             calls = {
                 "fwd": (fwd, plain_fwd, (x, w, *vec)),
                 "bwd": (bwd, plain_bwd, bwd_args),
@@ -1959,10 +2020,11 @@ def phase_conv_kernel_checks(rates):
                 outs = ("y",) if direction == "fwd" else CONV_OUTPUTS[1:]
                 row = {
                     "kernel": kernel.__name__, "shape": key, "what": what,
-                    "route": {"matmul_bn_bwd": ck.matmul_bwd_route,
+                    "route": {"matmul_bn_fwd": ck.matmul_fwd_route,
+                              "matmul_bn_bwd": ck.matmul_bwd_route,
                               "conv3x3_bn_fwd": ck.conv3x3_fwd_route,
-                              "conv3x3_bn_bwd": ck.conv3x3_bwd_route}.get(
-                                  kernel.__name__, lambda _: "scalar")(dtype),
+                              "conv3x3_bn_bwd": ck.conv3x3_bwd_route}[
+                                  kernel.__name__](dtype),
                     "max_abs_err": max(held[o][0] for o in outs),
                     "entries_differ": {o: held[o][1] for o in outs},
                     "stats_rel_err": stats_err if direction == "fwd"
@@ -1991,7 +2053,7 @@ def phase_conv_kernel_checks(rates):
                       + _split_text(row))
         print(f"  ({key}: statistics within {stats_err:.3e} of their own "
               f"sums; {time.perf_counter() - t0:.1f} s)")
-        del x, w, vec, dy, y, saved_y, bwd_args, calls
+        del x, w, vec, dy, y, bwd_args, calls
     return results
 
 
@@ -2009,8 +2071,9 @@ RESNET_ARGV = ["--model", "resnet50", "--fused", "--bf16",
 # bottlenecks, conv2 of the 13 whose 3x3 has stride 1
 RESNET_LAUNCHES = {"matmul_bn_fwd": 32, "matmul_bn_bwd": 32,
                    "conv3x3_bn_fwd": 13, "conv3x3_bn_bwd": 13}
-# the conv kernels with a tensor-core route for bf16 (#9, #10, #11)
-TC_CONV = ("matmul_bn_bwd", "conv3x3_bn_fwd", "conv3x3_bn_bwd")
+# the conv kernels with a tensor-core route for bf16 (#8-#11)
+TC_CONV = ("matmul_bn_fwd", "matmul_bn_bwd", "conv3x3_bn_fwd",
+           "conv3x3_bn_bwd")
 # fused against plain, one bf16 step (bench.py's own cross-check of the
 # fused step: 5% of the loss); each running statistic within 1e-2 of its
 # tensor's largest entry: the two paths round at the same points, so only
@@ -2040,13 +2103,15 @@ def phase_resnet_training():
     from bigdl_tpu_torch.examples import perf
     from bigdl_tpu_torch.ops import conv_bn_kernels as ck
     logs = {fn.__name__: [] for fn in ck._KERNELS}
+    args = perf.parse_args(RESNET_ARGV)
+    model, criterion, make_batch = perf.build(args.model, args)
     kernels = ck._KERNELS
     ck._KERNELS = tuple(_timed(fn, logs[fn.__name__]) for fn in kernels)
     torch.cuda.reset_peak_memory_stats()
     _zero_counts()
     t0 = time.perf_counter()
     try:
-        out, opt = perf.train(perf.parse_args(RESNET_ARGV))
+        out, opt = perf.run(args, model, criterion, make_batch)
     finally:
         ck._KERNELS = kernels
     torch.cuda.synchronize()
@@ -2067,6 +2132,9 @@ def phase_resnet_training():
           f"{out['compile_plus_first_window_s']} s; loss {losses[0]:.6f} -> "
           f"{losses[-1]:.6f}; peak memory {peak_gb:.3f} GiB; launches "
           f"{launches}")
+    print(f"resnet training: peak memory allocated "
+          f"{torch.cuda.max_memory_allocated()} bytes "
+          f"(torch.cuda.max_memory_allocated over the run)")
     print("resnet training: last epoch, device ms per step: "
           + ", ".join(f"{n} {t:.3f} ({RESNET_LAUNCHES[n]} launches)"
                       for n, t in kernel_ms.items())
@@ -2081,14 +2149,16 @@ def phase_resnet_training():
     if launches != want:
         raise RuntimeError(f"launches {launches} != {want} ({steps} steps)")
     print(f"resnet training: routes {routes}")
-    # every bf16 launch of #9, #10 and #11 took the tensor cores
+    # every bf16 launch of #8-#11 took the tensor cores
     for name in TC_CONV:
         _check_routes(routes, name, {"tensor_core": want[name], "scalar": 0},
                       "bf16 ResNet-50 training")
+    busy = device_busy_per_step(args, model, criterion, make_batch)
+    print(_busy_text("resnet training", busy, out["ms_per_iteration"]))
     return dict(out, steps=steps, first_loss=losses[0],
                 last_loss=losses[-1], peak_memory_gib=peak_gb,
                 launches=launches, routes=routes, kernel_ms_per_step=kernel_ms,
-                rest_ms_per_step=rest_ms)
+                rest_ms_per_step=rest_ms, device_busy_ms_per_step=busy)
 
 
 def _one_step(model, x, y, dtype=None):
@@ -2215,7 +2285,7 @@ def phase_resnet_parity():
     t2 = time.perf_counter()
     if used != {n: RESNET_LAUNCHES.get(n, 0) for n in used}:
         raise RuntimeError(f"the card step launched {used}")
-    # f32 keeps the scalar #9, #10 and #11
+    # f32 keeps the scalar #8-#11
     for name in TC_CONV:
         _check_routes(routes, name,
                       {"tensor_core": 0, "scalar": RESNET_LAUNCHES[name]},
@@ -2237,7 +2307,36 @@ def _kernel_entry(name, source, replaces, launches, row):
             "shape": row["what"]}
 
 
+def step_reading(path: str) -> dict:
+    """The timed training run of one path alone ("resnet": phase 9's,
+    "sp": phase 7b's), without its launch and route checks, so that the
+    same measurement runs on any checkout of the port: from that
+    checkout's root, ``python3 chip_smoke.py --step resnet|sp``.  Prints
+    and returns its steady ms per iteration, peak memory and device busy
+    ms per step (device_busy_per_step) as one JSON object."""
+    from bigdl_tpu_torch.examples import perf
+    if path not in ("resnet", "sp"):
+        raise ValueError(f"--step takes resnet or sp, not {path!r}")
+    args = perf.parse_args(RESNET_ARGV if path == "resnet" else TRAIN_ARGV)
+    model, criterion, make_batch = perf.build(args.model, args)
+    if path == "sp":
+        model.lm.set_sequence_parallel(seq_mesh(), "seq")
+    torch.cuda.reset_peak_memory_stats()
+    out, _ = perf.run(args, model, criterion, make_batch)
+    peak = torch.cuda.max_memory_allocated()
+    busy = device_busy_per_step(args, model, criterion, make_batch)
+    reading = {"step": path, "ms_per_iteration": out["ms_per_iteration"],
+               "peak_memory_bytes": peak, "device_busy_ms_per_step": busy,
+               "idle_share": 1 - busy / out["ms_per_iteration"]}
+    print(json.dumps(reading))
+    return reading
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--step"]:
+        phase_device()
+        step_reading(sys.argv[2])
+        return 0
     t0 = time.perf_counter()
     smi = phase_device()
     rates = card_rates(torch.cuda.get_device_name(0))
@@ -2361,22 +2460,38 @@ def main() -> int:
              "pieces, dV over 6 cross terms down to 2^-24, each 16-deep "
              "step summed into a fresh tile; 11 bf16 products where the "
              "scalar kernel does 4 in f32); scalar f32 FMAs for f32"),
+            ("flash_attention_dq_partial",
+             "tensor cores for bf16 q/k/v with 16-byte rows (mma.sync."
+             "m16n8k16 bf16->f32, #2's loop with dO in f32: "
+             "flash_dq_tc_kernel<D, true>, 64 query rows per block, "
+             "heaviest first, dO's rows split once into three bf16 pieces "
+             "whose sum is exact (held in registers up to D64), dP over "
+             "the 3 pieces smallest first, each 16-deep step summed into a "
+             "fresh tile, dS rounded to bf16 for dQ += dS.K; 5 bf16 "
+             "products where the scalar kernel does 3 in f32); scalar f32 "
+             "FMAs for f32"),
             ("conv3x3_bn_fwd",
              "tensor cores for bf16 (a prepass storing z and a padded W "
              "once, then the 3x3 as an implicit GEMM on mma.sync."
              "m16n8k16 bf16->f32, 128x64 tiles, three cp.async stages, "
              "zero-filled halo, statistics of the rounded y in a fixed "
              "order); scalar f32 FMAs for f32"),
+            ("matmul_bn_fwd",
+             "tensor cores for bf16 (#10's route with one tap: a prepass "
+             "storing z only with a norm or K % 64 != 0 (else x is read in "
+             "place) and a padded W only where K or N is not a multiple of "
+             "64, then fprop<1> as an implicit GEMM on mma.sync.m16n8k16 "
+             "bf16->f32, 128x64 tiles, 8 warps, three cp.async stages, y "
+             "rounded to bf16 and the statistics of the rounded y in a "
+             "fixed order); scalar f32 FMAs for f32"),
             ("matmul_bn_bwd",
              "tensor cores for bf16 (#11's route with one tap: a prepass "
-             "storing z (none: x itself without a norm at K % 64 == 0) and "
-             "a padded W; with statistics a one-tap fprop recomputes y "
-             "with f32 FMAs over k in order, #8's order, so its bf16 "
-             "rounding is the forward's bit for bit, and folds it into dyl "
-             "in registers, y never stored; then one-tap dgrad and wgrad "
-             "on mma.sync.m16n8k16 bf16->f32, 128x64 tiles, three cp.async "
-             "stages, dW split over rows and summed in order); scalar f32 "
-             "FMAs for f32"),
+             "storing z (none: x itself without a norm at K % 64 == 0), "
+             "dyl folded from the forward's saved y (none: dy itself "
+             "without statistics at N % 64 == 0) and a padded W; then "
+             "one-tap dgrad and wgrad on mma.sync.m16n8k16 bf16->f32, "
+             "128x64 tiles, three cp.async stages, dW split over rows and "
+             "summed in order); scalar f32 FMAs for f32"),
             ("conv3x3_bn_bwd",
              "tensor cores for bf16 (a prepass storing z and dyl once, "
              "then dgrad and wgrad as implicit GEMMs on mma.sync."

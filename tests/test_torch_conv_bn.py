@@ -258,7 +258,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     v = torch.zeros(4)
     for call in (lambda: ck.matmul_bn_fwd(x, w, v, v, v, v, fuse_input=True,
                                           emit_stats=True),
-                 lambda: ck.matmul_bn_bwd(x, w, v, v, v, v, x, v, v,
+                 lambda: ck.matmul_bn_bwd(x, w, v, v, v, v, x, x, v, v,
                                           fuse_input=True, emit_stats=True),
                  lambda: ck.conv3x3_bn_fwd(
                      torch.zeros(1, 2, 2, 4), torch.zeros(3, 3, 4, 4), v, v,
@@ -271,3 +271,72 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="cannot take"):
         ck.fused_matmul_bn(torch.zeros(4, 16384),
                            torch.zeros(1).expand(16384, 16384))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("with_norm", [True, False])
+def test_saved_y_backward_matches_the_fused_core_vjp(dtype, with_norm):
+    """The port's 1x1 saves the forward's y and its backward folds the
+    statistics cotangents with it; the reference's ``_fused_core`` saves
+    (x, w, mean, scale, beta, kshift) and recomputes y.  On the CPU the
+    saved y is the plain forward's, so dx, dW and the norm vectors'
+    gradients (from dsx and dsu) equal ``jax.vjp`` of the reference at the
+    same cotangents (dy, gm, gs), from the same weights."""
+    x, w, c, co, op, ref_op, kw = _problem("1x1", 110)
+    norm = _norm(c, 120) if with_norm else None
+    kshift = rnd(co, seed=125, scale=0.05)
+    tdt, jdt = {"f32": (torch.float32, jnp.float32),
+                "bf16": (torch.bfloat16, jnp.bfloat16)}[dtype]
+    dy = rnd(x.shape[0], co, seed=126)
+    gm, gs = rnd(co, seed=127, scale=0.1), rnd(co, seed=128, scale=0.1)
+    out, (xt, wt, nt) = _port(op, x, w, norm, kshift, tdt, grad=True)
+    torch.autograd.backward(out, (torch.tensor(dy).to(tdt),
+                                  torch.tensor(gm), torch.tensor(gs)))
+    got = [xt.grad, wt.grad] + ([v.grad for v in nt] if nt else [])
+
+    def ref(xj, wj, nj):
+        return ref_op(xj, wj, norm=nj, kshift=jnp.asarray(kshift),
+                      interpret=True)
+    primals = (jnp.asarray(x).astype(jdt), jnp.asarray(w).astype(jdt),
+               None if norm is None else tuple(jnp.asarray(v) for v in norm))
+    _, vjp = jax.vjp(ref, *primals)
+    want = jax.tree_util.tree_leaves(vjp((jnp.asarray(dy).astype(jdt),
+                                          jnp.asarray(gm), jnp.asarray(gs))))
+    assert len(got) == len(want)
+    for i, (g, r) in enumerate(zip(got, want)):
+        if g.dtype == torch.bfloat16:
+            _bf16_close(g, r)
+        else:
+            r = np.asarray(r, dtype=np.float32)
+            np.testing.assert_allclose(g.numpy(), r, rtol=0,
+                                       atol=GRAD_REL * np.abs(r).max(),
+                                       err_msg=str(i))
+
+
+def test_the_fold_reads_the_y_it_is_given():
+    """#9's plain version folds the y it is given, not a recomputed one: y
+    moved by one bf16 ulp moves the folded dy (dyl) and with it dx and
+    dW."""
+    x, w, c, co, _, _, _ = _problem("1x1", 130)
+    norm = [torch.tensor(v) for v in _norm(c, 131)]
+    kshift = torch.tensor(rnd(co, seed=132, scale=0.05))
+    bf = torch.bfloat16
+    xt, wt = torch.tensor(x).to(bf), torch.tensor(w).to(bf)
+    y = ck.plain_matmul_bn_fwd(xt, wt, *norm, kshift, fuse_input=True,
+                               emit_stats=True)[0]
+    dy = torch.tensor(rnd(x.shape[0], co, seed=133)).to(bf)
+    gm, gs = torch.tensor(rnd(co, seed=134)), torch.tensor(rnd(co, seed=135))
+    moved = (y.view(torch.int16) + 1).view(bf)     # one ulp from zero
+    assert bool(((moved.float() - y.float()).abs() > 0).all())
+    dyl, dyl_moved = (ck._fold(dy, t, kshift, gm, gs, True)
+                      for t in (y, moved))
+    assert not torch.equal(dyl, dyl_moved)
+    base, other = (ck.plain_matmul_bn_bwd(xt, wt, *norm, kshift, t, dy, gm,
+                                          gs, fuse_input=True,
+                                          emit_stats=True)
+                   for t in (y, moved))
+    assert not torch.equal(base[0], other[0])    # dx
+    assert not torch.equal(base[1], other[1])    # dW
+    again = ck.plain_matmul_bn_bwd(xt, wt, *norm, kshift, y, dy, gm, gs,
+                                   fuse_input=True, emit_stats=True)
+    assert all(torch.equal(a, b) for a, b in zip(base, again))

@@ -24,12 +24,12 @@ on 16 bytes and is held besides by the bias of its error
 The ring kernels: #5's merged state as the forward (acc / l at the
 dtype's tolerance, m and l at float32's); in bf16 #5 runs on the tensor
 cores, and its state is held besides by the bias of its error
-(chip_smoke.partial_state_held); #6 and #7 write float32, #6 held bit
-for bit with bf16 inputs at D 64 and to the backward's float32
-tolerance elsewhere; bf16 #7 runs on the tensor cores with its f32
-operands split into bf16 pieces: dK within one bf16 ulp, at most 1% (or
-1/Tk) differing in bf16, dV within 4x the plain version's own error
-against an f64 sum (chip_smoke.dkv_partial_held).
+(chip_smoke.partial_state_held); #6 and #7 write float32, held to the
+backward's float32 tolerance with f32 inputs; in bf16 both run on the
+tensor cores with dO (and #7's P) split into bf16 pieces: #6's dQ and
+#7's dK within one bf16 ulp, at most 1% (or one row a head) differing in
+bf16 (chip_smoke.partial_ulp_held), #7's dV within 4x the plain
+version's own error against an f64 sum (chip_smoke.dkv_partial_held).
 The conv+BN kernels sum their products in another order than cuBLAS and
 cuDNN: float32 outputs within 1e-4 of the plain output's largest entry;
 bfloat16 outputs within one bf16 ulp of the plain version's entry (or
@@ -345,6 +345,23 @@ def test_fused_resnet_step_takes_one_matmul_bwd_route(cuda, dtype, route):
 
 @pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "tensor_core"),
                                          (torch.float32, "scalar")])
+def test_fused_resnet_step_takes_one_matmul_fwd_route(cuda, dtype, route):
+    """A fused ResNet-50 step launches #8 32 times, all by the route of its
+    dtype."""
+    model = presnet.resnet50(10, fused=True,
+                             generator=torch.Generator().manual_seed(0),
+                             device=cuda)
+    rng = np.random.default_rng(2)
+    was = dict(ck.matmul_bn_fwd.routes)
+    _one_step(model, rng.normal(size=(2, 32, 32, 3)).astype(np.float32),
+              rng.integers(1, 11, (2,)), dtype)
+    torch.cuda.synchronize()
+    used = {r: ck.matmul_bn_fwd.routes[r] - was[r] for r in was}
+    assert used == {"tensor_core": 0, "scalar": 0, route: 32}
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "tensor_core"),
+                                         (torch.float32, "scalar")])
 def test_fused_resnet_step_takes_one_conv3x3_route(cuda, dtype, route):
     """A fused ResNet-50 step launches #10 and #11 13 times each, all by
     the route of its dtype."""
@@ -366,8 +383,8 @@ def test_fused_resnet_step_takes_one_conv3x3_route(cuda, dtype, route):
 @pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "tensor_core"),
                                          (torch.float32, "scalar")])
 def test_ring_lm_step_takes_one_partial_route(cuda, dtype, route):
-    """A step of an LM through ring attention over 4 shards launches #5
-    and #7 once per layer and visible chunk pair (2 x 10), all by the
+    """A step of an LM through ring attention over 4 shards launches #5,
+    #6 and #7 once per layer and visible chunk pair (2 x 10), all by the
     route of its dtype."""
     from bigdl_tpu_torch.parallel import make_mesh
     lm = TransformerLM(64, hidden_size=64, num_layers=2, num_heads=4,
@@ -376,7 +393,8 @@ def test_ring_lm_step_takes_one_partial_route(cuda, dtype, route):
                        device=cuda)
     lm.set_sequence_parallel(make_mesh({"seq": 4}, ["cuda"] * 4))
     rng = np.random.default_rng(1)
-    wrappers = (ak.flash_attention_partial, ak.flash_attention_dkv_partial)
+    wrappers = (ak.flash_attention_partial, ak.flash_attention_dq_partial,
+                ak.flash_attention_dkv_partial)
     before = [dict(w.routes) for w in wrappers]
     _one_step(FlatLM(lm), rng.integers(1, 65, (2, 128)),
               rng.integers(1, 65, (256,)), dtype)
@@ -495,7 +513,8 @@ def test_ring_kernels_match_plain_and_repeat(cuda, b, h, tq, tk, d, q_off,
     delta = (do * (acc / l[..., None]).to(dtype).float()).sum(-1)
     args = (q, k, v, do, lse, delta)
     bf16 = dtype == torch.bfloat16
-    routes = dict(ak.flash_attention_dkv_partial.routes)
+    ring_bwd = (ak.flash_attention_dq_partial, ak.flash_attention_dkv_partial)
+    routes = [dict(w.routes) for w in ring_bwd]
     for kernel, plain in ((ak.flash_attention_dq_partial,
                            ak.plain_attention_dq_partial),
                           (ak.flash_attention_dkv_partial,
@@ -515,12 +534,15 @@ def test_ring_kernels_match_plain_and_repeat(cuda, b, h, tq, tk, d, q_off,
             assert all(ok for _, _, ok in checks), (checks, readings)
             continue
         for g, w in zip(got, want):
-            if bf16 and d == 64:     # #6: bit for bit
-                assert torch.equal(g, w), kernel.__name__
+            if bf16:     # #6 on the tensor cores: chip_smoke's dQ rule
+                assert chip_smoke.partial_ulp_held(g, w)[2], kernel.__name__
             else:
                 torch.testing.assert_close(g, w, **BWD_F32_TOL)
-    routes[ak.dkv_partial_route(dtype)] += 2
-    assert ak.flash_attention_dkv_partial.routes == routes
+    for w, was, route in zip(ring_bwd, routes,
+                             (ak.dq_partial_route(dtype),
+                              ak.dkv_partial_route(dtype))):
+        was[route] += 2
+        assert w.routes == was, w.__name__
 
 
 def _bf16_partial_problems():
@@ -531,6 +553,37 @@ def _bf16_partial_problems():
     rows.append(("nokey_bf16", "B2 H4 Tc256 D64 bf16 0/100 causal",
                  (2, 4, 256, 256, 64), 0, 100, True, torch.bfloat16, False))
     return rows
+
+
+def _bf16_ring_dq_problems():
+    """chip_smoke's bf16 chunk pairs, and a pair whose first 100 rows see
+    no key of the chunk, with the state carried from the rows' own
+    diagonal chunk: lse is then a whole sequence's, finite, as the ring
+    passes it (a fresh state's lse of a row that sees no key is -1e9 +
+    log Tk, where P = exp(-1e9 - lse) is 1, not 0)"""
+    rows = [p for p in chip_smoke._partial_problems()
+            if p[6] == torch.bfloat16]
+    rows.append(("nokey_carried_bf16", "B2 H4 Tc256 D64 bf16 0/100 causal",
+                 (2, 4, 256, 256, 64), 0, 100, True, torch.bfloat16, True))
+    return rows
+
+
+@pytest.mark.parametrize("problem", _bf16_ring_dq_problems(),
+                         ids=lambda p: p[0])
+def test_bf16_ring_dq_on_the_tensor_cores_holds(cuda, problem):
+    """#6 in bf16 takes the tensor-core route and holds against its plain
+    version by chip_smoke's rule (partial_ulp_held); two launches give the
+    same bits."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    calls = chip_smoke.partial_calls(*chip_smoke.partial_inputs(problem,
+                                                                gen))
+    before = dict(ak.flash_attention_dq_partial.routes)
+    checks, same, _ = chip_smoke.check_partial("dq_partial", calls, problem)
+    used = {r: ak.flash_attention_dq_partial.routes[r] - before[r]
+            for r in before}
+    assert used == {"tensor_core": 2, "scalar": 0}
+    assert same
+    assert all(ok for _, _, ok in checks), checks
 
 
 @pytest.mark.parametrize("problem", _bf16_partial_problems(),
@@ -579,8 +632,8 @@ def test_bf16_partial_merge_of_unaligned_rows_takes_the_scalar_kernel(cuda):
 
 def test_unaligned_bf16_calls_take_the_scalar_route(cuda):
     """bf16 rows that do not start on 16 bytes (D 36) cannot take the
-    tensor cores' 16-byte copies: #1 and #7 launch their scalar templates
-    and count them, and hold against the plain versions."""
+    tensor cores' 16-byte copies: #1, #6 and #7 launch their scalar
+    templates and count them, and hold against the plain versions."""
     bf = torch.bfloat16
     q, k, v = (rnd(2, 4, t, 36, seed=s, device=cuda, dtype=bf)
                for s, t in ((84, 70), (85, 90), (86, 90)))
@@ -605,6 +658,13 @@ def test_unaligned_bf16_calls_take_the_scalar_route(cuda):
             for r in before} == {"tensor_core": 0, "scalar": 1}
     for g, w in zip((dk, dv), want):
         torch.testing.assert_close(g, w, **BWD_F32_TOL)
+    before = dict(ak.flash_attention_dq_partial.routes)
+    dq = ak.flash_attention_dq_partial(qc, k, v, do, lse, delta, **cfg)
+    want = ak.plain_attention_dq_partial(qc, k, v, do, lse, delta, **cfg)
+    torch.cuda.synchronize()
+    assert {r: ak.flash_attention_dq_partial.routes[r] - before[r]
+            for r in before} == {"tensor_core": 0, "scalar": 1}
+    torch.testing.assert_close(dq, want, **BWD_F32_TOL)
 
 
 def test_ring_kernel_wrappers_refuse_what_they_do_not_take(cuda):
@@ -698,7 +758,6 @@ def _exact_grads(x, w, vec, y, dy, gm, gs, fuse, stats):
     z = ck._z(x, ck._vectors(mean, scale, beta, fuse)).double()
     wd = w.double()
     if w.dim() == 2:
-        y = (z @ wd).to(dy.dtype) if stats else None
         dyl = ck._fold(dy, y, kshift, gm, gs, stats).double()
         dw, dz, dims = z.t() @ dyl, dyl @ wd.t(), (0,)
     else:
@@ -735,9 +794,9 @@ def _check_conv_kernels(fwd, bwd, pfwd, pbwd, x, w, vec, fuse, stats):
     flags = dict(fuse_input=fuse, emit_stats=stats)
     kshift = vec[3]
     launched = (fwd.launches, bwd.launches)
-    fwd_routes = dict(getattr(fwd, "routes", {}))
-    if fwd_routes:      # #10: both launches take the route of the dtype
-        fwd_routes[ck.conv3x3_fwd_route(x.dtype)] += 2
+    fwd_routes = dict(fwd.routes)    # both launches take the dtype's route
+    fwd_routes[(ck.matmul_fwd_route if w.dim() == 2
+                else ck.conv3x3_fwd_route)(x.dtype)] += 2
     y, s1, s2 = fwd(x, w, *vec, **flags)
     again = fwd(x, w, *vec, **flags)
     want = pfwd(x, w, *vec, **flags)
@@ -751,20 +810,19 @@ def _check_conv_kernels(fwd, bwd, pfwd, pbwd, x, w, vec, fuse, stats):
     dy = rnd(*y.shape, seed=90, device="cuda", dtype=x.dtype)
     gm = rnd(co, seed=91, device="cuda") * 0.1
     gs = rnd(co, seed=92, device="cuda") * 0.1
-    assert getattr(fwd, "routes", {}) == fwd_routes
-    extra = (y,) if w.dim() == 4 else ()
-    routes = dict(getattr(bwd, "routes", {}))
-    got = bwd(x, w, *vec, *extra, dy, gm, gs, **flags)
-    again = bwd(x, w, *vec, *extra, dy, gm, gs, **flags)
-    want = pbwd(x, w, *vec, *extra, dy, gm, gs, **flags)
+    assert fwd.routes == fwd_routes
+    routes = dict(bwd.routes)
+    # both backwards fold the forward kernel's saved y
+    got = bwd(x, w, *vec, y, dy, gm, gs, **flags)
+    again = bwd(x, w, *vec, y, dy, gm, gs, **flags)
+    want = pbwd(x, w, *vec, y, dy, gm, gs, **flags)
     torch.cuda.synchronize()
     assert (fwd.launches, bwd.launches) == (launched[0] + 2,
                                             launched[1] + 2)
-    if routes:      # #9 and #11: both launches took the route of the dtype
-        route = (ck.matmul_bwd_route if w.dim() == 2
-                 else ck.conv3x3_bwd_route)(x.dtype)
-        routes[route] += 2
-        assert bwd.routes == routes
+    # #9 and #11: both launches took the route of the dtype
+    routes[(ck.matmul_bwd_route if w.dim() == 2
+            else ck.conv3x3_bwd_route)(x.dtype)] += 2
+    assert bwd.routes == routes
     exact = (_exact_grads(x, w, vec, y, dy, gm, gs, fuse, stats)
              if x.dtype == torch.bfloat16 else {})
     for g, a, p, what in zip(got, again, want, ("dx", "dw", "dsx", "dsu")):

@@ -1,13 +1,14 @@
-"""The planning of the redesigned kernels #1, #2, #3, #5, #7, #9, #10 and
-#11, on the CPU: the dtype routes, the dW split and scratch of #11's and
-#9's tensor-core routes and the scratch of #10's, the checks
-chip_smoke.py holds them to (with CPU models of #5's tiled merge and #1's
-tiled forward for their bf16 bias rule, of #7's split-bf16 route for its
-dK and dV rules, of #2 with dS truncated and of #9's fold of the
-recomputed y), the three-piece bf16 split #7 rests on, and the source
-lines the fault controls of chip_gate_controls.py edit.  The kernels themselves run only
-on the card (tests/test_torch_cuda.py).  Only the test that holds #7's
-model against the Pallas kernel imports JAX, inside it."""
+"""The planning of the redesigned kernels #1-#3 and #5-#11, on the CPU:
+the dtype routes, the dW split and scratch of #11's and #9's tensor-core
+routes and the scratch of #10's and #8's, the checks chip_smoke.py holds
+them to (with CPU models of #5's tiled merge and #1's tiled forward for
+their bf16 bias rule, of #7's and #6's split-bf16 routes for their ulp
+and dV rules, of #2 with dS truncated and of #9's fold of the saved y),
+the three-piece bf16 split #6 and #7 rest on, and the source lines the
+fault controls of chip_gate_controls.py edit.  The kernels themselves run
+only on the card (tests/test_torch_cuda.py).  Only the tests that hold
+#7's and #6's models against the Pallas kernels import JAX, inside
+them."""
 
 import math
 
@@ -63,13 +64,15 @@ def test_each_fault_control_edits_one_line_of_its_source(name, path, before):
 
 
 def test_mutants_of_the_redesigned_kernels_edit_their_sources():
-    """The #3 controls edit its tensor-core kernel, #2's its tensor-core
-    kernel, #7's its split tensor-core kernel (P's pieces, dO's pieces),
-    the #9, #10 and #11 tensor-core controls the tensor-core header (each
-    built into its own library; #9's in the fold of fprop's epilogue),
-    #10's halo-before-norm control the f32 route, #5's and #1's
-    truncation the tensor-core loop they share and #5's causal offset the
-    entry point that sets it for both routes."""
+    """The #3 controls edit its tensor-core kernel, #2's and #6's the dQ
+    loop they share (dS's pack), #7's its split tensor-core kernel (P's
+    pieces) and, with #6's, the split of dO's rows both call, the #8-#11
+    tensor-core controls the tensor-core header (each built into its own
+    library; #9's in the prepass that folds the saved y, #8's y cast in
+    fprop's epilogue), #10's halo-before-norm control and #8's f32
+    control the f32 routes, #5's and #1's truncation the tensor-core loop
+    they share and #5's causal offset the entry point that sets it for
+    both routes."""
     tc = (CSRC_DIR / "flash_attention_bwd.cu").read_text()
     start = tc.index("flash_dkv_tc_kernel(const Params p)")
     end = tc.index("// ---- dQ on the tensor cores")
@@ -79,20 +82,41 @@ def test_mutants_of_the_redesigned_kernels_edit_their_sources():
     start = tc.index("flash_dq_tc_kernel(const Params p)")
     end = tc.index("// ---- the ring's dK / dV (#7) on the tensor cores")
     assert start < tc.index(gates.MUTANTS["no_ds_cast_in_dq"][0]) < end
+    assert gates.RING_MUTANTS["no_ds_cast_in_6"] == (
+        "flash_attention_bwd", *gates.MUTANTS["no_ds_cast_in_dq"][:2],
+        "dq_partial")
     header = (CSRC_DIR / "conv_bn_tc.cuh").read_text()
-    start = header.index("if constexpr (kFold) {")
-    end = header.index("// epilogue: y cast to bf16, and the statistics")
-    for name in ("y_not_rounded_in_9", "no_dyl_cast_in_9"):
+    start = header.index("// ---- 1. the prepass")
+    end = header.index("// ---- the product tiles")
+    for name in ("saved_y_ignored_in_9", "no_dyl_cast_in_9"):
         path, library, before, _, key, _ = gates.CONV_MUTANTS[name]
         assert (path, library, key) == ("conv_bn_tc.cuh", "conv_bn_bwd",
                                         "s1_conv3"), name
         assert start < header.index(before) < end, name
+    for name, region in (("no_z_cast_in_8", ("z_entry(", "dyl_entry(")),
+                         ("no_y_cast_in_8", ("fprop(const Problem p)",
+                                             "}  // namespace tcconv"))):
+        path, library, before, _, key, _ = gates.CONV_MUTANTS[name]
+        assert (path, library, key) == ("conv_bn_tc.cuh", "conv_bn_fwd",
+                                        "s1_conv3"), name
+        at = header.index(before)
+        assert header.index(region[0]) < at < header.index(region[1]), name
     start = tc.index("flash_dkv_partial_tc_kernel(const Params p)")
     end = tc.index("// ---- dBias")
-    for name in ("p_cast_to_q_dtype_in_7", "no_do_split_in_7"):
-        library, before, _, kernel = gates.RING_MUTANTS[name]
-        assert (library, kernel) == ("flash_attention_bwd", "dkv_partial")
+    library, before, _, kernel = gates.RING_MUTANTS["p_cast_to_q_dtype_in_7"]
+    assert (library, kernel) == ("flash_attention_bwd", "dkv_partial")
+    assert start < tc.index(before) < end
+    start = tc.index("split_rows(const float* src")
+    end = tc.index("// ---- dQ on the tensor cores")
+    for name, kernel in (("no_do_split_in_7", "dkv_partial"),
+                         ("no_do_split_in_6", "dq_partial")):
+        library, before, _, which = gates.RING_MUTANTS[name]
+        assert (library, which) == ("flash_attention_bwd", kernel)
         assert start < tc.index(before) < end, name
+    # #6's and #7's kernels both split dO's rows by split_rows
+    for kernel in ("flash_dq_tc_kernel(const Params p)",
+                   "flash_dkv_partial_tc_kernel(const Params p)"):
+        assert "split_rows<DMAX>(" in tc[tc.index(kernel):]
     for name, library in (("no_dyl_cast_in_11_prepass", "conv_bn_bwd"),
                           ("halo_copied_in_11", "conv_bn_bwd"),
                           ("no_z_cast_in_10_prepass", "conv_bn_fwd"),
@@ -102,9 +126,13 @@ def test_mutants_of_the_redesigned_kernels_edit_their_sources():
     conv = (CSRC_DIR / "conv_bn_fwd.cu").read_text()
     before = gates.CONV_MUTANTS["halo_zeroed_before_norm_in_10"][2]
     assert conv.index("struct Conv3Fwd") < conv.index(before)
-    assert gates.CONV_MUTANTS["halo_zeroed_before_norm_in_10"][4] in {
-        key for key, _, _, dtype, _ in chip_smoke.conv_problems()
-        if dtype == torch.float32}
+    before = gates.CONV_MUTANTS["z_cast_to_bf16_in_8_f32"][2]
+    assert conv.index("struct MatmulFwd") < conv.index(before) < \
+        conv.index("struct Conv3Fwd")
+    f32_keys = {key for key, _, _, dtype, _ in chip_smoke.conv_problems()
+                if dtype == torch.float32}
+    for name in ("halo_zeroed_before_norm_in_10", "z_cast_to_bf16_in_8_f32"):
+        assert gates.CONV_MUTANTS[name][4] in f32_keys, name
     fwd = (CSRC_DIR / "flash_attention_fwd.cu").read_text()
     start = fwd.index("flash_fwd_tc_kernel(const Params p)")
     end = fwd.index("int launch_tc(")
@@ -116,7 +144,8 @@ def test_mutants_of_the_redesigned_kernels_edit_their_sources():
 
 
 # the route functions of the redesigned kernels, beside their wrappers:
-# #11 and #3, then #10 and #5, then #1 and #7, then #2 and #9
+# #11 and #3, then #10 and #5, then #1 and #7, then #2 and #9, then #6
+# and #8
 ROUTES = [(ck.conv3x3_bwd_route, ck.conv3x3_bn_bwd),
           (ak.dkv_route, ak.flash_attention_dkv),
           (ck.conv3x3_fwd_route, ck.conv3x3_bn_fwd),
@@ -124,7 +153,9 @@ ROUTES = [(ck.conv3x3_bwd_route, ck.conv3x3_bn_bwd),
           (ak.fwd_route, ak.flash_attention_fwd),
           (ak.dkv_partial_route, ak.flash_attention_dkv_partial),
           (ak.dq_route, ak.flash_attention_dq),
-          (ck.matmul_bwd_route, ck.matmul_bn_bwd)]
+          (ck.matmul_bwd_route, ck.matmul_bn_bwd),
+          (ak.dq_partial_route, ak.flash_attention_dq_partial),
+          (ck.matmul_fwd_route, ck.matmul_bn_fwd)]
 
 
 @pytest.mark.parametrize("fns,dtype,route", [
@@ -134,11 +165,14 @@ ROUTES = [(ck.conv3x3_bwd_route, ck.conv3x3_bn_bwd),
     (ROUTES[2:4], torch.float32, "scalar"),
     (ROUTES[4:6], torch.bfloat16, "tensor_core"),
     (ROUTES[4:6], torch.float32, "scalar"),
-    (ROUTES[6:], torch.bfloat16, "tensor_core"),
-    (ROUTES[6:], torch.float32, "scalar"),
+    (ROUTES[6:8], torch.bfloat16, "tensor_core"),
+    (ROUTES[6:8], torch.float32, "scalar"),
+    (ROUTES[8:], torch.bfloat16, "tensor_core"),
+    (ROUTES[8:], torch.float32, "scalar"),
 ], ids=["dtype0-tensor_core", "dtype1-scalar", "fwd-bf16", "fwd-f32",
         "ring-bf16", "ring-f32", "dq-matmul-bwd-bf16",
-        "dq-matmul-bwd-f32"])
+        "dq-matmul-bwd-f32", "dq-partial-matmul-fwd-bf16",
+        "dq-partial-matmul-fwd-f32"])
 def test_dtype_routes(fns, dtype, route):
     for fn, _ in fns:
         assert fn(dtype) == route, fn.__name__
@@ -176,13 +210,14 @@ def test_partial_route_sends_unaligned_bf16_rows_to_the_scalar_kernel():
     assert not ak.rows_aligned(ragged, x[..., :40], x[..., :40])
 
 
-@pytest.mark.parametrize("route", [ak.fwd_route, ak.dkv_partial_route])
+@pytest.mark.parametrize("route", [ak.fwd_route, ak.dkv_partial_route,
+                                   ak.dq_partial_route])
 def test_fwd_and_ring_dkv_routes_send_unaligned_bf16_rows_to_the_scalar_kernel(
         route):
-    """#1's and #7's tensor-core copies move 16 bytes: bf16 rows that do
-    not start on 16 bytes (q, k, v at D36; #7's f32 dO at a stride that is
-    not a whole number of 16 bytes) take the scalar kernel, never the
-    plain version."""
+    """#1's, #7's and #6's tensor-core copies move 16 bytes: bf16 rows
+    that do not start on 16 bytes (q, k, v at D36; #6's and #7's f32 dO at
+    a stride that is not a whole number of 16 bytes) take the scalar
+    kernel, never the plain version."""
     assert route(torch.bfloat16, False) == "scalar"
     assert route(torch.float32, False) == "scalar"
     odd = torch.zeros(2, 4, 96, 36, dtype=torch.bfloat16)
@@ -313,28 +348,26 @@ def test_one_tap_scratch_reads_x_and_dy_in_place_where_it_can(k, n, fuse,
         True, True)
 
 
-def _fold_model(x, w, vec, dy, gm, gs, y_rounded=True):
-    """A model of #9's tensor-core route with statistics: y = z.W with f32
-    sums, rounded to bf16 as the forward rounded it (or left unrounded),
-    folded into dyl = dy + gm + gs (y - K) cast to bf16, then dz = dyl.W^T,
-    dW = z^T.dyl and dx; ``(dx, dw)``."""
+def _fold_model(x, w, vec, dy, gm, gs, y="rounded"):
+    """A model of #9's tensor-core route with statistics: the y it folds,
+    z.W with f32 sums rounded to bf16 as the forward stored it ("rounded",
+    the saved y), or left unrounded, or K itself ("ignored": the saved y
+    not read), folded into dyl = dy + gm + gs (y - K) cast to bf16, then
+    dz = dyl.W^T, dW = z^T.dyl and dx; ``(dx, dw)``."""
     mean, scale, beta, kshift = vec
     z = ck._z(x, (mean, scale, beta)).float()
-    y = z @ w.float()
-    if y_rounded:
-        y = y.to(torch.bfloat16).float()
-    dyl = (dy.float() + gm + gs * (y - kshift)).to(torch.bfloat16).float()
+    yf = {"rounded": lambda: (z @ w.float()).to(torch.bfloat16).float(),
+          "unrounded": lambda: z @ w.float(),
+          "ignored": lambda: kshift.expand(x.shape[0], -1)}[y]()
+    dyl = (dy.float() + gm + gs * (yf - kshift)).to(torch.bfloat16).float()
     dz = dyl @ w.float().t()
     dx = ck._input_side(x, dz, mean, scale, beta, True, (0,))[0]
     return dx, (z.t() @ dyl).to(w.dtype)
 
 
-@pytest.mark.parametrize("m,k,n", [(4096, 64, 256), (2048, 256, 64)])
-def test_conv_rule_refuses_the_fold_of_an_unrounded_y(m, k, n):
-    """conv_held passes #9's fold of the recomputed y rounded to bf16 and
-    refuses it unrounded (chip_gate_controls.py's y_not_rounded_in_9),
-    where gs (y_r - y) moves a few percent of the folded dy to its other
-    bf16 neighbour, at chip_smoke.conv_inputs' scales."""
+def _fold_case(m, k, n):
+    """x, w, the vectors, dy, gm, gs at chip_smoke.conv_inputs' scales,
+    and the plain version's dx and dW folding the forward's saved y."""
     rs = np.random.RandomState(5)
 
     def rnd(*shape, scale=1.0):
@@ -345,13 +378,67 @@ def test_conv_rule_refuses_the_fold_of_an_unrounded_y(m, k, n):
     vec = (rnd(k, scale=0.1), rnd(k).abs() + 0.5, rnd(k, scale=0.2),
            rnd(n, scale=0.05))
     dy, gm, gs = rnd(m, n).to(bf), rnd(n, scale=0.1), rnd(n, scale=0.1)
-    dx, dw, _, _ = ck.plain_matmul_bn_bwd(x, w, *vec, dy, gm, gs,
+    y = ck.plain_matmul_bn_fwd(x, w, *vec, fuse_input=True,
+                               emit_stats=True)[0]
+    dx, dw, _, _ = ck.plain_matmul_bn_bwd(x, w, *vec, y, dy, gm, gs,
                                           fuse_input=True, emit_stats=True)
-    for got, want in zip(_fold_model(x, w, vec, dy, gm, gs), (dx, dw)):
+    return (x, w, vec, dy, gm, gs), (dx, dw)
+
+
+@pytest.mark.parametrize("m,k,n", [(4096, 64, 256), (2048, 256, 64)])
+def test_conv_rule_refuses_the_fold_of_an_unrounded_y(m, k, n):
+    """conv_held passes #9's fold of the y the forward stored (rounded to
+    bf16) and refuses a fold of y unrounded, where gs (y_r - y) moves a
+    few percent of the folded dy to its other bf16 neighbour, at
+    chip_smoke.conv_inputs' scales."""
+    args, (dx, dw) = _fold_case(m, k, n)
+    for got, want in zip(_fold_model(*args), (dx, dw)):
         assert chip_smoke.conv_held(got, want)[2]
-    got_dx, got_dw = _fold_model(x, w, vec, dy, gm, gs, y_rounded=False)
+    got_dx, got_dw = _fold_model(*args, y="unrounded")
     assert not chip_smoke.conv_held(got_dx, dx)[2]
     assert not chip_smoke.conv_held(got_dw, dw)[2]
+
+
+@pytest.mark.parametrize("m,k,n", [(4096, 64, 256), (2048, 256, 64)])
+def test_conv_rule_refuses_the_fold_with_the_saved_y_ignored(m, k, n):
+    """A fold that reads y = K instead of the saved y (chip_gate_controls.py's
+    saved_y_ignored_in_9: the gs term vanishes) is refused on dx and dW."""
+    args, (dx, dw) = _fold_case(m, k, n)
+    got_dx, got_dw = _fold_model(*args, y="ignored")
+    assert not chip_smoke.conv_held(got_dx, dx)[2]
+    assert not chip_smoke.conv_held(got_dw, dw)[2]
+
+
+@pytest.mark.parametrize("shape", MATMUL_SHAPES)
+def test_one_tap_fwd_scratch_within_budget(shape):
+    """#8's tensor-core scratch as its wrapper allocates it: z [M, Kp] and
+    the padded W [Kp, Np] in bf16 where they are stored, and the f32
+    statistics partials of 128-row tiles, within the budget of the dW
+    partials; at ResNet-50's widths W is read in place, and x too where
+    there is no norm."""
+    m, k, n = shape
+    kp, np_ = ck.tc_channels(k), ck.tc_channels(n)
+    for fuse in (False, True):
+        own_z, own_w = ck.matmul_fwd_scratch(k, n, fuse)
+        scratch = (m * kp * own_z + kp * np_ * own_w) * 2 \
+            + 2 * -(-m // ck._TC_ROWS) * n * 4
+        assert scratch <= ck._MAX_PART_BYTES
+        if k % 64 == 0 and n % 64 == 0:
+            assert (own_z, own_w) == (fuse, False)
+
+
+@pytest.mark.parametrize("k,n,fuse,own", [
+    (64, 256, False, (False, False)),    # s1_conv1's widths: all in place
+    (64, 256, True, (True, False)),      # s1_conv3: z normalised
+    (1024, 256, False, (False, False)),  # s3_conv1
+    (24, 72, False, (True, True)),       # ragged: both padded
+    (64, 72, False, (False, True)),
+])
+def test_one_tap_fwd_scratch_reads_x_and_w_in_place_where_it_can(k, n, fuse,
+                                                                 own):
+    assert ck.matmul_fwd_scratch(k, n, fuse) == own
+    # an input that does not start on 16 bytes gets its own copy
+    assert ck.matmul_fwd_scratch(k, n, fuse, False, False) == (True, True)
 
 
 def test_conv3x3_supported_takes_every_shape_it_took():
@@ -874,6 +961,86 @@ def test_dkv_partial_rule_passes_the_split_model_refuses_one_piece(pair):
                                                        exact)
         assert not checks[1][2], readings
         assert readings["dv_err"] > 100 * readings["dv_plain_err"]
+
+
+# ---- #6's split-bf16 route, held by the shared ulp rule --------------------
+
+def _dq_partial_model(q, k, v, do, lse, delta, *, q_offset, k_offset, scale,
+                      causal, do_pieces=3, cast=None):
+    """A model of #6's tensor-core route: bf16 pieces, f32 sums, 32-key
+    tiles.  dP over dO's pieces smallest first, each 16-deep step of the
+    head dim into a fresh sum added to the running one; dS cast by
+    ``cast`` (to bf16, to nearest, by default) before dQ = scale * sum of
+    dS . K over the key tiles.  ``do_pieces=1`` rounds dO to bf16 instead
+    (what a bf16 tensor-core backward computes)."""
+    s = ak._partial_scores(q, k, scale, causal, q_offset, k_offset)
+    dop = _split3(do)[:do_pieces]
+    vf = v.float()
+    dp = torch.zeros_like(s)
+    for c0 in range(0, q.shape[-1], 16):
+        dp = dp + sum(torch.matmul(x[..., c0:c0 + 16],
+                                   vf[..., c0:c0 + 16].transpose(-1, -2))
+                      for x in dop[::-1])
+    ds = torch.exp(s - lse[..., None]) * (dp - delta[..., None])
+    if causal:
+        rows = q_offset + torch.arange(q.shape[-2])
+        keys = k_offset + torch.arange(k.shape[-2])
+        ds = ds.masked_fill(rows[:, None] < keys[None, :], 0.0)
+    dsq = ds.to(torch.bfloat16).float() if cast is None else cast(ds)
+    dq = torch.zeros(q.shape)
+    for k0 in range(0, k.shape[-2], 32):
+        dq = dq + torch.matmul(dsq[..., k0:k0 + 32],
+                               k[..., k0:k0 + 32, :].float())
+    return dq * scale
+
+
+def _pallas_dq_partial(args, cfg):
+    """The reference's Pallas #6 in interpret mode on the same inputs."""
+    import jax.numpy as jnp
+    from bigdl_tpu.ops import attention_kernels as jak
+    j = [jnp.asarray(t.float().numpy()).astype(
+        jnp.bfloat16 if t.dtype == torch.bfloat16 else jnp.float32)
+        for t in args]
+    dq = jak.flash_attention_dq_partial(
+        *j, q_offset=cfg["q_offset"], k_offset=cfg["k_offset"],
+        causal=cfg["causal"], scale=cfg["scale"], block_q=None,
+        block_k=None, interpret=True)
+    return torch.from_numpy(np.array(dq, dtype=np.float32))
+
+
+@pytest.mark.parametrize("pair", DKV_PAIRS, ids=[p[0] for p in DKV_PAIRS])
+def test_dq_partial_rule_passes_the_split_model_refuses_one_piece(pair):
+    """#6's split route (modelled) holds against the plain version and
+    against the Pallas kernel in interpret mode by chip_smoke's rule
+    (partial_ulp_held: each entry within one bf16 ulp of the plain entry
+    or of the largest, at most max(1%, one row a head) differing in
+    bf16).  The same model with dO rounded to bf16 (chip_gate_controls.py's
+    no_do_split_in_6) or dS truncated (no_ds_cast_in_6) moves far more
+    than 1% of the entries: refused, with no f64 anchor needed."""
+    args, cfg = _dkv_inputs(pair)
+    got = _dq_partial_model(*args, **cfg)
+    one_piece = _dq_partial_model(*args, **cfg, do_pieces=1)
+    truncated = _dq_partial_model(*args, **cfg, cast=_truncated)
+    for want in (ak.plain_attention_dq_partial(*args, **cfg),
+                 _pallas_dq_partial(args, cfg)):
+        assert chip_smoke.partial_ulp_held(got, want)[2]
+        for bad in (one_piece, truncated):
+            _, differ, ok = chip_smoke.partial_ulp_held(bad, want)
+            assert not ok and differ > 0.3 * want.numel()
+
+
+def test_partial_ulp_rule_counts_a_row_a_head_where_rows_are_few():
+    """partial_ulp_held's share: 1% of the entries, or one row of D entries
+    a head where there are fewer than 100 rows; the f32 entries count once
+    rounded to bf16, so a move below bf16's granularity is no difference."""
+    want = _bf16_grid(9, (1, 2, 4, 8)).float()
+    got = want.clone()
+    got[:, :, 0] = _next_up(want[:, :, 0].to(torch.bfloat16)).float()
+    assert chip_smoke.partial_ulp_held(got, want)[1:] == (16, True)
+    got[:, 0, 1] = _next_up(want[:, 0, 1].to(torch.bfloat16)).float()
+    assert not chip_smoke.partial_ulp_held(got, want)[2]
+    tiny = want * (1 + 2.0 ** -20)
+    assert chip_smoke.partial_ulp_held(tiny, want)[1:] == (0, True)
 
 
 # ---- chip_smoke's build report ----------------------------------------------
