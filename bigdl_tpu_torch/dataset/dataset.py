@@ -1,6 +1,7 @@
-"""MiniBatch and the single-host datasets (counterpart of
-``epoch_permutation``, ``MiniBatch``, ``DataSet.array``, ``LocalDataSet``
-and ``DeviceCachedDataSet`` in ``bigdl_tpu/dataset/dataset.py``).
+"""Sample, MiniBatch and the single-host datasets (counterpart of
+``epoch_permutation``, ``Sample``, ``MiniBatch``, ``DataSet.array``,
+``LocalDataSet`` and ``DeviceCachedDataSet`` in
+``bigdl_tpu/dataset/dataset.py``).
 
 The determinism contract is the reference's: epoch E's order is
 :func:`epoch_permutation` of ``(seed, E)``, numpy only, so the port
@@ -8,11 +9,14 @@ visits batches in exactly the reference's order.  The reference falls
 back to its process-wide seed; the port has none, so a shuffled dataset
 takes an explicit ``seed``.  :meth:`LocalDataSet.cache_on_device` is the
 counterpart of the reference's HBM cache: the batches are copied to the
-card once and served from there every epoch.
+card once and served from there every epoch.  ``transform`` appends a
+``Transformer`` stage (``dataset/transformer.py``) to a copy of the
+dataset, as the reference's ``dataset -> transformer`` does.
 """
 
 from __future__ import annotations
 
+import copy as _copy
 from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
@@ -20,8 +24,8 @@ import torch
 
 from bigdl_tpu_torch.core.device import resolve_device
 
-__all__ = ["MiniBatch", "DataSet", "LocalDataSet", "DeviceCachedDataSet",
-           "epoch_permutation"]
+__all__ = ["Sample", "MiniBatch", "DataSet", "LocalDataSet",
+           "DeviceCachedDataSet", "epoch_permutation"]
 
 
 def epoch_permutation(n: int, seed: int, epoch: int) -> np.ndarray:
@@ -30,6 +34,21 @@ def epoch_permutation(n: int, seed: int, epoch: int) -> np.ndarray:
     for bit)."""
     ss = np.random.SeedSequence([int(seed) % (2 ** 63), int(epoch)])
     return np.random.default_rng(ss).permutation(int(n))
+
+
+class Sample:
+    """One training example: feature tensor(s) and label tensor(s)."""
+
+    __slots__ = ("feature", "label")
+
+    def __init__(self, feature, label=None):
+        self.feature = feature
+        self.label = label
+
+    def __repr__(self):
+        f = getattr(self.feature, "shape", None)
+        l = getattr(self.label, "shape", None)
+        return f"Sample(feature={f}, label={l})"
 
 
 class MiniBatch:
@@ -74,22 +93,36 @@ class LocalDataSet:
         self._data = data
         self._shuffle = shuffle
         self._seed = seed
+        self._transformers: list = []
 
     def seed(self) -> int:
         """The shuffle seed this dataset derives epoch orders from (0
         when unshuffled: the order does not depend on it)."""
         return int(self._seed or 0)
 
+    def transform(self, transformer) -> "LocalDataSet":
+        """A copy of this dataset with ``transformer`` appended to its
+        stages (the data list is shared, never reordered)."""
+        out = _copy.copy(self)
+        out._transformers = self._transformers + [transformer]
+        return out
+
+    def __rshift__(self, transformer):
+        return self.transform(transformer)
+
     def size(self) -> int:
         return len(self._data)
 
     def data(self, train: bool = True, epoch: int = 0) -> Iterator:
-        """Epoch ``epoch``'s pass; shuffled when training and
-        ``shuffle``.  (The reference also counts epochs itself when none
-        is given; every caller here passes one.)"""
+        """Epoch ``epoch``'s pass through the stages; shuffled when
+        training and ``shuffle``.  (The reference also counts epochs
+        itself when none is given; every caller here passes one.)"""
         order = (epoch_permutation(len(self._data), self.seed(), epoch)
                  if train and self._shuffle else np.arange(len(self._data)))
-        return (self._data[i] for i in order)
+        it = (self._data[i] for i in order)
+        for t in self._transformers:
+            it = t(it)
+        return it
 
     def cache_on_device(self, device=None) -> "DeviceCachedDataSet":
         """Serve the batches from device memory (default ``cuda``): each

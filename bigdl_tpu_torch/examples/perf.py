@@ -1,6 +1,9 @@
 """Training-throughput CLI (counterpart of ``bigdl_tpu/examples/perf.py``,
-``bigdl-tpu-perf``), for ``--model resnet50`` and ``--model
-transformer-lm`` training:
+``bigdl-tpu-perf``), for ``--model lenet``, ``--model resnet50`` and
+``--model transformer-lm`` training:
+
+    python -m bigdl_tpu_torch.examples.perf --model lenet -b 256 \\
+        --iterations 50
 
     python -m bigdl_tpu_torch.examples.perf --model resnet50 --fused \\
         --bf16 -b 128 --image-size 224 --classes 1000
@@ -28,8 +31,9 @@ import torch
 from torch import nn
 
 from bigdl_tpu_torch.dataset import DataSet, MiniBatch
-from bigdl_tpu_torch.models import resnet50, transformer_lm
-from bigdl_tpu_torch.nn.criterion import CrossEntropyCriterion
+from bigdl_tpu_torch.models import LeNet5, resnet50, transformer_lm
+from bigdl_tpu_torch.nn.criterion import ClassNLLCriterion, \
+    CrossEntropyCriterion
 from bigdl_tpu_torch.optim import SGD, Optimizer, Trigger
 
 __all__ = ["MODELS", "FlatLM", "build", "parse_args", "train", "main"]
@@ -38,7 +42,6 @@ MODELS = ("lenet", "resnet50", "inception-v1", "inception-v2", "vgg16",
           "transformer-lm", "ptb-lstm")
 
 _NOT_PORTED = {
-    "lenet": "ROADMAP.md queue 1, item 9 (the rest of the model zoo)",
     "inception-v1": "ROADMAP.md queue 1, item 9 (the rest of the model zoo)",
     "inception-v2": "ROADMAP.md queue 1, item 9 (the rest of the model zoo)",
     "vgg16": "ROADMAP.md queue 1, item 9 (the rest of the model zoo)",
@@ -84,6 +87,13 @@ def build(name: str, args):
         return (rng.normal(size=(b, size, size, 3)).astype(np.float32),
                 rng.integers(1, args.classes + 1, size=(b,)))
 
+    if name == "lenet":
+        def mnist_batch(b):
+            return (rng.normal(size=(b, 28, 28, 1)).astype(np.float32),
+                    rng.integers(1, 11, size=(b,)))
+        return (LeNet5(10, generator=torch.Generator().manual_seed(0),
+                       device=args.device),
+                ClassNLLCriterion(), mnist_batch)
     if name == "resnet50":
         return (resnet50(args.classes, fused=args.fused,
                          generator=torch.Generator().manual_seed(0),
@@ -151,10 +161,13 @@ def train(args):
     return run(args, *build(args.model, args))
 
 
-def run(args, model, criterion, make_batch):
+def run(args, model, criterion, make_batch, configure=None):
     """The timed training of :func:`train` on a model already built (by
     :func:`build`, and perhaps reconfigured, as chip_smoke.py arms
-    sequence parallelism on the LM)."""
+    sequence parallelism on the LM), with ``configure(optimizer)``
+    called before it trains (for example to
+    ``set_iterations_per_dispatch``, which has no CLI flag: the
+    reference's perf has none)."""
     x, y = make_batch(args.batch_size)
     # one shared host buffer per epoch slot: the device cache holds it once
     data = DataSet.array(
@@ -167,6 +180,8 @@ def run(args, model, criterion, make_batch):
            .set_log_interval(args.iterations))
     if args.bf16:
         opt.set_compute_dtype(torch.bfloat16)
+    if configure is not None:
+        configure(opt)
     t0 = time.perf_counter()
     opt.optimize()
     total = time.perf_counter() - t0

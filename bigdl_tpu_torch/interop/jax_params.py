@@ -5,8 +5,12 @@ nested dicts whose leaves are arrays and whose list entries are keyed
 ``name[i]`` (``blocks[0]``).  The port's modules keep the reference's
 names and layouts (``Linear.weight`` is (out, in) in both, a conv weight
 HWIO in both), so the only change is the list key: ``blocks[i]`` becomes
-torch's ``blocks.<i>``.  This module reads numpy arrays only; it imports
-nothing of JAX.
+torch's ``blocks.<i>``.  A container's children load the same way: the
+reference's ``layers[i]`` (``Sequential``, ``Concat``, ``ConcatTable``
+...) and ``graph_modules[i]`` (``Graph``, in its topological order) are
+the port's ``layers.<i>`` and ``graph_modules.<i>``, nested lists
+(``a[i][j]``) become ``a.<i>.<j>``.  This module reads numpy arrays only;
+it imports nothing of JAX.
 """
 
 from __future__ import annotations

@@ -136,11 +136,15 @@ class TransformerLM(nn.Module):
             # masks inside the attention kernel
             mode = ("sequence-parallel" if self.seq_parallel
                     else "padded_inputs=False")
-            if bool((tokens == 0).any()):
-                raise ValueError(
-                    f"{mode} TransformerLM does not support padded batches "
-                    "(token 0): this path has no padding mask; use "
-                    "contiguous LM batching")
+            msg = (f"{mode} TransformerLM does not support padded "
+                   "batches (token 0): this path has no padding mask; use "
+                   "contiguous LM batching")
+            if tokens.is_cuda and torch.cuda.is_current_stream_capturing():
+                # a captured step reads no device value on the host: the
+                # check runs on the device at every replay
+                torch._assert_async(~(tokens == 0).any(), msg)
+            elif bool((tokens == 0).any()):
+                raise ValueError(msg)
             bias, causal = None, not self.seq_parallel
         for blk in self.blocks:
             x = blk(x, self_bias=bias, self_causal=causal)

@@ -8,9 +8,11 @@ The product goes to ``F.conv2d`` on permuted views (an NHWC tensor viewed
 as NCHW is channels-last in memory, which cuDNN takes as it is).
 Positional arguments follow the reference's order (nInputPlane,
 nOutputPlane, kernelW, kernelH, strideW, strideH, padW, padH, nGroup),
-the rest are keywords; a pad of -1 means SAME padding.  The reference's
-regularizers, ``init_weight``/``init_bias`` and ``propagate_back`` are
-not ported (ROADMAP.md queue 1, item 9).
+the rest are keywords; a pad of -1 means SAME padding.
+``w_regularizer``/``b_regularizer`` (``optim/regularizer.py``) are
+applied to the gradients by the ``Optimizer``'s step.  The reference's
+``init_weight``/``init_bias`` and ``propagate_back`` are not ported
+(ROADMAP.md queue 1, item 9).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from torch import nn
 
 from bigdl_tpu_torch.core import init as init_methods
 from bigdl_tpu_torch.core.device import resolve_device
+from bigdl_tpu_torch.core.module import Module
 
 __all__ = ["SpatialConvolution", "same_pads"]
 
@@ -34,7 +37,7 @@ def same_pads(size: int, k: int, s: int):
     return total // 2, total - total // 2
 
 
-class SpatialConvolution(nn.Module):
+class SpatialConvolution(Module):
     """2-D convolution (reference nn/SpatialConvolution.scala)."""
 
     def __init__(self, n_input_plane: int, n_output_plane: int,
@@ -43,8 +46,11 @@ class SpatialConvolution(nn.Module):
                  pad_w: int = 0, pad_h: int = 0,
                  n_group: int = 1, *, with_bias: bool = True,
                  data_format: str = "NHWC", init_method=None,
+                 w_regularizer=None, b_regularizer=None,
                  generator: torch.Generator, device=None):
         super().__init__()
+        self.w_regularizer = w_regularizer
+        self.b_regularizer = b_regularizer
         if n_input_plane % n_group or n_output_plane % n_group:
             raise ValueError(f"planes {n_input_plane} -> {n_output_plane} "
                              f"do not split into {n_group} groups")

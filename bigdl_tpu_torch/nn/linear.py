@@ -16,6 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from bigdl_tpu_torch.core.device import resolve_device
+from bigdl_tpu_torch.core.module import Module
 
 __all__ = ["Linear", "LookupTable"]
 
@@ -24,17 +25,22 @@ def _uniform(shape, bound: float, generator: torch.Generator):
     return (torch.rand(shape, generator=generator) * 2.0 - 1.0) * bound
 
 
-class Linear(nn.Module):
+class Linear(Module):
     """y = x W^T + b.  W ~ U(-1/sqrt(in), 1/sqrt(in)) (the reference's
     default ``RandomUniform``) unless an ``init_method`` of
     :mod:`bigdl_tpu_torch.core.init` is given; b ~ U(-1/sqrt(in),
-    1/sqrt(in))."""
+    1/sqrt(in)).  ``w_regularizer``/``b_regularizer``
+    (``optim/regularizer.py``) are applied to the gradients by the
+    ``Optimizer``'s step."""
 
     def __init__(self, input_size: int, output_size: int,
-                 with_bias: bool = True, *, generator: torch.Generator,
+                 with_bias: bool = True, w_regularizer=None,
+                 b_regularizer=None, *, generator: torch.Generator,
                  device=None, init_method=None):
         super().__init__()
         dev = resolve_device(device)
+        self.w_regularizer = w_regularizer
+        self.b_regularizer = b_regularizer
         self.input_size = input_size
         self.output_size = output_size
         self.with_bias = with_bias
@@ -56,7 +62,7 @@ class Linear(nn.Module):
         return F.linear(x, self.weight, self.bias)
 
 
-class LookupTable(nn.Module):
+class LookupTable(Module):
     """Embedding lookup; indices are 1-based (the reference/Torch
     convention) and clipped into range.  Weight ~ N(0, 1)."""
 

@@ -22,12 +22,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from bigdl_tpu_torch.core.device import resolve_device
+from bigdl_tpu_torch.core.module import Module
 
 __all__ = ["LayerNormalization", "BatchNormalization",
            "SpatialBatchNormalization"]
 
 
-class LayerNormalization(nn.Module):
+class LayerNormalization(Module):
     """LayerNorm over the last axis: (x - mean) * rsqrt(var + eps) * w + b,
     with the population variance and eps 1e-6."""
 
@@ -43,7 +44,7 @@ class LayerNormalization(nn.Module):
                             self.eps)
 
 
-class BatchNormalization(nn.Module):
+class BatchNormalization(Module):
     """BatchNorm over the feature (last) axis of [batch, feat] (reference
     nn/BatchNormalization.scala; eps and momentum defaults match).  The
     weight is drawn from U(0, 1) unless ``init_weight`` is given; the bias

@@ -8,6 +8,14 @@ second copy of either) and returns the same list and state dict, so the
 reference's calling convention still reads the same.  The step counter
 ``state["t"]`` is a host int; the learning rate is computed in float32
 as the reference computes it on the device.
+
+``update`` is ``current_lr`` (the host's float32 learning rate of the
+step), ``apply`` (the arithmetic, under ``no_grad``) and the counter's
+increment.  ``apply`` takes the learning rate as a float or as a 0-dim
+float32 tensor: the ``Optimizer``'s captured CUDA graph reads it from a
+static tensor that the host writes before each replay, so neither the
+rate nor the counter is baked into the graph, and the tensor gives the
+float's bits (a float32 product either way).
 """
 
 from __future__ import annotations
@@ -40,13 +48,26 @@ class Default(LearningRateSchedule):
 
 class OptimMethod:
     """Base update rule: ``init_state(params)`` then ``update(grads,
-    params, state, epoch) -> (params, state)``."""
+    params, state, epoch) -> (params, state)``, which is
+    ``apply(grads, params, state, current_lr(state, epoch))`` and one
+    step of ``state["t"]``."""
 
     def init_state(self, params: List[torch.Tensor]) -> Dict[str, Any]:
         return {"t": 0}
 
-    def update(self, grads, params, state, epoch=0):
+    def current_lr(self, state, epoch=0) -> float:
+        """The learning rate of the step ``state["t"]``, on the host."""
         raise NotImplementedError
+
+    def apply(self, grads, params, state, lr):
+        """Update ``params`` and the tensors of ``state`` in place with
+        learning rate ``lr`` (a float or a 0-dim float32 tensor)."""
+        raise NotImplementedError
+
+    def update(self, grads, params, state, epoch=0):
+        self.apply(grads, params, state, self.current_lr(state, epoch))
+        state["t"] += 1
+        return params, state
 
 
 class SGD(OptimMethod):
@@ -84,9 +105,11 @@ class SGD(OptimMethod):
             s["velocity"] = [torch.zeros_like(p) for p in params]
         return s
 
+    def current_lr(self, state, epoch=0) -> float:
+        return self.schedule(self.learning_rate, state["t"], epoch)
+
     @torch.no_grad()
-    def update(self, grads, params, state, epoch=0):
-        lr = self.schedule(self.learning_rate, state["t"], epoch)
+    def apply(self, grads, params, state, lr):
         for i, (g, p) in enumerate(zip(grads, params)):
             if self.weight_decay > 0:
                 g = g + self.weight_decay * p
@@ -95,5 +118,3 @@ class SGD(OptimMethod):
                 vel.mul_(self.momentum).add_((1 - self.dampening) * g)
                 g = g + self.momentum * vel if self.nesterov else vel
             p.sub_(lr * g)
-        state["t"] += 1
-        return params, state

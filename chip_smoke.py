@@ -2,7 +2,7 @@
 """Drive the PyTorch port (``bigdl_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root; one card
-    python3 chip_smoke.py --step resnet|sp   # one path's step alone
+    python3 chip_smoke.py --step resnet|sp [--dispatch k]   # one path alone
 
 Phases, each raising on failure (the script then exits non-zero):
 
@@ -91,10 +91,31 @@ Phases, each raising on failure (the script then exits non-zero):
 11. one f32 fused ResNet-50 step at batch 4, 64 px, on the card and on a
    CPU copy (the kernels' plain versions): loss and every gradient must
    agree; #8-#11 by the scalar route;
-12. a ``{"kernels": [...]}`` line (eleven kernels, launches by path; all
-   but #4 also their design, launches by route and build report; #1 its
-   row at the training shape beside the decode row), then the
-   ``{"ok": true, ...}`` line.
+12. LeNet-5 at the reference perf's width (``--model lenet -b 256
+   --iterations 50``, 4 epochs, f32) through the Optimizer with
+   every-epoch validation (Top1, Top5, Loss), an L2 regularizer on fc1
+   and clipping by the L2 norm: eagerly, then with windows of 50 steps
+   (CUDA graph replays), deterministic algorithms on for both; the graph
+   run's losses, parameters and validations must equal the eager run's
+   bit for bit, and 20 f32 steps on the card (graph windows) a CPU copy's
+   (loss 1e-5, parameters 1e-4 in norm); images/s, ms/iteration, device
+   busy time, idle share and peak memory of both runs;
+13. dispatch: the LM, the SP LM and ResNet-50 at the configurations of
+   phases 6, 7b and 9, each eagerly and with windows of an epoch's
+   iterations (graph replays), deterministic algorithms on for both,
+   each run under ``torch.profiler``: losses, parameters and buffers
+   equal bit for bit; the wrappers count every eager step's launches and
+   the graph run's warm-up step's and capture's, all by the tensor-core
+   route; the run's own device events hold each kernel once a launch in
+   the eager run, and in the graph run once in the warm-up step before a
+   marker kernel that follows the capture and a step's worth per replay
+   after it; ms per iteration, device busy time, idle share and peak
+   memory of both;
+14. a ``{"kernels": [...]}`` line (eleven kernels, launches by path,
+   the graph replays' among them as the profiler counted them on the
+   device; all but #4 also their design, launches by route and build
+   report; #1 its row at the training shape beside the decode row), then
+   the ``{"ok": true, ...}`` line.
 
 Imports torch, numpy and ``bigdl_tpu_torch`` only.
 """
@@ -102,11 +123,13 @@ Imports torch, numpy and ``bigdl_tpu_torch`` only.
 from __future__ import annotations
 
 import json
+import os
 import re
 import shutil
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -1661,26 +1684,53 @@ DENSE_NAMES = ("flash_attention_fwd", "flash_attention_dq",
 BUSY_ITERS, BUSY_EPOCHS = 2, 2
 
 
-def device_busy_per_step(args, model, criterion, make_batch):
-    """Device ms per step of a short run (BUSY_ITERS x BUSY_EPOCHS steps)
-    of the same training on the warmed model, under ``torch.profiler``:
-    every kernel, set and copy on the one stream but the dataset's upload
-    (Memcpy HtoD), summed.  Launches it makes are counted by the
+def dispatch_of(k, then=None):
+    """``configure`` for ``perf.run``: windows of ``k`` steps (k > 1: CUDA
+    graph replays), then ``then(optimizer)`` where given."""
+    def configure(opt):
+        opt.set_iterations_per_dispatch(k)
+        if then is not None:
+            then(opt)
+    return configure
+
+
+def device_events(prof):
+    """The device's events of a ``torch.profiler`` run, in the order they
+    started, but the dataset's upload (Memcpy HtoD)."""
+    from torch.autograd import DeviceType
+    return sorted((e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and "HtoD" not in e.name),
+                  key=lambda e: e.time_range.start)
+
+
+def device_steps(opt, steps):
+    """The steps the device ran in a run of ``steps`` steps: a dispatched
+    run also runs one warm-up step per captured graph."""
+    return steps + getattr(opt, "dispatch_stats", {}).get("captures", 0)
+
+
+def profile_steps(args, model, criterion, make_batch, configure=None):
+    """A short run (BUSY_ITERS x BUSY_EPOCHS steps) of the same training
+    on the warmed model under ``torch.profiler`` (``configure`` as
+    ``perf.run`` takes it): returns the device's busy ms per step, every
+    kernel, set and copy on the device but the dataset's upload, summed
+    over the steps the device ran.  Launches it makes are counted by the
     wrappers, so it runs after a phase has read its counts."""
     import argparse
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from bigdl_tpu_torch.examples import perf
     short = argparse.Namespace(**{**vars(args), "iterations": BUSY_ITERS,
                                   "epochs": BUSY_EPOCHS})
+    # left out when None: an older checkout's perf.run does not take it
+    kw = {} if configure is None else {"configure": configure}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        perf.run(short, model, criterion, make_batch)
+        _, opt = perf.run(short, model, criterion, make_batch, **kw)
         torch.cuda.synchronize()
-    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                  if e.device_type == DeviceType.CUDA
-                  and "HtoD" not in e.name)
-    return busy_us / (BUSY_ITERS * BUSY_EPOCHS) / 1e3
+    busy_us = sum(e.time_range.elapsed_us() for e in device_events(prof))
+    return busy_us / device_steps(opt, BUSY_ITERS * BUSY_EPOCHS) / 1e3
+
 
 
 def _busy_text(label, busy_ms, step_ms):
@@ -1754,7 +1804,7 @@ def phase_sp_training():
     for name in RING_NAMES:
         _check_routes(routes, name, {"tensor_core": want[name], "scalar": 0},
                       "bf16 SP LM training")
-    busy = device_busy_per_step(args, model, criterion, make_batch)
+    busy = profile_steps(args, model, criterion, make_batch)
     print(_busy_text("sp training", busy, out["ms_per_iteration"]))
     return dict(out, tokens_per_sec=tokens_s, steps=steps,
                 first_loss=losses[0], last_loss=losses[-1],
@@ -2153,7 +2203,7 @@ def phase_resnet_training():
     for name in TC_CONV:
         _check_routes(routes, name, {"tensor_core": want[name], "scalar": 0},
                       "bf16 ResNet-50 training")
-    busy = device_busy_per_step(args, model, criterion, make_batch)
+    busy = profile_steps(args, model, criterion, make_batch)
     print(_busy_text("resnet training", busy, out["ms_per_iteration"]))
     return dict(out, steps=steps, first_loss=losses[0],
                 last_loss=losses[-1], peak_memory_gib=peak_gb,
@@ -2298,6 +2348,386 @@ def phase_resnet_parity():
     return norm, worst
 
 
+# ---------------------------------------------------------------------------
+# 12-13. LeNet-5 through the Optimizer façade, and the dispatch windows
+# ---------------------------------------------------------------------------
+
+# the reference perf's own LeNet invocation (examples/perf.py:7), 4 epochs
+LENET_ARGV = ["--model", "lenet", "-b", "256", "--iterations", "50"]
+LENET_VAL_BATCHES, LENET_L2, LENET_CLIP = 4, 5e-4, 1.0
+# a 20-step f32 trajectory, card (graph windows of LENET_TRAJ_ITERS)
+# against a CPU copy: each loss 1e-5 relative, each parameter 1e-4
+# relative in norm (the existing parity phases' rules)
+LENET_TRAJ_ITERS, LENET_TRAJ_EPOCHS = 5, 4
+LENET_LOSS_RTOL, LENET_PARAM_NORM_REL = 1e-5, 1e-4
+
+
+def lenet_configure(val_batches, validate=True):
+    """``configure`` for ``perf.run``: every-epoch validation (Top1,
+    Top5, Loss) on ``val_batches`` and clipping by the L2 norm."""
+    from bigdl_tpu_torch.dataset import DataSet, MiniBatch
+    from bigdl_tpu_torch.nn.criterion import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import Trigger
+    from bigdl_tpu_torch.optim.validation import Loss, Top1Accuracy, \
+        Top5Accuracy
+
+    def configure(opt):
+        device = next(opt.model.parameters()).device
+        if validate:
+            val = DataSet.array([MiniBatch(x, y) for x, y in val_batches],
+                                shuffle=False).cache_on_device(device)
+            opt.set_validation(Trigger.every_epoch(), val,
+                               [Top1Accuracy(), Top5Accuracy(),
+                                Loss(ClassNLLCriterion())])
+        opt.set_gradient_clipping_by_l2_norm(LENET_CLIP)
+    return configure
+
+
+def lenet_model(args):
+    """LeNet5(10) as perf.build makes it, with an L2 regularizer on fc1,
+    its criterion, its batch maker and the validation batches."""
+    from bigdl_tpu_torch.examples import perf
+    from bigdl_tpu_torch.optim.regularizer import L2Regularizer
+    model, criterion, make_batch = perf.build("lenet", args)
+    fc1 = next(m for m in model.modules() if getattr(m, "name", "") == "fc1")
+    fc1.set_regularizers(w_regularizer=L2Regularizer(LENET_L2))
+    # the training batch first, as perf.run would draw it
+    x, y = make_batch(args.batch_size)
+    val = [make_batch(args.batch_size) for _ in range(LENET_VAL_BATCHES)]
+    return model, criterion, (lambda b: (x, y)), val
+
+
+@contextmanager
+def deterministic():
+    """``torch.use_deterministic_algorithms(True)`` inside (cuDNN's and the
+    embedding backward's deterministic kernels: a graph run is held bit
+    for bit against an eager one), warning where an operation has no
+    deterministic kernel; yields the set of such operations."""
+    import warnings
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    nondet = set()
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield nondet
+            nondet.update(str(w.message).split(".")[0] for w in caught
+                          if "deterministic" in str(w.message))
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
+def _lenet_run(args, k):
+    """One timed LeNet run with windows of ``k`` (1: eager), and the
+    device's busy time over a short run of the same configuration (no
+    validation)."""
+    from bigdl_tpu_torch.examples import perf
+    steps = args.iterations * args.epochs
+    model, criterion, make_batch, val = lenet_model(args)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out, opt = perf.run(args, model, criterion, make_batch,
+                        configure=dispatch_of(k, lenet_configure(val)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    model2, criterion2, make_batch2, val2 = lenet_model(args)
+    busy = profile_steps(args, model2, criterion2, make_batch2,
+                         configure=dispatch_of(min(k, BUSY_ITERS),
+                                               lenet_configure(val2, False)))
+    losses = [x for _, x in opt.loss_history]
+    print(f"lenet: k={k}: {json.dumps(out)}")
+    print(f"lenet: k={k}: {steps} steps in {wall:.3f} s; "
+          f"{out['records_per_sec']} images/s, "
+          f"{out['ms_per_iteration']} ms/iteration (steady windows); "
+          f"loss {losses[0]:.6f} -> {losses[-1]:.6f}; validations "
+          + "; ".join(f"at {n}: " + ", ".join(
+              f"{name} {r.result()[0]:.4f} of {r.result()[1]}"
+              for name, r in res.items())
+              for n, res in opt.validation_history)
+          + f"; dispatch {opt.dispatch_stats}; peak memory {peak} bytes")
+    print(_busy_text(f"lenet: k={k}", busy, out["ms_per_iteration"]))
+    if len(losses) != steps or not all(np.isfinite(losses)):
+        raise RuntimeError(f"losses not finite or missing: {losses}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"the LeNet loss did not fall: {losses}")
+    return dict(out=out, opt=opt, model=model, wall=wall, peak=peak,
+                busy=busy)
+
+
+def phase_lenet():
+    """LeNet-5 at the reference perf's width (b256, 28x28x1, f32) through
+    the Optimizer with validation, an L2 regularizer on fc1 and clipping
+    by the L2 norm: eagerly, then with windows of an epoch's iterations
+    (CUDA graph replays), deterministic algorithms on for both, which
+    must match bit for bit; then a 20-step f32 trajectory on the card
+    (graph windows) against a CPU copy."""
+    import argparse
+    import copy
+    from bigdl_tpu_torch.examples import perf
+    args = perf.parse_args(LENET_ARGV)
+    steps = args.iterations * args.epochs
+    _zero_counts()
+    with deterministic() as nondet:
+        runs = {k: _lenet_run(args, k) for k in (1, args.iterations)}
+    print(f"lenet: operations without a deterministic implementation: "
+          f"{sorted(nondet) or 'none'}; launches of #1-#11 "
+          f"{_read_counts()}")
+    if any(_read_counts().values()):
+        raise RuntimeError("the LeNet path launched a kernel of #1-#11")
+    eager, graph = runs[1], runs[args.iterations]
+    if graph["opt"].dispatch_stats != {
+            "single_steps": 0, "window_steps": steps, "captures": 1,
+            "replays": steps}:
+        raise RuntimeError(f"the windowed LeNet run dispatched "
+                           f"{graph['opt'].dispatch_stats}")
+    same_losses = eager["opt"].loss_history == graph["opt"].loss_history
+    same_params = all(torch.equal(p, q) for p, q in zip(
+        eager["model"].parameters(), graph["model"].parameters()))
+    same_val = [(n, {m: r.result() for m, r in res.items()})
+                for n, res in eager["opt"].validation_history] == \
+        [(n, {m: r.result() for m, r in res.items()})
+         for n, res in graph["opt"].validation_history]
+    print(f"lenet: graph windows against eager: losses "
+          f"{'equal' if same_losses else 'DIFFER'}, parameters "
+          f"{'equal' if same_params else 'DIFFER'}, validations "
+          f"{'equal' if same_val else 'DIFFER'} bit for bit")
+    if not (same_losses and same_params and same_val):
+        raise RuntimeError("the LeNet graph run is not the eager run")
+
+    # 20 f32 steps on the card in graph windows against a CPU copy
+    short = argparse.Namespace(**{**vars(args),
+                                  "iterations": LENET_TRAJ_ITERS,
+                                  "epochs": LENET_TRAJ_EPOCHS})
+    card, criterion, make_batch, val = lenet_model(short)
+    cpu = copy.deepcopy(card).to("cpu")
+    _, opt_card = perf.run(short, card, criterion, make_batch,
+                           configure=dispatch_of(LENET_TRAJ_ITERS,
+                                                 lenet_configure(val)))
+    short.device = "cpu"
+    _, opt_cpu = perf.run(short, cpu, criterion, make_batch,
+                          configure=lenet_configure(val))
+    a = np.array([v for _, v in opt_card.loss_history])
+    b = np.array([v for _, v in opt_cpu.loss_history])
+    loss_rel = float(np.max(np.abs(a - b) / np.abs(b)))
+    norm_rel = {n: float((p.detach().cpu() - q.detach()).norm()
+                         / q.detach().norm())
+                for (n, p), q in zip(card.named_parameters(),
+                                     cpu.parameters())}
+    worst = max(norm_rel, key=norm_rel.get)
+    tops = [(n, round(r["Top1Accuracy"].result()[0] * r["Top1Accuracy"]
+                      .result()[1])) for n, r in opt_card.validation_history]
+    tops_cpu = [(n, round(r["Top1Accuracy"].result()[0]
+                          * r["Top1Accuracy"].result()[1]))
+                for n, r in opt_cpu.validation_history]
+    ok = (len(a) == len(b) == LENET_TRAJ_ITERS * LENET_TRAJ_EPOCHS
+          and loss_rel <= LENET_LOSS_RTOL
+          and norm_rel[worst] <= LENET_PARAM_NORM_REL)
+    print(f"lenet parity: {len(a)} f32 steps, card (graph windows of "
+          f"{LENET_TRAJ_ITERS}) against the CPU: worst loss "
+          f"{loss_rel:.3e} relative, worst parameter {norm_rel[worst]:.3e} "
+          f"in norm ({worst}); Top1 correct card {tops} cpu {tops_cpu}; "
+          f"{'within' if ok else 'BEYOND'} the bounds")
+    if not ok:
+        raise RuntimeError("the LeNet card trajectory differs from the "
+                           "CPU's beyond the stated bounds")
+    return dict(eager=eager["out"], graph=graph["out"],
+                eager_busy=eager["busy"], graph_busy=graph["busy"],
+                eager_peak=eager["peak"], graph_peak=graph["peak"],
+                parity=(loss_rel, norm_rel[worst]))
+
+
+# each path of the dispatch phase: its perf argv and the kernels it
+# launches, with their launches per step
+DISPATCH_PATHS = {
+    "lm": (TRAIN_ARGV, {n: LAYERS for n in ("flash_attention_fwd",
+                                            "flash_attention_dq",
+                                            "flash_attention_dkv")}),
+    "sp": (TRAIN_ARGV, {n: LAYERS * SP_PAIRS for n in (
+        "flash_attention_partial", "flash_attention_dq_partial",
+        "flash_attention_dkv_partial")}),
+    "resnet": (RESNET_ARGV, RESNET_LAUNCHES),
+}
+
+# for each wrapper, the device kernel that each of its launches on the
+# bf16 training paths runs exactly once (its tensor-core route; #4 its
+# only kernel), by parts of the demangled name torch.profiler reports
+KERNEL_EVENTS = {
+    "flash_attention_fwd": ("flash_fwd_tc_kernel<false",),
+    "flash_attention_dq": ("flash_dq_tc_kernel<", ", false>"),
+    "flash_attention_dkv": ("flash_dkv_tc_kernel<",),
+    "flash_attention_dbias": ("flash_dbias_kernel",),
+    "flash_attention_partial": ("flash_fwd_tc_kernel<true",),
+    "flash_attention_dq_partial": ("flash_dq_tc_kernel<", ", true>"),
+    "flash_attention_dkv_partial": ("flash_dkv_partial_tc_kernel<",),
+    "matmul_bn_fwd": ("tcconv::fprop<1>",),
+    "matmul_bn_bwd": ("tcconv::wgrad<1>",),
+    "conv3x3_bn_fwd": ("tcconv::fprop<9>",),
+    "conv3x3_bn_bwd": ("tcconv::wgrad<9>",),
+}
+
+# the kernel of torch.cuda._sleep, which marks the end of a capture on
+# the device (mark_captures)
+MARKER = "spin_kernel"
+
+
+def mark_captures(opt):
+    """Follow each of ``opt``'s graph captures with a marker kernel on the
+    current stream.  The warm-up step before a capture ran before the
+    marker on the device (the stream waited for it), the capture launched
+    nothing, and the replays run after it: so the device events after the
+    marker are the replays'."""
+    capture = opt._capture
+
+    def marked(*args):
+        step_graph = capture(*args)
+        torch.cuda._sleep(1)
+        return step_graph
+    opt._capture = marked
+
+
+def kernel_launches(events):
+    """{wrapper: its kernel's events among ``events``}, by KERNEL_EVENTS."""
+    return {name: sum(all(part in e.name for part in parts) for e in events)
+            for name, parts in KERNEL_EVENTS.items()}
+
+
+def dispatch_model(path):
+    """The path's model as its phase builds it."""
+    from bigdl_tpu_torch.examples import perf
+    args = perf.parse_args(DISPATCH_PATHS[path][0])
+    model, criterion, make_batch = perf.build(args.model, args)
+    if path == "sp":
+        model.lm.set_sequence_parallel(seq_mesh(), "seq")
+    return args, model, criterion, make_batch
+
+
+def dispatch_reading(path, k):
+    """One timed run of the path with windows of ``k`` (1: eager) under
+    ``torch.profiler``: its ms per iteration, peak memory, the wrappers'
+    counts, and from the run's own device events its busy time and each
+    kernel's launches before the capture's marker and after it (the
+    replays')."""
+    from torch.profiler import ProfilerActivity, profile
+    from bigdl_tpu_torch.examples import perf
+    args, model, criterion, make_batch = dispatch_model(path)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out, opt = perf.run(args, model, criterion, make_batch,
+                            configure=dispatch_of(k, mark_captures))
+        torch.cuda.synchronize()
+    launches, routes = _read_counts(), _read_routes()
+    peak = torch.cuda.max_memory_allocated()
+    events = device_events(prof)
+    marks = [i for i, e in enumerate(events) if MARKER in e.name]
+    cut = marks[0] if marks else len(events)
+    steps = args.iterations * args.epochs
+    busy_us = sum(e.time_range.elapsed_us() for e in events
+                  if MARKER not in e.name)
+    return dict(out=out, opt=opt, model=model, launches=launches,
+                routes=routes, peak=peak, marks=len(marks),
+                busy=busy_us / device_steps(opt, steps) / 1e3,
+                ran=device_steps(opt, steps),
+                before=kernel_launches(events[:cut]),
+                replayed=kernel_launches(events[cut + 1:]),
+                steps=steps, iterations=args.iterations)
+
+
+def phase_dispatch():
+    """The LM, the SP LM and ResNet-50 at their smoke configurations,
+    each eagerly and with windows of an epoch's iterations (no window
+    trimmed: CUDA graph replays), deterministic algorithms on for both,
+    each run under torch.profiler: the losses and parameters must be
+    equal bit for bit, and the graph run's device events must show each
+    kernel launched a step's worth per replay."""
+    readings = {}
+    with deterministic() as nondet:
+        for path in DISPATCH_PATHS:
+            eager = dispatch_reading(path, 1)
+            graph = dispatch_reading(path, eager["iterations"])
+            readings[path] = (eager, graph)
+            _dispatch_report(path, eager, graph)
+    print(f"dispatch: operations without a deterministic implementation: "
+          f"{sorted(nondet) or 'none'}")
+    return {path: dict(eager_ms=e["out"]["ms_per_iteration"],
+                       graph_ms=g["out"]["ms_per_iteration"],
+                       eager_busy=e["busy"], graph_busy=g["busy"],
+                       eager_peak=e["peak"], graph_peak=g["peak"],
+                       replayed=g["replayed"],
+                       replays=g["opt"].dispatch_stats["replays"])
+            for path, (e, g) in readings.items()}
+
+
+def _dispatch_report(path, eager, graph):
+    _, per_step = DISPATCH_PATHS[path]
+    steps = eager["steps"]
+    for label, r in (("eager", eager), ("graph", graph)):
+        print(f"dispatch {path}: {label}: {r['out']['ms_per_iteration']} "
+              f"ms/iteration (steady windows, under torch.profiler), "
+              f"{r['out']['records_per_sec']} records/s; device busy "
+              f"{r['busy']:.3f} ms per step ({r['ran']} steps on the "
+              f"device), idle share "
+              f"{1 - r['busy'] / r['out']['ms_per_iteration']:.3f}; peak "
+              f"memory {r['peak']} bytes; dispatch "
+              f"{r['opt'].dispatch_stats}; wrapper counts "
+              + ", ".join(f"{n} {r['launches'][n]}" for n in per_step)
+              + "; device launches "
+              + ", ".join(f"{n} {r['before'][n]}" for n in per_step)
+              + ("" if label == "eager" else
+                 " before the capture's marker (the warm-up step), "
+                 + ", ".join(f"{n} {r['replayed'][n]}" for n in per_step)
+                 + f" after it ({steps} replays)"))
+    same_losses = eager["opt"].loss_history == graph["opt"].loss_history
+    gap = max(abs(a - b) / abs(b) for (_, a), (_, b) in zip(
+        graph["opt"].loss_history, eager["opt"].loss_history))
+    same_params = all(torch.equal(p, q) for p, q in zip(
+        eager["model"].parameters(), graph["model"].parameters()))
+    same_buffers = all(torch.equal(p, q) for p, q in zip(
+        eager["model"].buffers(), graph["model"].buffers()))
+    print(f"dispatch {path}: graph against eager over {steps} steps: "
+          f"losses {'equal' if same_losses else 'DIFFER'} (worst "
+          f"{gap:.3e} relative), parameters "
+          f"{'equal' if same_params else 'DIFFER'}, buffers "
+          f"{'equal' if same_buffers else 'DIFFER'} bit for bit")
+    if not (same_losses and same_params and same_buffers):
+        raise RuntimeError(f"dispatch {path}: the graph run is not the "
+                           "eager run")
+    want_stats = {"single_steps": 0, "window_steps": steps, "captures": 1,
+                  "replays": steps}
+    if graph["opt"].dispatch_stats != want_stats:
+        raise RuntimeError(f"dispatch {path}: {graph['opt'].dispatch_stats}"
+                           f" != {want_stats}")
+    if eager["marks"] != 0 or graph["marks"] != 1:
+        raise RuntimeError(f"dispatch {path}: {eager['marks']} and "
+                           f"{graph['marks']} capture markers on the "
+                           "device, not 0 and 1")
+
+    def expect(what, got, n_steps):
+        want = {n: per_step.get(n, 0) * n_steps for n in got}
+        if got != want:
+            raise RuntimeError(f"dispatch {path}: {what}: {got}, not "
+                               f"{want}")
+    # the wrappers count what their Python launched: every eager step,
+    # and in the graph run the warm-up step and the capture
+    expect("the eager run's wrapper counts", eager["launches"], steps)
+    expect("the graph run's wrapper counts", graph["launches"], 2)
+    for label, r, n in (("eager", eager, steps), ("graph", graph, 2)):
+        for name in per_step:
+            _check_routes(r["routes"], name,
+                          {"tensor_core": per_step[name] * n, "scalar": 0},
+                          f"dispatch {path} {label} run")
+    # the device ran each kernel once a launch: every eager step's, the
+    # warm-up step's before the marker and a step's worth per replay
+    # after it
+    expect("the eager run's device launches", eager["before"], steps)
+    expect("the graph run's device launches before the capture's marker",
+           graph["before"], 1)
+    expect("the graph run's device launches after the capture's marker",
+           graph["replayed"], graph["opt"].dispatch_stats["replays"])
+
+
 def _kernel_entry(name, source, replaces, launches, row):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -2307,25 +2737,30 @@ def _kernel_entry(name, source, replaces, launches, row):
             "shape": row["what"]}
 
 
-def step_reading(path: str) -> dict:
+def step_reading(path: str, dispatch: int = 1) -> dict:
     """The timed training run of one path alone ("resnet": phase 9's,
-    "sp": phase 7b's), without its launch and route checks, so that the
-    same measurement runs on any checkout of the port: from that
-    checkout's root, ``python3 chip_smoke.py --step resnet|sp``.  Prints
+    "sp": phase 7b's, "lm": phase 6's), without its launch and route
+    checks and without the profiler, so that the same measurement runs
+    on any checkout of the port: from that checkout's root, ``python3
+    chip_smoke.py --step resnet|sp|lm [--dispatch k]`` (k > 1: windows
+    of k steps, CUDA graph replays on a checkout that has them).  Prints
     and returns its steady ms per iteration, peak memory and device busy
-    ms per step (device_busy_per_step) as one JSON object."""
+    ms per step (profile_steps, a short run after it) as one JSON
+    object."""
     from bigdl_tpu_torch.examples import perf
-    if path not in ("resnet", "sp"):
-        raise ValueError(f"--step takes resnet or sp, not {path!r}")
-    args = perf.parse_args(RESNET_ARGV if path == "resnet" else TRAIN_ARGV)
-    model, criterion, make_batch = perf.build(args.model, args)
-    if path == "sp":
-        model.lm.set_sequence_parallel(seq_mesh(), "seq")
+    if path not in DISPATCH_PATHS:
+        raise ValueError(f"--step takes resnet, sp or lm, not {path!r}")
+    args, model, criterion, make_batch = dispatch_model(path)
+    # left out for k=1: an older checkout's perf.run takes no configure
+    kw = {} if dispatch == 1 else {"configure": dispatch_of(dispatch)}
     torch.cuda.reset_peak_memory_stats()
-    out, _ = perf.run(args, model, criterion, make_batch)
+    out, _ = perf.run(args, model, criterion, make_batch, **kw)
     peak = torch.cuda.max_memory_allocated()
-    busy = device_busy_per_step(args, model, criterion, make_batch)
-    reading = {"step": path, "ms_per_iteration": out["ms_per_iteration"],
+    busy = profile_steps(args, model, criterion, make_batch,
+                         configure=None if dispatch == 1 else dispatch_of(
+                             min(dispatch, BUSY_ITERS)))
+    reading = {"step": path, "dispatch": dispatch,
+               "ms_per_iteration": out["ms_per_iteration"],
                "peak_memory_bytes": peak, "device_busy_ms_per_step": busy,
                "idle_share": 1 - busy / out["ms_per_iteration"]}
     print(json.dumps(reading))
@@ -2335,7 +2770,9 @@ def step_reading(path: str) -> dict:
 def main() -> int:
     if sys.argv[1:2] == ["--step"]:
         phase_device()
-        step_reading(sys.argv[2])
+        dispatch = (int(sys.argv[4]) if sys.argv[3:4] == ["--dispatch"]
+                    else 1)
+        step_reading(sys.argv[2], dispatch)
         return 0
     t0 = time.perf_counter()
     smi = phase_device()
@@ -2353,9 +2790,14 @@ def main() -> int:
     resnet = phase_resnet_training()
     phase_fused_vs_plain()
     phase_resnet_parity()
+    phase_lenet()
+    dispatch = phase_dispatch()
     by_path = {"serving": serving, "lm_training": train["launches"],
                "sp_training": sp["launches"],
-               "resnet_training": resnet["launches"]}
+               "resnet_training": resnet["launches"],
+               # the replays' launches, from the graph runs' device events
+               **{f"{path}_graph_replays": r["replayed"]
+                  for path, r in dispatch.items()}}
 
     def paths(name):
         return {path: counts[name] for path, counts in by_path.items()}
@@ -2422,7 +2864,12 @@ def main() -> int:
     routes_by_path = {"serving": serving_routes,
                       "lm_training": train["routes"],
                       "sp_training": sp["routes"],
-                      "resnet_training": resnet["routes"]}
+                      "resnet_training": resnet["routes"],
+                      # by the tensor-core kernel each replay ran
+                      **{f"{path}_graph_replays": {
+                          n: {"tensor_core": c}
+                          for n, c in r["replayed"].items()}
+                         for path, r in dispatch.items()}}
     for name, design in (
             ("flash_attention_fwd",
              "tensor cores for bf16 with 16-byte rows (mma.sync.m16n8k16 "

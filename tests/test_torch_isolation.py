@@ -13,8 +13,10 @@ import pytest
 import torch
 
 import bigdl_tpu_torch
-from bigdl_tpu_torch.models import TransformerLM, resnet50, resnet_cifar
-from bigdl_tpu_torch.nn import SpatialBatchNormalization, SpatialConvolution
+from bigdl_tpu_torch.models import (LeNet5, TransformerLM, lenet5_graph,
+                                    resnet50, resnet_cifar)
+from bigdl_tpu_torch.nn import (PReLU, SpatialBatchNormalization,
+                                SpatialConvolution)
 from bigdl_tpu_torch.serving import GenerationScheduler, ModelServer
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -45,10 +47,19 @@ def test_port_and_chip_smoke_import_no_jax():
     n, leaked = proc.stdout.strip().split(" ", 1)
     expected = len(list(pkgutil.walk_packages(bigdl_tpu_torch.__path__,
                                               "bigdl_tpu_torch.")))
-    assert int(n) == expected and expected >= 33
+    assert int(n) == expected and expected >= 42
     for name in ("bigdl_tpu_torch.core.init", "bigdl_tpu_torch.nn.conv",
                  "bigdl_tpu_torch.nn.pooling", "bigdl_tpu_torch.models.resnet",
-                 "bigdl_tpu_torch.ops.conv_bn_kernels"):
+                 "bigdl_tpu_torch.ops.conv_bn_kernels",
+                 "bigdl_tpu_torch.nn.activation",
+                 "bigdl_tpu_torch.nn.shape_ops",
+                 "bigdl_tpu_torch.nn.containers",
+                 "bigdl_tpu_torch.models.lenet",
+                 "bigdl_tpu_torch.dataset.transformer",
+                 "bigdl_tpu_torch.dataset.image",
+                 "bigdl_tpu_torch.optim.validation",
+                 "bigdl_tpu_torch.optim.metrics",
+                 "bigdl_tpu_torch.optim.regularizer"):
         assert name in {m.name for m in pkgutil.walk_packages(
             bigdl_tpu_torch.__path__, "bigdl_tpu_torch.")}
     assert leaked == "[]", leaked
@@ -78,6 +89,12 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         SpatialConvolution(3, 4, 3, 3, generator=gen)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SpatialBatchNormalization(4, generator=gen)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LeNet5(10, generator=gen)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lenet5_graph(10, generator=gen)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PReLU(3)
     assert resnet_cifar(8, generator=gen, device="cpu").head.weight \
         .device.type == "cpu"
 

@@ -268,15 +268,15 @@ def test_optimizer_refuses_what_the_slice_does_not_port():
                                   generator=torch.Generator()))
     opt = Optimizer(model, DataSet.array([], shuffle=False),
                     CrossEntropyCriterion())
-    for name in ("set_validation", "set_checkpoint", "set_mesh",
-                 "set_partition_plan", "set_iterations_per_dispatch",
-                 "set_gradient_clipping_by_l2_norm",
-                 "set_constant_gradient_clipping", "set_health_watchdog",
-                 "set_optim_methods", "resume", "set_train_summary"):
+    for name in ("set_checkpoint", "set_mesh", "set_partition_plan",
+                 "set_health_watchdog", "resume", "set_failure_retry",
+                 "set_device_prefetch", "set_train_summary"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             getattr(opt, name)(None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Optimizer(model, [], CrossEntropyCriterion(), batch_size=4)
+    # batch_size= batches raw samples now; an empty list has no batches
+    with pytest.raises(ValueError, match="no batches"):
+        Optimizer(model, [], CrossEntropyCriterion(), batch_size=4) \
+            .optimize()
     with pytest.raises(ValueError, match="compute dtype"):
         opt.set_compute_dtype(torch.float16)
     with pytest.raises(ValueError, match="no batches"):
@@ -325,7 +325,7 @@ def test_perf_cli_trains_and_reports_the_reference_keys(capsys):
 
 @pytest.mark.parametrize("extra,match", [
     (["--model", "vgg16"], "model zoo"),
-    (["--model", "lenet"], "model zoo"),
+    (["--model", "inception-v1"], "model zoo"),
     (["--generate", "4"], "--generate"),
     (["--int8-infer"], "--int8-infer"),
     (["--remat"], "remat"),
