@@ -9,8 +9,11 @@ torch's ``blocks.<i>``.  A container's children load the same way: the
 reference's ``layers[i]`` (``Sequential``, ``Concat``, ``ConcatTable``
 ...) and ``graph_modules[i]`` (``Graph``, in its topological order) are
 the port's ``layers.<i>`` and ``graph_modules.<i>``, nested lists
-(``a[i][j]``) become ``a.<i>.<j>``.  This module reads numpy arrays only;
-it imports nothing of JAX.
+(``a[i][j]``) become ``a.<i>.<j>``; :func:`nest_jax_parameters` goes
+back, as a checkpoint in the reference's format stores them.  Buffers
+are the persistent ones (a non-persistent buffer, such as the LM's
+position table, is derived and the reference has none).  This module
+reads numpy arrays only; it imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -21,8 +24,8 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["flatten_jax_parameters", "load_jax_parameters",
-           "load_jax_buffers"]
+__all__ = ["flatten_jax_parameters", "nest_jax_parameters",
+           "state_buffers", "load_jax_parameters", "load_jax_buffers"]
 
 _LIST_KEY = re.compile(r"\[(\d+)\]")
 
@@ -38,6 +41,33 @@ def flatten_jax_parameters(params: Mapping, prefix: str = "") \
         else:
             out[name] = np.asarray(value)
     return out
+
+
+def nest_jax_parameters(flat: Mapping[str, object]) -> Dict:
+    """{torch name: value} → the reference's nested dict, keys in the
+    order given: a numeric name component is a list index of the
+    component before it (``blocks.0.attn.wq`` → ``{"blocks[0]": {"attn":
+    {"wq": ...}}}``).  The inverse of :func:`flatten_jax_parameters`."""
+    out: Dict = {}
+    for name, value in flat.items():
+        keys: list = []
+        for part in name.split("."):
+            if part.isdigit() and keys:
+                keys[-1] += f"[{part}]"
+            else:
+                keys.append(part)
+        node = out
+        for key in keys[:-1]:
+            node = node.setdefault(key, {})
+        node[keys[-1]] = value
+    return out
+
+
+def state_buffers(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """The model's persistent buffers by name (those of its
+    ``state_dict``), in ``named_buffers`` order."""
+    keys = model.state_dict(keep_vars=True).keys()
+    return {n: b for n, b in model.named_buffers() if n in keys}
 
 
 @torch.no_grad()
@@ -71,7 +101,7 @@ def load_jax_parameters(model: torch.nn.Module, params: Mapping) \
 def load_jax_buffers(model: torch.nn.Module, buffers: Mapping) \
         -> torch.nn.Module:
     """Copy ``buffers`` (the reference's ``buffers()`` dict: BatchNorm's
-    ``running_mean`` and ``running_var``) into ``model``'s buffers in
-    place, under the rules of :func:`load_jax_parameters`."""
-    _load(dict(model.named_buffers()), buffers, "buffer")
+    ``running_mean`` and ``running_var``) into ``model``'s persistent
+    buffers in place, under the rules of :func:`load_jax_parameters`."""
+    _load(state_buffers(model), buffers, "buffer")
     return model

@@ -52,6 +52,28 @@ copied back into the model's buffer after the backward, in float32 as
 the reference's ``cast_floating(new_rest, float32)`` keeps it, so the
 buffers keep their storage (which a captured graph reads and writes).
 
+``set_checkpoint(path, trigger, keep_n=)`` writes checkpoints in the
+reference's format (``utils/file.py``): the parameters and buffers nested
+by the reference's names with their keys sorted, as ``jax.tree_util``
+writes them, each group's state lists in the model's parameter order
+(the reference's ``param_paths``, which is not the sorted order), the
+counters as int32 and the loop's scalars, with the input pipeline's
+position beside them; a checkpoint trigger ends a dispatch window, and
+the write follows a flush of the losses, with one copy of the
+parameters and states to the host per dtype.  ``resume(path)`` restores
+the parameters, the persistent buffers, every group's state with its
+step counter ``t`` and the loop's ``epoch``, ``neval``, ``records``,
+``loss`` and ``score``; the step's dropout seed is a function of
+``neval``, so there is no generator state to restore.  A mid-epoch
+checkpoint resumes at the next batch (the consumed ones skipped), an
+epoch-boundary one replays the next epoch from its start.
+``optimize()`` retries a transient failure from the newest good
+checkpoint (``set_failure_retry``), starting from nothing of the failed
+attempt: its captured graphs, pending losses and optim states are
+dropped and rebuilt.  SIGTERM sets a flag; at the next step boundary the
+loop writes a final checkpoint and returns with ``preempted`` set.
+With no checkpoint set a step does no new host work.
+
 What the slice does not need raises ``NotImplementedError`` naming its
 ROADMAP item; nothing is silently ignored.
 """
@@ -59,6 +81,9 @@ ROADMAP item; nothing is silently ignored.
 from __future__ import annotations
 
 import logging
+import random
+import signal
+import threading
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -67,21 +92,45 @@ import torch
 from torch.func import functional_call
 
 from bigdl_tpu_torch.core.module import forward_context
+from bigdl_tpu_torch.data.pipeline import (
+    PIPELINE_STATE_VERSION, PipelineState, dataset_seed, epoch_iter,
+    skip_batches, supports_epoch,
+)
+from bigdl_tpu_torch.interop.jax_params import (
+    load_jax_buffers, load_jax_parameters, nest_jax_parameters,
+    state_buffers,
+)
 from bigdl_tpu_torch.optim.methods import SGD, OptimMethod
 from bigdl_tpu_torch.optim.metrics import Metrics
 from bigdl_tpu_torch.optim.regularizer import leaf_reg_specs
 from bigdl_tpu_torch.optim.trigger import Trigger
 from bigdl_tpu_torch.optim.validation import ValidationMethod, \
     ValidationResult
+from bigdl_tpu_torch.utils import chaos
+from bigdl_tpu_torch.utils.file import CheckpointManager, \
+    load_checkpoint, load_pipeline_state
 
 logger = logging.getLogger("bigdl_tpu_torch.optim")
 
 __all__ = ["Optimizer"]
 
 _LOOP_REST = ("ROADMAP.md queue 1, item 4 (the training loop, the rest: "
-              "checkpoints, resume, retries and prefetch)")
+              "device prefetch, remat and the asynchronous loss drain)")
 _TELEMETRY = "ROADMAP.md queue 1, item 10 (telemetry and health)"
 _PARALLEL = "ROADMAP.md queue 1, item 11 (parallelism)"
+
+
+# programming errors: a retry from a checkpoint would run the same code
+# into the same wall, so they re-raise at once; everything else (OSError,
+# RuntimeError and with it a CUDA error, chaos.FaultInjected) is transient
+_NON_RETRYABLE = (ValueError, TypeError, KeyError, IndexError,
+                  AttributeError, NameError, AssertionError,
+                  NotImplementedError, ZeroDivisionError, ImportError,
+                  SyntaxError)
+
+
+def _is_transient(e: BaseException) -> bool:
+    return not isinstance(e, _NON_RETRYABLE)
 
 
 def _not_ported(name: str, item: str):
@@ -161,6 +210,83 @@ def _state_tensors(value) -> List[torch.Tensor]:
     return []
 
 
+def _to_host(tensors: List[torch.Tensor]) -> List[np.ndarray]:
+    """Each tensor as a numpy array of its own (bf16 and f16 widened to
+    f32: numpy has neither), with one device-to-host copy per dtype."""
+    out: List[Optional[np.ndarray]] = [None] * len(tensors)
+    by_dtype: Dict[Tuple, List[Tuple[int, torch.Tensor]]] = {}
+    for i, t in enumerate(tensors):
+        t = t.detach()
+        if t.dtype in (torch.bfloat16, torch.float16):
+            t = t.float()
+        by_dtype.setdefault((t.dtype, t.device), []).append((i, t))
+    for items in by_dtype.values():
+        flat = torch.cat([t.reshape(-1) for _, t in items]).cpu().numpy()
+        offset = 0
+        for i, t in items:
+            out[i] = flat[offset:offset + t.numel()].reshape(t.shape)
+            offset += t.numel()
+    return out
+
+
+def _host_state(value, arrays):
+    """An optim state with its tensors taken from ``arrays`` (in
+    ``_state_tensors`` order) and its counters as int32 arrays, as the
+    reference's states hold them."""
+    if torch.is_tensor(value):
+        return next(arrays)
+    if isinstance(value, dict):
+        return {k: _host_state(v, arrays) for k, v in value.items()}
+    if isinstance(value, (tuple, list)):
+        return type(value)(_host_state(v, arrays) for v in value)
+    if isinstance(value, int) and not isinstance(value, bool):
+        return np.asarray(value, np.int32)
+    return value
+
+
+def _sorted_keys(tree):
+    """A nested dict with its keys sorted at every level, as the
+    reference's ``jax.tree_util.tree_map`` writes its parameters."""
+    if isinstance(tree, dict):
+        return {k: _sorted_keys(tree[k]) for k in sorted(tree)}
+    return tree
+
+
+@torch.no_grad()
+def _copy_array(t: torch.Tensor, a, what: str):
+    a = np.asarray(a)
+    if tuple(a.shape) != tuple(t.shape):
+        raise ValueError(f"{what}: shape {tuple(a.shape)} does not match "
+                         f"{tuple(t.shape)}")
+    t.copy_(torch.tensor(a, dtype=t.dtype))
+
+
+def _fill_state(fresh: Dict[str, Any], saved: Dict[str, Any],
+                what: str) -> Dict[str, Any]:
+    """``fresh`` (a group's ``init_state``) with the checkpoint's values
+    copied in."""
+    keys = sorted(saved) if isinstance(saved, dict) else saved
+    if keys != sorted(fresh):
+        raise ValueError(f"{what}: the checkpoint's state keys {keys} do "
+                         f"not match {sorted(fresh)}")
+    for key, value in fresh.items():
+        got = saved[key]
+        if torch.is_tensor(value):
+            _copy_array(value, got, f"{what}[{key!r}]")
+        elif isinstance(value, list):
+            if len(got) != len(value):
+                raise ValueError(f"{what}[{key!r}]: {len(got)} entries, "
+                                 f"not {len(value)}")
+            for j, t in enumerate(value):
+                _copy_array(t, got[j], f"{what}[{key!r}][{j}]")
+        elif isinstance(value, int):
+            fresh[key] = int(np.asarray(got))
+        else:
+            raise TypeError(f"{what}[{key!r}]: cannot restore a "
+                            f"{type(value).__name__}")
+    return fresh
+
+
 class _StepGraph:
     """One captured step: the graph, its static inputs, learning-rate
     tensors and loss."""
@@ -210,9 +336,29 @@ class Optimizer:
         # neval of every validation, with its results by method
         self.validation_history: List[Tuple[int, Dict[str,
                                                       ValidationResult]]] = []
-        # the dispatch of the last optimize(): steps run singly, steps
-        # run inside windows, graphs captured and their replays
+        # the dispatch of the last optimize(), over its attempts: steps
+        # run singly, steps run inside windows, graphs captured and their
+        # replays
         self.dispatch_stats: Dict[str, int] = {}
+        self.checkpoint_path: Optional[str] = None
+        self.checkpoint_trigger: Optional[Trigger] = None
+        self.overwrite_checkpoint = True
+        self.checkpoint_keep_n: Optional[int] = None
+        self._ckpt_mgr: Optional[CheckpointManager] = None
+        self._resume_from: Optional[str] = None
+        self._last_ckpt_neval = -1
+        self.retry_times = 5
+        self.retry_interval_s = 120.0
+        self.retry_backoff_s = 1.0
+        self.retry_backoff_cap_s = 60.0
+        self.retry_jitter = 0.25
+        # SIGTERM sets the flag; the loop acts on it at a step boundary
+        self._preempt_requested = False
+        self.preempted = False
+        # batches stepped in the current epoch (the sidecar's offset) and
+        # the last batch's size
+        self._epoch_offset = 0
+        self._last_global_batch: Optional[int] = None
 
     # ---- configuration (the reference's setters) -------------------------
 
@@ -282,9 +428,51 @@ class Optimizer:
         self.iters_per_dispatch = max(1, int(k))
         return self
 
-    set_checkpoint = _not_ported("set_checkpoint", _LOOP_REST)
-    resume = _not_ported("resume", _LOOP_REST)
-    set_failure_retry = _not_ported("set_failure_retry", _LOOP_REST)
+    def set_checkpoint(self, path: str, trigger: Trigger,
+                       is_overwrite: bool = True, sharded: bool = False,
+                       keep_n: Optional[int] = None) -> "Optimizer":
+        """Checkpoint into the directory ``path`` where ``trigger`` fires.
+        ``keep_n`` keeps that many good generations and deletes older
+        ones (numbered checkpoints, so ``is_overwrite`` is off).  Every
+        checkpoint commits atomically under a CRC manifest; a retry walks
+        back past torn or uncommitted generations.  ``sharded=True``
+        (orbax directories) raises."""
+        if sharded:
+            raise NotImplementedError("sharded checkpoints are not ported "
+                                      f"yet ({_PARALLEL})")
+        self.checkpoint_path = path
+        self.checkpoint_trigger = trigger
+        self.overwrite_checkpoint = is_overwrite and keep_n is None
+        self.checkpoint_keep_n = keep_n
+        self._ckpt_mgr = None
+        return self
+
+    def resume(self, checkpoint_file: str) -> "Optimizer":
+        """Start ``optimize()`` from a checkpoint: parameters, buffers,
+        optim states and the loop's position (same topology)."""
+        self._resume_from = checkpoint_file
+        return self
+
+    def set_failure_retry(self, times: int, interval_s: float = 120.0,
+                          backoff_s: Optional[float] = None,
+                          backoff_cap_s: Optional[float] = None,
+                          jitter: Optional[float] = None) -> "Optimizer":
+        """Retry a transient failure from the newest good checkpoint, up
+        to ``times`` times; the count starts again when more than
+        ``interval_s`` passed since the previous failure.  Between
+        retries the loop sleeps ``backoff_s * 2**attempt`` (at most
+        ``backoff_cap_s``) times 1 ± ``jitter``.  Programming errors
+        (ValueError, TypeError, ...) re-raise at once."""
+        self.retry_times = int(times)
+        self.retry_interval_s = float(interval_s)
+        if backoff_s is not None:
+            self.retry_backoff_s = float(backoff_s)
+        if backoff_cap_s is not None:
+            self.retry_backoff_cap_s = float(backoff_cap_s)
+        if jitter is not None:
+            self.retry_jitter = float(jitter)
+        return self
+
     set_device_prefetch = _not_ported("set_device_prefetch", _LOOP_REST)
     set_mesh = _not_ported("set_mesh", _PARALLEL)
     set_partition_plan = _not_ported("set_partition_plan", _PARALLEL)
@@ -487,6 +675,22 @@ class Optimizer:
                 and self.val_trigger(self.state)
                 and self._last_val_neval != self.state["neval"])
 
+    def _want_checkpoint(self) -> bool:
+        return (self.checkpoint_trigger is not None
+                and self.checkpoint_trigger(self.state)
+                and self._last_ckpt_neval != self.state["neval"])
+
+    def _maybe_validate_checkpoint(self):
+        """Validate, then checkpoint, where their triggers fire, each at
+        most once an iteration (the reference decides both before either
+        runs)."""
+        do_ckpt = self._want_checkpoint()
+        self._maybe_validate()
+        if do_ckpt:
+            self._last_ckpt_neval = self.state["neval"]
+            path = self._write_checkpoint()
+            logger.info("checkpoint written to %s", path)
+
     def _maybe_validate(self):
         """Validate where the trigger fires, at most once an iteration;
         the first method's result becomes the ``score``."""
@@ -509,8 +713,8 @@ class Optimizer:
         """The largest window <= len(sizes) in which no trigger fires
         before its last iteration (the reference's ``safe_window``); a
         loss-reading trigger forces 1."""
-        trigs = [t for t in (self.end_when, self.val_trigger)
-                 if t is not None]
+        trigs = [t for t in (self.end_when, self.val_trigger,
+                             self.checkpoint_trigger) if t is not None]
         if any(getattr(t, "needs_loss", False) for t in trigs):
             return 1
         st = dict(self.state)
@@ -518,14 +722,255 @@ class Optimizer:
         for i, n in enumerate(sizes):
             st["records"] += n
             st["neval"] += 1
-            if ((self.val_trigger is not None and self.val_trigger(st))
-                    or self.end_when(st)):
+            if any(t(st) for t in trigs):
                 return i + 1
         return len(sizes)
 
+    # ---- failure retry, preemption, checkpoints ---------------------------
+
     def optimize(self) -> torch.nn.Module:
         """Train until ``end_when`` fires; returns the model, trained in
-        place."""
+        place.  A transient failure is retried from the newest good
+        checkpoint (``set_failure_retry``) after a backoff; a programming
+        error, or a failure with no retry or checkpoint left, re-raises.
+        SIGTERM ends the run at the next step boundary with a final
+        checkpoint and ``preempted`` set."""
+        retries_left = self.retry_times
+        last_failure = None
+        attempt = 0
+        self.dispatch_stats = {"single_steps": 0, "window_steps": 0,
+                               "captures": 0, "replays": 0}
+        self.window_timings = []
+        self.loss_history = []
+        self.validation_history = []
+        restore_signal = self._install_preemption_handler()
+        try:
+            while True:
+                try:
+                    return self._optimize_once()
+                except KeyboardInterrupt:
+                    raise
+                except Exception as e:
+                    # the failed attempt's graphs hold its static tensors
+                    self._graphs = {}
+                    if not _is_transient(e):
+                        logger.error(
+                            "training failed with non-retryable %s: %s "
+                            "(a programming error: a retry would hit the "
+                            "same wall)", type(e).__name__, e)
+                        raise
+                    now = time.perf_counter()
+                    if last_failure is not None \
+                            and now - last_failure > self.retry_interval_s:
+                        retries_left = self.retry_times
+                        attempt = 0
+                    last_failure = now
+                    ckpt = self._latest_checkpoint()
+                    if retries_left <= 0 or ckpt is None:
+                        raise
+                    retries_left -= 1
+                    delay = self._backoff_delay(attempt)
+                    attempt += 1
+                    logger.warning(
+                        "training failed (%s: %s); resuming from %s in "
+                        "%.1fs (%d retr%s left)", type(e).__name__, e,
+                        ckpt, delay, retries_left,
+                        "y" if retries_left == 1 else "ies")
+                    if delay > 0:
+                        time.sleep(delay)
+                    self._resume_from = ckpt
+        finally:
+            restore_signal()
+
+    def _ckpt_manager(self) -> CheckpointManager:
+        if self._ckpt_mgr is None \
+                or self._ckpt_mgr.directory != self.checkpoint_path:
+            self._ckpt_mgr = CheckpointManager(self.checkpoint_path,
+                                               keep_n=self.checkpoint_keep_n)
+        return self._ckpt_mgr
+
+    def _latest_checkpoint(self) -> Optional[str]:
+        """The newest checkpoint that is committed and intact (not the
+        newest file: a crash mid-checkpoint leaves that one torn)."""
+        if not self.checkpoint_path:
+            return None
+        try:
+            return self._ckpt_manager().latest_good()
+        except Exception:
+            logger.warning("could not determine the latest good checkpoint "
+                           "in %s", self.checkpoint_path, exc_info=True)
+            return None
+
+    def _backoff_delay(self, attempt: int) -> float:
+        base = min(self.retry_backoff_s * (2.0 ** attempt),
+                   self.retry_backoff_cap_s)
+        j = self.retry_jitter
+        return max(base * random.uniform(1.0 - j, 1.0 + j), 0.0)
+
+    def _install_preemption_handler(self):
+        """SIGTERM (a preemption notice) sets a flag that the loop honours
+        at the next step boundary with a final checkpoint and a clean
+        return.  Returns the function that puts the previous handler
+        back; off the main thread there is none to install."""
+        self._preempt_requested = False
+        self.preempted = False
+        if threading.current_thread() is not threading.main_thread():
+            return lambda: None
+
+        def handler(signum, frame):
+            logger.warning(
+                "received signal %d (preemption notice): requesting a "
+                "final checkpoint at the next step boundary", signum)
+            self._preempt_requested = True
+
+        prev = signal.signal(signal.SIGTERM, handler)
+        # None: a handler not installed from Python, which cannot be put
+        # back; the default disposition stands in for it
+        return lambda: signal.signal(
+            signal.SIGTERM, signal.SIG_DFL if prev is None else prev)
+
+    def _checkpoint_payload(self):
+        """(model state, optim states, the loop's scalars) in the
+        reference's tree, on the host."""
+        named = list(self.model.named_parameters())
+        buffers = list(state_buffers(self.model).items())
+        host = iter(_to_host([t for _, t in named] + [t for _, t in buffers]
+                             + _state_tensors(self._opt_states)))
+        model_state = {
+            "params": _sorted_keys(nest_jax_parameters(
+                {n: next(host) for n, _ in named})),
+            "buffers": _sorted_keys(nest_jax_parameters(
+                {n: next(host) for n, _ in buffers}))}
+        optim = [_host_state(s, host) for s in self._opt_states]
+        scalars = {k: v for k, v in self.state.items()
+                   if isinstance(v, (int, float))}
+        return model_state, optim, scalars
+
+    def _pipeline_snapshot(self) -> Dict[str, Any]:
+        """The input pipeline's position written with every checkpoint;
+        ``generation`` ties it to its payload (a generation is its
+        neval)."""
+        snap = PipelineState(
+            seed=dataset_seed(self.dataset), epoch=self.state["epoch"],
+            offset=self._epoch_offset,
+            # at an epoch boundary records still hold the finished
+            # epoch's total while the snapshot names the next epoch
+            global_offset=(self.state["records"] if self._epoch_offset > 0
+                           else 0),
+            process_count=1, global_batch=self._last_global_batch) \
+            .snapshot()
+        snap["generation"] = int(self.state["neval"])
+        return snap
+
+    def _write_checkpoint(self) -> str:
+        """One generation through the CheckpointManager: one copy of the
+        parameters, buffers and states to the host per dtype, the atomic
+        payload, its sidecar and manifest, retention."""
+        with self.metrics.time("checkpoint time"):
+            model_state, optim, scalars = self._checkpoint_payload()
+            return self._ckpt_manager().save(
+                model_state, optim, scalars, generation=self.state["neval"],
+                overwrite=self.overwrite_checkpoint,
+                pipeline_state=self._pipeline_snapshot())
+
+    def _preemption_checkpoint(self):
+        """The final checkpoint SIGTERM asks for, outside the trigger's
+        schedule; a failed write is logged, not raised (the periodic
+        checkpoint still exists)."""
+        if not self.checkpoint_path:
+            logger.warning("preemption: no checkpoint path set; exiting "
+                           "without a final checkpoint")
+            return
+        if self._last_ckpt_neval == self.state["neval"]:
+            return  # this boundary is checkpointed already
+        self._last_ckpt_neval = self.state["neval"]
+        try:
+            path = self._write_checkpoint()
+            logger.info("preemption checkpoint written to %s", path)
+        except Exception:
+            logger.exception("preemption checkpoint failed")
+
+    def _restore(self, path: str) -> Optional[Dict[str, Any]]:
+        """Load ``path`` into the model, the optim states and the loop's state;
+        returns the checkpoint's pipeline position (or None)."""
+        with self.metrics.time("checkpoint load time"):
+            model_state, optim, scalars = load_checkpoint(path)
+            load_jax_parameters(self.model, model_state["params"])
+            load_jax_buffers(self.model, model_state.get("buffers", {}))
+            if len(optim) != len(self._opt_states):
+                raise ValueError(f"{path}: {len(optim)} optim states, but "
+                                 f"the run has {len(self._opt_states)} "
+                                 "method groups")
+            # each group's lists are in the model's parameter order (the
+            # reference's param_paths), not the file's sorted dict order
+            for g, (fresh, saved) in enumerate(zip(self._opt_states,
+                                                   optim)):
+                _fill_state(fresh, saved, f"optim state {g}")
+        self.state.update(scalars)
+        # the iterations from here on run again: their validations and
+        # checkpoints belong to this attempt
+        self._last_val_neval = self._last_ckpt_neval = -1
+        logger.info("resumed from %s at epoch %s iteration %s", path,
+                    self.state["epoch"], self.state["neval"])
+        return load_pipeline_state(path)
+
+    def _pipeline_restore_plan(self, ps: Dict[str, Any], epoch: int) -> int:
+        """How many batches of ``epoch`` to skip for a sample-accurate
+        resume: the sidecar's offset, or 0 (replay the epoch from its
+        start) where it cannot be applied faithfully: another version,
+        another generation (a stale sidecar), another epoch (an epoch
+        boundary), another topology, another seed, or a dataset whose
+        order is not replayable."""
+        try:
+            if int(ps.get("version", -1)) != PIPELINE_STATE_VERSION:
+                logger.warning("pipeline state version %s unsupported "
+                               "(want %d); replaying the epoch from its "
+                               "start", ps.get("version"),
+                               PIPELINE_STATE_VERSION)
+                return 0
+            gen = ps.get("generation")
+            if gen is not None and int(gen) != int(self.state["neval"]):
+                logger.warning(
+                    "pipeline state generation %s != the restored "
+                    "iteration %s (stale sidecar from an interrupted "
+                    "overwrite commit?); replaying the epoch from its "
+                    "start", gen, self.state["neval"])
+                return 0
+            if int(ps.get("epoch", -1)) != int(epoch):
+                return 0
+            offset = int(ps.get("offset", 0))
+            pc = ps.get("process_count")
+            pc = None if pc is None else int(pc)
+        except (TypeError, ValueError):
+            logger.warning("malformed pipeline state %r; replaying the "
+                           "epoch from its start", ps)
+            return 0
+        if pc not in (None, 1):
+            logger.warning(
+                "pipeline state written by %d processes: restoring onto "
+                "another topology is not ported yet (%s); replaying the "
+                "epoch from its start", pc, _PARALLEL)
+            return 0
+        if offset <= 0:
+            return 0
+        seed_now = dataset_seed(self.dataset)
+        if int(ps.get("seed", seed_now)) != seed_now:
+            logger.warning(
+                "pipeline state seed %s != the dataset's seed %d: the "
+                "epoch order differs, so skipping %d batches would drop "
+                "the wrong samples; replaying the epoch from its start",
+                ps.get("seed"), seed_now, offset)
+            return 0
+        if not supports_epoch(self.dataset):
+            logger.warning("dataset.data() takes no epoch keyword, so its "
+                           "order is not replayable; replaying the epoch "
+                           "from its start")
+            return 0
+        return offset
+
+    # ---- the loop ----------------------------------------------------------
+
+    def _optimize_once(self) -> torch.nn.Module:
         model = self.model.train()
         named = [(n, p) for n, p in model.named_parameters()
                  if p.requires_grad]
@@ -540,6 +985,9 @@ class Optimizer:
         self._opt_states = [m.init_state([self._params[i] for i in idxs])
                             for m, idxs in zip(self._methods,
                                                self._group_idx)]
+        # a resume applies to the attempt it starts (a retry sets its own)
+        path, self._resume_from = self._resume_from, None
+        pipeline_restore = self._restore(path) if path else None
         specs = leaf_reg_specs(model)
         self._specs = (specs if any(s != (0.0, 0.0, 1.0) for s in specs)
                        else None)
@@ -547,12 +995,11 @@ class Optimizer:
                              torch.full((), self.grad_clip_norm,
                                         device=device))
         self._graphs: Dict[Tuple, _StepGraph] = {}
-        self.dispatch_stats = {"single_steps": 0, "window_steps": 0,
-                               "captures": 0, "replays": 0}
         generator = torch.Generator(device=device)
         total_records = self.dataset.size()
         needs_loss = any(getattr(t, "needs_loss", False)
-                         for t in (self.end_when, self.val_trigger)
+                         for t in (self.end_when, self.val_trigger,
+                                   self.checkpoint_trigger)
                          if t is not None)
         interval = self.log_interval
         if interval is None:
@@ -563,14 +1010,14 @@ class Optimizer:
                            "readback", interval)
             interval = 1
         k_req = self.iters_per_dispatch
+        # read once an attempt: with nothing installed a step pays one
+        # comparison
+        faults = chaos.active()
 
         # pending: (neval, epoch, n_records, records_cum, loss_device)
         pending: List[Tuple] = []
         window = {"start": time.perf_counter(), "data_t": 0.0,
                   "last_ready": 0.0}
-        self.window_timings = []
-        self.loss_history = []
-        self.validation_history = []
         wall_start = time.perf_counter()
 
         def flush():
@@ -605,8 +1052,27 @@ class Optimizer:
         while not self.end_when(self.state):
             epoch = self.state["epoch"]
             epoch_start = time.perf_counter()
-            self.state["records"] = 0
-            batches = iter(self.dataset.data(train=True, epoch=epoch))
+            skip = 0
+            if pipeline_restore is not None:
+                skip = self._pipeline_restore_plan(pipeline_restore, epoch)
+                pipeline_restore = None  # it applies to one epoch only
+            if skip <= 0:
+                self.state["records"] = 0
+            # else: a mid-epoch resume, whose restored records already
+            # count the epoch's consumed samples
+            self._epoch_offset = 0
+            batches = iter(epoch_iter(self.dataset, epoch))
+            if skip > 0:
+                self._epoch_offset = skip_batches(batches, skip)
+                saw_batches = True  # consumed before the failure
+                logger.info("pipeline restore: skipped %d consumed "
+                            "batch(es) of epoch %d, resuming at the next "
+                            "batch", self._epoch_offset, epoch)
+                if self._epoch_offset < skip:
+                    logger.warning(
+                        "pipeline restore: epoch %d has only %d batches "
+                        "but the checkpoint consumed %d", epoch,
+                        self._epoch_offset, skip)
             lookahead: List = []
             stop = False
             while not stop:
@@ -633,6 +1099,11 @@ class Optimizer:
                     lookahead[0:0] = group[1:]
                     group = group[:1]
                 window["data_t"] += time.perf_counter() - t_fetch
+                if faults is not None:
+                    # before the dispatch, so an injected failure lands
+                    # between steps as a real one would
+                    for i in range(len(group)):
+                        faults.on_step(self.state["neval"] + i)
                 if len(group) > 1 and device.type == "cuda":
                     losses = self._replay_window(group, generator, device,
                                                  epoch)
@@ -644,36 +1115,50 @@ class Optimizer:
                                     else "single_steps"] += len(group)
                 for b, loss in zip(group, losses):
                     n = b.size()
+                    self._last_global_batch = n
                     self.state["records"] += n
                     pending.append((self.state["neval"], epoch, n,
                                     self.state["records"], loss))
                     if len(pending) >= interval:
                         flush()
                     self.state["neval"] += 1
+                    self._epoch_offset += 1
                     self.state["is_epoch_end"] = False
-                    if self._want_validate():
+                    if self._want_validate() or self._want_checkpoint():
                         # validation logs follow the iterations they
-                        # validate, and its wall time is no step's
+                        # validate, a checkpoint holds the loss, and their
+                        # wall time is no step's
                         flush()
-                        self._maybe_validate()
+                        self._maybe_validate_checkpoint()
                         window["start"] = time.perf_counter()
                     # no break: a window's updates are all applied, so
                     # its bookkeeping completes even if a custom end
                     # trigger fires inside it
-                    stop = stop or bool(self.end_when(self.state))
+                    stop = (stop or bool(self.end_when(self.state))
+                            or self._preempt_requested)
+            if self._preempt_requested:
+                # the step boundary SIGTERM asked for: a final checkpoint
+                # and a clean return, the unfinished epoch not advanced
+                flush()
+                self._preemption_checkpoint()
+                self.preempted = True
+                logger.warning("preemption: exiting training cleanly at "
+                               "epoch %d iteration %d", epoch,
+                               self.state["neval"])
+                break
             self.state["epoch"] += 1
+            self._epoch_offset = 0  # the boundary: next epoch, batch 0
             self.state["is_epoch_end"] = True
             flush()
             logger.info("Epoch %d finished in %.2f s", epoch,
                         time.perf_counter() - epoch_start)
             if not saw_batches:
                 raise ValueError("dataset produced no batches")
-            self._maybe_validate()
+            self._maybe_validate_checkpoint()
             window["start"] = time.perf_counter()
         flush()
         self._graphs = {}
         return self.model
-
 
 def _regularized(g, p, spec):
     """scale · (g + l1·sign(p) + l2·p) (the reference's ``apply_reg``)."""

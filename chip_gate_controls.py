@@ -75,6 +75,12 @@ the faults they are there to catch:
    themselves drift from the CPU step: the noise floor a ReLU flipped by
    rounding sets under the bounds.
 
+6. A control resume.  chip_smoke's resume phase (the LM at full width in
+   graph windows, a torn checkpoint, a failure and a retry) runs with a
+   resume that restores the parameters and the loop's state but drops the SGD
+   velocity (zeroed after the restore); the script fails unless the
+   phase's checks refuse it.
+
 The last line is one JSON object with every reading.  Imports torch,
 numpy, ``bigdl_tpu_torch`` and ``chip_smoke`` only.
 """
@@ -871,6 +877,29 @@ def phase_resnet_control_step():
     return readings, failures
 
 
+def phase_resume_control():
+    """chip_smoke's resume phase with a resume that keeps the parameters
+    and drops each group's SGD velocity: its checks must refuse it."""
+    from bigdl_tpu_torch.optim import optimizer
+    fill = optimizer._fill_state
+
+    def drop_velocity(fresh, saved, what):
+        state = fill(fresh, saved, what)
+        for v in state.get("velocity", []):
+            v.zero_()
+        return state
+    optimizer._fill_state = drop_velocity
+    try:
+        r = chip_smoke.resume_reading()
+    finally:
+        optimizer._fill_state = fill
+    print(f"resume control (SGD velocity dropped on resume): refused by "
+          f"{len(r['failed'])} checks: {r['failed']}")
+    failures = [] if r["failed"] else [
+        "the resume phase passes a resume that drops the SGD velocity"]
+    return dict(refused_by=r["failed"], restored=r["restored"]), failures
+
+
 def main() -> int:
     chip_smoke.phase_device()
     mutants, failures = phase_mutants()
@@ -885,6 +914,8 @@ def main() -> int:
     variants = phase_variants()
     resnet_control, more = phase_resnet_control_step()
     failures += more
+    resume_control, more = phase_resume_control()
+    failures += more
     print(json.dumps({"mutants": mutants, "control_step": control,
                       "bounds": {"grad_norm_rel": chip_smoke.GRAD_NORM_REL,
                                  "grad_max_rel": chip_smoke.GRAD_MAX_REL},
@@ -893,6 +924,7 @@ def main() -> int:
                       "fwd_mutants": fwd_mutants, "variants": variants,
                       "resnet_control_step": resnet_control,
                       "resnet_bounds": chip_smoke.RESNET_PARITY_BOUNDS,
+                      "resume_control": resume_control,
                       "failures": failures}))
     return 1 if failures else 0
 

@@ -111,10 +111,22 @@ Phases, each raising on failure (the script then exits non-zero):
    marker kernel that follows the capture and a step's worth per replay
    after it; ms per iteration, device busy time, idle share and peak
    memory of both;
+13b. resume: the LM of phase 6 through the Optimizer for 3 epochs of 4
+   distinct shuffled batches in windows of 2 (graph replays),
+   deterministic algorithms on, uninterrupted and again with every-epoch
+   checkpoints (keep 2), failure retry, the 2nd checkpoint torn and a
+   failure injected at iteration 11: the retry must walk back to
+   generation 5 and end with the uninterrupted run's loop state, its
+   losses after the resume point, parameters and SGD state bit for bit,
+   with a fresh capture; #1-#3 by the tensor-core route, their warm-up
+   and replay launches read from each run's device events between marker
+   kernels around each capture; the checkpoint's bytes, write and load
+   ms beside the card's name and power limit.  A failed check prints
+   ``resume: FAILED: <check>`` before the script exits non-zero;
 14. a ``{"kernels": [...]}`` line (eleven kernels, launches by path,
-   the graph replays' among them as the profiler counted them on the
-   device; all but #4 also their design, launches by route and build
-   report; #1 its row at the training shape beside the decode row), then
+   the graph replays' among them (phases 13 and 13b) as the profiler
+   counted them on the device; all but #4 also their design, launches
+   by route and build report; #1 its row at the training shape beside the decode row), then
    the ``{"ok": true, ...}`` line.
 
 Imports torch, numpy and ``bigdl_tpu_torch`` only.
@@ -393,19 +405,14 @@ def device_split(fn, runs: int = 5) -> dict:
     """{kernel: device ms per call} of the kernels ``fn`` launches, from
     ``torch.profiler`` over ``runs`` calls after one warm-up: where a
     wrapper's time goes among its prepass, product and reductions."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with traced() as prof:
         for _ in range(runs):
             fn()
-        torch.cuda.synchronize()
     split = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            split[e.name] = (split.get(e.name, 0.0)
-                             + e.time_range.elapsed_us() / runs / 1e3)
+    for e in framed_events(prof):
+        split[e.name] = (split.get(e.name, 0.0)
+                         + e.time_range.elapsed_us() / runs / 1e3)
     return split
 
 
@@ -1694,14 +1701,67 @@ def dispatch_of(k, then=None):
     return configure
 
 
-def device_events(prof):
-    """The device's events of a ``torch.profiler`` run, in the order they
-    started, but the dataset's upload (Memcpy HtoD)."""
+# the kernel of torch.cuda._sleep, which frames a traced run (traced) and
+# marks each capture on the device (mark_captures)
+MARKER = "spin_kernel"
+
+# torch.profiler's device trace can lose the records of a session's first
+# few hundred milliseconds (a resnet run's first 250 ms once, marker
+# kernels and all) and of its last few tens (the last dQ and dK/dV
+# launches of a graph run's last replay, say): chip_trace_probe.py shows
+# both.  So a traced run opens with TRACE_WARMUP_S of marker kernels,
+# TRACE_PRIMER_S apart, for the trace to lose, and closes with a marker
+# kernel and TRACE_MARGIN_S of the device idle
+TRACE_WARMUP_S, TRACE_PRIMER_S, TRACE_MARGIN_S = 1.0, 0.02, 0.5
+
+
+@contextmanager
+def traced():
+    """``torch.profiler`` over the block's device work, framed: marker
+    kernels for TRACE_WARMUP_S, the last just before the block, then the
+    block, a marker and TRACE_MARGIN_S of the device idle.
+    framed_events reads what lies between."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        warm = time.perf_counter() + TRACE_WARMUP_S
+        while time.perf_counter() < warm:
+            torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+            time.sleep(TRACE_PRIMER_S)
+        torch.cuda._sleep(1)
+        yield prof
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+        time.sleep(TRACE_MARGIN_S)
+
+
+def framed_events(prof):
+    """The device's events of a traced() run between its leading markers
+    and its last one, in the order they started.  Raises where the trace
+    does not begin and end with a marker: it lost the run's start or
+    end."""
     from torch.autograd import DeviceType
-    return sorted((e for e in prof.events()
-                   if e.device_type == DeviceType.CUDA
-                   and "HtoD" not in e.name),
-                  key=lambda e: e.time_range.start)
+    events = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    first = next((i for i, e in enumerate(events) if MARKER not in e.name),
+                 len(events))
+    if first == 0 or first == len(events) or MARKER not in events[-1].name:
+        raise RuntimeError(
+            "the profiler's trace does not begin and end with traced()'s "
+            f"markers ({len(events)} device events, the first "
+            f"{events[0].name if events else None!r}, the last "
+            f"{events[-1].name if events else None!r}): it lost the start "
+            "or the end of the run")
+    return events[first:-1]
+
+
+def device_events(prof):
+    """The device's events of a traced() run, framed_events but the
+    dataset's upload (Memcpy HtoD)."""
+    return [e for e in framed_events(prof) if "HtoD" not in e.name]
 
 
 def device_steps(opt, steps):
@@ -1718,16 +1778,13 @@ def profile_steps(args, model, criterion, make_batch, configure=None):
     over the steps the device ran.  Launches it makes are counted by the
     wrappers, so it runs after a phase has read its counts."""
     import argparse
-    from torch.profiler import ProfilerActivity, profile
     from bigdl_tpu_torch.examples import perf
     short = argparse.Namespace(**{**vars(args), "iterations": BUSY_ITERS,
                                   "epochs": BUSY_EPOCHS})
     # left out when None: an older checkout's perf.run does not take it
     kw = {} if configure is None else {"configure": configure}
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with traced() as prof:
         _, opt = perf.run(short, model, criterion, make_batch, **kw)
-        torch.cuda.synchronize()
     busy_us = sum(e.time_range.elapsed_us() for e in device_events(prof))
     return busy_us / device_steps(opt, BUSY_ITERS * BUSY_EPOCHS) / 1e3
 
@@ -2566,11 +2623,6 @@ KERNEL_EVENTS = {
     "conv3x3_bn_bwd": ("tcconv::wgrad<9>",),
 }
 
-# the kernel of torch.cuda._sleep, which marks the end of a capture on
-# the device (mark_captures)
-MARKER = "spin_kernel"
-
-
 def mark_captures(opt):
     """Follow each of ``opt``'s graph captures with a marker kernel on the
     current stream.  The warm-up step before a capture ran before the
@@ -2608,16 +2660,14 @@ def dispatch_reading(path, k):
     counts, and from the run's own device events its busy time and each
     kernel's launches before the capture's marker and after it (the
     replays')."""
-    from torch.profiler import ProfilerActivity, profile
     from bigdl_tpu_torch.examples import perf
     args, model, criterion, make_batch = dispatch_model(path)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     _zero_counts()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with traced() as prof:
         out, opt = perf.run(args, model, criterion, make_batch,
                             configure=dispatch_of(k, mark_captures))
-        torch.cuda.synchronize()
     launches, routes = _read_counts(), _read_routes()
     peak = torch.cuda.max_memory_allocated()
     events = device_events(prof)
@@ -2728,6 +2778,213 @@ def _dispatch_report(path, eager, graph):
            graph["replayed"], graph["opt"].dispatch_stats["replays"])
 
 
+# ---------------------------------------------------------------------------
+# 13b. resume: a crash, a torn checkpoint and a retry, in graph windows
+# ---------------------------------------------------------------------------
+
+# the LM of phase 6 for 3 epochs of 4 distinct shuffled batches in windows
+# of 2 (graph replays); the faulted run checkpoints every epoch (keep 2),
+# its 2nd checkpoint (generation 9) torn and a failure injected at
+# iteration 11, inside epoch 3: the retry walks back to generation 5
+RESUME_ITERS, RESUME_EPOCHS, RESUME_K, RESUME_FAIL_AT = 4, 3, 2, 11
+RESUME_SEED, RESUME_FROM = 7, "checkpoint.5.npz"
+RESUME_STEPS = {"clean": ([12], 1), "faulted": ([10, 8], 2)}
+
+
+def mark_capture_spans(opt):
+    """Put a marker kernel on the current stream before and after each of
+    ``opt``'s captures: between a pair lies the warm-up step, after the
+    second marker of a pair run that graph's replays."""
+    capture = opt._capture
+
+    def marked(*args):
+        torch.cuda._sleep(1)
+        step_graph = capture(*args)
+        torch.cuda._sleep(1)
+        return step_graph
+    opt._capture = marked
+
+
+def resume_run(ckpt_dir=None):
+    """One run of the resume phase under torch.profiler (the faulted one
+    where ``ckpt_dir`` is given): the Optimizer, the wrappers' counts and
+    routes, the checkpoints it restored, the faults that fired, and from
+    its device events each kernel's launches in the warm-up steps and in
+    each graph's replays."""
+    from bigdl_tpu_torch.dataset import DataSet, MiniBatch
+    from bigdl_tpu_torch.optim import SGD, Optimizer, Trigger
+    from bigdl_tpu_torch.utils import chaos
+    args, model, criterion, make_batch = dispatch_model("lm")
+    data = DataSet.array([MiniBatch(*make_batch(args.batch_size))
+                          for _ in range(RESUME_ITERS)],
+                         seed=RESUME_SEED).cache_on_device(
+                             next(model.parameters()).device)
+    opt = (Optimizer(model, data, criterion, seed=0)
+           .set_optim_method(SGD(args.learning_rate, momentum=0.9,
+                                 dampening=0.0))
+           .set_end_when(Trigger.max_epoch(RESUME_EPOCHS))
+           .set_log_interval(RESUME_ITERS)
+           .set_compute_dtype(torch.bfloat16)
+           .set_iterations_per_dispatch(RESUME_K))
+    mark_capture_spans(opt)
+    restored, fired = [], []
+    if ckpt_dir is not None:
+        opt.set_checkpoint(str(ckpt_dir), Trigger.every_epoch(), keep_n=2) \
+            .set_failure_retry(2, backoff_s=0.0, jitter=0.0)
+        restore = opt._restore
+
+        def recorded(path):
+            restored.append(Path(path).name)
+            return restore(path)
+        opt._restore = recorded
+        fired = chaos.install(fail_at_step=RESUME_FAIL_AT,
+                              truncate_checkpoint=2).events
+    _zero_counts()
+    try:
+        with traced() as prof:
+            t0 = time.perf_counter()
+            opt.optimize()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        chaos.reset()
+    events = device_events(prof)
+    marks = [i for i, e in enumerate(events) if MARKER in e.name]
+    # marker pairs (before, after) around each capture
+    spans = list(zip(marks[0::2], marks[1::2]))
+    ends = [b for b, _ in spans[1:]] + [len(events)]
+    warmups = [kernel_launches(events[b + 1:a]) for b, a in spans]
+    replays = [kernel_launches(events[a + 1:e])
+               for (_, a), e in zip(spans, ends)]
+    return dict(opt=opt, model=model, launches=_read_counts(),
+                routes=_read_routes(), restored=restored, fired=list(fired),
+                marks=len(marks), warmups=warmups, replays=replays,
+                replayed={n: sum(r[n] for r in replays)
+                          for n in KERNEL_EVENTS}, wall=wall)
+
+
+def resume_reading():
+    """The resume phase's two runs and its checks: returns the readings
+    and the list of checks that failed (empty: the faulted run is the
+    uninterrupted one)."""
+    import tempfile
+    from bigdl_tpu_torch.utils.file import CheckpointManager
+    failed = []
+
+    def check(ok, what):
+        if not ok:
+            failed.append(what)
+
+    root = Path(__file__).resolve().parent
+    with deterministic() as nondet, tempfile.TemporaryDirectory(
+            prefix=".ckpt-", dir=root) as ckpt_dir:
+        runs = {"clean": resume_run(), "faulted": resume_run(ckpt_dir)}
+        latest = CheckpointManager(ckpt_dir).latest_good()
+        payload_bytes = os.path.getsize(latest) if latest else 0
+        written = sorted(n for n in os.listdir(ckpt_dir) if
+                         n.endswith(".npz"))
+    clean, faulted = runs["clean"], runs["faulted"]
+    per_step = DISPATCH_PATHS["lm"][1]
+    for label, r in runs.items():
+        window_steps, captures = RESUME_STEPS[label]
+        stats = {"single_steps": 0, "window_steps": sum(window_steps),
+                 "captures": captures, "replays": sum(window_steps)}
+        check(r["opt"].dispatch_stats == stats,
+              f"{label} run dispatched {r['opt'].dispatch_stats}, not "
+              f"{stats}")
+        check(r["marks"] == 2 * captures,
+              f"{label} run: {r['marks']} capture markers, not "
+              f"{2 * captures}")
+        for name, n in per_step.items():
+            check(r["launches"][name] == 2 * n * captures,
+                  f"{label} run: {name}'s wrapper counted "
+                  f"{r['launches'][name]} launches, not {2 * n * captures}"
+                  " (warm-up step and capture of each graph)")
+            check(r["routes"][name] == {"tensor_core": 2 * n * captures,
+                                        "scalar": 0},
+                  f"{label} run: {name} took the routes "
+                  f"{r['routes'][name]}")
+            check([w[name] for w in r["warmups"]] == [n] * captures,
+                  f"{label} run: {name} on the device in the warm-up "
+                  f"steps {[w[name] for w in r['warmups']]}, not "
+                  f"{[n] * captures}")
+            check([p[name] for p in r["replays"]]
+                  == [n * s for s in window_steps],
+                  f"{label} run: {name} on the device in the replays "
+                  f"{[p[name] for p in r['replays']]}, not "
+                  f"{[n * s for s in window_steps]}")
+    check(faulted["restored"] == [RESUME_FROM],
+          f"the retry restored {faulted['restored']}, not [{RESUME_FROM}]")
+    check(any("truncated" in e for e in faulted["fired"])
+          and any(f"iteration {RESUME_FAIL_AT}" in e
+                  for e in faulted["fired"]),
+          f"the faults that fired: {faulted['fired']}")
+    co, fo = clean["opt"], faulted["opt"]
+    for key in ("epoch", "neval", "records", "loss", "score"):
+        check(fo.state[key] == co.state[key],
+              f"state {key}: faulted {fo.state[key]}, uninterrupted "
+              f"{co.state[key]}")
+    after = [x for x in fo.loss_history if x[0] > RESUME_ITERS][-8:]
+    want = [x for x in co.loss_history if x[0] > RESUME_ITERS]
+    check(after == want, f"losses after the resume point {after} differ "
+          f"from the uninterrupted run's {want}")
+    same_params = all(torch.equal(p, q) for p, q in zip(
+        clean["model"].parameters(), faulted["model"].parameters()))
+    check(same_params, "parameters differ from the uninterrupted run's")
+    same_state = all(
+        a["t"] == b["t"] and all(torch.equal(u, v) for u, v in zip(
+            a["velocity"], b["velocity"]))
+        for a, b in zip(co._opt_states, fo._opt_states))
+    check(same_state, "the SGD state (t, velocity) differs from the "
+          "uninterrupted run's")
+    write_n = fo.metrics.get("checkpoint time")[1]
+    return dict(
+        failed=failed, nondeterministic=sorted(nondet),
+        checkpoint_bytes=payload_bytes, checkpoints_written=write_n,
+        kept=written,
+        write_ms=fo.metrics.mean("checkpoint time") * 1e3,
+        load_ms=fo.metrics.mean("checkpoint load time") * 1e3,
+        clean_wall_s=clean["wall"], faulted_wall_s=faulted["wall"],
+        restored=faulted["restored"], fired=faulted["fired"],
+        dispatch={label: r["opt"].dispatch_stats
+                  for label, r in runs.items()},
+        replayed=faulted["replayed"],
+        losses=[x for _, x in co.loss_history],
+        same_params=same_params, same_state=same_state)
+
+
+def phase_resume(smi):
+    """The LM at phase 6's width in graph windows, uninterrupted and
+    through a torn checkpoint, a failure and a retry: the faulted run must
+    end where the uninterrupted one does, bit for bit, with #1-#3's
+    replays counted on the device."""
+    t0 = time.perf_counter()
+    try:
+        r = resume_reading()
+    except Exception as e:
+        print(f"resume: FAILED: {type(e).__name__}: {e}", flush=True)
+        raise
+    print(f"resume: {RESUME_EPOCHS} epochs of {RESUME_ITERS} in windows of "
+          f"{RESUME_K}: uninterrupted {r['clean_wall_s']:.3f} s, faulted "
+          f"{r['faulted_wall_s']:.3f} s; faults {r['fired']}; restored "
+          f"{r['restored']}; kept {r['kept']}; dispatch {r['dispatch']}; "
+          f"#1-#3 replayed on the device (faulted run) "
+          + ", ".join(f"{n} {r['replayed'][n]}" for n in DENSE_NAMES[:3])
+          + f"; parameters {'equal' if r['same_params'] else 'DIFFER'}, "
+          f"SGD state {'equal' if r['same_state'] else 'DIFFERS'} bit for "
+          f"bit; operations without a deterministic implementation: "
+          f"{r['nondeterministic'] or 'none'}")
+    print(f"resume: checkpoint {r['checkpoint_bytes']} bytes, write "
+          f"{r['write_ms']:.3f} ms (mean of {r['checkpoints_written']}), "
+          f"load {r['load_ms']:.3f} ms, on {smi}")
+    if r["failed"]:
+        for what in r["failed"]:
+            print(f"resume: FAILED: {what}", flush=True)
+        raise RuntimeError(f"resume: {len(r['failed'])} checks failed")
+    print(f"resume: passed in {time.perf_counter() - t0:.1f} s")
+    return r
+
+
 def _kernel_entry(name, source, replaces, launches, row):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -2792,12 +3049,14 @@ def main() -> int:
     phase_resnet_parity()
     phase_lenet()
     dispatch = phase_dispatch()
+    resume = phase_resume(smi)
+    # the replays' launches, from the graph runs' device events
+    replayed = {**{path: r["replayed"] for path, r in dispatch.items()},
+                "resume": resume["replayed"]}
     by_path = {"serving": serving, "lm_training": train["launches"],
                "sp_training": sp["launches"],
                "resnet_training": resnet["launches"],
-               # the replays' launches, from the graph runs' device events
-               **{f"{path}_graph_replays": r["replayed"]
-                  for path, r in dispatch.items()}}
+               **{f"{path}_graph_replays": r for path, r in replayed.items()}}
 
     def paths(name):
         return {path: counts[name] for path, counts in by_path.items()}
@@ -2867,9 +3126,8 @@ def main() -> int:
                       "resnet_training": resnet["routes"],
                       # by the tensor-core kernel each replay ran
                       **{f"{path}_graph_replays": {
-                          n: {"tensor_core": c}
-                          for n, c in r["replayed"].items()}
-                         for path, r in dispatch.items()}}
+                          n: {"tensor_core": c} for n, c in r.items()}
+                         for path, r in replayed.items()}}
     for name, design in (
             ("flash_attention_fwd",
              "tensor cores for bf16 with 16-byte rows (mma.sync.m16n8k16 "

@@ -9,7 +9,9 @@ the warm-up step and the capture); torch.profiler's device events show
 each kernel once per eager launch and a step's worth per replay.
 Deterministic algorithms are on for both runs (the embedding's backward otherwise sums
 with atomics).  Every test needs an NVIDIA GPU and skips without one;
-the file imports no JAX:
+the file imports no JAX.  A crash in a window, retried from a
+checkpoint, captures afresh and ends on the uninterrupted run bit for
+bit:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_graph.py
 """
@@ -28,6 +30,7 @@ from bigdl_tpu_torch.ops import attention_kernels as ak
 from bigdl_tpu_torch.ops import conv_bn_kernels as ck
 from bigdl_tpu_torch.optim import SGD, Optimizer, Trigger
 from bigdl_tpu_torch.optim.regularizer import L2Regularizer
+from bigdl_tpu_torch.utils import chaos
 
 pytestmark = pytest.mark.cuda
 
@@ -228,3 +231,50 @@ def test_a_capture_that_fails_raises(cuda):
                 rng.integers(1, 11, (4,))) for _ in range(2)]
     with pytest.raises(RuntimeError):
         _train(make, batches, 2, criterion=pnn.ClassNLLCriterion())
+
+
+def test_a_crash_then_resume_in_windows_equals_the_uninterrupted_run(
+        cuda, tmp_path):
+    """The bf16 LM in windows of 2 over 4 shuffled batches for 3 epochs,
+    every-epoch checkpoints: a failure injected at iteration 11 is
+    retried from the checkpoint of epoch 2's end.  The retry drops the
+    failed attempt's graph and captures afresh; losses, parameters and
+    the SGD state equal the uninterrupted run's bit for bit."""
+    rng = np.random.default_rng(6)
+    batches = [(rng.integers(1, 65, (2, 128)), rng.integers(1, 65, (256,)))
+               for _ in range(4)]
+
+    def run(ckpt=None):
+        data = DataSet.array([MiniBatch(x, y) for x, y in batches],
+                             seed=5).cache_on_device("cuda")
+        opt = (Optimizer(_lm(cuda)(), data, pnn.CrossEntropyCriterion(),
+                         seed=3)
+               .set_optim_method(SGD(0.05, momentum=0.9, dampening=0.0))
+               .set_end_when(Trigger.max_epoch(3))
+               .set_compute_dtype(torch.bfloat16)
+               .set_iterations_per_dispatch(2))
+        if ckpt is not None:
+            opt.set_checkpoint(str(ckpt), Trigger.every_epoch(), keep_n=2) \
+                .set_failure_retry(2, backoff_s=0.0, jitter=0.0)
+            chaos.install(fail_at_step=11)
+        try:
+            opt.optimize()
+        finally:
+            chaos.reset()
+        return opt
+    clean, faulty = run(), run(tmp_path)
+    assert dict(faulty.loss_history) == dict(clean.loss_history)
+    assert len(clean.loss_history) == 12
+    for key in ("epoch", "neval", "records", "loss"):
+        assert faulty.state[key] == clean.state[key], key
+    for p, q in zip(clean.model.parameters(), faulty.model.parameters()):
+        assert torch.equal(p, q)
+    for a, b in zip(clean._opt_states, faulty._opt_states):
+        assert a["t"] == b["t"] == 12
+        assert all(torch.equal(u, v) for u, v in zip(a["velocity"],
+                                                     b["velocity"]))
+    assert clean.dispatch_stats == {"single_steps": 0, "window_steps": 12,
+                                    "captures": 1, "replays": 12}
+    # attempt 1: 10 steps before the failure; attempt 2: epoch 3 again
+    assert faulty.dispatch_stats == {"single_steps": 0, "window_steps": 14,
+                                     "captures": 2, "replays": 14}

@@ -471,10 +471,12 @@ def test_window_with_dropout_reseeds_each_step():
 def test_setters_of_the_second_half_raise_naming_item_4():
     _, port = _pair()
     opt = Optimizer(port, _pipeline("port"), pnn.ClassNLLCriterion())
-    for name in ("set_checkpoint", "resume", "set_failure_retry",
-                 "set_device_prefetch"):
-        with pytest.raises(NotImplementedError, match="item 4"):
-            getattr(opt, name)(None)
+    with pytest.raises(NotImplementedError, match="item 4"):
+        opt.set_device_prefetch(None)
+    # checkpoint, resume and retry are ported: the setters chain
+    assert opt.set_checkpoint("ckpt", Trigger.every_epoch()) is opt
+    assert opt.resume("ckpt/checkpoint.npz") is opt
+    assert opt.set_failure_retry(2) is opt
     assert opt.disable_gradient_clipping() is opt
 
 

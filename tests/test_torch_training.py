@@ -268,11 +268,12 @@ def test_optimizer_refuses_what_the_slice_does_not_port():
                                   generator=torch.Generator()))
     opt = Optimizer(model, DataSet.array([], shuffle=False),
                     CrossEntropyCriterion())
-    for name in ("set_checkpoint", "set_mesh", "set_partition_plan",
-                 "set_health_watchdog", "resume", "set_failure_retry",
+    for name in ("set_mesh", "set_partition_plan", "set_health_watchdog",
                  "set_device_prefetch", "set_train_summary"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             getattr(opt, name)(None)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        opt.set_checkpoint("ckpt", Trigger.every_epoch(), sharded=True)
     # batch_size= batches raw samples now; an empty list has no batches
     with pytest.raises(ValueError, match="no batches"):
         Optimizer(model, [], CrossEntropyCriterion(), batch_size=4) \
