@@ -12,6 +12,11 @@ training-mode stochastic layer finds none.  The port carries a
 :func:`next_generator`, never from torch's global RNG, so a run's
 randomness is a function of the generator its caller seeded.  The
 generator must live on the device of the tensors it draws for.
+
+:func:`recompute` is the reference's ``jax.checkpoint`` of a block: the
+block's activations are recomputed in the backward, and its dropout
+masks are drawn again from the stream they were drawn from in the
+forward (``jax.checkpoint`` replays the same key).
 """
 
 from __future__ import annotations
@@ -22,29 +27,127 @@ from typing import List, Optional
 
 import torch
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 __all__ = ["forward_context", "next_generator", "has_generator", "dropout",
-           "Module", "Node", "Input", "node_of"]
+           "ReplayStreams", "recompute", "Module", "Node", "Input",
+           "node_of"]
 
 
 class _ForwardContext(threading.local):
     def __init__(self):
         self.generator: Optional[torch.Generator] = None
+        self.streams: Optional["ReplayStreams"] = None
 
 
 _ctx = _ForwardContext()
 
 
 @contextmanager
-def forward_context(generator: Optional[torch.Generator] = None):
+def forward_context(generator: Optional[torch.Generator] = None,
+                    streams: Optional["ReplayStreams"] = None):
     """Provide ``generator`` to the stochastic layers of the enclosed
-    ``forward`` calls (nested contexts restore the outer one)."""
-    prev = _ctx.generator
-    _ctx.generator = generator
+    ``forward`` calls (nested contexts restore the outer one).
+    ``streams`` keeps the twins that the forward's :func:`recompute`
+    calls replay from, counted from the context's start (a CUDA graph
+    capture of the step needs them: see :class:`ReplayStreams`)."""
+    prev = _ctx.generator, _ctx.streams
+    _ctx.generator, _ctx.streams = generator, streams
+    if streams is not None:
+        streams.rewind()
     try:
         yield
     finally:
-        _ctx.generator = prev
+        _ctx.generator, _ctx.streams = prev
+
+
+class ReplayStreams:
+    """The twin generators from which a step's :func:`recompute` calls
+    draw again, one per call in the order of the forward, for a CUDA
+    graph of the step.  A captured graph can neither read a generator's
+    state nor set it, so each twin is registered with the graph before
+    the capture and, before every replay, seeded as the generator in
+    scope stood at its call: the step's seed and ``offsets[i]``, the
+    philox offset that call saw in the eager step before the capture
+    (:meth:`seed`).  Outside a capture a call replays from a fresh
+    generator set to the state in scope, and on the card records the
+    offset."""
+
+    def __init__(self):
+        self.twins: List[torch.Generator] = []
+        self.offsets: List[int] = []
+        self._next = 0
+
+    def rewind(self):
+        self._next = 0
+
+    def twin(self, generator: torch.Generator) -> torch.Generator:
+        """The generator that the next recompute call replays from."""
+        i = self._next
+        self._next += 1
+        if generator.device.type != "cuda":
+            return _fresh_twin(generator)
+        if torch.cuda.is_current_stream_capturing():
+            if i >= len(self.twins):
+                raise RuntimeError(
+                    "recompute under CUDA graph capture: no twin "
+                    f"generator for call {i}; run the step eagerly "
+                    "before capturing it")
+            return self.twins[i]
+        if i == len(self.twins):
+            self.twins.append(torch.Generator(device=generator.device))
+            self.offsets.append(0)
+        self.offsets[i] = generator.get_offset()
+        return _fresh_twin(generator)
+
+    def seed(self, seed: int, offsets: List[int]):
+        """Seed each twin as the generator stood at its call, after
+        ``manual_seed(seed)`` and ``offsets[i]`` of draws (before a
+        replay of the graph whose eager step recorded ``offsets``)."""
+        for twin, offset in zip(self.twins, offsets):
+            twin.manual_seed(seed)
+            twin.set_offset(offset)
+
+
+def _fresh_twin(generator: torch.Generator) -> torch.Generator:
+    """A new generator in the state of ``generator``."""
+    twin = torch.Generator(device=generator.device)
+    twin.set_state(generator.get_state())
+    return twin
+
+
+def _replay_generator(generator: torch.Generator) -> torch.Generator:
+    """The generator a recompute of the call starting now draws from: the
+    stream of ``generator`` as it stands, kept apart from it."""
+    if _ctx.streams is not None:
+        return _ctx.streams.twin(generator)
+    return _fresh_twin(generator)
+
+
+def recompute(module: nn.Module, *args, **kwargs):
+    """``module(*args, **kwargs)`` with its activations recomputed in the
+    backward instead of kept (``torch.utils.checkpoint``, non-reentrant;
+    torch's own RNG states are not saved: the port never draws from
+    them).  The recompute draws its dropout masks again from the stream
+    the forward drew them from (a twin of the generator in scope, see
+    :func:`_replay_generator`), with no generator in scope needed in the
+    backward, and binds the module's tensors as the forward saw them (the
+    compute-dtype casts of ``functional_call``)."""
+    generator = _ctx.generator
+    twin = None if generator is None else _replay_generator(generator)
+    tensors = {**dict(module.named_parameters()),
+               **dict(module.named_buffers())}
+    calls = [0]
+
+    def run(*a, **kw):
+        calls[0] += 1
+        if calls[0] == 1:
+            return module(*a, **kw)
+        with forward_context(generator=twin):
+            return functional_call(module, tensors, a, kw)
+    return checkpoint(run, *args, use_reentrant=False,
+                      preserve_rng_state=False, **kwargs)
 
 
 def next_generator() -> torch.Generator:

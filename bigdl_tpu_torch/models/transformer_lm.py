@@ -13,8 +13,10 @@ batched form of the reference's vmap over pool slots.
 Generation, beam search aside, is ported, and so is training (train
 mode, dropout from the forward context, bf16 compute through the
 Optimizer), with sequence parallelism (``set_sequence_parallel``: every
-block's self-attention through ring attention); ``generate_beam``,
-pipeline parallelism and ``remat`` belong to later slices.
+block's self-attention through ring attention) and ``remat`` (each block
+recomputed in the backward, its dropout masks replayed:
+``core.module.recompute``); ``generate_beam`` and pipeline parallelism
+belong to later slices.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 from torch import nn
 
 from bigdl_tpu_torch.core.device import resolve_device
+from bigdl_tpu_torch.core.module import recompute
 from bigdl_tpu_torch.nn.attention import (TransformerDecoderLayer,
                                           _residual_dropout, causal_bias,
                                           chunk_incremental_bias,
@@ -52,11 +55,6 @@ class TransformerLM(nn.Module):
                  remat: bool = False, *, generator: torch.Generator,
                  device=None):
         super().__init__()
-        if remat:
-            raise NotImplementedError(
-                "TransformerLM(remat=True) (recompute each block in the "
-                "backward) is not ported yet (ROADMAP.md queue 1, item 4: "
-                "the training loop, the rest)")
         dev = resolve_device(device)
         self.hidden_size = hidden_size
         self.max_len = max_len
@@ -65,6 +63,9 @@ class TransformerLM(nn.Module):
         # and padding fails loudly
         self.padded_inputs = padded_inputs
         self.seq_parallel = False
+        # recompute each block in the backward instead of keeping its
+        # activations (the reference's jax.checkpoint per block)
+        self.remat = remat
         self.embedding = LookupTable(vocab_size + 1, hidden_size,
                                      generator=generator, device=dev)
         with torch.no_grad():
@@ -146,8 +147,12 @@ class TransformerLM(nn.Module):
             elif bool((tokens == 0).any()):
                 raise ValueError(msg)
             bias, causal = None, not self.seq_parallel
+        remat = self.remat and torch.is_grad_enabled()
         for blk in self.blocks:
-            x = blk(x, self_bias=bias, self_causal=causal)
+            if remat:
+                x = recompute(blk, x, self_bias=bias, self_causal=causal)
+            else:
+                x = blk(x, self_bias=bias, self_causal=causal)
         return self._logits(x)
 
     # ---- incremental decoding (KV cache) -------------------------------

@@ -15,11 +15,21 @@ under ``no_grad`` where its trigger fires, and its first result is the
 ``score``.
 
 Losses stay on the device.  Every ``log_interval`` steps the window is
-read back: first one blocking read of its LAST loss pins the completion
-time, then the rest are read in one transfer.  ``window_timings`` holds
-``(iterations, completion-to-completion seconds, data seconds)`` per
-window, as the reference's does; the first window also bears the
-kernels' build and the library warm-up.
+read back: its losses are stacked and copied to pinned host memory
+without blocking, followed by an event; the read waits on that event,
+which pins the completion time, and then reads the host copy.
+``window_timings`` holds ``(iterations, completion-to-completion
+seconds, data seconds)`` per window, as the reference's does; the first
+window also bears the kernels' build and the library warm-up.  Where no
+trigger reads the loss, the reads run on a ``bigdl-loss-drain`` thread
+over a queue of 4 windows (the reference's asynchronous loss drain), so
+the loop goes on queueing steps while a window's read waits; the loop
+waits for the drain before a validation, a checkpoint and its end, and
+a failed attempt's drain is stopped, its queued windows discarded.
+
+``set_device_prefetch(n)`` copies each host batch to the device on a
+producer thread ``n`` batches ahead of the step
+(``data/device_prefetch.py``); single-step dispatch only.
 
 ``set_iterations_per_dispatch(k)`` runs k steps per dispatch with the
 reference's windows: ``safe_window`` trims a window so that validation
@@ -33,7 +43,10 @@ undone.  What the host changes every step goes in through state the
 graph reads, written before each replay: the batch (copied into static
 inputs), each group's learning rate (a 0-dim float32 tensor the host
 fills from its step counter and epoch) and the dropout stream (the
-generator, registered with the graph, reseeded per iteration).  Each
+generator, registered with the graph, reseeded per iteration, and the
+twins a ``remat`` model's recomputes replay from, registered too and
+seeded per iteration with the offsets the warm-up step recorded:
+``core.module.ReplayStreams``).  Each
 replay's loss is copied into its own slot of the window's buffer; no
 host read happens between the replays.  A capture that fails raises.
 The kernels' wrappers count what their Python launches, the warm-up
@@ -81,6 +94,7 @@ ROADMAP item; nothing is silently ignored.
 from __future__ import annotations
 
 import logging
+import queue
 import random
 import signal
 import threading
@@ -91,7 +105,8 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
-from bigdl_tpu_torch.core.module import forward_context
+from bigdl_tpu_torch.core.module import ReplayStreams, forward_context
+from bigdl_tpu_torch.data.device_prefetch import DevicePrefetch
 from bigdl_tpu_torch.data.pipeline import (
     PIPELINE_STATE_VERSION, PipelineState, dataset_seed, epoch_iter,
     skip_batches, supports_epoch,
@@ -114,8 +129,6 @@ logger = logging.getLogger("bigdl_tpu_torch.optim")
 
 __all__ = ["Optimizer"]
 
-_LOOP_REST = ("ROADMAP.md queue 1, item 4 (the training loop, the rest: "
-              "device prefetch, remat and the asynchronous loss drain)")
 _TELEMETRY = "ROADMAP.md queue 1, item 10 (telemetry and health)"
 _PARALLEL = "ROADMAP.md queue 1, item 11 (parallelism)"
 
@@ -289,11 +302,26 @@ def _fill_state(fresh: Dict[str, Any], saved: Dict[str, Any],
 
 class _StepGraph:
     """One captured step: the graph, its static inputs, learning-rate
-    tensors and loss."""
+    tensors and loss, and the offsets its recomputes replay from."""
 
-    def __init__(self, graph, x, y, lrs, loss):
+    def __init__(self, graph, x, y, lrs, loss, offsets):
         self.graph, self.x, self.y = graph, x, y
         self.lrs, self.loss = lrs, loss
+        self.offsets = offsets
+
+
+def _loss_readback(losses: List[torch.Tensor]):
+    """The window's losses on the host and the event that their copy is
+    done (None on the CPU): one stack, one copy into pinned memory
+    without blocking."""
+    values = torch.stack(losses)
+    if not values.is_cuda:
+        return values, None
+    host = torch.empty(values.shape, dtype=values.dtype, pin_memory=True)
+    host.copy_(values, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return host, event
 
 
 class Optimizer:
@@ -359,6 +387,13 @@ class Optimizer:
         # the last batch's size
         self._epoch_offset = 0
         self._last_global_batch: Optional[int] = None
+        # batches staged ahead on the device (None: off)
+        self.device_prefetch_ahead: Optional[int] = None
+        # the running attempt's prefetcher and loss drain, stopped on
+        # every failure path
+        self._active_dp = None
+        self._flushq: Optional[queue.Queue] = None
+        self._flush_thread: Optional[threading.Thread] = None
 
     # ---- configuration (the reference's setters) -------------------------
 
@@ -453,6 +488,19 @@ class Optimizer:
         self._resume_from = checkpoint_file
         return self
 
+    def set_device_prefetch(self, n_ahead: int = 1) -> "Optimizer":
+        """Copy batch N+1 to the device on a producer thread while step N
+        runs (:class:`~bigdl_tpu_torch.data.DevicePrefetch`): the host's
+        copy leaves the loop, at the cost of ``n_ahead`` more batches on
+        the device.  Off by default; ``n_ahead=0`` turns it off.  Ignored,
+        with a warning, under ``iterations_per_dispatch > 1``, whose
+        windows stage their batches themselves."""
+        n = int(n_ahead)
+        if n < 0:
+            raise ValueError("set_device_prefetch: n_ahead must be >= 0")
+        self.device_prefetch_ahead = n or None
+        return self
+
     def set_failure_retry(self, times: int, interval_s: float = 120.0,
                           backoff_s: Optional[float] = None,
                           backoff_cap_s: Optional[float] = None,
@@ -473,7 +521,6 @@ class Optimizer:
             self.retry_jitter = float(jitter)
         return self
 
-    set_device_prefetch = _not_ported("set_device_prefetch", _LOOP_REST)
     set_mesh = _not_ported("set_mesh", _PARALLEL)
     set_partition_plan = _not_ported("set_partition_plan", _PARALLEL)
     set_gradient_sync = _not_ported("set_gradient_sync", _PARALLEL)
@@ -557,7 +604,7 @@ class Optimizer:
         params = self._params
         for p in params:
             p.grad = None
-        with forward_context(generator=generator):
+        with forward_context(generator=generator, streams=self._streams):
             out, assigned = self._forward(x)
         loss = self.criterion(out, y)
         loss.backward()
@@ -610,7 +657,9 @@ class Optimizer:
             _copy_into(sg.y, y)
             for t, lr in zip(sg.lrs, self._lrs(epoch)):
                 t.fill_(lr)
-            generator.manual_seed(_step_seed(self.seed, base + i))
+            seed = _step_seed(self.seed, base + i)
+            generator.manual_seed(seed)
+            self._streams.seed(seed, sg.offsets)
             sg.graph.replay()
             losses[i].copy_(sg.loss)
             self._advance_counters()
@@ -641,12 +690,15 @@ class Optimizer:
         del saved
         for p in self._params:
             p.grad = None
+        # where each recompute's stream stood in the warm-up step
+        offsets = list(self._streams.offsets)
         graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(generator)
+        for g in (generator, *self._streams.twins):
+            graph.register_generator_state(g)
         with torch.cuda.graph(graph):
             loss = self._step(x, y, generator, lrs)
         self.dispatch_stats["captures"] += 1
-        return _StepGraph(graph, x, y, lrs, loss)
+        return _StepGraph(graph, x, y, lrs, loss, offsets)
 
     # ---- validation --------------------------------------------------------
 
@@ -751,7 +803,10 @@ class Optimizer:
                 except KeyboardInterrupt:
                     raise
                 except Exception as e:
-                    # the failed attempt's graphs hold its static tensors
+                    # no thread of the failed attempt outlives it; its
+                    # graphs hold its static tensors
+                    self._stop_device_prefetch()
+                    self._stop_flush_worker()
                     self._graphs = {}
                     if not _is_transient(e):
                         logger.error(
@@ -781,6 +836,36 @@ class Optimizer:
                     self._resume_from = ckpt
         finally:
             restore_signal()
+            self._stop_device_prefetch()
+
+    def _stop_device_prefetch(self):
+        """Close a failed attempt's prefetcher (none: nothing to do): its
+        producer would otherwise hold ``n_ahead`` batches on the device
+        while the retry starts its own."""
+        dp, self._active_dp = self._active_dp, None
+        if dp is not None:
+            dp.close()
+
+    def _stop_flush_worker(self):
+        """Stop the loss drain (none: nothing to do) so that a failed
+        attempt's drain does not race the retry's.  Its queued windows
+        are discarded first: the queue is bounded, so a blocking put of
+        the stop mark could wait behind a drain stuck in a read."""
+        q, t = self._flushq, self._flush_thread
+        self._flushq = self._flush_thread = None
+        if q is not None:
+            while True:
+                try:
+                    q.get_nowait()
+                    q.task_done()
+                except queue.Empty:
+                    break
+            try:
+                q.put_nowait(None)
+            except queue.Full:
+                pass  # the drain is stuck in a read; it is a daemon
+        if t is not None:
+            t.join(timeout=30.0)
 
     def _ckpt_manager(self) -> CheckpointManager:
         if self._ckpt_mgr is None \
@@ -996,6 +1081,7 @@ class Optimizer:
                                         device=device))
         self._graphs: Dict[Tuple, _StepGraph] = {}
         generator = torch.Generator(device=device)
+        self._streams = ReplayStreams()
         total_records = self.dataset.size()
         needs_loss = any(getattr(t, "needs_loss", False)
                          for t in (self.end_when, self.val_trigger,
@@ -1010,30 +1096,37 @@ class Optimizer:
                            "readback", interval)
             interval = 1
         k_req = self.iters_per_dispatch
+        use_dp = bool(self.device_prefetch_ahead)
+        if use_dp and k_req > 1:
+            logger.warning("device prefetch disabled: "
+                           "iterations_per_dispatch=%d stages its windows "
+                           "itself", k_req)
+            use_dp = False
         # read once an attempt: with nothing installed a step pays one
         # comparison
         faults = chaos.active()
 
         # pending: (neval, epoch, n_records, records_cum, loss_device)
         pending: List[Tuple] = []
-        window = {"start": time.perf_counter(), "data_t": 0.0,
-                  "last_ready": 0.0}
+        window = {"start": time.perf_counter(), "data_t": 0.0}
+        # the reader's own: the completion of the window it read last
+        read = {"last_ready": 0.0}
         wall_start = time.perf_counter()
 
-        def flush():
-            if not pending:
-                return
-            # pin the completion with one blocking read of the window's
-            # LAST loss: a stack of the window would be a device op
-            pending[-1][-1].item()
+        def consume(entries, values, event, start, data_t):
+            """Read back and log one flushed window."""
+            if event is not None:
+                # the interpreter lock is released while it waits
+                event.synchronize()
             t_ready = time.perf_counter()
-            losses = torch.stack([e[-1] for e in pending]).tolist()
-            window_dt = t_ready - max(window["start"], window["last_ready"])
-            window["last_ready"] = t_ready
-            self.window_timings.append((len(pending), window_dt,
-                                        window["data_t"]))
-            per_iter = window_dt / len(pending)
-            for (neval_i, epoch_i, n_i, cum_i, _), lf in zip(pending,
+            losses = values.tolist()
+            # completion to completion: windows queued to the drain were
+            # dispatched before the previous one completed
+            window_dt = t_ready - max(start, read["last_ready"])
+            read["last_ready"] = t_ready
+            self.window_timings.append((len(entries), window_dt, data_t))
+            per_iter = window_dt / len(entries)
+            for (neval_i, epoch_i, n_i, cum_i, _), lf in zip(entries,
                                                             losses):
                 logger.info(
                     "Epoch %d %d/%d][Iteration %d][Wall Clock %.3fs] "
@@ -1044,9 +1137,48 @@ class Optimizer:
                     n_i / max(per_iter, 1e-9), lf)
                 self.loss_history.append((neval_i, lf))
             self.state["loss"] = losses[-1]
-            pending.clear()
-            window["start"] = time.perf_counter()
-            window["data_t"] = 0.0
+
+        # the asynchronous drain: nothing in the loop reads the loss
+        flushq: Optional[queue.Queue] = None
+        if not needs_loss:
+            flushq = queue.Queue(maxsize=4)
+
+            def drain():
+                while True:
+                    job = flushq.get()
+                    if job is None:
+                        flushq.task_done()
+                        return
+                    try:
+                        consume(*job)
+                    except Exception:
+                        logger.exception("asynchronous loss readback "
+                                         "failed")
+                    finally:
+                        flushq.task_done()
+
+            self._flushq = flushq
+            self._flush_thread = threading.Thread(
+                target=drain, daemon=True, name="bigdl-loss-drain")
+            self._flush_thread.start()
+
+        def flush(sync=False):
+            """Hand the pending window to the reader (the drain, where it
+            runs); ``sync`` waits until every window handed over is
+            read."""
+            if pending:
+                job = (list(pending),
+                       *_loss_readback([e[-1] for e in pending]),
+                       window["start"], window["data_t"])
+                if flushq is not None:
+                    flushq.put(job)
+                else:
+                    consume(*job)
+                pending.clear()
+                window["start"] = time.perf_counter()
+                window["data_t"] = 0.0
+            if sync and flushq is not None:
+                flushq.join()
 
         saw_batches = False
         while not self.end_when(self.state):
@@ -1073,6 +1205,13 @@ class Optimizer:
                         "pipeline restore: epoch %d has only %d batches "
                         "but the checkpoint consumed %d", epoch,
                         self._epoch_offset, skip)
+            dp = None
+            if use_dp:
+                # after the restore's skip: _epoch_offset counts the
+                # batches the loop consumed, not the ones staged ahead
+                dp = DevicePrefetch(self.device_prefetch_ahead,
+                                    device=device).apply(batches)
+                batches = self._active_dp = dp
             lookahead: List = []
             stop = False
             while not stop:
@@ -1128,7 +1267,7 @@ class Optimizer:
                         # validation logs follow the iterations they
                         # validate, a checkpoint holds the loss, and their
                         # wall time is no step's
-                        flush()
+                        flush(sync=True)
                         self._maybe_validate_checkpoint()
                         window["start"] = time.perf_counter()
                     # no break: a window's updates are all applied, so
@@ -1136,10 +1275,13 @@ class Optimizer:
                     # trigger fires inside it
                     stop = (stop or bool(self.end_when(self.state))
                             or self._preempt_requested)
+            if dp is not None:
+                dp.close()  # an early stop leaves the producer blocked
+                self._active_dp = None
             if self._preempt_requested:
                 # the step boundary SIGTERM asked for: a final checkpoint
                 # and a clean return, the unfinished epoch not advanced
-                flush()
+                flush(sync=True)
                 self._preemption_checkpoint()
                 self.preempted = True
                 logger.warning("preemption: exiting training cleanly at "
@@ -1149,14 +1291,15 @@ class Optimizer:
             self.state["epoch"] += 1
             self._epoch_offset = 0  # the boundary: next epoch, batch 0
             self.state["is_epoch_end"] = True
-            flush()
+            flush(sync=self._want_validate() or self._want_checkpoint())
             logger.info("Epoch %d finished in %.2f s", epoch,
                         time.perf_counter() - epoch_start)
             if not saw_batches:
                 raise ValueError("dataset produced no batches")
             self._maybe_validate_checkpoint()
             window["start"] = time.perf_counter()
-        flush()
+        flush(sync=True)
+        self._stop_flush_worker()
         self._graphs = {}
         return self.model
 

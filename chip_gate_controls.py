@@ -80,6 +80,11 @@ the faults they are there to catch:
    resume that restores the parameters and the loop's state but drops the SGD
    velocity (zeroed after the restore); the script fails unless the
    phase's checks refuse it.
+7. A control remat.  chip_smoke's remat phase (the LM at full width with
+   dropout, plain, remat and remat in graph windows) runs with a
+   recompute that draws its dropout masks from the generator as it stands
+   after the forward (a fresh stream, the state at the block's entry not
+   replayed); the script fails unless the phase's checks refuse it.
 
 The last line is one JSON object with every reading.  Imports torch,
 numpy, ``bigdl_tpu_torch`` and ``chip_smoke`` only.
@@ -900,6 +905,24 @@ def phase_resume_control():
     return dict(refused_by=r["failed"], restored=r["restored"]), failures
 
 
+def phase_remat_control():
+    """chip_smoke's remat phase with each recompute drawing from the live
+    generator instead of the replayed one: its checks must refuse it."""
+    from bigdl_tpu_torch.core import module
+    replay = module._replay_generator
+    module._replay_generator = lambda generator: generator
+    try:
+        r = chip_smoke.remat_reading()
+    finally:
+        module._replay_generator = replay
+    print(f"remat control (a fresh dropout stream in the recompute): "
+          f"refused by {len(r['failed'])} checks: {r['failed']}")
+    failures = [] if r["failed"] else [
+        "the remat phase passes a recompute whose dropout stream is not "
+        "replayed"]
+    return dict(refused_by=r["failed"]), failures
+
+
 def main() -> int:
     chip_smoke.phase_device()
     mutants, failures = phase_mutants()
@@ -916,6 +939,8 @@ def main() -> int:
     failures += more
     resume_control, more = phase_resume_control()
     failures += more
+    remat_control, more = phase_remat_control()
+    failures += more
     print(json.dumps({"mutants": mutants, "control_step": control,
                       "bounds": {"grad_norm_rel": chip_smoke.GRAD_NORM_REL,
                                  "grad_max_rel": chip_smoke.GRAD_MAX_REL},
@@ -925,6 +950,7 @@ def main() -> int:
                       "resnet_control_step": resnet_control,
                       "resnet_bounds": chip_smoke.RESNET_PARITY_BOUNDS,
                       "resume_control": resume_control,
+                      "remat_control": remat_control,
                       "failures": failures}))
     return 1 if failures else 0
 

@@ -123,8 +123,32 @@ Phases, each raising on failure (the script then exits non-zero):
    kernels around each capture; the checkpoint's bytes, write and load
    ms beside the card's name and power limit.  A failed check prints
    ``resume: FAILED: <check>`` before the script exits non-zero;
+13c. remat: the LM of phase 6 with dropout 0.1 after the attention and
+   in the FFN, 2 epochs of 4 distinct batches, deterministic algorithms
+   on, eagerly, with ``remat`` eagerly and with ``remat`` in windows of 4
+   (graph replays): the three runs' losses and parameters equal bit for
+   bit; #1/#2/#3 at 6/6/6 launches a step without remat and 12/6/6 with
+   it (the forward kernel again in each block's recompute), by the
+   tensor-core route, counted by the wrappers eagerly and from the device
+   events in the graph run (the warm-up step between marker kernels, the
+   replays after them); ms per iteration and peak memory of each;
+13d. prefetch: ResNet-50 of phase 9 on 4 distinct host-resident batches
+   (not cached on the card) for 3 epochs, eagerly, without device
+   prefetch and with ``set_device_prefetch(2)``: losses, parameters and
+   buffers equal bit for bit, 12 batches staged ahead, #8-#11 at
+   32/32/13/13 a step, no ``bigdl-device-prefetch`` thread left; the
+   bytes staged a step, ms per iteration, the device's busy ms and idle
+   share a step and its host-to-device copy ms, for both;
+13e. drain: LeNet-5 of phase 12 for 2 epochs of 50 with every loss read,
+   with the asynchronous loss drain (no trigger reads the loss) and
+   synchronously (``end_when`` OR'ed with ``Trigger.min_loss(-1.0)``):
+   the loss histories, parameters and ``dispatch_stats`` equal bit for
+   bit, 100 window timings each, the async run's losses read on the
+   ``bigdl-loss-drain`` thread and none left after it; ms per iteration
+   and idle share of both.  Each of 13c-13e prints ``<phase>: FAILED:
+   <check>`` for a failed check before the script exits non-zero;
 14. a ``{"kernels": [...]}`` line (eleven kernels, launches by path,
-   the graph replays' among them (phases 13 and 13b) as the profiler
+   the graph replays' among them (phases 13, 13b and 13c) as the profiler
    counted them on the device; all but #4 also their design, launches
    by route and build report; #1 its row at the training shape beside the decode row), then
    the ``{"ok": true, ...}`` line.
@@ -2805,6 +2829,67 @@ def mark_capture_spans(opt):
     opt._capture = marked
 
 
+def _untraced_run(run):
+    """``run()`` unprofiled: its wall seconds (host clock, up to a
+    synchronize), peak memory and the wrappers' counts and routes."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    return dict(wall=time.perf_counter() - t0,
+                peak=torch.cuda.max_memory_allocated(),
+                launches=_read_counts(), routes=_read_routes())
+
+
+def _traced_run(run, opt=None):
+    """_untraced_run under traced(), each capture of ``opt`` (where
+    given) between two marker kernels (mark_capture_spans), with, from
+    the run's device events, its busy ms (kernels and sets, the dataset's
+    host-to-device copies apart), those copies' ms, and each kernel's
+    launches in each warm-up step and in each graph's replays."""
+    if opt is not None:
+        mark_capture_spans(opt)
+    with traced() as prof:
+        r = _untraced_run(run)
+    framed = framed_events(prof)
+    copies = [e for e in framed if "HtoD" in e.name]
+    events = [e for e in framed if "HtoD" not in e.name]
+    marks = [i for i, e in enumerate(events) if MARKER in e.name]
+    spans = list(zip(marks[0::2], marks[1::2]))
+    ends = [b for b, _ in spans[1:]] + [len(events)]
+    replays = [kernel_launches(events[a + 1:e])
+               for (_, a), e in zip(spans, ends)]
+    return dict(r, marks=len(marks),
+                warmups=[kernel_launches(events[b + 1:a]) for b, a in spans],
+                replays=replays, replayed={n: sum(r[n] for r in replays)
+                          for n in KERNEL_EVENTS},
+                busy_us=sum(e.time_range.elapsed_us() for e in events
+                            if MARKER not in e.name),
+                copy_us=sum(e.time_range.elapsed_us() for e in copies))
+
+
+def _phase(name, reading, report):
+    """Run ``reading()`` (-> readings with a list of failed checks), print
+    ``report(readings)``, then each failed check as ``<name>: FAILED:
+    <check>``; raises if any failed."""
+    t0 = time.perf_counter()
+    try:
+        r = reading()
+    except Exception as e:
+        print(f"{name}: FAILED: {type(e).__name__}: {e}", flush=True)
+        raise
+    report(r)
+    if r["failed"]:
+        for what in r["failed"]:
+            print(f"{name}: FAILED: {what}", flush=True)
+        raise RuntimeError(f"{name}: {len(r['failed'])} checks failed")
+    print(f"{name}: passed in {time.perf_counter() - t0:.1f} s", flush=True)
+    return r
+
+
 def resume_run(ckpt_dir=None):
     """One run of the resume phase under torch.profiler (the faulted one
     where ``ckpt_dir`` is given): the Optimizer, the wrappers' counts and
@@ -2826,7 +2911,6 @@ def resume_run(ckpt_dir=None):
            .set_log_interval(RESUME_ITERS)
            .set_compute_dtype(torch.bfloat16)
            .set_iterations_per_dispatch(RESUME_K))
-    mark_capture_spans(opt)
     restored, fired = [], []
     if ckpt_dir is not None:
         opt.set_checkpoint(str(ckpt_dir), Trigger.every_epoch(), keep_n=2) \
@@ -2839,28 +2923,12 @@ def resume_run(ckpt_dir=None):
         opt._restore = recorded
         fired = chaos.install(fail_at_step=RESUME_FAIL_AT,
                               truncate_checkpoint=2).events
-    _zero_counts()
     try:
-        with traced() as prof:
-            t0 = time.perf_counter()
-            opt.optimize()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+        r = _traced_run(opt.optimize, opt)
     finally:
         chaos.reset()
-    events = device_events(prof)
-    marks = [i for i, e in enumerate(events) if MARKER in e.name]
-    # marker pairs (before, after) around each capture
-    spans = list(zip(marks[0::2], marks[1::2]))
-    ends = [b for b, _ in spans[1:]] + [len(events)]
-    warmups = [kernel_launches(events[b + 1:a]) for b, a in spans]
-    replays = [kernel_launches(events[a + 1:e])
-               for (_, a), e in zip(spans, ends)]
-    return dict(opt=opt, model=model, launches=_read_counts(),
-                routes=_read_routes(), restored=restored, fired=list(fired),
-                marks=len(marks), warmups=warmups, replays=replays,
-                replayed={n: sum(r[n] for r in replays)
-                          for n in KERNEL_EVENTS}, wall=wall)
+    return dict(r, opt=opt, model=model, restored=restored,
+                fired=list(fired))
 
 
 def resume_reading():
@@ -2958,31 +3026,400 @@ def phase_resume(smi):
     through a torn checkpoint, a failure and a retry: the faulted run must
     end where the uninterrupted one does, bit for bit, with #1-#3's
     replays counted on the device."""
-    t0 = time.perf_counter()
+    def report(r):
+        print(f"resume: {RESUME_EPOCHS} epochs of {RESUME_ITERS} in windows "
+              f"of {RESUME_K}: uninterrupted {r['clean_wall_s']:.3f} s, "
+              f"faulted {r['faulted_wall_s']:.3f} s; faults {r['fired']}; "
+              f"restored {r['restored']}; kept {r['kept']}; dispatch "
+              f"{r['dispatch']}; #1-#3 replayed on the device (faulted run) "
+              + ", ".join(f"{n} {r['replayed'][n]}" for n in DENSE_NAMES[:3])
+              + f"; parameters {'equal' if r['same_params'] else 'DIFFER'}, "
+              f"SGD state {'equal' if r['same_state'] else 'DIFFERS'} bit "
+              f"for bit; operations without a deterministic implementation: "
+              f"{r['nondeterministic'] or 'none'}")
+        print(f"resume: checkpoint {r['checkpoint_bytes']} bytes, write "
+              f"{r['write_ms']:.3f} ms (mean of {r['checkpoints_written']}), "
+              f"load {r['load_ms']:.3f} ms, on {smi}")
+    return _phase("resume", resume_reading, report)
+
+
+# ---------------------------------------------------------------------------
+# 13c-13e. remat, device prefetch and the asynchronous loss drain
+# ---------------------------------------------------------------------------
+
+def _steady_ms(opt) -> float:
+    """ms per iteration over the windows after the first (completion to
+    completion), as perf.run reads them."""
+    steady = opt.window_timings[1:]
+    return 1e3 * sum(dt for _, dt, _ in steady) / sum(n for n, _, _ in steady)
+
+
+def _trained(model):
+    """The model's parameters and buffers as a run left them."""
+    return dict(params=[p.detach().clone() for p in model.parameters()],
+                buffers=[b.detach().clone() for b in model.buffers()])
+
+
+def _same_run(a, b):
+    """Whether two runs' losses, parameters and buffers are equal bit for
+    bit."""
+    return a["opt"].loss_history == b["opt"].loss_history and all(
+        torch.equal(p, q) for key in ("params", "buffers")
+        for p, q in zip(a[key], b[key]))
+
+
+# the LM of phase 6 with dropout 0.1 after the attention and in the FFN
+# (the attention's own dropout stays off: it takes the materialised path,
+# which would leave #1-#3), 2 epochs of 4 distinct batches, eagerly
+# without and with remat and with remat in windows of 4 (graph replays)
+REMAT_ITERS, REMAT_EPOCHS, REMAT_K, REMAT_DROPOUT = 4, 2, 4, 0.1
+REMAT_RUNS = {"plain": (False, 1), "remat": (True, 1),
+              "remat_graph": (True, REMAT_K)}
+# #1-#3 a step: with remat the forward kernel runs again in each block's
+# recompute
+PLAIN_LAUNCHES = {n: LAYERS for n in DENSE_NAMES[:3]}
+REMAT_LAUNCHES = dict(PLAIN_LAUNCHES, flash_attention_fwd=2 * LAYERS)
+
+
+def remat_run(remat, k):
+    """One run of the remat phase under traced()."""
+    from bigdl_tpu_torch.dataset import DataSet, MiniBatch
+    from bigdl_tpu_torch.examples import perf
+    from bigdl_tpu_torch.optim import SGD, Optimizer, Trigger
+    args = perf.parse_args(TRAIN_ARGV + (["--remat"] if remat else []))
+    model, criterion, make_batch = perf.build(args.model, args)
+    for blk in model.lm.blocks:
+        blk.ffn_dropout = blk.ffn.relu_dropout = REMAT_DROPOUT
+    data = DataSet.array([MiniBatch(*make_batch(args.batch_size))
+                          for _ in range(REMAT_ITERS)],
+                         shuffle=False).cache_on_device(
+                             next(model.parameters()).device)
+    opt = (Optimizer(model, data, criterion, seed=0)
+           .set_optim_method(SGD(args.learning_rate, momentum=0.9,
+                                 dampening=0.0))
+           .set_end_when(Trigger.max_epoch(REMAT_EPOCHS))
+           .set_log_interval(REMAT_ITERS)
+           .set_compute_dtype(torch.bfloat16)
+           .set_iterations_per_dispatch(k))
+    return dict(_traced_run(opt.optimize, opt), **_trained(model), opt=opt)
+
+
+def remat_reading():
+    """The remat phase's three runs and its checks: returns the readings
+    and the list of checks that failed."""
+    failed = []
+
+    def check(ok, what):
+        if not ok:
+            failed.append(what)
+
+    with deterministic() as nondet:
+        runs = {label: remat_run(remat, k)
+                for label, (remat, k) in REMAT_RUNS.items()}
+    steps = REMAT_ITERS * REMAT_EPOCHS
+    losses = [x for _, x in runs["plain"]["opt"].loss_history]
+    check(len(losses) == steps and all(np.isfinite(losses)),
+          f"losses not finite or missing: {losses}")
+    check(_same_run(runs["plain"], runs["remat"]),
+          "remat eager is not plain eager bit for bit")
+    check(_same_run(runs["remat"], runs["remat_graph"]),
+          "remat in graph windows is not remat eager bit for bit")
+    # eager: the wrappers count every launch
+    for label, per_step in (("plain", PLAIN_LAUNCHES),
+                            ("remat", REMAT_LAUNCHES)):
+        r = runs[label]
+        check(r["marks"] == 0, f"{label}: {r['marks']} capture markers")
+        for name, n in per_step.items():
+            check(r["launches"][name] == n * steps,
+                  f"{label}: {name}'s wrapper counted {r['launches'][name]}"
+                  f" launches, not {n} x {steps} steps")
+            check(r["routes"][name] == {"tensor_core": n * steps,
+                                        "scalar": 0},
+                  f"{label}: {name} took the routes {r['routes'][name]}")
+    # graph: the wrappers count the warm-up step and the capture; the
+    # device events hold the warm-up step's launches between the markers
+    # and the replays' after them
+    g = runs["remat_graph"]
+    stats = {"single_steps": 0, "window_steps": steps, "captures": 1,
+             "replays": steps}
+    check(g["opt"].dispatch_stats == stats,
+          f"remat_graph dispatched {g['opt'].dispatch_stats}, not {stats}")
+    check(g["marks"] == 2, f"remat_graph: {g['marks']} capture markers, "
+          "not 2")
+    for name, n in REMAT_LAUNCHES.items():
+        check(g["launches"][name] == 2 * n,
+              f"remat_graph: {name}'s wrapper counted {g['launches'][name]}"
+              f" launches, not {2 * n} (warm-up step and capture)")
+        check(g["routes"][name] == {"tensor_core": 2 * n, "scalar": 0},
+              f"remat_graph: {name} took the routes {g['routes'][name]}")
+        check([w[name] for w in g["warmups"]] == [n],
+              f"remat_graph: {name} on the device in the warm-up step "
+              f"{[w[name] for w in g['warmups']]}, not [{n}]")
+        check(g["replayed"][name] == n * steps,
+              f"remat_graph: {name} on the device in the replays "
+              f"{g['replayed'][name]}, not {n} x {steps}")
+    return dict(failed=failed, nondeterministic=sorted(nondet), steps=steps,
+                runs={label: dict(ms=_steady_ms(r["opt"]), peak=r["peak"],
+                                  wall=r["wall"], launches=r["launches"],
+                                  replayed=r["replayed"])
+                      for label, r in runs.items()},
+                losses=losses)
+
+
+def phase_remat(smi):
+    """The LM at phase 6's width with dropout, eagerly without and with
+    remat and with remat in graph windows: all three bit for bit one run,
+    #1/#2/#3 at 12/6/6 launches a step with remat."""
+    def report(r):
+        for label, x in r["runs"].items():
+            print(f"remat: {label}: {x['ms']:.3f} ms/iteration (steady "
+                  f"windows, under torch.profiler), peak memory "
+                  f"{x['peak']} bytes, {r['steps']} steps in "
+                  f"{x['wall']:.3f} s; #1-#3 by the wrappers "
+                  + ", ".join(f"{n} {x['launches'][n]}"
+                              for n in DENSE_NAMES[:3])
+                  + "; in the replays on the device "
+                  + ", ".join(f"{n} {x['replayed'][n]}"
+                              for n in DENSE_NAMES[:3]))
+        print(f"remat: losses {r['losses']}; operations without a "
+              f"deterministic implementation: "
+              f"{r['nondeterministic'] or 'none'}; on {smi}")
+    return _phase("remat", remat_reading, report)
+
+
+# ResNet-50 of phase 9 on a host-resident dataset (not cached on the
+# card): 4 distinct batches as perf.build's image_batch makes them, for 3
+# epochs, eagerly, without device prefetch and with set_device_prefetch(2):
+# timed unprofiled in turns (off, on, on, off; torch.profiler's tracing of
+# two threads' CUDA calls slows the host), then profiled once each for the
+# device's busy time
+PREFETCH_ITERS, PREFETCH_EPOCHS, PREFETCH_AHEAD = 4, 3, 2
+PREFETCH_TURNS = (0, PREFETCH_AHEAD, PREFETCH_AHEAD, 0)
+PREFETCH_THREAD = "bigdl-device-prefetch"
+
+
+def prefetch_run(ahead, setup, profiled):
+    """One run of the prefetch phase from ``setup``'s initial weights over
+    its host batches (under traced() where ``profiled``), with the
+    batches its DevicePrefetch iterators staged and the producer threads
+    alive after it."""
+    import threading
+    from bigdl_tpu_torch.data.device_prefetch import DevicePrefetch
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.optim import SGD, Optimizer, Trigger
+    args, model, criterion, init, batches = setup
+    model.load_state_dict(init)
+    opt = (Optimizer(model, DataSet.array(batches, shuffle=False),
+                     criterion, seed=0)
+           .set_optim_method(SGD(args.learning_rate, momentum=0.9,
+                                 dampening=0.0))
+           .set_end_when(Trigger.max_epoch(PREFETCH_EPOCHS))
+           .set_log_interval(PREFETCH_ITERS)
+           .set_compute_dtype(torch.bfloat16)
+           .set_device_prefetch(ahead))
+    iters = []
+    apply = DevicePrefetch.apply
+
+    def recorded(self, it):
+        iters.append(apply(self, it))
+        return iters[-1]
+    DevicePrefetch.apply = recorded
     try:
-        r = resume_reading()
-    except Exception as e:
-        print(f"resume: FAILED: {type(e).__name__}: {e}", flush=True)
-        raise
-    print(f"resume: {RESUME_EPOCHS} epochs of {RESUME_ITERS} in windows of "
-          f"{RESUME_K}: uninterrupted {r['clean_wall_s']:.3f} s, faulted "
-          f"{r['faulted_wall_s']:.3f} s; faults {r['fired']}; restored "
-          f"{r['restored']}; kept {r['kept']}; dispatch {r['dispatch']}; "
-          f"#1-#3 replayed on the device (faulted run) "
-          + ", ".join(f"{n} {r['replayed'][n]}" for n in DENSE_NAMES[:3])
-          + f"; parameters {'equal' if r['same_params'] else 'DIFFER'}, "
-          f"SGD state {'equal' if r['same_state'] else 'DIFFERS'} bit for "
-          f"bit; operations without a deterministic implementation: "
-          f"{r['nondeterministic'] or 'none'}")
-    print(f"resume: checkpoint {r['checkpoint_bytes']} bytes, write "
-          f"{r['write_ms']:.3f} ms (mean of {r['checkpoints_written']}), "
-          f"load {r['load_ms']:.3f} ms, on {smi}")
-    if r["failed"]:
-        for what in r["failed"]:
-            print(f"resume: FAILED: {what}", flush=True)
-        raise RuntimeError(f"resume: {len(r['failed'])} checks failed")
-    print(f"resume: passed in {time.perf_counter() - t0:.1f} s")
-    return r
+        r = (_traced_run(opt.optimize, opt) if profiled
+             else _untraced_run(opt.optimize))
+    finally:
+        DevicePrefetch.apply = apply
+    return dict(r, **_trained(model), opt=opt, ahead=ahead,
+                ms=_steady_ms(opt),
+                staged=sum(i.staged_total for i in iters),
+                alive=[t.name for t in threading.enumerate()
+                       if t.name == PREFETCH_THREAD and t.is_alive()])
+
+
+def prefetch_reading():
+    from bigdl_tpu_torch.dataset import MiniBatch
+    from bigdl_tpu_torch.examples import perf
+    failed = []
+
+    def check(ok, what):
+        if not ok:
+            failed.append(what)
+
+    # one model, put back to its initial weights before each run
+    args = perf.parse_args(RESNET_ARGV)
+    model, criterion, make_batch = perf.build(args.model, args)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    batches = [MiniBatch(*make_batch(args.batch_size))
+               for _ in range(PREFETCH_ITERS)]
+    setup = (args, model, criterion, init, batches)
+    with deterministic() as nondet:
+        timed = [prefetch_run(a, setup, False) for a in PREFETCH_TURNS]
+        profiled = {label: prefetch_run(a, setup, True)
+                    for label, a in (("off", 0), ("on", PREFETCH_AHEAD))}
+    steps = PREFETCH_ITERS * PREFETCH_EPOCHS
+    runs = [*timed, *profiled.values()]
+    check(all(_same_run(runs[0], r) for r in runs[1:]),
+          "the runs with device prefetch are not the runs without it bit "
+          "for bit")
+    for i, r in enumerate(runs):
+        label = f"run {i} (n_ahead {r['ahead']})"
+        check(r["staged"] == (steps if r["ahead"] else 0),
+              f"{label}: staged {r['staged']} batches")
+        check(not r["alive"], f"{label}: {r['alive']} alive after "
+              "optimize()")
+        want = {n: RESNET_LAUNCHES.get(n, 0) * steps for n in r["launches"]}
+        check(r["launches"] == want,
+              f"{label}: launches {r['launches']} != {want}")
+        for name in TC_CONV:
+            check(r["routes"][name] == {"tensor_core": want[name],
+                                        "scalar": 0},
+                  f"{label}: {name} took the routes {r['routes'][name]}")
+    losses = [x for _, x in runs[0]["opt"].loss_history]
+    check(len(losses) == steps and all(np.isfinite(losses)),
+          f"losses not finite or missing: {losses}")
+    step_bytes = sum(b.get_input().nbytes + b.get_target().nbytes
+                     for b in batches) // len(batches)
+    return dict(failed=failed, nondeterministic=sorted(nondet), steps=steps,
+                step_bytes=step_bytes,
+                runs={label: dict(
+                    ms=[r["ms"] for r in timed if r["ahead"] == p["ahead"]],
+                    peak=p["peak"], staged=p["staged"],
+                    busy_ms=p["busy_us"] / steps / 1e3,
+                    copy_ms=p["copy_us"] / steps / 1e3)
+                    for label, p in profiled.items()},
+                launches=profiled["on"]["launches"])
+
+
+def phase_prefetch(smi):
+    """ResNet-50 on host-resident batches, without and with device
+    prefetch: the same run bit for bit, the batches staged ahead, #8-#11
+    at 32/32/13/13 a step, no producer thread left."""
+    def report(r):
+        for label, x in r["runs"].items():
+            ms = float(np.mean(x["ms"]))
+            print(f"prefetch: {label}: {r['step_bytes']} bytes staged a "
+                  f"step; {' and '.join(f'{m:.3f}' for m in x['ms'])} "
+                  f"ms/iteration (steady windows, the first excluded, "
+                  f"unprofiled, in turns off, on, on, off); device busy "
+                  f"{x['busy_ms']:.3f} ms a step (torch.profiler over a "
+                  f"run of its own: kernels, the dataset's copies apart: "
+                  f"{x['copy_ms']:.3f} ms of host-to-device copies a step), "
+                  f"idle share {1 - x['busy_ms'] / ms:.3f} of the mean "
+                  f"{ms:.3f} ms; {x['staged']} batches staged ahead; peak "
+                  f"memory {x['peak']} bytes")
+        print(f"prefetch: operations without a deterministic "
+              f"implementation: {r['nondeterministic'] or 'none'}; on {smi}")
+    return _phase("prefetch", prefetch_reading, report)
+
+
+# LeNet-5 of phase 12 (b256, f32, eager), 2 epochs of 50 with every loss
+# read: asynchronously (no trigger reads the loss) and synchronously
+# (end_when OR'ed with a min_loss trigger that never fires), timed
+# unprofiled in turns (async, sync, sync, async), then profiled once each
+DRAIN_EPOCHS, DRAIN_THREAD = 2, "bigdl-loss-drain"
+DRAIN_TURNS = (False, True, True, False)
+
+
+def drain_run(sync, profiled):
+    """One run of the drain phase (under traced() where ``profiled``),
+    with the threads that logged its losses and the drain threads alive
+    after it."""
+    import logging
+    import threading
+    from bigdl_tpu_torch.examples import perf
+    from bigdl_tpu_torch.optim import Trigger
+    args = perf.parse_args(LENET_ARGV + ["--epochs", str(DRAIN_EPOCHS)])
+    model, criterion, make_batch = perf.build(args.model, args)
+    readers = set()
+
+    class Readers(logging.Handler):
+        def emit(self, record):
+            if str(record.msg).startswith("Epoch %d %d/%d]"):
+                readers.add(record.threadName)
+
+    def configure(opt):
+        opt.set_log_interval(1)
+        if sync:
+            opt.set_end_when(Trigger.or_(opt.end_when,
+                                         Trigger.min_loss(-1.0)))
+    out = {}
+
+    def run():
+        out["result"], out["opt"] = perf.run(args, model, criterion,
+                                             make_batch, configure=configure)
+    logger = logging.getLogger("bigdl_tpu_torch.optim")
+    handler, level = Readers(), logger.level
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    try:
+        r = _traced_run(run) if profiled else _untraced_run(run)
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+    return dict(r, **_trained(model), opt=out["opt"],
+                ms=out["result"]["ms_per_iteration"], sync=sync,
+                readers=readers,
+                alive=[t.name for t in threading.enumerate()
+                       if t.name == DRAIN_THREAD and t.is_alive()])
+
+
+def drain_reading():
+    failed = []
+
+    def check(ok, what):
+        if not ok:
+            failed.append(what)
+
+    with deterministic() as nondet:
+        timed = [drain_run(sync, False) for sync in DRAIN_TURNS]
+        profiled = {label: drain_run(sync, True)
+                    for label, sync in (("async", False), ("sync", True))}
+    runs = [*timed, *profiled.values()]
+    steps = runs[0]["opt"].state["neval"] - 1
+    check(all(_same_run(runs[0], r) for r in runs[1:]),
+          "the async runs are not the sync runs bit for bit")
+    check(all(r["opt"].dispatch_stats == runs[0]["opt"].dispatch_stats
+              for r in runs),
+          f"dispatch_stats differ: {[r['opt'].dispatch_stats for r in runs]}")
+    for i, r in enumerate(runs):
+        label = f"run {i} ({'sync' if r['sync'] else 'async'})"
+        if r["sync"]:
+            check(DRAIN_THREAD not in r["readers"],
+                  f"{label}: the losses were read on {r['readers']}")
+        else:
+            check(r["readers"] == {DRAIN_THREAD},
+                  f"{label}: the losses were read on {r['readers']}")
+        check(len(r["opt"].window_timings) == steps == 100,
+              f"{label}: {len(r['opt'].window_timings)} window timings "
+              f"over {steps} steps, not 100")
+        check(not r["alive"], f"{label}: {r['alive']} alive after "
+              "optimize()")
+    return dict(failed=failed, nondeterministic=sorted(nondet), steps=steps,
+                runs={label: dict(
+                    ms=[r["ms"] for r in timed if r["sync"] == p["sync"]],
+                    busy_ms=p["busy_us"] / steps / 1e3,
+                    readers=sorted(p["readers"]),
+                    dispatch=p["opt"].dispatch_stats)
+                    for label, p in profiled.items()})
+
+
+def phase_drain(smi):
+    """LeNet-5 with every loss read, asynchronously on the drain thread and
+    synchronously: the same run bit for bit, 100 window timings each, no
+    drain thread left."""
+    def report(r):
+        for label, x in r["runs"].items():
+            ms = float(np.mean(x["ms"]))
+            print(f"drain: {label}: {' and '.join(str(m) for m in x['ms'])} "
+                  f"ms/iteration (steady windows, unprofiled, in turns "
+                  f"async, sync, sync, async); device busy "
+                  f"{x['busy_ms']:.3f} ms a step (torch.profiler over a run "
+                  f"of its own), idle share {1 - x['busy_ms'] / ms:.3f} of "
+                  f"the mean {ms:.3f} ms; losses read on {x['readers']}; "
+                  f"dispatch {x['dispatch']}")
+        print(f"drain: operations without a deterministic implementation: "
+              f"{r['nondeterministic'] or 'none'}; on {smi}")
+    return _phase("drain", drain_reading, report)
 
 
 def _kernel_entry(name, source, replaces, launches, row):
@@ -3050,12 +3487,18 @@ def main() -> int:
     phase_lenet()
     dispatch = phase_dispatch()
     resume = phase_resume(smi)
+    remat = phase_remat(smi)
+    prefetch = phase_prefetch(smi)
+    phase_drain(smi)
     # the replays' launches, from the graph runs' device events
     replayed = {**{path: r["replayed"] for path, r in dispatch.items()},
-                "resume": resume["replayed"]}
+                "resume": resume["replayed"],
+                "lm_remat": remat["runs"]["remat_graph"]["replayed"]}
     by_path = {"serving": serving, "lm_training": train["launches"],
                "sp_training": sp["launches"],
                "resnet_training": resnet["launches"],
+               "lm_remat_training": remat["runs"]["remat"]["launches"],
+               "resnet_prefetch_training": prefetch["launches"],
                **{f"{path}_graph_replays": r for path, r in replayed.items()}}
 
     def paths(name):

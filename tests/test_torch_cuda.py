@@ -37,6 +37,8 @@ bfloat16 outputs within one bf16 ulp of the plain version's entry (or
 both f32 sums' own rounding), with at most 1% of the entries differing;
 the statistics within 1e-5 of sum |y - K| and of sum (y - K)^2, summed
 from the kernel's own y.
+``DevicePrefetch`` copies batches on its producer's own stream; each batch
+the step reads behind a long kernel holds what the host held, exactly.
 """
 
 import numpy as np
@@ -45,6 +47,7 @@ import torch
 
 import chip_smoke
 
+from bigdl_tpu_torch.data import DevicePrefetch
 from bigdl_tpu_torch.dataset import DataSet, MiniBatch
 from bigdl_tpu_torch.examples.perf import FlatLM
 from bigdl_tpu_torch.models import TransformerLM
@@ -914,3 +917,27 @@ def test_fused_bottleneck_on_the_card_matches_the_cpu(cuda):
     for name in host[3]:
         torch.testing.assert_close(card[3][name], host[3][name], rtol=1e-4,
                                    atol=1e-5, msg=name)
+
+
+def test_device_prefetch_hands_over_what_the_step_reads(cuda):
+    """The producer copies on a stream of its own; the step reads each
+    batch behind a long kernel, after its reference is dropped.  Without
+    the consumer's wait on the copy's event, or without ``record_stream``
+    (the allocator would hand the block back to the copy stream for a
+    later batch before the step read it), the sums would differ."""
+    batches = [MiniBatch(np.full((512, 1024), i, np.float32),
+                         np.arange(512)) for i in range(12)]
+    it = DevicePrefetch(2, device=cuda).apply(iter(batches))
+    sums, streams = [], set()
+    for b in it:
+        x = b.get_input()
+        assert x.is_cuda and b.get_target().is_cuda
+        torch.cuda._sleep(2_000_000)   # the step still runs
+        sums.append(x.sum(dtype=torch.float64))
+        streams.add(torch.cuda.current_stream().cuda_stream)
+        del b, x
+    torch.cuda.synchronize()
+    assert [float(s) for s in sums] == [512 * 1024 * i for i in range(12)]
+    assert it.staged_total == 12
+    assert it.copy_stream is not None
+    assert it.copy_stream.cuda_stream not in streams

@@ -11,7 +11,9 @@ Deterministic algorithms are on for both runs (the embedding's backward otherwis
 with atomics).  Every test needs an NVIDIA GPU and skips without one;
 the file imports no JAX.  A crash in a window, retried from a
 checkpoint, captures afresh and ends on the uninterrupted run bit for
-bit:
+bit.  ``TransformerLM(remat=True)`` with dropout in windows equals its
+eager run, and the plain LM's, bit for bit (the recomputes replay their
+masks from twin generators registered with the graph):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_graph.py
 """
@@ -160,13 +162,17 @@ def test_mlp_graph_step_equals_the_eager_step(cuda, p):
         assert len({x for _, x in graph[1].loss_history}) == 8
 
 
-def _lm(device, seq_parallel=False):
+def _lm(device, seq_parallel=False, remat=False, dropout=0.0):
     def make():
         lm = TransformerLM(64, hidden_size=64, num_layers=2, num_heads=4,
-                           filter_size=128, max_len=128,
-                           padded_inputs=False,
+                           filter_size=128, max_len=128, dropout=dropout,
+                           padded_inputs=False, remat=remat,
                            generator=torch.Generator().manual_seed(0),
                            device=device)
+        for blk in lm.blocks:
+            # attention dropout takes the materialised path (and the ring
+            # refuses it): the residual and FFN dropouts are replayed
+            blk.self_attn.attention_dropout = 0.0
         if seq_parallel:
             from bigdl_tpu_torch.parallel import make_mesh
             lm.set_sequence_parallel(make_mesh({"seq": 4}, ["cuda"] * 4))
@@ -191,6 +197,30 @@ def test_lm_graph_step_replays_the_attention_kernels(cuda, seq_parallel):
     for name in names:
         n, routes = eager[2][name]
         assert n == per_step * 6 and routes["tensor_core"] == n, name
+
+
+@pytest.mark.parametrize("seq_parallel", [False, True])
+def test_remat_lm_in_windows_equals_remat_eager_with_dropout(cuda,
+                                                             seq_parallel):
+    rng = np.random.default_rng(7)
+    batches = [(rng.integers(1, 65, (2, 128)), rng.integers(1, 65, (256,)))
+               for _ in range(3)]
+    kw = dict(criterion=pnn.CrossEntropyCriterion(), dtype=torch.bfloat16)
+    plain = _train(_lm(cuda, seq_parallel, dropout=0.1), batches, 1, **kw)
+    eager = _train(_lm(cuda, seq_parallel, True, 0.1), batches, 1, **kw)
+    graph = _train(_lm(cuda, seq_parallel, True, 0.1), batches, 3, **kw)
+    _assert_same_run(eager, graph, 6, 3)
+    assert plain[1].loss_history == eager[1].loss_history
+    for p, q in zip(plain[0].parameters(), eager[0].parameters()):
+        assert torch.equal(p, q)
+    # the dropout stream differs from step to step
+    assert len({x for _, x in graph[1].loss_history}) == 6
+    # the forward kernel runs again in each block's recompute
+    fwd, dq = (("flash_attention_partial", "flash_attention_dq_partial")
+               if seq_parallel else
+               ("flash_attention_fwd", "flash_attention_dq"))
+    assert eager[2][fwd][0] == 2 * plain[2][fwd][0] > 0
+    assert eager[2][dq][0] == plain[2][dq][0] > 0
 
 
 def test_fused_resnet_graph_step_replays_the_conv_kernels(cuda):

@@ -61,7 +61,9 @@ def test_port_and_chip_smoke_import_no_jax():
                  "bigdl_tpu_torch.optim.metrics",
                  "bigdl_tpu_torch.optim.regularizer",
                  "bigdl_tpu_torch.utils.file", "bigdl_tpu_torch.utils.chaos",
-                 "bigdl_tpu_torch.data.pipeline"):
+                 "bigdl_tpu_torch.data.pipeline",
+                 "bigdl_tpu_torch.data.device_prefetch",
+                 "bigdl_tpu_torch.dataset.prefetch"):
         assert name in {m.name for m in pkgutil.walk_packages(
             bigdl_tpu_torch.__path__, "bigdl_tpu_torch.")}
     assert leaked == "[]", leaked

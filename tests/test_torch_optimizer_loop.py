@@ -468,12 +468,14 @@ def test_window_with_dropout_reseeds_each_step():
         assert Drop().train()(torch.ones(100)).eq(0).any()
 
 
-def test_setters_of_the_second_half_raise_naming_item_4():
+def test_setters_of_the_second_half_chain():
     _, port = _pair()
     opt = Optimizer(port, _pipeline("port"), pnn.ClassNLLCriterion())
-    with pytest.raises(NotImplementedError, match="item 4"):
-        opt.set_device_prefetch(None)
-    # checkpoint, resume and retry are ported: the setters chain
+    assert opt.set_device_prefetch(2) is opt
+    assert opt.device_prefetch_ahead == 2
+    assert opt.set_device_prefetch(0).device_prefetch_ahead is None
+    with pytest.raises(ValueError, match="n_ahead"):
+        opt.set_device_prefetch(-1)
     assert opt.set_checkpoint("ckpt", Trigger.every_epoch()) is opt
     assert opt.resume("ckpt/checkpoint.npz") is opt
     assert opt.set_failure_retry(2) is opt

@@ -39,7 +39,7 @@ from bigdl_tpu_torch.examples import perf
 from bigdl_tpu_torch.examples.perf import FlatLM
 from bigdl_tpu_torch.interop import flatten_jax_parameters, \
     load_jax_parameters
-from bigdl_tpu_torch.models import TransformerLM, transformer_lm
+from bigdl_tpu_torch.models import transformer_lm
 from bigdl_tpu_torch.nn import attention as port_attention
 from bigdl_tpu_torch.nn.criterion import ClassNLLCriterion, \
     CrossEntropyCriterion
@@ -269,7 +269,7 @@ def test_optimizer_refuses_what_the_slice_does_not_port():
     opt = Optimizer(model, DataSet.array([], shuffle=False),
                     CrossEntropyCriterion())
     for name in ("set_mesh", "set_partition_plan", "set_health_watchdog",
-                 "set_device_prefetch", "set_train_summary"):
+                 "set_train_summary"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             getattr(opt, name)(None)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -282,9 +282,6 @@ def test_optimizer_refuses_what_the_slice_does_not_port():
         opt.set_compute_dtype(torch.float16)
     with pytest.raises(ValueError, match="no batches"):
         opt.optimize()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TransformerLM(**LM_CFG, remat=True, generator=torch.Generator(),
-                      device="cpu")
 
 
 def test_min_loss_trigger_reads_every_loss():
@@ -329,7 +326,6 @@ def test_perf_cli_trains_and_reports_the_reference_keys(capsys):
     (["--model", "inception-v1"], "model zoo"),
     (["--generate", "4"], "--generate"),
     (["--int8-infer"], "--int8-infer"),
-    (["--remat"], "remat"),
 ])
 def test_perf_cli_refuses_other_models_and_modes(extra, match):
     with pytest.raises(NotImplementedError, match=match):
