@@ -1,5 +1,6 @@
 """Generation serving of the port (counterpart of ``bigdl_tpu.serving``):
-admission, bucketing, the continuous-batching engine and the server."""
+admission, bucketing, the continuous-batching engine with its prefix KV
+cache, the disaggregated prefill/decode engine and the server."""
 
 from bigdl_tpu_torch.serving.admission import (  # noqa: F401
     BoundedRequestQueue, QueueFullError, RequestSheddedError,
@@ -8,8 +9,14 @@ from bigdl_tpu_torch.serving.admission import (  # noqa: F401
 from bigdl_tpu_torch.serving.batching import bucket_sizes, pick_bucket  # noqa: F401
 from bigdl_tpu_torch.serving.generation import (  # noqa: F401
     GenerationRequest, GenerationScheduler, SlotPool, run_mixed_workload,
+    run_shared_prefix_workload,
+)
+from bigdl_tpu_torch.serving.prefix_cache import (  # noqa: F401
+    PrefixChunk, PrefixKVCache,
 )
 from bigdl_tpu_torch.serving.reliability import (  # noqa: F401
-    Deadline, ReplicaDeadError, RequestCancelledError,
+    Deadline, DeadlineExceededError, ReplicaDeadError,
+    RequestCancelledError, deadline_error,
 )
+from bigdl_tpu_torch.serving.replica import DisaggregatedEngine  # noqa: F401
 from bigdl_tpu_torch.serving.server import ModelServer  # noqa: F401

@@ -1,6 +1,6 @@
 """Continuous batching for generation: iteration-level scheduling over a
-fixed-shape KV slot pool, with chunked prefill (counterpart of
-``bigdl_tpu/serving/generation.py``).
+fixed-shape KV slot pool, with prefix KV-cache reuse and chunked prefill
+(counterpart of ``bigdl_tpu/serving/generation.py``).
 
 * a **slot pool** of S fixed KV-cache rows, one ``max_len`` row per slot;
 * one **pooled decode step** advances every active slot by one token per
@@ -13,28 +13,39 @@ fixed-shape KV slot pool, with chunked prefill (counterpart of
   donates them through each jitted update;
 * **prefill** is batched by power-of-two prompt-length buckets at a fixed
   prefill batch width, and the compact per-layer K/V rows are written
-  into free slots; longer prompts are prefilled in fixed-width chunks
-  (``TransformerLM.prefill_chunk``), at most ``prefill_chunk_budget``
-  chunk calls between decode steps, so a long prompt does not freeze the
-  token cadence of co-resident streams.  The final partial chunk is
-  suffix-aligned, so it writes only real tokens.
+  into free slots; longer prompts, and every suffix after a prefix-cache
+  hit, are prefilled in fixed-width chunks (``TransformerLM.
+  prefill_chunk``), at most ``prefill_chunk_budget`` chunk calls between
+  decode steps, so a long prompt does not freeze the token cadence of
+  co-resident streams.  The final partial chunk is suffix-aligned, so it
+  writes only real tokens;
+* a **prefix KV cache** (``prefix_cache.py``): prefill K/V are cached at
+  a fixed granularity keyed by the full token prefix; on admit the
+  longest cached chain is copied into the slot row on the device and
+  only the suffix is prefilled.  With the cache on, prefill is
+  single-flight per chunk: identical cold prompts admitted together
+  prefill once, the others park as followers and copy the result.
 
 Decode readback is **pipelined**: the per-slot token/position/active
 feed lives on the device and the step advances it there, so the engine
-dispatches step N+1 before reading step N's tokens.  Reading a step's
-tokens (``.cpu()``) is the only host sync of the decode loop.
+dispatches step N+1 before reading step N.  Reading a step's tokens
+(``.cpu()``) is the only host sync of the decode loop.  An eviction (a
+cancel, a deadline) folds the in-flight step's emit only into slots that
+were active at its dispatch; a kill reads the in-flight step before the
+engine thread exits.
 
 Greedy rows equal a solo ``model.generate()`` of the same prompt: a slot
 position is always written before it is read, bucket padding and stale
-cache slots are masked exactly (a masked key adds 0.0 to every sum), and
-the attention kernel's fixed tiles make a row's attention independent of
-the rows that share its launch.  On the card the projections go to
+cache slots are masked exactly (a masked key adds 0.0 to every sum), the
+attention kernel's fixed tiles make a row's attention independent of the
+rows that share its launch, and a cache hit copies K/V extracted from an
+identical (prefix, position) prefill.  On the card the projections go to
 ``torch.matmul``, whose kernels may vary with the number of rows, so
 there the equality can break at a near-tie.
 
-Not ported yet: the prefix KV cache and prefill dedup, ``role="prefill"``,
-deadlines, ``kill`` and telemetry.  The constructor and the request
-raise NotImplementedError for them rather than ignoring them.
+Not ported yet: telemetry and request tracing (ROADMAP queue 1, item
+10).  A request that carries ``trace=`` raises NotImplementedError
+rather than being served untraced.
 """
 
 from __future__ import annotations
@@ -54,32 +65,37 @@ import torch
 from bigdl_tpu_torch.core.device import resolve_device
 from bigdl_tpu_torch.serving.admission import BoundedRequestQueue
 from bigdl_tpu_torch.serving.batching import bucket_sizes, pick_bucket
-from bigdl_tpu_torch.serving.reliability import RequestCancelledError
+from bigdl_tpu_torch.serving.prefix_cache import PrefixKVCache
+from bigdl_tpu_torch.serving.reliability import (
+    Deadline, ReplicaDeadError, RequestCancelledError,
+)
 
 __all__ = ["GenerationRequest", "SlotPool", "GenerationScheduler",
-           "run_mixed_workload"]
+           "run_mixed_workload", "run_shared_prefix_workload"]
 
 logger = logging.getLogger(__name__)
 
 
 class GenerationRequest:
-    """One generation request: prompt, decode budget and its completion
-    future.  Duck-types the admission queue's item (``future``,
-    ``t_enqueue``)."""
+    """One generation request: prompt, decode budget, optional deadline
+    and its completion future.  Duck-types the admission queue's item
+    (``future``, ``t_enqueue``)."""
 
     __slots__ = ("prompt", "max_new_tokens", "eos_id", "on_token",
-                 "future", "t_enqueue")
+                 "future", "t_enqueue", "deadline")
 
     def __init__(self, prompt, max_new_tokens: int, eos_id=None,
                  on_token: Optional[Callable[[int], None]] = None,
-                 deadline=None):
-        if deadline is not None:
+                 deadline: Optional[Deadline] = None, trace=None):
+        if trace is not None:
             raise NotImplementedError(
-                "request deadlines are not ported yet")
+                "request tracing (trace=) is not ported yet: it belongs "
+                "to telemetry, ROADMAP queue 1, item 10")
         self.prompt = np.asarray(prompt, np.int32).reshape(-1)
         self.max_new_tokens = int(max_new_tokens)
         self.eos_id = eos_id
         self.on_token = on_token
+        self.deadline = deadline
         self.future: Future = Future()
         self.t_enqueue = time.perf_counter()
 
@@ -91,8 +107,8 @@ class SlotPool:
     on the device so decode steps chain without a host round-trip, and
     the mirrors are pushed only when needed (``_dirty``)."""
 
-    def __init__(self, model, slots: int, prefill_batch: int = 4,
-                 device=None):
+    def __init__(self, model, slots: int, dtype=None,
+                 prefill_batch: int = 4, device=None):
         if getattr(model, "seq_parallel", False):
             raise ValueError(
                 "sequence-parallel models cannot serve from a slot pool "
@@ -114,9 +130,24 @@ class SlotPool:
         self.model = copy.deepcopy(model).eval().to(self.device)
         self.model.requires_grad_(False)
         self.slots = int(slots)
+        # the KV cache's dtype (the reference's ``dtype=``)
+        self.dtype = torch.float32 if dtype is None else dtype
+        compute = next(self.model.parameters()).dtype
+        if self.device.type == "cuda" and self.dtype != compute:
+            # the attention kernel takes q, k and v of one dtype; the
+            # plain version the CPU runs rounds P to the cache's dtype
+            # as the reference's XLA attention does
+            raise NotImplementedError(
+                f"a {self.dtype} KV cache under a {compute} model runs on "
+                f"the CPU only: the flash-attention kernel takes q, k and "
+                f"v of one dtype")
         self.prefill_batch = max(1, int(prefill_batch))
         self.max_len = int(model.max_len)
-        self.caches = self.model.init_cache(self.slots)
+        self.caches = self.model.init_cache(self.slots, self.dtype)
+        # prefix-cache copies and extracts by width (the reference's
+        # trace_counts["kv_copy"/"kv_extract"], counted per call here)
+        self.counts: Dict[str, Dict[int, int]] = {"kv_copy": {},
+                                                  "kv_extract": {}}
         self.tok = np.zeros((self.slots,), np.int32)
         self.index = np.zeros((self.slots,), np.int32)
         self.active = np.zeros((self.slots,), bool)
@@ -201,8 +232,9 @@ class SlotPool:
             # torch indexing would fail on (or write) such a lane
             ids = torch.as_tensor(list(slot_ids), device=self.device)
             for kv, cache in zip(layers_kv, self.caches["layers"]):
-                cache["self"]["k"][ids, :, :t] = kv["k"][:n]
-                cache["self"]["v"][ids, :, :t] = kv["v"][:n]
+                k, v = cache["self"]["k"], cache["self"]["v"]
+                k[ids, :, :t] = kv["k"][:n].to(k.dtype)
+                v[ids, :, :t] = kv["v"][:n].to(v.dtype)
             self.caches["pad"][ids, :t] = pads[:n]
         for p, s in zip(prompts, slot_ids):
             # decode resumes from the last REAL prompt token at its true
@@ -217,6 +249,36 @@ class SlotPool:
         ``index``."""
         self.model.prefill_chunk(np.asarray(toks, np.int64)[None],
                                  int(index), self.caches, slot=int(slot))
+
+    def kv_copy_into(self, slot: int, layers_kv: Sequence[Dict], pad,
+                     index: int) -> None:
+        """Write one cached chunk (per-layer ``{"k", "v"}`` of ``[heads,
+        G, head_dim]`` and its ``[G]`` pad flags) into ``slot``'s row at
+        positions ``[index, index+G)``, in place."""
+        g = int(pad.shape[0])
+        for kv, cache in zip(layers_kv, self.caches["layers"]):
+            k, v = cache["self"]["k"], cache["self"]["v"]
+            k[slot, :, index:index + g] = kv["k"].to(k.dtype)
+            v[slot, :, index:index + g] = kv["v"].to(v.dtype)
+        self.caches["pad"][slot, index:index + g] = pad
+        self.counts["kv_copy"][g] = self.counts["kv_copy"].get(g, 0) + 1
+
+    def kv_extract(self, slot: int, index: int, width: int):
+        """``width`` positions of ``slot``'s K/V row from ``index``:
+        per-layer ``{"k", "v"}`` of ``[heads, width, head_dim]`` and the
+        ``[width]`` pad flags, as COPIES.  The pool is written in place
+        by every later occupant of the slot (where the reference's
+        ``dynamic_slice`` made a new array), so a view would turn a
+        cached chunk into whatever the next request writes there."""
+        end = index + width
+        fresh = dict(memory_format=torch.contiguous_format)
+        layers = [{"k": c["self"]["k"][slot, :, index:end].clone(**fresh),
+                   "v": c["self"]["v"][slot, :, index:end].clone(**fresh)}
+                  for c in self.caches["layers"]]
+        pad = self.caches["pad"][slot, index:end].clone(**fresh)
+        self.counts["kv_extract"][width] = \
+            self.counts["kv_extract"].get(width, 0) + 1
+        return layers, pad
 
     # -- decode (pipelined dispatch/readback) -------------------------------
 
@@ -295,10 +357,11 @@ class _StepHandle:
 
 
 class _ActiveSlot:
-    """Host bookkeeping for one occupied slot (prefilling or decoding)."""
+    """Host bookkeeping for one occupied slot (prefilling, parked as a
+    dedup follower, or decoding)."""
 
     __slots__ = ("req", "emitted", "t_first", "t_last", "eos_id", "slot",
-                 "phase", "next_pos", "end_pos")
+                 "phase", "next_pos", "end_pos", "was_follower")
 
     def __init__(self, req: GenerationRequest, eos_id, slot: int):
         self.req = req
@@ -310,6 +373,7 @@ class _ActiveSlot:
         self.phase = "prefill"
         self.next_pos = 0                            # next prefill position
         self.end_pos = max(len(req.prompt) - 1, 0)   # prefill covers [0, end)
+        self.was_follower = False                    # dedup counted once
 
 
 class _Reservoir:
@@ -345,11 +409,30 @@ class GenerationScheduler:
     through a :class:`BoundedRequestQueue` (block / reject / shed_oldest).
 
     Prompts whose whole prefill fits one chunk (``len(prompt) <=
-    prefill_chunk``) go through the bucketed batch prefill; longer ones
-    are prefilled in ``prefill_chunk``-wide chunks.  While any slot is
+    prefill_chunk``) and hit no cached prefix go through the bucketed
+    batch prefill; longer ones, and every suffix after a cache hit, are
+    prefilled in ``prefill_chunk``-wide chunks.  While any slot is
     decoding, at most ``prefill_chunk_budget`` prefill calls run per
     engine iteration; with nothing decoding, prefill drains at full
     speed.
+
+    ``prefix_cache_bytes`` (None = off) turns on the prefix KV cache at
+    ``prefix_granularity``-token chunks under an LRU byte budget;
+    ``prefix_cache=`` shares an existing :class:`PrefixKVCache` instead,
+    which is how the disaggregated split hands K/V from a prefill engine
+    to a decode engine (``serving.replica.DisaggregatedEngine``).  With a
+    cache, prefill is single-flight per chunk: the first request needing
+    an uncached chunk claims it (the leader); requests needing a chunk
+    that is being prefilled park as followers and re-match once its
+    insert lands (``stats()``: ``prefill_dedup_leaders`` /
+    ``prefill_dedup_followers``).
+
+    ``role="prefill"`` builds a prefill-only engine: a request's prompt
+    is prefilled and its K/V published through the (mandatory) cache,
+    then its future resolves to the prompt without a decoded token; such
+    requests may pass ``max_new_tokens=0``.
+
+    ``dtype`` is the KV cache's dtype (default float32).
 
     >>> engine = GenerationScheduler(lm, slots=8)
     >>> fut = engine.submit_async([5, 9, 2], max_new_tokens=16)
@@ -360,22 +443,18 @@ class GenerationScheduler:
     def __init__(self, model, slots: int = 8, *,
                  queue_capacity: Optional[int] = None,
                  admission: str = "block",
-                 prefill_batch: int = 4,
+                 prefill_batch: int = 4, dtype=None,
                  eos_id=None, start: bool = True,
                  prefill_chunk: int = 64,
                  prefill_chunk_budget: int = 1,
                  prefix_cache_bytes: Optional[int] = None,
-                 prefix_cache=None,
+                 prefix_granularity: int = 32,
+                 prefix_cache: Optional[PrefixKVCache] = None,
                  role: str = "mixed",
                  device=None):
-        if prefix_cache_bytes or prefix_cache is not None:
-            raise NotImplementedError(
-                "the prefix KV cache is not ported yet")
-        if role == "prefill":
-            raise NotImplementedError(
-                "prefill-role engines are not ported yet")
-        if role != "mixed":
-            raise ValueError(f"role must be 'mixed', got {role!r}")
+        if role not in ("mixed", "prefill"):
+            raise ValueError(
+                f"role must be 'mixed' or 'prefill', got {role!r}")
         if prefill_chunk < 2:
             raise ValueError(
                 f"prefill_chunk must be >= 2, got {prefill_chunk}")
@@ -383,8 +462,21 @@ class GenerationScheduler:
             raise ValueError(
                 f"prefill_chunk_budget must be >= 1, got "
                 f"{prefill_chunk_budget}")
-        self.pool = SlotPool(model, slots, prefill_batch=prefill_batch,
-                             device=device)
+        if prefix_cache is not None:
+            self._prefix_cache = prefix_cache
+        else:
+            self._prefix_cache = (
+                None if not prefix_cache_bytes
+                else PrefixKVCache(int(prefix_cache_bytes),
+                                   int(prefix_granularity)))
+        if role == "prefill" and self._prefix_cache is None:
+            raise ValueError(
+                "a prefill-role engine publishes its K/V through the "
+                "prefix cache; pass prefix_cache= (shared with the "
+                "decode-role engine) or prefix_cache_bytes=")
+        self.role = role
+        self.pool = SlotPool(model, slots, dtype=dtype,
+                             prefill_batch=prefill_batch, device=device)
         self.default_eos_id = eos_id
         self.prefill_chunk = min(int(prefill_chunk), self.pool.max_len)
         self.prefill_chunk_budget = int(prefill_chunk_budget)
@@ -395,9 +487,14 @@ class GenerationScheduler:
         self._prompt_buckets = bucket_sizes(self.pool.max_len)
         self._slot_state: List[Optional[_ActiveSlot]] = [None] * slots
         self._prefill_work: Deque[Tuple] = deque()
+        # dedup followers parked on another request's in-flight prefill
+        # (engine thread only, like _slot_state and _prefill_work)
+        self._follow_work: List[_ActiveSlot] = []
         self._pending: Optional[Tuple] = None   # (handle, n_active, t0)
         self._lock = threading.Lock()
         self._outstanding = 0
+        self._dedup_leaders = 0
+        self._dedup_followers = 0
         self._requests_done = 0
         self._tokens_emitted = 0
         self._decode_steps = 0
@@ -409,11 +506,14 @@ class GenerationScheduler:
         self._ttft_n = 0
         self._ttft_res = _Reservoir(seed=1)
         self._itl_res = _Reservoir(seed=2)
+        self._prefix_copies = 0
         self._shed = 0
         self._shutdown = False
-        # caller-side cancels land here (lock-guarded); the engine sweep
-        # consumes them
+        # caller-side cancels land here (lock-guarded; the engine sweep
+        # consumes them); a kill() lands in _die_exc, which the loop
+        # checks every iteration
         self._cancel_requests: set = set()
+        self._die_exc: Optional[Exception] = None
         self._thread: Optional[threading.Thread] = None
         if start:
             self.start()
@@ -451,19 +551,39 @@ class GenerationScheduler:
                     "generation scheduler did not drain within %ss",
                     timeout)
 
+    def kill(self, exc: Optional[Exception] = None) -> None:
+        """Hard death: nothing drains.  Every queued request fails with
+        ServerClosedError, every slot-resident request (prefilling,
+        parked or decoding) with ``exc`` (default
+        :class:`ReplicaDeadError`), and the engine thread exits once it
+        has read the decode step still in flight."""
+        if exc is None:
+            exc = ReplicaDeadError("replica killed hard mid-flight")
+        with self._lock:
+            self._shutdown = True
+            self._die_exc = exc
+        # wakes a loop blocked in _queue.get(); queued requests never
+        # reached a slot, so a plain re-submit elsewhere is safe
+        self._queue.close(discard=True)
+
     # -- submission ---------------------------------------------------------
 
     def submit_async(self, prompt, max_new_tokens: int, eos_id=None,
                      on_token: Optional[Callable[[int], None]] = None,
                      timeout: Optional[float] = None,
-                     deadline=None) -> Future:
+                     deadline: Optional[Deadline] = None,
+                     trace=None) -> Future:
         """Admit one prompt (1-D int tokens) and return a Future of the
         full ``[Tp + max_new_tokens]`` int32 row, equal to
         ``model.generate(prompt[None], max_new_tokens, eos_id)[0]``.
         ``on_token`` streams each emitted token from the engine thread.
-        ``deadline`` is not supported yet (NotImplementedError)."""
+        ``deadline`` rides the request through admit, prefill and decode:
+        once expired, the engine fails the future with the typed
+        DeadlineExceededError and frees the slot.  ``trace`` is not
+        ported (NotImplementedError)."""
         req = GenerationRequest(prompt, max_new_tokens, eos_id=eos_id,
-                                on_token=on_token, deadline=deadline)
+                                on_token=on_token, deadline=deadline,
+                                trace=trace)
         err = self._validate(req)
         if err is not None:
             raise err
@@ -522,9 +642,13 @@ class GenerationScheduler:
         tp = len(req.prompt)
         if tp < 1:
             return ValueError("empty prompt")
-        if req.max_new_tokens < 1:
+        # a prefill-role request decodes nothing: its future resolves
+        # after the K/V publish
+        min_new = 0 if self.role == "prefill" else 1
+        if req.max_new_tokens < min_new:
             return ValueError(
-                f"max_new_tokens must be >= 1, got {req.max_new_tokens}")
+                f"max_new_tokens must be >= {min_new}, got "
+                f"{req.max_new_tokens}")
         if tp + req.max_new_tokens > self.pool.max_len:
             return ValueError(
                 f"prompt {tp} + {req.max_new_tokens} new tokens exceeds "
@@ -540,6 +664,10 @@ class GenerationScheduler:
         with self._lock:
             self._shed += 1
 
+    def prefix_cache_stats(self) -> Optional[Dict[str, object]]:
+        return (None if self._prefix_cache is None
+                else self._prefix_cache.stats())
+
     def stats(self) -> Dict[str, object]:
         """One lock-coherent snapshot of the engine counters.  The
         seconds are host time around the dispatches (the device runs
@@ -548,7 +676,7 @@ class GenerationScheduler:
             steps = self._decode_steps
             ttft_q = self._ttft_res.quantiles()
             itl_q = self._itl_res.quantiles()
-            return {
+            out = {
                 "requests_done": self._requests_done,
                 "tokens_emitted": self._tokens_emitted,
                 "decode_steps": steps,
@@ -564,37 +692,55 @@ class GenerationScheduler:
                 "queue_to_first_token_s_p99": ttft_q["p99"],
                 "inter_token_s_p50": itl_q["p50"],
                 "inter_token_s_p99": itl_q["p99"],
+                "prefix_chunks_copied": self._prefix_copies,
                 "prefill_chunk": self.prefill_chunk,
                 "prefill_chunk_budget": self.prefill_chunk_budget,
+                "prefill_dedup_leaders": self._dedup_leaders,
+                "prefill_dedup_followers": self._dedup_followers,
                 "admitted_outstanding": self._outstanding,
+                "role": self.role,
                 "shed": self._shed,
                 "slots": self.pool.slots,
                 "tokens_per_second": (self._tokens_emitted / self._decode_s
                                       if self._decode_s else 0.0),
             }
+        out["prefix_cache"] = self.prefix_cache_stats()
+        return out
 
     # -- the engine loop ----------------------------------------------------
+
+    def _died(self) -> Optional[Exception]:
+        with self._lock:
+            return self._die_exc
 
     def _run(self) -> None:
         pool = self.pool
         while True:
-            self._sweep_cancels()
+            exc = self._died()
+            if exc is not None:
+                self._fail_in_flight(exc)
+                return              # killed: nothing drains
+            self._sweep_reliability()
             occupied = sum(1 for st in self._slot_state if st is not None)
             arrivals: List[GenerationRequest] = []
             if occupied == 0 and self._pending is None \
                     and not self._prefill_work:
                 first = self._queue.get(timeout=None)
                 if first is None:
+                    exc = self._died()
+                    if exc is not None:
+                        self._fail_in_flight(exc)
                     return          # closed + drained, nothing in flight
                 arrivals.append(first)
             free = pool.slots - occupied - len(arrivals)
             if free > 0:
                 arrivals.extend(self._queue.get_nowait_up_to(free))
             try:
-                if arrivals or self._prefill_work:
-                    # admits and prefill only write cache rows of slots
-                    # that are not decoding: safe with a decode step in
-                    # flight, so prefill keeps the readback overlap
+                if arrivals or self._prefill_work or self._follow_work:
+                    # admits, prefix copies and prefill only write cache
+                    # rows of slots that are not decoding: safe with a
+                    # decode step in flight, so prefill keeps the
+                    # readback overlap
                     if arrivals:
                         self._admit(arrivals)
                     self._run_prefill()
@@ -602,6 +748,11 @@ class GenerationScheduler:
                     self._dispatch_decode()
                 else:
                     self._drain_pending()
+                    if self._follow_work and not self._prefill_work:
+                        # every parked follower waits on ANOTHER
+                        # engine's prefill (a shared cache; a local
+                        # leader would be in _prefill_work): poll
+                        time.sleep(0.0005)
             except Exception as e:  # noqa: BLE001 - engine must survive
                 # a failing iteration fails the affected futures and the
                 # loop continues; it never strands RUNNING futures
@@ -609,46 +760,74 @@ class GenerationScheduler:
                 self._fail_in_flight(e)
 
     def _fail_in_flight(self, exc: Exception) -> None:
-        """Fail every slot-resident request with ``exc`` and free its
-        slot; the engine keeps serving later arrivals (positions are
-        written before they are read, so a poisoned cache cannot leak
-        into a new occupant)."""
-        self._pending = None
+        """Fail every slot-resident request (decoding, parked or
+        mid-prefill) with ``exc`` and free its slot; the engine keeps
+        serving later arrivals (positions are written before they are
+        read, so a poisoned cache cannot leak into a new occupant).  The
+        decode step still in flight is read first and its tokens
+        dropped, so no step is left unread."""
+        pending, self._pending = self._pending, None
+        if pending is not None:
+            try:
+                self.pool.read_emit_masked(pending[0])
+            except Exception:   # noqa: BLE001 - the step itself failed
+                logger.exception("in-flight decode step failed")
         self._prefill_work.clear()
+        self._follow_work.clear()   # followers are slot-resident: the
+        # loop below fails them with everyone else
         self.pool.invalidate_feed()
         for slot in range(self.pool.slots):
             st = self._slot_state[slot]
             if st is None:
                 continue
+            self._release_claims(st)
             if not st.req.future.done():
                 st.req.future.set_exception(exc)
             self._slot_state[slot] = None
             self.pool.release(slot)
 
-    def _sweep_cancels(self) -> None:
-        """Free the slots of requests the caller cancelled.  A late
-        in-flight emit for a re-seeded slot is discarded by the credit
-        epoch."""
+    # -- reliability sweep (engine thread) ----------------------------------
+
+    def _sweep_reliability(self) -> None:
+        """Free the slots whose occupant the caller cancelled or whose
+        deadline ran out, at the top of every engine iteration.
+        ``pool.release`` re-seeds the slot, so the credit epoch drops a
+        late in-flight emit for it; the claim release wakes dedup
+        followers parked on it."""
+        cancels = None
         with self._lock:
-            if not self._cancel_requests:
-                return
-            cancels = self._cancel_requests
-            self._cancel_requests = set()
+            if self._cancel_requests:
+                cancels = self._cancel_requests
+                self._cancel_requests = set()
+        now = time.perf_counter()
         for slot in range(self.pool.slots):
             st = self._slot_state[slot]
-            if st is None or st.req.future not in cancels:
+            if st is None:
+                continue
+            exc: Optional[Exception] = None
+            if cancels and st.req.future in cancels:
+                exc = RequestCancelledError(
+                    "caller abandoned the request (client-side timeout "
+                    "or explicit cancel)")
+            elif st.req.deadline is not None \
+                    and st.req.deadline.expired(now):
+                stage = "decode" if st.phase == "decode" else "prefill"
+                exc = st.req.deadline.error(stage, now)
+            if exc is None:
                 continue
             self._purge_prefill_work(st)
+            self._release_claims(st)
             if not st.req.future.done():
-                st.req.future.set_exception(RequestCancelledError(
-                    "caller abandoned the request (client-side timeout "
-                    "or explicit cancel)"))
+                st.req.future.set_exception(exc)
             self._slot_state[slot] = None
             self.pool.release(slot)
 
     def _purge_prefill_work(self, st: _ActiveSlot) -> None:
-        """Drop every pending prefill item that references ``st``, so an
-        evicted request is never prefilled into a slot it lost."""
+        """Drop every pending prefill item that references ``st`` (its
+        chunk entry, its seat in a bucket batch, its follower parking),
+        so an evicted request is never prefilled into a slot it lost."""
+        if st in self._follow_work:
+            self._follow_work.remove(st)
         kept: Deque[Tuple] = deque()
         for item in self._prefill_work:
             if item[0] == "chunk" and item[1] is st:
@@ -668,6 +847,11 @@ class GenerationScheduler:
         ready: List[GenerationRequest] = []
         for req in arrivals:
             err = self._validate(req)
+            if err is None and req.deadline is not None \
+                    and req.deadline.expired():
+                # budget burned in the queue: typed rejection before a
+                # slot (and a prefill) is spent on it
+                err = req.deadline.error("queue")
             if err is not None:
                 if req.future.set_running_or_notify_cancel():
                     req.future.set_exception(err)
@@ -686,20 +870,144 @@ class GenerationScheduler:
                    else self.default_eos_id)
             st = _ActiveSlot(req, eos, slot)
             self._slot_state[slot] = st
-            if st.end_pos == 0:
-                # a 1-token prompt has nothing to prefill
-                pool.activate(slot, int(req.prompt[-1]), 0)
-                st.phase = "decode"
-            elif len(req.prompt) <= self.prefill_chunk:
-                b = pick_bucket(len(req.prompt), self._prompt_buckets)
-                legacy.setdefault(b, []).append(st)
-            else:
-                self._prefill_work.append(("chunk", st))
+            try:
+                st.next_pos = self._copy_cached_prefix(st)
+            except Exception as e:  # noqa: BLE001 - fail the request,
+                # not the engine: nothing was activated yet
+                logger.exception("prefix KV copy failed for slot %d", slot)
+                if not req.future.done():
+                    req.future.set_exception(e)
+                self._slot_state[slot] = None
+                continue
+            self._route_after_prefix(st, legacy=legacy)
         for bucket in sorted(legacy):
             sts = legacy[bucket]
             for lo in range(0, len(sts), pool.prefill_batch):
                 self._prefill_work.append(
                     ("legacy", bucket, sts[lo:lo + pool.prefill_batch]))
+
+    def _route_after_prefix(self, st: _ActiveSlot,
+                            legacy: Optional[Dict] = None) -> None:
+        """Route a slot-resident request whose prefix match just set
+        ``st.next_pos``: complete (nothing left to prefill), park as a
+        dedup follower, or schedule the rest of its prefill.  ``legacy``
+        gathers bucket-prefill candidates across one _admit call; woken
+        followers pass None and schedule batches of one."""
+        req = st.req
+        if st.end_pos - st.next_pos <= 0:
+            # the cached prefix (or a 1-token prompt) covers the whole
+            # prefill region: straight to decode (prefill role: to done,
+            # everything it would publish is cached)
+            if self.role == "prefill":
+                self._complete_prefill_role(st)
+            else:
+                self.pool.activate(st.slot, int(req.prompt[-1]),
+                                   st.end_pos)
+                st.phase = "decode"
+            return
+        if self._claim_or_park(st):
+            return
+        st.phase = "prefill"
+        if st.next_pos == 0 and len(req.prompt) <= self.prefill_chunk:
+            b = pick_bucket(len(req.prompt), self._prompt_buckets)
+            if legacy is not None:
+                legacy.setdefault(b, []).append(st)
+            else:
+                self._prefill_work.append(("legacy", b, [st]))
+        else:
+            self._prefill_work.append(("chunk", st))
+
+    def _claim_or_park(self, st: _ActiveSlot) -> bool:
+        """Single-flight prefill.  With a cache, the request either
+        CLAIMS its missing chunk keys (it prefills them: the leader) or
+        PARKS as a follower because its next missing chunk is being
+        prefilled by another request (in this engine or one sharing the
+        cache).  Returns True when parked."""
+        cache = self._prefix_cache
+        if cache is None or st.end_pos < cache.granularity:
+            return False
+        region = st.req.prompt[:st.end_pos]
+        missing = cache.missing_boundaries(region)
+        if not missing:
+            return False     # only the sub-granule tail remains
+        owner = cache.prefill_owner(cache.boundary_key(region, missing[0]))
+        if owner is not None and owner is not st:
+            st.phase = "follow"
+            self._follow_work.append(st)
+            if not st.was_follower:
+                # once per request: a woken follower parking again on a
+                # later chunk's leader is the same deduplicated request
+                st.was_follower = True
+                with self._lock:
+                    self._dedup_followers += 1
+            return True
+        keys = [cache.boundary_key(region, i) for i in missing]
+        if cache.claim_prefill(keys, st):
+            with self._lock:
+                self._dedup_leaders += 1
+        return False
+
+    def _release_claims(self, st: _ActiveSlot) -> None:
+        if self._prefix_cache is not None:
+            self._prefix_cache.release_prefill(st)
+
+    def _sweep_followers(self) -> None:
+        """Re-examine parked followers: one whose blocking chunk is now
+        cached (the leader's insert landed) or unowned (the leader
+        failed: the follower claims it and leads) re-matches the cache
+        and is routed again; the rest stay parked."""
+        cache = self._prefix_cache
+        if cache is None or not self._follow_work:
+            return
+        parked, self._follow_work = self._follow_work, []
+        for st in parked:
+            if self._slot_state[st.slot] is not st:
+                continue    # failed or evicted while parked
+            region = st.req.prompt[:st.end_pos]
+            missing = cache.missing_boundaries(region)
+            if missing:
+                owner = cache.prefill_owner(
+                    cache.boundary_key(region, missing[0]))
+                if owner is not None and owner is not st:
+                    self._follow_work.append(st)    # still in flight
+                    continue
+            try:
+                st.next_pos = self._copy_cached_prefix(st)
+            except Exception as e:  # noqa: BLE001 - fail the request,
+                # not the engine (as the admit-time copy)
+                logger.exception("prefix KV copy failed for a woken "
+                                 "follower in slot %d", st.slot)
+                if not st.req.future.done():
+                    st.req.future.set_exception(e)
+                self._slot_state[st.slot] = None
+                continue
+            self._route_after_prefix(st)
+
+    def _complete_prefill_role(self, st: _ActiveSlot) -> None:
+        """Prefill-role terminal: the prompt's K/V are published through
+        the cache; resolve the future (the prompt, no decoded token) and
+        free the slot (releasing it where a batched ``prefill_into``
+        marked it decode-ready)."""
+        self._release_claims(st)
+        self._finish(st, time.perf_counter())
+        self._slot_state[st.slot] = None
+        self.pool.release(st.slot)
+
+    def _copy_cached_prefix(self, st: _ActiveSlot) -> int:
+        """Match the prompt's prefill region against the cache and copy
+        the longest cached chain into the slot row.  Returns the number
+        of positions covered (0: a miss, or no cache)."""
+        cache = self._prefix_cache
+        if cache is None or st.end_pos < cache.granularity:
+            return 0
+        chain = cache.match(st.req.prompt[:st.end_pos])
+        for chunk in chain:
+            self.pool.kv_copy_into(st.slot, chunk.layers, chunk.pad,
+                                   chunk.index)
+        if chain:
+            with self._lock:
+                self._prefix_copies += len(chain)
+        return len(chain) * cache.granularity
 
     def _run_prefill(self) -> None:
         """Run pending prefill work: at most ``prefill_chunk_budget``
@@ -707,6 +1015,7 @@ class GenerationScheduler:
         limit = (self.prefill_chunk_budget if self.pool.n_active()
                  else None)
         done = 0
+        self._sweep_followers()
         while self._prefill_work and (limit is None or done < limit):
             item = self._prefill_work[0]
             if item[0] == "legacy":
@@ -722,10 +1031,12 @@ class GenerationScheduler:
 
     def _fail_prefill(self, sts: List[_ActiveSlot], exc: Exception) -> None:
         for st in sts:
+            self._release_claims(st)
             if not st.req.future.done():
                 st.req.future.set_exception(exc)
             self._slot_state[st.slot] = None
             self.pool.release(st.slot)
+        self._sweep_followers()     # a parked follower claims and leads
 
     def _legacy_prefill(self, bucket: int, sts: List[_ActiveSlot]) -> None:
         """Batched bucket prefill (whole prompt, one call, up to
@@ -741,7 +1052,13 @@ class GenerationScheduler:
         t1 = time.perf_counter()
         for st in sts:
             st.next_pos = st.end_pos
-            st.phase = "decode"
+            self._store_prefix(st)
+            self._release_claims(st)
+            if self.role == "prefill":
+                self._complete_prefill_role(st)
+            else:
+                st.phase = "decode"     # prefill_into activated the slot
+        self._sweep_followers()
         with self._lock:
             self._prefill_calls += 1
             self._prefill_s += t1 - t0
@@ -782,8 +1099,33 @@ class GenerationScheduler:
             self._prefill_calls += 1
             self._prefill_s += t1 - t0
         if st.next_pos >= end:
-            self.pool.activate(st.slot, int(p[-1]), end)
-            st.phase = "decode"
+            self._store_prefix(st)
+            self._release_claims(st)
+            if self.role == "prefill":
+                self._complete_prefill_role(st)
+            else:
+                self.pool.activate(st.slot, int(p[-1]), end)
+                st.phase = "decode"
+            self._sweep_followers()
+
+    def _store_prefix(self, st: _ActiveSlot) -> None:
+        """Extract and cache the granularity-aligned chunks of a
+        completed prefill region that the cache lacks (the region stays
+        intact in the slot row while the request is resident).  Best
+        effort: a failure costs the cache entry, never the request."""
+        cache = self._prefix_cache
+        if cache is None:
+            return
+        try:
+            region = st.req.prompt[:st.end_pos]
+            g = cache.granularity
+            for i in cache.missing_boundaries(region):
+                layers, pad = self.pool.kv_extract(st.slot, (i - 1) * g, g)
+                cache.insert(region, i, layers, pad)
+        except Exception:   # noqa: BLE001 - the cache is an optimisation;
+            # the prefilled request proceeds regardless
+            logger.exception("prefix-cache store failed for slot %d "
+                             "(entry skipped)", st.slot)
 
     # -- decode (pipelined) -------------------------------------------------
 
@@ -953,3 +1295,131 @@ def run_mixed_workload(model, prompts: Sequence[np.ndarray],
             "greedy_checked_requests": k,
         })
     return out
+
+
+def run_shared_prefix_workload(model, n_requests: int = 32,
+                               prefix_len: int = 96,
+                               tail: Tuple[int, int] = (8, 33),
+                               max_new: int = 16, slots: int = 8,
+                               seed: int = 11,
+                               prefix_cache_bytes: int = 1 << 26,
+                               prefix_granularity: int = 32,
+                               prefill_chunk: int = 64,
+                               prefill_chunk_budget: int = 2,
+                               oracle_sample: int = 2,
+                               device=None) -> Dict[str, object]:
+    """The prefix-reuse probe: every request shares a ``prefix_len``-token
+    system prompt and carries a unique tail, served twice over the SAME
+    request set, prefix cache on and then off.  Reports client-side
+    queue-to-first-token quantiles of both runs, whether their rows are
+    identical, and checks the first ``oracle_sample`` rows against the
+    port's solo ``generate()`` on the engine's eval copy of the model.
+
+    Both runs are measured at steady state: two warm waves of ``slots``
+    requests run first (one populates the cache, one takes the hit path),
+    then the measured burst.  Each run's counters are the burst's
+    (differenced against the warm waves); ``engine_totals`` keeps the
+    engine's whole-life prefill calls and decode steps.  ``prompts`` and
+    ``rows`` (by run) are returned for checks of the caller's own."""
+    rng = np.random.default_rng(seed)
+    vocab = int(model.embedding.weight.shape[0]) - 1
+    prefix = rng.integers(1, vocab + 1, prefix_len).astype(np.int32)
+    prompts = [np.concatenate([
+        prefix, rng.integers(1, vocab + 1,
+                             rng.integers(*tail)).astype(np.int32)])
+        for _ in range(n_requests)]
+    mean_len = float(np.mean([len(p) for p in prompts]))
+    runs: Dict[str, Dict] = {}
+    rows: Dict[str, List[np.ndarray]] = {}
+    for label, cache_bytes in (("cache", prefix_cache_bytes),
+                               ("nocache", None)):
+        engine = GenerationScheduler(
+            model, slots=slots,
+            queue_capacity=n_requests + 2 * slots,
+            prefill_chunk=prefill_chunk,
+            prefill_chunk_budget=prefill_chunk_budget,
+            prefix_cache_bytes=cache_bytes,
+            prefix_granularity=prefix_granularity, device=device)
+        try:
+            # warm waves: populate (misses), then the hit path
+            for _wave in range(2):
+                warm = [engine.submit_async(p, max_new)
+                        for p in prompts[:slots]]
+                [f.result(timeout=600) for f in warm]
+            before = engine.stats()
+            ttfts: List[float] = []
+            futs = []
+            t0 = time.perf_counter()
+            for p in prompts:
+                t_sub = time.perf_counter()
+                seen: List[bool] = []
+
+                def first_token(_tok, t_sub=t_sub, seen=seen):
+                    if not seen:
+                        seen.append(True)
+                        ttfts.append(time.perf_counter() - t_sub)
+
+                futs.append(engine.submit_async(
+                    p, max_new, on_token=first_token))
+            rows[label] = [f.result(timeout=600) for f in futs]
+            wall = time.perf_counter() - t0
+            stats = engine.stats()
+        finally:
+            engine.shutdown()
+        # after the drain: the pipelined engine's last step was dispatched
+        # before the final readback and is counted when it is read
+        totals = engine.stats()
+        new_tokens = (int(stats["tokens_emitted"])
+                      - int(before["tokens_emitted"]))
+        q = np.quantile(np.asarray(ttfts), [0.5, 0.99])
+        cache_delta = None
+        if stats["prefix_cache"] is not None:
+            cache_delta = dict(stats["prefix_cache"])
+            prior = before["prefix_cache"]
+            for key in ("lookups", "hits", "misses", "chunks_hit",
+                        "bytes_reused", "inserts", "evictions"):
+                cache_delta[key] -= prior[key]
+            cache_delta["hit_rate"] = (
+                cache_delta["hits"] / cache_delta["lookups"]
+                if cache_delta["lookups"] else 0.0)
+        runs[label] = {
+            "seconds": wall,
+            "tokens_per_sec": new_tokens / wall,
+            "queue_to_first_token_s_p50": float(q[0]),
+            "queue_to_first_token_s_p99": float(q[1]),
+            "prefill_seconds": (float(stats["prefill_seconds"])
+                                - float(before["prefill_seconds"])),
+            "prefill_calls": (int(stats["prefill_calls"])
+                              - int(before["prefill_calls"])),
+            "prefix_chunks_copied": (int(stats["prefix_chunks_copied"])
+                                     - int(before["prefix_chunks_copied"])),
+            "prefix_cache": cache_delta,
+            "engine_totals": {"prefill_calls": int(totals["prefill_calls"]),
+                              "decode_steps": int(totals["decode_steps"])},
+        }
+    rows_equal = all(np.array_equal(a, b)
+                     for a, b in zip(rows["cache"], rows["nocache"]))
+    k = min(int(oracle_sample), n_requests)
+    solo = engine.pool.model
+    oracle_equal = all(
+        np.array_equal(rows["cache"][i], solo.generate(
+            prompts[i][None], max_new)[0].cpu().numpy())
+        for i in range(k))
+    p50_cache = runs["cache"]["queue_to_first_token_s_p50"]
+    p50_nocache = runs["nocache"]["queue_to_first_token_s_p50"]
+    return {
+        "requests": n_requests,
+        "prefix_len": prefix_len,
+        "shared_fraction": prefix_len / mean_len,
+        "max_new": max_new,
+        "slots": slots,
+        "cache": runs["cache"],
+        "nocache": runs["nocache"],
+        "ttft_p50_speedup": (p50_nocache / p50_cache if p50_cache > 0
+                             else 0.0),
+        "rows_equal_cache_vs_nocache": bool(rows_equal),
+        "greedy_equal_checked": bool(oracle_equal),
+        "greedy_checked_requests": k,
+        "prompts": prompts,
+        "rows": rows,
+    }

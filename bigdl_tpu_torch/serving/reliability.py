@@ -1,9 +1,11 @@
 """The request-reliability types the generation engine names
 (counterpart of part of ``bigdl_tpu/serving/reliability.py``).
 
-The port's engine does not enforce deadlines yet: a request that carries
-a :class:`Deadline` is refused with NotImplementedError, never served
-with the deadline ignored.
+A :class:`Deadline` rides a request through queue wait, prefill and
+decode; whoever notices it expired fails the request with the typed,
+stage-stamped :class:`DeadlineExceededError`.  The circuit breaker and
+the retry and hedge policies belong to the serving fabric (ROADMAP
+queue 1, item 12); the deadline counter belongs to telemetry (item 10).
 """
 
 from __future__ import annotations
@@ -11,7 +13,21 @@ from __future__ import annotations
 import time
 from typing import Optional
 
-__all__ = ["Deadline", "RequestCancelledError", "ReplicaDeadError"]
+__all__ = ["Deadline", "DeadlineExceededError", "RequestCancelledError",
+           "ReplicaDeadError", "deadline_error"]
+
+
+class DeadlineExceededError(RuntimeError):
+    """The request's end-to-end budget ran out at ``stage`` (one of
+    ``queue`` / ``prefill`` / ``decode``): a typed rejection, so the
+    caller can tell "the system said no in time" from "the system
+    failed"."""
+
+    def __init__(self, msg: str, stage: str = "queue",
+                 trace_id: Optional[str] = None):
+        super().__init__(msg)
+        self.stage = stage
+        self.trace_id = trace_id
 
 
 class RequestCancelledError(RuntimeError):
@@ -22,6 +38,15 @@ class RequestCancelledError(RuntimeError):
 class ReplicaDeadError(RuntimeError):
     """The replica died hard mid-flight: every resident request failed
     without draining."""
+
+
+def deadline_error(stage: str, budget_s: float, elapsed_s: float,
+                   trace_id: Optional[str] = None) \
+        -> DeadlineExceededError:
+    """The typed error for a budget that ran out at ``stage``."""
+    return DeadlineExceededError(
+        f"deadline exceeded at {stage}: {elapsed_s:.3f}s elapsed of a "
+        f"{budget_s:.3f}s budget", stage=stage, trace_id=trace_id)
 
 
 class Deadline:
@@ -46,3 +71,12 @@ class Deadline:
 
     def expired(self, now: Optional[float] = None) -> bool:
         return self.remaining(now) <= 0.0
+
+    def error(self, stage: str, now: Optional[float] = None,
+              trace_id: Optional[str] = None) -> DeadlineExceededError:
+        return deadline_error(stage, self.budget_s, self.elapsed(now),
+                              trace_id=trace_id)
+
+    def __repr__(self) -> str:
+        return (f"Deadline(budget_s={self.budget_s}, "
+                f"remaining={self.remaining():.3f})")

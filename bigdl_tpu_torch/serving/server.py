@@ -60,20 +60,28 @@ class ModelServer:
     def submit_generate_async(self, prompt, max_new_tokens: int,
                               eos_id=None, on_token=None,
                               timeout: Optional[float] = None,
-                              deadline=None) -> Future:
+                              deadline=None, trace=None) -> Future:
         """Admit one prompt; returns a Future of the full
         ``[Tp + max_new_tokens]`` token row (greedy, equal to a solo
         ``model.generate()``).  The request holds a KV slot for many
-        decode iterations, and a drain waits for its last token."""
+        decode iterations, and a drain waits for its last token.
+        ``deadline`` (a :class:`Deadline`) fails it typed once expired;
+        ``trace`` is not ported (NotImplementedError)."""
         return self._gen().submit_async(
             prompt, max_new_tokens, eos_id=eos_id, on_token=on_token,
-            timeout=timeout, deadline=deadline)
+            timeout=timeout, deadline=deadline, trace=trace)
 
     def cancel_generate(self, fut: Future) -> bool:
         """Best-effort cancel of a generation future."""
         return self._gen().cancel(fut)
 
     cancel = cancel_generate
+
+    def kill(self, exc: Optional[Exception] = None) -> None:
+        """Kill the generation engine (no drain): slot-resident requests
+        fail with ``exc`` (default ReplicaDeadError), queued ones with
+        ServerClosedError."""
+        self.generation.kill(exc)
 
     def submit_generate(self, prompt, max_new_tokens: int, eos_id=None,
                         timeout: Optional[float] = None):

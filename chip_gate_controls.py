@@ -85,6 +85,12 @@ the faults they are there to catch:
    recompute that draws its dropout masks from the generator as it stands
    after the forward (a fresh stream, the state at the block's entry not
    replayed); the script fails unless the phase's checks refuse it.
+8. A control prefix cache.  chip_smoke's prefix phase (the serving LM
+   through the prefix KV cache, dedup, the disaggregated engine and a KV
+   round trip through a reused slot) runs with a ``SlotPool.kv_extract``
+   that returns views into the pool instead of copies, so a cached chunk
+   follows whatever the slot's next occupant writes; the script fails
+   unless the phase's checks refuse it.
 
 The last line is one JSON object with every reading.  Imports torch,
 numpy, ``bigdl_tpu_torch`` and ``chip_smoke`` only.
@@ -923,6 +929,33 @@ def phase_remat_control():
     return dict(refused_by=r["failed"]), failures
 
 
+def phase_prefix_control():
+    """chip_smoke's prefix phase with kv_extract returning views into the
+    pool (what a port of the reference's ``dynamic_slice`` as a slice
+    gives): its checks must refuse it."""
+    from bigdl_tpu_torch.serving import generation
+    extract = generation.SlotPool.kv_extract
+
+    def viewing(self, slot, index, width):
+        end = index + width
+        return ([{"k": c["self"]["k"][slot, :, index:end],
+                  "v": c["self"]["v"][slot, :, index:end]}
+                 for c in self.caches["layers"]],
+                self.caches["pad"][slot, index:end])
+    generation.SlotPool.kv_extract = viewing
+    try:
+        refused_by = chip_smoke.prefix_reading()["failed"]
+    except Exception as e:  # noqa: BLE001 - a crash refuses it too
+        refused_by = [f"{type(e).__name__}: {e}"]
+    finally:
+        generation.SlotPool.kv_extract = extract
+    print(f"prefix control (kv_extract returns views into the pool): "
+          f"refused by {len(refused_by)} checks: {refused_by}")
+    failures = [] if refused_by else [
+        "the prefix phase passes a kv_extract that returns views"]
+    return dict(refused_by=refused_by), failures
+
+
 def main() -> int:
     chip_smoke.phase_device()
     mutants, failures = phase_mutants()
@@ -941,6 +974,8 @@ def main() -> int:
     failures += more
     remat_control, more = phase_remat_control()
     failures += more
+    prefix_control, more = phase_prefix_control()
+    failures += more
     print(json.dumps({"mutants": mutants, "control_step": control,
                       "bounds": {"grad_norm_rel": chip_smoke.GRAD_NORM_REL,
                                  "grad_max_rel": chip_smoke.GRAD_MAX_REL},
@@ -951,6 +986,7 @@ def main() -> int:
                       "resnet_bounds": chip_smoke.RESNET_PARITY_BOUNDS,
                       "resume_control": resume_control,
                       "remat_control": remat_control,
+                      "prefix_control": prefix_control,
                       "failures": failures}))
     return 1 if failures else 0
 

@@ -52,6 +52,22 @@ Phases, each raising on failure (the script then exits non-zero):
    requests; every served row is held against a solo ``generate()`` and
    the kernel's launch count against the path's attention calls, every
    launch by the scalar route (f32);
+5b. prefix: the same LM through the prefix KV cache (granularity 64):
+   ``run_shared_prefix_workload`` with 32 requests on a 256-token shared
+   prefix and tails of 8-64, cache on and off (TTFT p50/p99, prefill
+   calls and seconds, chunks copied, hit rate, peak memory), the rows of
+   the two runs and two rows against solo ``generate()`` held by the
+   serving rule (equal, or first different at a top-2 margin under
+   NEAR_TIE), #1's launches = layers x (prefill and chunk calls + decode
+   steps), all scalar; eviction under a budget of three chunks with two
+   alternating 256-token prefixes; a burst of 8 identical cold 257-token
+   prompts (1 leader, 7 followers, the prefill calls of one prompt);
+   ``DisaggregatedEngine`` (4 prefill slots, 16 decode slots) against one
+   engine on 16 requests; a chunk extracted from a decoding slot and
+   copied into a free slot after the slot's reuse, bit for bit; a
+   ``Deadline(0.25)`` under a paced stream failing typed; ``kill()``
+   failing residents with ReplicaDeadError and queued requests with
+   ServerClosedError.  A failed check prints ``prefix: FAILED: <check>``;
 6. training: the port's ``examples.perf`` training path at the width of
    the reference's transformer perf run (L6 H512 T2048 b8, vocab 32000,
    filter 2048, bf16 compute) through ``Optimizer.optimize()``; the loss
@@ -147,7 +163,8 @@ Phases, each raising on failure (the script then exits non-zero):
    ``bigdl-loss-drain`` thread and none left after it; ms per iteration
    and idle share of both.  Each of 13c-13e prints ``<phase>: FAILED:
    <check>`` for a failed check before the script exits non-zero;
-14. a ``{"kernels": [...]}`` line (eleven kernels, launches by path,
+14. a ``{"kernels": [...]}`` line (eleven kernels, launches by path
+   (#1's on ``serving_prefix_cache`` and ``serving_disaggregated`` too),
    the graph replays' among them (phases 13, 13b and 13c) as the profiler
    counted them on the device; all but #4 also their design, launches
    by route and build report; #1 its row at the training shape beside the decode row), then
@@ -1396,14 +1413,9 @@ def _solo_margin(lm, prompt, step):
 
 
 def phase_serving(device: str = "cuda"):
-    from bigdl_tpu_torch.models import TransformerLM
     from bigdl_tpu_torch.serving import GenerationScheduler, ModelServer
 
-    gen = torch.Generator().manual_seed(0)
-    lm = TransformerLM(vocab_size=VOCAB, hidden_size=HIDDEN,
-                       num_layers=LAYERS, num_heads=HEADS,
-                       filter_size=FILTER, max_len=MAX_LEN,
-                       generator=gen, device=device).eval()
+    lm = serving_lm(device)
 
     # the model on the card against its copy on the CPU (plain attention)
     import copy
@@ -1496,6 +1508,394 @@ def phase_serving(device: str = "cuda"):
     print(f"rows: {len(rows) - differ}/{len(rows)} served rows equal solo "
           f"generate() token for token; {differ} differ at a near-tie")
     return counts, routes
+
+
+# ---------------------------------------------------------------------------
+# 5b. the prefix KV cache, dedup, the disaggregated engine, deadlines, kill
+# ---------------------------------------------------------------------------
+
+PREFIX_LEN, PREFIX_TAIL, PREFIX_NEW, PREFIX_G = 256, (8, 65), 16, 64
+PREFIX_BUDGET = 2                  # prefill calls between decode steps
+DEDUP_BURST, DEDUP_LEN = 8, PREFIX_LEN + 1     # region = 4 granules
+DISAGG_REQUESTS, DISAGG_PREFILL_SLOTS = 16, 4
+
+
+def serving_lm(device: str = "cuda"):
+    """The serving phases' LM (random weights from seed 0)."""
+    from bigdl_tpu_torch.models import TransformerLM
+    return TransformerLM(vocab_size=VOCAB, hidden_size=HIDDEN,
+                         num_layers=LAYERS, num_heads=HEADS,
+                         filter_size=FILTER, max_len=MAX_LEN,
+                         generator=torch.Generator().manual_seed(0),
+                         device=device).eval()
+
+
+def chunk_bytes(g: int = PREFIX_G) -> int:
+    """One cached chunk as ``PrefixChunk`` counts it: K and V of every
+    layer in f32, and one byte a pad flag."""
+    return LAYERS * 2 * HEADS * g * (HIDDEN // HEADS) * 4 + g
+
+
+def forced_margin(lm, row, tp: int, step: int) -> float:
+    """Top-2 logit margin of a solo decode of new token ``step`` of
+    ``row`` (``tp`` prompt tokens), fed the row's own tokens before it."""
+    with torch.no_grad():
+        p = lm._tokens(row[:tp + step])[None]
+        caches = lm._prefill(p, lm.init_cache(1))
+        logits, _ = lm.decode_step(p[:, -1:], tp + step - 1, caches)
+        top2 = lm._mask_untrained_logit(logits)[0].topk(2).values
+    return float(top2[0] - top2[1])
+
+
+def rows_held(lm, prompts, got, want, what, failed):
+    """Hold ``got`` against ``want`` row by row by the serving rule: equal,
+    or first different at a new token whose top-2 margin, given the
+    common history, is under NEAR_TIE.  Appends each breach to ``failed``;
+    returns the near-tie margins."""
+    margins = []
+    for i, (p, a, b) in enumerate(zip(prompts, got, want)):
+        a, b = np.asarray(a), np.asarray(b)
+        if a.shape != b.shape or not np.array_equal(a[:len(p)], p):
+            failed.append(f"{what}: request {i} malformed {a.shape}")
+            continue
+        if np.array_equal(a, b):
+            continue
+        step = int(np.flatnonzero(a[len(p):] != b[len(p):])[0])
+        margin = forced_margin(lm, a, len(p), step)
+        margins.append(margin)
+        print(f"prefix: {what}: request {i} differs at new token {step}; "
+              f"top-2 logit margin {margin:.3e}", flush=True)
+        if margin >= NEAR_TIE:
+            failed.append(f"{what}: request {i} diverges at a margin of "
+                          f"{margin:.3e} (not a near-tie)")
+    return margins
+
+
+def _prefix_prompts(rng, prefix, n, tail):
+    return [np.concatenate([prefix, rng.integers(1, VOCAB + 1, int(t))
+                            .astype(np.int32)])
+            for t in rng.integers(tail[0], tail[1], n)]
+
+
+def _serve_all(engine, prompts, max_new, start=False):
+    futs = [engine.submit_async(p, max_new) for p in prompts]
+    if start:
+        engine.start()
+    return [f.result(timeout=600) for f in futs]
+
+
+def kv_round_trip(lm, device="cuda"):
+    """A chunk extracted from a decoding slot, the slot then reused by
+    another prompt, the chunk copied into a free slot: the copy must hold
+    the K/V and pad flags the source slot held at the extract, bit for
+    bit.  Returns (equal, the chunk's bytes)."""
+    from bigdl_tpu_torch.serving import SlotPool
+    rng = np.random.default_rng(21)
+    pool = SlotPool(lm, slots=4, device=device)
+    vocab = lm.embedding.weight.shape[0] - 1
+    first, second = (rng.integers(1, vocab + 1, 200).astype(np.int32)
+                     for _ in range(2))
+    pool.prefill_into([first], [0], 256)
+    for _ in range(4):
+        pool.decode()
+    want = [(c["self"]["k"][0, :, :2 * PREFIX_G].clone(),
+             c["self"]["v"][0, :, :2 * PREFIX_G].clone())
+            for c in pool.caches["layers"]]
+    want_pad = pool.caches["pad"][0, :2 * PREFIX_G].clone()
+    layers, pad = pool.kv_extract(0, 0, 2 * PREFIX_G)
+    pool.release(0)
+    pool.prefill_into([second], [0], 256)
+    pool.decode()
+    pool.kv_copy_into(2, layers, pad, 0)
+    got = pool.caches
+    equal = bool(torch.equal(got["pad"][2, :2 * PREFIX_G], want_pad)) and all(
+        torch.equal(c["self"]["k"][2, :, :2 * PREFIX_G], k)
+        and torch.equal(c["self"]["v"][2, :, :2 * PREFIX_G], v)
+        for (k, v), c in zip(want, got["layers"]))
+    size = sum(t.numel() * t.element_size()
+               for lay in layers for t in lay.values()) + pad.numel()
+    return equal, size
+
+
+def _deadline_and_kill(lm, failed, device="cuda"):
+    """A paced request under Deadline(0.25) fails typed and its slot
+    serves the next; kill() fails residents dead and queued closed."""
+    import threading
+    from bigdl_tpu_torch.serving import (Deadline, DeadlineExceededError,
+                                         ModelServer, ReplicaDeadError,
+                                         ServerClosedError)
+    out = {}
+    prompt = np.array([2, 4, 6, 8], np.int32)
+    server = ModelServer(generator=lm, slots=1, device=device)
+    try:
+        started = threading.Event()
+
+        def slow(_tok):
+            started.set()
+            time.sleep(0.05)
+        fut = server.submit_generate_async(prompt, 50, on_token=slow,
+                                           deadline=Deadline(0.25))
+        started.wait(60)
+        try:
+            fut.result(60)
+            failed.append("deadline: a 0.25 s budget was never enforced")
+        except DeadlineExceededError as e:
+            out["deadline_stage"] = e.stage
+            if e.stage not in ("prefill", "decode"):
+                failed.append(f"deadline: stage {e.stage!r}")
+        t0 = time.perf_counter()
+        row = server.submit_generate(prompt, 6, timeout=60)
+        out["next_request_s"] = time.perf_counter() - t0
+        rows_held(lm, [prompt], [row], [lm.generate(prompt[None], 6)[0]
+                                        .cpu().numpy()],
+                  "deadline: the freed slot's next request", failed)
+    finally:
+        server.shutdown(drain=False, timeout=30)
+
+    server = ModelServer(generator=lm, slots=2, device=device)
+    engine = server.generation
+    started = [threading.Event(), threading.Event()]
+
+    def pace(i):
+        def on_token(_tok):
+            started[i].set()
+            time.sleep(0.02)
+        return on_token
+    residents = [server.submit_generate_async(
+        np.array([3 + i, 5, 7], np.int32), 40, on_token=pace(i))
+        for i in range(2)]
+    queued = [server.submit_generate_async(np.array([4, 4], np.int32), 4)
+              for _ in range(3)]
+    if not all(e.wait(60) for e in started):
+        failed.append("kill: the residents never streamed")
+    server.kill()
+    out["kill"] = []
+    for f, want in ([(f, ReplicaDeadError) for f in residents]
+                    + [(f, ServerClosedError) for f in queued]):
+        exc = f.exception(60)
+        out["kill"].append(type(exc).__name__)
+        if not isinstance(exc, want):
+            failed.append(f"kill: {type(exc).__name__}, not "
+                          f"{want.__name__}")
+    engine._thread.join(60)
+    if engine.alive or engine._pending is not None:
+        failed.append("kill: the engine thread is alive or left a step "
+                      "unread")
+    out["threads_left"] = sum(t is engine._thread
+                              for t in threading.enumerate())
+    server.shutdown()
+    return out
+
+
+def prefix_reading(device: str = "cuda"):
+    """The serving LM through the prefix KV cache (cache on and off), an
+    eviction run, a dedup burst, the disaggregated engine against a single
+    engine, a KV round trip through a reused slot, a deadline and a kill.
+    Returns the readings and the list of failed checks."""
+    from bigdl_tpu_torch.serving import (DisaggregatedEngine,
+                                         GenerationScheduler,
+                                         run_shared_prefix_workload)
+    lm = serving_lm(device)
+    failed = []
+    r = {}
+    cfg = dict(slots=SLOTS, prefill_chunk=PREFILL_CHUNK,
+               prefix_granularity=PREFIX_G, device=device)
+
+    # shared prefix, cache on then off
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    shared = run_shared_prefix_workload(
+        lm, n_requests=N_REQUESTS, prefix_len=PREFIX_LEN, tail=PREFIX_TAIL,
+        max_new=PREFIX_NEW, prefill_chunk_budget=PREFIX_BUDGET,
+        oracle_sample=0, **cfg)
+    torch.cuda.synchronize()
+    r["shared"] = {k: shared[k] for k in ("cache", "nocache",
+                                          "shared_fraction",
+                                          "ttft_p50_speedup")}
+    r["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    r["launches"] = _read_counts()
+    r["routes"] = _read_routes()
+    calls = sum(shared[run]["engine_totals"]["prefill_calls"]
+                + shared[run]["engine_totals"]["decode_steps"]
+                for run in ("cache", "nocache"))
+    got = r["launches"]["flash_attention_fwd"]
+    if got == 0 or got != LAYERS * calls:
+        failed.append(f"shared prefix: #1 launched {got} times, not layers "
+                      f"x (prefill and chunk calls + decode steps) = "
+                      f"{LAYERS * calls}")
+    if r["routes"]["flash_attention_fwd"] != {"tensor_core": 0,
+                                              "scalar": got}:
+        failed.append(f"shared prefix: #1 took the routes "
+                      f"{r['routes']['flash_attention_fwd']}, not scalar")
+    on, off = shared["cache"], shared["nocache"]
+    if not on["prefix_cache"]["hits"] > 0:
+        failed.append("shared prefix: no cache hit with the cache on")
+    if off["prefix_cache"] is not None or off["prefix_chunks_copied"]:
+        failed.append("shared prefix: chunks copied with the cache off")
+    prompts = shared["prompts"]
+    r["shared_margins"] = rows_held(
+        lm, prompts, shared["rows"]["cache"], shared["rows"]["nocache"],
+        "shared prefix: cache on vs off", failed)
+    solo = [lm.generate(p[None], PREFIX_NEW)[0].cpu().numpy()
+            for p in prompts[:2]]
+    r["solo_margins"] = rows_held(lm, prompts[:2],
+                                  shared["rows"]["cache"][:2], solo,
+                                  "shared prefix: cache on vs solo", failed)
+
+    # eviction: a budget of three chunks, two alternating prefixes
+    rng = np.random.default_rng(31)
+    heads = [rng.integers(1, VOCAB + 1, PREFIX_LEN).astype(np.int32)
+             for _ in range(2)]
+    engine = GenerationScheduler(lm, prefix_cache_bytes=3 * chunk_bytes(),
+                                 **cfg)
+    evict_prompts, evict_rows = [], []
+    try:
+        for _round in range(3):
+            batch = [_prefix_prompts(rng, h, 1, (8, 17))[0] for h in heads]
+            evict_prompts += batch
+            evict_rows += _serve_all(engine, batch, PREFIX_NEW)
+        r["eviction"] = engine.stats()["prefix_cache"]
+    finally:
+        engine.shutdown()
+    if not r["eviction"]["evictions"] > 0:
+        failed.append("eviction: nothing was evicted")
+    if r["eviction"]["resident_bytes"] > r["eviction"]["byte_budget"]:
+        failed.append("eviction: the cache outgrew its budget")
+    r["eviction_margins"] = rows_held(
+        lm, evict_prompts, evict_rows,
+        [lm.generate(p[None], PREFIX_NEW)[0].cpu().numpy()
+         for p in evict_prompts], "eviction vs solo", failed)
+
+    # dedup: a burst of identical cold prompts, then one cold prompt alone
+    burst = rng.integers(1, VOCAB + 1, DEDUP_LEN).astype(np.int32)
+    lone = rng.integers(1, VOCAB + 1, DEDUP_LEN).astype(np.int32)
+    engine = GenerationScheduler(lm, prefix_cache_bytes=1 << 28,
+                                 start=False, **cfg)
+    try:
+        burst_rows = _serve_all(engine, [burst] * DEDUP_BURST, PREFIX_NEW,
+                                start=True)
+        st = engine.stats()
+        _serve_all(engine, [lone], PREFIX_NEW)
+        lone_calls = engine.stats()["prefill_calls"] - st["prefill_calls"]
+    finally:
+        engine.shutdown()
+    r["dedup"] = {k: st[k] for k in ("prefill_dedup_leaders",
+                                     "prefill_dedup_followers",
+                                     "prefill_calls",
+                                     "prefix_chunks_copied")}
+    r["dedup"]["lone_prefill_calls"] = lone_calls
+    if (st["prefill_dedup_leaders"], st["prefill_dedup_followers"]) != \
+            (1, DEDUP_BURST - 1):
+        failed.append(f"dedup: {st['prefill_dedup_leaders']} leaders and "
+                      f"{st['prefill_dedup_followers']} followers, not 1 "
+                      f"and {DEDUP_BURST - 1}")
+    if st["prefill_calls"] != lone_calls:
+        failed.append(f"dedup: the burst ran {st['prefill_calls']} prefill "
+                      f"calls, one prompt {lone_calls}")
+    want = lm.generate(burst[None], PREFIX_NEW)[0].cpu().numpy()
+    rows_held(lm, [burst] * DEDUP_BURST, burst_rows,
+              [want] * DEDUP_BURST, "dedup vs solo", failed)
+
+    # disaggregated prefill -> decode against one engine
+    lens = rng.integers(16, 400, DISAGG_REQUESTS)
+    dis_prompts = [rng.integers(1, VOCAB + 1, int(n)).astype(np.int32)
+                   for n in lens]
+    through_prefill = sum(int(n) - 1 >= PREFIX_G for n in lens)
+    torch.cuda.synchronize()
+    _zero_counts()
+    de = DisaggregatedEngine(lm, decode_slots=SLOTS,
+                             prefill_slots=DISAGG_PREFILL_SLOTS,
+                             prefix_cache_bytes=1 << 28,
+                             prefix_granularity=PREFIX_G,
+                             prefill_chunk=PREFILL_CHUNK, device=device)
+    try:
+        futs = [de.submit_generate_async(p, PREFIX_NEW)
+                for p in dis_prompts]
+        dis_rows = [f.result(timeout=600) for f in futs]
+    finally:
+        de.shutdown()
+    dst = de.stats()        # after the drain, which reads the last step
+    torch.cuda.synchronize()
+    r["disagg_launches"] = _read_counts()
+    r["disagg_routes"] = _read_routes()
+    r["disaggregated"] = {
+        "handoffs": dst["handoffs"],
+        "through_prefill_tier": dst["prefill_engine"]["requests_done"],
+        "retries": dst["prefill_engine_retries"],
+        "decode_prefill_calls": dst["prefill_calls"],
+        "prefill_engine_calls": dst["prefill_engine"]["prefill_calls"],
+        "chunks_copied": dst["prefix_chunks_copied"],
+        "decode_steps": dst["decode_steps"]}
+    if dst["prefill_engine"]["requests_done"] != through_prefill \
+            or dst["handoffs"] != DISAGG_REQUESTS:
+        failed.append(f"disaggregated: {dst['prefill_engine']['requests_done']}"
+                      f" requests through the prefill tier (want "
+                      f"{through_prefill}, those whose region reaches "
+                      f"{PREFIX_G}), {dst['handoffs']} handed to decode")
+    calls = (dst["prefill_engine"]["prefill_calls"] + dst["prefill_calls"]
+             + dst["decode_steps"])
+    got = r["disagg_launches"]["flash_attention_fwd"]
+    if got == 0 or got != LAYERS * calls:
+        failed.append(f"disaggregated: #1 launched {got} times, not "
+                      f"{LAYERS * calls}")
+    if r["disagg_routes"]["flash_attention_fwd"]["tensor_core"]:
+        failed.append("disaggregated: #1 took the tensor-core route")
+    engine = GenerationScheduler(lm, prefix_cache_bytes=1 << 28, **cfg)
+    try:
+        single_rows = _serve_all(engine, dis_prompts, PREFIX_NEW)
+    finally:
+        engine.shutdown()
+    r["disagg_margins"] = rows_held(lm, dis_prompts, dis_rows, single_rows,
+                                    "disaggregated vs single engine",
+                                    failed)
+
+    # the copy itself, bit for bit, through a reused slot
+    equal, size = kv_round_trip(lm, device)
+    r["round_trip"] = {"bit_for_bit": equal, "bytes": size}
+    if not equal:
+        failed.append("round trip: a chunk extracted from a decoding slot "
+                      "and copied into a free slot after the slot's reuse "
+                      "differs from the slot's K/V at the extract")
+
+    r["reliability"] = _deadline_and_kill(lm, failed, device)
+    r["failed"] = failed
+    return r
+
+
+def phase_prefix(smi, device: str = "cuda"):
+    """5b: the prefix KV cache on the serving LM; see prefix_reading."""
+    def report(r):
+        for label in ("cache", "nocache"):
+            run = r["shared"][label]
+            cache = run["prefix_cache"] or {}
+            print(f"prefix: shared prefix {PREFIX_LEN} + tails "
+                  f"{PREFIX_TAIL[0]}-{PREFIX_TAIL[1] - 1}, {N_REQUESTS} "
+                  f"requests, cache {'on' if label == 'cache' else 'off'}: "
+                  f"TTFT p50 {run['queue_to_first_token_s_p50']:.5f} s, p99 "
+                  f"{run['queue_to_first_token_s_p99']:.5f} s; "
+                  f"{run['tokens_per_sec']:.2f} tokens/s; prefill calls "
+                  f"{run['prefill_calls']} in {run['prefill_seconds']:.5f} "
+                  f"s; chunks copied {run['prefix_chunks_copied']}; hit rate "
+                  f"{cache.get('hit_rate', 0.0):.4f}", flush=True)
+        print(f"prefix: TTFT p50 speedup {r['shared']['ttft_p50_speedup']:.3f}"
+              f"; peak memory {r['peak_memory_bytes']} bytes; #1 launches "
+              f"{r['launches']['flash_attention_fwd']} "
+              f"{r['routes']['flash_attention_fwd']}; near-tie rows "
+              f"{len(r['shared_margins'])} (cache on vs off), "
+              f"{len(r['solo_margins'])} (vs solo); on {smi}")
+        ev = r["eviction"]
+        print(f"prefix: eviction: budget {ev['byte_budget']} bytes "
+              f"(3 chunks of {chunk_bytes()}), inserts {ev['inserts']}, "
+              f"evictions {ev['evictions']}, hits {ev['hits']}, resident "
+              f"{ev['resident_bytes']}")
+        print(f"prefix: dedup burst of {DEDUP_BURST}: {r['dedup']}")
+        print(f"prefix: disaggregated {DISAGG_REQUESTS} requests: "
+              f"{r['disaggregated']}; #1 launches "
+              f"{r['disagg_launches']['flash_attention_fwd']}")
+        print(f"prefix: round trip {r['round_trip']}; deadline and kill "
+              f"{r['reliability']}")
+    return _phase("prefix", lambda: prefix_reading(device), report)
 
 
 # ---------------------------------------------------------------------------
@@ -3477,6 +3877,7 @@ def main() -> int:
     ring = phase_partial_kernel_checks(rates)
     conv = phase_conv_kernel_checks(rates)
     serving, serving_routes = phase_serving()
+    prefix = phase_prefix(smi)
     train = phase_training()
     phase_train_parity()
     sp = phase_sp_training()
@@ -3494,7 +3895,10 @@ def main() -> int:
     replayed = {**{path: r["replayed"] for path, r in dispatch.items()},
                 "resume": resume["replayed"],
                 "lm_remat": remat["runs"]["remat_graph"]["replayed"]}
-    by_path = {"serving": serving, "lm_training": train["launches"],
+    by_path = {"serving": serving,
+               "serving_prefix_cache": prefix["launches"],
+               "serving_disaggregated": prefix["disagg_launches"],
+               "lm_training": train["launches"],
                "sp_training": sp["launches"],
                "resnet_training": resnet["launches"],
                "lm_remat_training": remat["runs"]["remat"]["launches"],
@@ -3564,6 +3968,8 @@ def main() -> int:
     # the kernels redesigned for the tensor cores: their design, their
     # launches by route on each path and their build report
     routes_by_path = {"serving": serving_routes,
+                      "serving_prefix_cache": prefix["routes"],
+                      "serving_disaggregated": prefix["disagg_routes"],
                       "lm_training": train["routes"],
                       "sp_training": sp["routes"],
                       "resnet_training": resnet["routes"],

@@ -941,3 +941,31 @@ def test_device_prefetch_hands_over_what_the_step_reads(cuda):
     assert it.staged_total == 12
     assert it.copy_stream is not None
     assert it.copy_stream.cuda_stream not in streams
+
+
+def test_prefix_cache_round_trip_and_rows_on_the_card(cuda):
+    """A kv_extract of a decoding slot, copied into a free slot after the
+    source slot was reused, reproduces the slot's K/V and pad bit for
+    bit; the shared-prefix harness serves cache on and off by the serving
+    rule (equal, or a near-tie), with hits only with the cache."""
+    from bigdl_tpu_torch.serving import run_shared_prefix_workload
+    lm = TransformerLM(512, hidden_size=64, num_layers=2, num_heads=4,
+                       filter_size=128, max_len=512,
+                       generator=torch.Generator().manual_seed(0),
+                       device=cuda).eval()
+    equal, size = chip_smoke.kv_round_trip(lm, cuda)
+    assert equal and size == 2 * 2 * 4 * 128 * 16 * 4 + 128
+    out = run_shared_prefix_workload(
+        lm, n_requests=8, prefix_len=128, tail=(4, 40), max_new=6,
+        slots=4, prefix_granularity=64, prefill_chunk=64,
+        oracle_sample=0, device=cuda)
+    assert out["cache"]["prefix_cache"]["hits"] > 0
+    assert out["nocache"]["prefix_chunks_copied"] == 0
+    failed = []
+    chip_smoke.rows_held(lm, out["prompts"], out["rows"]["cache"],
+                         out["rows"]["nocache"], "cache on vs off", failed)
+    chip_smoke.rows_held(
+        lm, out["prompts"][:2], out["rows"]["cache"][:2],
+        [lm.generate(p[None], 6)[0].cpu().numpy()
+         for p in out["prompts"][:2]], "cache on vs solo", failed)
+    assert not failed, failed

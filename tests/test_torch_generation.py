@@ -23,7 +23,7 @@ from bigdl_tpu.utils import set_seed
 from bigdl_tpu_torch.interop import load_jax_parameters
 from bigdl_tpu_torch.models import transformer_lm
 from bigdl_tpu_torch.serving import (
-    BoundedRequestQueue, Deadline, GenerationScheduler, ModelServer,
+    BoundedRequestQueue, GenerationScheduler, ModelServer,
     QueueFullError, RequestSheddedError, ServerClosedError, SlotPool,
     bucket_sizes, pick_bucket, run_mixed_workload,
 )
@@ -170,17 +170,18 @@ def test_shutdown_drains_queued_requests(models):
 
 
 def test_unported_options_raise_not_implemented(models):
+    """What is still unported raises: one-shot ``backend=`` serving and
+    request tracing (``trace=``), on the engine and through the server."""
     _, port = models
-    for kw in ({"prefix_cache_bytes": 1 << 20}, {"prefix_cache": object()},
-               {"role": "prefill"}):
-        with pytest.raises(NotImplementedError):
-            GenerationScheduler(port, slots=1, start=False, device="cpu",
-                                **kw)
     eng = GenerationScheduler(port, slots=1, start=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="deadline"):
-        eng.submit_async([1, 2], 2, deadline=Deadline(5.0))
+    with pytest.raises(NotImplementedError, match="item 10"):
+        eng.submit_async([1, 2], 2, trace=object())
     with pytest.raises(NotImplementedError, match="backend"):
         ModelServer(backend=object(), device="cpu")
+    server = ModelServer(generator=eng, device="cpu")
+    with pytest.raises(NotImplementedError, match="trace"):
+        server.submit_generate_async([1, 2], 2, trace=object())
+    assert eng.admitted_outstanding() == 0
 
 
 def test_validation_errors(models):

@@ -17,7 +17,8 @@ from bigdl_tpu_torch.models import (LeNet5, TransformerLM, lenet5_graph,
                                     resnet50, resnet_cifar)
 from bigdl_tpu_torch.nn import (PReLU, SpatialBatchNormalization,
                                 SpatialConvolution)
-from bigdl_tpu_torch.serving import GenerationScheduler, ModelServer
+from bigdl_tpu_torch.serving import (DisaggregatedEngine,
+                                     GenerationScheduler, ModelServer)
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -63,7 +64,9 @@ def test_port_and_chip_smoke_import_no_jax():
                  "bigdl_tpu_torch.utils.file", "bigdl_tpu_torch.utils.chaos",
                  "bigdl_tpu_torch.data.pipeline",
                  "bigdl_tpu_torch.data.device_prefetch",
-                 "bigdl_tpu_torch.dataset.prefetch"):
+                 "bigdl_tpu_torch.dataset.prefetch",
+                 "bigdl_tpu_torch.serving.prefix_cache",
+                 "bigdl_tpu_torch.serving.replica"):
         assert name in {m.name for m in pkgutil.walk_packages(
             bigdl_tpu_torch.__path__, "bigdl_tpu_torch.")}
     assert leaked == "[]", leaked
@@ -83,6 +86,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         GenerationScheduler(lm, slots=1, start=False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ModelServer(generator=lm)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DisaggregatedEngine(lm)
     with pytest.raises(ValueError, match="unsupported device"):
         TransformerLM(**cfg, device="meta")
     with pytest.raises(RuntimeError, match="no CUDA device"):
