@@ -12,7 +12,7 @@ from typing import Optional, Union
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "same_device"]
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
@@ -30,3 +30,13 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     if dev.type == "cpu":
         return dev
     raise ValueError(f"unsupported device {dev}: use 'cuda' or 'cpu'")
+
+
+def same_device(a: torch.device, b: torch.device) -> bool:
+    """Equal devices, where a CUDA device without an index is the
+    current one."""
+    if a.type != b.type:
+        return False
+    if a.type == "cuda" and None not in (a.index, b.index):
+        return a.index == b.index
+    return True

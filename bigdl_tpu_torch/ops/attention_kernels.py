@@ -52,6 +52,7 @@ Counterpart of ``bigdl_tpu/ops/attention_kernels.py``.  Shapes follow
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Optional
 
 import torch
@@ -319,6 +320,19 @@ def fwd_route(dtype, aligned: bool = True) -> str:
                     f"{dtype}")
 
 
+# one lock for the wrappers' counts, so that threads calling one model at
+# once (PredictionService) count every launch
+_COUNT_LOCK = threading.Lock()
+
+
+def _count(wrapper, route: Optional[str] = None) -> None:
+    """Count one launch of ``wrapper`` (by ``route``, where it has two)."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+        if route is not None:
+            wrapper.routes[route] += 1
+
+
 def _launch_fwd(q, k, v, bias, scale, causal, causal_offset, route):
     """Launch the forward kernel by ``route`` on inputs that
     :func:`_check_inputs` passed; ``(out, lse)``.  Counts nothing: the
@@ -358,8 +372,7 @@ def flash_attention_fwd(q, k, v, bias=None, *, scale: float,
     _check_inputs(q, k, v, bias)
     route = fwd_route(q.dtype, rows_aligned(q, k, v))
     out = _launch_fwd(q, k, v, bias, scale, causal, causal_offset, route)
-    flash_attention_fwd.launches += 1
-    flash_attention_fwd.routes[route] += 1
+    _count(flash_attention_fwd, route)
     return out
 
 
@@ -425,8 +438,7 @@ def flash_attention_dq(q, k, v, bias, do, lse, delta, *, scale: float,
     dq = torch.empty((b, h, tq, d), dtype=q.dtype, device=q.device)
     _launch_bwd("flash_attention_dq", q, k, v, bias, do, lse, delta, dq,
                 None, scale, causal, causal_offset)
-    flash_attention_dq.launches += 1
-    flash_attention_dq.routes[route] += 1
+    _count(flash_attention_dq, route)
     return dq
 
 
@@ -460,8 +472,7 @@ def flash_attention_dkv(q, k, v, bias, do, lse, delta, *, scale: float,
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     _launch_bwd("flash_attention_dkv", q, k, v, bias, do, lse, delta, dk,
                 dv, scale, causal, causal_offset)
-    flash_attention_dkv.launches += 1
-    flash_attention_dkv.routes[route] += 1
+    _count(flash_attention_dkv, route)
     return dk, dv
 
 
@@ -478,7 +489,7 @@ def flash_attention_dbias(q, k, v, bias, do, lse, delta, *, scale: float,
                      device=q.device)
     _launch_bwd("flash_attention_dbias", q, k, v, bias, do, lse, delta, ds,
                 None, scale, causal, causal_offset)
-    flash_attention_dbias.launches += 1
+    _count(flash_attention_dbias)
     return ds
 
 
@@ -635,8 +646,7 @@ def flash_attention_partial(q, k, v, acc, m, l, *, q_offset: int,
                 float(scale), int(bool(causal)), int(q_offset),
                 int(k_offset), stream)
     _raise_on(rc, "flash_attention_partial")
-    flash_attention_partial.launches += 1
-    flash_attention_partial.routes[route] += 1
+    _count(flash_attention_partial, route)
     return out
 
 
@@ -701,8 +711,7 @@ def flash_attention_dq_partial(q, k, v, do, lse, delta, *, q_offset: int,
     _launch_partial_bwd("flash_attention_dq_partial", q, k, v, do, lse,
                         delta, dq, None, scale, causal, q_offset, k_offset,
                         route)
-    flash_attention_dq_partial.launches += 1
-    flash_attention_dq_partial.routes[route] += 1
+    _count(flash_attention_dq_partial, route)
     return dq
 
 
@@ -739,8 +748,7 @@ def flash_attention_dkv_partial(q, k, v, do, lse, delta, *, q_offset: int,
     _launch_partial_bwd("flash_attention_dkv_partial", q, k, v, do, lse,
                         delta, dk, dv, scale, causal, q_offset, k_offset,
                         route)
-    flash_attention_dkv_partial.launches += 1
-    flash_attention_dkv_partial.routes[route] += 1
+    _count(flash_attention_dkv_partial, route)
     return dk, dv
 
 

@@ -105,7 +105,8 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
-from bigdl_tpu_torch.core.module import ReplayStreams, forward_context
+from bigdl_tpu_torch.core.module import ReplayStreams, cast_floating, \
+    forward_context
 from bigdl_tpu_torch.data.device_prefetch import DevicePrefetch
 from bigdl_tpu_torch.data.pipeline import (
     PIPELINE_STATE_VERSION, PipelineState, dataset_seed, epoch_iter,
@@ -182,14 +183,6 @@ def _clone(value):
     if isinstance(value, (tuple, list)):
         return type(value)(_clone(v) for v in value)
     return value.clone()
-
-
-def _cast_floating(value, dtype):
-    if isinstance(value, (tuple, list)):
-        return type(value)(_cast_floating(v, dtype) for v in value)
-    if torch.is_tensor(value) and value.is_floating_point():
-        return value.to(dtype)
-    return value
 
 
 def _batch_sig(batch) -> Tuple:
@@ -571,9 +564,8 @@ class Optimizer:
         tensors = dict(self.model.named_parameters())
         tensors.update(buffers)
         if dtype is not None:
-            tensors = {name: _cast_floating(t, dtype)
-                       for name, t in tensors.items()}
-            x = _cast_floating(x, dtype)
+            tensors = cast_floating(tensors, dtype)
+            x = cast_floating(x, dtype)
         given = {name: tensors[name] for name in buffers}
         out = functional_call(self.model, tensors, (x,))
         if dtype is not None:
@@ -1057,6 +1049,10 @@ class Optimizer:
 
     def _optimize_once(self) -> torch.nn.Module:
         model = self.model.train()
+        # frozen parameters (core.module.freeze) get no update and no
+        # optim state; the forward and the checkpoint's "params" still
+        # hold them, as the reference's remainder does.  Read once an
+        # attempt: a captured graph fixes what it updates
         named = [(n, p) for n, p in model.named_parameters()
                  if p.requires_grad]
         if not named:

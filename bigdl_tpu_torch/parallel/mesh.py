@@ -19,7 +19,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from bigdl_tpu_torch.core.device import resolve_device
+from bigdl_tpu_torch.core.device import resolve_device, same_device
 
 __all__ = ["AXES", "Mesh", "make_mesh", "same_device"]
 
@@ -64,16 +64,6 @@ class Mesh:
     def device(self) -> torch.device:
         """The one device every shard lies on."""
         return self.devices[0]
-
-
-def same_device(a: torch.device, b: torch.device) -> bool:
-    """Equal devices, where a CUDA device without an index is the
-    current one."""
-    if a.type != b.type:
-        return False
-    if a.type == "cuda" and None not in (a.index, b.index):
-        return a.index == b.index
-    return True
 
 
 def make_mesh(axes: Optional[Dict[str, int]] = None,

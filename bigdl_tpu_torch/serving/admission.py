@@ -7,7 +7,8 @@
                     with :class:`RequestSheddedError`.
 
 Queued items are duck-typed: anything with a ``future`` (a
-``concurrent.futures.Future``) and a ``t_enqueue`` stamp.
+``concurrent.futures.Future``) and a ``t_enqueue`` stamp, such as a
+one-shot :class:`Request` or a generation request.
 """
 
 from __future__ import annotations
@@ -18,8 +19,8 @@ import time
 from concurrent.futures import Future
 from typing import Deque, List, Optional
 
-__all__ = ["QueueFullError", "RequestSheddedError", "ServerClosedError",
-           "BoundedRequestQueue", "POLICIES"]
+__all__ = ["Request", "QueueFullError", "RequestSheddedError",
+           "ServerClosedError", "BoundedRequestQueue", "POLICIES"]
 
 POLICIES = ("block", "reject", "shed_oldest")
 
@@ -41,6 +42,18 @@ def _fail_future(fut: Future, exc: Exception) -> None:
     cancelled future raises InvalidStateError on set_exception)."""
     if fut.set_running_or_notify_cancel():
         fut.set_exception(exc)
+
+
+class Request:
+    """One admitted one-shot sample, its future and its enqueue stamp
+    (``t_enqueue`` feeds the latency metrics)."""
+
+    __slots__ = ("sample", "future", "t_enqueue")
+
+    def __init__(self, sample):
+        self.sample = sample
+        self.future: Future = Future()
+        self.t_enqueue = time.perf_counter()
 
 
 class BoundedRequestQueue:

@@ -91,6 +91,10 @@ the faults they are there to catch:
    that returns views into the pool instead of copies, so a cached chunk
    follows whatever the slot's next occupant writes; the script fails
    unless the phase's checks refuse it.
+9. A control one-shot batcher.  chip_smoke's oneshot phase serves the LM
+   through a ``split_outputs`` that hands request i the row of request
+   i + 1 within its batch (the last the first's); the script fails unless
+   the phase's row checks refuse it.
 
 The last line is one JSON object with every reading.  Imports torch,
 numpy, ``bigdl_tpu_torch`` and ``chip_smoke`` only.
@@ -956,6 +960,33 @@ def phase_prefix_control():
     return dict(refused_by=refused_by), failures
 
 
+def phase_oneshot_control():
+    """chip_smoke's one-shot LM with the batch's rows handed out one
+    request late: its row checks must refuse it."""
+    from bigdl_tpu_torch.serving import scheduler
+    split = scheduler.split_outputs
+
+    def shifted(y, n):
+        rows = split(y, n)
+        return rows[1:] + rows[:1]
+    scheduler.split_outputs = shifted
+    try:
+        refused_by = chip_smoke.oneshot_lm_reading()["failed"]
+    except Exception as e:  # noqa: BLE001 - a crash refuses it too
+        refused_by = [f"{type(e).__name__}: {e}"]
+    finally:
+        scheduler.split_outputs = split
+    rows = [f for f in refused_by if "request" in f]
+    print(f"oneshot control (split_outputs hands request i the row of i + "
+          f"1): refused by {len(refused_by)} checks, {len(rows)} of them "
+          f"on rows: {refused_by[:4]}")
+    failures = [] if rows else [
+        "the oneshot phase's row checks pass a split_outputs that hands "
+        "each request its neighbour's row"]
+    return dict(refused_by=len(refused_by), row_checks=len(rows),
+                first=refused_by[:4]), failures
+
+
 def main() -> int:
     chip_smoke.phase_device()
     mutants, failures = phase_mutants()
@@ -976,6 +1007,8 @@ def main() -> int:
     failures += more
     prefix_control, more = phase_prefix_control()
     failures += more
+    oneshot_control, more = phase_oneshot_control()
+    failures += more
     print(json.dumps({"mutants": mutants, "control_step": control,
                       "bounds": {"grad_norm_rel": chip_smoke.GRAD_NORM_REL,
                                  "grad_max_rel": chip_smoke.GRAD_MAX_REL},
@@ -987,6 +1020,7 @@ def main() -> int:
                       "resume_control": resume_control,
                       "remat_control": remat_control,
                       "prefix_control": prefix_control,
+                      "oneshot_control": oneshot_control,
                       "failures": failures}))
     return 1 if failures else 0
 

@@ -68,6 +68,22 @@ Phases, each raising on failure (the script then exits non-zero):
    ``Deadline(0.25)`` under a paced stream failing typed; ``kill()``
    failing residents with ReplicaDeadError and queued requests with
    ServerClosedError.  A failed check prints ``prefix: FAILED: <check>``;
+5c. oneshot: the same LM one-shot, ``ModelServer(backend=lm,
+   max_batch=16, batch_timeout_ms=5)`` after ``warmup`` on a 128-token
+   row: 64 requests of 128 tokens from 8 threads released together, a
+   burst of 16 through ``submit_many``, 3 lone requests; every reply
+   ([128, vocab + 1] logits) within F32_TOL of the LM's forward of its
+   row alone on the card, the same argmax bar a near-tie, 83 requests in
+   the metrics, #1 at layers x (batches + 5 warm-up buckets) launches,
+   all scalar; requests/s, latency quantiles, batches, padded waste, a
+   full bucket's device and readback ms, peak memory.  Then ResNet-50 in
+   eval mode (f32, BatchNorm scales and statistics from a seed) through
+   ``Predictor(batch_size=32)`` at the entry's ones batch and 40 random
+   images, ``predict_class``, ``Evaluator`` (Top1, Top5, Loss: 40
+   samples), a ``PredictionService`` from 4 threads with a
+   ``predict_bytes`` round trip and ``serve()``, all against a CPU copy
+   (1e-4 of max |logit|), no kernel launched; images/s at batch 32.  A
+   failed check prints ``oneshot: FAILED: <check>``;
 6. training: the port's ``examples.perf`` training path at the width of
    the reference's transformer perf run (L6 H512 T2048 b8, vocab 32000,
    filter 2048, bf16 compute) through ``Optimizer.optimize()``; the loss
@@ -164,7 +180,8 @@ Phases, each raising on failure (the script then exits non-zero):
    and idle share of both.  Each of 13c-13e prints ``<phase>: FAILED:
    <check>`` for a failed check before the script exits non-zero;
 14. a ``{"kernels": [...]}`` line (eleven kernels, launches by path
-   (#1's on ``serving_prefix_cache`` and ``serving_disaggregated`` too),
+   (#1's on ``serving_prefix_cache``, ``serving_disaggregated`` and
+   ``oneshot_lm`` too),
    the graph replays' among them (phases 13, 13b and 13c) as the profiler
    counted them on the device; all but #4 also their design, launches
    by route and build report; #1 its row at the training shape beside the decode row), then
@@ -181,6 +198,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from contextlib import contextmanager
 from pathlib import Path
@@ -1896,6 +1914,352 @@ def phase_prefix(smi, device: str = "cuda"):
         print(f"prefix: round trip {r['round_trip']}; deadline and kill "
               f"{r['reliability']}")
     return _phase("prefix", lambda: prefix_reading(device), report)
+
+
+# ---------------------------------------------------------------------------
+# 5c. one-shot serving: the LM behind the dynamic batcher; ResNet-50 behind
+# the Predictor, the Evaluator and the PredictionService
+# ---------------------------------------------------------------------------
+
+ONESHOT_BATCH, ONESHOT_TIMEOUT_MS, ONESHOT_LEN = 16, 5.0, 128
+ONESHOT_THREADS, ONESHOT_EACH, ONESHOT_LONE = 8, 8, 3
+ONESHOT_REQUESTS = ONESHOT_THREADS * ONESHOT_EACH + ONESHOT_BATCH \
+    + ONESHOT_LONE                                     # 83
+ONESHOT_TIMED = 5                  # timed runs of a full bucket (median)
+RESNET_ONESHOT_BATCH, RESNET_ONESHOT_IMAGES = 32, 40
+RESNET_ONESHOT_CLASSES, RESNET_ONESHOT_SIZE = 1000, 224
+# ResNet-50's f32 eval logits on the card (cuDNN) against its CPU copy
+RESNET_ONESHOT_REL = 1e-4          # of max |logit|
+
+
+def oneshot_rows_held(lm, rows, replies, what, failed):
+    """Hold each one-shot reply against ``lm``'s forward of its row alone
+    on the same device: within F32_TOL, and the same argmax at every
+    position bar a near-tie (the solo logits' top-2 margin under
+    NEAR_TIE; ``torch.matmul``'s kernels may vary with the row count).
+    Appends each breach to ``failed``; returns (max abs error, positions
+    whose argmax differs at a near-tie)."""
+    worst, ties = 0.0, 0
+    with torch.inference_mode():
+        for i, (row, reply) in enumerate(zip(rows, replies)):
+            want = lm(row[None])[0]
+            got = torch.as_tensor(reply).to(want.device)
+            if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+                failed.append(f"{what}: request {i} malformed "
+                              f"{tuple(got.shape)}, not {tuple(want.shape)}")
+                continue
+            err = float((got - want).abs().max())
+            worst = max(worst, err)
+            if not torch.allclose(got, want, **F32_TOL):
+                failed.append(f"{what}: request {i} differs from its solo "
+                              f"forward by {err:.3e}")
+            differ = got.argmax(-1) != want.argmax(-1)
+            if bool(differ.any()):
+                top2 = want[differ].topk(2, dim=-1).values
+                margin = float((top2[:, 0] - top2[:, 1]).max())
+                ties += int(differ.sum())
+                if margin >= NEAR_TIE:
+                    failed.append(f"{what}: request {i}'s argmax differs "
+                                  f"at a margin of {margin:.3e} (not a "
+                                  f"near-tie)")
+    return worst, ties
+
+
+def oneshot_lm_reading(device: str = "cuda", lm=None,
+                       length: int = ONESHOT_LEN) -> dict:
+    """The serving LM one-shot: ``ModelServer(backend=lm, max_batch=16,
+    batch_timeout_ms=5)`` after ``warmup`` on a ``length``-token row; 64
+    requests from 8 threads released together (each waits for its reply
+    before the next), a burst of 16 through ``submit_many``, 3 lone
+    requests.  Counts are set to 0 before the warmup and read after
+    ``shutdown()``.  Returns the readings and the failed checks."""
+    from bigdl_tpu_torch.optim.predictor import jit_forward
+    from bigdl_tpu_torch.serving import ModelServer
+    lm = serving_lm(device) if lm is None else lm
+    layers = len(lm.blocks)
+    vocab = lm.embedding.weight.shape[0] - 1
+    rng = np.random.default_rng(41)
+    clients = [[rng.integers(1, vocab + 1, length).astype(np.int32)
+                for _ in range(ONESHOT_EACH)]
+               for _ in range(ONESHOT_THREADS)]
+    burst = [rng.integers(1, vocab + 1, length).astype(np.int32)
+             for _ in range(ONESHOT_BATCH)]
+    lone = [rng.integers(1, vocab + 1, length).astype(np.int32)
+            for _ in range(ONESHOT_LONE)]
+    failed, r, errors = [], {}, []
+    replies = [[None] * ONESHOT_EACH for _ in range(ONESHOT_THREADS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    server = ModelServer(lm, max_batch=ONESHOT_BATCH,
+                         batch_timeout_ms=ONESHOT_TIMEOUT_MS, device=device)
+    gate = threading.Barrier(ONESHOT_THREADS)
+
+    def client(t):
+        try:
+            gate.wait()
+            for j, x in enumerate(clients[t]):
+                replies[t][j] = server.submit(x, timeout=600)
+        except Exception as e:  # noqa: BLE001 - a failed client fails
+            errors.append(f"{type(e).__name__}: {e}")
+
+    _zero_counts()
+    try:
+        t0 = time.perf_counter()
+        server.warmup(burst[0])
+        r["warmup_s"] = time.perf_counter() - t0
+        workers = [threading.Thread(target=client, args=(t,))
+                   for t in range(ONESHOT_THREADS)]
+        t0 = time.perf_counter()
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join()
+        r["concurrent_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        burst_replies = server.submit_many(burst, timeout=600)
+        r["burst_s"] = time.perf_counter() - t0
+        lone_replies, r["lone_s"] = [], []
+        for x in lone:
+            t0 = time.perf_counter()
+            lone_replies.append(server.submit(x, timeout=600))
+            r["lone_s"].append(time.perf_counter() - t0)
+    finally:
+        server.shutdown()
+    torch.cuda.synchronize()
+    r["launches"], r["routes"] = _read_counts(), _read_routes()
+    r["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    failed += [f"client: {e}" for e in errors]
+    snap = r["metrics"] = server.metrics.snapshot()
+    occ = snap["occupancy"]
+    if snap["requests"] != ONESHOT_REQUESTS or \
+            sum(n * c for n, c in occ.items()) != ONESHOT_REQUESTS:
+        failed.append(f"metrics: {snap['requests']} requests counted, "
+                      f"{sum(n * c for n, c in occ.items())} in the "
+                      f"occupancy, not {ONESHOT_REQUESTS}")
+    if sum(occ.values()) != snap["batches"]:
+        failed.append(f"metrics: the occupancy histogram holds "
+                      f"{sum(occ.values())} batches, not {snap['batches']}")
+    got = r["launches"]["flash_attention_fwd"]
+    want = layers * (snap["batches"] + len(server.buckets))
+    if got == 0 or got != want:
+        failed.append(f"#1 launched {got} times, not layers x (batches + "
+                      f"warm-up buckets) = {want}")
+    if r["routes"]["flash_attention_fwd"] != {"tensor_core": 0,
+                                              "scalar": got}:
+        failed.append(f"#1 took the routes {r['routes']['flash_attention_fwd']}"
+                      f", not scalar")
+    rows = [x for c in clients for x in c] + burst + lone
+    got_rows = [y for c in replies for y in c] + burst_replies + lone_replies
+    if any(y is None for y in got_rows):
+        failed.append("a client's request went unanswered")
+    else:
+        r["max_abs_err"], r["near_tie_positions"] = oneshot_rows_held(
+            lm, rows, got_rows, "oneshot_lm", failed)
+    # one full bucket, on the device and read back, outside the counts
+    model, fn = jit_forward(lm, device)
+    x = np.stack(burst)
+    device_ms, readback_ms = [], []
+    for _ in range(ONESHOT_TIMED):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        y = fn(model, x)
+        end.record()
+        end.synchronize()
+        device_ms.append(start.elapsed_time(end))
+        t0 = time.perf_counter()
+        host = y.cpu().numpy()
+        readback_ms.append((time.perf_counter() - t0) * 1e3)
+    r["bucket"] = {"rows": ONESHOT_BATCH, "tokens": length,
+                   "logit_bytes": host.nbytes,
+                   "device_ms": float(np.median(device_ms)),
+                   "readback_ms": float(np.median(readback_ms))}
+    del model, y, host
+    r["failed"] = failed
+    return r
+
+
+def oneshot_resnet_model(device: str = "cuda",
+                         classes: int = RESNET_ONESHOT_CLASSES):
+    """resnet50(classes) in eval mode, f32, with every BatchNorm's scale
+    drawn from U(0.5, 1.5) and running statistics from a seed (so that
+    every block and statistic counts; fresh ones give logits of about
+    0.02, equal across rows), and its CPU copy."""
+    import copy
+    from bigdl_tpu_torch.models import resnet50
+    model = resnet50(classes, generator=torch.Generator().manual_seed(2),
+                     device=device).eval()
+    gen = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for name, t in [*model.named_parameters(), *model.named_buffers()]:
+            if "bn" in name and name.endswith(".weight"):
+                t.copy_(torch.rand(t.shape, generator=gen) + 0.5)
+            elif name.endswith("running_mean"):
+                t.copy_(torch.randn(t.shape, generator=gen) * 0.1)
+            elif name.endswith("running_var"):
+                t.copy_(torch.rand(t.shape, generator=gen) + 0.5)
+    return model, copy.deepcopy(model).to("cpu")
+
+
+def _logits_held(got, want, what, failed):
+    err = float(np.abs(np.asarray(got) - want).max())
+    scale = float(np.abs(want).max())
+    if not np.isfinite(got).all() or err > RESNET_ONESHOT_REL * scale:
+        failed.append(f"{what}: logits off the CPU copy's by {err:.3e} "
+                      f"(max |logit| {scale:.3e})")
+    return err / scale
+
+
+def oneshot_resnet_reading(device: str = "cuda",
+                           size: int = RESNET_ONESHOT_SIZE,
+                           classes: int = RESNET_ONESHOT_CLASSES) -> dict:
+    """ResNet-50 one-shot: ``Predictor(batch_size=32)`` over the entry's
+    ones batch (8 x 224 x 224 x 3) and 40 random images (32, then 8
+    padded to 32), ``predict_class``, ``Evaluator`` (Top1, Top5, Loss),
+    a ``PredictionService`` from 4 threads x 4 requests with one
+    ``predict_bytes`` round trip, and ``serve()`` in front of it; every
+    output against a CPU copy.  Returns the readings and the failed
+    checks."""
+    import io
+    from bigdl_tpu_torch.dataset import Sample
+    from bigdl_tpu_torch.optim import (Evaluator, Loss, PredictionService,
+                                       Predictor, Top1Accuracy,
+                                       Top5Accuracy)
+    model, cpu = oneshot_resnet_model(device, classes)
+    rng = np.random.default_rng(43)
+    ones = np.ones((8, size, size, 3), np.float32)
+    imgs = rng.normal(size=(RESNET_ONESHOT_IMAGES, size, size, 3)) \
+        .astype(np.float32)
+    labels = rng.integers(1, classes + 1, RESNET_ONESHOT_IMAGES)
+    with torch.inference_mode():
+        want_ones = cpu(torch.from_numpy(ones)).numpy()
+        want = np.concatenate([cpu(torch.from_numpy(imgs[i:i + 8])).numpy()
+                               for i in range(0, len(imgs), 8)])
+    failed, r = [], {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    predictor = Predictor(model, batch_size=RESNET_ONESHOT_BATCH,
+                          device=device)
+    r["entry_rel_err"] = _logits_held(
+        np.stack(predictor.predict(list(ones))), want_ones,
+        "Predictor at the entry's ones", failed)
+    r["rel_err"] = _logits_held(np.stack(predictor.predict(list(imgs))),
+                                want, "Predictor at 40 images", failed)
+    got_classes = predictor.predict_class(list(imgs))
+    top2 = np.sort(want, axis=1)[:, -2:]
+    wrong = (got_classes != want.argmax(axis=1) + 1) & \
+        (top2[:, 1] - top2[:, 0] >= NEAR_TIE)
+    if wrong.any():
+        failed.append(f"predict_class differs from the CPU copy's argmax + 1 "
+                      f"at {np.flatnonzero(wrong).tolist()}")
+    results = Evaluator(model, batch_size=RESNET_ONESHOT_BATCH,
+                        device=device).evaluate(
+        [Sample(x, int(y)) for x, y in zip(imgs, labels)],
+        [Top1Accuracy(), Top5Accuracy(), Loss()])
+    r["evaluation"] = {m.fmt: res.result() for res, m in results}
+    top1 = float(np.mean(want.argmax(axis=1) + 1 == labels))
+    if any(n != RESNET_ONESHOT_IMAGES for _, n in r["evaluation"].values()):
+        failed.append(f"Evaluator counted {r['evaluation']}, not "
+                      f"{RESNET_ONESHOT_IMAGES} samples")
+    if abs(r["evaluation"]["Top1Accuracy"][0] - top1) > 1e-9:
+        failed.append(f"Evaluator's Top1 {r['evaluation']['Top1Accuracy']} "
+                      f"against the CPU copy's {top1}")
+    svc = PredictionService(model, concurrency=4, device=device)
+    outs, errors = {}, []
+
+    def client(t):
+        try:
+            for j in range(4):
+                lo = (4 * t + j) * 2 % len(imgs)
+                outs[lo] = svc.predict(imgs[lo:lo + 2])
+        except Exception as e:  # noqa: BLE001 - a failed client fails
+            errors.append(f"{type(e).__name__}: {e}")
+    workers = [threading.Thread(target=client, args=(t,)) for t in range(4)]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join()
+    failed += [f"PredictionService client: {e}" for e in errors]
+    for lo, y in outs.items():
+        _logits_held(y, want[lo:lo + 2], f"PredictionService at {lo}",
+                     failed)
+    buf = io.BytesIO()
+    np.save(buf, imgs[:2], allow_pickle=False)
+    _logits_held(np.load(io.BytesIO(svc.predict_bytes(buf.getvalue()))),
+                 want[:2], "predict_bytes", failed)
+    server = svc.serve(max_batch=8, batch_timeout_ms=5.0)
+    try:
+        served = server.submit_many(list(imgs[:8]), timeout=600)
+    finally:
+        server.shutdown()
+    _logits_held(np.stack(served), want[:8], "serve()", failed)
+    torch.cuda.synchronize()
+    r["launches"] = _read_counts()
+    if any(r["launches"].values()):
+        failed.append(f"a kernel launched on the eval path: {r['launches']}")
+    # images/s at batch 32 (host arrays in, logits back on the host)
+    batch = list(imgs[:RESNET_ONESHOT_BATCH])
+    times = []
+    for _ in range(ONESHOT_TIMED):
+        t0 = time.perf_counter()
+        predictor.predict(batch)
+        times.append(time.perf_counter() - t0)
+    r["images_per_s"] = RESNET_ONESHOT_BATCH / float(np.median(times))
+    r["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    r["failed"] = failed
+    return r
+
+
+def oneshot_reading(device: str = "cuda") -> dict:
+    lm = oneshot_lm_reading(device)
+    resnet = oneshot_resnet_reading(device)
+    return {"lm": lm, "resnet": resnet,
+            "failed": [f"oneshot_lm: {f}" for f in lm["failed"]]
+            + [f"oneshot_resnet: {f}" for f in resnet["failed"]]}
+
+
+def phase_oneshot(smi, device: str = "cuda"):
+    """5c: one-shot serving of the LM and ResNet-50; see
+    oneshot_lm_reading and oneshot_resnet_reading."""
+    def report(r):
+        lm, snap = r["lm"], r["lm"]["metrics"]
+        lat = snap["latency_ms"]
+        conc = ONESHOT_THREADS * ONESHOT_EACH
+        print(f"oneshot: LM L{LAYERS} H{HIDDEN} vocab {VOCAB}, rows of "
+              f"{ONESHOT_LEN} tokens, max_batch {ONESHOT_BATCH}, timeout "
+              f"{ONESHOT_TIMEOUT_MS} ms: warmup {lm['warmup_s']:.4f} s; "
+              f"{conc} requests from {ONESHOT_THREADS} threads in "
+              f"{lm['concurrent_s']:.4f} s = "
+              f"{conc / lm['concurrent_s']:.2f} requests/s; burst of "
+              f"{ONESHOT_BATCH} in {lm['burst_s']:.4f} s; lone requests "
+              f"{[round(s, 5) for s in lm['lone_s']]} s; latency p50 "
+              f"{lat['p50']:.3f} ms, p90 {lat['p90']:.3f}, p99 "
+              f"{lat['p99']:.3f} (host clock); {snap['requests']} requests "
+              f"in {snap['batches']} batches, occupancy "
+              f"{dict(sorted(snap['occupancy'].items()))}, padded waste "
+              f"{snap['padded_waste']:.4f}; #1 launches "
+              f"{lm['launches']['flash_attention_fwd']} "
+              f"{lm['routes']['flash_attention_fwd']}; rows within "
+              f"{lm.get('max_abs_err', float('nan')):.3e} of their solo "
+              f"forward, {lm.get('near_tie_positions', 0)} near-tie "
+              f"positions; peak memory {lm['peak_memory_bytes']} bytes; "
+              f"on {smi}", flush=True)
+        b = lm["bucket"]
+        print(f"oneshot: a full bucket ({b['rows']} x {b['tokens']} "
+              f"tokens): device {b['device_ms']:.4f} ms (CUDA events), "
+              f"readback of {b['logit_bytes']} bytes of logits "
+              f"{b['readback_ms']:.4f} ms (host clock); on {smi}",
+              flush=True)
+        rn = r["resnet"]
+        print(f"oneshot: ResNet-50 eval f32: Predictor(batch_size="
+              f"{RESNET_ONESHOT_BATCH}) {rn['images_per_s']:.2f} images/s; "
+              f"logits within {rn['entry_rel_err']:.3e} (the entry's ones) "
+              f"and {rn['rel_err']:.3e} (40 images) of max |logit| of the "
+              f"CPU copy; Evaluator {rn['evaluation']}; launches "
+              f"{sum(rn['launches'].values())}; peak memory "
+              f"{rn['peak_memory_bytes']} bytes; on {smi}", flush=True)
+    return _phase("oneshot", lambda: oneshot_reading(device), report)
 
 
 # ---------------------------------------------------------------------------
@@ -3878,6 +4242,7 @@ def main() -> int:
     conv = phase_conv_kernel_checks(rates)
     serving, serving_routes = phase_serving()
     prefix = phase_prefix(smi)
+    oneshot = phase_oneshot(smi)
     train = phase_training()
     phase_train_parity()
     sp = phase_sp_training()
@@ -3898,6 +4263,8 @@ def main() -> int:
     by_path = {"serving": serving,
                "serving_prefix_cache": prefix["launches"],
                "serving_disaggregated": prefix["disagg_launches"],
+               "oneshot_lm": oneshot["lm"]["launches"],
+               "oneshot_resnet": oneshot["resnet"]["launches"],
                "lm_training": train["launches"],
                "sp_training": sp["launches"],
                "resnet_training": resnet["launches"],
@@ -3970,6 +4337,7 @@ def main() -> int:
     routes_by_path = {"serving": serving_routes,
                       "serving_prefix_cache": prefix["routes"],
                       "serving_disaggregated": prefix["disagg_routes"],
+                      "oneshot_lm": oneshot["lm"]["routes"],
                       "lm_training": train["routes"],
                       "sp_training": sp["routes"],
                       "resnet_training": resnet["routes"],

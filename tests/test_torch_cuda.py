@@ -969,3 +969,48 @@ def test_prefix_cache_round_trip_and_rows_on_the_card(cuda):
         [lm.generate(p[None], 6)[0].cpu().numpy()
          for p in out["prompts"][:2]], "cache on vs solo", failed)
     assert not failed, failed
+
+
+def test_lm_served_one_shot_on_the_card(cuda):
+    """chip_smoke's oneshot phase at a small LM: every reply within
+    F32_TOL of the row's solo forward on the card (argmax equal bar a
+    near-tie), 83 requests counted, #1 at layers x (batches + 5 warm-up
+    buckets) launches, all scalar."""
+    lm = TransformerLM(512, hidden_size=64, num_layers=2, num_heads=4,
+                       filter_size=128, max_len=128,
+                       generator=torch.Generator().manual_seed(0),
+                       device=cuda).eval()
+    r = chip_smoke.oneshot_lm_reading(cuda, lm=lm, length=64)
+    assert not r["failed"], r["failed"]
+    assert r["metrics"]["requests"] == chip_smoke.ONESHOT_REQUESTS
+
+
+def test_concurrent_predictions_count_every_launch(cuda):
+    """A PredictionService over the LM from 4 threads at once: every
+    forward launches #1 once a layer, and the counts hold all of them."""
+    import threading
+    from bigdl_tpu_torch.optim import PredictionService
+    lm = TransformerLM(512, hidden_size=64, num_layers=2, num_heads=4,
+                       filter_size=128, max_len=128,
+                       generator=torch.Generator().manual_seed(0),
+                       device=cuda).eval()
+    svc = PredictionService(lm, concurrency=4, device=cuda)
+    rows = np.random.default_rng(3).integers(1, 513, (20, 2, 32))
+    outs = [None] * len(rows)
+    chip_smoke._zero_counts()
+
+    def work(t):
+        for i in range(t, len(rows), 4):
+            outs[i] = svc.predict(rows[i])
+    workers = [threading.Thread(target=work, args=(t,)) for t in range(4)]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join()
+    assert ak.flash_attention_fwd.launches == 2 * len(rows)
+    assert ak.flash_attention_fwd.routes == {"tensor_core": 0,
+                                             "scalar": 2 * len(rows)}
+    with torch.inference_mode():
+        for x, y in zip(rows, outs):
+            torch.testing.assert_close(torch.from_numpy(y).to(cuda), lm(x),
+                                       **F32_TOL)

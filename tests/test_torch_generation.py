@@ -170,13 +170,15 @@ def test_shutdown_drains_queued_requests(models):
 
 
 def test_unported_options_raise_not_implemented(models):
-    """What is still unported raises: one-shot ``backend=`` serving and
-    request tracing (``trace=``), on the engine and through the server."""
+    """What is still unported raises: request tracing (``trace=``), on
+    the engine and through the server.  A one-shot ``backend=`` that is
+    neither a module, a PredictionService nor a callable is refused with
+    TypeError, as the reference's ``_resolve_backend`` refuses it."""
     _, port = models
     eng = GenerationScheduler(port, slots=1, start=False, device="cpu")
     with pytest.raises(NotImplementedError, match="item 10"):
         eng.submit_async([1, 2], 2, trace=object())
-    with pytest.raises(NotImplementedError, match="backend"):
+    with pytest.raises(TypeError, match="cannot serve a object"):
         ModelServer(backend=object(), device="cpu")
     server = ModelServer(generator=eng, device="cpu")
     with pytest.raises(NotImplementedError, match="trace"):

@@ -75,7 +75,8 @@ def port_solo(port, prompt, max_new):
 
 def serve_both(models, prompts, max_news, **kw):
     """Serve ``prompts`` through the reference engine and the port's with
-    the same options, every request queued before either starts.
+    the same options, every request queued before either starts; the
+    stats are each engine's whole-life counts after its shutdown.
     Returns (reference rows, port rows, reference stats, port stats,
     reference cache, port cache)."""
     ref, port = models
@@ -89,9 +90,12 @@ def serve_both(models, prompts, max_news, **kw):
             futs = [eng.submit_async(p, m) for p, m in zip(prompts, max_news)]
             eng.start()
             rows = [f.result(timeout=180) for f in futs]
-            stats = eng.stats()
         finally:
             eng.shutdown()
+        # whole-life counts, read after the shutdown: a pipelined engine
+        # reads its last in-flight decode step in the drain, after the
+        # last future has resolved
+        stats = eng.stats()
         out.append((rows, stats, eng._prefix_cache, eng))
     (rr, rs, rc, re), (pr, ps, pc, pe) = out
     return rr, pr, rs, ps, rc, pc, re, pe
