@@ -10,8 +10,11 @@ reference's ``layers[i]`` (``Sequential``, ``Concat``, ``ConcatTable``
 ...) and ``graph_modules[i]`` (``Graph``, in its topological order) are
 the port's ``layers.<i>`` and ``graph_modules.<i>``, nested lists
 (``a[i][j]``) become ``a.<i>.<j>``; :func:`nest_jax_parameters` goes
-back, as a checkpoint in the reference's format stores them.  Buffers
-are the persistent ones (a non-persistent buffer, such as the LM's
+back, as a checkpoint in the reference's format stores them.  A bare
+parameter keeps its name: the ``Transformer``'s ``embedding`` [vocab,
+H] loads as it is, beside ``encoder_layers[i]``, ``encoder_norm``,
+``decoder_layers[i].cross_attn`` and the rest, for either topology.
+Buffers are the persistent ones (a non-persistent buffer, such as the LM's
 position table, is derived and the reference has none).  This module
 reads numpy arrays only; it imports nothing of JAX.
 """

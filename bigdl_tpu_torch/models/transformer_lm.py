@@ -10,13 +10,14 @@ reference's ``logits, caches = decode_step(...)`` idiom still reads the
 same.  ``decode_step`` also takes a per-row position tensor, the
 batched form of the reference's vmap over pool slots.
 
-Generation, beam search aside, is ported, and so is training (train
-mode, dropout from the forward context, bf16 compute through the
-Optimizer), with sequence parallelism (``set_sequence_parallel``: every
-block's self-attention through ring attention) and ``remat`` (each block
-recomputed in the backward, its dropout masks replayed:
-``core.module.recompute``); ``generate_beam`` and pipeline parallelism
-belong to later slices.
+Generation is ported, greedy (``generate``) and by beam search
+(``generate_beam``, through ``nn.SequenceBeamSearch``), and so is
+training (train mode, dropout from the forward context, bf16 compute
+through the Optimizer), with sequence parallelism
+(``set_sequence_parallel``: every block's self-attention through ring
+attention) and ``remat`` (each block recomputed in the backward, its
+dropout masks replayed: ``core.module.recompute``); pipeline parallelism
+belongs to a later slice.
 """
 
 from __future__ import annotations
@@ -26,7 +27,8 @@ from torch import nn
 
 from bigdl_tpu_torch.core.device import resolve_device
 from bigdl_tpu_torch.core.module import recompute
-from bigdl_tpu_torch.nn.attention import (TransformerDecoderLayer,
+from bigdl_tpu_torch.nn.attention import (SequenceBeamSearch,
+                                          TransformerDecoderLayer,
                                           _residual_dropout, causal_bias,
                                           chunk_incremental_bias,
                                           incremental_bias, padding_bias,
@@ -325,6 +327,52 @@ class TransformerLM(nn.Module):
         if not out:
             return prompt
         return torch.cat([prompt, torch.stack(out, dim=1)], dim=1)
+
+    @torch.no_grad()
+    def generate_beam(self, prompt, beam_size: int = 4,
+                      max_new_tokens: int = 20, eos_id: int = -1,
+                      alpha: float = 0.6):
+        """Length-normalized beam search continuation through
+        ``nn.SequenceBeamSearch``: ``(sequences [B, beam, max_new_tokens]
+        int64, scores [B, beam] f32)``, positions after the first
+        ``eos_id`` 0.  ``eos_id=-1`` (no EOS) decodes to the full budget.
+        The prompt is prefilled once and its caches replicated across the
+        beams; one host read a step (the search's stopping test)."""
+        prompt = self._tokens(prompt)
+        B, Tp = prompt.shape
+        if Tp + max_new_tokens > self.max_len:
+            raise ValueError(
+                f"prompt {Tp} + {max_new_tokens} new tokens exceeds "
+                f"max_len={self.max_len}")
+        caches = self._prefill(prompt, self.init_cache(B))
+        # the search feeds a zero start id at step 0: the true last prompt
+        # token rides in the cache, replicated and reordered with it
+        cache = dict(caches, tok0=prompt[:, -1:])
+        vocab = self.embedding.weight.shape[0]
+        # the search works in logit-index space (0 is the start id); the
+        # criteria are 1-based, so token id t is logit index t - 1
+        search = SequenceBeamSearch(
+            vocab, beam_size, alpha, max_new_tokens,
+            eos_id - 1 if eos_id >= 0 else eos_id, device=self.device)
+
+        def logits_fn(ids, i, cache):
+            tok = cache["tok0"] if i == 0 else ids + 1
+            logits, sub = self.decode_step(
+                tok, Tp - 1 + i,
+                {"layers": cache["layers"], "pad": cache["pad"]})
+            return self._mask_untrained_logit(logits), dict(
+                sub, tok0=cache["tok0"])
+
+        search.set_logit_fn(logits_fn)
+        seqs, scores = search.search(B, cache)
+        # back to token ids; positions after the first EOS are 0 (they
+        # were 0 in index space and must stay 0 in token space)
+        toks = seqs + 1
+        if eos_id >= 0:
+            is_eos = toks == eos_id
+            eos_before = torch.cumsum(is_eos, dim=-1) - is_eos.long()
+            toks = torch.where(eos_before > 0, 0, toks)
+        return toks, scores
 
 
 def transformer_lm(vocab_size: int, hidden_size: int = 256,

@@ -3,9 +3,10 @@
 from bigdl_tpu_torch.core.module import Module  # noqa: F401
 from bigdl_tpu_torch.nn.activation import *  # noqa: F401,F403
 from bigdl_tpu_torch.nn.attention import (  # noqa: F401
-    Attention, FeedForwardNetwork, TransformerDecoderLayer, causal_bias,
+    Attention, FeedForwardNetwork, SequenceBeamSearch, Transformer,
+    TransformerDecoderLayer, TransformerEncoderLayer, causal_bias,
     chunk_incremental_bias, incremental_bias, padding_bias,
-    position_encoding,
+    position_encoding, shift_right_3d,
 )
 from bigdl_tpu_torch.nn.containers import *  # noqa: F401,F403
 from bigdl_tpu_torch.nn.conv import SpatialConvolution  # noqa: F401

@@ -31,7 +31,10 @@ Counterpart of ``bigdl_tpu/ops/attention_kernels.py``.  Shapes follow
   f32 on scalar kernels (:func:`fwd_route`, :func:`dq_route`,
   :func:`dkv_route`, :func:`partial_route`, :func:`dq_partial_route`,
   :func:`dkv_partial_route`); their wrappers count each route in
-  ``<wrapper>.routes``.
+  ``<wrapper>.routes``.  #1 has a third route, ``"mixed_kv"``: f32 q
+  with bf16 k and v (a bf16 KV cache under an f32 model), the scalar
+  template reading bf16 K/V in two sweeps over the keys, so that P is
+  normalised before it is rounded to bf16, as in :func:`plain_attention`.
 * :func:`flash_attention_with_grad` — the ``torch.autograd.Function``
   whose forward is the forward kernel and whose backward launches dQ and
   dK/dV (and dBias only when the bias needs a gradient), reading the
@@ -217,6 +220,9 @@ def fold_bias_grad(ds, bias, b: int, h: int):
 # ---- the CUDA kernels' wrappers ---------------------------------------------
 
 def _check_inputs(q, k, v, bias):
+    """Raise on what the kernels do not take.  Which dtype of q goes with
+    the dtype of k and v is the kernel's own rule: :func:`fwd_route` for
+    the forward, :func:`_one_dtype` for the others."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not isinstance(t, torch.Tensor) or t.dim() != 4:
             raise ValueError(f"{name} must be a 4-D [B, H, T, D] tensor")
@@ -233,9 +239,8 @@ def _check_inputs(q, k, v, bias):
                              f"(stride {t.stride(-1)})")
     if q.device != k.device or q.device != v.device:
         raise ValueError("q, k and v must be on one device")
-    if not (q.dtype == k.dtype == v.dtype):
-        raise TypeError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, "
-                        f"{v.dtype}")
+    if k.dtype != v.dtype:
+        raise TypeError(f"k and v dtypes differ: {k.dtype}, {v.dtype}")
     b, h, tq, d = q.shape
     if k.shape != v.shape or k.shape[:2] != (b, h) or k.shape[3] != d:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, "
@@ -250,6 +255,14 @@ def _check_inputs(q, k, v, bias):
         raise ValueError("attention grid too large for one launch")
     if bias is not None and bias.device != q.device:
         raise ValueError("bias must be on q's device")
+
+
+def _one_dtype(q, k):
+    """Raise unless q has k's (and v's) dtype: the kernels other than the
+    forward take no mixed-dtype entry."""
+    if q.dtype != k.dtype:
+        raise TypeError(f"q and k, v dtypes differ: {q.dtype}, {k.dtype}; "
+                        "this kernel takes q, k and v of one dtype")
 
 
 def _bias_args(bias, shape):
@@ -277,7 +290,7 @@ def _bind(library: str, name: str, argtypes):
 
 
 _bound: dict = {}
-_FWD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+_FWD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
                  + [ctypes.c_longlong] * 13
                  + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                     ctypes.c_void_p])
@@ -304,14 +317,22 @@ def rows_aligned(*tensors) -> bool:
     return all(aligned(t) for t in tensors)
 
 
-def fwd_route(dtype, aligned: bool = True) -> str:
-    """Which forward kernel (#1) runs for q, k, v of ``dtype``:
-    ``"tensor_core"`` (``flash_fwd_tc_kernel``: bf16 operands, f32 sums on
-    mma.sync) for bfloat16 rows that start on 16 bytes
-    (:func:`rows_aligned`), the pooled decode (Tq 1) included, where it
-    beats the scalar template too (PERF.md); ``"scalar"`` (the f32-FMA
-    template) for float32, whose operands the tensor cores would round,
-    and for bf16 rows that do not."""
+def fwd_route(dtype, aligned: bool = True, kv_dtype=None) -> str:
+    """Which forward kernel (#1) runs for q of ``dtype`` and k, v of
+    ``kv_dtype`` (default ``dtype``): ``"tensor_core"``
+    (``flash_fwd_tc_kernel``: bf16 operands, f32 sums on mma.sync) for
+    bfloat16 rows that start on 16 bytes (:func:`rows_aligned`), the
+    pooled decode (Tq 1) included, where it beats the scalar template too
+    (PERF.md); ``"scalar"`` (the f32-FMA template) for float32, whose
+    operands the tensor cores would round, and for bf16 rows that do not;
+    ``"mixed_kv"`` (the scalar template with bf16 K/V, two sweeps over
+    the keys) for f32 q with bf16 k and v, a bf16 KV cache under an f32
+    model.  Raises TypeError on any other mix."""
+    if kv_dtype is not None and kv_dtype != dtype:
+        if dtype == torch.float32 and kv_dtype == torch.bfloat16:
+            return "mixed_kv"
+        raise TypeError(f"the forward kernel takes {dtype} q with {kv_dtype}"
+                        " k and v only as f32 q with bf16 k and v")
     if dtype == torch.bfloat16:
         return "tensor_core" if aligned else "scalar"
     if dtype == torch.float32:
@@ -349,7 +370,7 @@ def _launch_fwd(q, k, v, bias, scale, causal, causal_offset, route):
                 None if bias is None else bias.data_ptr(),
                 out.data_ptr(), lse.data_ptr(),
                 int(q.dtype == torch.bfloat16), int(route == "tensor_core"),
-                b, h, tq, tk, d,
+                int(route == "mixed_kv"), b, h, tq, tk, d,
                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                 *b_strides, float(scale), int(bool(causal)),
                 int(causal_offset), stream)
@@ -367,23 +388,28 @@ def flash_attention_fwd(q, k, v, bias=None, *, scale: float,
     materialised per head.  The causal mask admits key j for row i when
     ``j <= i + causal_offset``.  bf16 takes the tensor-core route where
     its rows start on 16 bytes, else the scalar one (:func:`fwd_route`);
-    ``flash_attention_fwd.routes`` counts each.  Raises on anything the
-    kernel does not take; never falls back to the plain version."""
+    ``flash_attention_fwd.routes`` counts each.  f32 q with bf16 k and v
+    (a bf16 KV cache) takes the mixed entry, ``"mixed_kv"``: P is
+    normalised before it is rounded to bf16, as the plain version rounds
+    it.  Raises on anything the kernel does not take; never falls back to
+    the plain version."""
     _check_inputs(q, k, v, bias)
-    route = fwd_route(q.dtype, rows_aligned(q, k, v))
+    route = fwd_route(q.dtype, rows_aligned(q, k, v), k.dtype)
     out = _launch_fwd(q, k, v, bias, scale, causal, causal_offset, route)
     _count(flash_attention_fwd, route)
     return out
 
 
 flash_attention_fwd.launches = 0
-flash_attention_fwd.routes = {"tensor_core": 0, "scalar": 0}
+flash_attention_fwd.routes = {"tensor_core": 0, "scalar": 0,
+                              "mixed_kv": 0}
 
 
 def _launch_bwd(name, q, k, v, bias, do, lse, delta, out0, out1, scale,
                 causal, causal_offset):
     """Check the backward's extra inputs and launch kernel ``name``."""
     _check_inputs(q, k, v, bias)
+    _one_dtype(q, k)
     b, h, tq, d = q.shape
     tk = k.shape[2]
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
@@ -626,6 +652,7 @@ def flash_attention_partial(q, k, v, acc, m, l, *, q_offset: int,
     counts each.  Raises on anything the kernel does not take; never falls
     back to the plain version."""
     _check_inputs(q, k, v, None)
+    _one_dtype(q, k)
     _check_offsets(q_offset, k_offset)
     b, h, tq, d = q.shape
     tk = k.shape[2]
@@ -659,6 +686,7 @@ def _launch_partial_bwd(name, q, k, v, do, lse, delta, out0, out1, scale,
     """Check the partial backward's inputs and launch kernel ``name`` by
     ``route``."""
     _check_inputs(q, k, v, None)
+    _one_dtype(q, k)
     _check_offsets(q_offset, k_offset)
     b, h, tq, d = q.shape
     if (do.shape != q.shape or do.dtype != torch.float32
@@ -804,7 +832,11 @@ def flash_attention_with_grad(q, k, v, bias=None, *, scale: float,
                               causal: bool = False, causal_offset: int = 0):
     """Attention through the autograd Function: the kernels on CUDA
     tensors (forward #1; backward #2, #3 and, when the bias needs a
-    gradient, #4), their plain versions on CPU tensors."""
+    gradient, #4), their plain versions on CPU tensors.  q, k and v of
+    one dtype: the backward kernels take no mixed-dtype entry."""
+    if not q.dtype == k.dtype == v.dtype:
+        raise TypeError(f"no gradient through attention of mixed dtypes "
+                        f"({q.dtype}, {k.dtype}, {v.dtype})")
     return _FlashAttention.apply(q, k, v, bias, float(scale), bool(causal),
                                  int(causal_offset))
 

@@ -34,6 +34,18 @@
 // does ~34 GFLOP for 8 MB and is bound by the tensor cores: bf16 with
 // 16-byte rows runs flash_fwd_tc_kernel<false, D> (below).
 //
+// The mixed entry (kv_bf16): a bf16 KV cache under the f32 LM (the
+// reference serves dtype=bfloat16 caches).  The scalar template reads K/V
+// as bf16 (TKV) and upcasts them exactly; q, out and lse stay f32.  It
+// rounds where xla_attention (the reference's CPU path, and its Tq = 1
+// decode on any device) and plain_attention round: the NORMALISED softmax
+// weights to v's dtype, P.V summed in f32.  So it sweeps the keys twice:
+// m and l first (K only), then P = exp(s - m) / l rounded to bf16 and P.V
+// (K again, and V).  At the chunk shape (Tq 128) the reference's TPU runs
+// its flash kernel instead, which rounds the unnormalised P; there this
+// entry follows the CPU path.  The second sweep recomputes Q.K: keeping
+// the scores between the sweeps is owed perf work, not a requirement.
+//
 // Tiles are FIXED (16 query rows, 32 keys) and key tiles always start at
 // position 0, so a row's result depends only on that row, its keys and
 // its bias: not on how many rows share the launch, nor on keys that the
@@ -95,6 +107,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "tensor_core.cuh"
 
 namespace {
@@ -155,9 +169,19 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename T, int DMAX, bool kPartial>
+// T is q's (and out's) element type, TKV k's and v's.  They differ in
+// one case only, the mixed entry (f32 q, bf16 K/V: a bf16 KV cache under
+// the f32 model), which sweeps the keys twice: the first sweep finds the
+// row's max m and sum l, the second forms P = exp(s - m) / l, rounds the
+// NORMALISED P to bf16 and adds P.V in f32, the rounding points of
+// xla_attention (which rounds the softmax weights to v's dtype) and of
+// plain_attention.  One sweep otherwise, P rounded
+// unnormalised at the running max, as #1 and #5 always had it.
+template <typename T, typename TKV, int DMAX, bool kPartial>
 __global__ void __launch_bounds__(kWarps * 32)
     flash_fwd_kernel(const Params p) {
+  constexpr bool kMixed = !std::is_same<T, TKV>::value;
+  static_assert(!(kMixed && kPartial), "#5 takes q, k, v of one dtype");
   constexpr int kCols = DMAX / 32;  // head-dim columns per lane in P.V
   __shared__ float qs[kBlockQ][DMAX];
   __shared__ float ks[kBlockK][DMAX + 1];  // +1: lane-per-key reads hit
@@ -174,8 +198,8 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int r0 = warp * kRowsPerWarp;
 
   const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const TKV* k = static_cast<const TKV*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const TKV* v = static_cast<const TKV*>(p.v) + b * p.v_sb + h * p.v_sh;
   const float* bias =
       p.bias == nullptr ? nullptr : p.bias + b * p.b_sb + h * p.b_sh;
 
@@ -212,14 +236,17 @@ __global__ void __launch_bounds__(kWarps * 32)
     }
   }
 
+  // the mixed entry's first sweep (sweep 0) reads K alone for m and l
+  for (int sweep = kMixed ? 0 : 1; sweep < 2; ++sweep)
   for (int tile = 0; tile < n_tiles; ++tile) {
     const int k0 = tile * kBlockK;
+    const bool with_v = sweep == 1;
     __syncthreads();  // the previous tile's reads are done
     for (int i = tid; i < kBlockK * DMAX; i += blockDim.x) {
       const int j = i / DMAX, c = i % DMAX, t = k0 + j;
       const bool ok = t < p.Tk && c < p.D;
       ks[j][c] = ok ? to_f32(k[t * p.k_st + c]) : 0.f;
-      vs[j][c] = ok ? to_f32(v[t * p.v_st + c]) : 0.f;
+      if (with_v) vs[j][c] = ok ? to_f32(v[t * p.v_st + c]) : 0.f;
     }
     __syncthreads();
 
@@ -244,14 +271,22 @@ __global__ void __launch_bounds__(kWarps * 32)
         if (p.causal && key > t + p.causal_offset) x = kMaskedScore;
       }
       if (!key_ok) x = -INFINITY;  // excluded from the max and the sums
-      const float m_new = fmaxf(m[r], warp_max(x));  // finite: key k0 exists
-      const float pr = key_ok ? expf(x - m_new) : 0.f;
-      const float alpha = expf(m[r] - m_new);
-      l[r] = l[r] * alpha + warp_sum(pr);
-      m[r] = m_new;
-      const float pv = to_f32(from_f32<T>(pr));  // P in v's dtype
+      float pv;
+      if (kMixed && with_v) {
+        // m and l are the row's: the normalised P in v's dtype
+        const float pu = key_ok ? expf(x - m[r]) : 0.f;
+        pv = to_f32(from_f32<TKV>(pu / l[r]));
+      } else {
+        const float m_new = fmaxf(m[r], warp_max(x));  // finite: key k0
+        const float pr = key_ok ? expf(x - m_new) : 0.f;
+        const float alpha = expf(m[r] - m_new);
+        l[r] = l[r] * alpha + warp_sum(pr);
+        m[r] = m_new;
+        if (kMixed) continue;  // the first sweep: m and l only
+        pv = to_f32(from_f32<TKV>(pr));  // P in v's dtype
 #pragma unroll
-      for (int i = 0; i < kCols; ++i) acc[r][i] *= alpha;
+        for (int i = 0; i < kCols; ++i) acc[r][i] *= alpha;
+      }
       for (int j = 0; j < kBlockK; ++j) {
         const float pj = __shfl_sync(0xffffffffu, pv, j);
 #pragma unroll
@@ -279,10 +314,13 @@ __global__ void __launch_bounds__(kWarps * 32)
       }
     } else {
       T* out = static_cast<T*>(p.out);
+      // the mixed entry's P is normalised already
 #pragma unroll
       for (int i = 0; i < kCols; ++i) {
         const int c = lane + 32 * i;
-        if (c < p.D) out[row * p.D + c] = from_f32<T>(acc[r][i] / l[r]);
+        if (c < p.D)
+          out[row * p.D + c] =
+              from_f32<T>(kMixed ? acc[r][i] : acc[r][i] / l[r]);
       }
       if (lane == 0) p.lse[row] = m[r] + logf(l[r]);
     }
@@ -614,26 +652,28 @@ int launch_tc_for_dim(const Params& p, void* stream) {
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename T, int DMAX, bool kPartial>
+template <typename T, typename TKV, int DMAX, bool kPartial>
 int launch(const Params& p, cudaStream_t stream) {
   const dim3 grid(p.B * p.H, (p.Tq + kBlockQ - 1) / kBlockQ);
-  flash_fwd_kernel<T, DMAX, kPartial><<<grid, kWarps * 32, 0, stream>>>(p);
+  flash_fwd_kernel<T, TKV, DMAX, kPartial>
+      <<<grid, kWarps * 32, 0, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool kPartial>
+template <typename T, typename TKV, bool kPartial>
 int launch_for_dim(const Params& p, cudaStream_t stream) {
-  if (p.D <= 32) return launch<T, 32, kPartial>(p, stream);
-  if (p.D <= 64) return launch<T, 64, kPartial>(p, stream);
-  if (p.D <= 128) return launch<T, 128, kPartial>(p, stream);
+  if (p.D <= 32) return launch<T, TKV, 32, kPartial>(p, stream);
+  if (p.D <= 64) return launch<T, TKV, 64, kPartial>(p, stream);
+  if (p.D <= 128) return launch<T, TKV, 128, kPartial>(p, stream);
   return (int)cudaErrorInvalidValue;
 }
 
 template <bool kPartial>
 int launch_for_type(int is_bf16, const Params& p, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_for_dim<__nv_bfloat16, kPartial>(p, s)
-                 : launch_for_dim<float, kPartial>(p, s);
+  return is_bf16
+             ? launch_for_dim<__nv_bfloat16, __nv_bfloat16, kPartial>(p, s)
+             : launch_for_dim<float, float, kPartial>(p, s);
 }
 
 }  // namespace
@@ -642,11 +682,13 @@ int launch_for_type(int is_bf16, const Params& p, void* stream) {
 // launched).  The caller checks shapes, dtypes and strides before
 // calling.  bf16 with tensor_cores set runs flash_fwd_tc_kernel<false, D>
 // (an error unless D % 8 == 0 and every row of q, k, v starts on 16
-// bytes), else the scalar template.
+// bytes), else the scalar template.  kv_bf16 set is the mixed entry: f32
+// q (is_bf16 and tensor_cores unset, else an error) with bf16 k and v,
+// f32 out and lse, on the scalar template in two sweeps.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, const void* bias, void* out,
-    void* lse, int is_bf16, int tensor_cores, int B, int H, int Tq, int Tk,
-    int D,
+    void* lse, int is_bf16, int tensor_cores, int kv_bf16, int B, int H,
+    int Tq, int Tk, int D,
     long long q_sb, long long q_sh, long long q_st, long long k_sb,
     long long k_sh, long long k_st, long long v_sb, long long v_sh,
     long long v_st, long long b_sb, long long b_sh, long long b_sq,
@@ -682,6 +724,11 @@ extern "C" int flash_attention_fwd(
   p.causal_offset = causal_offset;
   p.bias_pairs = b_sk == 1 && b_sq % 2 == 0 && b_sb % 2 == 0 &&
                  b_sh % 2 == 0 && (uintptr_t)bias % 8 == 0;
+  if (kv_bf16) {
+    if (is_bf16 || tensor_cores) return (int)cudaErrorInvalidValue;
+    return launch_for_dim<float, __nv_bfloat16, false>(
+        p, static_cast<cudaStream_t>(stream));
+  }
   if (!tensor_cores) return launch_for_type<false>(is_bf16, p, stream);
   if (!is_bf16) return (int)cudaErrorInvalidValue;
   return launch_tc_for_dim<false>(p, stream);

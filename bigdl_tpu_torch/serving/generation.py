@@ -63,6 +63,7 @@ import numpy as np
 import torch
 
 from bigdl_tpu_torch.core.device import resolve_device
+from bigdl_tpu_torch.ops import attention_kernels as ak
 from bigdl_tpu_torch.serving.admission import BoundedRequestQueue
 from bigdl_tpu_torch.serving.batching import bucket_sizes, pick_bucket
 from bigdl_tpu_torch.serving.prefix_cache import PrefixKVCache
@@ -132,15 +133,12 @@ class SlotPool:
         self.slots = int(slots)
         # the KV cache's dtype (the reference's ``dtype=``)
         self.dtype = torch.float32 if dtype is None else dtype
-        compute = next(self.model.parameters()).dtype
-        if self.device.type == "cuda" and self.dtype != compute:
-            # the attention kernel takes q, k and v of one dtype; the
-            # plain version the CPU runs rounds P to the cache's dtype
-            # as the reference's XLA attention does
-            raise NotImplementedError(
-                f"a {self.dtype} KV cache under a {compute} model runs on "
-                f"the CPU only: the flash-attention kernel takes q, k and "
-                f"v of one dtype")
+        if self.device.type == "cuda":
+            # the attention kernel's own rule: q of the model's dtype
+            # with K/V of the cache's (a bf16 cache under an f32 model
+            # takes its mixed entry); it raises on any other mix
+            ak.fwd_route(next(self.model.parameters()).dtype, True,
+                         self.dtype)
         self.prefill_batch = max(1, int(prefill_batch))
         self.max_len = int(model.max_len)
         self.caches = self.model.init_cache(self.slots, self.dtype)
@@ -432,7 +430,9 @@ class GenerationScheduler:
     then its future resolves to the prompt without a decoded token; such
     requests may pass ``max_new_tokens=0``.
 
-    ``dtype`` is the KV cache's dtype (default float32).
+    ``dtype`` is the KV cache's dtype (default float32): the model's, or
+    bfloat16 under an f32 model, which halves the pool's bytes (on the
+    card the attention kernel's mixed entry reads it).
 
     >>> engine = GenerationScheduler(lm, slots=8)
     >>> fut = engine.submit_async([5, 9, 2], max_new_tokens=16)

@@ -95,6 +95,15 @@ the faults they are there to catch:
    through a ``split_outputs`` that hands request i the row of request
    i + 1 within its batch (the last the first's); the script fails unless
    the phase's row checks refuse it.
+10. A mixed-entry mutant.  ``flash_attention_fwd.cu`` with #1's mixed
+   entry (f32 q, bf16 K/V: a bf16 KV cache) rounding P to bf16 before it
+   is normalised (the one-sweep loop's rounding point, where the
+   reference's oracle rounds the normalised softmax weights), through
+   #1's wrapper at chip_smoke's mixed decode and chunk shapes, held by
+   ``mixed_held``, and through chip_smoke's bf16 KV cache serving
+   (``bf16_kv_reading``: its rows against a CPU engine); the script fails
+   unless the kernel check passes the source as it stands and refuses the
+   mutant at both shapes, and prints which checks refused it.
 
 The last line is one JSON object with every reading.  Imports torch,
 numpy, ``bigdl_tpu_torch`` and ``chip_smoke`` only.
@@ -571,6 +580,65 @@ def phase_fwd_mutants():
     return readings, failures
 
 
+# name: (the line as it stands, the line with the fault) in
+# flash_attention_fwd.cu: the mixed entry's second sweep rounds P before it
+# divides by l
+MIXED_MUTANTS = {"unnormalised_p_in_1_mixed": (
+    "pv = to_f32(from_f32<TKV>(pu / l[r]));",
+    "pv = to_f32(from_f32<TKV>(pu)) / l[r];")}
+
+
+def phase_mixed_control():
+    """The MIXED_MUTANTS fault through #1's wrapper at chip_smoke's mixed
+    shapes (held by mixed_held) and through its bf16 KV cache serving:
+    the kernel check must pass the source as it stands and refuse the
+    fault at each shape; the serving checks that refuse it are read."""
+    from bigdl_tpu_torch.ops import attention_kernels as ak
+    (tag, edit), = MIXED_MUTANTS.items()
+    lib = build_source_variant("flash_attention_fwd", [edit], tag)
+    gen = torch.Generator(device="cuda").manual_seed(1)   # chip_smoke's
+    problems = [row for row in chip_smoke._inputs(gen)
+                if row[0] in chip_smoke.MIXED_SHAPES]
+    readings, failures, refused_by = {}, [], []
+    for key, desc, (q, k, v, bias, causal), _ in problems:
+        print(f"mixed mutant {tag} at ({key}) {desc}")
+        readings[key] = {}
+        with torch.no_grad():
+            want = ak.plain_attention(q, k, v, bias, causal=causal)
+            anchor = chip_smoke.mixed_anchor(q, k, v, bias)
+            for label, built in (("as_it_stands", None), (tag, lib)):
+                with (fwd_kernel_from(built) if built is not None
+                      else contextlib.nullcontext()):
+                    got = ak.dot_product_attention(q, k, v, bias,
+                                                   causal=causal)
+                torch.cuda.synchronize()
+                err, beyond, ok = chip_smoke.mixed_held(got, want, anchor)
+                readings[key][label] = dict(
+                    max_abs_err=err, entries_beyond=beyond,
+                    share_beyond=beyond / want.numel(), check_passes=ok)
+                print(f"  {label:26s} {beyond} entries beyond F32_TOL "
+                      f"({beyond / want.numel():.4%}), max abs err "
+                      f"{err:.3e}; check {'passes' if ok else 'REFUSES'}")
+                if built is None and not ok:
+                    failures.append(f"the mixed check refuses the source as "
+                                    f"it stands at {key}")
+                if built is not None:
+                    if ok:
+                        failures.append(f"the mixed check passes {tag} at "
+                                        f"{key}")
+                    else:
+                        refused_by.append(f"the mixed kernel check at {key}")
+    with fwd_kernel_from(lib):
+        try:
+            served = chip_smoke.bf16_kv_reading()["failed"]
+        except Exception as e:  # noqa: BLE001 - a crash refuses it too
+            served = [f"{type(e).__name__}: {e}"]
+    refused_by += [f"serving_bf16_kv: {f}" for f in served]
+    print(f"mixed control ({tag}): refused by {len(refused_by)} checks: "
+          f"{refused_by[:6]}")
+    return dict(readings, refused_by=refused_by), failures
+
+
 def phase_variants():
     """Each of VARIANTS against the source as it stands on the same inputs
     in one run: device times (as it stands, the variant, as it stands
@@ -998,6 +1066,8 @@ def main() -> int:
     failures += more
     fwd_mutants, more = phase_fwd_mutants()
     failures += more
+    mixed_control, more = phase_mixed_control()
+    failures += more
     variants = phase_variants()
     resnet_control, more = phase_resnet_control_step()
     failures += more
@@ -1014,7 +1084,8 @@ def main() -> int:
                                  "grad_max_rel": chip_smoke.GRAD_MAX_REL},
                       "conv_mutants": conv_mutants,
                       "ring_mutants": ring_mutants,
-                      "fwd_mutants": fwd_mutants, "variants": variants,
+                      "fwd_mutants": fwd_mutants,
+                      "mixed_control": mixed_control, "variants": variants,
                       "resnet_control_step": resnet_control,
                       "resnet_bounds": chip_smoke.RESNET_PARITY_BOUNDS,
                       "resume_control": resume_control,

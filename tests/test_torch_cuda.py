@@ -30,6 +30,12 @@ tensor cores with dO (and #7's P) split into bf16 pieces: #6's dQ and
 #7's dK within one bf16 ulp, at most 1% (or one row a head) differing in
 bf16 (chip_smoke.partial_ulp_held), #7's dV within 4x the plain
 version's own error against an f64 sum (chip_smoke.dkv_partial_held).
+#1's mixed entry (f32 q, bf16 K/V: a bf16 KV cache) by chip_smoke's f32
+rule (mixed_held: at most 1% of the entries beyond F32_TOL of the plain
+version and of an f64 anchor, every entry within one bf16 ulp of its P's);
+beam search on the card against a CPU copy by chip_smoke.beams_held
+(every decision equal, or the first different one at a near-tie; scores
+within F32_TOL of the largest logit they are summed from).
 The conv+BN kernels sum their products in another order than cuBLAS and
 cuDNN: float32 outputs within 1e-4 of the plain output's largest entry;
 bfloat16 outputs within one bf16 ulp of the plain version's entry (or
@@ -307,8 +313,11 @@ def test_lm_step_takes_one_dkv_route(cuda, dtype, route):
     torch.cuda.synchronize()
     for w, was in zip(wrappers, before):
         used = {r: w.routes[r] - was[r] for r in was}
-        assert used == {"tensor_core": 0, "scalar": 0, route: 2}, \
-            w.__name__
+        # every route of the wrapper (#1 has a third, "mixed_kv") but one
+        # taken no time
+        want = dict.fromkeys(was, 0)
+        want[route] = 2
+        assert used == want, w.__name__
 
 
 @pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "tensor_core"),
@@ -646,7 +655,8 @@ def test_unaligned_bf16_calls_take_the_scalar_route(cuda):
     want = ak.plain_attention(q, k, v, causal=True)
     torch.cuda.synchronize()
     assert {r: ak.flash_attention_fwd.routes[r] - before[r]
-            for r in before} == {"tensor_core": 0, "scalar": 1}
+            for r in before} == {"tensor_core": 0, "scalar": 1,
+                                 "mixed_kv": 0}
     torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
     qc = q[:, :, :64]
     do = rnd(2, 4, 64, 36, seed=87, device=cuda)
@@ -1009,8 +1019,117 @@ def test_concurrent_predictions_count_every_launch(cuda):
         w.join()
     assert ak.flash_attention_fwd.launches == 2 * len(rows)
     assert ak.flash_attention_fwd.routes == {"tensor_core": 0,
-                                             "scalar": 2 * len(rows)}
+                                             "scalar": 2 * len(rows),
+                                             "mixed_kv": 0}
     with torch.inference_mode():
         for x, y in zip(rows, outs):
             torch.testing.assert_close(torch.from_numpy(y).to(cuda), lm(x),
                                        **F32_TOL)
+
+
+# ---- #1's mixed entry and beam search ---------------------------------------
+
+@pytest.mark.parametrize("b,tq,bias_shape", [
+    (16, 1, (16, 1, 1, 512)),         # the pooled decode
+    (1, 128, (1, 1, 128, 512)),       # a 128-wide chunk prefill
+    (3, 5, None),                     # ragged, no bias
+])
+def test_mixed_kv_entry_matches_plain(cuda, b, tq, bias_shape):
+    """f32 q with bf16 k and v takes the mixed entry, counted as
+    "mixed_kv", and holds against the plain version by chip_smoke's rule;
+    two launches give the same bits."""
+    q = rnd(b, 8, tq, 64, seed=91, device=cuda)
+    k, v = (rnd(b, 8, 512, 64, seed=s, device=cuda, dtype=BF)
+            for s in (92, 93))
+    bias = None
+    if bias_shape is not None:
+        bias = torch.where(rnd(*bias_shape, seed=94, device=cuda) > 1.5,
+                           -1e9, 0.0)
+    before = dict(ak.flash_attention_fwd.routes)
+    got = ak.dot_product_attention(q, k, v, bias)
+    again = ak.dot_product_attention(q, k, v, bias)
+    want = ak.plain_attention(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert {r: ak.flash_attention_fwd.routes[r] - before[r]
+            for r in before} == {"tensor_core": 0, "scalar": 0,
+                                 "mixed_kv": 2}
+    assert got.dtype == torch.float32 and torch.equal(got, again)
+    err, beyond, ok = chip_smoke.mixed_held(
+        got, want, chip_smoke.mixed_anchor(q, k, v, bias))
+    assert ok, (err, beyond)
+
+
+def test_the_kernels_refuse_other_dtype_mixes(cuda):
+    q = rnd(2, 2, 4, 16, seed=95, device=cuda)
+    kb = q.to(BF)
+    for args in ((kb, q, q), (q, kb, q), (q, q.half(), q.half()),
+                 (q, kb, kb.half())):
+        with pytest.raises(TypeError):
+            ak.flash_attention_fwd(*args, scale=0.25)
+    lse = torch.zeros(4, 4, device=cuda)
+    with pytest.raises(TypeError, match="one dtype"):
+        ak.flash_attention_dq(q, kb, kb, None, q, lse, lse, scale=0.25)
+    with pytest.raises(TypeError, match="one dtype"):
+        ak.flash_attention_partial(
+            q, kb, kb, torch.zeros(4, 4, 16, device=cuda), lse, lse,
+            q_offset=0, k_offset=0, scale=0.25)
+    with pytest.raises(TypeError, match="mixed dtypes"):
+        ak.dot_product_attention(q.requires_grad_(), kb, kb)
+
+
+def test_generate_beam_on_the_card_matches_a_cpu_copy(cuda):
+    """A two-layer LM's generate_beam (no EOS, and an EOS it emits) on the
+    card against a CPU copy, by chip_smoke.beams_held; #1 by its scalar
+    route at batch x beam rows."""
+    gen = torch.Generator().manual_seed(0)
+    lm = TransformerLM(512, hidden_size=64, num_layers=2, num_heads=4,
+                       filter_size=128, max_len=64, generator=gen,
+                       device=cuda).eval()
+    cpu = TransformerLM(512, hidden_size=64, num_layers=2, num_heads=4,
+                        filter_size=128, max_len=64,
+                        generator=torch.Generator().manual_seed(0),
+                        device="cpu").eval()
+    prompts = np.random.default_rng(5).integers(1, 513, (3, 12))
+    prompts[1, :4] = 0
+    eos = int(lm.generate(prompts, 1)[0, -1])
+    failed = []
+    for eos_id in (-1, eos):
+        chip_smoke._zero_counts()
+        with chip_smoke.recorded_decisions() as card:
+            got = lm.generate_beam(prompts, beam_size=3, max_new_tokens=10,
+                                   eos_id=eos_id)
+        assert ak.flash_attention_fwd.routes["scalar"] > 0
+        assert ak.flash_attention_fwd.routes["tensor_core"] == 0
+        with chip_smoke.recorded_decisions() as host, \
+                chip_smoke.logit_peaks(cpu) as peaks:
+            want = cpu.generate_beam(prompts, beam_size=3, max_new_tokens=10,
+                                     eos_id=eos_id)
+        chip_smoke.beams_held(got, want, card, host, f"eos {eos_id}", failed,
+                              max(peaks))
+    assert not failed, failed
+
+
+def test_bf16_kv_cache_served_on_the_card_matches_the_cpu(cuda):
+    """A bf16 KV cache under the f32 LM on the card (the mixed entry) and
+    on the CPU (the plain version): the same rows bar a near-tie."""
+    from bigdl_tpu_torch.serving import GenerationScheduler
+    lm = TransformerLM(512, hidden_size=64, num_layers=2, num_heads=4,
+                       filter_size=128, max_len=128,
+                       generator=torch.Generator().manual_seed(0),
+                       device=cuda).eval()
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(1, 513, n).astype(np.int32)
+               for n in (5, 40, 70, 9)]
+    rows = {}
+    for dev in (cuda, "cpu"):
+        engine = GenerationScheduler(lm, slots=4, prefill_chunk=32,
+                                     dtype=torch.bfloat16, device=dev)
+        try:
+            rows[str(dev)] = [engine.submit(p, 12, timeout=300)
+                              for p in prompts]
+        finally:
+            engine.shutdown()
+    failed = []
+    chip_smoke.rows_held(lm, prompts, rows["cuda"], rows["cpu"], "bf16 kv",
+                         failed)
+    assert not failed, failed

@@ -10,7 +10,9 @@ only on the card (tests/test_torch_cuda.py).  Only the tests that hold
 #7's and #6's models against the Pallas kernels import JAX, inside
 them."""
 
+import contextlib
 import math
+import types
 
 import numpy as np
 import pytest
@@ -50,6 +52,8 @@ def _mutant_sources():
              for n, (lib, before, _, _) in gates.RING_MUTANTS.items()]
     rows += [(n, "flash_attention_fwd.cu", before)
              for n, (before, _) in gates.FWD_MUTANTS.items()]
+    rows += [(n, "flash_attention_fwd.cu", before)
+             for n, (before, _) in gates.MIXED_MUTANTS.items()]
     rows += [(f"{n}_{i}", f"{lib}.cu", before)
              for n, (lib, edits, _, _) in gates.VARIANTS.items()
              for i, (before, _) in enumerate(edits)]
@@ -143,6 +147,19 @@ def test_mutants_of_the_redesigned_kernels_edit_their_sources():
     assert entry < fwd.index(gates.RING_MUTANTS["local_mask_in_5"][1])
 
 
+def test_the_mixed_mutant_edits_the_scalar_template_second_sweep():
+    """The mixed-entry control edits the scalar template (not the
+    tensor-core loop), in the branch of its second sweep over the keys."""
+    fwd = (CSRC_DIR / "flash_attention_fwd.cu").read_text()
+    start = fwd.index("flash_fwd_kernel(const Params p)")
+    end = fwd.index("flash_fwd_tc_kernel(const Params p)")
+    (before, after), = gates.MIXED_MUTANTS.values()
+    at = fwd.index(before)
+    assert start < fwd.index("if (kMixed && with_v) {", start) < at < end
+    assert before != after and "pu / l[r]" in before \
+        and "pu / l[r]" not in after
+
+
 # the route functions of the redesigned kernels, beside their wrappers:
 # #11 and #3, then #10 and #5, then #1 and #7, then #2 and #9, then #6
 # and #8
@@ -187,7 +204,9 @@ def test_routes_refuse_other_dtypes(fn):
 @pytest.mark.parametrize("wrapper", [w for _, w in ROUTES],
                          ids=[w.__name__ for _, w in ROUTES])
 def test_wrappers_count_each_route(wrapper):
-    assert set(wrapper.routes) == {"tensor_core", "scalar"}
+    # #1 has a third route: f32 q with bf16 k and v (a bf16 KV cache)
+    mixed = {"mixed_kv"} if wrapper is ak.flash_attention_fwd else set()
+    assert set(wrapper.routes) == {"tensor_core", "scalar"} | mixed
 
 
 def test_partial_route_sends_unaligned_bf16_rows_to_the_scalar_kernel():
@@ -1041,6 +1060,100 @@ def test_partial_ulp_rule_counts_a_row_a_head_where_rows_are_few():
     assert not chip_smoke.partial_ulp_held(got, want)[2]
     tiny = want * (1 + 2.0 ** -20)
     assert chip_smoke.partial_ulp_held(tiny, want)[1:] == (0, True)
+
+
+@pytest.mark.parametrize("took, excused", [
+    ((7, 5, 9), True),     # parts at the first place, 5e-4 below the CPU's
+    ((5, 9, 7), False),    # parts at the second, 2.0 below, beside a tie
+    ((5, 11, 7), False),   # takes what the CPU did not rank in its k + 1
+])
+def test_beam_decisions_part_at_the_margin_of_the_two_picks(took, excused):
+    """beams_held excuses a search that parts from the CPU's only where
+    the CPU's value of its own pick and of the card's differ by less than
+    NEAR_TIE, wherever else a near-tie lies among the k + 1 largest."""
+    values = np.array([[-1.0, -1.0005, -3.0, -3.5]], np.float32)
+    index = np.array([[5, 7, 9, 2]])
+    got_calls = [(values, np.array([list(took) + [0]]))]
+    want_calls = [(values, index)]
+    seqs = (torch.zeros(1, 3, 4, dtype=torch.long), torch.zeros(1, 3))
+    failed = []
+    margins = chip_smoke.beams_held(seqs, seqs, got_calls, want_calls,
+                                    "toy", failed)
+    assert (not failed) == excused, failed
+    assert len(margins) == 1 and (margins[0] < chip_smoke.NEAR_TIE) == excused
+
+
+def test_beam_decisions_among_masked_values_are_never_excused():
+    """Masked candidates (-1e9) are ordered by the stable sort alone: a
+    search that orders them otherwise than the CPU's is refused."""
+    values = np.full((1, 3), -1e9, np.float32)
+    failed = []
+    seqs = (torch.zeros(1, 2, 4, dtype=torch.long), torch.zeros(1, 2))
+    chip_smoke.beams_held(seqs, seqs, [(values, np.array([[1, 0, 2]]))],
+                          [(values, np.array([[0, 1, 2]]))], "toy", failed)
+    assert failed
+
+
+# ---- chip_smoke's framed traces --------------------------------------------
+
+class _TraceEvent:
+    def __init__(self, name, start):
+        from torch.autograd import DeviceType
+        self.name, self.device_type = name, DeviceType.CUDA
+        self.time_range = types.SimpleNamespace(start=start)
+
+
+class _Trace:
+    """A profiler's device events of the given names, in that order."""
+    def __init__(self, names):
+        self._events = [_TraceEvent(n, t) for t, n in enumerate(names)]
+
+    def events(self):
+        return self._events
+
+
+_SPIN = f"void at::cuda::{chip_smoke.MARKER}(long)"
+
+
+def test_framed_events_reads_what_lies_between_the_markers():
+    trace = _Trace([_SPIN, _SPIN, "conv_a", "conv_b", _SPIN])
+    assert [e.name for e in chip_smoke.framed_events(trace)] == [
+        "conv_a", "conv_b"]
+
+
+@pytest.mark.parametrize("names", [
+    [_SPIN] * 33,                       # the block lost between markers
+    ["conv_a", _SPIN],                  # the leading markers lost
+    [_SPIN, "conv_a"],                  # the closing marker lost
+    []])
+def test_framed_events_refuses_a_trace_that_lost_events(names):
+    with pytest.raises(chip_smoke.TraceLost):
+        chip_smoke.framed_events(_Trace(names))
+
+
+@pytest.mark.parametrize("lost", range(chip_smoke.TRACE_ATTEMPTS + 1))
+def test_traced_call_takes_a_lost_trace_again(monkeypatch, lost):
+    """Each lost trace is dropped and its run made again on what
+    ``prepare`` builds afresh; after TRACE_ATTEMPTS lost traces the loss
+    is raised."""
+    traces = iter([[_SPIN] * 33] * lost + [[_SPIN, "conv_a", _SPIN]])
+
+    @contextlib.contextmanager
+    def traced():
+        yield _Trace(next(traces))
+    monkeypatch.setattr(chip_smoke, "traced", traced)
+    built = []
+
+    def prepare():
+        built.append(len(built))
+        return (built[-1],)
+    if lost == chip_smoke.TRACE_ATTEMPTS:
+        with pytest.raises(chip_smoke.TraceLost):
+            chip_smoke.traced_call(lambda n: n, prepare)
+        assert len(built) == lost
+        return
+    out, framed = chip_smoke.traced_call(lambda n: n, prepare)
+    assert out == lost and [e.name for e in framed] == ["conv_a"]
 
 
 # ---- chip_smoke's build report ----------------------------------------------
