@@ -32,9 +32,13 @@ Counterpart of ``bigdl_tpu/ops/attention_kernels.py``.  Shapes follow
   :func:`dkv_route`, :func:`partial_route`, :func:`dq_partial_route`,
   :func:`dkv_partial_route`); their wrappers count each route in
   ``<wrapper>.routes``.  #1 has a third route, ``"mixed_kv"``: f32 q
-  with bf16 k and v (a bf16 KV cache under an f32 model), the scalar
-  template reading bf16 K/V in two sweeps over the keys, so that P is
+  with bf16 k and v (a bf16 KV cache under an f32 model), where P is
   normalised before it is rounded to bf16, as in :func:`plain_attention`.
+  #1 also counts the kernel each launch ran (:func:`fwd_kernel`,
+  ``flash_attention_fwd.kernels``): for f32 q (both f32 routes) the
+  split-key decode kernel at Tq = 1 and the register-tiled tile kernel at
+  Tq > 1, where every row starts on 16 bytes; the scalar template for
+  rows that do not; the tensor cores for bf16.
 * :func:`flash_attention_with_grad` — the ``torch.autograd.Function``
   whose forward is the forward kernel and whose backward launches dQ and
   dK/dV (and dBias only when the bias needs a gradient), reading the
@@ -72,7 +76,8 @@ __all__ = ["plain_attention", "plain_attention_fwd", "attention_delta",
            "plain_attention_dkv_partial", "flash_attention_partial",
            "flash_attention_dq_partial", "flash_attention_dkv_partial",
            "dq_route", "dkv_route", "partial_route", "fwd_route",
-           "dkv_partial_route", "dq_partial_route", "rows_aligned"]
+           "dkv_partial_route", "dq_partial_route", "rows_aligned",
+           "fwd_kernel", "fwd_scratch", "FWD_KERNELS"]
 
 NEG_INF = -1e9  # the reference's attention mask fill (_NEG_INF)
 MAX_HEAD_DIM = 128
@@ -290,8 +295,8 @@ def _bind(library: str, name: str, argtypes):
 
 
 _bound: dict = {}
-_FWD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
-                 + [ctypes.c_longlong] * 13
+_FWD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+                 + [ctypes.c_longlong] * 14
                  + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                     ctypes.c_void_p])
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
@@ -318,16 +323,17 @@ def rows_aligned(*tensors) -> bool:
 
 
 def fwd_route(dtype, aligned: bool = True, kv_dtype=None) -> str:
-    """Which forward kernel (#1) runs for q of ``dtype`` and k, v of
+    """Which forward route (#1) runs for q of ``dtype`` and k, v of
     ``kv_dtype`` (default ``dtype``): ``"tensor_core"``
     (``flash_fwd_tc_kernel``: bf16 operands, f32 sums on mma.sync) for
     bfloat16 rows that start on 16 bytes (:func:`rows_aligned`), the
     pooled decode (Tq 1) included, where it beats the scalar template too
-    (PERF.md); ``"scalar"`` (the f32-FMA template) for float32, whose
-    operands the tensor cores would round, and for bf16 rows that do not;
-    ``"mixed_kv"`` (the scalar template with bf16 K/V, two sweeps over
-    the keys) for f32 q with bf16 k and v, a bf16 KV cache under an f32
-    model.  Raises TypeError on any other mix."""
+    (PERF.md); ``"scalar"`` (f32 FMAs) for float32, whose operands the
+    tensor cores would round, and for bf16 rows that do not;
+    ``"mixed_kv"`` (f32 FMAs over bf16 K/V widened, P normalised before
+    it is rounded) for f32 q with bf16 k and v, a bf16 KV cache under an
+    f32 model.  :func:`fwd_kernel` names the kernel within the route.
+    Raises TypeError on any other mix."""
     if kv_dtype is not None and kv_dtype != dtype:
         if dtype == torch.float32 and kv_dtype == torch.bfloat16:
             return "mixed_kv"
@@ -341,38 +347,135 @@ def fwd_route(dtype, aligned: bool = True, kv_dtype=None) -> str:
                     f"{dtype}")
 
 
+# #1's kernels, in the order of the C entry's selector (FwdKernel)
+FWD_KERNELS = ("scalar_template", "tensor_core", "decode", "tile")
+# the C source's fixed part positions (flash_attention_fwd_layout): keys a
+# split of the decode kernel, keys a tile and query rows a block of the
+# tile kernel
+FWD_LAYOUT = (128, 64, 32)
+
+
+def fwd_kernel(dtype, aligned: bool = True, kv_dtype=None,
+               tq: int = 1) -> str:
+    """Which kernel of #1 runs, within the route :func:`fwd_route` names.
+    The rule: bf16 q on ``"tensor_core"`` where its rows start on 16 bytes;
+    f32 q (the ``"scalar"`` and ``"mixed_kv"`` routes) where every row of
+    q, k and v starts on 16 bytes (:func:`rows_aligned`: D a multiple of 4,
+    or of 8 with bf16 K/V) on ``"decode"`` (``flash_decode_kernel``: the
+    keys split at fixed positions over blocks, merged in key order) at
+    Tq = 1 and ``"tile"`` (``flash_tile_kernel``: 32 query rows a block,
+    register micro-tiles, cp.async double buffering) at Tq > 1; every
+    other row on ``"scalar_template"`` (``flash_fwd_kernel``).  This is
+    routing, not a fall-back: a kernel that fails raises."""
+    route = fwd_route(dtype, aligned, kv_dtype)
+    if route == "tensor_core":
+        return "tensor_core"
+    if dtype != torch.float32 or not aligned:
+        return "scalar_template"
+    return "decode" if tq == 1 else "tile"
+
+
+def fwd_scratch(kernel: str, mixed: bool, b: int, h: int, tq: int, tk: int,
+                d: int, sms: int, layout=FWD_LAYOUT):
+    """``(split, floats)``: whether the tile kernel spreads its key tiles
+    over blocks, and the f32 scratch a call of ``kernel`` needs, as the C
+    entry carves it.  The decode kernel always runs a block a split of
+    ``layout[0]`` keys and merges where there are two or more; the tile
+    kernel spreads its tiles of ``layout[1]`` keys over blocks only where
+    B·H·(blocks of ``layout[2]`` rows) is below the SM count: the split
+    positions never move, and a row has the same bits either way.  The
+    parts hold m and l [rows, n] and acc [rows, n, D]; the mixed entry
+    keeps its scores [B·H, Tq, Tk] besides, except in a one-split decode,
+    which keeps them in shared memory."""
+    split_keys, tile_keys, tile_rows = layout
+    if kernel == "decode":
+        n = -(-tk // split_keys)
+        split = False
+        parts = n > 1
+    elif kernel == "tile":
+        n = -(-tk // tile_keys)
+        split = parts = n > 1 and b * h * -(-tq // tile_rows) < sms
+    else:
+        return False, 0
+    rows = b * h * tq
+    floats = rows * n * (d + 2) if parts else 0
+    if mixed and (kernel == "tile" or parts):
+        floats += rows * tk
+    return split, floats
+
+
+def _fwd_layout():
+    """The bound library's part positions (its flash_attention_fwd_layout),
+    read once per bound entry."""
+    fn = _bind("flash_attention_fwd", "flash_attention_fwd_layout",
+               [ctypes.c_int])
+    got = _layouts.get(id(fn))
+    if got is None or got[0] is not fn:
+        got = _layouts[id(fn)] = (fn, tuple(fn(i) for i in range(3)))
+    return got[1]
+
+
+_layouts: dict = {}
+
+
+def _sm_count(device) -> int:
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    n = _sms.get(index)
+    if n is None:
+        n = _sms[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return n
+
+
+_sms: dict = {}
+
 # one lock for the wrappers' counts, so that threads calling one model at
 # once (PredictionService) count every launch
 _COUNT_LOCK = threading.Lock()
 
 
-def _count(wrapper, route: Optional[str] = None) -> None:
-    """Count one launch of ``wrapper`` (by ``route``, where it has two)."""
+def _count(wrapper, route: Optional[str] = None,
+           kernel: Optional[str] = None) -> None:
+    """Count one launch of ``wrapper`` (by ``route``, where it has two,
+    and by ``kernel``, where it counts its kernels)."""
     with _COUNT_LOCK:
         wrapper.launches += 1
         if route is not None:
             wrapper.routes[route] += 1
+        if kernel is not None:
+            wrapper.kernels[kernel] += 1
 
 
-def _launch_fwd(q, k, v, bias, scale, causal, causal_offset, route):
-    """Launch the forward kernel by ``route`` on inputs that
-    :func:`_check_inputs` passed; ``(out, lse)``.  Counts nothing: the
-    wrapper counts its launches."""
+def _launch_fwd(q, k, v, bias, scale, causal, causal_offset, route, kernel):
+    """Launch ``kernel`` of the forward (:data:`FWD_KERNELS`) on the
+    ``route`` its inputs take, on inputs that :func:`_check_inputs`
+    passed; ``(out, lse)``.  The decode and tile kernels get their scratch
+    here (:func:`fwd_scratch`).  Counts nothing: the wrapper counts its
+    launches."""
     b, h, tq, d = q.shape
     tk = k.shape[2]
     bias, b_strides = _bias_args(bias, (b, h, tq, tk))
     out = torch.empty((b, h, tq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, tq), dtype=torch.float32, device=q.device)
+    split, floats = False, 0
+    if kernel in ("decode", "tile"):
+        split, floats = fwd_scratch(kernel, route == "mixed_kv", b, h, tq,
+                                    tk, d, _sm_count(q.device),
+                                    _fwd_layout())
+    scratch = (torch.empty(floats, dtype=torch.float32, device=q.device)
+               if floats else None)
     fn = _bind("flash_attention_fwd", "flash_attention_fwd", _FWD_ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 None if bias is None else bias.data_ptr(),
                 out.data_ptr(), lse.data_ptr(),
-                int(q.dtype == torch.bfloat16), int(route == "tensor_core"),
-                int(route == "mixed_kv"), b, h, tq, tk, d,
+                None if scratch is None else scratch.data_ptr(),
+                int(q.dtype == torch.bfloat16), FWD_KERNELS.index(kernel),
+                int(route == "mixed_kv"), int(split), b, h, tq, tk, d,
                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                *b_strides, float(scale), int(bool(causal)),
+                *b_strides, floats, float(scale), int(bool(causal)),
                 int(causal_offset), stream)
     _raise_on(rc, "flash_attention_fwd")
     return out, lse
@@ -391,18 +494,23 @@ def flash_attention_fwd(q, k, v, bias=None, *, scale: float,
     ``flash_attention_fwd.routes`` counts each.  f32 q with bf16 k and v
     (a bf16 KV cache) takes the mixed entry, ``"mixed_kv"``: P is
     normalised before it is rounded to bf16, as the plain version rounds
-    it.  Raises on anything the kernel does not take; never falls back to
-    the plain version."""
+    it.  ``flash_attention_fwd.kernels`` counts the kernel each launch
+    ran (:func:`fwd_kernel`).  Raises on anything the kernel does not
+    take; never falls back to the plain version."""
     _check_inputs(q, k, v, bias)
-    route = fwd_route(q.dtype, rows_aligned(q, k, v), k.dtype)
-    out = _launch_fwd(q, k, v, bias, scale, causal, causal_offset, route)
-    _count(flash_attention_fwd, route)
+    aligned = rows_aligned(q, k, v)
+    route = fwd_route(q.dtype, aligned, k.dtype)
+    kernel = fwd_kernel(q.dtype, aligned, k.dtype, q.shape[2])
+    out = _launch_fwd(q, k, v, bias, scale, causal, causal_offset, route,
+                      kernel)
+    _count(flash_attention_fwd, route, kernel)
     return out
 
 
 flash_attention_fwd.launches = 0
 flash_attention_fwd.routes = {"tensor_core": 0, "scalar": 0,
                               "mixed_kv": 0}
+flash_attention_fwd.kernels = dict.fromkeys(FWD_KERNELS, 0)
 
 
 def _launch_bwd(name, q, k, v, bias, do, lse, delta, out0, out1, scale,

@@ -65,8 +65,10 @@ the faults they are there to catch:
 4c. Design variants, timed against the sources as they stand on the same
    inputs (a reading, not a gate): #1's query blocks in grid order
    instead of heaviest first, #7's dV over its three largest terms
-   alone, and #2's K/V tiles of 64 keys at D64, with whether chip_smoke's
-   check passes each.
+   alone, #2's K/V tiles of 64 keys at D64, #1's decode kernel with splits
+   of 64 or 256 keys instead of 128 (the pooled decode, f32) and its mixed
+   pass 2 with two V splits in flight instead of four (the mixed decode),
+   with whether chip_smoke's check passes each.
 5. A control ResNet-50 step.  chip_smoke's f32 fused step (batch 4,
    64 px, card against a CPU copy) runs as it is and again with the conv
    kernels fed x and W rounded to bf16; the script fails unless the first
@@ -95,15 +97,20 @@ the faults they are there to catch:
    through a ``split_outputs`` that hands request i the row of request
    i + 1 within its batch (the last the first's); the script fails unless
    the phase's row checks refuse it.
-10. A mixed-entry mutant.  ``flash_attention_fwd.cu`` with #1's mixed
-   entry (f32 q, bf16 K/V: a bf16 KV cache) rounding P to bf16 before it
-   is normalised (the one-sweep loop's rounding point, where the
-   reference's oracle rounds the normalised softmax weights), through
-   #1's wrapper at chip_smoke's mixed decode and chunk shapes, held by
-   ``mixed_held``, and through chip_smoke's bf16 KV cache serving
-   (``bf16_kv_reading``: its rows against a CPU engine); the script fails
-   unless the kernel check passes the source as it stands and refuses the
-   mutant at both shapes, and prints which checks refused it.
+10. Mixed-entry and merge mutants.  ``flash_attention_fwd.cu`` with #1's
+   mixed entry (f32 q, bf16 K/V: a bf16 KV cache) rounding P to bf16
+   before it is normalised (the one-sweep loop's rounding point, where
+   the reference's oracle rounds the normalised softmax weights), once in
+   the decode kernel's rounding point and once in the tile kernel's,
+   through #1's wrapper at chip_smoke's mixed decode, one-request decode
+   and chunk shapes, held by ``mixed_held``, and through chip_smoke's
+   bf16 KV cache serving (``bf16_kv_reading``: its rows against a CPU
+   engine); and with the merge of #1's parts folding each split's sum
+   without its rescale e^(m_s - m), through the f32 check at the pooled
+   decode and the chunk.  The script fails unless the kernel check passes
+   the source as it stands and refuses each mixed mutant at every shape
+   its kernel runs and the merge mutant at both shapes, and prints which
+   checks refused each.
 
 The last line is one JSON object with every reading.  Imports torch,
 numpy, ``bigdl_tpu_torch`` and ``chip_smoke`` only.
@@ -336,6 +343,22 @@ VARIANTS = {
         [("static constexpr int kKeys = DMAX <= 32 ? 64 : 32;",
           "static constexpr int kKeys = DMAX <= 64 ? 64 : 32;")],
         "dq", DQ_PROBLEM),
+    # #1's decode kernel (f32 q) with splits of 64 or 256 keys instead of
+    # 128: twice or half the blocks and merged parts, a key a thread or
+    # two; and its mixed pass 2 with 2 V splits in flight instead of 4
+    "decode_splits_of_64_keys": (
+        "flash_attention_fwd",
+        [("constexpr int kSplitKeys = 128;", "constexpr int kSplitKeys = 64;")],
+        "fwd", "b_decode"),
+    "decode_splits_of_256_keys": (
+        "flash_attention_fwd",
+        [("constexpr int kSplitKeys = 128;",
+          "constexpr int kSplitKeys = 256;")],
+        "fwd", "b_decode"),
+    "decode_mixed_pass2_2_stages": (
+        "flash_attention_fwd",
+        [("constexpr int kPvStages = 4;", "constexpr int kPvStages = 2;")],
+        "fwd", "k_decode_mixed"),
 }
 
 
@@ -517,13 +540,16 @@ def _ring_outputs(name, calls, problem):
 
 @contextlib.contextmanager
 def fwd_kernel_from(lib):
-    """The port's forward wrapper (#1) launches ``lib``'s kernel."""
+    """The port's forward wrapper (#1) launches ``lib``'s kernels, with
+    ``lib``'s part positions (its scratch)."""
     from bigdl_tpu_torch.ops import attention_kernels as ak
     saved = dict(ak._bound)
-    fn = lib.flash_attention_fwd
-    fn.argtypes = ak._FWD_ARGTYPES
-    fn.restype = ctypes.c_int
-    ak._bound[("flash_attention_fwd", "flash_attention_fwd")] = fn
+    for name, argtypes in (("flash_attention_fwd", ak._FWD_ARGTYPES),
+                           ("flash_attention_fwd_layout", [ctypes.c_int])):
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        ak._bound[("flash_attention_fwd", name)] = fn
     try:
         yield
     finally:
@@ -531,10 +557,20 @@ def fwd_kernel_from(lib):
         ak._bound.update(saved)
 
 
-def _fwd_problem():
-    """chip_smoke's #1 problem FWD_PROBLEM: (q, k, v, bias, causal)."""
+def _fwd_problem(key=FWD_PROBLEM):
+    """chip_smoke's #1 problem ``key``: (key, what, (q, k, v, bias,
+    causal), tolerance)."""
     gen = torch.Generator(device="cuda").manual_seed(1)   # chip_smoke's
-    return next(r for r in chip_smoke._inputs(gen) if r[0] == FWD_PROBLEM)
+    return next(r for r in chip_smoke._inputs(gen) if r[0] == key)
+
+
+def fwd_held(got, want, q, k, v, bias):
+    """chip_smoke's check of #1 on these inputs: mixed_held for f32 q with
+    bf16 K/V, fwd_held otherwise."""
+    if k.dtype != q.dtype:
+        return chip_smoke.mixed_held(got, want,
+                                     chip_smoke.mixed_anchor(q, k, v, bias))
+    return chip_smoke.fwd_held(got, want)
 
 
 def phase_fwd_mutants():
@@ -580,62 +616,106 @@ def phase_fwd_mutants():
     return readings, failures
 
 
-# name: (the line as it stands, the line with the fault) in
-# flash_attention_fwd.cu: the mixed entry's second sweep rounds P before it
-# divides by l
-MIXED_MUTANTS = {"unnormalised_p_in_1_mixed": (
-    "pv = to_f32(from_f32<TKV>(pu / l[r]));",
-    "pv = to_f32(from_f32<TKV>(pu)) / l[r];")}
+# name: (the line as it stands, the line with the fault, the kernel it
+# is in) in flash_attention_fwd.cu: the mixed entry's P rounded before it
+# is divided by l, in the decode kernel's rounding point and in the tile
+# kernel's
+MIXED_MUTANTS = {
+    "unnormalised_p_in_1_decode": (
+        "return __bfloat162float(__float2bfloat16_rn(expf(x - m) / l));",
+        "return __bfloat162float(__float2bfloat16_rn(expf(x - m))) / l;",
+        "decode"),
+    "unnormalised_p_in_1_tile": (
+        "return __bfloat162float(__float2bfloat16_rn(expf(s - m_row) / "
+        "l_row));",
+        "return __bfloat162float(__float2bfloat16_rn(expf(s - m_row))) / "
+        "l_row;", "tile"),
+}
+# the merge of #1's parts folding each split's acc without its rescale
+# e^(m_s - m) (l keeps it), held by chip_smoke's f32 check where the row's
+# parts are merged: the pooled decode (4 splits) and the chunk (its
+# tiles spread over blocks on an H100)
+MERGE_MUTANTS = {"no_split_rescale_in_1_merge": (
+    "          acc[i] = fmaf(xs[u][i], bb, __fmul_rn(acc[i], a));",
+    "          acc[i] = fmaf(xs[u][i], 1.f, __fmul_rn(acc[i], a));")}
+MERGE_PROBLEMS = ("b_decode", "a_chunk")
 
 
-def phase_mixed_control():
-    """The MIXED_MUTANTS fault through #1's wrapper at chip_smoke's mixed
-    shapes (held by mixed_held) and through its bf16 KV cache serving:
-    the kernel check must pass the source as it stands and refuse the
-    fault at each shape; the serving checks that refuse it are read."""
+def _source_and_mutant(tag, lib, problems, refused_by, failures,
+                       readings, must_refuse):
+    """Each problem through #1's wrapper with the source as it stands and
+    with ``lib``, held by chip_smoke's check; the check must pass the
+    source, and refuse ``lib`` where ``must_refuse(kernel)``."""
     from bigdl_tpu_torch.ops import attention_kernels as ak
-    (tag, edit), = MIXED_MUTANTS.items()
-    lib = build_source_variant("flash_attention_fwd", [edit], tag)
-    gen = torch.Generator(device="cuda").manual_seed(1)   # chip_smoke's
-    problems = [row for row in chip_smoke._inputs(gen)
-                if row[0] in chip_smoke.MIXED_SHAPES]
-    readings, failures, refused_by = {}, [], []
     for key, desc, (q, k, v, bias, causal), _ in problems:
-        print(f"mixed mutant {tag} at ({key}) {desc}")
-        readings[key] = {}
+        kernel = ak.fwd_kernel(q.dtype, ak.rows_aligned(q, k, v), k.dtype,
+                               q.shape[2])
+        print(f"mutant {tag} at ({key}) {desc}, kernel {kernel}")
+        readings.setdefault(key, {})
         with torch.no_grad():
             want = ak.plain_attention(q, k, v, bias, causal=causal)
-            anchor = chip_smoke.mixed_anchor(q, k, v, bias)
             for label, built in (("as_it_stands", None), (tag, lib)):
                 with (fwd_kernel_from(built) if built is not None
                       else contextlib.nullcontext()):
                     got = ak.dot_product_attention(q, k, v, bias,
                                                    causal=causal)
                 torch.cuda.synchronize()
-                err, beyond, ok = chip_smoke.mixed_held(got, want, anchor)
+                err, beyond, ok = fwd_held(got, want, q, k, v, bias)
                 readings[key][label] = dict(
-                    max_abs_err=err, entries_beyond=beyond,
+                    kernel=kernel, max_abs_err=err, entries_beyond=beyond,
                     share_beyond=beyond / want.numel(), check_passes=ok)
-                print(f"  {label:26s} {beyond} entries beyond F32_TOL "
+                print(f"  {label:28s} {beyond} entries beyond F32_TOL "
                       f"({beyond / want.numel():.4%}), max abs err "
                       f"{err:.3e}; check {'passes' if ok else 'REFUSES'}")
                 if built is None and not ok:
-                    failures.append(f"the mixed check refuses the source as "
-                                    f"it stands at {key}")
-                if built is not None:
+                    failures.append(f"the #1 check refuses the source as it "
+                                    f"stands at {key}")
+                if built is not None and must_refuse(kernel):
                     if ok:
-                        failures.append(f"the mixed check passes {tag} at "
+                        failures.append(f"the #1 check passes {tag} at "
                                         f"{key}")
                     else:
-                        refused_by.append(f"the mixed kernel check at {key}")
-    with fwd_kernel_from(lib):
-        try:
-            served = chip_smoke.bf16_kv_reading()["failed"]
-        except Exception as e:  # noqa: BLE001 - a crash refuses it too
-            served = [f"{type(e).__name__}: {e}"]
-    refused_by += [f"serving_bf16_kv: {f}" for f in served]
-    print(f"mixed control ({tag}): refused by {len(refused_by)} checks: "
-          f"{refused_by[:6]}")
+                        refused_by.append(f"{tag}: the kernel check at {key}")
+
+
+def phase_mixed_control():
+    """Each MIXED_MUTANTS fault through #1's wrapper at chip_smoke's mixed
+    shapes (held by mixed_held) and through its bf16 KV cache serving:
+    the kernel check must pass the source as it stands and refuse each
+    fault at every shape its kernel runs (the decode kernel's at the two
+    decode shapes, the tile kernel's at the chunk); the serving checks
+    that refuse it are read.  Then MERGE_MUTANTS through the f32 check at
+    MERGE_PROBLEMS, refused at each."""
+    with ThreadPoolExecutor(len(MIXED_MUTANTS) + len(MERGE_MUTANTS)) as pool:
+        libs = dict(zip(
+            [*MIXED_MUTANTS, *MERGE_MUTANTS],
+            pool.map(lambda t: build_source_variant(
+                "flash_attention_fwd",
+                [(MIXED_MUTANTS[t][:2] if t in MIXED_MUTANTS
+                  else MERGE_MUTANTS[t])], t),
+                [*MIXED_MUTANTS, *MERGE_MUTANTS])))
+    gen = torch.Generator(device="cuda").manual_seed(1)   # chip_smoke's
+    inputs = chip_smoke._inputs(gen)
+    mixed = [row for row in inputs if row[0] in chip_smoke.MIXED_SHAPES]
+    merged = [row for row in inputs if row[0] in MERGE_PROBLEMS]
+    readings, failures, refused_by = {}, [], []
+    for tag, (_, _, kernel) in MIXED_MUTANTS.items():
+        readings[tag] = {}
+        _source_and_mutant(tag, libs[tag], mixed, refused_by, failures,
+                           readings[tag],
+                           lambda ran, kernel=kernel: ran == kernel)
+        with fwd_kernel_from(libs[tag]):
+            try:
+                served = chip_smoke.bf16_kv_reading()["failed"]
+            except Exception as e:  # noqa: BLE001 - a crash refuses it too
+                served = [f"{type(e).__name__}: {e}"]
+        refused_by += [f"{tag}: serving_bf16_kv: {f}" for f in served]
+    for tag in MERGE_MUTANTS:
+        readings[tag] = {}
+        _source_and_mutant(tag, libs[tag], merged, refused_by, failures,
+                           readings[tag], lambda ran: True)
+    print(f"#1 controls: refused by {len(refused_by)} checks: "
+          f"{refused_by[:8]}")
     return dict(readings, refused_by=refused_by), failures
 
 
@@ -650,7 +730,6 @@ def phase_variants():
             lambda t: build_source_variant(VARIANTS[t][0], VARIANTS[t][1], t),
             VARIANTS)))
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
-    _, _, (q, k, v, bias, causal), _ = _fwd_problem()
     problem = next(p for p in chip_smoke._partial_problems()
                    if p[0] == RING_PROBLEM)
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -668,12 +747,14 @@ def phase_variants():
                                            dq_floor)[2]
             context = backward_from
         elif kernel == "fwd":
+            _, _, (q, k, v, bias, causal), _ = _fwd_problem(key)
+
             def run():
                 return ak.dot_product_attention(q, k, v, bias, causal=causal)
             want = ak.plain_attention(q, k, v, bias, causal=causal)
 
             def held():
-                return chip_smoke.fwd_held(run(), want)[2]
+                return fwd_held(run(), want, q, k, v, bias)[2]
             context = fwd_kernel_from
         else:
             fn, _, args, _ = calls[kernel]
@@ -705,8 +786,10 @@ def phase_variants():
         report = chip_smoke.ptxas_report(
             (BUILD_DIR / "mutants" / f"{VARIANTS[tag][0]}_{tag}.ptxas.txt")
             .read_text())
-        r["build"] = {k: v for k, v in report.items()
-                      if any(n in k for n in chip_smoke.TC_KERNELS)}
+        r["build"] = {
+            k: v for k, v in report.items()
+            if any(n in k for n in chip_smoke.TC_KERNELS
+                   + chip_smoke.F32_KERNELS)}
         readings[tag] = r
         print(f"variant {tag} build: " + "; ".join(
             f"{re.search(r'(flash_[a-z_]+kernel\w*?)EEEv', k).group(1)} "

@@ -29,10 +29,19 @@ Phases, each raising on failure (the script then exits non-zero):
    (f32 q, bf16 K/V: a bf16 KV cache) at the decode and chunk shapes,
    held by ``mixed_held`` (an f32 rule with an f64 anchor), timed beside
    the scalar route on the same K/V upcast, SDPA on K/V upcast and the
-   upcast's copy; and the teacher-forced bf16 translation forward's
+   upcast's copy; the teacher-forced bf16 translation forward's
    three calls (encoder T128 and cross-attention Tq64 Tk128 under a
    padding bias broadcast over Tq, decoder T64 under a causal bias), in
-   the model's head layout, held by ``fwd_held``;
+   the model's head layout, held by ``fwd_held``; and the decodes no row
+   above covers (the beam_lm decode B32 Tk160 under a left-padded bias, a
+   one-request decode B1 Tk512 in f32 and mixed, the translation's
+   cross-attention decode B32 Tk128 in the model's head layout).  Every
+   row names the kernel it ran (f32 q with 16-byte rows: the decode
+   kernel at Tq 1, the tile kernel beyond) and is timed beside the
+   scalar template on the same inputs, with its share of the bound; then
+   a row held bit for bit among others, alone and over a Tk extended by
+   keys its bias masks (``row_independence``: a decode row among 16
+   slots, a chunk row among 9 requests and alone, f32 and mixed);
 4. the backward kernels (dQ, dK/dV, dBias) against their plain versions
    on the same inputs and the forward kernel's lse, at the training
    shape, bf16 edge shapes of #2's and #3's tensor-core routes and six
@@ -58,7 +67,9 @@ Phases, each raising on failure (the script then exits non-zero):
    the continuous-batching engine with 128-wide prefill chunks, 32
    requests; every served row is held against a solo ``generate()`` and
    the kernel's launch count against the path's attention calls, every
-   launch by the scalar route (f32);
+   launch by the scalar route (f32), the decode steps on #1's decode
+   kernel and the prefill calls on its tile kernel (``kernels_held``;
+   the prefix, oneshot and beam phases check theirs the same way);
 5b. prefix: the same LM through the prefix KV cache (granularity 64):
    ``run_shared_prefix_workload`` with 32 requests on a 256-token shared
    prefix and tails of 8-64, cache on and off (TTFT p50/p99, prefill
@@ -207,7 +218,9 @@ Phases, each raising on failure (the script then exits non-zero):
 14. a ``{"kernels": [...]}`` line (eleven kernels, launches by path
    (#1's on ``serving_prefix_cache``, ``serving_disaggregated``,
    ``oneshot_lm``, ``beam_lm``, ``translation_beam`` and
-   ``serving_bf16_kv`` too; its mixed entry's rows under ``mixed_kv``),
+   ``serving_bf16_kv`` too, and by kernel on each of them under
+   ``launches_by_kernel``; its mixed entry's rows under ``mixed_kv``; its
+   row-independence readings),
    the graph replays' among them (phases 13, 13b and 13c) as the profiler
    counted them on the device; all but #4 also their design, launches
    by route and build report; #1 its row at the training shape beside the decode row), then
@@ -272,6 +285,8 @@ def _zero_counts():
         w.launches = 0
         for route in getattr(w, "routes", ()):
             w.routes[route] = 0
+        for kernel in getattr(w, "kernels", ()):
+            w.kernels[kernel] = 0
 
 
 def _read_counts():
@@ -284,6 +299,40 @@ def _read_routes():
     f32)."""
     return {w.__name__: dict(w.routes) for w in _wrappers()
             if hasattr(w, "routes")}
+
+
+def _read_kernels():
+    """{kernel: launches} of #1 by the kernel each launch ran: "decode"
+    (Tq 1) and "tile" (Tq > 1) for f32 q with 16-byte rows,
+    "scalar_template" for other f32 rows and unaligned bf16 ones,
+    "tensor_core" for bf16."""
+    from bigdl_tpu_torch.ops import attention_kernels as ak
+    return dict(ak.flash_attention_fwd.kernels)
+
+
+def kernels_held(kernels, steps, prefills, what, exact=True, tensor_core=0):
+    """The failed checks of #1's launches by kernel on a path that made
+    ``steps`` launches at Tq 1 (decode steps, in launches) and
+    ``prefills`` at Tq >= 1 (prefill, chunk, encode and forward calls):
+    none on the scalar template, ``tensor_core`` on the tensor cores, the
+    rest on the decode and tile kernels, ``steps`` on decode and
+    ``prefills`` on tile with ``exact`` (else a prefill chunk of one token
+    may take decode), each non-zero where the path made such calls."""
+    decode, tile = kernels["decode"], kernels["tile"]
+    failed = []
+    if kernels["scalar_template"] or kernels["tensor_core"] != tensor_core:
+        failed.append(f"{what}: #1 ran the kernels {kernels}, not "
+                      f"{tensor_core} tensor-core launches and none on the "
+                      "scalar template")
+    if decode + tile != steps + prefills or not (
+            decode == steps if exact else steps <= decode):
+        failed.append(f"{what}: #1 ran decode {decode} and tile {tile} "
+                      f"times, not {steps} decode and {prefills} tile"
+                      + ("" if exact else " (a one-token chunk on decode)"))
+    if (steps and not decode) or (prefills and not tile):
+        failed.append(f"{what}: #1 left the decode or the tile kernel out "
+                      f"({kernels})")
+    return failed
 
 
 def routes_are(got, want) -> bool:
@@ -377,13 +426,17 @@ def tensor_core_counts(sass: str) -> dict:
 # and the sums) must hold HMMA instructions
 TC_KERNELS = ("flash_dq_tc_kernel", "flash_dkv_tc_kernel",
               "flash_fwd_tc_kernel", "flash_dkv_partial_tc_kernel", "tcconv")
+# #1's kernels for f32 q, redesigned on the CUDA cores (PR 18), whose
+# build reports are printed beside the tensor-core kernels'
+F32_KERNELS = ("flash_decode_kernel", "flash_tile_kernel",
+               "flash_merge_kernel")
 TC_PRODUCTS = ("flash_dq_tc_kernel", "flash_dkv_tc_kernel",
                "flash_fwd_tc_kernel", "flash_dkv_partial_tc_kernel",
                "tcconv5fprop", "tcconv5dgrad", "tcconv5wgrad")
 # each redesigned wrapper's kernels among them: (library, name parts)
 TC_BUILD = {
     "flash_attention_fwd": ("flash_attention_fwd",
-                            ("flash_fwd_tc_kernelILb0E",)),
+                            ("flash_fwd_tc_kernelILb0E", *F32_KERNELS)),
     "flash_attention_dq": ("flash_attention_bwd",
                            tuple(f"flash_dq_tc_kernelILi{d}ELb0E"
                                  for d in (32, 64, 128))),
@@ -449,7 +502,7 @@ def phase_build():
                 text=True, check=True, timeout=300).stdout)
         tc[name] = {}
         for kernel, r in report.items():
-            if not any(k in kernel for k in TC_KERNELS):
+            if not any(k in kernel for k in TC_KERNELS + F32_KERNELS):
                 continue
             r["tensor_core_instructions"] = counts.get(kernel)
             tc[name][kernel] = r
@@ -645,7 +698,7 @@ def _inputs(gen):
     src = (torch.arange(SRC_LEN, device=dev)[None, :]
            < src_lens[:, None]).long()
     bias_src = padding_bias(src)
-    return rows + [
+    translation = [
         ("m_encoder_bf16", "B8 H8 T128 D64 bf16 padding bias (encoder)",
          (heads(BEAM_ROWS, SRC_LEN), heads(BEAM_ROWS, SRC_LEN),
           heads(BEAM_ROWS, SRC_LEN), bias_src, False), BF16_TOL),
@@ -657,6 +710,41 @@ def _inputs(gen):
          (heads(BEAM_ROWS, TEACHER_TT), heads(BEAM_ROWS, SRC_LEN),
           heads(BEAM_ROWS, SRC_LEN), bias_src, False), BF16_TOL),
     ]
+    # the main path's decode shapes no row above covers: the beam_lm decode
+    # (8 prompts x beam 4, left-padded to BEAM_TP, 32 new tokens), a
+    # one-request decode in f32 and mixed, and the translation's
+    # cross-attention decode in the model's head layout
+    beams = BEAM_ROWS * BEAM_SIZE
+    tk_beam = BEAM_TP + BEAM_NEW
+    lens = torch.randint(BEAM_PROMPT[0], BEAM_PROMPT[1], (beams,),
+                         generator=gen, device=dev)
+    toks = (torch.arange(tk_beam, device=dev)[None, :]
+            >= (BEAM_TP - lens)[:, None]).long()
+    index_one = torch.randint(0, MAX_LEN, (1,), generator=gen, device=dev)
+    bias_one = incremental_bias(
+        MAX_LEN, index_one, torch.zeros((1, MAX_LEN), dtype=torch.bool,
+                                        device=dev))
+    cross_bias = bias_src.repeat_interleave(BEAM_SIZE, 0)
+
+    def heads_f32(b, t):
+        return rnd(b, t, 8, 64).transpose(1, 2)
+
+    decodes = [
+        ("p_beam_decode", "B32 H8 Tq1 Tk160 D64 f32 left-padded bias (beam)",
+         (rnd(beams, 8, 1, 64), rnd(beams, 8, tk_beam, 64),
+          rnd(beams, 8, tk_beam, 64), padding_bias(toks), False), F32_TOL),
+        ("q_decode_one", "B1 H8 Tq1 Tk512 D64 f32 one request",
+         (rnd(1, 8, 1, 64), rnd(1, 8, MAX_LEN, 64), rnd(1, 8, MAX_LEN, 64),
+          bias_one, False), F32_TOL),
+        (MIXED_SHAPES[2], "B1 H8 Tq1 Tk512 D64 f32 q, bf16 K/V, one request",
+         (rnd(1, 8, 1, 64), rnd(1, 8, MAX_LEN, 64, dtype=bf),
+          rnd(1, 8, MAX_LEN, 64, dtype=bf), bias_one, False), F32_TOL),
+        ("s_cross_decode", "B32 H8 Tq1 Tk128 D64 f32 padding bias (cross, "
+         "model layout)", (heads_f32(beams, 1), heads_f32(beams, SRC_LEN),
+                           heads_f32(beams, SRC_LEN), cross_bias, False),
+         F32_TOL),
+    ]
+    return rows + translation + decodes
 
 
 # #1's mixed entry (f32 q, bf16 K/V) is held by an f32 rule.  Kernel and
@@ -673,7 +761,7 @@ def _inputs(gen):
 # |v_j|) of the plain version.  A P rounded before it is normalised (the
 # one-sweep loop's rounding point) moves most entries by about 2e-3 of
 # their size: chip_gate_controls.py shows this rule refusing it
-MIXED_SHAPES = ("k_decode_mixed", "l_chunk_mixed")
+MIXED_SHAPES = ("k_decode_mixed", "l_chunk_mixed", "r_decode_one_mixed")
 MIXED_SHARE = 0.01
 
 
@@ -780,15 +868,21 @@ def phase_kernel_checks(rates):
     with torch.no_grad():
         for key, desc, (q, k, v, bias, causal), tol in _inputs(gen):
             routes = dict(ak.flash_attention_fwd.routes)
+            kernels = _read_kernels()
             out = ak.dot_product_attention(q, k, v, bias, causal=causal)
             ref = ak.plain_attention(q, k, v, bias, causal=causal)
             torch.cuda.synchronize()
-            route = ak.fwd_route(q.dtype, ak.rows_aligned(q, k, v), k.dtype)
+            aligned = ak.rows_aligned(q, k, v)
+            route = ak.fwd_route(q.dtype, aligned, k.dtype)
+            kernel = ak.fwd_kernel(q.dtype, aligned, k.dtype, q.shape[2])
             routes[route] += 1
-            if ak.flash_attention_fwd.routes != routes:
+            kernels[kernel] += 1
+            if ak.flash_attention_fwd.routes != routes \
+                    or _read_kernels() != kernels:
                 raise RuntimeError(f"{key}: the call took the routes "
-                                   f"{ak.flash_attention_fwd.routes}, not "
-                                   f"{routes}")
+                                   f"{ak.flash_attention_fwd.routes} and the "
+                                   f"kernels {_read_kernels()}, not {routes}"
+                                   f" and {kernels}")
             if not torch.isfinite(out).all():
                 raise RuntimeError(f"{key}: kernel output is not finite")
             seen = seen_rows(q.shape[2], k.shape[2], causal)
@@ -816,6 +910,7 @@ def phase_kernel_checks(rates):
             cfg = (q.shape[-1] ** -0.5, causal, k.shape[2] - q.shape[2])
             row = {
                 "shape": key, "what": desc, "route": route,
+                "kernel": kernel,
                 "max_abs_err": err, "entries_differ": differ,
                 "error_bias": bias_err,
                 "ms": time_ms(lambda: ak.dot_product_attention(
@@ -829,34 +924,110 @@ def phase_kernel_checks(rates):
                 row["upcast_ms"] = time_ms(lambda: (k.float(), v.float()),
                                            flush)
                 row["f32_kv_ms"] = time_ms(lambda: ak._launch_fwd(
-                    q, k_lib, v_lib, bias, *cfg, "scalar"), flush)
-            if route == "tensor_core":
+                    q, k_lib, v_lib, bias, *cfg, "scalar", kernel), flush)
+            if kernel != "scalar_template":
                 # the scalar template on the same inputs: the kernel this
-                # route replaced, timed in the same run
+                # one replaced, timed in the same run
                 row["scalar_ms"] = time_ms(lambda: ak._launch_fwd(
-                    q, k, v, bias, *cfg, "scalar"), flush)
+                    q, k, v, bias, *cfg, route, "scalar_template"), flush)
             if key == "f_train":
                 row["device_split_ms"] = device_split(
                     lambda: ak.dot_product_attention(q, k, v, bias,
                                                      causal=causal))
             row["bound_ms"], row["bound_by"] = bound(q, k, v, bias, causal,
                                                      rates)
+            row["share_of_bound"] = row["bound_ms"] / row["ms"]
             results.append(row)
             extra = "" if bias_err is None else f" bias {bias_err:+.3e}"
             scalar = ("" if "scalar_ms" not in row
                       else f"  scalar_ms {row['scalar_ms']:.5f}")
             if mixed:
                 extra = f" ({differ} entries beyond F32_TOL)"
-                scalar = (f"  f32_kv_ms {row['f32_kv_ms']:.5f}  upcast_ms "
-                          f"{row['upcast_ms']:.5f}")
-            print(f"kernel {key:16s} {desc:48s} route {route:11s} "
-                  f"max_abs_err {err:.3e}{extra}  kernel_ms "
+                scalar = (f"  scalar_ms {row['scalar_ms']:.5f}" if
+                          "scalar_ms" in row else "")
+                scalar += (f"  f32_kv_ms {row['f32_kv_ms']:.5f}  upcast_ms "
+                           f"{row['upcast_ms']:.5f}")
+            print(f"kernel {key:16s} {desc:48s} route {route:11s} kernel "
+                  f"{kernel:15s} max_abs_err {err:.3e}{extra}  kernel_ms "
                   f"{row['ms']:.5f}{scalar}  plain_ms "
                   f"{row['plain_ms']:.5f}  library_ms "
                   f"{row['library_ms']:.5f}  bound_ms "
-                  f"{row['bound_ms']:.5f} ({row['bound_by']})"
+                  f"{row['bound_ms']:.5f} ({row['bound_by']}, "
+                  f"{row['share_of_bound']:.4f} of it)"
                   + _split_text(row))
     return results
+
+
+ROW_EXTRA_KEYS = 200    # masked keys a row is extended by
+
+
+def row_independence(gen):
+    """#1's decode and tile kernels, f32 and mixed, give a row the same
+    bits (out and lse) among others, alone, and over a Tk extended by
+    ROW_EXTRA_KEYS keys its bias masks: a decode row among SLOTS slots,
+    and a chunk row among 9 requests (9 x 8 heads x 4 blocks of rows: the
+    tiles in one block on an H100) and alone (8 x 4 blocks: the tiles
+    spread over blocks and merged).  Returns one reading a case; raises
+    where a row differs."""
+    from bigdl_tpu_torch.ops import attention_kernels as ak
+    dev = "cuda"
+    readings = []
+    for kv in (torch.float32, torch.bfloat16):
+        for what, b, tq in (("decode", SLOTS, 1),
+                            ("chunk", 9, PREFILL_CHUNK)):
+            def rnd(*shape, dtype=torch.float32):
+                return torch.randn(*shape, generator=gen,
+                                   device=dev).to(dtype)
+            q = rnd(b, 8, tq, 64)
+            k, v = rnd(b, 8, MAX_LEN, 64, dtype=kv), rnd(b, 8, MAX_LEN, 64,
+                                                         dtype=kv)
+            bias = torch.where(torch.rand(b, 1, tq, MAX_LEN, generator=gen,
+                                          device=dev) > 0.85, -1e9, 0.0)
+            scale = 64 ** -0.5
+            i = b // 2
+            k2, v2 = (torch.cat([t[i:i + 1], rnd(1, 8, ROW_EXTRA_KEYS, 64,
+                                                 dtype=kv)], 2)
+                      for t in (k, v))
+            bias2 = torch.cat([bias[i:i + 1], torch.full(
+                (1, 1, tq, ROW_EXTRA_KEYS), -1e9, device=dev)], -1)
+            with torch.no_grad():
+                many = ak.flash_attention_fwd(q, k, v, bias, scale=scale)
+                alone = ak.flash_attention_fwd(q[i:i + 1], k[i:i + 1],
+                                               v[i:i + 1], bias[i:i + 1],
+                                               scale=scale)
+                longer = ak.flash_attention_fwd(q[i:i + 1], k2, v2, bias2,
+                                                scale=scale)
+            torch.cuda.synchronize()
+            rows = many[1].reshape(b, 8 * tq)[i].reshape(8, tq)
+            same = {label: bool(torch.equal(got[0], many[0][i:i + 1])
+                                and torch.equal(got[1], rows))
+                    for label, got in (("alone", alone), ("longer", longer))}
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            kernel = "decode" if tq == 1 else "tile"
+            # whether the row's parts went through the merge kernel (every
+            # decode of more than one split; tiles spread over blocks) or
+            # were folded in one block
+            merged = {label: (-(-tk // ak.FWD_LAYOUT[0]) > 1
+                              if kernel == "decode" else
+                              ak.fwd_scratch(kernel, kv != torch.float32, bb,
+                                             8, tq, tk, 64, sms)[0])
+                      for label, bb, tk in (("many", b, MAX_LEN),
+                                            ("alone", 1, MAX_LEN),
+                                            ("longer", 1,
+                                             MAX_LEN + ROW_EXTRA_KEYS))}
+            r = {"case": f"{what} {'f32' if kv == torch.float32 else 'mixed'}",
+                 "rows": b, "kernel": kernel, "parts_merged": merged,
+                 "bit_for_bit": same}
+            readings.append(r)
+            print(f"row independence {r['case']}: row {i} of {b} alone "
+                  f"{'equal' if same['alone'] else 'DIFFERS'}, over "
+                  f"{ROW_EXTRA_KEYS} more masked keys "
+                  f"{'equal' if same['longer'] else 'DIFFERS'} (parts "
+                  f"merged across blocks: {merged})")
+            if not all(same.values()):
+                raise RuntimeError(f"row independence: {r['case']} row {i} "
+                                   f"differs: {same}")
+    return readings
 
 
 # ---------------------------------------------------------------------------
@@ -1627,6 +1798,7 @@ def phase_serving(device: str = "cuda"):
         server.shutdown()   # drains: every dispatched step is read back
     counts = _read_counts()
     routes = _read_routes()
+    kernels = _read_kernels()
     launches = counts["flash_attention_fwd"]
     stats = server.generation_stats()
 
@@ -1637,7 +1809,7 @@ def phase_serving(device: str = "cuda"):
           f"{q[0]:.5f} s, p99 {q[1]:.5f} s; prefill calls "
           f"{stats['prefill_calls']}, decode steps "
           f"{stats['decode_steps']}; flash_attention_fwd launches "
-          f"{launches}")
+          f"{launches}, by kernel {kernels}")
     # one attention call per layer in every prefill call and decode step
     if launches == 0 or launches != LAYERS * calls:
         raise RuntimeError(f"kernel launches {launches} != layers x "
@@ -1646,6 +1818,11 @@ def phase_serving(device: str = "cuda"):
     # the f32 serving path keeps #1's scalar template
     _check_routes(routes, "flash_attention_fwd",
                   {"tensor_core": 0, "scalar": launches}, "f32 serving")
+    failed = kernels_held(kernels, LAYERS * stats["decode_steps"],
+                          LAYERS * stats["prefill_calls"], "serving",
+                          exact=False)
+    if failed:
+        raise RuntimeError("; ".join(failed))
 
     differ = 0
     for i, (p, m, row) in enumerate(zip(prompts, max_news, rows)):
@@ -1666,7 +1843,7 @@ def phase_serving(device: str = "cuda"):
                                f"near-tie)")
     print(f"rows: {len(rows) - differ}/{len(rows)} served rows equal solo "
           f"generate() token for token; {differ} differ at a near-tie")
-    return counts, routes
+    return counts, routes, kernels
 
 
 # ---------------------------------------------------------------------------
@@ -1875,9 +2052,15 @@ def prefix_reading(device: str = "cuda"):
     r["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
     r["launches"] = _read_counts()
     r["routes"] = _read_routes()
+    r["kernels"] = _read_kernels()
     calls = sum(shared[run]["engine_totals"]["prefill_calls"]
                 + shared[run]["engine_totals"]["decode_steps"]
                 for run in ("cache", "nocache"))
+    steps = sum(shared[run]["engine_totals"]["decode_steps"]
+                for run in ("cache", "nocache"))
+    failed += kernels_held(r["kernels"], LAYERS * steps,
+                           LAYERS * (calls - steps), "shared prefix",
+                           exact=False)
     got = r["launches"]["flash_attention_fwd"]
     if got == 0 or got != LAYERS * calls:
         failed.append(f"shared prefix: #1 launched {got} times, not layers "
@@ -1978,6 +2161,7 @@ def prefix_reading(device: str = "cuda"):
     torch.cuda.synchronize()
     r["disagg_launches"] = _read_counts()
     r["disagg_routes"] = _read_routes()
+    r["disagg_kernels"] = _read_kernels()
     r["disaggregated"] = {
         "handoffs": dst["handoffs"],
         "through_prefill_tier": dst["prefill_engine"]["requests_done"],
@@ -2000,6 +2184,9 @@ def prefix_reading(device: str = "cuda"):
                       f"{LAYERS * calls}")
     if r["disagg_routes"]["flash_attention_fwd"]["tensor_core"]:
         failed.append("disaggregated: #1 took the tensor-core route")
+    failed += kernels_held(r["disagg_kernels"], LAYERS * dst["decode_steps"],
+                           LAYERS * (calls - dst["decode_steps"]),
+                           "disaggregated", exact=False)
     engine = GenerationScheduler(lm, prefix_cache_bytes=1 << 28, **cfg)
     try:
         single_rows = _serve_all(engine, dis_prompts, PREFIX_NEW)
@@ -2040,7 +2227,8 @@ def phase_prefix(smi, device: str = "cuda"):
         print(f"prefix: TTFT p50 speedup {r['shared']['ttft_p50_speedup']:.3f}"
               f"; peak memory {r['peak_memory_bytes']} bytes; #1 launches "
               f"{r['launches']['flash_attention_fwd']} "
-              f"{r['routes']['flash_attention_fwd']}; near-tie rows "
+              f"{r['routes']['flash_attention_fwd']} {r['kernels']}; "
+              f"near-tie rows "
               f"{len(r['shared_margins'])} (cache on vs off), "
               f"{len(r['solo_margins'])} (vs solo); on {smi}")
         ev = r["eviction"]
@@ -2051,7 +2239,8 @@ def phase_prefix(smi, device: str = "cuda"):
         print(f"prefix: dedup burst of {DEDUP_BURST}: {r['dedup']}")
         print(f"prefix: disaggregated {DISAGG_REQUESTS} requests: "
               f"{r['disaggregated']}; #1 launches "
-              f"{r['disagg_launches']['flash_attention_fwd']}")
+              f"{r['disagg_launches']['flash_attention_fwd']} "
+              f"{r['disagg_kernels']}")
         print(f"prefix: round trip {r['round_trip']}; deadline and kill "
               f"{r['reliability']}")
     return _phase("prefix", lambda: prefix_reading(device), report)
@@ -2168,6 +2357,7 @@ def oneshot_lm_reading(device: str = "cuda", lm=None,
         server.shutdown()
     torch.cuda.synchronize()
     r["launches"], r["routes"] = _read_counts(), _read_routes()
+    r["kernels"] = _read_kernels()
     r["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
     failed += [f"client: {e}" for e in errors]
     snap = r["metrics"] = server.metrics.snapshot()
@@ -2189,6 +2379,7 @@ def oneshot_lm_reading(device: str = "cuda", lm=None,
                       {"scalar": got}):
         failed.append(f"#1 took the routes {r['routes']['flash_attention_fwd']}"
                       f", not scalar")
+    failed += kernels_held(r["kernels"], 0, want, "oneshot_lm")
     rows = [x for c in clients for x in c] + burst + lone
     got_rows = [y for c in replies for y in c] + burst_replies + lone_replies
     if any(y is None for y in got_rows):
@@ -2381,7 +2572,8 @@ def phase_oneshot(smi, device: str = "cuda"):
               f"{dict(sorted(snap['occupancy'].items()))}, padded waste "
               f"{snap['padded_waste']:.4f}; #1 launches "
               f"{lm['launches']['flash_attention_fwd']} "
-              f"{lm['routes']['flash_attention_fwd']}; rows within "
+              f"{lm['routes']['flash_attention_fwd']} {lm['kernels']}; "
+              f"rows within "
               f"{lm.get('max_abs_err', float('nan')):.3e} of their solo "
               f"forward, {lm.get('near_tie_positions', 0)} near-tie "
               f"positions; peak memory {lm['peak_memory_bytes']} bytes; "
@@ -2611,6 +2803,7 @@ def beam_lm_reading(device: str = "cuda", lm=None) -> dict:
     torch.cuda.synchronize()
     r["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
     r["launches"], r["routes"] = _read_counts(), _read_routes()
+    r["kernels"] = _read_kernels()
     r["calls"], r["eos"], r["eos_steps"] = dict(calls), eos, eos_steps
     # the calls the runs above make: 5 + BEAM_TIMED prefills; the steps of
     # greedy 1 + 32, two full searches, the timed ones and the EOS
@@ -2627,6 +2820,8 @@ def beam_lm_reading(device: str = "cuda", lm=None) -> dict:
         failed.append(f"#1 launched {got} times by "
                       f"{r['routes']['flash_attention_fwd']}, not {want} "
                       f"scalar = layers x (prefills + decode steps)")
+    failed += kernels_held(r["kernels"], layers * want_calls["decode_step"],
+                           layers * want_calls["prefill_kv"], "beam_lm")
     for name, n in r["launches"].items():
         if name != "flash_attention_fwd" and n:
             failed.append(f"{name} launched {n} times")
@@ -2754,6 +2949,7 @@ def translation_reading(device: str = "cuda", model=None) -> dict:
             end.synchronize()
             teacher_ms.append(start.elapsed_time(end))
     r["launches"], r["routes"] = _read_counts(), _read_routes()
+    r["kernels"] = _read_kernels()
     r["calls"], r["steps"], r["eos"] = dict(calls), steps, eos
     if tuple(out.shape) != (BEAM_ROWS, TEACHER_TT, vocab) \
             or not torch.isfinite(out).all():
@@ -2773,6 +2969,12 @@ def translation_reading(device: str = "cuda", model=None) -> dict:
     if not routes_are(got_routes, want) or \
             r["launches"]["flash_attention_fwd"] != sum(want.values()):
         failed.append(f"#1 took {got_routes}, not {want}")
+    # a decode step attends twice a layer at Tq 1 (self and cross), an
+    # encode once and decode() twice at Tq > 1
+    failed += kernels_held(
+        r["kernels"], 2 * layers * want_calls["decode_step"],
+        layers * (want_calls["encode"] + 2 * want_calls["decode"]),
+        "translation_beam", tensor_core=want["tensor_core"])
     with torch.no_grad(), recorded_decisions() as cpu_calls, \
             logit_peaks(cpu) as peaks:
         want_out, _ = search(cpu, eos)
@@ -2877,6 +3079,7 @@ def bf16_kv_reading(device: str = "cuda", lm=None) -> dict:
     torch.cuda.synchronize()
     r["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
     r["launches"], r["routes"] = _read_counts(), _read_routes()
+    r["kernels"] = _read_kernels()
     stats = [e.stats() for e in engines]
     steps = sum(s["decode_steps"] for s in stats)
     prefills = sum(s["prefill_calls"] for s in stats)
@@ -2896,6 +3099,8 @@ def bf16_kv_reading(device: str = "cuda", lm=None) -> dict:
             or not want["mixed_kv"]:
         failed.append(f"#1 took {r['routes']['flash_attention_fwd']}, not "
                       f"{want}")
+    failed += kernels_held(r["kernels"], layers * steps,
+                           layers * prefills, "serving_bf16_kv", exact=False)
     if not (r["prefix_cache"]["hits"] > 0 and r["chunks_copied"] > 0):
         failed.append("shared prefix: no hit, or no chunk copied")
     engine = GenerationScheduler(cpu, device="cpu", **cfg)
@@ -2939,7 +3144,8 @@ def phase_beam(smi, device: str = "cuda"):
               f"steps, {lm['finished_rows']} rows finished; replicated "
               f"cache {lm['cache_bytes']} bytes; peak memory "
               f"{lm['peak_memory_bytes']} bytes; #1 "
-              f"{lm['routes']['flash_attention_fwd']}; near-ties "
+              f"{lm['routes']['flash_attention_fwd']} {lm['kernels']}; "
+              f"near-ties "
               f"{len(lm['margins'])} (vs CPU), {len(lm['beam1_margins'])} "
               f"(beam 1 vs greedy); scores within {lm['score_err']:.3e} of "
               f"the CPU's (logits up to {lm['logit_peak']:.3f}); on {smi}",
@@ -2954,7 +3160,8 @@ def phase_beam(smi, device: str = "cuda"):
               f"teacher-forced forward at Tt {TEACHER_TT} "
               f"{tr['teacher_forced_bf16_ms']:.4f} ms (CUDA events); peak "
               f"memory {tr['peak_memory_bytes']} bytes; #1 "
-              f"{tr['routes']['flash_attention_fwd']}; near-ties "
+              f"{tr['routes']['flash_attention_fwd']} {tr['kernels']}; "
+              f"near-ties "
               f"{len(tr['margins'])}; scores within {tr['score_err']:.3e} "
               f"of the CPU's (logits up to {tr['logit_peak']:.3f}); on "
               f"{smi}", flush=True)
@@ -2964,7 +3171,8 @@ def phase_beam(smi, device: str = "cuda"):
               f"(host clock); calls {kv['calls']}; prefix cache "
               f"{kv['prefix_cache']}, {kv['chunks_copied']} chunks copied; "
               f"peak memory {kv['peak_memory_bytes']} bytes; #1 "
-              f"{kv['routes']['flash_attention_fwd']}; near-ties "
+              f"{kv['routes']['flash_attention_fwd']} {kv['kernels']}; "
+              f"near-ties "
               f"{len(kv['cpu_margins'])} (vs CPU), "
               f"{len(kv['prefix_margins'])} (prefix on vs off); on {smi}",
               flush=True)
@@ -4985,10 +5193,12 @@ def main() -> int:
     rates = card_rates(torch.cuda.get_device_name(0))
     tc_build = phase_build()
     shapes = phase_kernel_checks(rates)
+    independent = row_independence(torch.Generator(device="cuda")
+                                   .manual_seed(5))
     bwd = phase_bwd_kernel_checks(rates)
     ring = phase_partial_kernel_checks(rates)
     conv = phase_conv_kernel_checks(rates)
-    serving, serving_routes = phase_serving()
+    serving, serving_routes, serving_kernels = phase_serving()
     prefix = phase_prefix(smi)
     oneshot = phase_oneshot(smi)
     beam = phase_beam(smi)
@@ -5032,11 +5242,13 @@ def main() -> int:
                     if r["kernel"] == kernel and r["shape"] == shape)
 
     csrc = "bigdl_tpu_torch/ops/csrc/"
-    fwd = _kernel_entry(
+    at_decode = next(s for s in shapes if s["shape"] == "b_decode")
+    fwd = dict(_kernel_entry(
         "flash_attention_fwd", csrc + "flash_attention_fwd.cu",
         "bigdl_tpu/ops/attention_kernels.py:264",
-        serving["flash_attention_fwd"],
-        next(s for s in shapes if s["shape"] == "b_decode"))
+        serving["flash_attention_fwd"], at_decode),
+        kernel=at_decode["kernel"], scalar_ms=at_decode["scalar_ms"],
+        share_of_bound=at_decode["share_of_bound"])
     # beside the serving path's decode row, the LM training path's row
     at_train = next(s for s in shapes if s["shape"] == "f_train")
     fwd["at_training_shape"] = dict(
@@ -5051,9 +5263,22 @@ def main() -> int:
                            fwd["replaces"],
                            beam["bf16_kv"]["routes"]["flash_attention_fwd"]
                            ["mixed_kv"], at),
-             upcast_ms=at["upcast_ms"], f32_kv_ms=at["f32_kv_ms"])
+             upcast_ms=at["upcast_ms"], f32_kv_ms=at["f32_kv_ms"],
+             kernel=at["kernel"], scalar_ms=at["scalar_ms"],
+             share_of_bound=at["share_of_bound"])
         for at in shapes if at["shape"] in MIXED_SHAPES]
     fwd["shapes"] = shapes
+    # the serving paths' launches by the kernel each ran, and the rows
+    # held bit for bit among others, alone and over masked keys
+    fwd["launches_by_kernel"] = {
+        "serving": serving_kernels,
+        "serving_prefix_cache": prefix["kernels"],
+        "serving_disaggregated": prefix["disagg_kernels"],
+        "oneshot_lm": oneshot["lm"]["kernels"],
+        "beam_lm": beam["lm"]["kernels"],
+        "translation_beam": beam["translation"]["kernels"],
+        "serving_bf16_kv": beam["bf16_kv"]["kernels"]}
+    fwd["row_independence"] = independent
     kernels = [fwd]
     for name, replaces, shape in (
             ("dq", "bigdl_tpu/ops/attention_kernels.py:483", "t_train"),
@@ -5116,10 +5341,21 @@ def main() -> int:
              "fragments in registers, 64-key K/V tiles through two "
              "cp.async stages, the f32 bias through its strides, P "
              "rounded to bf16 from the S fragments, out = acc / l and lse "
-             "in the epilogue); scalar f32 FMAs for f32 (serving); f32 q "
-             "with bf16 K/V (a bf16 KV cache) on the scalar template with "
-             "K/V upcast as loaded, in two sweeps over the keys: m and l, "
-             "then P normalised, rounded to bf16, and P.V in f32"),
+             "in the epilogue); for f32 q (serving, f32 training) with "
+             "16-byte rows, f32 FMAs on the CUDA cores: at Tq 1 "
+             "flash_decode_kernel (the keys split at fixed 128-key "
+             "positions over blocks, K and V in two cp.async groups of "
+             "16-byte copies, a key a thread, the splits' (acc, m, l) "
+             "folded in key order by flash_merge_kernel), at Tq > 1 "
+             "flash_tile_kernel (32 query rows a block, 64-key K/V tiles "
+             "through two cp.async stages, 8 rows x 2 keys of S and 8 rows "
+             "x D/32 columns of acc a lane, each tile's softmax folded in "
+             "key order, the tiles spread over blocks and merged where "
+             "B*H*(row blocks) is below the SM count); f32 q with bf16 K/V "
+             "(a bf16 KV cache) on the same kernels, K read once: the "
+             "scores kept, the row's (m, l) folded, then P normalised, "
+             "rounded to bf16, and P.V; other rows on the scalar "
+             "template"),
             ("flash_attention_dq",
              "tensor cores for bf16 (mma.sync.m16n8k16 bf16->f32, #1's "
              "FlashAttention-2 loop turned to dQ: 64 query rows per block, "

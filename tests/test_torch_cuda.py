@@ -111,12 +111,15 @@ def test_kernel_matches_plain(cuda, b, h, tq, tk, d, causal, bias_shape,
             else rnd(*bias_shape, seed=4, device=cuda))
     before = ak.flash_attention_fwd.launches
     routes = dict(ak.flash_attention_fwd.routes)
+    kernels = dict(ak.flash_attention_fwd.kernels)
     got = ak.dot_product_attention(q, k, v, bias, causal=causal)
     want = ak.plain_attention(q, k, v, bias, causal=causal)
     torch.cuda.synchronize()
     assert ak.flash_attention_fwd.launches == before + 1
     routes["tensor_core" if dtype == torch.bfloat16 else "scalar"] += 1
     assert ak.flash_attention_fwd.routes == routes
+    kernels[ak.fwd_kernel(dtype, ak.rows_aligned(q, k, v), dtype, tq)] += 1
+    assert ak.flash_attention_fwd.kernels == kernels
     assert got.dtype == dtype and got.shape == (b, h, tq, d)
     tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
     torch.testing.assert_close(got.float(), want.float(), **tol)
@@ -1033,11 +1036,15 @@ def test_concurrent_predictions_count_every_launch(cuda):
     (16, 1, (16, 1, 1, 512)),         # the pooled decode
     (1, 128, (1, 1, 128, 512)),       # a 128-wide chunk prefill
     (3, 5, None),                     # ragged, no bias
+    (1, 1, (1, 1, 1, 512)),           # a one-request decode
+    (32, 1, (32, 1, 1, 512)),         # a beam-wide decode
+    (8, 128, (8, 1, 1, 512)),         # eight chunks: the tiles in one block
 ])
 def test_mixed_kv_entry_matches_plain(cuda, b, tq, bias_shape):
     """f32 q with bf16 k and v takes the mixed entry, counted as
-    "mixed_kv", and holds against the plain version by chip_smoke's rule;
-    two launches give the same bits."""
+    "mixed_kv" and by the kernel that ran (decode at Tq 1, tile beyond),
+    and holds against the plain version by chip_smoke's rule; two launches
+    give the same bits."""
     q = rnd(b, 8, tq, 64, seed=91, device=cuda)
     k, v = (rnd(b, 8, 512, 64, seed=s, device=cuda, dtype=BF)
             for s in (92, 93))
@@ -1046,6 +1053,7 @@ def test_mixed_kv_entry_matches_plain(cuda, b, tq, bias_shape):
         bias = torch.where(rnd(*bias_shape, seed=94, device=cuda) > 1.5,
                            -1e9, 0.0)
     before = dict(ak.flash_attention_fwd.routes)
+    kernels = dict(ak.flash_attention_fwd.kernels)
     got = ak.dot_product_attention(q, k, v, bias)
     again = ak.dot_product_attention(q, k, v, bias)
     want = ak.plain_attention(q, k, v, bias)
@@ -1053,6 +1061,9 @@ def test_mixed_kv_entry_matches_plain(cuda, b, tq, bias_shape):
     assert {r: ak.flash_attention_fwd.routes[r] - before[r]
             for r in before} == {"tensor_core": 0, "scalar": 0,
                                  "mixed_kv": 2}
+    ran = "decode" if tq == 1 else "tile"
+    assert {n: ak.flash_attention_fwd.kernels[n] - kernels[n]
+            for n in kernels} == dict(dict.fromkeys(kernels, 0), **{ran: 2})
     assert got.dtype == torch.float32 and torch.equal(got, again)
     err, beyond, ok = chip_smoke.mixed_held(
         got, want, chip_smoke.mixed_anchor(q, k, v, bias))
@@ -1133,3 +1144,141 @@ def test_bf16_kv_cache_served_on_the_card_matches_the_cpu(cuda):
     chip_smoke.rows_held(lm, prompts, rows["cuda"], rows["cpu"], "bf16 kv",
                          failed)
     assert not failed, failed
+
+
+# ---- #1's decode (A) and tile (B) kernels for f32 q --------------------------
+
+def _bias(kind, b, tq, tk, seed, lead=0):
+    """A -1e9/0 bias of shape [B, 1, 1, Tk] ("keys") or [B, 1, Tq, Tk]
+    ("rows"), or None; ``lead`` keys at the front masked on every row (a
+    left-padded prompt)."""
+    if kind is None:
+        return None
+    shape = (b, 1, 1, tk) if kind == "keys" else (b, 1, tq, tk)
+    x = torch.from_numpy(np.random.RandomState(seed).rand(*shape)
+                         .astype(np.float32))
+    bias = torch.where(x > 0.85, -1e9, 0.0)
+    bias[..., :lead] = -1e9
+    if lead:
+        bias[..., -1] = 0.0      # every row sees a key
+    return bias
+
+
+def _qkv(b, tq, tk, d, kv, strided, seed):
+    """q f32 and k, v of dtype ``kv``, contiguous or as the model lays its
+    heads out ([B, T, H, D] viewed as [B, H, T, D])."""
+    h = 4
+    if strided:
+        return (rnd(b, tq, h, d, seed=seed, device="cuda").transpose(1, 2),
+                *(rnd(b, tk, h, d, seed=seed + i, device="cuda", dtype=kv)
+                  .transpose(1, 2) for i in (1, 2)))
+    return (rnd(b, h, tq, d, seed=seed, device="cuda"),
+            *(rnd(b, h, tk, d, seed=seed + i, device="cuda", dtype=kv)
+              for i in (1, 2)))
+
+
+# (b, tq, tk, d, bias, causal, strided, leading masked keys): B 1, 16 and
+# 32; Tk below one split (50), not a multiple of 16 (300, 517); D 32, 64
+# and 128; biases over keys and over rows; causal with an offset either
+# way; the model's head layout; a fully masked leading split (128 keys)
+# and tile (64 keys)
+NEW_KERNEL_CASES = [
+    (16, 1, 512, 64, "keys", False, False, 0),
+    (1, 1, 512, 64, "keys", False, False, 0),
+    (32, 1, 160, 64, "keys", False, True, 100),
+    (32, 1, 50, 32, None, False, False, 0),
+    (1, 1, 517, 128, "rows", True, False, 0),
+    (16, 1, 300, 64, "keys", False, False, 128),
+    (1, 128, 512, 64, "rows", False, False, 0),
+    (4, 127, 127, 64, "rows", True, False, 0),
+    (16, 33, 300, 32, "keys", False, True, 64),
+    (2, 100, 300, 128, None, True, False, 0),
+    (1, 70, 40, 64, None, True, False, 0),
+    (32, 64, 128, 64, "keys", False, True, 0),
+    (1, 2, 517, 64, "rows", False, False, 128),
+]
+
+
+@pytest.mark.parametrize("kv", [torch.float32, BF], ids=["f32", "mixed"])
+@pytest.mark.parametrize("case", NEW_KERNEL_CASES,
+                         ids=[f"b{c[0]}q{c[1]}k{c[2]}d{c[3]}"
+                              for c in NEW_KERNEL_CASES])
+def test_decode_and_tile_kernels_match_plain(cuda, case, kv):
+    """f32 q (f32 or bf16 K/V, 16-byte rows) runs the decode kernel at
+    Tq 1 and the tile kernel beyond, counted by kernel; each holds
+    against the plain version (f32 by F32_TOL, the mixed entry by
+    chip_smoke.mixed_held), writes the lse, and repeats bit for bit."""
+    b, tq, tk, d, kind, causal, strided, lead = case
+    q, k, v = _qkv(b, tq, tk, d, kv, strided, seed=200 + tk)
+    bias = _bias(kind, b, tq, tk, seed=300 + tq, lead=lead)
+    if bias is not None:
+        bias = bias.to(cuda)
+    assert ak.rows_aligned(q, k, v)
+    ran = "decode" if tq == 1 else "tile"
+    kernels = dict(ak.flash_attention_fwd.kernels)
+    cfg = dict(scale=d ** -0.5, causal=causal, causal_offset=tk - tq)
+    out, lse = ak.flash_attention_fwd(q, k, v, bias, **cfg)
+    again, lse2 = ak.flash_attention_fwd(q, k, v, bias, **cfg)
+    want, want_lse = ak.plain_attention_fwd(q, k, v, bias, **cfg)
+    torch.cuda.synchronize()
+    assert {n: ak.flash_attention_fwd.kernels[n] - kernels[n]
+            for n in kernels} == dict(dict.fromkeys(kernels, 0), **{ran: 2})
+    assert torch.equal(out, again) and torch.equal(lse, lse2)
+    assert torch.isfinite(out).all()
+    if kv == BF:
+        err, beyond, ok = chip_smoke.mixed_held(
+            out, want, chip_smoke.mixed_anchor(q, k, v, bias))
+        assert ok, (err, beyond)
+    else:
+        torch.testing.assert_close(out, want, **F32_TOL)
+    torch.testing.assert_close(lse, want_lse, **F32_TOL)
+
+
+@pytest.mark.parametrize("kv", [torch.float32, BF], ids=["f32", "mixed"])
+@pytest.mark.parametrize("tq", [1, 128])
+def test_a_row_does_not_depend_on_its_neighbours_or_masked_keys(cuda, tq,
+                                                                kv):
+    """A row computed among others equals, bit for bit, the same row
+    computed alone and over a Tk extended by keys the bias masks: the
+    decode row among 16 slots, the chunk row among 9 requests (the tiles
+    in one block: 9 x 4 heads x 4 row blocks fill an H100's 132 SMs) and
+    alone (the tiles spread over blocks and merged)."""
+    b, tk, d = (16, 512, 64) if tq == 1 else (9, 512, 64)
+    q, k, v = _qkv(b, tq, tk, d, kv, False, seed=400 + tq)
+    bias = _bias("rows", b, tq, tk, seed=401).to(cuda)
+    scale = d ** -0.5
+    many, lse = ak.flash_attention_fwd(q, k, v, bias, scale=scale)
+    i = b // 2
+    alone, lse1 = ak.flash_attention_fwd(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                         bias[i:i + 1], scale=scale)
+    extra = 300
+    k2, v2 = (torch.cat([t[i:i + 1], rnd(1, 4, extra, d, seed=402,
+                                         device=cuda, dtype=kv)], 2)
+              for t in (k, v))
+    bias2 = torch.cat([bias[i:i + 1],
+                       torch.full((1, 1, tq, extra), -1e9, device=cuda)], -1)
+    longer, lse2 = ak.flash_attention_fwd(q[i:i + 1], k2, v2, bias2,
+                                          scale=scale)
+    torch.cuda.synchronize()
+    assert torch.equal(alone, many[i:i + 1])
+    assert torch.equal(longer, many[i:i + 1])
+    rows = lse.reshape(b, 4, tq)[i].reshape(4, tq)
+    assert torch.equal(lse1, rows) and torch.equal(lse2, rows)
+
+
+def test_the_new_kernels_refuse_rows_not_on_16_bytes(cuda):
+    """Unaligned f32 rows (D 36 is 16 bytes a row, D 34 is not) take the
+    scalar template by the routing rule, counted as such; the C entry
+    refuses them for the new kernels (no fall-back)."""
+    q, k, v = (rnd(2, 4, t, 34, seed=s, device=cuda)
+               for s, t in ((501, 1), (502, 90), (503, 90)))
+    assert not ak.rows_aligned(q, k, v)
+    kernels = dict(ak.flash_attention_fwd.kernels)
+    got = ak.dot_product_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert ak.flash_attention_fwd.kernels["scalar_template"] == \
+        kernels["scalar_template"] + 1
+    torch.testing.assert_close(got, ak.plain_attention(q, k, v), **F32_TOL)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ak._launch_fwd(q, k, v, None, 34 ** -0.5, False, 0, "scalar",
+                       "decode")

@@ -13,6 +13,7 @@ them."""
 import contextlib
 import math
 import types
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -53,7 +54,9 @@ def _mutant_sources():
     rows += [(n, "flash_attention_fwd.cu", before)
              for n, (before, _) in gates.FWD_MUTANTS.items()]
     rows += [(n, "flash_attention_fwd.cu", before)
-             for n, (before, _) in gates.MIXED_MUTANTS.items()]
+             for n, (before, _, _) in gates.MIXED_MUTANTS.items()]
+    rows += [(n, "flash_attention_fwd.cu", before)
+             for n, (before, _) in gates.MERGE_MUTANTS.items()]
     rows += [(f"{n}_{i}", f"{lib}.cu", before)
              for n, (lib, edits, _, _) in gates.VARIANTS.items()
              for i, (before, _) in enumerate(edits)]
@@ -147,17 +150,28 @@ def test_mutants_of_the_redesigned_kernels_edit_their_sources():
     assert entry < fwd.index(gates.RING_MUTANTS["local_mask_in_5"][1])
 
 
-def test_the_mixed_mutant_edits_the_scalar_template_second_sweep():
-    """The mixed-entry control edits the scalar template (not the
-    tensor-core loop), in the branch of its second sweep over the keys."""
+def test_the_mixed_mutants_edit_the_new_kernels_rounding_points():
+    """The mixed-entry controls edit the rounding point of the decode
+    kernel (decode_p) and of the tile kernel (tile_p): P divided by l
+    inside the cast as it stands, outside it in the mutant.  The merge
+    control drops a split's rescale in the merge kernel's f32 fold, and is
+    held at chip_smoke rows whose parts the merge folds."""
     fwd = (CSRC_DIR / "flash_attention_fwd.cu").read_text()
-    start = fwd.index("flash_fwd_kernel(const Params p)")
-    end = fwd.index("flash_fwd_tc_kernel(const Params p)")
-    (before, after), = gates.MIXED_MUTANTS.values()
-    at = fwd.index(before)
-    assert start < fwd.index("if (kMixed && with_v) {", start) < at < end
-    assert before != after and "pu / l[r]" in before \
-        and "pu / l[r]" not in after
+    for fn, l, tag in (("decode_p(float x", "l", "unnormalised_p_in_1_decode"),
+                       ("tile_p(float s", "l_row", "unnormalised_p_in_1_tile")):
+        before, after, kernel = gates.MIXED_MUTANTS[tag]
+        start = fwd.index(f"__device__ __forceinline__ float {fn}")
+        assert start < fwd.index(before) < fwd.index("}", start), tag
+        assert fn.startswith(kernel + "_p")
+        assert f") / {l}));" in before and before != after
+        assert after.replace(f"))) / {l};", f") / {l}));") == before
+    (before, after), = gates.MERGE_MUTANTS.values()
+    start = fwd.index("flash_merge_kernel(const Params p")
+    assert start < fwd.index(before) < fwd.index("// kernel B's rounding")
+    assert before.replace(", bb,", ", 1.f,") == after
+    source = Path(chip_smoke.__file__).read_text()
+    for key in gates.MERGE_PROBLEMS:
+        assert f'("{key}", ' in source, key
 
 
 # the route functions of the redesigned kernels, beside their wrappers:

@@ -606,6 +606,8 @@ def test_kernel_counts_are_exact_under_threads(monkeypatch):
     monkeypatch.setattr(ak.flash_attention_fwd, "launches", 0)
     monkeypatch.setattr(ak.flash_attention_fwd, "routes",
                         {"tensor_core": 0, "scalar": 0})
+    monkeypatch.setattr(ak.flash_attention_fwd, "kernels",
+                        dict.fromkeys(ak.FWD_KERNELS, 0))
     q = torch.zeros(1, 1, 1, 4)
     threads, calls = 16, 2000
 
@@ -626,3 +628,6 @@ def test_kernel_counts_are_exact_under_threads(monkeypatch):
     assert ak.flash_attention_fwd.launches == threads * calls
     assert ak.flash_attention_fwd.routes == {"tensor_core": 0,
                                              "scalar": threads * calls}
+    assert ak.flash_attention_fwd.kernels == dict(
+        ak.flash_attention_fwd.kernels, decode=threads * calls) and \
+        sum(ak.flash_attention_fwd.kernels.values()) == threads * calls
