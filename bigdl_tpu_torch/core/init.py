@@ -1,6 +1,7 @@
-"""Weight initialization methods (the port's copy of ``calc_fans``,
-``RandomUniform``, ``RandomNormal`` and ``MsraFiller`` of
-``bigdl_tpu/core/init.py``).
+"""Weight initialization methods (the port's copy of
+``bigdl_tpu/core/init.py``: ``calc_fans``, ``Zeros``, ``Ones``,
+``ConstInitMethod``, ``RandomUniform``, ``RandomNormal``, ``Xavier``,
+``MsraFiller`` and ``BilinearFiller``).
 
 Each method is a callable ``(shape, *, generator, fan_in=None,
 fan_out=None) -> torch.Tensor``: float32 on the CPU, drawn from the
@@ -19,8 +20,9 @@ from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["calc_fans", "InitMethod", "RandomUniform", "RandomNormal",
-           "MsraFiller"]
+__all__ = ["calc_fans", "InitMethod", "Zeros", "Ones", "ConstInitMethod",
+           "RandomUniform", "RandomNormal", "Xavier", "MsraFiller",
+           "BilinearFiller", "Bilinear"]
 
 
 def calc_fans(shape: Tuple[int, ...]) -> Tuple[int, int]:
@@ -39,6 +41,26 @@ class InitMethod:
                  fan_in: Optional[int] = None,
                  fan_out: Optional[int] = None) -> torch.Tensor:
         raise NotImplementedError
+
+
+class _Zeros(InitMethod):
+    def __call__(self, shape, *, generator=None, fan_in=None, fan_out=None):
+        return torch.zeros(tuple(shape))
+
+
+class _Ones(InitMethod):
+    def __call__(self, shape, *, generator=None, fan_in=None, fan_out=None):
+        return torch.ones(tuple(shape))
+
+
+class ConstInitMethod(InitMethod):
+    """Every entry ``value``."""
+
+    def __init__(self, value: float):
+        self.value = value
+
+    def __call__(self, shape, *, generator=None, fan_in=None, fan_out=None):
+        return torch.full(tuple(shape), float(self.value))
 
 
 class RandomUniform(InitMethod):
@@ -73,6 +95,18 @@ class RandomNormal(InitMethod):
                                                    generator=generator)
 
 
+class _Xavier(InitMethod):
+    """Glorot uniform: U(-sqrt(6 / (fan_in + fan_out)), +...)."""
+
+    def __call__(self, shape, *, generator, fan_in=None, fan_out=None):
+        fi, fo = calc_fans(tuple(shape))
+        fi = fan_in if fan_in is not None else fi
+        fo = fan_out if fan_out is not None else fo
+        bound = math.sqrt(6.0 / (fi + fo))
+        return (torch.rand(tuple(shape), generator=generator) * 2.0
+                - 1.0) * bound
+
+
 class MsraFiller(InitMethod):
     """Kaiming/He normal: N(0, sqrt(2 / n)) with n the mean of the fans,
     or fan_out alone when ``variance_norm_average`` is False (the
@@ -88,3 +122,28 @@ class MsraFiller(InitMethod):
         n = (fi + fo) / 2.0 if self.average else fo
         std = math.sqrt(2.0 / max(n, 1))
         return std * torch.randn(tuple(shape), generator=generator)
+
+
+class BilinearFiller(InitMethod):
+    """The bilinear upsampling kernel of a transposed convolution, for a
+    (out, in, kh, kw) weight: the outer product of the two 1-D tents,
+    broadcast over out and in (draws nothing)."""
+
+    def __call__(self, shape, *, generator=None, fan_in=None, fan_out=None):
+        if len(shape) != 4:
+            raise ValueError("BilinearFiller expects (out, in, kh, kw), "
+                             f"got {tuple(shape)}")
+        kh, kw = shape[2], shape[3]
+        f_h, f_w = math.ceil(kh / 2.0), math.ceil(kw / 2.0)
+        c_h = (2 * f_h - 1 - f_h % 2) / (2.0 * f_h)
+        c_w = (2 * f_w - 1 - f_w % 2) / (2.0 * f_w)
+        wy = 1.0 - torch.abs(torch.arange(kh) / f_h - c_h)
+        wx = 1.0 - torch.abs(torch.arange(kw) / f_w - c_w)
+        kernel = torch.outer(wy, wx).float()
+        return kernel.expand(tuple(shape)).clone()
+
+
+Zeros = _Zeros()
+Ones = _Ones()
+Xavier = _Xavier()
+Bilinear = BilinearFiller()

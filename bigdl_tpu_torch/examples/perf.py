@@ -1,9 +1,14 @@
 """Training-throughput CLI (counterpart of ``bigdl_tpu/examples/perf.py``,
-``bigdl-tpu-perf``), for ``--model lenet``, ``--model resnet50`` and
-``--model transformer-lm`` training:
+``bigdl-tpu-perf``), for every model the reference offers: ``lenet``,
+``resnet50``, ``inception-v1``, ``inception-v2``, ``vgg16``,
+``transformer-lm`` and ``ptb-lstm``:
 
     python -m bigdl_tpu_torch.examples.perf --model lenet -b 256 \\
         --iterations 50
+    python -m bigdl_tpu_torch.examples.perf --model inception-v1 -b 128 \\
+        --bf16
+    python -m bigdl_tpu_torch.examples.perf --model ptb-lstm -b 32 \\
+        --seq-len 20 --vocab-size 10000 --hidden-size 200 --num-layers 2
 
     python -m bigdl_tpu_torch.examples.perf --model resnet50 --fused \\
         --bf16 -b 128 --image-size 224 --classes 1000
@@ -16,8 +21,8 @@ on the device and prints one JSON line: records/s and ms/iteration from
 the Optimizer's completion-to-completion window timings, the first
 window (kernel build and warm-up) excluded, as the reference computes
 them.  The reference's FLOP keys come from XLA's cost analysis, which
-has no counterpart here yet (ROADMAP.md queue 1, item 10).  Other models
-and modes raise ``NotImplementedError`` naming their ROADMAP item.
+has no counterpart here yet (ROADMAP.md queue 1, item 10).  The modes
+not ported yet raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -31,7 +36,9 @@ import torch
 from torch import nn
 
 from bigdl_tpu_torch.dataset import DataSet, MiniBatch
-from bigdl_tpu_torch.models import LeNet5, resnet50, transformer_lm
+from bigdl_tpu_torch.models import (Inception_v1, Inception_v2, LeNet5,
+                                    PTBModel, Vgg_16, resnet50,
+                                    transformer_lm)
 from bigdl_tpu_torch.nn.criterion import ClassNLLCriterion, \
     CrossEntropyCriterion
 from bigdl_tpu_torch.optim import SGD, Optimizer, Trigger
@@ -41,12 +48,6 @@ __all__ = ["MODELS", "FlatLM", "build", "parse_args", "train", "main"]
 MODELS = ("lenet", "resnet50", "inception-v1", "inception-v2", "vgg16",
           "transformer-lm", "ptb-lstm")
 
-_NOT_PORTED = {
-    "inception-v1": "ROADMAP.md queue 1, item 9 (the rest of the model zoo)",
-    "inception-v2": "ROADMAP.md queue 1, item 9 (the rest of the model zoo)",
-    "vgg16": "ROADMAP.md queue 1, item 9 (the rest of the model zoo)",
-    "ptb-lstm": "ROADMAP.md queue 1, item 9 (the rest of the model zoo)",
-}
 # (flag, its parsed default, the ROADMAP item of the mode it selects)
 _MODES = (
     ("input_pipeline", None, "ROADMAP.md queue 1, item 13 (the edges: "
@@ -55,7 +56,7 @@ _MODES = (
      "dataset loaders)"),
     ("generate", 0, "ROADMAP.md queue 1, item 6 (GPU measurement "
      "harness)"),
-    ("int8_infer", False, "ROADMAP.md queue 1, item 9 (nn/quantized.py)"),
+    ("int8_infer", False, "ROADMAP.md queue 1, item 9b (nn/quantized.py)"),
 )
 
 
@@ -77,10 +78,9 @@ def build(name: str, args):
     """→ (model, criterion, make_batch(batch_size) → (x, y)); synthetic
     batches from ``numpy.random.default_rng(0)``, as the reference makes
     them."""
-    if name in _NOT_PORTED:
-        raise NotImplementedError(f"--model {name} is not ported yet "
-                                  f"({_NOT_PORTED[name]})")
     rng = np.random.default_rng(0)
+    gen = dict(generator=torch.Generator().manual_seed(0),
+               device=args.device)
     size = args.image_size
 
     def image_batch(b):
@@ -91,15 +91,22 @@ def build(name: str, args):
         def mnist_batch(b):
             return (rng.normal(size=(b, 28, 28, 1)).astype(np.float32),
                     rng.integers(1, 11, size=(b,)))
-        return (LeNet5(10, generator=torch.Generator().manual_seed(0),
-                       device=args.device),
-                ClassNLLCriterion(), mnist_batch)
+        return LeNet5(10, **gen), ClassNLLCriterion(), mnist_batch
     if name == "resnet50":
-        return (resnet50(args.classes, fused=args.fused,
-                         generator=torch.Generator().manual_seed(0),
-                         device=args.device),
+        return (resnet50(args.classes, fused=args.fused, **gen),
                 CrossEntropyCriterion(), image_batch)
-    if name != "transformer-lm":
+    # both inception towers end in log_softmax: ClassNLL takes the
+    # log-probabilities as they are
+    if name == "inception-v1":
+        return (Inception_v1(args.classes, **gen), ClassNLLCriterion(),
+                image_batch)
+    if name == "inception-v2":
+        return (Inception_v2(args.classes, **gen), ClassNLLCriterion(),
+                image_batch)
+    if name == "vgg16":
+        return (Vgg_16(args.classes, **gen), CrossEntropyCriterion(),
+                image_batch)
+    if name not in ("transformer-lm", "ptb-lstm"):
         raise SystemExit(f"unknown --model {name!r}")
 
     def token_batch(b):
@@ -109,15 +116,19 @@ def build(name: str, args):
                 rng.integers(1, args.vocab_size + 1,
                              size=(b * args.seq_len,)).astype(np.int32))
 
+    if name == "ptb-lstm":
+        # the reference's PTB word LM (example/languagemodel/
+        # PTBModel.scala), ClassNLL on the flattened [B*T] targets
+        lm = PTBModel(args.vocab_size, hidden_size=args.hidden_size,
+                      num_layers=args.num_layers, **gen)
+        return FlatLM(lm), ClassNLLCriterion(), token_batch
     # synthetic batches are contiguous (tokens 1..V, no padding):
     # padded_inputs=False keeps the causal mask inside the kernels
     lm = transformer_lm(
         vocab_size=args.vocab_size, hidden_size=args.hidden_size,
         num_layers=args.num_layers, num_heads=args.num_heads,
         filter_size=4 * args.hidden_size, max_len=args.seq_len,
-        remat=args.remat, padded_inputs=False,
-        generator=torch.Generator().manual_seed(0),
-        device=args.device)
+        remat=args.remat, padded_inputs=False, **gen)
     return FlatLM(lm), CrossEntropyCriterion(), token_batch
 
 

@@ -14,8 +14,14 @@ back, as a checkpoint in the reference's format stores them.  A bare
 parameter keeps its name: the ``Transformer``'s ``embedding`` [vocab,
 H] loads as it is, beside ``encoder_layers[i]``, ``encoder_norm``,
 ``decoder_layers[i].cross_attn`` and the rest, for either topology.
-Buffers are the persistent ones (a non-persistent buffer, such as the LM's
-position table, is derived and the reference has none).  This module
+The recurrent cells' ``w_input``, ``w_hidden``, ``bias``,
+``w_candidate`` and peepholes load as they are (``cells[i]`` of a
+``MultiRNNCell`` as ``cells.<i>``), and so do the zoo models' names
+(``stem.layers.<i>``, ``blocks.<i>``, ``lm.`` of the perf CLI's flat
+LM).  Buffers are the persistent ones: BatchNorm's running statistics,
+a penalty layer's ``loss``, a local normalisation's ``kernel`` (a
+non-persistent buffer, such as the LM's position table, is derived and
+the reference has none).  This module
 reads numpy arrays only; it imports nothing of JAX.
 """
 

@@ -9,15 +9,19 @@ from bigdl_tpu_torch.nn.attention import (  # noqa: F401
     position_encoding, shift_right_3d,
 )
 from bigdl_tpu_torch.nn.containers import *  # noqa: F401,F403
-from bigdl_tpu_torch.nn.conv import SpatialConvolution  # noqa: F401
+from bigdl_tpu_torch.nn.conv import (  # noqa: F401
+    SpatialConvolution, VolumetricConvolution,
+)
 from bigdl_tpu_torch.nn.criterion import (  # noqa: F401
     ClassNLLCriterion, Criterion, CrossEntropyCriterion,
 )
-from bigdl_tpu_torch.nn.linear import Linear, LookupTable  # noqa: F401
-from bigdl_tpu_torch.nn.normalization import (  # noqa: F401
-    BatchNormalization, LayerNormalization, SpatialBatchNormalization,
+from bigdl_tpu_torch.nn.linear import (  # noqa: F401
+    CAdd, CMul, Linear, LookupTable,
 )
+from bigdl_tpu_torch.nn.normalization import *  # noqa: F401,F403
 from bigdl_tpu_torch.nn.pooling import (  # noqa: F401
     GlobalAveragePooling2D, SpatialAveragePooling, SpatialMaxPooling,
 )
+from bigdl_tpu_torch.nn.regularization import *  # noqa: F401,F403
+from bigdl_tpu_torch.nn.rnn import *  # noqa: F401,F403
 from bigdl_tpu_torch.nn.shape_ops import *  # noqa: F401,F403

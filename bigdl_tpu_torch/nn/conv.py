@@ -1,5 +1,5 @@
-"""2-D convolution (counterpart of ``SpatialConvolution`` in
-``bigdl_tpu/nn/conv.py``).
+"""2-D and 3-D convolution (counterpart of ``SpatialConvolution`` and
+``VolumetricConvolution`` in ``bigdl_tpu/nn/conv.py``).
 
 The layout is the reference's: NHWC activations by default (NCHW
 accepted through ``data_format``) and an HWIO weight ``(kh, kw, in /
@@ -10,14 +10,20 @@ Positional arguments follow the reference's order (nInputPlane,
 nOutputPlane, kernelW, kernelH, strideW, strideH, padW, padH, nGroup),
 the rest are keywords; a pad of -1 means SAME padding.
 ``w_regularizer``/``b_regularizer`` (``optim/regularizer.py``) are
-applied to the gradients by the ``Optimizer``'s step.  The reference's
-``init_weight``/``init_bias`` and ``propagate_back`` are not ported
-(ROADMAP.md queue 1, item 9).
+applied to the gradients by the ``Optimizer``'s step.  ``init_weight``
+/ ``init_bias`` give the initial weight (HWIO) and bias as they are;
+``propagate_back`` is accepted and, as in the reference, changes nothing
+(the input gradient is computed either way).  The volumetric
+convolution takes NDHWC (NCDHW through ``data_format``) and a DHWIO
+weight; a temporal pad of -1 means SAME in all three dims, as there.
+The other convolutions of the reference's file wait (ROADMAP.md queue
+1, item 9b).
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -27,7 +33,7 @@ from bigdl_tpu_torch.core import init as init_methods
 from bigdl_tpu_torch.core.device import resolve_device
 from bigdl_tpu_torch.core.module import Module
 
-__all__ = ["SpatialConvolution", "same_pads"]
+__all__ = ["SpatialConvolution", "VolumetricConvolution", "same_pads"]
 
 
 def same_pads(size: int, k: int, s: int):
@@ -35,6 +41,25 @@ def same_pads(size: int, k: int, s: int):
     out = -(-size // s)
     total = max((out - 1) * s + k - size, 0)
     return total // 2, total - total // 2
+
+
+def _uniform(shape, bound: float, generator: torch.Generator):
+    return (torch.rand(shape, generator=generator) * 2.0 - 1.0) * bound
+
+
+def _needed(generator: Optional[torch.Generator]) -> torch.Generator:
+    if generator is None:
+        raise ValueError("a random initial value needs generator= "
+                         "(or init_weight= / init_bias=)")
+    return generator
+
+
+def _given(value, shape, what: str) -> torch.Tensor:
+    t = torch.as_tensor(value, dtype=torch.float32).detach().clone().cpu()
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{what} has shape {tuple(t.shape)}, not "
+                         f"{tuple(shape)}")
+    return t
 
 
 class SpatialConvolution(Module):
@@ -47,7 +72,9 @@ class SpatialConvolution(Module):
                  n_group: int = 1, *, with_bias: bool = True,
                  data_format: str = "NHWC", init_method=None,
                  w_regularizer=None, b_regularizer=None,
-                 generator: torch.Generator, device=None):
+                 init_weight=None, init_bias=None,
+                 propagate_back: bool = True,
+                 generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
         self.w_regularizer = w_regularizer
         self.b_regularizer = b_regularizer
@@ -68,15 +95,22 @@ class SpatialConvolution(Module):
         self.data_format = data_format
         fan_in = n_input_plane // n_group * kernel_h * kernel_w
         fan_out = n_output_plane // n_group * kernel_h * kernel_w
-        im = init_method or init_methods.RandomUniform()
-        self.weight = nn.Parameter(im(
-            (kernel_h, kernel_w, n_input_plane // n_group, n_output_plane),
-            generator=generator, fan_in=fan_in, fan_out=fan_out).to(dev))
+        shape = (kernel_h, kernel_w, n_input_plane // n_group,
+                 n_output_plane)
+        if init_weight is not None:
+            weight = _given(init_weight, shape, "init_weight")
+        else:
+            im = init_method or init_methods.RandomUniform()
+            weight = im(shape, generator=_needed(generator), fan_in=fan_in,
+                        fan_out=fan_out)
+        self.weight = nn.Parameter(weight.to(dev))
         if with_bias:
-            bound = 1.0 / math.sqrt(fan_in)
-            self.bias = nn.Parameter(
-                ((torch.rand((n_output_plane,), generator=generator) * 2.0
-                  - 1.0) * bound).to(dev))
+            if init_bias is not None:
+                bias = _given(init_bias, (n_output_plane,), "init_bias")
+            else:
+                bias = _uniform((n_output_plane,), 1.0 / math.sqrt(fan_in),
+                                _needed(generator))
+            self.bias = nn.Parameter(bias.to(dev))
         else:
             self.register_parameter("bias", None)
 
@@ -105,3 +139,54 @@ class SpatialConvolution(Module):
         if self.data_format == "NHWC":
             y = y.permute(0, 2, 3, 1)
         return y[0] if unbatched else y
+
+
+class VolumetricConvolution(Module):
+    """3-D convolution over NDHWC (reference
+    nn/VolumetricConvolution.scala); weight (kt, kh, kw, in, out) and bias
+    ~ U(-1/sqrt(fan_in), 1/sqrt(fan_in)).  The regularizer arguments are
+    accepted and unused, as in the reference."""
+
+    def __init__(self, n_input_plane: int, n_output_plane: int,
+                 k_t: int, k_w: int, k_h: int,
+                 d_t: int = 1, d_w: int = 1, d_h: int = 1,
+                 pad_t: int = 0, pad_w: int = 0, pad_h: int = 0,
+                 with_bias: bool = True, w_regularizer=None,
+                 b_regularizer=None, data_format: str = "NDHWC", *,
+                 generator: torch.Generator, device=None):
+        super().__init__()
+        if data_format not in ("NDHWC", "NCDHW"):
+            raise ValueError(f"data_format must be NDHWC or NCDHW, got "
+                             f"{data_format!r}")
+        dev = resolve_device(device)
+        self.kernel = (k_t, k_h, k_w)
+        self.stride = (d_t, d_h, d_w)
+        self.pad = (pad_t, pad_h, pad_w)
+        self.with_bias = with_bias
+        self.data_format = data_format
+        bound = 1.0 / math.sqrt(n_input_plane * k_t * k_h * k_w)
+        self.weight = nn.Parameter(_uniform(
+            (k_t, k_h, k_w, n_input_plane, n_output_plane), bound,
+            generator).to(dev))
+        if with_bias:
+            self.bias = nn.Parameter(
+                _uniform((n_output_plane,), bound, generator).to(dev))
+        else:
+            self.register_parameter("bias", None)
+
+    def forward(self, x):
+        ncdhw = x if self.data_format == "NCDHW" else x.permute(0, 4, 1, 2, 3)
+        if self.pad[0] == -1:
+            pads = [same_pads(size, k, s) for size, k, s in
+                    zip(ncdhw.shape[2:], self.kernel, self.stride)]
+        else:
+            pads = [(p, p) for p in self.pad]
+        if all(lo == hi for lo, hi in pads):
+            padding = tuple(lo for lo, _ in pads)
+        else:
+            ncdhw = F.pad(ncdhw, [v for lo_hi in reversed(pads)
+                                  for v in lo_hi])
+            padding = (0, 0, 0)
+        y = F.conv3d(ncdhw, self.weight.permute(4, 3, 0, 1, 2), self.bias,
+                     stride=self.stride, padding=padding)
+        return y if self.data_format == "NCDHW" else y.permute(0, 2, 3, 4, 1)

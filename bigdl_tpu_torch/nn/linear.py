@@ -1,5 +1,6 @@
-"""Dense layers (counterpart of ``bigdl_tpu/nn/linear.py``: ``Linear``
-and ``LookupTable``).
+"""Dense layers (counterpart of ``bigdl_tpu/nn/linear.py``: ``Linear``,
+``CMul``, ``CAdd`` and ``LookupTable``; the rest of that file waits,
+ROADMAP.md queue 1, item 9b).
 
 Weight layout stays Torch-style (out, in).  Initial values are drawn on
 the CPU from the caller's ``torch.Generator`` (so one seed gives the
@@ -18,7 +19,7 @@ from torch import nn
 from bigdl_tpu_torch.core.device import resolve_device
 from bigdl_tpu_torch.core.module import Module
 
-__all__ = ["Linear", "LookupTable"]
+__all__ = ["Linear", "CMul", "CAdd", "LookupTable"]
 
 
 def _uniform(shape, bound: float, generator: torch.Generator):
@@ -60,6 +61,38 @@ class Linear(Module):
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)
+
+
+class CMul(Module):
+    """A learnable componentwise gain broadcast over the batch (reference
+    nn/CMul.scala); weight ~ U(-1/sqrt(n), 1/sqrt(n)), n its size."""
+
+    def __init__(self, size, *, generator: torch.Generator, device=None):
+        super().__init__()
+        size = tuple(size)
+        self.weight = nn.Parameter(_uniform(
+            size, 1.0 / math.sqrt(math.prod(size)), generator).to(
+                resolve_device(device)))
+
+    def forward(self, x):
+        return x * self.weight
+
+
+class CAdd(Module):
+    """A learnable componentwise bias (reference nn/CAdd.scala); bias ~
+    U(-1/sqrt(n), 1/sqrt(n)).  ``b_regularizer`` is accepted and unused,
+    as in the reference."""
+
+    def __init__(self, size, b_regularizer=None, *,
+                 generator: torch.Generator, device=None):
+        super().__init__()
+        size = tuple(size)
+        self.bias = nn.Parameter(_uniform(
+            size, 1.0 / math.sqrt(math.prod(size)), generator).to(
+                resolve_device(device)))
+
+    def forward(self, x):
+        return x + self.bias
 
 
 class LookupTable(Module):

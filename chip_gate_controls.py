@@ -112,6 +112,15 @@ the faults they are there to catch:
    its kernel runs and the merge mutant at both shapes, and prints which
    checks refused each.
 
+11. A control zoo step.  chip_smoke's f32 step of each image model of
+   its zoo phase (Inception-v1, Inception-v2 and VGG-16 at their
+   conditioned sizes, card against a CPU copy) runs as it is and again
+   with cuDNN's convolutions and cuBLAS's products in TF32 (inputs
+   rounded to 10 mantissa bits); the script fails unless the first stays
+   within chip_smoke's bounds and the second does not.  Beside them it
+   prints how far a CPU step on inputs moved by 2^-23 of themselves
+   drifts from the CPU step.
+
 The last line is one JSON object with every reading.  Imports torch,
 numpy, ``bigdl_tpu_torch`` and ``chip_smoke`` only.
 """
@@ -1043,6 +1052,52 @@ def phase_resnet_control_step():
     return readings, failures
 
 
+@contextlib.contextmanager
+def _tf32():
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def phase_zoo_control_step():
+    import copy
+    readings, failures = {}, []
+    for model in ("inception-v1", "inception-v2", "vgg16"):
+        on_card, on_cpu, step, what = chip_smoke.zoo_parity_setup(model)
+        fed = chip_smoke.bn_fed_biases(on_cpu)
+        bounds = chip_smoke.ZOO_PARITY[model][2]
+        control = copy.deepcopy(on_card)
+        moved = step(copy.deepcopy(on_cpu), "cpu", perturb=0)
+        cpu = step(on_cpu, "cpu")
+        card = step(on_card, "cuda")
+        with _tf32():
+            card_tf32 = step(control, "cuda")
+        rows = {label: chip_smoke.parity_report(
+                    got, cpu, f"{model} {label}", bounds, what, sides, fed)
+                for label, got, sides in (
+                    ("as_it_is", card, ("card", "cpu")),
+                    ("tf32", card_tf32, ("card in TF32", "cpu")),
+                    ("cpu_inputs_moved_2^-23", moved,
+                     ("moved cpu", "cpu")))}
+        readings[model] = {
+            label: dict(worst_norm_err=n, worst_entry_err=m,
+                        within_bounds=ok)
+            for label, (n, m, ok) in rows.items()}
+        if not rows["as_it_is"][2]:
+            failures.append(f"the {model} step as it is breaks the bounds")
+        if rows["tf32"][2]:
+            failures.append(f"the bounds pass the {model} step in TF32")
+        del on_card, on_cpu, control
+        chip_smoke._free()
+    return readings, failures
+
+
 def phase_resume_control():
     """chip_smoke's resume phase with a resume that keeps the parameters
     and drops each group's SGD velocity: its checks must refuse it."""
@@ -1162,6 +1217,8 @@ def main() -> int:
     failures += more
     oneshot_control, more = phase_oneshot_control()
     failures += more
+    zoo_control, more = phase_zoo_control_step()
+    failures += more
     print(json.dumps({"mutants": mutants, "control_step": control,
                       "bounds": {"grad_norm_rel": chip_smoke.GRAD_NORM_REL,
                                  "grad_max_rel": chip_smoke.GRAD_MAX_REL},
@@ -1175,6 +1232,7 @@ def main() -> int:
                       "remat_control": remat_control,
                       "prefix_control": prefix_control,
                       "oneshot_control": oneshot_control,
+                      "zoo_control_step": zoo_control,
                       "failures": failures}))
     return 1 if failures else 0
 

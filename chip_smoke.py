@@ -215,6 +215,23 @@ Phases, each raising on failure (the script then exits non-zero):
    ``bigdl-loss-drain`` thread and none left after it; ms per iteration
    and idle share of both.  Each of 13c-13e prints ``<phase>: FAILED:
    <check>`` for a failed check before the script exits non-zero;
+13f. zoo_training: the models the perf CLI gained, through
+   ``examples.perf``: ``--model inception-v1``, ``inception-v2`` and
+   ``vgg16`` at phase 9's shape (b128, 224 px, 1000 classes, bf16), 10
+   iterations x 3 epochs each, losses finite (the trajectory, ms per
+   iteration, images/s, peak memory, the device's busy ms and idle share
+   printed); the PTB LSTM LM at the defaults of the repo's
+   ``bigdl-tpu-ptb`` (b32, 20 steps, vocab 10000, hidden 200, 2 layers,
+   f32) eagerly and with windows of an epoch (graph replays),
+   deterministic algorithms on for both: losses and parameters equal bit
+   for bit (ms per iteration, tokens/s, busy and idle of both); one f32
+   step of each of the four models on the card against a CPU copy (the
+   image models by phase 11's bounds where float32 is stable:
+   Inception-v1 at 64 px, batch 4, Inception-v2 at 32 px, batch 8, its
+   BatchNorm biases from U(-0.5, 0.5), VGG-16 at 224 px, batch 2, its
+   weights at He's variance; PTB at its size by phase 7's; TF32 off);
+   every run launches none of #1-#11.  A
+   failed check prints ``zoo_training: FAILED: <check>``;
 14. a ``{"kernels": [...]}`` line (eleven kernels, launches by path
    (#1's on ``serving_prefix_cache``, ``serving_disaggregated``,
    ``oneshot_lm``, ``beam_lm``, ``translation_beam`` and
@@ -222,7 +239,7 @@ Phases, each raising on failure (the script then exits non-zero):
    ``launches_by_kernel``; its mixed entry's rows under ``mixed_kv``; its
    row-independence readings),
    the graph replays' among them (phases 13, 13b and 13c) as the profiler
-   counted them on the device; all but #4 also their design, launches
+   counted them on the device, and 13f's paths at 0; all but #4 also their design, launches
    by route and build report; #1 its row at the training shape beside the decode row), then
    the ``{"ok": true, ...}`` line.
 
@@ -3322,19 +3339,22 @@ def parity_setup():
 def parity_report(card, cpu, label="train parity",
                   bounds=(LOSS_RTOL, GRAD_NORM_REL, GRAD_MAX_REL),
                   what=f"batch {PARITY_BATCH}, T{TRAIN_SEQ}",
-                  sides=("card", "cpu")):
+                  sides=("card", "cpu"), fed=None):
     """Hold a card step's ``(loss, grads)`` against the CPU's (or, with
     ``sides``, one step against another) and print the worst errors;
     returns (worst norm error, worst entry error, within ``bounds``: the
     loss's relative error, each gradient's norm error and its worst entry
-    relative to its largest)."""
+    relative to its largest).  ``fed`` ({bias: weight},
+    :func:`bn_fed_biases`) takes a BatchNorm-fed bias's errors relative
+    to its layer's weight gradient: its own exact gradient is zero."""
     loss_rtol, grad_norm_rel, grad_max_rel = bounds
     (loss_card, g_card), (loss_cpu, g_cpu) = card, cpu
+    scale = {n: g_cpu[(fed or {}).get(n, n)] for n in g_cpu}
     norm_rel = {n: float((g_card[n] - g_cpu[n]).norm()
-                         / max(float(g_cpu[n].norm()), 1e-30))
+                         / max(float(scale[n].norm()), 1e-30))
                 for n in g_cpu}
     max_rel = {n: float((g_card[n] - g_cpu[n]).abs().max()
-                        / max(float(g_cpu[n].abs().max()), 1e-30))
+                        / max(float(scale[n].abs().max()), 1e-30))
                for n in g_cpu}
     worst_norm = max(norm_rel, key=norm_rel.get)
     worst_max = max(max_rel, key=max_rel.get)
@@ -5142,6 +5162,306 @@ def phase_drain(smi):
     return _phase("drain", drain_reading, report)
 
 
+# ---------------------------------------------------------------------------
+# 13f. the zoo models of the perf CLI: Inception-v1/v2, VGG-16, the PTB LM
+# ---------------------------------------------------------------------------
+
+ZOO_IMAGE_MODELS = ("inception-v1", "inception-v2", "vgg16")
+# two steady windows of 10 steps after the first (the build's)
+ZOO_ITERS, ZOO_EPOCHS = 10, 3
+# phase 9's shape (bench.py:1079-1080), so the five image models read side
+# by side
+ZOO_IMAGE_ARGV = ["-b", str(RESNET_BATCH), "--image-size", str(RESNET_SIZE),
+                  "--classes", str(RESNET_CLASSES), "--bf16",
+                  "--iterations", str(ZOO_ITERS), "--epochs", str(ZOO_EPOCHS)]
+# the defaults of the repo's bigdl-tpu-ptb (bigdl_tpu/examples/ptb_lm.py:
+# 20-30), f32, eagerly and in windows of an epoch
+PTB_BATCH, PTB_SEQ, PTB_ITERS, PTB_EPOCHS = 32, 20, 10, 3
+PTB_ARGV = ["--model", "ptb-lstm", "-b", str(PTB_BATCH), "--seq-len",
+            str(PTB_SEQ), "--vocab-size", "10000", "--hidden-size", "200",
+            "--num-layers", "2", "--iterations", str(PTB_ITERS),
+            "--epochs", str(PTB_EPOCHS)]
+# one f32 step of each model on the card against a CPU copy, TF32 off
+# (phase 1), by parity_report's rules: phase 11's bounds for the image
+# models, phase 7's for the PTB LM.  A ReLU or a max pool whose inputs
+# lie within rounding of zero or of each other routes a gradient one way
+# on the card and the other on the CPU, and each such flip moves a
+# weight gradient summed from cancelling terms by a share of itself.  At
+# 224 px and batch 2 such flips put the card's and the CPU's own f32
+# steps of Inception-v2 2.8e-2 and 2.2e-2 in norm from a float64 step
+# (on an H100 80GB HBM3 at 700 W), beyond the bounds, as VGG-16's
+# default init (each layer shrinks its input's scale 2.4-fold) put VGG-16
+# 3.5e-2 and 2.8e-2 off.  So the steps run where float32 is stable, as
+# in test_torch_zoo_models.py: Inception-v1 at phase 11's 64 px, batch 4;
+# Inception-v2 at 32 px, batch 8 (its last BatchNorms over 8 values),
+# its BatchNorm biases drawn from U(-0.5, 0.5) and an input (seed 19)
+# with no such tie; VGG-16 at 224 px (its head's size), batch 2, its
+# weights scaled by sqrt(6) to He's variance 2 / fan_in
+# (zoo_condition).  test_torch_zoo_models.py holds the CPU's f32 steps
+# of both Inceptions there within 1e-3 of float64 and of a step on inputs
+# moved by 2^-23; chip_gate_controls.py shows TF32 refused.
+# model: (perf CLI arguments, the input's seed, bounds)
+ZOO_PARITY = {
+    "inception-v1": (["-b", "4", "--image-size", "64", "--classes",
+                      str(RESNET_CLASSES)], 0, RESNET_PARITY_BOUNDS),
+    "inception-v2": (["-b", "8", "--image-size", "32", "--classes",
+                      str(RESNET_CLASSES)], 19, RESNET_PARITY_BOUNDS),
+    "vgg16": (["-b", "2", "--image-size", str(RESNET_SIZE), "--classes",
+               str(RESNET_CLASSES)], 0, RESNET_PARITY_BOUNDS),
+    "ptb-lstm": (PTB_ARGV[2:], None, (LOSS_RTOL, GRAD_NORM_REL,
+                                      GRAD_MAX_REL)),
+}
+
+
+def _free():
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def zoo_image_run(model):
+    """``perf.run`` of one image model at ZOO_IMAGE_ARGV, its wrappers'
+    counts zeroed before and read after, then profile_steps on it."""
+    from bigdl_tpu_torch.examples import perf
+    args = perf.parse_args(["--model", model, *ZOO_IMAGE_ARGV])
+    built = perf.build(model, args)
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    out, opt = perf.run(args, *built)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [loss for _, loss in opt.loss_history]
+    del opt
+    busy = profile_steps(args, *built)
+    del built
+    _free()
+    return dict(out=out, wall=wall, launches=launches, peak=peak,
+                losses=losses, busy=busy, steps=ZOO_ITERS * ZOO_EPOCHS)
+
+
+def zoo_ptb_run(k):
+    """The PTB LM at PTB_ARGV with windows of ``k`` (1: eager), then the
+    device's busy time over a short run of a fresh copy."""
+    from bigdl_tpu_torch.examples import perf
+    args = perf.parse_args(PTB_ARGV)
+    model, criterion, make_batch = perf.build("ptb-lstm", args)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    out, opt = perf.run(args, model, criterion, make_batch,
+                        configure=dispatch_of(k))
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    busy = profile_steps(args, *perf.build("ptb-lstm", args),
+                         configure=dispatch_of(min(k, BUSY_ITERS)))
+    return dict(out=out, opt=opt, model=model, launches=launches, peak=peak,
+                busy=busy, losses=[loss for _, loss in opt.loss_history])
+
+
+def zoo_step(criterion, x, y):
+    """:func:`grad_step` with the model's own criterion, each Dropout in
+    eval mode (the card's and the CPU's generators draw different
+    masks); ``dtype`` casts a floating input (float64 for an exact
+    step)."""
+    from bigdl_tpu_torch.nn import Dropout
+
+    def step(model, device, dtype=None, perturb=None):
+        model.train()
+        for m in model.modules():
+            if isinstance(m, Dropout):
+                m.eval()
+        model.zero_grad(set_to_none=True)
+        xs = x
+        if perturb is not None:
+            sign = np.random.default_rng(perturb).choice([-1, 1], x.shape)
+            xs = x * (1 + sign * 2.0 ** -23).astype(np.float32)
+        xs = torch.as_tensor(xs, device=device)
+        if dtype is not None and xs.is_floating_point():
+            xs = xs.to(dtype)
+        loss = criterion(model(xs), torch.as_tensor(y, device=device))
+        loss.backward()
+        return float(loss.detach()), {n: p.grad.detach().cpu()
+                                      for n, p in model.named_parameters()}
+    return step
+
+
+def bn_fed_biases(model):
+    """{bias: its layer's weight} of the convolutions and linear layers
+    that feed a BatchNorm in one of ``model``'s containers."""
+    from bigdl_tpu_torch.nn import BatchNormalization, Linear, \
+        SpatialConvolution
+    out = {}
+    for path, m in model.named_modules():
+        layers = getattr(m, "layers", None)
+        if layers is None:
+            continue
+        for i, (a, b) in enumerate(zip(layers, layers[1:])):
+            if isinstance(a, (SpatialConvolution, Linear)) and \
+                    a.bias is not None and \
+                    isinstance(b, BatchNormalization):
+                name = f"{path}.layers.{i}." if path else f"layers.{i}."
+                out[name + "bias"] = name + "weight"
+    return out
+
+
+def zoo_condition(model, net):
+    """ZOO_PARITY's conditioning of ``net``, in place: Inception-v2's
+    BatchNorm biases drawn from U(-0.5, 0.5), VGG-16's weights scaled by
+    sqrt(6)."""
+    from bigdl_tpu_torch.nn import BatchNormalization, Linear, \
+        SpatialConvolution
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for m in net.modules():
+            if model == "inception-v2" and \
+                    isinstance(m, BatchNormalization):
+                m.bias.copy_(torch.rand(m.bias.shape, generator=gen) - 0.5)
+            if model == "vgg16" and \
+                    isinstance(m, (SpatialConvolution, Linear)):
+                m.weight.mul_(6 ** 0.5)
+
+
+def zoo_parity_setup(model, device="cuda"):
+    """The perf build of ``model`` in f32 on ``device`` at ZOO_PARITY's
+    size, conditioned (:func:`zoo_condition`), its CPU copy,
+    :func:`zoo_step` over one batch (the image models' from ZOO_PARITY's
+    seed, drawn as ``perf.build`` draws it), and the step's description."""
+    import copy
+    from bigdl_tpu_torch.examples import perf
+    argv, seed, _ = ZOO_PARITY[model]
+    args = perf.parse_args(["--model", model, *argv, "--device", device])
+    net, criterion, make_batch = perf.build(model, args)
+    zoo_condition(model, net)
+    if seed is None:
+        x, y = make_batch(args.batch_size)
+        what = f"batch {args.batch_size}, T{args.seq_len}"
+    else:
+        rng = np.random.default_rng(seed)
+        size = args.image_size
+        x = rng.normal(size=(args.batch_size, size, size, 3)).astype(
+            np.float32)
+        y = rng.integers(1, args.classes + 1, size=(args.batch_size,))
+        what = (f"batch {args.batch_size}, {size} px, input seed {seed}")
+    return (net, copy.deepcopy(net).to("cpu"), zoo_step(criterion, x, y),
+            what)
+
+
+def zoo_parity(model):
+    """One f32 step of ``model`` on the card and on the CPU, the wrappers'
+    counts zeroed before the card's step and read after."""
+    on_card, on_cpu, step, what = zoo_parity_setup(model)
+    fed = bn_fed_biases(on_cpu)
+    _zero_counts()
+    t0 = time.perf_counter()
+    card = step(on_card, "cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    used = _read_counts()
+    cpu = step(on_cpu, "cpu")
+    t2 = time.perf_counter()
+    del on_card, on_cpu
+    _free()
+    norm, entry, ok = parity_report(card, cpu, f"zoo parity {model}",
+                                    ZOO_PARITY[model][2], what, fed=fed)
+    return dict(norm=norm, entry=entry, ok=ok, card_s=t1 - t0,
+                cpu_s=t2 - t1, launches=used)
+
+
+def zoo_reading():
+    """The zoo_training phase's readings and failed checks."""
+    failed, runs, parity = [], {}, {}
+    for model in ZOO_IMAGE_MODELS:
+        r = runs[model] = zoo_image_run(model)
+        if len(r["losses"]) != r["steps"] or not np.all(
+                np.isfinite(r["losses"])):
+            failed.append(f"{model}: losses not finite or missing: "
+                          f"{r['losses']}")
+        if any(r["launches"].values()):
+            failed.append(f"{model}: launched a kernel of #1-#11: "
+                          f"{r['launches']}")
+    steps = PTB_ITERS * PTB_EPOCHS
+    with deterministic() as nondet:
+        ptb = {"eager": zoo_ptb_run(1), "graph": zoo_ptb_run(PTB_ITERS)}
+    for label, r in ptb.items():
+        if len(r["losses"]) != steps or not np.all(np.isfinite(r["losses"])):
+            failed.append(f"ptb-lstm {label}: losses not finite or missing: "
+                          f"{r['losses']}")
+        if any(r["launches"].values()):
+            failed.append(f"ptb-lstm {label}: launched a kernel of #1-#11: "
+                          f"{r['launches']}")
+    dispatch = ptb["graph"]["opt"].dispatch_stats
+    if dispatch != {"single_steps": 0, "window_steps": steps,
+                    "captures": 1, "replays": steps}:
+        failed.append(f"ptb-lstm: the windowed run dispatched {dispatch}")
+    same_losses = ptb["eager"]["opt"].loss_history == \
+        ptb["graph"]["opt"].loss_history
+    same_params = all(torch.equal(p, q) for p, q in zip(
+        ptb["eager"]["model"].parameters(), ptb["graph"]["model"].parameters()))
+    if not (same_losses and same_params):
+        failed.append(f"ptb-lstm: the graph run is not the eager run (losses "
+                      f"{'equal' if same_losses else 'differ'}, parameters "
+                      f"{'equal' if same_params else 'differ'})")
+    for r in ptb.values():
+        del r["opt"], r["model"]
+    _free()
+    for model in (*ZOO_IMAGE_MODELS, "ptb-lstm"):
+        r = parity[model] = zoo_parity(model)
+        if not r["ok"]:
+            failed.append(f"{model}: the f32 step on the card differs "
+                          f"from the CPU's beyond the stated bounds")
+        if any(r["launches"].values()):
+            failed.append(f"{model}: the f32 step launched a kernel of "
+                          f"#1-#11: {r['launches']}")
+    return dict(runs=runs, ptb=ptb, parity=parity, same_losses=same_losses,
+                same_params=same_params, dispatch=dispatch,
+                nondeterministic=sorted(nondet), failed=failed)
+
+
+def phase_zoo(smi):
+    """Inception-v1, Inception-v2 and VGG-16 trained in bf16 at b128, 224
+    px; the PTB LSTM LM eagerly and in graph windows, bit for bit; one f32
+    step of each against a CPU copy; no kernel of #1-#11 on any of them."""
+    def report(r):
+        for model, x in r["runs"].items():
+            out = x["out"]
+            print(f"zoo_training: {model}: {json.dumps(out)}")
+            print(f"zoo_training: {model}: {x['steps']} bf16 steps at "
+                  f"b{RESNET_BATCH} {RESNET_SIZE} px in {x['wall']:.3f} s; "
+                  f"{out['records_per_sec']} images/s, "
+                  f"{out['ms_per_iteration']} ms/iteration (steady windows); "
+                  f"losses {[round(v, 6) for v in x['losses']]}; peak "
+                  f"memory {x['peak']} bytes; launches of #1-#11 "
+                  f"{sum(x['launches'].values())}")
+            print(_busy_text(f"zoo_training: {model}", x["busy"],
+                             out["ms_per_iteration"]))
+        for label, x in r["ptb"].items():
+            out = x["out"]
+            tokens_s = PTB_BATCH * PTB_SEQ / (out["ms_per_iteration"] / 1e3)
+            print(f"zoo_training: ptb-lstm {label}: {json.dumps(out)}")
+            print(f"zoo_training: ptb-lstm {label}: "
+                  f"{out['ms_per_iteration']} ms/iteration, {tokens_s:.1f} "
+                  f"tokens/s; loss {x['losses'][0]:.6f} -> "
+                  f"{x['losses'][-1]:.6f}; peak memory {x['peak']} bytes; "
+                  f"launches of #1-#11 {sum(x['launches'].values())}")
+            print(_busy_text(f"zoo_training: ptb-lstm {label}", x["busy"],
+                             out["ms_per_iteration"]))
+        print(f"zoo_training: ptb-lstm graph windows against eager: losses "
+              f"{'equal' if r['same_losses'] else 'DIFFER'}, parameters "
+              f"{'equal' if r['same_params'] else 'DIFFER'} bit for bit; "
+              f"dispatch {r['dispatch']}; operations without a "
+              f"deterministic implementation: "
+              f"{r['nondeterministic'] or 'none'}")
+        for model, x in r["parity"].items():
+            print(f"zoo_training: parity {model}: card {x['card_s']:.2f} s, "
+                  f"cpu {x['cpu_s']:.2f} s (TF32 off)")
+        print(f"zoo_training: on {smi}")
+    return _phase("zoo_training", zoo_reading, report)
+
+
 def _kernel_entry(name, source, replaces, launches, row):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -5215,6 +5535,7 @@ def main() -> int:
     remat = phase_remat(smi)
     prefetch = phase_prefetch(smi)
     phase_drain(smi)
+    zoo = phase_zoo(smi)
     # the replays' launches, from the graph runs' device events
     replayed = {**{path: r["replayed"] for path, r in dispatch.items()},
                 "resume": resume["replayed"],
@@ -5232,6 +5553,10 @@ def main() -> int:
                "resnet_training": resnet["launches"],
                "lm_remat_training": remat["runs"]["remat"]["launches"],
                "resnet_prefetch_training": prefetch["launches"],
+               **{f"zoo_{model}_training": r["launches"]
+                  for model, r in zoo["runs"].items()},
+               **{f"zoo_ptb-lstm_{label}_training": r["launches"]
+                  for label, r in zoo["ptb"].items()},
                **{f"{path}_graph_replays": r for path, r in replayed.items()}}
 
     def paths(name):

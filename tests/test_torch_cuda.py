@@ -45,6 +45,12 @@ the statistics within 1e-5 of sum |y - K| and of sum (y - K)^2, summed
 from the kernel's own y.
 ``DevicePrefetch`` copies batches on its producer's own stream; each batch
 the step reads behind a long kernel holds what the host held, exactly.
+The zoo models of the perf CLI (Inception-v1, Inception-v2, VGG-16, the
+PTB LSTM LM), one f32 step on the card and on a CPU copy, TF32 off, at
+chip_smoke's conditioned sizes and held by its bounds (``ZOO_PARITY``:
+the loss within 1e-5, each gradient within 1e-2 in norm and 5e-2 of its
+largest entry for the image models, 1e-3 and 1e-2 for the LM), no kernel
+of #1-#11 launched.
 """
 
 import numpy as np
@@ -1282,3 +1288,15 @@ def test_the_new_kernels_refuse_rows_not_on_16_bytes(cuda):
     with pytest.raises(RuntimeError, match="CUDA error"):
         ak._launch_fwd(q, k, v, None, 34 ** -0.5, False, 0, "scalar",
                        "decode")
+
+
+@pytest.mark.parametrize("model", sorted(chip_smoke.ZOO_PARITY))
+def test_zoo_model_step_on_the_card_matches_the_cpu(cuda, model):
+    was = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        r = chip_smoke.zoo_parity(model)
+    finally:
+        torch.backends.cudnn.allow_tf32 = was
+    assert not any(r["launches"].values())
+    assert r["ok"]

@@ -322,8 +322,8 @@ def test_perf_cli_trains_and_reports_the_reference_keys(capsys):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--model", "vgg16"], "model zoo"),
-    (["--model", "inception-v1"], "model zoo"),
+    (["--input-pipeline", "images"], "--input-pipeline"),
+    (["--real-jpeg-train", "8"], "--real-jpeg-train"),
     (["--generate", "4"], "--generate"),
     (["--int8-infer"], "--int8-infer"),
 ])
