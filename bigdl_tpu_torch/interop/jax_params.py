@@ -18,7 +18,10 @@ The recurrent cells' ``w_input``, ``w_hidden``, ``bias``,
 ``w_candidate`` and peepholes load as they are (``cells[i]`` of a
 ``MultiRNNCell`` as ``cells.<i>``), and so do the zoo models' names
 (``stem.layers.<i>``, ``blocks.<i>``, ``lm.`` of the perf CLI's flat
-LM).  Buffers are the persistent ones: BatchNorm's running statistics,
+LM), and the detectors' (SSD's ``base.<i>``, ``fc6``, ``loc_layers.<i>``,
+``conv4_3_norm``; Mask R-CNN's ``backbone.stages.<i>.<j>``,
+``backbone.fpn``, ``rpn``, ``box_head``, ``mask_head``).  Buffers are
+the persistent ones: BatchNorm's running statistics,
 a penalty layer's ``loss``, a local normalisation's ``kernel`` (a
 non-persistent buffer, such as the LM's position table, is derived and
 the reference has none).  This module

@@ -11,10 +11,14 @@ from bigdl_tpu_torch.models.inception import (  # noqa: F401
     Inception_v1, Inception_v2,
 )
 from bigdl_tpu_torch.models.lenet import LeNet5, lenet5_graph  # noqa: F401
+from bigdl_tpu_torch.models.maskrcnn import (  # noqa: F401
+    MaskRCNN, MaskRCNNParams, ResNetFPNBackbone,
+)
 from bigdl_tpu_torch.models.resnet import (  # noqa: F401
     BasicBlock, Bottleneck, ResNet, resnet50, resnet_cifar,
 )
 from bigdl_tpu_torch.models.rnn_lm import PTBModel, SimpleRNN  # noqa: F401
+from bigdl_tpu_torch.models.ssd import SSDVGG16, ssd_vgg16_300  # noqa: F401
 from bigdl_tpu_torch.models.transformer_lm import (  # noqa: F401
     TransformerLM, transformer_lm,
 )

@@ -1,5 +1,7 @@
-"""2-D and 3-D convolution (counterpart of ``SpatialConvolution`` and
-``VolumetricConvolution`` in ``bigdl_tpu/nn/conv.py``).
+"""2-D and 3-D convolution (counterpart of ``SpatialConvolution``,
+``SpatialShareConvolution``, ``SpatialDilatedConvolution``,
+``SpatialFullConvolution`` and ``VolumetricConvolution`` in
+``bigdl_tpu/nn/conv.py``).
 
 The layout is the reference's: NHWC activations by default (NCHW
 accepted through ``data_format``) and an HWIO weight ``(kh, kw, in /
@@ -16,8 +18,16 @@ applied to the gradients by the ``Optimizer``'s step.  ``init_weight``
 (the input gradient is computed either way).  The volumetric
 convolution takes NDHWC (NCDHW through ``data_format``) and a DHWIO
 weight; a temporal pad of -1 means SAME in all three dims, as there.
-The other convolutions of the reference's file wait (ROADMAP.md queue
-1, item 9b).
+The dilated convolution keeps the HWIO weight and takes SAME padding over
+the dilated kernel's extent, as XLA does.  The transposed (full)
+convolution keeps the reference's HWIO weight ``(kh, kw, in / groups,
+out)``, whose lhs-dilated product over the spatially flipped kernel is
+``F.conv_transpose2d`` over the same weight unflipped, regrouped to
+``(in, out / groups, kh, kw)`` (:func:`_full_weight`); its pads and
+``adj`` crop or zero-pad the full output, so any ``adj`` works.  The
+separable, temporal and volumetric-full convolutions,
+``LocallyConnected1D``/``2D`` and ``SpatialConvolutionMap`` wait
+(ROADMAP.md queue 1, item 9b).
 """
 
 from __future__ import annotations
@@ -33,7 +43,9 @@ from bigdl_tpu_torch.core import init as init_methods
 from bigdl_tpu_torch.core.device import resolve_device
 from bigdl_tpu_torch.core.module import Module
 
-__all__ = ["SpatialConvolution", "VolumetricConvolution", "same_pads"]
+__all__ = ["SpatialConvolution", "SpatialShareConvolution",
+           "SpatialDilatedConvolution", "SpatialFullConvolution",
+           "VolumetricConvolution", "same_pads"]
 
 
 def same_pads(size: int, k: int, s: int):
@@ -62,6 +74,32 @@ def _given(value, shape, what: str) -> torch.Tensor:
     return t
 
 
+def _conv2d(nchw, weight, bias, stride, pad, dilation=(1, 1), groups=1):
+    """``F.conv2d`` of an NCHW input by an HWIO ``weight``; a pad of -1
+    is SAME over the dilated kernel's extent, as XLA takes it (split
+    unevenly, it pads the input first)."""
+    pad_h, pad_w = pad
+    if pad_h == -1 or pad_w == -1:
+        (kh, kw), (dh, dw) = weight.shape[:2], dilation
+        top, bottom = same_pads(nchw.shape[2], (kh - 1) * dh + 1, stride[0])
+        left, right = same_pads(nchw.shape[3], (kw - 1) * dw + 1, stride[1])
+    else:
+        top, bottom, left, right = pad_h, pad_h, pad_w, pad_w
+    if top == bottom and left == right:
+        padding = (top, left)
+    else:
+        nchw = F.pad(nchw, (left, right, top, bottom))
+        padding = (0, 0)
+    return F.conv2d(nchw, weight.permute(3, 2, 0, 1), bias, stride=stride,
+                    padding=padding, dilation=dilation, groups=groups)
+
+
+def _check_format(data_format: str):
+    if data_format not in ("NHWC", "NCHW"):
+        raise ValueError(f"data_format must be NHWC or NCHW, got "
+                         f"{data_format!r}")
+
+
 class SpatialConvolution(Module):
     """2-D convolution (reference nn/SpatialConvolution.scala)."""
 
@@ -81,9 +119,7 @@ class SpatialConvolution(Module):
         if n_input_plane % n_group or n_output_plane % n_group:
             raise ValueError(f"planes {n_input_plane} -> {n_output_plane} "
                              f"do not split into {n_group} groups")
-        if data_format not in ("NHWC", "NCHW"):
-            raise ValueError(f"data_format must be NHWC or NCHW, got "
-                             f"{data_format!r}")
+        _check_format(data_format)
         dev = resolve_device(device)
         self.n_input_plane = n_input_plane
         self.n_output_plane = n_output_plane
@@ -114,31 +150,124 @@ class SpatialConvolution(Module):
         else:
             self.register_parameter("bias", None)
 
-    def _padding(self, h: int, w: int):
-        """(top, bottom, left, right)."""
-        pad_h, pad_w = self.pad
-        if pad_h == -1 or pad_w == -1:
-            return (*same_pads(h, self.kernel[0], self.stride[0]),
-                    *same_pads(w, self.kernel[1], self.stride[1]))
-        return pad_h, pad_h, pad_w, pad_w
-
     def forward(self, x):
         unbatched = x.dim() == 3
         if unbatched:
             x = x[None]
         nchw = x if self.data_format == "NCHW" else x.permute(0, 3, 1, 2)
-        top, bottom, left, right = self._padding(*nchw.shape[2:])
-        if top == bottom and left == right:
-            padding = (top, left)
-        else:
-            nchw = F.pad(nchw, (left, right, top, bottom))
-            padding = (0, 0)
-        y = F.conv2d(nchw, self.weight.permute(3, 2, 0, 1), self.bias,
-                     stride=self.stride, padding=padding,
-                     groups=self.n_group)
+        y = _conv2d(nchw, self.weight, self.bias, self.stride, self.pad,
+                    groups=self.n_group)
         if self.data_format == "NHWC":
             y = y.permute(0, 2, 3, 1)
         return y[0] if unbatched else y
+
+
+class SpatialShareConvolution(SpatialConvolution):
+    """The reference's memory-sharing variant
+    (nn/SpatialShareConvolution.scala): the same arithmetic."""
+
+
+class SpatialDilatedConvolution(Module):
+    """Atrous convolution (reference nn/SpatialDilatedConvolution.scala):
+    weight (kh, kw, in, out) and bias ~ U(-1/sqrt(fan_in),
+    1/sqrt(fan_in)), fan_in = in * kh * kw.  The regularizer arguments
+    are accepted and unused, as in the reference."""
+
+    def __init__(self, n_input_plane: int, n_output_plane: int,
+                 kw: int, kh: int, dw: int = 1, dh: int = 1,
+                 pad_w: int = 0, pad_h: int = 0,
+                 dilation_w: int = 1, dilation_h: int = 1,
+                 w_regularizer=None, b_regularizer=None,
+                 data_format: str = "NHWC", with_bias: bool = True, *,
+                 generator: torch.Generator, device=None):
+        super().__init__()
+        _check_format(data_format)
+        dev = resolve_device(device)
+        self.kernel = (kh, kw)
+        self.stride = (dh, dw)
+        self.pad = (pad_h, pad_w)
+        self.dilation = (dilation_h, dilation_w)
+        self.data_format = data_format
+        self.with_bias = with_bias
+        bound = 1.0 / math.sqrt(n_input_plane * kh * kw)
+        self.weight = nn.Parameter(_uniform(
+            (kh, kw, n_input_plane, n_output_plane), bound,
+            generator).to(dev))
+        if with_bias:
+            self.bias = nn.Parameter(
+                _uniform((n_output_plane,), bound, generator).to(dev))
+        else:
+            self.register_parameter("bias", None)
+
+    def forward(self, x):
+        nchw = x if self.data_format == "NCHW" else x.permute(0, 3, 1, 2)
+        y = _conv2d(nchw, self.weight, self.bias, self.stride, self.pad,
+                    self.dilation)
+        return y if self.data_format == "NCHW" else y.permute(0, 2, 3, 1)
+
+
+def _full_weight(weight, n_group: int):
+    """The reference's HWIO weight (kh, kw, in / groups, out) of a
+    transposed convolution as ``F.conv_transpose2d`` takes it: (in, out /
+    groups, kh, kw), input channel g * in/groups + c of group g, and not
+    flipped (the lhs-dilated product over the flipped kernel is the
+    transposed product over the kernel as it stands)."""
+    kh, kw, cin, cout = weight.shape
+    return weight.reshape(kh, kw, cin, n_group, cout // n_group) \
+        .permute(3, 2, 4, 0, 1).reshape(n_group * cin, cout // n_group,
+                                          kh, kw)
+
+
+class SpatialFullConvolution(Module):
+    """Transposed convolution (reference nn/SpatialFullConvolution.scala):
+    output size (in - 1) * stride - 2 * pad + kernel + adj; weight (kh,
+    kw, in / groups, out) and bias ~ U(-1/sqrt(fan_in), 1/sqrt(fan_in)),
+    fan_in = in * kh * kw.  The regularizer arguments are accepted and
+    unused, as in the reference."""
+
+    def __init__(self, n_input_plane: int, n_output_plane: int,
+                 kw: int, kh: int, dw: int = 1, dh: int = 1,
+                 pad_w: int = 0, pad_h: int = 0,
+                 adj_w: int = 0, adj_h: int = 0,
+                 n_group: int = 1, no_bias: bool = False,
+                 w_regularizer=None, b_regularizer=None,
+                 data_format: str = "NHWC", *,
+                 generator: torch.Generator, device=None):
+        super().__init__()
+        _check_format(data_format)
+        if n_input_plane % n_group or n_output_plane % n_group:
+            raise ValueError(f"planes {n_input_plane} -> {n_output_plane} "
+                             f"do not split into {n_group} groups")
+        dev = resolve_device(device)
+        self.kernel = (kh, kw)
+        self.stride = (dh, dw)
+        self.pad = (pad_h, pad_w)
+        self.adj = (adj_h, adj_w)
+        self.n_group = n_group
+        self.with_bias = not no_bias
+        self.data_format = data_format
+        bound = 1.0 / math.sqrt(n_input_plane * kh * kw)
+        self.weight = nn.Parameter(_uniform(
+            (kh, kw, n_input_plane // n_group, n_output_plane), bound,
+            generator).to(dev))
+        if self.with_bias:
+            self.bias = nn.Parameter(
+                _uniform((n_output_plane,), bound, generator).to(dev))
+        else:
+            self.register_parameter("bias", None)
+
+    def forward(self, x):
+        nchw = x if self.data_format == "NCHW" else x.permute(0, 3, 1, 2)
+        y = F.conv_transpose2d(nchw, _full_weight(self.weight, self.n_group),
+                               stride=self.stride, groups=self.n_group)
+        # the full output is (in - 1) * stride + kernel: crop pad at each
+        # end, then zero-pad adj at the far end (F.pad crops where < 0)
+        (ph, pw), (ah, aw) = self.pad, self.adj
+        if (ph, pw, ah, aw) != (0, 0, 0, 0):
+            y = F.pad(y, (-pw, aw - pw, -ph, ah - ph))
+        if self.with_bias:
+            y = y + self.bias[:, None, None]
+        return y if self.data_format == "NCHW" else y.permute(0, 2, 3, 1)
 
 
 class VolumetricConvolution(Module):

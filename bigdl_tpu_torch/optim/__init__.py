@@ -12,6 +12,8 @@ from bigdl_tpu_torch.optim.predictor import (  # noqa: F401
 )
 from bigdl_tpu_torch.optim.trigger import Trigger  # noqa: F401
 from bigdl_tpu_torch.optim.validation import (  # noqa: F401
-    Loss, MAE, Top1Accuracy, Top5Accuracy, TopKAccuracy, ValidationMethod,
-    ValidationResult,
+    HitRatio, Loss, MAE, MeanAveragePrecision,
+    MeanAveragePrecisionObjectDetection, NDCG, PrecisionRecallAUC,
+    Top1Accuracy, Top5Accuracy, TopKAccuracy, TreeNNAccuracy,
+    ValidationMethod, ValidationResult,
 )

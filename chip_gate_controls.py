@@ -120,6 +120,18 @@ the faults they are there to catch:
    within chip_smoke's bounds and the second does not.  Beside them it
    prints how far a CPU step on inputs moved by 2^-23 of themselves
    drifts from the CPU step.
+12. Detection controls.  chip_smoke's detection gate (``detection_gate``:
+   planted NMS rows and SSD's DetectionOutputSSD over tied scores
+   against the reference's loop, the path's dilated and transposed
+   convolutions against their definitions, the planted mAP) runs with
+   one fault at a time in the port: an NMS that suppresses at IoU >= the
+   threshold instead of > (it drops the planted box at exactly 0.45), an
+   NMS loop that skips its first step (the best box suppresses nothing),
+   ``torch.topk`` in place of the stable sort of every ranking (ties in
+   an order the reference does not give), and a transposed convolution
+   over its kernel flipped (the reference's lhs-dilated product without
+   its flip).  The script fails unless the gate passes the port as it
+   stands and refuses each fault.
 
 The last line is one JSON object with every reading.  Imports torch,
 numpy, ``bigdl_tpu_torch`` and ``chip_smoke`` only.
@@ -1193,6 +1205,63 @@ def phase_oneshot_control():
                 first=refused_by[:4]), failures
 
 
+def detection_faults():
+    """{name: (module, attribute, the fault put in its place)} of the
+    detection controls."""
+    from bigdl_tpu_torch.nn import conv, detection
+
+    def skip_first_step(over, keep):
+        for i in range(1, over.shape[-1]):
+            keep.masked_fill_(over[..., i, :] & keep[..., i:i + 1], False)
+        return keep
+    return {
+        "nms_at_or_above_threshold": (
+            detection, "_overlaps", lambda iou, t: iou >= t),
+        "nms_first_step_skipped": (detection, "_greedy_keep",
+                                   skip_first_step),
+        "topk_in_place_of_stable_sort": (
+            detection, "_ranked",
+            lambda scores, k: torch.topk(scores, k, dim=-1)),
+        "transposed_conv_kernel_flipped": (
+            conv, "_full_weight",
+            lambda w, g, full=conv._full_weight: full(
+                torch.flip(w, (0, 1)), g)),
+    }
+
+
+def detection_gate_under(fault=None):
+    """The failed checks of chip_smoke's detection gate with ``fault``
+    (a name of detection_faults(), or None for the port as it stands)."""
+    module = name = saved = None
+    if fault is not None:
+        module, name, swap = detection_faults()[fault]
+        saved = getattr(module, name)
+        setattr(module, name, swap)
+    try:
+        return chip_smoke.detection_gate()["failed"]
+    except Exception as e:  # noqa: BLE001 - a crash refuses it too
+        return [f"{type(e).__name__}: {e}"]
+    finally:
+        if fault is not None:
+            setattr(module, name, saved)
+
+
+def phase_detection_controls():
+    """chip_smoke's detection gate with each fault in turn: its checks
+    must pass the port as it stands and refuse every fault."""
+    readings, failures = {}, []
+    for fault in (None, *detection_faults()):
+        what = fault or "as_it_is"
+        refused_by = readings[what] = detection_gate_under(fault)
+        print(f"detection control {what}: refused by {len(refused_by)} "
+              f"checks: {refused_by}", flush=True)
+        if (fault is None) == bool(refused_by):
+            failures.append(f"the detection gate "
+                            f"{'refuses the port' if refused_by else 'passes'}"
+                            f" {what.replace('_', ' ')}")
+    return readings, failures
+
+
 def main() -> int:
     chip_smoke.phase_device()
     mutants, failures = phase_mutants()
@@ -1219,6 +1288,8 @@ def main() -> int:
     failures += more
     zoo_control, more = phase_zoo_control_step()
     failures += more
+    detection_controls, more = phase_detection_controls()
+    failures += more
     print(json.dumps({"mutants": mutants, "control_step": control,
                       "bounds": {"grad_norm_rel": chip_smoke.GRAD_NORM_REL,
                                  "grad_max_rel": chip_smoke.GRAD_MAX_REL},
@@ -1233,6 +1304,7 @@ def main() -> int:
                       "prefix_control": prefix_control,
                       "oneshot_control": oneshot_control,
                       "zoo_control_step": zoo_control,
+                      "detection_controls": detection_controls,
                       "failures": failures}))
     return 1 if failures else 0
 

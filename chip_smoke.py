@@ -232,6 +232,32 @@ Phases, each raising on failure (the script then exits non-zero):
    weights at He's variance; PTB at its size by phase 7's; TF32 off);
    every run launches none of #1-#11.  A
    failed check prints ``zoo_training: FAILED: <check>``;
+13g. detection: TF32 set off and checked; the gate (``detection_gate``):
+   planted NMS rows (IoU exactly at the threshold, tied scores with the
+   pre-top-k cut among them, all -inf rows, fewer boxes than slots)
+   through the port's ``nms`` on the card against a numpy copy of the
+   reference's loop, DetectionOutputSSD over tied scores at SSD-300's
+   width against the reference's per-image loop, fc6's dilated and the
+   mask head's transposed convolution (and a grouped one with adj 1)
+   against their definitions, and the planted boxes of
+   tests/test_detection.py at VOC mAP 1.0; SSD-300 VGG16 (21 classes,
+   He-scaled random weights, f32) through ``Predictor(batch_size=32)``
+   over 128 images (images/s, a batch's device busy and idle share, its
+   device split into VGG + heads, prior decode and NMS / top-k, NMS
+   calls and loop steps per batch, peak memory), a batch's heads against
+   a CPU copy (DET_FEATURE_REL in norm), its rows against the CPU path
+   fed the card's loc and conf (``detections_held``: equal but near-tie
+   rows) and against the reference's loop on the card's decoded boxes
+   (equal), a forward under ``host_ops`` (no host read, no host
+   tensor), and 64 single-image requests through
+   ``ModelServer(backend=ssd, max_batch=32)``, each row against the
+   image's solo forward; Mask R-CNN (81 classes, conditioned on its
+   image: ``maskrcnn_model``) on one 800 x 1088 image (ms per image, the
+   device split into backbone + FPN, RPN + its NMS, Pooler / RoiAlign,
+   box head + its NMS and mask head, NMS calls, peak memory), every
+   stage against the CPU copy fed the card's previous stage, a forward
+   under ``host_ops``; #1-#11 at 0 launches.  A failed check prints
+   ``detection: FAILED: <check>``;
 14. a ``{"kernels": [...]}`` line (eleven kernels, launches by path
    (#1's on ``serving_prefix_cache``, ``serving_disaggregated``,
    ``oneshot_lm``, ``beam_lm``, ``translation_beam`` and
@@ -239,7 +265,7 @@ Phases, each raising on failure (the script then exits non-zero):
    ``launches_by_kernel``; its mixed entry's rows under ``mixed_kv``; its
    row-independence readings),
    the graph replays' among them (phases 13, 13b and 13c) as the profiler
-   counted them on the device, and 13f's paths at 0; all but #4 also their design, launches
+   counted them on the device, and 13f's and 13g's paths at 0; all but #4 also their design, launches
    by route and build report; #1 its row at the training shape beside the decode row), then
    the ``{"ok": true, ...}`` line.
 
@@ -5462,6 +5488,834 @@ def phase_zoo(smi):
     return _phase("zoo_training", zoo_reading, report)
 
 
+# ---------------------------------------------------------------------------
+# 13g. detection: SSD-300 VGG16 and Mask R-CNN inference
+# ---------------------------------------------------------------------------
+
+# A row of two runs may part only where a decision lay within rounding of
+# a threshold or of a neighbour: a score within DET_SCORE_MARGIN of a
+# threshold, a cut or another overlapping box's score, an IoU within
+# DET_IOU_MARGIN of the NMS threshold (detections_held).
+DET_SCORE_MARGIN = 1e-5
+DET_IOU_MARGIN = 1e-5
+
+
+def _np_box_iou(a, b):
+    """The reference's box_iou (bigdl_tpu/nn/detection.py:66) in numpy,
+    float32."""
+    a = np.asarray(a, np.float32)
+    b = np.asarray(b, np.float32)
+    lt = np.maximum(a[:, None, :2], b[None, :, :2])
+    rb = np.minimum(a[:, None, 2:], b[None, :, 2:])
+    wh = np.clip(rb - lt, 0, None)
+    inter = wh[..., 0] * wh[..., 1]
+    area_a = np.clip(a[:, 2] - a[:, 0], 0, None) \
+        * np.clip(a[:, 3] - a[:, 1], 0, None)
+    area_b = np.clip(b[:, 2] - b[:, 0], 0, None) \
+        * np.clip(b[:, 3] - b[:, 1], 0, None)
+    union = area_a[:, None] + area_b[None, :] - inter
+    with np.errstate(divide="ignore", invalid="ignore"):
+        return np.where(union > 0, inter / union, np.float32(0))
+
+
+def nms_reference(boxes, scores, iou_threshold, max_output, pre_topk=None):
+    """A copy of the reference's nms (bigdl_tpu/nn/detection.py:138-176)
+    in numpy on the host, one row: its IoU in float32, a stable
+    descending order (ties to the lower index), the greedy loop over
+    every position, the compaction.  → (indices, valid)."""
+    boxes = np.asarray(boxes, np.float32)
+    scores = np.asarray(scores, np.float32)
+    n = boxes.shape[0]
+    if pre_topk is not None and pre_topk < n:
+        top_i = np.argsort(-scores, kind="stable")[:pre_topk]
+        sub_idx, sub_valid = nms_reference(boxes[top_i], scores[top_i],
+                                           iou_threshold, max_output)
+        return top_i[sub_idx], sub_valid
+    order = np.argsort(-scores, kind="stable")
+    iou = _np_box_iou(boxes[order], boxes[order])
+    keep = scores[order] > -np.inf
+    pos = np.arange(n)
+    for i in range(n):
+        keep = keep & ~((iou[i] > iou_threshold) & (pos > i) & keep[i])
+    perm = np.argsort(~keep, kind="stable")
+    perm = perm[:max_output] if n >= max_output \
+        else np.pad(perm, (0, max_output - n))
+    valid = keep[perm] & (np.arange(max_output) < n)
+    return np.where(valid, order[perm], 0), valid
+
+
+def ssd_rows_reference(boxes, conf, det):
+    """DetectionOutputSSD's rows of one image from its decoded ``boxes
+    (P, 4)`` and ``conf (P, C)``, by the reference's _one_image
+    (detection.py:879-908) over nms_reference, in numpy."""
+    boxes = np.asarray(boxes, np.float32)
+    conf = np.asarray(conf, np.float32)
+    n_priors = boxes.shape[0]
+    per_cls = min(det.nms_topk, n_priors)
+    scores, bxs, lbls = [], [], []
+    for c in range(det.n_classes):
+        if c == det.bg_label:
+            continue
+        sc = np.where(conf[:, c] > det.conf_thresh, conf[:, c],
+                      np.float32(-np.inf))
+        keep, valid = nms_reference(boxes, sc, det.nms_thresh, per_cls,
+                                    pre_topk=det.nms_topk)
+        bxs.append(np.where(valid[:, None], boxes[keep], 0))
+        scores.append(np.where(valid, conf[keep, c], -np.inf))
+        lbls.append(np.full(per_cls, c))
+    scores, bxs, lbls = (np.concatenate(a) for a in (scores, bxs, lbls))
+    k = min(det.keep_top_k, scores.shape[0])
+    idx = np.argsort(-scores, kind="stable")[:k]
+    top = scores[idx]
+    valid = top > -np.inf
+    row = np.concatenate([np.where(valid, lbls[idx], 0)[:, None],
+                          np.where(valid, top, 0)[:, None],
+                          np.where(valid[:, None], bxs[idx], 0)], 1)
+    return np.pad(row, ((0, det.keep_top_k - k), (0, 0))).astype(np.float32)
+
+
+def planted_ssd_case(device="cuda"):
+    """tests/test_detection.py's planted SSD case
+    (test_ssd_detection_output_map): four priors, zero loc, class 1 on
+    prior 0 and class 2 on prior 2 → (loc, conf, prior tensors on
+    ``device``, the DetectionOutputSSD, the ground truths)."""
+    from bigdl_tpu_torch.nn import DetectionOutputSSD
+    priors = np.array([[0.05, 0.05, 0.2, 0.2], [0.3, 0.3, 0.5, 0.5],
+                       [0.6, 0.6, 0.8, 0.8], [0.1, 0.6, 0.3, 0.9]],
+                      np.float32)
+    prior = np.stack([priors.reshape(-1),
+                      np.full_like(priors, 0.1).reshape(-1)])
+    conf = np.full((4, 3), 0.01, np.float32)
+    conf[0, 1] = 0.95
+    conf[2, 2] = 0.9
+    det = DetectionOutputSSD(n_classes=3, keep_top_k=8, nms_topk=4,
+                             conf_thresh=0.5)
+    return (torch.zeros(1, 16, device=device),
+            torch.as_tensor(conf.reshape(1, -1), device=device),
+            torch.as_tensor(prior, device=device), det,
+            [(np.array([1, 2]), priors[[0, 2]])])
+
+
+def detections_held(got, want, nms_thresh, thresholds=(), box_tol=1e-5,
+                    score_margin=DET_SCORE_MARGIN,
+                    iou_margin=DET_IOU_MARGIN):
+    """Hold two runs' detections, each ``(labels, scores, boxes)`` of its
+    valid rows, and return (the rows each run has and the other lacks
+    whose decision lay within rounding: near-tie rows, the rows without
+    such a reason, the matched pairs), each row as (0 for got or 1 for
+    want, its index).  Rows match by label, score (within score_margin)
+    and box (within box_tol of the largest coordinate), and the matched
+    pairs come back as the third item (indices into got's and want's
+    rows).  A row one run
+    lacks is a near-tie where its score lies within score_margin of a
+    threshold in ``thresholds`` (a confidence threshold, a top-k cut) or
+    of the other run's last score when that run is full, where its IoU
+    with a row of its label lies within iou_margin of ``nms_thresh``,
+    where a row of its label that it overlaps has a score within
+    score_margin of its own (the order of the two decided which was
+    kept), or where it overlaps another near-tie row of its label (it was
+    suppressed by, or freed from, that row)."""
+    sides = [tuple(np.asarray(a, np.float64) for a in side)
+             for side in (got, want)]
+    scale = max([1.0] + [float(np.abs(b).max()) for _, _, b in sides
+                         if b.size])
+    full = [len(l) == max(len(sides[0][0]), len(sides[1][0]))
+            for l, _, _ in sides]
+    used = [np.zeros(len(side[0]), bool) for side in sides]
+    pairs = []
+    lg, sg, bg = sides[0]
+    for i, (l, sc, b) in enumerate(zip(*sides[1])):
+        ok = ((lg == l) & (np.abs(sg - sc) <= score_margin)
+              & (np.abs(bg - b).max(axis=1, initial=0) <= box_tol * scale)
+              & ~used[0])
+        if ok.any():
+            pairs.append((int(np.argmax(ok)), i))
+            used[0][pairs[-1][0]] = True
+            used[1][i] = True
+    rows = [(s, i) for s in (0, 1) for i in np.flatnonzero(~used[s])]
+    both = [(t, j, side[0][j], side[1][j], side[2][j])
+            for t, side in enumerate(sides) for j in range(len(side[0]))]
+
+    def iou(a, b):
+        return float(_np_box_iou(a[None].astype(np.float32),
+                                 b[None].astype(np.float32))[0, 0])
+    near = set()
+    for s, i in rows:
+        l, sc, b = (a[i] for a in sides[s])
+        other = sides[1 - s]
+        reasons = (
+            any(abs(sc - t) <= score_margin for t in thresholds)
+            or (full[1 - s] and len(other[1])
+                and sc <= other[1].min() + score_margin)
+            or any(lo == l and (t, j) != (s, i) and (
+                abs(iou(b, bo) - nms_thresh) <= iou_margin
+                or (abs(sc - so) <= score_margin
+                    and iou(b, bo) > nms_thresh - iou_margin))
+                for t, j, lo, so, bo in both))
+        if reasons:
+            near.add((s, i))
+    grew = True
+    while grew:
+        grew = False
+        for s, i in rows:
+            if (s, i) in near:
+                continue
+            l, b = sides[s][0][i], sides[s][2][i]
+            if any(sides[t][0][j] == l and iou(b, sides[t][2][j])
+                   > nms_thresh - iou_margin for t, j in near):
+                near.add((s, i))
+                grew = True
+    return ([r for r in rows if r in near],
+            [r for r in rows if r not in near], pairs)
+
+
+# SSD-300 at BASELINE config #5's width (bigdl_tpu/models/ssd.py:53-55
+# defaults: 21 VOC classes, nms 0.45, top 400, keep 200, conf 0.01), f32,
+# through the Predictor at batch 32 over SSD_IMAGES images and one-shot
+# serving (SSD_REQUESTS single images, max_batch 32)
+SSD_CLASSES, SSD_BATCH, SSD_IMAGES, SSD_REQUESTS = 21, 32, 128, 64
+SSD_CPU_IMAGES = 4          # images of a batch whose heads a CPU copy redoes
+# Mask R-CNN at MaskRCNNParams' defaults (maskrcnn.py:29-50) and 81 COCO
+# classes on one 4:3 COCO image resized to a short side of 800 and padded
+# to a multiple of 32: (height, width, original height, original width)
+MASKRCNN_CLASSES, MASKRCNN_INFO = 81, (800.0, 1088.0, 600.0, 800.0)
+# each bottleneck's last BatchNorm scale, times U(0.5, 1.5): at 1 the 16
+# residual branches amplify rounding until f32 and f64 backbones part by
+# 9e-5 in norm (and inputs moved by 2^-23 as far); at 0.2 by 3.5e-6
+BN3_SCALE = 0.2
+# card against the CPU copy fed the card's previous stage, TF32 off: the
+# relative error in norm of each stage's tensors (loc, conf, the FPN maps,
+# pooled features, logits, masks); f32 sums in another order differ by
+# about 1e-6
+DET_FEATURE_REL = 1e-4
+DET_CONV_REL = 1e-4         # a convolution against its plain definition
+
+
+def _rel_err(got, want) -> float:
+    got = torch.as_tensor(got).detach().double().cpu()
+    want = torch.as_tensor(want).detach().double().cpu()
+    return float((got - want).norm() / max(float(want.norm()), 1e-30))
+
+
+def he_scaled(model):
+    """Every convolution's weight times sqrt(6): from the default
+    U(-1/sqrt(fan_in), 1/sqrt(fan_in)) to He's variance 2 / fan_in, so
+    that activations keep their scale through the depth (as phase 13f
+    conditions VGG-16); at the default the 23 convolutions shrink SSD's
+    class logits until every score lies within rounding of the next."""
+    from bigdl_tpu_torch.nn import (SpatialConvolution,
+                                    SpatialDilatedConvolution)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (SpatialConvolution,
+                              SpatialDilatedConvolution)):
+                m.weight.mul_(6 ** 0.5)
+    return model
+
+
+def ssd_model(device="cuda"):
+    from bigdl_tpu_torch.models import ssd_vgg16_300
+    return he_scaled(ssd_vgg16_300(
+        SSD_CLASSES, generator=torch.Generator().manual_seed(3),
+        device=device)).eval()
+
+
+def maskrcnn_model(image, device="cuda"):
+    """Mask R-CNN conditioned on ``image`` (1, H, W, 3) so that its
+    scores spread (at the inits they crowd within rounding of each
+    other): every BatchNorm's scale drawn from U(0.5, 1.5), each
+    block's last one's times BN3_SCALE (the init's zero scale there
+    leaves the residual branches out), then its statistics set to the
+    image's own (one
+    train-mode forward of the backbone at momentum 1), the FPN's
+    convolutions at He's variance (he_scaled), and the box head's score
+    and delta weights scaled by 10."""
+    from bigdl_tpu_torch.models import MaskRCNN
+    from bigdl_tpu_torch.nn import BatchNormalization
+    model = MaskRCNN(num_classes=MASKRCNN_CLASSES,
+                     generator=torch.Generator().manual_seed(4),
+                     device=device)
+    gen = torch.Generator().manual_seed(6)
+    he_scaled(model.backbone.fpn)
+    norms = [m for m in model.modules() if isinstance(m, BatchNormalization)]
+    with torch.no_grad():
+        for name, bn in model.named_modules():
+            if isinstance(bn, BatchNormalization):
+                bn.weight.copy_((torch.rand(bn.weight.shape, generator=gen)
+                                 + 0.5) * (BN3_SCALE if name.endswith(
+                                     "bn3") else 1.0))
+                bn.momentum = 1.0
+        model.backbone.train()(torch.as_tensor(image, device=device))
+        for bn in norms:
+            bn.momentum = 0.1
+        model.box_head.cls_score.weight.mul_(10.0)
+        model.box_head.bbox_pred.weight.mul_(10.0)
+    return model.eval()
+
+
+def dilated_reference(conv, x):
+    """A dilated convolution by its definition: the kernel with d - 1
+    zeros between taps, then a plain convolution (NHWC in and out)."""
+    import torch.nn.functional as F
+    (dh, dw), w = conv.dilation, conv.weight
+    kh, kw = w.shape[:2]
+    wz = w.new_zeros(((kh - 1) * dh + 1, (kw - 1) * dw + 1, *w.shape[2:]))
+    wz[::dh, ::dw] = w
+    y = F.conv2d(x.permute(0, 3, 1, 2), wz.permute(3, 2, 0, 1), conv.bias,
+                 stride=conv.stride, padding=conv.pad)
+    return y.permute(0, 2, 3, 1)
+
+
+def full_reference(conv, x):
+    """A transposed convolution by the reference's definition
+    (bigdl_tpu/nn/conv.py:197-213): the input with stride - 1 zeros
+    between pixels, padded k - 1 - p and k - 1 - p + adj, convolved with
+    the spatially flipped kernel, grouped."""
+    import torch.nn.functional as F
+    (sh, sw), (ph, pw), (ah, aw) = conv.stride, conv.pad, conv.adj
+    kh, kw = conv.kernel
+    b, h, w, c = x.shape
+    d = x.new_zeros((b, c, (h - 1) * sh + 1, (w - 1) * sw + 1))
+    d[:, :, ::sh, ::sw] = x.permute(0, 3, 1, 2)
+    d = F.pad(d, (kw - 1 - pw, kw - 1 - pw + aw, kh - 1 - ph,
+                  kh - 1 - ph + ah))
+    wf = torch.flip(conv.weight, (0, 1)).permute(3, 2, 0, 1)
+    y = F.conv2d(d, wf, conv.bias, groups=conv.n_group)
+    return y.permute(0, 2, 3, 1)
+
+
+def planted_nms_rows(device="cuda"):
+    """NMS rows with planted decisions: IoU exactly at the threshold
+    (9/20 = float32(0.45): kept, IoU > t suppresses), scores from four
+    values (ties everywhere, the pre-top-k cut among them), rows all at
+    -inf, and fewer boxes than output slots → [(what, boxes, scores,
+    threshold, max_output, pre_topk)], tensors on ``device``."""
+    rng = np.random.default_rng(31)
+
+    def boxes_of(r, n, size, extent, lo):
+        b = (rng.random((r, n, 4)) * size).astype(np.float32)
+        b[..., 2:] = b[..., :2] + rng.random((r, n, 2)).astype(
+            np.float32) * extent + lo
+        return b
+    s = 1.0 / 32
+    pairs = sum(([[k, 0.5, k + 14 * s, 0.5 + s],
+                  [k + 5 * s, 0.5, k + 20 * s, 0.5 + s]]
+                 for k in range(4)), [])
+    at = np.asarray([pairs] * 3, np.float32)
+    at_scores = np.asarray([[0.9, 0.8, 0.7, 0.6, 0.5, 0.4, 0.3, 0.2],
+                            [0.5] * 8, [0.2, 0.9] * 4], np.float32)
+    ties = np.floor(rng.random((20, 1200)) * 4).astype(np.float32) / 4
+    neg = np.full((3, 50), -np.inf, np.float32)
+    neg[1, :4] = rng.random(4)
+    rows = [("iou_at_threshold", at, at_scores, 0.45, 8, None),
+            ("tied_scores", boxes_of(20, 1200, 1.0, 0.3, 0.02), ties, 0.45,
+             400, 400),
+            ("all_neg_inf", boxes_of(3, 50, 80, 40, 5), neg, 0.5, 20, None),
+            ("n_below_max_output", boxes_of(4, 9, 80, 40, 5),
+             rng.random((4, 9)).astype(np.float32), 0.5, 16, None)]
+    return [(what, torch.as_tensor(b, device=device),
+             torch.as_tensor(sc, device=device), t, m, pre)
+            for what, b, sc, t, m, pre in rows]
+
+
+def planted_ssd_ties(device="cuda"):
+    """DetectionOutputSSD at SSD-300's width (8,732 priors, 21 classes)
+    over two images whose class scores take five values: ties at the
+    conf threshold, in each class's top-400 cut and in the final top 200
+    → (boxes (2, 8732, 4), conf (2, 8732 * 21) on ``device``)."""
+    rng = np.random.default_rng(32)
+    p = 8732
+    boxes = (rng.random((2, p, 4)) * 0.8).astype(np.float32)
+    boxes[..., 2:] = boxes[..., :2] + rng.random((2, p, 2)).astype(
+        np.float32) * 0.2 + 0.01
+    conf = np.floor(rng.random((2, p, SSD_CLASSES)) * 5).astype(
+        np.float32) / 100 + np.float32(0.01)
+    return (torch.as_tensor(boxes, device=device),
+            torch.as_tensor(conf.reshape(2, -1), device=device))
+
+
+def detection_gate(device="cuda") -> dict:
+    """The detection phase's checks against independent definitions, on
+    ``device``: planted NMS rows through the port's ``nms`` against the
+    numpy copy of the reference's loop (nms_reference); SSD's
+    DetectionOutputSSD.select over planted ties against the reference's
+    per-image loop (ssd_rows_reference); fc6's dilated convolution and
+    the mask head's transposed one (and a grouped, odd-kernel, adj 1
+    one) at the path's shapes against their definitions; the planted-box
+    case of tests/test_detection.py, whose VOC mAP must read 1.0.
+    Returns the readings and the failed checks."""
+    from bigdl_tpu_torch.nn import (DetectionOutputSSD,
+                                    SpatialDilatedConvolution,
+                                    SpatialFullConvolution, nms)
+    from bigdl_tpu_torch.optim import MeanAveragePrecisionObjectDetection
+    failed, r = [], {"nms_rows": {}}
+    with torch.inference_mode():
+        for what, boxes, scores, thresh, m, pre in planted_nms_rows(device):
+            idx, valid = nms(boxes, scores, thresh, m, pre)
+            idx, valid = idx.cpu().numpy(), valid.cpu().numpy()
+            b, sc = boxes.cpu().numpy(), scores.cpu().numpy()
+            bad = [i for i in range(len(b))
+                   if not all(np.array_equal(x, y) for x, y in zip(
+                       (idx[i], valid[i]),
+                       nms_reference(b[i], sc[i], thresh, m, pre)))]
+            r["nms_rows"][what] = dict(rows=len(b), kept=int(valid.sum()),
+                                       differ=len(bad))
+            if bad:
+                failed.append(f"nms on {what}: rows {bad} differ from the "
+                              "reference's loop")
+        det = DetectionOutputSSD(n_classes=SSD_CLASSES)
+        boxes, conf = planted_ssd_ties(device)
+        rows = det.select(boxes, conf).cpu().numpy()
+        bx, cf = boxes.cpu().numpy(), conf.cpu().numpy()
+        bad = [i for i in range(len(rows)) if not np.array_equal(
+            rows[i], ssd_rows_reference(bx[i], cf[i].reshape(
+                -1, SSD_CLASSES), det))]
+        r["ssd_tied_images_differ"] = len(bad)
+        if bad:
+            failed.append(f"DetectionOutputSSD over tied scores: images "
+                          f"{bad} differ from the reference's loop")
+        gen = torch.Generator().manual_seed(33)
+        convs = {
+            "fc6_dilated": (SpatialDilatedConvolution(
+                512, 1024, 3, 3, 1, 1, 6, 6, 6, 6, generator=gen,
+                device=device), (4, 19, 19, 512), dilated_reference),
+            "mask_deconv": (SpatialFullConvolution(
+                256, 256, 2, 2, 2, 2, generator=gen, device=device),
+                (100, 14, 14, 256), full_reference),
+            "full_groups2_k3_adj1": (SpatialFullConvolution(
+                64, 96, 3, 3, 2, 2, 1, 1, 1, 1, n_group=2, generator=gen,
+                device=device), (8, 15, 13, 64), full_reference)}
+        r["convs"] = {}
+        for what, (conv, shape, reference) in convs.items():
+            x = torch.randn(shape, generator=gen).to(device)
+            err = _rel_err(conv(x), reference(conv, x))
+            r["convs"][what] = err
+            if not err <= DET_CONV_REL:
+                failed.append(f"{what}: {err:.3e} from its definition in "
+                              f"norm (bound {DET_CONV_REL})")
+        loc, conf, prior, det, gts = planted_ssd_case(device)
+        out = det((loc, conf, prior)).cpu().numpy()[0]
+        kept = out[out[:, 1] > 0]
+        r["planted_map"] = MeanAveragePrecisionObjectDetection(
+            classes=2, iou_thresh=0.5).evaluate(
+                [(kept[:, 0].astype(int), kept[:, 1], kept[:, 2:6])], gts)
+        if r["planted_map"] != 1.0:
+            failed.append(f"the planted boxes read mAP {r['planted_map']}, "
+                          "not 1.0")
+    r["failed"] = failed
+    return r
+
+
+def host_ops():
+    """A TorchDispatchMode to enter around a forward: its ``ops`` lists
+    each operator that read a device value to the host, copied to the
+    host or computed on a host tensor of more than one element."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    class HostOps(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            host = [a for a in tree_leaves((args, kwargs, out))
+                    if isinstance(a, torch.Tensor)
+                    and a.device.type == "cpu" and a.numel() > 1]
+            if host or func is torch.ops.aten._local_scalar_dense.default:
+                self.ops.append(str(func))
+            return out
+    return HostOps()
+
+
+def stage_split(stages):
+    """Run ``stages`` ([(name, fn)], each fn taking the previous stage's
+    result) once under traced(), a marker kernel between stages: {name:
+    (device busy ms, kernels launched)} from the trace, and the result."""
+    def run():
+        out = None
+        for i, (_, fn) in enumerate(stages):
+            if i:
+                torch.cuda._sleep(1)
+            out = fn(out)
+        torch.cuda.synchronize()
+        return out
+    run()
+    out, events = traced_call(run)
+    split, i = {name: [0.0, 0] for name, _ in stages}, 0
+    names = [name for name, _ in stages]
+    for e in events:
+        if MARKER in e.name:
+            i += 1
+            continue
+        split[names[i]][0] += e.time_range.elapsed_us() / 1e3
+        split[names[i]][1] += 1
+    if i != len(stages) - 1:
+        raise TraceLost(f"stage_split: {i} markers between "
+                        f"{len(stages)} stages")
+    return {k: tuple(v) for k, v in split.items()}, out
+
+
+def _timed_ms(fn, runs=3):
+    """Median ms of ``fn()`` between CUDA events, its work ending in a
+    synchronize (host clock beside it)."""
+    times, host = [], []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        times.append(start.elapsed_time(end))
+    return float(np.median(times)), float(np.median(host))
+
+
+def _held_rows(got, want, det, conf, what, failed):
+    """detections_held over SSD rows ``got``/``want`` (K, 6) of one image,
+    the cuts from ``conf`` (P, C); → near-tie rows."""
+    def rows(x):
+        kept = x[x[:, 1] > 0]
+        return kept[:, 0], kept[:, 1], kept[:, 2:]
+    cuts = [np.sort(conf[:, c])[::-1][min(det.nms_topk, len(conf)) - 1]
+            for c in range(conf.shape[1]) if c != det.bg_label]
+    near, unexplained, _ = detections_held(
+        rows(got), rows(want), det.nms_thresh,
+        thresholds=[det.conf_thresh, *cuts])
+    if unexplained:
+        failed.append(f"{what}: rows {unexplained} differ with no "
+                      f"decision within rounding ({len(near)} near-tie)")
+    return len(near)
+
+
+def ssd_reading(device="cuda") -> dict:
+    """SSD-300 through the Predictor (SSD_IMAGES images at batch 32) and
+    one-shot serving (SSD_REQUESTS single images, max_batch 32): rates,
+    the device split of a batch (VGG + heads, prior decode, NMS / top-k),
+    the NMS launches, peak memory; a batch's heads against a CPU copy,
+    its rows against the CPU path fed the card's loc and conf and against
+    the reference's loop on the card's decoded boxes; each served row
+    against the image's solo forward."""
+    import copy
+    from bigdl_tpu_torch.nn.detection import nms
+    from bigdl_tpu_torch.optim import Predictor
+    from bigdl_tpu_torch.serving import ModelServer
+    failed, r = [], {}
+    model = ssd_model(device)
+    cpu = copy.deepcopy(model).to("cpu")
+    images = np.random.default_rng(21).normal(
+        size=(SSD_IMAGES, 300, 300, 3)).astype(np.float32)
+    predictor = Predictor(model, batch_size=SSD_BATCH, device=device)
+    predictor.predict(list(images[:SSD_BATCH]))       # priors, workspaces
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches, steps = nms.launches, nms.steps
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    rows = np.stack(predictor.predict(list(images)))
+    end.record()
+    end.synchronize()
+    r["predict_s"] = start.elapsed_time(end) / 1e3
+    r["predict_host_s"] = time.perf_counter() - t0
+    batches = SSD_IMAGES // SSD_BATCH
+    r["images_per_s"] = SSD_IMAGES / r["predict_s"]
+    r["nms_per_batch"] = ((nms.launches - launches) / batches,
+                          (nms.steps - steps) / batches)
+    r["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    if rows.shape != (SSD_IMAGES, 200, 6) or not np.isfinite(rows).all():
+        failed.append(f"Predictor rows of shape {rows.shape}, finite "
+                      f"{np.isfinite(rows).all()}")
+    r["kept_per_image"] = float((rows[:, :, 1] > 0).sum(1).mean())
+    m = predictor.model
+    x = torch.as_tensor(images[:SSD_BATCH], device=device)
+    with torch.inference_mode():
+        busy = traced_call(lambda: predictor.predict(
+            list(images[:SSD_BATCH])))[1]
+        r["batch_busy_ms"] = sum(e.time_range.elapsed_us() for e in busy
+                                 if MARKER not in e.name) / 1e3
+        r["batch_ms"], r["batch_host_ms"] = _timed_ms(
+            lambda: predictor.predict(list(images[:SSD_BATCH])))
+        r["split"], (loc, conf, prior, boxes, card_rows) = stage_split([
+            ("vgg_heads", lambda _: m.heads(x)),
+            ("prior_decode", lambda h: (*h, m.detection.decode(h[0],
+                                                               h[2]))),
+            ("nms_topk", lambda h: (*h, m.detection.select(h[3], h[1])))])
+        mode = host_ops()
+        with mode:
+            m(x)
+        r["host_ops"] = mode.ops
+        if mode.ops:
+            failed.append(f"the forward touched the host: {mode.ops[:8]}")
+        # stage 1: the heads of SSD_CPU_IMAGES images on a CPU copy
+        n = SSD_CPU_IMAGES
+        cloc, cconf, cprior = cpu.heads(torch.as_tensor(images[:n]))
+        r["loc_rel_err"] = _rel_err(loc[:n], cloc)
+        r["conf_rel_err"] = _rel_err(conf[:n], cconf)
+        if not max(r["loc_rel_err"], r["conf_rel_err"]) <= DET_FEATURE_REL:
+            failed.append(f"SSD heads off the CPU copy's: loc "
+                          f"{r['loc_rel_err']:.3e}, conf "
+                          f"{r['conf_rel_err']:.3e} in norm")
+        if not torch.equal(prior.cpu(), cprior):
+            failed.append("SSD priors differ from the CPU copy's")
+        # stages 2-3: the CPU path fed the card's loc and conf, and the
+        # reference's loop on the card's decoded boxes
+        lc, cc, pc = loc.cpu(), conf.cpu(), prior.cpu()
+        cpu_rows = cpu.detection((lc, cc, pc)).numpy()
+        card_rows = card_rows.cpu().numpy()
+        bx = boxes.cpu().numpy()
+        cf = cc.numpy().reshape(SSD_BATCH, -1, SSD_CLASSES)
+        r["cpu_near_tie_rows"] = sum(
+            _held_rows(card_rows[i], cpu_rows[i], m.detection, cf[i],
+                       f"image {i}: card against CPU", failed)
+            for i in range(SSD_BATCH))
+        bad = [i for i in range(SSD_BATCH) if not np.array_equal(
+            card_rows[i], ssd_rows_reference(bx[i], cf[i], m.detection))]
+        r["reference_images_differ"] = len(bad)
+        if bad:
+            failed.append(f"SSD rows of images {bad} differ from the "
+                          "reference's loop on the card's boxes")
+    # one-shot serving: single-image requests coalesced to max_batch 32
+    server = ModelServer(model, max_batch=SSD_BATCH, batch_timeout_ms=20.0,
+                         device=device)
+    try:
+        server.warmup(images[0])
+        t0 = time.perf_counter()
+        served = server.submit_many(list(images[:SSD_REQUESTS]), timeout=600)
+        r["serve_s"] = time.perf_counter() - t0
+        r["serve_metrics"] = server.metrics.snapshot()
+    finally:
+        server.shutdown()
+    r["serve_near_tie_rows"] = 0
+    with torch.inference_mode():
+        for i in range(SSD_REQUESTS):
+            loc1, conf1, prior1 = m.heads(torch.as_tensor(
+                images[i:i + 1], device=device))
+            solo = m.detection((loc1, conf1, prior1)).cpu().numpy()[0]
+            r["serve_near_tie_rows"] += _held_rows(
+                np.asarray(served[i]), solo, m.detection,
+                conf1.cpu().numpy().reshape(-1, SSD_CLASSES),
+                f"served request {i} against its solo forward", failed)
+    r["failed"] = failed
+    return r
+
+
+def maskrcnn_reading(device="cuda") -> dict:
+    """Mask R-CNN on one 800 x 1088 image: ms per image, the device split
+    by stage, the NMS launches, peak memory; each stage against the CPU
+    copy fed the card's previous stage."""
+    import copy
+    from bigdl_tpu_torch.nn.detection import nms
+    failed, r = [], {}
+    h, w = int(MASKRCNN_INFO[0]), int(MASKRCNN_INFO[1])
+    image = np.random.default_rng(22).normal(size=(1, h, w, 3)).astype(
+        np.float32)
+    model = maskrcnn_model(image, device)
+    cpu = copy.deepcopy(model).to("cpu")
+    x = torch.as_tensor(image, device=device)
+    info = torch.as_tensor(MASKRCNN_INFO, device=device)
+    hw = info[:2]
+    rpn, bh, mh = model.rpn, model.box_head, model.mask_head
+    with torch.inference_mode():
+        model((x, info))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        launches, steps = nms.launches, nms.steps
+        outs = model((x, info))
+        torch.cuda.synchronize()
+        r["nms_per_image"] = (nms.launches - launches, nms.steps - steps)
+        r["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        r["image_ms"], r["image_host_ms"] = _timed_ms(
+            lambda: model((x, info)))
+        mode = host_ops()
+        with mode:
+            model((x, info))
+        r["host_ops"] = mode.ops
+        if mode.ops:
+            failed.append(f"the forward touched the host: {mode.ops[:8]}")
+        s = {}
+
+        def keep(name, fn):
+            def run(prev):
+                s[name] = fn(prev)
+                return s[name]
+            return name, run
+        r["split"], _ = stage_split([
+            keep("backbone_fpn", lambda _: model.backbone(x)),
+            keep("rpn_head", lambda f: rpn.level_outputs(f)),
+            keep("rpn_nms", lambda o: rpn.propose(o, hw)),
+            keep("box_pooler", lambda p: bh.pooler(
+                (s["backbone_fpn"], p[0]))),
+            keep("box_predict", lambda pooled: bh.predict(pooled)),
+            keep("box_nms", lambda lg: bh.select(
+                *lg, s["rpn_nms"][0], hw, s["rpn_nms"][1] > float("-inf"))),
+            keep("mask_pooler", lambda d: mh.pooler(
+                (s["backbone_fpn"], d[0]))),
+            keep("mask_head", lambda pooled: mh.masks_of(
+                pooled, s["box_nms"][1])[0])])
+        masks = torch.where(s["box_nms"][3][:, None, None], s["mask_head"],
+                            0.0)
+        staged = (*s["box_nms"], masks)
+        if not all(torch.equal(a, b) for a, b in zip(staged, outs)):
+            failed.append("the staged forward differs from the model's")
+        boxes, labels, scores, valid, _ = (o.cpu().numpy() for o in outs)
+        r["detections"] = int(valid.sum())
+        if not all(np.isfinite(o.cpu().numpy()).all() for o in outs):
+            failed.append("Mask R-CNN's outputs are not finite")
+
+        def host(v):
+            if isinstance(v, (tuple, list)):
+                return type(v)(host(a) for a in v)
+            return v.cpu()
+        # each stage on the CPU copy, fed the card's previous stage
+        errs = {}
+        feats = cpu.backbone(host(x))
+        errs["fpn"] = max(_rel_err(a, b) for a, b in
+                          zip(s["backbone_fpn"], feats))
+        cf = host(s["backbone_fpn"])
+        errs["rpn_head"] = max(_rel_err(a, b) for pair in zip(
+            s["rpn_head"], cpu.rpn.level_outputs(cf)) for a, b in zip(*pair))
+        prop_c = cpu.rpn.propose(host(s["rpn_head"]), host(hw))
+        def props(boxes, scores):
+            ok = np.isfinite(scores)
+            return np.ones(int(ok.sum())), scores[ok], boxes[ok]
+        near_p, un_p, _ = detections_held(
+            props(*(v.cpu().numpy() for v in s["rpn_nms"])),
+            props(*(v.numpy() for v in prop_c)), rpn.nms_thresh)
+        if un_p:
+            failed.append(f"RPN proposals {un_p} differ from the CPU's "
+                          "with no decision within rounding")
+        errs["box_pooler"] = _rel_err(s["box_pooler"], cpu.box_head.pooler(
+            (cf, host(s["rpn_nms"][0]))))
+        errs["box_predict"] = max(_rel_err(a, b) for a, b in zip(
+            s["box_predict"], cpu.box_head.predict(host(s["box_pooler"]))))
+        sel_c = cpu.box_head.select(
+            *host(s["box_predict"]), host(s["rpn_nms"][0]), host(hw),
+            host(s["rpn_nms"][1]) > float("-inf"))
+
+        def dets(v):
+            b, l, sc, ok = (a.cpu().numpy() for a in v)
+            return l[ok], sc[ok], b[ok]
+        near_b, un_b, _ = detections_held(
+            dets(s["box_nms"]), dets(sel_c), bh.nms_thresh,
+            thresholds=[bh.score_thresh])
+        if un_b:
+            failed.append(f"box head detections {un_b} differ from the "
+                          "CPU's with no decision within rounding")
+        errs["mask_pooler"] = _rel_err(s["mask_pooler"], cpu.mask_head.pooler(
+            (cf, host(s["box_nms"][0]))))
+        errs["mask_head"] = _rel_err(s["mask_head"], cpu.mask_head.masks_of(
+            host(s["mask_pooler"]), host(s["box_nms"][1]))[0])
+        r["stage_rel_err"] = errs
+        r["near_tie_rows"] = {"rpn": len(near_p), "box_head": len(near_b)}
+        for what, err in errs.items():
+            if not err <= DET_FEATURE_REL:
+                failed.append(f"{what}: {err:.3e} from the CPU copy's in "
+                              f"norm (bound {DET_FEATURE_REL})")
+    r["failed"] = failed
+    return r
+
+
+def detection_reading(device="cuda") -> dict:
+    """The detection phase's readings and failed checks: TF32 set off and
+    checked, the gate, SSD, Mask R-CNN, and no launch of #1-#11."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    failed = []
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        failed.append("TF32 is on")
+    _zero_counts()
+    t0 = time.perf_counter()
+    gate = detection_gate(device)
+    ssd = ssd_reading(device)
+    maskrcnn = maskrcnn_reading(device)
+    launches = _read_counts()
+    if any(launches.values()):
+        failed.append(f"a kernel of #1-#11 launched: {launches}")
+    return dict(gate=gate, ssd=ssd, maskrcnn=maskrcnn, launches=launches,
+                seconds=time.perf_counter() - t0,
+                failed=failed + [f"gate: {f}" for f in gate["failed"]]
+                + [f"ssd: {f}" for f in ssd["failed"]]
+                + [f"maskrcnn: {f}" for f in maskrcnn["failed"]])
+
+
+def phase_detection(smi, device="cuda"):
+    """13g: SSD-300 and Mask R-CNN inference; see detection_reading."""
+    def report(r):
+        g, s, m = r["gate"], r["ssd"], r["maskrcnn"]
+        print(f"detection: gate: nms rows {g['nms_rows']}; SSD over tied "
+              f"scores {g['ssd_tied_images_differ']} images differ; convs "
+              f"against their definitions "
+              f"{ {k: f'{v:.3e}' for k, v in g['convs'].items()} }; planted "
+              f"mAP {g['planted_map']}", flush=True)
+        sp = s["split"]
+        total = sum(v[0] for v in sp.values())
+        print(f"detection: SSD-300 VGG16 f32, {SSD_CLASSES} classes, "
+              f"Predictor(batch_size={SSD_BATCH}) over {SSD_IMAGES} images: "
+              f"{s['images_per_s']:.2f} images/s ({s['predict_s']:.4f} s "
+              f"CUDA events, {s['predict_host_s']:.4f} s host clock, ending "
+              f"in the readback); a batch {s['batch_ms']:.3f} ms ("
+              f"{s['batch_ms'] / SSD_BATCH:.3f} ms per image), device busy "
+              f"{s['batch_busy_ms']:.3f} ms, idle share "
+              f"{1 - s['batch_busy_ms'] / s['batch_ms']:.3f}; device split "
+              f"of a batch: VGG + heads {sp['vgg_heads'][0]:.3f} ms in "
+              f"{sp['vgg_heads'][1]} kernels, prior decode "
+              f"{sp['prior_decode'][0]:.3f} ms in {sp['prior_decode'][1]}, "
+              f"NMS / top-k {sp['nms_topk'][0]:.3f} ms in "
+              f"{sp['nms_topk'][1]} (NMS share {sp['nms_topk'][0] / total:.3f}"
+              f"); nms calls and loop steps per batch {s['nms_per_batch']}; "
+              f"{s['kept_per_image']:.1f} rows kept per image; peak memory "
+              f"{s['peak_memory_bytes']} bytes; on {smi}", flush=True)
+        print(f"detection: SSD card against CPU: loc "
+              f"{s['loc_rel_err']:.3e}, conf {s['conf_rel_err']:.3e} in norm "
+              f"({SSD_CPU_IMAGES} images); rows from the card's loc and conf: "
+              f"{s['cpu_near_tie_rows']} near-tie rows over {SSD_BATCH} "
+              f"images, {s['reference_images_differ']} images off the "
+              f"reference's loop; host ops in a forward "
+              f"{len(s['host_ops'])}", flush=True)
+        sm = s["serve_metrics"]
+        print(f"detection: SSD served: {SSD_REQUESTS} single images in "
+              f"{s['serve_s']:.4f} s = {SSD_REQUESTS / s['serve_s']:.2f} "
+              f"requests/s, {sm['batches']} batches, latency p50 "
+              f"{sm['latency_ms']['p50']:.3f} ms, p99 "
+              f"{sm['latency_ms']['p99']:.3f} (host clock); "
+              f"{s['serve_near_tie_rows']} near-tie rows against solo "
+              f"forwards; on {smi}", flush=True)
+        sp = m["split"]
+        total = sum(v[0] for v in sp.values())
+
+        def part(*names):
+            return (sum(sp[n][0] for n in names), sum(sp[n][1] for n in names))
+        groups = {"backbone + FPN": part("backbone_fpn"),
+                  "RPN + its NMS": part("rpn_head", "rpn_nms"),
+                  "Pooler / RoiAlign": part("box_pooler", "mask_pooler"),
+                  "box head + its NMS": part("box_predict", "box_nms"),
+                  "mask head": part("mask_head")}
+        nms_ms = sp["rpn_nms"][0] + sp["box_nms"][0]
+        print(f"detection: Mask R-CNN f32, {MASKRCNN_CLASSES} classes, "
+              f"800 x 1088: {m['image_ms']:.3f} ms per image (CUDA events; "
+              f"{m['image_host_ms']:.3f} host clock); device split "
+              + ", ".join(f"{k} {v[0]:.3f} ms in {v[1]} kernels"
+                          for k, v in groups.items())
+              + f"; NMS / top-k share {nms_ms / total:.3f}; nms calls and "
+              f"loop steps per image {m['nms_per_image']}; "
+              f"{m['detections']} detections; peak memory "
+              f"{m['peak_memory_bytes']} bytes; on {smi}", flush=True)
+        print(f"detection: Mask R-CNN stages against the CPU copy fed the "
+              f"card's previous stage: "
+              f"{ {k: f'{v:.3e}' for k, v in m['stage_rel_err'].items()} } "
+              f"in norm; near-tie rows {m['near_tie_rows']}; host ops in a "
+              f"forward {len(m['host_ops'])}", flush=True)
+        print(f"detection: launches of #1-#11 {sum(r['launches'].values())}; "
+              f"TF32 off; {r['seconds']:.1f} s; on {smi}", flush=True)
+    return _phase("detection", lambda: detection_reading(device), report)
+
+
 def _kernel_entry(name, source, replaces, launches, row):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -5536,6 +6390,7 @@ def main() -> int:
     prefetch = phase_prefetch(smi)
     phase_drain(smi)
     zoo = phase_zoo(smi)
+    detection = phase_detection(smi)
     # the replays' launches, from the graph runs' device events
     replayed = {**{path: r["replayed"] for path, r in dispatch.items()},
                 "resume": resume["replayed"],
@@ -5557,6 +6412,7 @@ def main() -> int:
                   for model, r in zoo["runs"].items()},
                **{f"zoo_ptb-lstm_{label}_training": r["launches"]
                   for label, r in zoo["ptb"].items()},
+               "detection": detection["launches"],
                **{f"{path}_graph_replays": r for path, r in replayed.items()}}
 
     def paths(name):

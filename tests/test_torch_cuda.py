@@ -51,6 +51,9 @@ chip_smoke's conditioned sizes and held by its bounds (``ZOO_PARITY``:
 the loss within 1e-5, each gradient within 1e-2 in norm and 5e-2 of its
 largest entry for the image models, 1e-3 and 1e-2 for the LM), no kernel
 of #1-#11 launched.
+Detection: the port's NMS on the card equal to its CPU path (indices and
+validity), and chip_smoke's detection gate passing the port and refusing
+each of chip_gate_controls.py's detection faults.
 """
 
 import numpy as np
@@ -1300,3 +1303,37 @@ def test_zoo_model_step_on_the_card_matches_the_cpu(cuda, model):
         torch.backends.cudnn.allow_tf32 = was
     assert not any(r["launches"].values())
     assert r["ok"]
+
+
+def test_nms_on_the_card_matches_its_cpu_path(cuda):
+    """The port's batched NMS on the card equal to the same call on the
+    CPU (indices and validity) on chip_smoke's planted rows and on
+    random rows, with and without a pre-top-k cap."""
+    from bigdl_tpu_torch.nn import nms
+    rows = chip_smoke.planted_nms_rows("cpu")
+    rng = np.random.RandomState(34)
+    b = rng.rand(6, 300, 4).astype(np.float32) * 50
+    b[..., 2:] += b[..., :2] + 1
+    s = rng.rand(6, 300).astype(np.float32)
+    rows += [("random", torch.from_numpy(b), torch.from_numpy(s), 0.5, 64,
+              None),
+             ("random_pre_topk", torch.from_numpy(b), torch.from_numpy(s),
+              0.45, 40, 100)]
+    for what, boxes, scores, thresh, m, pre in rows:
+        want = nms(boxes, scores, thresh, m, pre)
+        got = nms(boxes.to(cuda), scores.to(cuda), thresh, m, pre)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w), what
+
+
+@pytest.mark.parametrize("fault", [
+    None, "nms_at_or_above_threshold", "nms_first_step_skipped",
+    "topk_in_place_of_stable_sort", "transposed_conv_kernel_flipped"])
+def test_detection_gate_refuses_each_fault(cuda, fault):
+    """chip_smoke's detection gate passes the port as it stands and
+    refuses an NMS at IoU >= the threshold, an NMS loop without its first
+    step, torch.topk in place of the stable sort, and a transposed
+    convolution over its flipped kernel (chip_gate_controls.py, 12)."""
+    import chip_gate_controls
+    refused_by = chip_gate_controls.detection_gate_under(fault)
+    assert bool(refused_by) == (fault is not None), refused_by
