@@ -14,6 +14,7 @@ from bigdl_tpu_torch.models.lenet import LeNet5, lenet5_graph  # noqa: F401
 from bigdl_tpu_torch.models.maskrcnn import (  # noqa: F401
     MaskRCNN, MaskRCNNParams, ResNetFPNBackbone,
 )
+from bigdl_tpu_torch.models.ncf import NeuralCF  # noqa: F401
 from bigdl_tpu_torch.models.resnet import (  # noqa: F401
     BasicBlock, Bottleneck, ResNet, resnet50, resnet_cifar,
 )

@@ -13,9 +13,7 @@ from bigdl_tpu_torch.nn.conv import (  # noqa: F401
     SpatialConvolution, SpatialDilatedConvolution, SpatialFullConvolution,
     SpatialShareConvolution, VolumetricConvolution,
 )
-from bigdl_tpu_torch.nn.criterion import (  # noqa: F401
-    ClassNLLCriterion, Criterion, CrossEntropyCriterion,
-)
+from bigdl_tpu_torch.nn.criterion import *  # noqa: F401,F403
 from bigdl_tpu_torch.nn.detection import *  # noqa: F401,F403
 from bigdl_tpu_torch.nn.linear import (  # noqa: F401
     CAdd, CMul, Linear, LookupTable,

@@ -1,12 +1,19 @@
 """Training and inference (counterpart of ``bigdl_tpu.optim``): the
-single-device ``Optimizer`` core, ``SGD``, the ``Trigger`` zoo, the
-validation methods, and ``Predictor``, ``Evaluator`` and
+single-device ``Optimizer`` core, every optim method and learning-rate
+schedule, the ``Trigger`` zoo, the validation methods, per-module
+profiling, and ``Predictor``, ``Evaluator`` and
 ``PredictionService``."""
 
 from bigdl_tpu_torch.optim.methods import (  # noqa: F401
-    Default, LearningRateSchedule, OptimMethod, SGD,
+    LBFGS, SGD, Adadelta, Adagrad, Adam, Adamax, Default, EpochDecay,
+    EpochSchedule, EpochStep, Exponential, Ftrl, LarsSGD,
+    LearningRateSchedule, MultiStep, NaturalExp, OptimMethod, ParallelAdam,
+    Plateau, Poly, Regime, RMSprop, SequentialSchedule, Step, Warmup,
 )
 from bigdl_tpu_torch.optim.optimizer import Optimizer  # noqa: F401
+from bigdl_tpu_torch.optim.profiling import (  # noqa: F401
+    module_forward_times, profile_trace, times_by_module_type,
+)
 from bigdl_tpu_torch.optim.predictor import (  # noqa: F401
     Evaluator, PredictionService, Predictor,
 )

@@ -12,7 +12,7 @@ does.  The loop's state (``epoch``, ``neval``, ``records``, ``loss``,
 ``score``, ``is_epoch_end``) advances exactly as the reference's, so a
 ``Trigger`` sees the same states; validation runs eagerly in eval mode
 under ``no_grad`` where its trigger fires, and its first result is the
-``score``.
+``score``, which every method's ``Plateau`` schedule is then told.
 
 Losses stay on the device.  Every ``log_interval`` steps the window is
 read back: its losses are stacked and copied to pinned host memory
@@ -41,8 +41,10 @@ criterion, backward, regularizers, clipping, update), captured once per
 batch shape after a warm-up step on a side stream whose effects are
 undone.  What the host changes every step goes in through state the
 graph reads, written before each replay: the batch (copied into static
-inputs), each group's learning rate (a 0-dim float32 tensor the host
-fills from its step counter and epoch) and the dropout stream (the
+inputs), each group's step scalars (its method's learning rate and
+whatever else moves with the step, as Adam's bias corrections: 0-dim
+float32 tensors the host fills from the step counter and epoch, eager
+steps reading their own set) and the dropout stream (the
 generator, registered with the graph, reseeded per iteration, and the
 twins a ``remat`` model's recomputes replay from, registered too and
 seeded per iteration with the offsets the warm-up step recorded:
@@ -116,7 +118,7 @@ from bigdl_tpu_torch.interop.jax_params import (
     load_jax_buffers, load_jax_parameters, nest_jax_parameters,
     state_buffers,
 )
-from bigdl_tpu_torch.optim.methods import SGD, OptimMethod
+from bigdl_tpu_torch.optim.methods import SGD, OptimMethod, Plateau
 from bigdl_tpu_torch.optim.metrics import Metrics
 from bigdl_tpu_torch.optim.regularizer import leaf_reg_specs
 from bigdl_tpu_torch.optim.trigger import Trigger
@@ -294,12 +296,12 @@ def _fill_state(fresh: Dict[str, Any], saved: Dict[str, Any],
 
 
 class _StepGraph:
-    """One captured step: the graph, its static inputs, learning-rate
+    """One captured step: the graph, its static inputs, step-scalar
     tensors and loss, and the offsets its recomputes replay from."""
 
-    def __init__(self, graph, x, y, lrs, loss, offsets):
+    def __init__(self, graph, x, y, scalars, loss, offsets):
         self.graph, self.x, self.y = graph, x, y
-        self.lrs, self.loss = lrs, loss
+        self.scalars, self.loss = scalars, loss
         self.offsets = offsets
 
 
@@ -588,9 +590,9 @@ class Optimizer:
             grads = [g * scale for g in grads]
         return grads
 
-    def _step(self, x, y, generator, lrs):
-        """One training step with each group's learning rate ``lrs[i]``
-        (a float or a 0-dim tensor); returns the loss, on the device.
+    def _step(self, x, y, generator, scalars):
+        """One training step with each group's step scalars
+        ``scalars[i]`` (0-dim tensors); returns the loss, on the device.
         Runs no host read of a device value, so a CUDA graph can capture
         it."""
         params = self._params
@@ -613,12 +615,21 @@ class Optimizer:
                 if self._specs is not None:
                     gs = [_regularized(g, p, self._specs[i])
                           for g, p, i in zip(gs, ps, idxs)]
-                method.apply(self._clip(gs), ps, state, lrs[gi])
+                method.apply(self._clip(gs), ps, state, *scalars[gi])
         return loss.detach()
 
-    def _lrs(self, epoch) -> List[float]:
-        return [m.current_lr(s, epoch)
+    def _scalar_tensors(self, device) -> List[List[torch.Tensor]]:
+        """A 0-dim float32 tensor for each step scalar of each group."""
+        return [[torch.zeros((), device=device)
+                 for _ in m.step_scalars(s, self.state["epoch"])]
                 for m, s in zip(self._methods, self._opt_states)]
+
+    def _fill_scalars(self, tensors, epoch):
+        """Write each group's step scalars of the coming step (its counter
+        ``t`` and ``epoch``), computed on the host, into ``tensors``."""
+        for ts, m, s in zip(tensors, self._methods, self._opt_states):
+            for t, v in zip(ts, m.step_scalars(s, epoch)):
+                t.fill_(v)
 
     def _advance_counters(self):
         for s in self._opt_states:
@@ -628,7 +639,8 @@ class Optimizer:
         x = _stage(batch.get_input(), device)
         y = _stage(batch.get_target(), device)
         generator.manual_seed(_step_seed(self.seed, neval))
-        loss = self._step(x, y, generator, self._lrs(epoch))
+        self._fill_scalars(self._scalars, epoch)
+        loss = self._step(x, y, generator, self._scalars)
         self._advance_counters()
         return loss
 
@@ -647,8 +659,7 @@ class Optimizer:
         for i, (x, y) in enumerate(staged):
             _copy_into(sg.x, x)
             _copy_into(sg.y, y)
-            for t, lr in zip(sg.lrs, self._lrs(epoch)):
-                t.fill_(lr)
+            self._fill_scalars(sg.scalars, epoch)
             seed = _step_seed(self.seed, base + i)
             generator.manual_seed(seed)
             self._streams.seed(seed, sg.offsets)
@@ -667,14 +678,13 @@ class Optimizer:
                 *_state_tensors(self._opt_states)]
         saved = [t.detach().clone() for t in keep]
         x, y = _clone(staged[0]), _clone(staged[1])
-        lrs = [torch.zeros((), device=device) for _ in self._methods]
-        for t, lr in zip(lrs, self._lrs(epoch)):
-            t.fill_(lr)
+        scalars = self._scalar_tensors(device)
+        self._fill_scalars(scalars, epoch)
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
             generator.manual_seed(_step_seed(self.seed, self.state["neval"]))
-            self._step(x, y, generator, lrs)
+            self._step(x, y, generator, scalars)
         torch.cuda.current_stream(device).wait_stream(side)
         with torch.no_grad():
             for t, s in zip(keep, saved):
@@ -688,9 +698,9 @@ class Optimizer:
         for g in (generator, *self._streams.twins):
             graph.register_generator_state(g)
         with torch.cuda.graph(graph):
-            loss = self._step(x, y, generator, lrs)
+            loss = self._step(x, y, generator, scalars)
         self.dispatch_stats["captures"] += 1
-        return _StepGraph(graph, x, y, lrs, loss, offsets)
+        return _StepGraph(graph, x, y, scalars, loss, offsets)
 
     # ---- validation --------------------------------------------------------
 
@@ -750,6 +760,16 @@ class Optimizer:
         self.validation_history.append((self.state["neval"], results))
         if results:
             self.state["score"] = next(iter(results.values())).result()[0]
+            self._on_score()
+
+    def _on_score(self):
+        """Tell every ``Plateau`` schedule the new score (the reference's
+        hook after validation); the next step's rate is read from it."""
+        for m in ([self.optim_method] if not self.optim_methods
+                  else self.optim_methods.values()):
+            sched = getattr(m, "schedule", None)
+            if isinstance(sched, Plateau):
+                sched.on_metric(self.state["score"])
 
     # ---- the loop ----------------------------------------------------------
 
@@ -1069,6 +1089,7 @@ class Optimizer:
         # a resume applies to the attempt it starts (a retry sets its own)
         path, self._resume_from = self._resume_from, None
         pipeline_restore = self._restore(path) if path else None
+        self._scalars = self._scalar_tensors(device)
         specs = leaf_reg_specs(model)
         self._specs = (specs if any(s != (0.0, 0.0, 1.0) for s in specs)
                        else None)

@@ -3,6 +3,7 @@
 the faults they are there to catch:
 
     python3 chip_gate_controls.py        # from the repository root
+    python3 chip_gate_controls.py --only methods    # section 13 alone
 
 1. Kernel mutants.  ``flash_attention_bwd.cu`` is rebuilt, into the
    git-ignored build directory, with one of the reference's bf16 rounding
@@ -133,6 +134,20 @@ the faults they are there to catch:
    its flip).  The script fails unless the gate passes the port as it
    stands and refuses each fault.
 
+13. Methods controls.  chip_smoke's methods gate (``methods_gate``:
+   each optim method's graph windows against its eager run bit for bit,
+   each schedule's rate tensor read back after every replay against the
+   host's float32 sequence, Plateau told planted validation scores) runs
+   with one fault at a time in the port: Adam's bias corrections passed
+   to its update as Python floats computed from the step counter (at a
+   capture, baked into the graph as constants), a step-scalar tensor of
+   a captured graph filled at the capture and never again before a
+   replay, and ``Plateau.on_metric`` not called after a validation.  The
+   script fails unless the gate passes the port as it stands and refuses
+   each fault, and prints the share of entries each fault moved (Adam's
+   parameters, the rates read).  ``--only methods`` runs this section
+   alone.
+
 The last line is one JSON object with every reading.  Imports torch,
 numpy, ``bigdl_tpu_torch`` and ``chip_smoke`` only.
 """
@@ -149,6 +164,7 @@ import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
 import chip_smoke
@@ -1262,8 +1278,89 @@ def phase_detection_controls():
     return readings, failures
 
 
+def methods_faults():
+    """{name: (object, attribute, the fault put in its place, the part of
+    the gate that must refuse it)} of the methods controls."""
+    from bigdl_tpu_torch.optim import methods, optimizer
+    apply, fill = methods.Adam.apply, optimizer.Optimizer._fill_scalars
+
+    def bias_as_floats(self, grads, params, state, lr, bc1, bc2):
+        t = np.float32(state["t"] + 1)
+        return apply(self, grads, params, state, lr,
+                     float(1 - np.float32(self.beta1) ** t),
+                     float(1 - np.float32(self.beta2) ** t))
+
+    seen = set()
+
+    def not_refilled(self, tensors, epoch):
+        if tensors is not self._scalars and id(tensors) in seen:
+            return  # a captured graph's tensors: filled once, at capture
+        seen.add(id(tensors))
+        fill(self, tensors, epoch)
+    adam = dict(methods=["Adam", "ParallelAdam"], schedules=[],
+                plateau=False)
+    return {
+        "adam_bias_correction_as_python_floats": (
+            methods.Adam, "apply", bias_as_floats, adam),
+        "step_scalars_not_refilled_before_a_replay": (
+            optimizer.Optimizer, "_fill_scalars", not_refilled,
+            dict(methods=[], plateau=False)),
+        "plateau_not_told_the_score": (
+            optimizer.Optimizer, "_on_score", lambda self: None,
+            dict(methods=[], schedules=[])),
+    }
+
+
+def methods_gate_under(fault=None):
+    """chip_smoke's methods gate with ``fault`` (a name of
+    methods_faults(), or None for the port as it stands, the whole
+    gate): its failed checks and the share of entries the fault moved
+    (Adam's parameters between windows and eager; the rates read)."""
+    owner = name = saved = None
+    part = {}
+    if fault is not None:
+        owner, name, swap, part = methods_faults()[fault]
+        saved = getattr(owner, name)
+        setattr(owner, name, swap)
+    try:
+        with chip_smoke.deterministic():
+            r = chip_smoke.methods_gate(**part)
+    except Exception as e:  # noqa: BLE001 - a crash refuses it too
+        return [f"{type(e).__name__}: {e}"], None
+    finally:
+        if fault is not None:
+            setattr(owner, name, saved)
+    shares = {n: x["params_moved_share"] for n, x in r["methods"].items()}
+    shares.update({n: x["wrong"] / max(len(x["want"]), 1)
+                   for n, x in r["schedules"].items()})
+    return r["failed"], shares
+
+
+def phase_methods_controls():
+    """chip_smoke's methods gate with each fault in turn: its checks must
+    pass the port as it stands and refuse every fault."""
+    readings, failures = {}, []
+    for fault in (None, *methods_faults()):
+        what = fault or "as_it_is"
+        refused_by, shares = methods_gate_under(fault)
+        readings[what] = dict(refused_by=refused_by, moved_share=shares)
+        print(f"methods control {what}: refused by {len(refused_by)} "
+              f"checks: {[f[:160] for f in refused_by]}; share of entries "
+              f"moved {shares}", flush=True)
+        if (fault is None) == bool(refused_by):
+            failures.append(f"the methods gate "
+                            f"{'refuses the port' if refused_by else 'passes'}"
+                            f" {what.replace('_', ' ')}")
+    return readings, failures
+
+
 def main() -> int:
     chip_smoke.phase_device()
+    if sys.argv[1:3] == ["--only", "methods"]:
+        methods_controls, failures = phase_methods_controls()
+        print(json.dumps({"methods_controls": methods_controls,
+                          "failures": failures}))
+        return 1 if failures else 0
     mutants, failures = phase_mutants()
     control, more = phase_control_step()
     failures += more
@@ -1290,6 +1387,8 @@ def main() -> int:
     failures += more
     detection_controls, more = phase_detection_controls()
     failures += more
+    methods_controls, more = phase_methods_controls()
+    failures += more
     print(json.dumps({"mutants": mutants, "control_step": control,
                       "bounds": {"grad_norm_rel": chip_smoke.GRAD_NORM_REL,
                                  "grad_max_rel": chip_smoke.GRAD_MAX_REL},
@@ -1305,6 +1404,7 @@ def main() -> int:
                       "oneshot_control": oneshot_control,
                       "zoo_control_step": zoo_control,
                       "detection_controls": detection_controls,
+                      "methods_controls": methods_controls,
                       "failures": failures}))
     return 1 if failures else 0
 

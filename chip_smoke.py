@@ -258,14 +258,41 @@ Phases, each raising on failure (the script then exits non-zero):
    stage against the CPU copy fed the card's previous stage, a forward
    under ``host_ops``; #1-#11 at 0 launches.  A failed check prints
    ``detection: FAILED: <check>``;
+13h. methods: TF32 off; every method of ``optim/methods.py`` (SGD,
+   Adam, ParallelAdam, Adagrad, Adadelta, Adamax, RMSprop, Ftrl, LarsSGD,
+   LBFGS) on LeNet-5 (b256, f32, 10 distinct batches, deterministic
+   algorithms on) eagerly on the card against a CPU copy fed the same
+   batches (each loss within METHOD_LOSS_RTOL, each parameter within
+   METHOD_PARAM_NORM_REL in norm) and in windows of 4 (two replayed
+   windows and a ragged tail of single steps) against the eager run bit
+   for bit (losses, parameters, every state tensor); every schedule
+   (Default to EpochSchedule) under SGD in windows, its rate tensor read
+   back after every replay against the host's float32 sequence; Plateau
+   told planted validation scores (two reductions and a cooldown), the
+   rate each step read against the host's; the LM of phase 6 with
+   ``Adam()`` through the Optimizer eagerly and in windows of 4, bit for
+   bit (losses, parameters, Adam's state), #1-#3 at the SGD run's
+   launches a step (wrapper counts eagerly, device events after the
+   capture's marker in the windows), ms per iteration, busy time, peak
+   memory, and Adam's update over the LM's parameters timed (CUDA events,
+   kernels and busy ms from torch.profiler, its bound); ResNet-50 of
+   phase 9 with the ImageNet recipe (SGD, nesterov momentum 0.9, a warm-up
+   epoch then Poly(0.5)) in windows of an epoch, the rate each replay read
+   equal to the host's and moving every step, #8-#11 at 32/32/13/13 a
+   step on the device; the NCF example at MovieLens-1M's widths (6040
+   users, 3706 items, embed 16, b256, 2 epochs; HitRatio@10 and NDCG@10
+   above chance, samples/s) and the autoencoder example (``--synthetic
+   6000 -b 150 -e 2``: the loss falls), neither launching #1-#11.  A
+   failed check prints ``methods: FAILED: <check>``;
 14. a ``{"kernels": [...]}`` line (eleven kernels, launches by path
    (#1's on ``serving_prefix_cache``, ``serving_disaggregated``,
    ``oneshot_lm``, ``beam_lm``, ``translation_beam`` and
    ``serving_bf16_kv`` too, and by kernel on each of them under
    ``launches_by_kernel``; its mixed entry's rows under ``mixed_kv``; its
    row-independence readings),
-   the graph replays' among them (phases 13, 13b and 13c) as the profiler
-   counted them on the device, and 13f's and 13g's paths at 0; all but #4 also their design, launches
+   the graph replays' among them (phases 13, 13b, 13c and 13h's ResNet-50)
+   as the profiler counted them on the device, 13h's LM with Adam, and
+   13f's and 13g's paths and 13h's LeNet and examples at 0; all but #4 also their design, launches
    by route and build report; #1 its row at the training shape beside the decode row), then
    the ``{"ok": true, ...}`` line.
 
@@ -4428,26 +4455,33 @@ def kernel_launches(events):
             for name, parts in KERNEL_EVENTS.items()}
 
 
-def dispatch_model(path):
-    """The path's model as its phase builds it."""
+def dispatch_model(path, argv=None):
+    """The path's model as its phase builds it (from ``argv`` where
+    given, else the path's perf argv)."""
     from bigdl_tpu_torch.examples import perf
-    args = perf.parse_args(DISPATCH_PATHS[path][0])
+    args = perf.parse_args(argv or DISPATCH_PATHS[path][0])
     model, criterion, make_batch = perf.build(args.model, args)
     if path == "sp":
         model.lm.set_sequence_parallel(seq_mesh(), "seq")
     return args, model, criterion, make_batch
 
 
-def dispatch_reading(path, k):
+def dispatch_reading(path, k, argv=None, then=None):
     """One timed run of the path with windows of ``k`` (1: eager) under
     ``torch.profiler``: its ms per iteration, peak memory, the wrappers'
     counts, and from the run's own device events its busy time and each
     kernel's launches before the capture's marker and after it (the
-    replays')."""
+    replays').  ``argv`` and ``then(optimizer)`` (say, another optim
+    method) as ``dispatch_model`` and ``dispatch_of`` take them."""
     from bigdl_tpu_torch.examples import perf
 
+    def configured(opt):
+        mark_captures(opt)
+        if then is not None:
+            then(opt)
+
     def prepare():
-        built = dispatch_model(path)
+        built = dispatch_model(path, argv)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         _zero_counts()
@@ -4455,7 +4489,7 @@ def dispatch_reading(path, k):
 
     def run(args, model, criterion, make_batch):
         out, opt = perf.run(args, model, criterion, make_batch,
-                            configure=dispatch_of(k, mark_captures))
+                            configure=dispatch_of(k, configured))
         return args, model, out, opt
     (args, model, out, opt), framed = traced_call(run, prepare)
     launches, routes = _read_counts(), _read_routes()
@@ -6316,6 +6350,689 @@ def phase_detection(smi, device="cuda"):
     return _phase("detection", lambda: detection_reading(device), report)
 
 
+# ---------------------------------------------------------------------------
+# 13h. methods: every optim method and schedule, Adam on the LM, the
+# ImageNet recipe on ResNet-50, and the NCF and autoencoder recipes
+# ---------------------------------------------------------------------------
+
+# LeNet-5 (b256, f32) over METHOD_BATCHES distinct batches: eager, and in
+# windows of METHOD_WINDOW (two windows and a ragged tail of single steps)
+METHOD_BATCHES, METHOD_WINDOW = 10, 4
+# card (eager) against a CPU copy fed the same batches, TF32 off: each
+# loss within METHOD_LOSS_RTOL, each parameter within METHOD_PARAM_NORM_REL
+# in norm.  NORMALISED_METHODS divide each entry's step by its own
+# gradient history, with steps that do not shrink with the gradient
+# (RMSprop's first moves every entry by 10 lr): over 10 steps they
+# amplify any change of summation order, the CPU's own too.  Measured on
+# an H100 80GB HBM3 (700 W) with an 8-core host: RMSprop's card and CPU
+# 2.385e-03 apart in norm, and the CPU at 1 thread and at 8 threads
+# 2.385e-03 apart as well (Adagrad 4.070e-05 and 4.069e-05), while
+# their first gradients agree in sign everywhere (lenet_grad_signs).  So they are held to NORMALISED_NORM_REL, and their
+# CPU spread (cpu_spread: 1 thread against the default) is printed
+# beside their card reading
+METHOD_LOSS_RTOL, METHOD_PARAM_NORM_REL = 1e-4, 1e-3
+NORMALISED_METHODS, NORMALISED_NORM_REL = ("Adagrad", "Adadelta", "Adamax",
+                                           "RMSprop"), 1e-2
+# the schedules run 3 epochs of 4 batches in windows of 4 (every step a
+# replay); Plateau 16 iterations in windows of 2, a validation every 2
+# iterations scoring PLATEAU_SCORES (two reductions and a cooldown)
+SCHEDULE_BATCHES, SCHEDULE_EPOCHS = 4, 3
+PLATEAU_EVERY, PLATEAU_STEPS = 2, 16
+PLATEAU_SCORES = [1.0, 0.9, 0.95, 0.95, 0.95, 0.95, 0.95, 0.95]
+# the LM with Adam: phase 6's width, 2 epochs of 4 steps, eagerly and in
+# windows of 4 (two replayed windows)
+ADAM_ITERS, ADAM_EPOCHS, ADAM_TIMED = 4, 2, 10
+ADAM_ARGV = TRAIN_ARGV[:-4] + ["--iterations", str(ADAM_ITERS),
+                               "--epochs", str(ADAM_EPOCHS)]
+# ResNet-50 with the ImageNet recipe (bigdl_tpu/examples/imagenet.py:
+# 284-302): SGD, momentum 0.9, nesterov, weight decay 1e-4, a linear
+# warm-up over its first epoch to the peak, then Poly(0.5) over the rest
+IMAGENET_PEAK_LR, IMAGENET_WARM_EPOCHS = 0.1, 1
+# NCF at MovieLens-1M's widths; the autoencoder as its example runs
+NCF_USERS, NCF_ITEMS, NCF_PER_USER = 6040, 3706, 8
+NCF_ARGV = ["-b", "256", "-e", "2", "--embed-dim", "16", "-r", "0.001",
+            "-q"]
+AUTOENCODER_ARGV = ["--synthetic", "6000", "-b", "150", "-e", "2", "-q"]
+
+
+def method_cases():
+    """{name: a fresh method}: every method of optim/methods.py."""
+    from bigdl_tpu_torch.optim import methods as m
+    return {
+        "SGD": lambda: m.SGD(0.05, momentum=0.9, dampening=0.0,
+                             weight_decay=1e-4, nesterov=True),
+        "Adam": lambda: m.Adam(1e-3),
+        "ParallelAdam": lambda: m.ParallelAdam(2e-3, weight_decay=1e-4),
+        "Adagrad": lambda: m.Adagrad(0.01, weight_decay=5e-4),
+        "Adadelta": lambda: m.Adadelta(0.9, 1e-6),
+        "Adamax": lambda: m.Adamax(0.002),
+        "RMSprop": lambda: m.RMSprop(1e-3, learning_rate_decay=0.01),
+        "Ftrl": lambda: m.Ftrl(0.05, l1_regularization_strength=1e-4,
+                               l2_regularization_strength=1e-4),
+        "LarsSGD": lambda: m.LarsSGD(0.1, trust_coefficient=0.02),
+        "LBFGS": lambda: m.LBFGS(n_correction=10, learning_rate=0.05),
+    }
+
+
+def schedule_cases():
+    """{name: a fresh schedule}: every schedule of optim/methods.py but
+    Plateau, which runs on its own (plateau_run)."""
+    from bigdl_tpu_torch.optim import methods as m
+    return {
+        "Default": lambda: m.Default(0.1),
+        "Step": lambda: m.Step(3, 0.7),
+        "MultiStep": lambda: m.MultiStep([2, 5, 9], 0.3),
+        "EpochStep": lambda: m.EpochStep(1, 0.5),
+        "EpochDecay": lambda: m.EpochDecay(lambda e: e // 2),
+        "Poly": lambda: m.Poly(0.5, 12),
+        "Exponential": lambda: m.Exponential(4, 0.9),
+        "NaturalExp": lambda: m.NaturalExp(3, 0.35),
+        "Warmup": lambda: m.Warmup(0.005),
+        "SequentialSchedule": lambda: m.SequentialSchedule(4)
+        .add(m.Warmup(0.01), 5).add(m.Poly(0.5, 7), 7),
+        "EpochSchedule": lambda: m.EpochSchedule([(1, 1, 0.05),
+                                                  (2, 3, 0.02)]),
+    }
+
+
+def record_scalars(opt):
+    """Read back, after every step of ``opt``, the step-scalar tensors that
+    step read: the captured graph's after each replay, the eager set
+    after each single step.  Returns the list they are appended to, one
+    [[scalars of each group]] a step."""
+    readings = []
+    capture, single = opt._capture, opt._single_step
+
+    def read(tensors):
+        readings.append([[float(t) for t in ts] for ts in tensors])
+
+    class Replayed:
+        def __init__(self, step_graph):
+            self.step_graph, self.graph = step_graph, step_graph.graph
+
+        def replay(self):
+            self.graph.replay()
+            read(self.step_graph.scalars)
+
+    def captured(*args):
+        step_graph = capture(*args)
+        step_graph.graph = Replayed(step_graph)
+        return step_graph
+
+    def stepped(*args):
+        loss = single(*args)
+        read(opt._scalars)
+        return loss
+    opt._capture, opt._single_step = captured, stepped
+    return readings
+
+
+class PlantedScore:
+    """A validation method whose i-th validation (of one batch) scores
+    ``scores[i]``: the planted metric a Plateau schedule is told."""
+
+    fmt = "planted"
+
+    def __init__(self, scores):
+        self.scores = iter(scores)
+
+    def batch_stats(self, output, target):
+        return next(self.scores), 1.0
+
+    def to_result(self, num, den):
+        from bigdl_tpu_torch.optim.validation import ValidationResult
+        return ValidationResult(num, den, self.fmt)
+
+
+def lenet_setup():
+    """LeNet-5 as perf.build makes it (seed 0) on the host, whence each
+    run copies it, its criterion and METHOD_BATCHES distinct b256
+    batches."""
+    from bigdl_tpu_torch.examples import perf
+    args = perf.parse_args(LENET_ARGV + ["--device", "cpu"])
+    model, criterion, make_batch = perf.build("lenet", args)
+    batches = [make_batch(args.batch_size) for _ in range(METHOD_BATCHES)]
+    return model, criterion, batches
+
+
+def lenet_method_run(model, criterion, batches, method, k, device,
+                     epochs=1, configure=None):
+    """``method`` on a copy of ``model`` over ``batches`` for ``epochs``
+    on ``device`` in windows of ``k``: (model, optimizer, the step
+    scalars each step read)."""
+    import copy
+    from bigdl_tpu_torch.dataset import DataSet, MiniBatch
+    from bigdl_tpu_torch.optim import Optimizer, Trigger
+    model = copy.deepcopy(model).to(device)
+    data = DataSet.array([MiniBatch(x, y) for x, y in batches],
+                         shuffle=False)
+    if device != "cpu":
+        data = data.cache_on_device(device)
+    opt = (Optimizer(model, data, criterion, seed=0)
+           .set_optim_method(method)
+           .set_end_when(Trigger.max_epoch(epochs))
+           .set_iterations_per_dispatch(k))
+    if configure is not None:
+        configure(opt)
+    scalars = record_scalars(opt)
+    opt.optimize()
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return model, opt, scalars
+
+
+def cpu_spread(model, criterion, batches, make, cpu) -> float:
+    """How far the CPU's own run of ``make()`` at 1 thread ends from
+    ``cpu``, the run at the default thread count (another summation
+    order), in norm: the largest over the parameters."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        one, _, _ = lenet_method_run(model, criterion, batches, make(), 1,
+                                     "cpu")
+    finally:
+        torch.set_num_threads(threads)
+    return max(float((p.detach() - q.detach()).norm() / q.detach().norm())
+               for p, q in zip(one.parameters(), cpu.parameters()))
+
+
+def _state_equal(a, b) -> bool:
+    from bigdl_tpu_torch.optim.optimizer import _state_tensors
+    ta, tb = _state_tensors(a), _state_tensors(b)
+    return len(ta) == len(tb) and all(torch.equal(x, y)
+                                      for x, y in zip(ta, tb))
+
+
+def _moved_share(a, b) -> float:
+    """The share of entries of two lists of tensors that differ."""
+    moved = sum(int((x != y).sum()) for x, y in zip(a, b))
+    return moved / max(sum(x.numel() for x in a), 1)
+
+
+def methods_gate(device="cuda", methods=None, schedules=None,
+                 plateau=True) -> dict:
+    """(a) of the methods phase: each method on LeNet-5 eagerly on the
+    card against a CPU copy, and in windows bit for bit against the
+    eager run; each schedule under SGD in windows, its step-scalar tensor
+    read back after every replay against the host's float32 sequence;
+    Plateau told planted validation scores.  ``methods`` and
+    ``schedules`` (names) and ``plateau`` select a part (all by
+    default).  Returns the readings and the failed checks."""
+    from bigdl_tpu_torch.optim import methods as m
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model, criterion, batches = lenet_setup()
+    failed, rows = [], {}
+    n = len(batches)
+    want_stats = {"single_steps": n % METHOD_WINDOW,
+                  "window_steps": n - n % METHOD_WINDOW, "captures": 1,
+                  "replays": n - n % METHOD_WINDOW}
+    for name, make in method_cases().items():
+        if methods is not None and name not in methods:
+            continue
+        eager, e_opt, _ = lenet_method_run(model, criterion, batches, make(),
+                                           1, device)
+        graph, g_opt, _ = lenet_method_run(model, criterion, batches, make(),
+                                           METHOD_WINDOW, device)
+        cpu, c_opt, _ = lenet_method_run(model, criterion, batches, make(),
+                                         1, "cpu")
+        spread = cpu_spread(model, criterion, batches, make, cpu) \
+            if name in NORMALISED_METHODS else None
+        a = np.array([v for _, v in e_opt.loss_history])
+        b = np.array([v for _, v in c_opt.loss_history])
+        loss_rel = float(np.max(np.abs(a - b) / np.abs(b)))
+        norm_rel = max(float((p.detach().cpu() - q.detach()).norm()
+                             / q.detach().norm())
+                       for p, q in zip(eager.parameters(), cpu.parameters()))
+        same_losses = e_opt.loss_history == g_opt.loss_history
+        e_params = [p.detach() for p in eager.parameters()]
+        g_params = [p.detach() for p in graph.parameters()]
+        same_params = all(torch.equal(p, q) for p, q in zip(e_params,
+                                                            g_params))
+        same_state = _state_equal(e_opt._opt_states, g_opt._opt_states)
+        bound = (NORMALISED_NORM_REL if name in NORMALISED_METHODS
+                 else METHOD_PARAM_NORM_REL)
+        rows[name] = dict(loss_rel=loss_rel, param_norm_rel=norm_rel,
+                          cpu_spread=spread, bound=bound,
+                          losses=[round(float(v), 6) for v in a],
+                          same_losses=same_losses, same_params=same_params,
+                          same_state=same_state,
+                          params_moved_share=_moved_share(e_params,
+                                                          g_params),
+                          dispatch=g_opt.dispatch_stats)
+        if len(a) != n or not np.all(np.isfinite(a)):
+            failed.append(f"{name}: losses not finite or missing: {a}")
+        if not (loss_rel <= METHOD_LOSS_RTOL and norm_rel <= bound):
+            failed.append(f"{name}: the card differs from the CPU copy: "
+                          f"loss {loss_rel:.3e}, parameters {norm_rel:.3e} "
+                          "in norm")
+        if not (same_losses and same_params and same_state):
+            failed.append(f"{name}: the windows are not the eager run (losses"
+                          f" {'equal' if same_losses else 'differ'}, "
+                          f"parameters {'equal' if same_params else 'differ'}"
+                          f", state {'equal' if same_state else 'differ'})")
+        if g_opt.dispatch_stats != want_stats:
+            failed.append(f"{name}: the windowed run dispatched "
+                          f"{g_opt.dispatch_stats}, not {want_stats}")
+
+    read = {}
+    steps = SCHEDULE_BATCHES * SCHEDULE_EPOCHS
+    for name, make in schedule_cases().items():
+        if schedules is not None and name not in schedules:
+            continue
+        method = m.SGD(0.1, momentum=0.9, dampening=0.0,
+                       learning_rate_schedule=make())
+        _, opt, got = lenet_method_run(
+            model, criterion, batches[:SCHEDULE_BATCHES], method,
+            SCHEDULE_BATCHES, device, epochs=SCHEDULE_EPOCHS)
+        host = make()
+        want = [float(np.float32(host(0.1, t, 1 + t // SCHEDULE_BATCHES)))
+                for t in range(steps)]
+        got = [r[0][0] for r in got]
+        wrong = sum(g != w for g, w in zip(got, want))
+        read[name] = dict(rates=got, want=want, wrong=wrong,
+                          replays=opt.dispatch_stats["replays"])
+        if len(got) != steps or wrong or \
+                opt.dispatch_stats["replays"] != steps:
+            failed.append(f"{name}: the replays read {got}, the host's "
+                          f"sequence is {want} ({opt.dispatch_stats})")
+
+    signs = lenet_grad_signs(model, criterion, batches[0], device) \
+        if methods is None else None
+    if plateau:
+        r = read["Plateau"] = plateau_run(model, criterion, batches, device)
+        if r["wrong"] or r["reductions"] != 2:
+            failed.append(f"Plateau: the steps read {r['rates']}, the "
+                          f"planted scores give {r['want']} "
+                          f"({r['reductions']} reductions)")
+    return dict(methods=rows, schedules=read, grad_signs=signs,
+                failed=failed)
+
+
+def lenet_grad_signs(model, criterion, batch, device):
+    """The first step's gradients of ``model`` on ``batch`` on ``device``
+    and on the CPU: the entries whose signs differ, and the largest
+    |gradient| among them (where a sign step method moves the two runs
+    apart)."""
+    import copy
+    grads = []
+    for dev in (device, "cpu"):
+        m = copy.deepcopy(model).to(dev)
+        x, y = (torch.as_tensor(v, device=dev) for v in batch)
+        criterion(m(x), y).backward()
+        grads.append([p.grad.detach().cpu() for p in m.parameters()])
+    flips = [torch.sign(a) != torch.sign(b) for a, b in zip(*grads)]
+    largest = max((float(torch.abs(b[f]).max()) for b, f in
+                   zip(grads[1], flips) if f.any()), default=0.0)
+    return dict(entries=sum(int(f.sum()) for f in flips),
+                of=sum(f.numel() for f in flips), largest_abs=largest)
+
+
+def plateau_run(model, criterion, batches, device):
+    """SGD under Plateau(0.5, patience 2, cooldown 2) on LeNet-5 for
+    PLATEAU_STEPS iterations in windows of PLATEAU_EVERY, a validation
+    every PLATEAU_EVERY iterations scoring PLATEAU_SCORES: the rate each
+    step read against the host's, told the same scores after the same
+    steps."""
+    from bigdl_tpu_torch.dataset import DataSet, MiniBatch
+    from bigdl_tpu_torch.optim import Trigger
+    from bigdl_tpu_torch.optim import methods as m
+
+    def make():
+        return m.Plateau(factor=0.5, patience=2, cooldown=2)
+    schedule = make()
+    val = DataSet.array([MiniBatch(*batches[0])], shuffle=False)
+
+    def configure(opt):
+        opt.set_validation(Trigger.several_iteration(PLATEAU_EVERY), val,
+                           [PlantedScore(PLATEAU_SCORES)])
+    epochs = PLATEAU_STEPS // SCHEDULE_BATCHES
+    _, opt, got = lenet_method_run(
+        model, criterion, batches[:SCHEDULE_BATCHES],
+        m.SGD(0.1, learning_rate_schedule=schedule), PLATEAU_EVERY, device,
+        epochs=epochs, configure=configure)
+    # the host's: a trigger reads neval after the step's increment, so a
+    # validation follows every step whose number + 1 is a multiple
+    host, scores, want = make(), iter(PLATEAU_SCORES), []
+    for step in range(1, PLATEAU_STEPS + 1):
+        want.append(host(0.1, step - 1, 1))
+        if (step + 1) % PLATEAU_EVERY == 0:
+            host.on_metric(next(scores))
+    got = [r[0][0] for r in got]
+    factors = sorted({round(v / 0.1, 6) for v in want}, reverse=True)
+    return dict(rates=got, want=want,
+                wrong=sum(g != w for g, w in zip(got, want))
+                + abs(len(got) - len(want)),
+                reductions=len(factors) - 1,
+                factor=schedule.current_factor,
+                replays=opt.dispatch_stats["replays"])
+
+
+def adam_update_reading(model, rates) -> dict:
+    """Adam's update over ``model``'s parameters with their gradients as
+    the last step left them, from a fresh state: CUDA-event ms (median
+    of ADAM_TIMED), the device's kernels and busy ms a call (torch.
+    profiler), and the bound: an elementwise pass reading p, g, m and v
+    and writing p, m and v, in float32, over the card's memory rate."""
+    from bigdl_tpu_torch.optim import methods as m
+    params = [p for p in model.parameters() if p.requires_grad]
+    grads = [torch.zeros_like(p) if p.grad is None else p.grad
+             for p in params]
+    adam = m.Adam()
+    state = adam.init_state(params)
+    scalars = [torch.tensor(v, device=params[0].device)
+               for v in adam.step_scalars(state, 1)]
+    adam.apply(grads, params, state, *scalars)
+
+    times = []
+    for _ in range(ADAM_TIMED):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        adam.apply(grads, params, state, *scalars)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    _, framed = traced_call(lambda: adam.apply(grads, params, state,
+                                               *scalars))
+    events = device_events(framed)
+    numel = sum(p.numel() for p in params)
+    moved = 7 * 4 * numel
+    return dict(ms=float(np.median(times)), kernels=len(events),
+                busy_ms=sum(e.time_range.elapsed_us() for e in events) / 1e3,
+                tensors=len(params), numel=numel, bytes=moved,
+                bound_ms=moved / rates[0] * 1e3)
+
+
+def adam_lm_reading(rates, sgd=None) -> dict:
+    """(b): the LM at phase 6's width with Adam at the reference's
+    defaults, eagerly and in windows of ADAM_ITERS, deterministic
+    algorithms on: losses, parameters and Adam's state bit for bit; #1-#3
+    at a step's worth each step, as under SGD, by the tensor-core route;
+    Adam's update timed."""
+    from bigdl_tpu_torch.optim import methods as m
+    per_step = DISPATCH_PATHS["lm"][1]
+    steps = ADAM_ITERS * ADAM_EPOCHS
+
+    def adam(opt):
+        opt.set_optim_method(m.Adam())
+    with deterministic() as nondet:
+        eager = dispatch_reading("lm", 1, ADAM_ARGV, adam)
+        graph = dispatch_reading("lm", ADAM_ITERS, ADAM_ARGV, adam)
+    failed = []
+    e_opt, g_opt = eager["opt"], graph["opt"]
+    same_losses = e_opt.loss_history == g_opt.loss_history
+    same_params = all(torch.equal(p, q) for p, q in zip(
+        eager["model"].parameters(), graph["model"].parameters()))
+    same_state = _state_equal(e_opt._opt_states, g_opt._opt_states)
+    losses = [v for _, v in e_opt.loss_history]
+    if not (same_losses and same_params and same_state):
+        failed.append(f"LM + Adam: the windows are not the eager run (losses "
+                      f"{'equal' if same_losses else 'differ'}, parameters "
+                      f"{'equal' if same_params else 'differ'}, state "
+                      f"{'equal' if same_state else 'differ'})")
+    if len(losses) != steps or not np.all(np.isfinite(losses)) \
+            or not losses[-1] < losses[0]:
+        failed.append(f"LM + Adam: losses not finite, missing or not "
+                      f"falling: {losses}")
+    want_stats = {"single_steps": 0, "window_steps": steps, "captures": 1,
+                  "replays": steps}
+    if g_opt.dispatch_stats != want_stats:
+        failed.append(f"LM + Adam: the windowed run dispatched "
+                      f"{g_opt.dispatch_stats}")
+    for what, got, n in (("eager wrapper counts", eager["launches"], steps),
+                         ("eager device launches", eager["before"], steps),
+                         ("graph wrapper counts", graph["launches"], 2),
+                         ("graph device launches after the capture",
+                          graph["replayed"], steps)):
+        want = {k: per_step.get(k, 0) * n for k in got}
+        if got != want:
+            failed.append(f"LM + Adam: {what} {got}, not {want} (the SGD "
+                          f"run's {per_step} a step)")
+    for name, count in per_step.items():
+        if not routes_are(eager["routes"][name],
+                          {"tensor_core": count * steps}):
+            failed.append(f"LM + Adam: {name} routes {eager['routes'][name]}")
+    update = adam_update_reading(eager["model"], rates)
+    return dict(eager=dict(out=eager["out"], busy=eager["busy"],
+                           peak=eager["peak"], launches=eager["launches"]),
+                graph=dict(out=graph["out"], busy=graph["busy"],
+                           peak=graph["peak"], replayed=graph["replayed"]),
+                losses=losses, same_losses=same_losses,
+                same_params=same_params, same_state=same_state,
+                nondeterministic=sorted(nondet), update=update,
+                sgd=sgd, failed=failed)
+
+
+def imagenet_schedule(iters_per_epoch, epochs):
+    """The ImageNet recipe's schedule and base rate
+    (bigdl_tpu/examples/imagenet.py:284-302)."""
+    from bigdl_tpu_torch.optim import methods as m
+    total = iters_per_epoch * epochs
+    warm = IMAGENET_WARM_EPOCHS * iters_per_epoch
+    start = IMAGENET_PEAK_LR / warm
+    schedule = (m.SequentialSchedule(iters_per_epoch)
+                .add(m.Warmup((IMAGENET_PEAK_LR - start) / warm), warm)
+                .add(m.Poly(0.5, total - warm), total - warm))
+    return schedule, start
+
+
+def imagenet_resnet_reading() -> dict:
+    """(c): ResNet-50 (b128, 224 px, fused, bf16) with the ImageNet
+    recipe in windows of an epoch: the rate tensor each replay read
+    against the host's sequence, moving every step; #8-#11 at
+    32/32/13/13 a step on the device."""
+    from bigdl_tpu_torch.optim import methods as m
+    steps = RESNET_ITERS * RESNET_EPOCHS
+    schedule, start = imagenet_schedule(RESNET_ITERS, RESNET_EPOCHS)
+    recorded = {}
+
+    def recipe(opt):
+        opt.set_optim_method(m.SGD(start, momentum=0.9, dampening=0.0,
+                                   weight_decay=1e-4, nesterov=True,
+                                   learning_rate_schedule=schedule))
+        recorded["rates"] = record_scalars(opt)
+    r = dispatch_reading("resnet", RESNET_ITERS, RESNET_ARGV, recipe)
+    host, _ = imagenet_schedule(RESNET_ITERS, RESNET_EPOCHS)
+    want = [host(start, t, 1 + t // RESNET_ITERS) for t in range(steps)]
+    got = [x[0][0] for x in recorded["rates"]]
+    failed = []
+    if got != want:
+        failed.append(f"ImageNet recipe: the replays read {got}, the host's "
+                      f"sequence is {want}")
+    if any(a == b for a, b in zip(got, got[1:])):
+        failed.append(f"ImageNet recipe: the rate did not move on every "
+                      f"replay: {got}")
+    losses = [v for _, v in r["opt"].loss_history]
+    if len(losses) != steps or not np.all(np.isfinite(losses)):
+        failed.append(f"ImageNet recipe: losses not finite or missing: "
+                      f"{losses}")
+    want_replayed = {k: RESNET_LAUNCHES.get(k, 0) * steps
+                     for k in r["replayed"]}
+    if r["replayed"] != want_replayed or \
+            r["opt"].dispatch_stats["replays"] != steps:
+        failed.append(f"ImageNet recipe: device launches after the capture "
+                      f"{r['replayed']}, not {want_replayed} "
+                      f"({r['opt'].dispatch_stats})")
+    return dict(out=r["out"], busy=r["busy"], peak=r["peak"], rates=got,
+                losses=losses, replayed=r["replayed"],
+                dispatch=r["opt"].dispatch_stats, failed=failed)
+
+
+def _chance(k, neg):
+    """HitRatio@k and NDCG@k of a random ranking of 1 + neg items."""
+    hr = min(k, 1 + neg) / (1 + neg)
+    ndcg = sum(1 / np.log2(r + 1) for r in range(1, min(k, 1 + neg) + 1)) \
+        / (1 + neg)
+    return hr, float(ndcg)
+
+
+def _samples_per_s(opt, batch) -> float:
+    steady = opt.window_timings[1:]
+    return sum(n for n, _, _ in steady) * batch / sum(
+        dt for _, dt, _ in steady)
+
+
+def examples_reading(device="cuda") -> dict:
+    """(d): the NCF example at MovieLens-1M's widths and the autoencoder
+    example on the card: NCF's HitRatio@10 and NDCG@10 above chance, the
+    autoencoder's loss falling, samples/s of both."""
+    from bigdl_tpu_torch.dataset.movielens import synthetic_ratings
+    from bigdl_tpu_torch.examples import autoencoder, ncf
+    failed = []
+    ratings = synthetic_ratings(n_users=NCF_USERS, n_items=NCF_ITEMS,
+                                per_user=NCF_PER_USER)
+    args = ncf.parse_args(NCF_ARGV + ["--device", device])
+    t0 = time.perf_counter()
+    _, opt = ncf.train(args, ratings=ratings)
+    ncf_wall = time.perf_counter() - t0
+    results = {name: r.result()[0] for name, r in
+               opt.validation_history[-1][1].items()}
+    hr, ndcg = results[f"HitRatio@{args.topk}"], results[f"NDCG@{args.topk}"]
+    chance = _chance(args.topk, args.neg_eval)
+    if not (hr > chance[0] and ndcg > chance[1]):
+        failed.append(f"NCF: HitRatio {hr} and NDCG {ndcg} not above chance "
+                      f"{chance}")
+    ncf_r = dict(hit_ratio=hr, ndcg=ndcg, chance=chance,
+                 samples_per_s=_samples_per_s(opt, args.batch_size),
+                 wall=ncf_wall, steps=opt.state["neval"] - 1,
+                 records=opt.state["records"],
+                 losses=(opt.loss_history[0][1], opt.loss_history[-1][1]),
+                 validations=[(n, {k: v.result()[0] for k, v in r.items()})
+                              for n, r in opt.validation_history])
+    args = autoencoder.parse_args(AUTOENCODER_ARGV + ["--device", device])
+    t0 = time.perf_counter()
+    _, opt = autoencoder.train(args)
+    ae_wall = time.perf_counter() - t0
+    losses = [v for _, v in opt.loss_history]
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        failed.append(f"autoencoder: the loss did not fall: {losses[0]} -> "
+                      f"{losses[-1]}")
+    ae_r = dict(losses=(losses[0], losses[-1]), steps=len(losses),
+                samples_per_s=_samples_per_s(opt, args.batch_size),
+                wall=ae_wall,
+                validation=[r["Loss"].result()[0] if "Loss" in r else
+                            next(iter(r.values())).result()[0]
+                            for _, r in opt.validation_history])
+    return dict(ncf=ncf_r, autoencoder=ae_r, failed=failed)
+
+
+def methods_reading(rates, sgd=None) -> dict:
+    """The methods phase's readings and failed checks: TF32 off, (a) the
+    gate, (b) the LM with Adam, (c) ResNet-50 with the ImageNet recipe,
+    (d) the NCF and autoencoder examples, each path's launches of #1-#11
+    read from zeroed counts."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    failed = []
+    launches = {}
+    _zero_counts()
+    with deterministic():
+        gate = methods_gate()
+    launches["methods_lenet"] = _read_counts()
+    lm = adam_lm_reading(rates, sgd)
+    launches["methods_lm_adam_training"] = lm["eager"]["launches"]
+    resnet = imagenet_resnet_reading()
+    launches["methods_resnet_imagenet_recipe_graph_replays"] = \
+        resnet["replayed"]
+    _zero_counts()
+    examples = examples_reading()
+    launches["methods_examples"] = _read_counts()
+    for path in ("methods_lenet", "methods_examples"):
+        if any(launches[path].values()):
+            failed.append(f"{path} launched a kernel of #1-#11: "
+                          f"{launches[path]}")
+    return dict(gate=gate, lm=lm, resnet=resnet, examples=examples,
+                launches=launches, seconds=time.perf_counter() - t0,
+                failed=failed + [f"gate: {f}" for f in gate["failed"]]
+                + lm["failed"] + resnet["failed"] + examples["failed"])
+
+
+def phase_methods(smi, rates, sgd=None):
+    """13h: every optim method, schedule and recipe; see methods_reading.
+    ``sgd`` is the dispatch phase's reading of the LM under SGD, printed
+    beside Adam's."""
+    def report(r):
+        for name, x in r["gate"]["methods"].items():
+            print(f"methods: {name} on LeNet-5 (b256 f32, {METHOD_BATCHES} "
+                  f"steps): card against CPU loss {x['loss_rel']:.3e}, "
+                  f"parameters {x['param_norm_rel']:.3e} in norm (bound "
+                  f"{x['bound']:.0e}"
+                  + ("" if x["cpu_spread"] is None else
+                     f"; the CPU at 1 thread against "
+                     f"{torch.get_num_threads()}: {x['cpu_spread']:.3e}")
+                  + f"); windows "
+                  f"of {METHOD_WINDOW} against eager: losses "
+                  f"{'equal' if x['same_losses'] else 'DIFFER'}, parameters "
+                  f"{'equal' if x['same_params'] else 'DIFFER'} (moved "
+                  f"share {x['params_moved_share']:.3e}), state "
+                  f"{'equal' if x['same_state'] else 'DIFFER'}; dispatch "
+                  f"{x['dispatch']}; losses {x['losses']}", flush=True)
+        g = r["gate"]["grad_signs"]
+        print(f"methods: LeNet-5's first gradients, card against CPU: "
+              f"{g['entries']} of {g['of']} entries of opposite sign, the "
+              f"largest |g| among them {g['largest_abs']:.3e}", flush=True)
+        for name, x in r["gate"]["schedules"].items():
+            print(f"methods: schedule {name}: {x['replays']} replays read "
+                  f"{[float(np.float32(v)) for v in x['rates']]}; "
+                  f"{x['wrong']} off the host's sequence", flush=True)
+        lm, up = r["lm"], r["lm"]["update"]
+        for label in ("eager", "graph"):
+            x = lm[label]
+            sgd = lm["sgd"] or {}
+            print(f"methods: LM + Adam {label}: "
+                  f"{x['out']['ms_per_iteration']} ms/iteration (under "
+                  f"torch.profiler), device busy {x['busy']:.3f} ms per "
+                  f"step, peak memory {x['peak']} bytes; SGD's {label} run "
+                  f"in the dispatch phase: {sgd.get(label + '_ms')} "
+                  f"ms/iteration, busy {sgd.get(label + '_busy')}, peak "
+                  f"{sgd.get(label + '_peak')}", flush=True)
+        print(f"methods: LM + Adam: launches of #1-#3 eager "
+              f"{ {k: lm['eager']['launches'][k] for k in DISPATCH_PATHS['lm'][1]} }"
+              f", replayed {ADAM_ITERS * ADAM_EPOCHS} steps "
+              f"{ {k: lm['graph']['replayed'][k] for k in DISPATCH_PATHS['lm'][1]} }"
+              f"; windows against eager: losses "
+              f"{'equal' if lm['same_losses'] else 'DIFFER'}, parameters "
+              f"{'equal' if lm['same_params'] else 'DIFFER'}, Adam state "
+              f"{'equal' if lm['same_state'] else 'DIFFER'}; loss "
+              f"{lm['losses'][0]:.6f} -> {lm['losses'][-1]:.6f}; "
+              f"nondeterministic {lm['nondeterministic'] or 'none'}",
+              flush=True)
+        print(f"methods: Adam's update over the LM's {up['tensors']} "
+              f"tensors ({up['numel']} parameters): {up['ms']:.4f} ms "
+              f"(CUDA events, median of {ADAM_TIMED}), {up['kernels']} "
+              f"kernels and {up['busy_ms']:.4f} ms busy a call "
+              f"(torch.profiler); bound {up['bound_ms']:.4f} ms "
+              f"({up['bytes']} bytes at the card's memory rate); on {smi}",
+              flush=True)
+        rn = r["resnet"]
+        print(f"methods: ResNet-50 + ImageNet recipe (windows of "
+              f"{RESNET_ITERS}): {rn['out']['ms_per_iteration']} "
+              f"ms/iteration, busy {rn['busy']:.3f} ms per step; rates read "
+              f"{rn['rates']}; device launches after the capture "
+              f"{ {k: rn['replayed'][k] for k in RESNET_LAUNCHES} } over "
+              f"{rn['dispatch']['replays']} replays; loss "
+              f"{rn['losses'][0]:.6f} -> {rn['losses'][-1]:.6f}", flush=True)
+        nc, ae = r["examples"]["ncf"], r["examples"]["autoencoder"]
+        print(f"methods: NCF ({NCF_USERS} users, {NCF_ITEMS} items, "
+              f"{nc['records']} records over {nc['steps']} steps): "
+              f"{nc['samples_per_s']:.1f} samples/s (steady windows), "
+              f"{nc['wall']:.2f} s with validation; HitRatio@10 "
+              f"{nc['hit_ratio']:.4f}, NDCG@10 {nc['ndcg']:.4f} (chance "
+              f"{nc['chance'][0]:.4f}, {nc['chance'][1]:.4f}); validations "
+              f"{nc['validations']}; loss {nc['losses'][0]:.5f} -> "
+              f"{nc['losses'][1]:.5f}", flush=True)
+        print(f"methods: autoencoder ({ae['steps']} steps): "
+              f"{ae['samples_per_s']:.1f} samples/s, {ae['wall']:.2f} s; "
+              f"loss {ae['losses'][0]:.5f} -> {ae['losses'][1]:.5f}; "
+              f"validation losses {ae['validation']}", flush=True)
+        print(f"methods: launches of #1-#11 by path "
+              f"{ {p: sum(c.values()) for p, c in r['launches'].items()} }; "
+              f"TF32 off; {r['seconds']:.1f} s; on {smi}", flush=True)
+    return _phase("methods", lambda: methods_reading(rates, sgd), report)
+
+
 def _kernel_entry(name, source, replaces, launches, row):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -6391,6 +7108,7 @@ def main() -> int:
     phase_drain(smi)
     zoo = phase_zoo(smi)
     detection = phase_detection(smi)
+    methods = phase_methods(smi, rates, dispatch["lm"])
     # the replays' launches, from the graph runs' device events
     replayed = {**{path: r["replayed"] for path, r in dispatch.items()},
                 "resume": resume["replayed"],
@@ -6413,6 +7131,7 @@ def main() -> int:
                **{f"zoo_ptb-lstm_{label}_training": r["launches"]
                   for label, r in zoo["ptb"].items()},
                "detection": detection["launches"],
+               **methods["launches"],
                **{f"{path}_graph_replays": r for path, r in replayed.items()}}
 
     def paths(name):

@@ -54,6 +54,9 @@ of #1-#11 launched.
 Detection: the port's NMS on the card equal to its CPU path (indices and
 validity), and chip_smoke's detection gate passing the port and refusing
 each of chip_gate_controls.py's detection faults.
+Optim methods: each method's CUDA-graph windows on LeNet-5 equal to its
+eager run bit for bit, and chip_smoke's methods gate passing the port
+and refusing each of chip_gate_controls.py's methods faults.
 """
 
 import numpy as np
@@ -1336,4 +1339,39 @@ def test_detection_gate_refuses_each_fault(cuda, fault):
     convolution over its flipped kernel (chip_gate_controls.py, 12)."""
     import chip_gate_controls
     refused_by = chip_gate_controls.detection_gate_under(fault)
+    assert bool(refused_by) == (fault is not None), refused_by
+
+
+@pytest.mark.parametrize("name", sorted(chip_smoke.method_cases()))
+def test_method_windows_equal_eager_on_the_card(cuda, name):
+    """Each optim method on LeNet-5 (b256, f32) in CUDA-graph windows of
+    4 (two windows and a ragged tail) equal to its eager run bit for bit:
+    losses, parameters and every state tensor (deterministic algorithms
+    on)."""
+    make = chip_smoke.method_cases()[name]
+    model, criterion, batches = chip_smoke.lenet_setup()
+    with chip_smoke.deterministic():
+        eager, e_opt, _ = chip_smoke.lenet_method_run(
+            model, criterion, batches, make(), 1, cuda)
+        graph, g_opt, _ = chip_smoke.lenet_method_run(
+            model, criterion, batches, make(), chip_smoke.METHOD_WINDOW,
+            cuda)
+    assert g_opt.dispatch_stats["replays"] == 8
+    assert e_opt.loss_history == g_opt.loss_history
+    for p, q in zip(eager.parameters(), graph.parameters()):
+        assert torch.equal(p, q)
+    assert chip_smoke._state_equal(e_opt._opt_states, g_opt._opt_states)
+
+
+@pytest.mark.parametrize("fault", [
+    None, "adam_bias_correction_as_python_floats",
+    "step_scalars_not_refilled_before_a_replay",
+    "plateau_not_told_the_score"])
+def test_methods_gate_refuses_each_fault(cuda, fault):
+    """chip_smoke's methods gate passes the port as it stands and refuses
+    Adam's bias corrections baked at the capture, a graph's step scalars
+    not refilled before a replay and Plateau not told the score
+    (chip_gate_controls.py, 13)."""
+    import chip_gate_controls
+    refused_by, _ = chip_gate_controls.methods_gate_under(fault)
     assert bool(refused_by) == (fault is not None), refused_by

@@ -66,7 +66,16 @@ def test_port_and_chip_smoke_import_no_jax():
                  "bigdl_tpu_torch.data.device_prefetch",
                  "bigdl_tpu_torch.dataset.prefetch",
                  "bigdl_tpu_torch.serving.prefix_cache",
-                 "bigdl_tpu_torch.serving.replica"):
+                 "bigdl_tpu_torch.serving.replica",
+                 "bigdl_tpu_torch.optim.methods",
+                 "bigdl_tpu_torch.optim.profiling",
+                 "bigdl_tpu_torch.nn.criterion",
+                 "bigdl_tpu_torch.models.ncf",
+                 "bigdl_tpu_torch.dataset.movielens",
+                 "bigdl_tpu_torch.dataset.mnist",
+                 "bigdl_tpu_torch.examples.common",
+                 "bigdl_tpu_torch.examples.ncf",
+                 "bigdl_tpu_torch.examples.autoencoder"):
         assert name in {m.name for m in pkgutil.walk_packages(
             bigdl_tpu_torch.__path__, "bigdl_tpu_torch.")}
     assert leaked == "[]", leaked

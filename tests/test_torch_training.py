@@ -120,8 +120,10 @@ def test_sgd_update_matches_reference(kw):
 def test_sgd_refuses_what_is_not_ported():
     with pytest.raises(ValueError, match="Nesterov"):
         SGD(0.1, momentum=0.9, nesterov=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SGD(0.1, learning_rate_schedule=object())
+    # every schedule is ported now: SGD takes any, and reads its rate
+    from bigdl_tpu_torch.optim.methods import Poly
+    sgd = SGD(0.1, learning_rate_schedule=Poly(0.5, 10))
+    assert sgd.current_lr({"t": 4}) == Poly(0.5, 10)(0.1, 4, 0)
 
 
 # ---- triggers and epoch order ----------------------------------------------
