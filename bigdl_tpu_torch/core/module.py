@@ -603,6 +603,13 @@ class Module(nn.Module):
         return Evaluator(self, batch_size, device=device).evaluate(
             data, methods)
 
+    def quantize(self) -> nn.Module:
+        """An int8 inference copy (reference AbstractModule.quantize):
+        :meth:`Quantizer.quantize <bigdl_tpu_torch.nn.quantized.Quantizer
+        .quantize>`."""
+        from bigdl_tpu_torch.nn.quantized import Quantizer
+        return Quantizer.quantize(self)
+
     # ---- not ported yet -------------------------------------------------------
 
     def save(self, path: str):
@@ -617,8 +624,3 @@ class Module(nn.Module):
 
     def load_weights(self, path: str, strict: bool = True):
         raise NotImplementedError(f"Module.load_weights {_SERIALIZER}")
-
-    def quantize(self):
-        raise NotImplementedError(
-            "Module.quantize is not ported yet (ROADMAP.md queue 1, item "
-            "9b: nn/quantized.py)")

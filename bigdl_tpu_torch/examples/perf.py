@@ -15,6 +15,7 @@
     python -m bigdl_tpu_torch.examples.perf --model transformer-lm \\
         --seq-len 2048 -b 8 --hidden-size 512 --num-layers 6 \\
         --num-heads 8 --vocab-size 32000 --bf16 --iterations 10 --epochs 4
+    python -m bigdl_tpu_torch.examples.perf --int8-infer [--bf16]
 
 Drives the port's ``Optimizer.optimize()`` on synthetic batches cached
 on the device and prints one JSON line: records/s and ms/iteration from
@@ -43,7 +44,8 @@ from bigdl_tpu_torch.nn.criterion import ClassNLLCriterion, \
     CrossEntropyCriterion
 from bigdl_tpu_torch.optim import SGD, Optimizer, Trigger
 
-__all__ = ["MODELS", "FlatLM", "build", "parse_args", "train", "main"]
+__all__ = ["MODELS", "FlatLM", "build", "parse_args", "train",
+           "bench_int8_inference", "main"]
 
 MODELS = ("lenet", "resnet50", "inception-v1", "inception-v2", "vgg16",
           "transformer-lm", "ptb-lstm")
@@ -56,7 +58,6 @@ _MODES = (
      "dataset loaders)"),
     ("generate", 0, "ROADMAP.md queue 1, item 6 (GPU measurement "
      "harness)"),
-    ("int8_infer", False, "ROADMAP.md queue 1, item 9b (nn/quantized.py)"),
 )
 
 
@@ -222,8 +223,67 @@ def run(args, model, criterion, make_batch, configure=None):
     return out, opt
 
 
+def _inference_s(model, x, reps: int) -> float:
+    """Seconds a forward of ``model`` on ``x``: on the card CUDA events
+    around ``reps`` forwards, then a readback of the last output; on the
+    host the host clock around the same."""
+    with torch.no_grad():
+        model(x).cpu()                       # warm-up, forced completion
+        if x.is_cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(reps):
+                out = model(x)
+            end.record()
+            out.cpu()
+            return start.elapsed_time(end) / 1e3 / reps
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = model(x)
+        out.cpu()
+        return (time.perf_counter() - t0) / reps
+
+
+def bench_int8_inference(args, reps: int = 10):
+    """Float-against-int8 inference time of one batch of the model (the
+    reference's ``bench_int8_inference``, its result keys): the f32 model,
+    or with ``--bf16`` its bf16 cast (the int8 copy is quantized from the
+    f32 model and gets the same input), against its int8 copy."""
+    from bigdl_tpu_torch.core.module import cast_floating
+    from bigdl_tpu_torch.nn.quantized import Quantizer
+
+    model, _, make_batch = build(args.model, args)
+    model.train(False)
+    x_np, _ = make_batch(args.batch_size)
+    x = torch.as_tensor(x_np, device=args.device)
+    qmodel = Quantizer.quantize(model)
+    if args.bf16:
+        model = cast_floating(model, torch.bfloat16)
+        x = cast_floating(x, torch.bfloat16)
+    t_base = _inference_s(model, x, reps)
+    t_int8 = _inference_s(qmodel, x, reps)
+    base = "bf16" if args.bf16 else "fp32"
+    return {
+        "model": args.model,
+        "mode": "int8-infer",
+        "batch_size": args.batch_size,
+        "baseline_dtype": base,
+        f"{base}_ms": round(t_base * 1e3, 3),
+        "int8_ms": round(t_int8 * 1e3, 3),
+        "int8_speedup": round(t_base / t_int8, 3),
+        f"{base}_img_per_sec": round(args.batch_size / t_base, 1),
+        "int8_img_per_sec": round(args.batch_size / t_int8, 1),
+        "device": str(x.device),
+    }
+
+
 def main(argv=None, emit=True):
-    out, _ = train(parse_args(argv))
+    args = parse_args(argv)
+    if args.int8_infer:
+        out = bench_int8_inference(args)
+    else:
+        out, _ = train(args)
     if emit:
         print(json.dumps(out), flush=True)
     return out

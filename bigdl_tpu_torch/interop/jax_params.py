@@ -20,11 +20,13 @@ The recurrent cells' ``w_input``, ``w_hidden``, ``bias``,
 (``stem.layers.<i>``, ``blocks.<i>``, ``lm.`` of the perf CLI's flat
 LM), and the detectors' (SSD's ``base.<i>``, ``fc6``, ``loc_layers.<i>``,
 ``conv4_3_norm``; Mask R-CNN's ``backbone.stages.<i>.<j>``,
-``backbone.fpn``, ``rpn``, ``box_head``, ``mask_head``).  Buffers are
-the persistent ones: BatchNorm's running statistics,
-a penalty layer's ``loss``, a local normalisation's ``kernel`` (a
-non-persistent buffer, such as the LM's position table, is derived and
-the reference has none).  This module
+``backbone.fpn``, ``rpn``, ``box_head``, ``mask_head``), and the
+tree-LSTM's (``leaf_w``, ``leaf_b``, ``comp_w``, ``comp_b``).  Buffers
+are the persistent ones: BatchNorm's running statistics, a penalty
+layer's ``loss``, a local normalisation's ``kernel``, a connection
+table's ``mask``, and an int8 layer's ``qweight`` (int8, copied as it
+is), ``wscale`` and ``bias`` (a non-persistent buffer, such as the LM's
+position table, is derived and the reference has none).  This module
 reads numpy arrays only; it imports nothing of JAX.
 """
 

@@ -9,19 +9,15 @@ from bigdl_tpu_torch.nn.attention import (  # noqa: F401
     position_encoding, shift_right_3d,
 )
 from bigdl_tpu_torch.nn.containers import *  # noqa: F401,F403
-from bigdl_tpu_torch.nn.conv import (  # noqa: F401
-    SpatialConvolution, SpatialDilatedConvolution, SpatialFullConvolution,
-    SpatialShareConvolution, VolumetricConvolution,
-)
+from bigdl_tpu_torch.nn.conv import *  # noqa: F401,F403
 from bigdl_tpu_torch.nn.criterion import *  # noqa: F401,F403
 from bigdl_tpu_torch.nn.detection import *  # noqa: F401,F403
-from bigdl_tpu_torch.nn.linear import (  # noqa: F401
-    CAdd, CMul, Linear, LookupTable,
-)
+from bigdl_tpu_torch.nn.linear import *  # noqa: F401,F403
 from bigdl_tpu_torch.nn.normalization import *  # noqa: F401,F403
-from bigdl_tpu_torch.nn.pooling import (  # noqa: F401
-    GlobalAveragePooling2D, SpatialAveragePooling, SpatialMaxPooling,
-)
+from bigdl_tpu_torch.nn.pooling import *  # noqa: F401,F403
+from bigdl_tpu_torch.nn.quantized import *  # noqa: F401,F403
 from bigdl_tpu_torch.nn.regularization import *  # noqa: F401,F403
 from bigdl_tpu_torch.nn.rnn import *  # noqa: F401,F403
 from bigdl_tpu_torch.nn.shape_ops import *  # noqa: F401,F403
+from bigdl_tpu_torch.nn.table_ops import *  # noqa: F401,F403
+from bigdl_tpu_torch.nn.tree import *  # noqa: F401,F403

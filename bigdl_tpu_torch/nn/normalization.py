@@ -119,8 +119,18 @@ class BatchNormalization(Module):
 
     def normalize(self, x, mean, var):
         """(x - mean) * rsqrt(var + eps) * weight + bias in f32, cast to
-        x's dtype."""
-        inv = torch.rsqrt(var.float() + self.eps)
+        x's dtype.  In evaluation mode the reciprocal square root is
+        taken in float64 (1 / sqrt, each correctly rounded) and rounded
+        once to float32, so the card and the host give the same bits from
+        the same running statistics: the card's float32 ``torch.rsqrt``
+        and ``torch.sqrt`` are approximate, one ulp off on some channels,
+        which an int8 layer after the norm turns into int8 steps.  In
+        training the batch statistics already differ by their summation
+        order, and ``rsqrt`` keeps the step's launches (three fewer a
+        norm)."""
+        var = var.float() + self.eps
+        inv = torch.rsqrt(var) if self.training else \
+            torch.reciprocal(torch.sqrt(var.double())).float()
         scale = inv * self.weight.float() if self.affine else inv
         y = (x.float() - mean.float()) * scale
         if self.affine:

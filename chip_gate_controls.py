@@ -4,6 +4,7 @@ the faults they are there to catch:
 
     python3 chip_gate_controls.py        # from the repository root
     python3 chip_gate_controls.py --only methods    # section 13 alone
+    python3 chip_gate_controls.py --only int8       # section 14 alone
 
 1. Kernel mutants.  ``flash_attention_bwd.cu`` is rebuilt, into the
    git-ignored build directory, with one of the reference's bf16 rounding
@@ -147,6 +148,24 @@ the faults they are there to catch:
    each fault, and prints the share of entries each fault moved (Adam's
    parameters, the rates read).  ``--only methods`` runs this section
    alone.
+
+14. Int8 and Tree-LSTM controls.  chip_smoke's int8 gate
+   (``int8_gate``: the int8 layers at ResNet-50's and SSD-300's shapes,
+   their int8 values and scales against the definition
+   (``int8_definition``), their ``_int_mm`` sums against the float64
+   plain version and the CPU's, ``torch._int_mm`` run by each, and
+   planted ties) and its Tree-LSTM check (``tree_held``: the example's
+   tree layer on the card against the node-by-node definition) run with
+   one fault at a time in the port: a quantizer that rounds half away
+   from zero, a weight scale per tensor instead of per output channel,
+   an int8 convolution that drops its dilation, a Tree-LSTM that reads
+   its children in swapped order, and an int8 product that calls
+   ``torch._int_mm`` on the unpadded operands and, where the card
+   refuses the shape (K not a multiple of 8, 16 rows or fewer), takes
+   the float64 plain version instead.  The script fails unless the
+   checks pass the port as it stands and refuse each fault, and prints
+   the checks that refused each (what each fault moved).  ``--only
+   int8`` runs this section alone.
 
 The last line is one JSON object with every reading.  Imports torch,
 numpy, ``bigdl_tpu_torch`` and ``chip_smoke`` only.
@@ -1354,11 +1373,118 @@ def phase_methods_controls():
     return readings, failures
 
 
+def int8_faults():
+    """{name: (object, attribute, the fault put in its place, the check
+    that must refuse it: "gate" or "tree")} of the int8 and Tree-LSTM
+    controls."""
+    from bigdl_tpu_torch.nn import quantized as q
+    from bigdl_tpu_torch.nn.tree import BinaryTreeLSTM
+
+    def half_away(v):
+        return torch.sign(v) * torch.floor(v.abs() + 0.5)
+
+    def half_away_quantized(v, amax):
+        scale = torch.where(amax > 0, amax / torch.full_like(amax, 127.0),
+                            torch.ones_like(amax))
+        return (torch.clamp(half_away(v / scale), -127, 127)
+                .to(torch.int8), scale.float())
+
+    def rows_half_away(x):
+        return half_away_quantized(x, x.abs().amax(
+            dim=list(range(1, x.dim())), keepdim=True))
+
+    def channels_half_away(w, channel_axis):
+        reduce = [i for i in range(w.dim()) if i != channel_axis]
+        return half_away_quantized(w, w.abs().amax(dim=reduce,
+                                                   keepdim=True))
+
+    def per_tensor(w, channel_axis):
+        reduce = [i for i in range(w.dim()) if i != channel_axis]
+        shape = w.abs().amax(dim=reduce, keepdim=True).shape
+        return q._quantized(w, w.abs().amax().expand(shape))
+
+    def no_dilation(qx, qw, stride, pad, dilation, conv=q.int8_conv):
+        return conv(qx, qw, stride, pad, (1, 1))
+
+    def swapped(self, child_h, child_c, leaf_x, is_leaf,
+                compose=BinaryTreeLSTM.compose):
+        return compose(self, child_h.flip(1), child_c.flip(1), leaf_x,
+                       is_leaf)
+
+    def rescued(qx, qw):
+        try:
+            return torch._int_mm(qx, qw.t())
+        except RuntimeError:
+            return q.plain_int8_matmul(qx, qw)
+
+    return {
+        "round_half_away_from_zero": (
+            q, ("_quantize_rows", "_quantize_per_channel"),
+            (rows_half_away, channels_half_away), "gate"),
+        "weight_scale_per_tensor": (q, ("_quantize_per_channel",),
+                                    (per_tensor,), "gate"),
+        "int8_conv_drops_its_dilation": (q, ("int8_conv",),
+                                         (no_dilation,), "gate"),
+        "tree_children_swapped": (BinaryTreeLSTM, ("compose",), (swapped,),
+                                  "tree"),
+        "unpadded_int_mm_rescued_by_the_plain_version": (
+            q, ("int8_matmul",), (rescued,), "gate"),
+    }
+
+
+def int8_checks_under(fault=None, device="cuda"):
+    """The failed checks of chip_smoke's int8 gate (untimed) and
+    Tree-LSTM check with ``fault`` (a name of int8_faults(), or None for
+    the port as it stands: both run)."""
+    owner, names, swaps, part = (None, (), (), None) if fault is None \
+        else int8_faults()[fault]
+    saved = [getattr(owner, n) for n in names]
+    for n, f in zip(names, swaps):
+        setattr(owner, n, f)
+    rates = chip_smoke.card_rates(torch.cuda.get_device_name(0)) \
+        if device == "cuda" else (3.35e12, 67e12, 989e12)
+    failed = []
+    try:
+        if part in (None, "gate"):
+            rows, ties = chip_smoke.int8_gate(rates, 1979e12, device,
+                                              timed=False)
+            failed += [f for r in rows for f in r["failed"]] + ties
+        if part in (None, "tree"):
+            failed += chip_smoke.tree_held(device)[1]
+    except Exception as e:  # noqa: BLE001 - a crash refuses it too
+        failed.append(f"{type(e).__name__}: {e}")
+    finally:
+        for n, f in zip(names, saved):
+            setattr(owner, n, f)
+    return failed
+
+
+def phase_int8_controls(device="cuda"):
+    """chip_smoke's int8 gate and Tree-LSTM check with each fault in
+    turn: they must pass the port as it stands and refuse every fault."""
+    readings, failures = {}, []
+    for fault in (None, *int8_faults()):
+        what = fault or "as_it_is"
+        refused_by = readings[what] = int8_checks_under(fault, device)
+        print(f"int8 control {what}: refused by {len(refused_by)} checks: "
+              f"{[f[:200] for f in refused_by]}", flush=True)
+        if (fault is None) == bool(refused_by):
+            failures.append(f"the int8 checks "
+                            f"{'refuse the port' if refused_by else 'pass'}"
+                            f" {what.replace('_', ' ')}")
+    return readings, failures
+
+
 def main() -> int:
     chip_smoke.phase_device()
     if sys.argv[1:3] == ["--only", "methods"]:
         methods_controls, failures = phase_methods_controls()
         print(json.dumps({"methods_controls": methods_controls,
+                          "failures": failures}))
+        return 1 if failures else 0
+    if sys.argv[1:3] == ["--only", "int8"]:
+        int8_controls, failures = phase_int8_controls()
+        print(json.dumps({"int8_controls": int8_controls,
                           "failures": failures}))
         return 1 if failures else 0
     mutants, failures = phase_mutants()
@@ -1389,6 +1515,8 @@ def main() -> int:
     failures += more
     methods_controls, more = phase_methods_controls()
     failures += more
+    int8_controls, more = phase_int8_controls()
+    failures += more
     print(json.dumps({"mutants": mutants, "control_step": control,
                       "bounds": {"grad_norm_rel": chip_smoke.GRAD_NORM_REL,
                                  "grad_max_rel": chip_smoke.GRAD_MAX_REL},
@@ -1405,6 +1533,7 @@ def main() -> int:
                       "zoo_control_step": zoo_control,
                       "detection_controls": detection_controls,
                       "methods_controls": methods_controls,
+                      "int8_controls": int8_controls,
                       "failures": failures}))
     return 1 if failures else 0
 

@@ -284,6 +284,33 @@ Phases, each raising on failure (the script then exits non-zero):
    above chance, samples/s) and the autoencoder example (``--synthetic
    6000 -b 150 -e 2``: the loss falls), neither launching #1-#11.  A
    failed check prints ``methods: FAILED: <check>``;
+13i. int8: the int8 layers (``nn/quantized.py``) at ResNet-50's and
+   SSD-300's shapes (INT8_ROWS: the 7x7/2 stem, a 1x1, a 3x3/2, fc6
+   dilated 6, the 1000-way head at b32 and a b1 1-D input), each on the
+   card's ``_int_mm`` path and its float64 plain version: ``qweight``,
+   ``wscale``, the int8 activations and the int32 sums equal the CPU
+   copy's and the plain version's bit for bit, the output the plain
+   version's and within 1 ulp of the CPU's; times (CUDA events, median
+   of 60, L2 flushed) beside the f32 layer's and the int8 bound;
+   ``perf --int8-infer`` (ResNet-50 b32 224 px) against the f32 and
+   the bf16 baseline, peak memory; int8 against f32 logits at b32
+   (relative L2 under 0.05, top-1 agreement at least 0.75); the
+   conditioned ResNet-50 int8 on the card against its CPU copy at b2
+   (the stem's int8 activations equal, the differing entries by layer,
+   logits within 1e-3 in norm); int8 SSD-300 through the Predictor at
+   batch 32 (images/s, peak memory), its rows of 2 images against a CPU
+   copy of the int8 model (``detections_held``) and the share of the f32
+   model's kept detections it keeps; #1-#11 at 0 launches.  A failed
+   check prints ``int8: FAILED: <check>``;
+13j. layers_9c: TF32 off; every layer of the third tranche (the rest of
+   ``nn/linear.py``, ``nn/pooling.py`` and ``nn/conv.py``,
+   ``nn/table_ops.py``, ``BinaryTreeLSTM``) forward and backward on the
+   card against a CPU copy (LAYERS_9C); the text classifier and the
+   Tree-LSTM examples at their defaults on synthetic data, eagerly and
+   in windows of 4 under deterministic algorithms (losses and
+   parameters bit for bit, the loss falling), samples/s, ms a step, the
+   idle share (a short run under ``traced()``) and peak memory; #1-#11
+   at 0 launches.  A failed check prints ``layers_9c: FAILED: <check>``;
 14. a ``{"kernels": [...]}`` line (eleven kernels, launches by path
    (#1's on ``serving_prefix_cache``, ``serving_disaggregated``,
    ``oneshot_lm``, ``beam_lm``, ``translation_beam`` and
@@ -292,7 +319,8 @@ Phases, each raising on failure (the script then exits non-zero):
    row-independence readings),
    the graph replays' among them (phases 13, 13b, 13c and 13h's ResNet-50)
    as the profiler counted them on the device, 13h's LM with Adam, and
-   13f's and 13g's paths and 13h's LeNet and examples at 0; all but #4 also their design, launches
+   13f's and 13g's paths, 13h's LeNet and examples and 13i's and 13j's
+   paths at 0; all but #4 also their design, launches
    by route and build report; #1 its row at the training shape beside the decode row), then
    the ``{"ok": true, ...}`` line.
 
@@ -7033,6 +7061,841 @@ def phase_methods(smi, rates, sgd=None):
     return _phase("methods", lambda: methods_reading(rates, sgd), report)
 
 
+# ---------------------------------------------------------------------------
+# 13i. int8: the quantized layers, int8 ResNet-50 and int8 SSD-300
+# ---------------------------------------------------------------------------
+
+# Published dense int8 peak at the full power limit (NVIDIA data sheet,
+# no sparsity), operations/s
+INT8_PEAK = {"H100 80GB HBM3": 1979e12, "H200": 1979e12}
+INT8_RUNS, INT8_PLAIN_RUNS = 60, 10     # timed runs a row (median)
+# the int8 gate's rows at ResNet-50's and SSD-300's layer shapes, b32:
+# (name, the float layer from (generator, device), the input's shape)
+INT8_ROWS = (
+    ("stem_7x7s2", lambda nn, g, d: nn.SpatialConvolution(
+        3, 64, 7, 7, 2, 2, 3, 3, with_bias=False, generator=g, device=d),
+     (32, 224, 224, 3)),
+    ("conv1x1", lambda nn, g, d: nn.SpatialConvolution(
+        64, 256, 1, 1, with_bias=False, generator=g, device=d),
+     (32, 56, 56, 64)),
+    ("conv3x3s2", lambda nn, g, d: nn.SpatialConvolution(
+        128, 128, 3, 3, 2, 2, 1, 1, with_bias=False, generator=g, device=d),
+     (32, 56, 56, 128)),
+    ("fc6_dilated6", lambda nn, g, d: nn.SpatialDilatedConvolution(
+        512, 1024, 3, 3, 1, 1, 6, 6, 6, 6, generator=g, device=d),
+     (32, 19, 19, 512)),
+    ("head_1000", lambda nn, g, d: nn.Linear(2048, 1000, generator=g,
+                                             device=d), (32, 2048)),
+    ("head_1000_b1_1d", lambda nn, g, d: nn.Linear(2048, 1000, generator=g,
+                                                   device=d), (2048,)),
+)
+# int8 against f32 logits at b32 (tests/test_quantized.py:162's bounds)
+INT8_REL_L2, INT8_TOP1 = 0.05, 0.75
+# the card's int8 ResNet-50 against a CPU copy of the same int8 model
+INT8_CPU_BATCH, INT8_CPU_REL_L2 = 2, 1e-3
+INT8_ARGV = ["--int8-infer", "-b", "32", "--image-size", "224",
+             "--classes", "1000"]
+INT8_SSD_IOU = 0.5          # a kept f32 detection the int8 model keeps
+
+
+@contextmanager
+def plain_products():
+    """The int8 layers' products swapped for their float64 plain versions
+    inside (the module's ``int8_matmul`` and ``int8_conv``)."""
+    from bigdl_tpu_torch.nn import quantized as q
+    saved = q.int8_matmul, q.int8_conv
+    q.int8_matmul, q.int8_conv = q.plain_int8_matmul, q.plain_int8_conv
+    try:
+        yield
+    finally:
+        q.int8_matmul, q.int8_conv = saved
+
+
+def ulps_apart(a, b) -> int:
+    """The largest distance in float32 ulps between ``a`` and ``b``."""
+    ia = a.float().contiguous().cpu().view(torch.int32).long()
+    ib = b.float().contiguous().cpu().view(torch.int32).long()
+    ia = torch.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+    ib = torch.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+    return int((ia - ib).abs().max()) if ia.numel() else 0
+
+
+def int8_row(name, make, shape, rates, peak, flush, device="cuda",
+             timed=True):
+    """One int8 gate row: the layer quantized on the card and on a CPU
+    copy from the same float weights and input; ``qweight``, ``wscale``,
+    the int8 activations and scales equal; the card's ``_int_mm`` sums
+    equal its float64 plain version's and the CPU's; its output equal
+    the plain version's through the same epilogue and within 1 ulp of
+    the CPU's; times of the int8 layer, its plain version and the f32
+    layer (the yardstick) and the int8 bound."""
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.nn import quantized as q
+    failed = []
+    g = torch.Generator().manual_seed(17)
+    cpu_layer = make(nn, g, "cpu")
+    layer = _copy_to(cpu_layer, device)
+    x_cpu = torch.randn(shape, generator=g)
+    x = x_cpu.to(device)
+    ql, ql_cpu = q.quantize(layer), q.quantize(cpu_layer)
+    rows = (lambda t: t[None]) if x.dim() == 1 else (lambda t: t)
+    with torch.no_grad():
+        for what in ("qweight", "wscale"):
+            if not torch.equal(getattr(ql, what).cpu(),
+                               getattr(ql_cpu, what)):
+                failed.append(f"{name}: {what} differs from the CPU's")
+        with int_mm_calls() as int_mm:
+            qx, sx, acc = ql.accumulate(rows(x))
+        int_mm = int_mm[0]
+        conv = x.dim() == 4
+        failed += definition_held(f"{name}: activations", qx, sx,
+                                  rows(x_cpu))
+        failed += definition_held(
+            f"{name}: weights", ql.qweight, ql.wscale,
+            cpu_layer.weight.detach(), 3 if conv else 0)
+        with plain_products():
+            plain = ql.accumulate(rows(x))[2]
+        cqx, csx, cacc = ql_cpu.accumulate(rows(x_cpu))
+        if not (torch.equal(qx.cpu(), cqx) and torch.equal(sx.cpu(), csx)):
+            failed.append(f"{name}: the int8 activations or their scales "
+                          "differ from the CPU's")
+        if not torch.equal(acc, plain):
+            failed.append(f"{name}: the _int_mm sums differ from the "
+                          "float64 plain version's")
+        if not torch.equal(acc.cpu(), cacc):
+            failed.append(f"{name}: the card's int32 sums differ from the "
+                          "CPU's")
+        out = ql(x)
+        with plain_products():
+            out_plain = ql(x)
+        cpu_ulps = ulps_apart(out, ql_cpu(x_cpu))
+        if not torch.equal(out, out_plain):
+            failed.append(f"{name}: the output differs from the plain "
+                          "version's")
+        if cpu_ulps > 1:
+            failed.append(f"{name}: the output is {cpu_ulps} ulps off the "
+                          "CPU's")
+        if int_mm < 1:
+            failed.append(f"{name}: the layer ran no torch._int_mm")
+        ms = plain_ms = f32_ms = None
+        if timed:
+            ms = time_ms(lambda: ql(x), flush, runs=INT8_RUNS)
+            with plain_products():
+                plain_ms = time_ms(lambda: ql(x), flush,
+                                   runs=INT8_PLAIN_RUNS, warmup=1)
+            f32_ms = time_ms(lambda: layer(x), flush, runs=INT8_RUNS)
+    k = ql.qweight.numel() // ql.qweight.shape[-1 if conv else 0]
+    ops = 2 * acc.numel() * k
+    nbytes = (4 * x.numel() + ql.qweight.numel() + 4 * ql.wscale.numel()
+              + (0 if ql.bias is None else 4 * ql.bias.numel())
+              + 4 * out.numel())
+    by_bytes, by_ops = nbytes / rates[0] * 1e3, ops / peak * 1e3
+    return dict(shape=name, input=list(shape), int_mm_calls=int_mm,
+                ms=ms, plain_ms=plain_ms, f32_ms=f32_ms,
+                bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations",
+                int8_ops=ops, bytes=nbytes, cpu_ulps=cpu_ulps,
+                max_abs_err=float((out - out_plain).abs().max()),
+                failed=failed)
+
+
+def _copy_to(module, device):
+    import copy
+    return copy.deepcopy(module).to(device)
+
+
+def int8_definition(v, channel_axis=None):
+    """The reference's quantization of ``v`` in numpy, float32 (its
+    rules, written out once more): max-abs over every axis but the batch
+    (``channel_axis`` None: axis 0 kept, a row's scale) or but
+    ``channel_axis``, scale = amax / 127 where amax > 0 else 1, round
+    half to even, clip to [-127, 127]."""
+    v = np.asarray(v, np.float32)
+    keep = 0 if channel_axis is None else channel_axis
+    axes = tuple(i for i in range(v.ndim) if i != keep)
+    amax = np.abs(v).max(axis=axes, keepdims=True)
+    scale = np.where(amax > 0, amax / np.float32(127),
+                     np.float32(1)).astype(np.float32)
+    return np.clip(np.round(v / scale), -127, 127).astype(np.int8), scale
+
+
+def definition_held(what, q, scale, v, channel_axis=None):
+    """The failed checks of int8 values ``q`` and their ``scale`` (any
+    broadcastable shape) against :func:`int8_definition` of ``v``."""
+    want_q, want_s = int8_definition(v, channel_axis)
+    failed = []
+    if not np.array_equal(q.cpu().numpy(), want_q):
+        failed.append(f"{what}: {int((q.cpu().numpy() != want_q).sum())} "
+                      "int8 values off the definition (per-channel or "
+                      "per-row max-abs / 127, round half to even)")
+    if not np.array_equal(scale.cpu().numpy().reshape(-1),
+                          want_s.reshape(-1)):
+        failed.append(f"{what}: the scales are not the definition's")
+    return failed
+
+
+@contextmanager
+def int_mm_calls():
+    """Counts the calls of ``torch._int_mm`` that returned, inside (a
+    call that raised is not counted)."""
+    real, calls = torch._int_mm, [0]
+
+    def counted(*args, **kwargs):
+        out = real(*args, **kwargs)
+        calls[0] += 1
+        return out
+    torch._int_mm = counted
+    try:
+        yield calls
+    finally:
+        torch._int_mm = real
+
+
+def planted_ties(device="cuda"):
+    """The failed checks of rows and weights whose values lie exactly
+    halfway between int8 steps: each rounds to the even step, as
+    ``jnp.round`` rounds, and each weight channel keeps its own scale."""
+    from bigdl_tpu_torch.nn import quantized as q
+    halves = torch.tensor([127.0, 0.5, 1.5, 2.5, -2.5, -0.5, 3.5, -126.5],
+                          device=device)
+    x = torch.stack([halves, halves * 2, halves / 4])
+    qx, sx = q._quantize_rows(x)
+    w = torch.stack([halves, halves * 8])
+    qw, sw = q._quantize_per_channel(w, 0)
+    return (definition_held("planted ties, rows", qx, sx, x.cpu())
+            + definition_held("planted ties, weight channels", qw, sw,
+                              w.cpu(), 0))
+
+
+def int8_gate(rates, peak, device="cuda", timed=True):
+    """The int8 layers at ResNet-50's and SSD-300's shapes (INT8_ROWS),
+    timed unless ``timed`` is False, and the planted ties: (the rows,
+    the ties' failed checks)."""
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=device)
+    rows = [int8_row(name, make, shape, rates, peak, flush, device, timed)
+            for name, make, shape in INT8_ROWS]
+    del flush
+    return rows, planted_ties(device)
+
+
+def int8_accuracy(model, x):
+    """Relative L2 of the int8 copy's logits to ``model``'s and the share
+    of rows whose top-1 class agrees."""
+    from bigdl_tpu_torch.nn.quantized import quantize
+    qmodel = quantize(model)
+    with torch.no_grad():
+        out_f, out_q = model(x).float(), qmodel(x).float()
+    rel = float((out_q - out_f).norm() / out_f.norm())
+    agree = float((out_f.argmax(1) == out_q.argmax(1)).float().mean())
+    return rel, agree, bool(torch.isfinite(out_q).all())
+
+
+def int8_activations(qmodel, x):
+    """{layer: its int8 activations} of one forward of ``qmodel``."""
+    from bigdl_tpu_torch.nn import quantized as q
+    seen, hooks = {}, []
+    for name, m in qmodel.named_modules():
+        if isinstance(m, (q.QuantizedLinear, q.QuantizedSpatialConvolution)):
+            def hook(mod, args, name=name):
+                a = args[0]
+                if isinstance(mod, q.QuantizedSpatialConvolution) and \
+                        mod.data_format == "NCHW":
+                    a = a.permute(0, 2, 3, 1)
+                seen[name] = q._quantize_rows(a if a.dim() > 1
+                                              else a[None])[0].cpu()
+            hooks.append(m.register_forward_pre_hook(hook))
+    try:
+        with torch.no_grad():
+            out = qmodel(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return seen, out
+
+
+def int8_resnet_reading(device="cuda"):
+    """--int8-infer at b32 224 px against the f32 and the bf16 baseline;
+    int8 against f32 logits at b32 (the perf CLI's ResNet-50, and the
+    oneshot phase's with BatchNorm scales and statistics from a seed);
+    the conditioned int8 model on the card against its CPU copy at b2."""
+    from bigdl_tpu_torch.examples import perf
+    from bigdl_tpu_torch.nn.quantized import quantize
+    failed, r = [], {}
+    for base in ("fp32", "bf16"):
+        argv = INT8_ARGV + (["--bf16"] if base == "bf16" else [])
+        _free()
+        torch.cuda.reset_peak_memory_stats()
+        r[base] = perf.main(argv + ["--device", device], emit=False)
+        r[base + "_peak"] = torch.cuda.max_memory_allocated()
+        print(f"int8: perf {' '.join(argv)}: {json.dumps(r[base])}",
+              flush=True)
+    args = perf.parse_args(INT8_ARGV + ["--device", device])
+    model, _, make_batch = perf.build("resnet50", args)
+    model.eval()
+    x = torch.as_tensor(make_batch(args.batch_size)[0], device=device)
+    r["perf_model"] = int8_accuracy(model, x)
+    del model
+    model, cpu = oneshot_resnet_model(device, classes=1000)
+    r["conditioned"] = int8_accuracy(model, x)
+    for what in ("perf_model", "conditioned"):
+        rel, agree, finite = r[what]
+        if what == "perf_model" and not (rel < INT8_REL_L2
+                                         and agree >= INT8_TOP1 and finite):
+            failed.append(f"int8 ResNet-50 ({what}) at b32: relative L2 "
+                          f"{rel:.4f} (bound {INT8_REL_L2}), top-1 "
+                          f"agreement {agree} (bound {INT8_TOP1})")
+    qmodel, qcpu = quantize(model), quantize(cpu)
+    xs = x[:INT8_CPU_BATCH]
+    card, card_out = int8_activations(qmodel, xs)
+    host, host_out = int8_activations(qcpu, xs.cpu())
+    r["differing_int8"] = {n: int((card[n] != host[n]).sum())
+                           for n in card}
+    r["int8_entries"] = {n: card[n].numel() for n in card}
+    stem = next(iter(card))
+    if r["differing_int8"][stem]:
+        failed.append(f"int8 ResNet-50: the stem's int8 activations differ "
+                      f"from the CPU's in {r['differing_int8'][stem]} "
+                      "entries")
+    r["cpu_rel_l2"] = _rel_err(card_out, host_out)
+    if not r["cpu_rel_l2"] <= INT8_CPU_REL_L2:
+        failed.append(f"int8 ResNet-50: logits {r['cpu_rel_l2']:.3e} off the "
+                      f"CPU copy's in norm (bound {INT8_CPU_REL_L2})")
+    del model, cpu, qmodel, qcpu
+    _free()
+    r["failed"] = failed
+    return r
+
+
+def _kept(rows):
+    return rows[rows[:, 1] > 0]
+
+
+def _kept_share(f32_rows, int8_rows) -> float:
+    """The share of the f32 model's kept detections that the int8 model
+    keeps: same class, IoU at least INT8_SSD_IOU."""
+    found = total = 0
+    for a, b in zip(f32_rows, int8_rows):
+        a, b = _kept(a), _kept(b)
+        total += len(a)
+        for row in a:
+            same = b[b[:, 0] == row[0]]
+            if len(same) and _np_box_iou(row[None, 2:], same[:, 2:]).max() \
+                    >= INT8_SSD_IOU:
+                found += 1
+    return found / max(total, 1)
+
+
+def int8_ssd_reading(device="cuda"):
+    """SSD-300 (the detection phase's He-scaled weights, ``ssd_model``)
+    quantized: images/s through the Predictor at batch 32 over
+    SSD_IMAGES images, peak memory; the card's rows of INT8_CPU_BATCH
+    images against a CPU copy of the same int8 model (detections_held);
+    the share of the f32 model's kept detections the int8 model keeps,
+    printed."""
+    import copy
+    from bigdl_tpu_torch.nn.quantized import QuantizedSpatialConvolution, \
+        quantize
+    from bigdl_tpu_torch.optim import Predictor
+    failed, r = [], {}
+    model = ssd_model(device)
+    qmodel = quantize(model)
+    qcpu = copy.deepcopy(qmodel).to("cpu")
+    r["quantized_convs"] = sum(type(m) is QuantizedSpatialConvolution
+                               for m in qmodel.modules())
+    images = np.random.default_rng(21).normal(
+        size=(SSD_IMAGES, 300, 300, 3)).astype(np.float32)
+    predictor = Predictor(qmodel, batch_size=SSD_BATCH, device=device)
+    predictor.predict(list(images[:SSD_BATCH]))
+    _free()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    rows = np.stack(predictor.predict(list(images)))
+    end.record()
+    end.synchronize()
+    r["predict_s"] = start.elapsed_time(end) / 1e3
+    r["images_per_s"] = SSD_IMAGES / r["predict_s"]
+    r["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    if rows.shape != (SSD_IMAGES, 200, 6) or not np.isfinite(rows).all():
+        failed.append(f"int8 SSD rows of shape {rows.shape}, finite "
+                      f"{np.isfinite(rows).all()}")
+    f32_rows = np.stack(Predictor(model, batch_size=SSD_BATCH,
+                                  device=device).predict(list(images)))
+    r["kept_share"] = _kept_share(f32_rows, rows)
+    r["kept_per_image"] = (float((f32_rows[:, :, 1] > 0).sum(1).mean()),
+                           float((rows[:, :, 1] > 0).sum(1).mean()))
+    n = INT8_CPU_BATCH
+    with torch.no_grad():
+        cloc, cconf, cprior = qcpu.heads(torch.as_tensor(images[:n]))
+        cpu_rows = qcpu.detection((cloc, cconf, cprior)).numpy()
+    cf = cconf.numpy().reshape(n, -1, SSD_CLASSES)
+    r["cpu_near_tie_rows"] = sum(
+        _held_rows(rows[i], cpu_rows[i], qmodel.detection, cf[i],
+                   f"int8 SSD image {i}: card against CPU", failed)
+        for i in range(n))
+    del model, qmodel, qcpu, predictor
+    _free()
+    r["failed"] = failed
+    return r
+
+
+def int8_reading(rates, peak) -> dict:
+    """The int8 phase's readings and failed checks, every route counter
+    of #1-#11 zeroed before each part and read after."""
+    t0 = time.perf_counter()
+    launches = {}
+    _zero_counts()
+    gate, ties = int8_gate(rates, peak)
+    launches["int8_gate"] = _read_counts()
+    _zero_counts()
+    resnet = int8_resnet_reading()
+    launches["int8_resnet50"] = _read_counts()
+    _zero_counts()
+    ssd = int8_ssd_reading()
+    launches["int8_ssd"] = _read_counts()
+    failed = [f for row in gate for f in row["failed"]] + ties \
+        + resnet["failed"] + ssd["failed"]
+    for path, counts in launches.items():
+        if any(counts.values()):
+            failed.append(f"{path} launched a kernel of #1-#11: {counts}")
+    return dict(gate=gate, resnet=resnet, ssd=ssd, launches=launches,
+                seconds=time.perf_counter() - t0, failed=failed)
+
+
+def phase_int8(smi, rates):
+    """13i: see int8_reading."""
+    peak = next((p for key, p in INT8_PEAK.items()
+                 if key in torch.cuda.get_device_name(0)), None)
+    if peak is None:
+        raise RuntimeError("no published int8 peak on file for this card")
+
+    def report(r):
+        for row in r["gate"]:
+            print(f"int8: {row['shape']} {row['input']}: int8 "
+                  f"{row['ms']:.5f} ms ({row['int_mm_calls']} _int_mm), "
+                  f"float64 plain {row['plain_ms']:.5f}, f32 layer "
+                  f"{row['f32_ms']:.5f} (yardstick); bound "
+                  f"{row['bound_ms']:.5f} ms by {row['bound_by']} "
+                  f"({row['int8_ops']} int8 operations, {row['bytes']} "
+                  f"bytes); the int8 values and scales the definition's, "
+                  f"the sums the plain version's and the CPU's; output "
+                  f"{row['cpu_ulps']} ulps off the CPU's; on {smi}",
+                  flush=True)
+        print("int8: planted ties round half to even, each weight channel "
+              "with its own scale", flush=True)
+        rn = r["resnet"]
+        for base in ("fp32", "bf16"):
+            x = rn[base]
+            print(f"int8: ResNet-50 b32 224 px against {base}: "
+                  f"{x[base + '_ms']} ms ({x[base + '_img_per_sec']} "
+                  f"images/s), int8 {x['int8_ms']} ms "
+                  f"({x['int8_img_per_sec']} images/s), speedup "
+                  f"{x['int8_speedup']}; peak memory {rn[base + '_peak']} "
+                  f"bytes; on {smi}", flush=True)
+        for what in ("perf_model", "conditioned"):
+            rel, agree, _ = rn[what]
+            print(f"int8: ResNet-50 ({what}) int8 against f32 logits at "
+                  f"b32: relative L2 {rel:.5f}, top-1 agreement {agree}",
+                  flush=True)
+        diff = {n: c for n, c in rn["differing_int8"].items() if c}
+        print(f"int8: ResNet-50 (conditioned) card against a CPU copy at "
+              f"b{INT8_CPU_BATCH}: logits {rn['cpu_rel_l2']:.3e} in norm; "
+              f"int8 activation entries differing by layer "
+              f"{diff or 'none'} of {sum(rn['int8_entries'].values())} in "
+              f"{len(rn['int8_entries'])} layers", flush=True)
+        s = r["ssd"]
+        print(f"int8: SSD-300 ({s['quantized_convs']} int8 convolutions) "
+              f"through the Predictor at batch {SSD_BATCH}: "
+              f"{s['images_per_s']:.2f} images/s ({SSD_IMAGES} images in "
+              f"{s['predict_s']:.4f} s), peak memory "
+              f"{s['peak_memory_bytes']} bytes; kept per image f32 / int8 "
+              f"{s['kept_per_image']}; share of the f32 model's kept "
+              f"detections the int8 model keeps {s['kept_share']:.4f}; "
+              f"card against CPU at b{INT8_CPU_BATCH}: "
+              f"{s['cpu_near_tie_rows']} near-tie rows; on {smi}",
+              flush=True)
+        print(f"int8: launches of #1-#11 by path "
+              f"{ {p: sum(c.values()) for p, c in r['launches'].items()} }; "
+              f"{r['seconds']:.1f} s", flush=True)
+    return _phase("int8", lambda: int8_reading(rates, peak), report)
+
+
+# ---------------------------------------------------------------------------
+# 13j. layers_9c: the third layer tranche, the text classifier, Tree-LSTM
+# ---------------------------------------------------------------------------
+
+def _gen(seed=0):
+    return dict(generator=torch.Generator().manual_seed(seed), device="cpu")
+
+
+def _table(xs):
+    return tuple(xs)
+
+
+def _one(xs):
+    return xs[0]
+
+
+# (name, the layer from nn, its inputs' shapes, how its input is built
+# from them (None: the tensors themselves), integer inputs)
+LAYERS_9C = (
+    ("Identity", lambda nn: nn.Identity(), [(3, 7)], None),
+    ("Echo", lambda nn: nn.Echo(), [(3, 4)], None),
+    ("Bilinear", lambda nn: nn.Bilinear(4, 5, 3, **_gen()),
+     [(6, 4), (6, 5)], _table),
+    ("Add", lambda nn: nn.Add(7, **_gen()), [(3, 7)], None),
+    ("Mul", lambda nn: nn.Mul(**_gen()), [(3, 7)], None),
+    ("Cosine", lambda nn: nn.Cosine(4, 3, **_gen()), [(5, 4)], None),
+    ("Euclidean", lambda nn: nn.Euclidean(4, 3, **_gen()), [(5, 4)], None),
+    ("Maxout", lambda nn: nn.Maxout(4, 3, 2, **_gen()), [(5, 4)], None),
+    ("Highway", lambda nn: nn.Highway(5, activation=nn.ReLU(), **_gen()),
+     [(4, 5)], None),
+    ("LookupTable_max_norm_mask", lambda nn: nn.LookupTable(
+        20, 8, padding_value=3.0, max_norm=1.0, mask_zero=True, **_gen()),
+     [], None),
+    ("GlobalAveragePooling3D", lambda nn: nn.GlobalAveragePooling3D(),
+     [(2, 4, 4, 4, 3)], None),
+    ("GlobalMaxPooling3D", lambda nn: nn.GlobalMaxPooling3D(),
+     [(2, 4, 4, 4, 3)], None),
+    ("TemporalMaxPooling", lambda nn: nn.TemporalMaxPooling(3, 2),
+     [(2, 9, 4)], None),
+    ("VolumetricMaxPooling", lambda nn: nn.VolumetricMaxPooling(
+        3, 3, 3, 2, 2, 2, 1, 1, 1), [(1, 5, 5, 5, 2)], None),
+    ("VolumetricAveragePooling", lambda nn: nn.VolumetricAveragePooling(
+        3, 3, 3, 2, 2, 2, ceil_mode=True, count_include_pad=False),
+     [(1, 6, 6, 6, 2)], None),
+    ("UpSampling1D", lambda nn: nn.UpSampling1D(2), [(2, 5, 3)], None),
+    ("UpSampling2D", lambda nn: nn.UpSampling2D((2, 3)), [(2, 4, 4, 3)],
+     None),
+    ("UpSampling3D", lambda nn: nn.UpSampling3D((2, 2, 2)),
+     [(1, 3, 3, 3, 2)], None),
+    ("ResizeBilinear", lambda nn: nn.ResizeBilinear(3, 2),
+     [(2, 7, 5, 3)], None),
+    ("ResizeBilinear_align", lambda nn: nn.ResizeBilinear(
+        7, 9, align_corners=True), [(2, 4, 5, 3)], None),
+    ("SpatialSeparableConvolution", lambda nn:
+     nn.SpatialSeparableConvolution(3, 4, 2, 3, 3, 2, 2, -1, -1, **_gen()),
+     [(2, 8, 8, 3)], None),
+    ("TemporalConvolution", lambda nn: nn.TemporalConvolution(
+        4, 5, 3, 2, **_gen()), [(2, 9, 4)], None),
+    ("VolumetricFullConvolution", lambda nn: nn.VolumetricFullConvolution(
+        2, 3, 3, 3, 3, 2, 2, 2, 1, 1, 1, 1, 1, 1, **_gen()),
+     [(1, 3, 3, 3, 2)], None),
+    ("LocallyConnected2D", lambda nn: nn.LocallyConnected2D(
+        2, 7, 7, 3, 3, 3, 2, 2, 1, 1, **_gen()), [(2, 7, 7, 2)], None),
+    ("LocallyConnected1D", lambda nn: nn.LocallyConnected1D(
+        9, 3, 2, 3, 2, **_gen()), [(2, 9, 3)], None),
+    ("SpatialConvolutionMap", lambda nn: nn.SpatialConvolutionMap(
+        nn.SpatialConvolutionMap.random(4, 5, 2, seed=1), 3, 3, 2, 2,
+        n_input_plane=4, n_output_plane=5, **_gen()), [(2, 7, 7, 4)], None),
+    *((name, (lambda nn, name=name: getattr(nn, name)()),
+       [(3, 5), (3, 5)], _table)
+      for name in ("CAddTable", "CSubTable", "CMulTable", "CMaxTable",
+                   "CMinTable", "CAveTable", "DotProduct", "CosineDistance",
+                   "PairwiseDistance")),
+    ("CDivTable", lambda nn: nn.CDivTable(), [(3, 5), (3, 5)],
+     lambda xs: (xs[0], xs[1].abs() + 0.5)),
+    ("JoinTable", lambda nn: nn.JoinTable(1, n_input_dims=1),
+     [(3, 4), (3, 2)], _table),
+    ("SplitTable", lambda nn: nn.SplitTable(2), [(3, 4)], _one),
+    ("SelectTable", lambda nn: nn.SelectTable(-1), [(3, 4), (3, 4)],
+     _table),
+    ("NarrowTable", lambda nn: nn.NarrowTable(2, 2),
+     [(3, 4), (3, 4), (3, 4)], _table),
+    ("FlattenTable", lambda nn: nn.FlattenTable(), [(3, 4), (3, 4), (3, 4)],
+     lambda xs: [xs[0], (xs[1], (xs[2],))]),
+    ("MixtureTable", lambda nn: nn.MixtureTable(), [(3, 2), (3, 4), (3, 4)],
+     lambda xs: [xs[0], (xs[1], xs[2])]),
+    ("MM", lambda nn: nn.MM(True, True), [(3, 5, 4), (3, 6, 5)], _table),
+    ("MV", lambda nn: nn.MV(True), [(2, 4, 3), (2, 4)], _table),
+    ("BifurcateSplitTable", lambda nn: nn.BifurcateSplitTable(2), [(3, 5)],
+     _one),
+    ("CrossProduct", lambda nn: nn.CrossProduct(), [(3, 4), (3, 4), (3, 4)],
+     _table),
+    ("TableOperation", lambda nn: nn.TableOperation(nn.CMulTable()),
+     [(3, 4), (3, 1)], _table),
+    ("BinaryTreeLSTM", lambda nn: nn.BinaryTreeLSTM(5, 4, **_gen()), [],
+     None),
+)
+LAYER_TOL = F32_TOL
+# the two examples at their defaults (seq 200, vocab 20000, embed 128,
+# 128 filters of width 5, b32, SGD 0.05; embed 64, hidden 64, 128 nodes,
+# 64 tokens, vocab 2000, b32, Adagrad 0.05) on synthetic data: TEXT_N
+# samples (80% trained: 32 steps an epoch) and TREE_N trees (4 steps
+# an epoch: eager, its loop of 128 slots takes about a second a step on
+# the host), EXAMPLE_EPOCHS epochs; the idle share from a short run of
+# EXAMPLE_BUSY_N samples
+TEXT_N, TREE_N, EXAMPLE_EPOCHS, EXAMPLE_WINDOW = 1280, 128, 2, 4
+EXAMPLE_BUSY_N = {"text_classifier": 160, "treelstm": 128}
+
+
+def _flat(y):
+    if isinstance(y, (tuple, list)):
+        return torch.cat([_flat(t).reshape(-1) for t in y])
+    return y
+
+
+def _tree_inputs(rng):
+    from bigdl_tpu_torch.examples import treelstm_sentiment as ts
+    parsed = ts._synthetic_trees(4, 40, 15, seed=0)
+    toks, ch, leaf, _ = ts.trees_to_arrays(parsed, ts.vocabulary(parsed, 40),
+                                          15, 8)
+    return [rng.standard_normal((4, 8, 5)).astype(np.float32), ch, leaf]
+
+
+def layer_case(name, make, shapes, pack, device="cuda"):
+    """One layer forward and backward on the card against a CPU copy:
+    (the largest error of the output, the input gradients and the
+    parameter gradients, relative to LAYER_TOL; the failed checks)."""
+    from bigdl_tpu_torch import nn
+    rng = np.random.default_rng(sum(map(ord, name)))
+    if name.startswith("LookupTable"):
+        inputs = [np.asarray([[1, 5, 20], [3, 3, 7]], np.int64)]
+    elif name == "BinaryTreeLSTM":
+        inputs = _tree_inputs(rng)
+    else:
+        inputs = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    cpu = make(nn)
+    card = _copy_to(cpu, device)
+    runs = []
+    for m, dev in ((cpu, "cpu"), (card, device)):
+        xs = [torch.tensor(a, device=dev) for a in inputs]
+        for x in xs:
+            if x.is_floating_point():
+                x.requires_grad_(True)
+        arg = pack(xs) if pack is not None else (
+            tuple(xs) if name == "BinaryTreeLSTM" else xs[0])
+        y = _flat(m(arg))
+        cot = torch.tensor(np.random.default_rng(50).standard_normal(
+            tuple(y.shape)).astype(np.float32), device=dev)
+        (y * cot).sum().backward()
+        runs.append([y.detach().cpu()]
+                    + [x.grad.cpu() if x.grad is not None
+                       else torch.zeros(x.shape) for x in xs
+                       if x.is_floating_point()]
+                    + [p.grad.cpu() for p in m.parameters()])
+    worst, failed = 0.0, []
+    for want, got in zip(*runs):
+        err = (got - want).abs() - LAYER_TOL["rtol"] * want.abs()
+        worst = max(worst, float(err.max()) if err.numel() else 0.0)
+    if not worst <= LAYER_TOL["atol"]:
+        failed.append(f"{name}: the card's forward or backward is "
+                      f"{worst:.3e} beyond rtol {LAYER_TOL['rtol']} of the "
+                      f"CPU's (atol {LAYER_TOL['atol']})")
+    return worst, failed
+
+
+def tree_definition(model, x, children, leaf_ids):
+    """``BinaryTreeLSTM``'s hidden states by the reference's rules
+    (nn/BinaryTreeLSTM.scala), node by node in float64 numpy: a leaf's
+    (c, o) from its token, an internal node's gates from [h_left,
+    h_right] (a missing child the zero state), a padding slot the
+    previous slot's state."""
+    w = {n: p.detach().double().cpu().numpy()
+         for n, p in model.named_parameters()}
+    hid = model.hidden_size
+    x = np.asarray(x, np.float64)
+
+    def sig(z):
+        return 1.0 / (1.0 + np.exp(-z))
+
+    def out_gate(o, c):
+        return o * np.tanh(c) if model.gate_output else np.tanh(c)
+
+    zero = np.zeros(hid)
+    states = np.zeros(children.shape[:2] + (hid,))
+    for b in range(children.shape[0]):
+        h, c = {}, {}
+        for i, ((left, right), lid) in enumerate(zip(children[b],
+                                                     leaf_ids[b])):
+            if lid >= 0:
+                proj = w["leaf_w"] @ x[b, lid] + w["leaf_b"]
+                c[i] = proj[:hid]
+                h[i] = out_gate(sig(proj[hid:]), c[i])
+            elif left < 0 and right < 0:
+                h[i], c[i] = h.get(i - 1, zero), c.get(i - 1, zero)
+            else:
+                hl, hr = h.get(left, zero), h.get(right, zero)
+                cl, cr = c.get(left, zero), c.get(right, zero)
+                g = w["comp_w"] @ np.concatenate([hl, hr]) + w["comp_b"]
+                gi, gl, gr, gu, go = (g[k * hid:(k + 1) * hid]
+                                      for k in range(5))
+                c[i] = sig(gi) * np.tanh(gu) + sig(gl) * cl + sig(gr) * cr
+                h[i] = out_gate(sig(go), c[i])
+            states[b, i] = h[i]
+    return states
+
+
+def tree_held(device="cuda"):
+    """The Tree-LSTM example's tree layer (embed 64, hidden 64, 128
+    slots) on 8 of its synthetic trees, on the card, against
+    :func:`tree_definition`: (the largest error beyond F32_TOL's rtol,
+    the failed checks)."""
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.examples import treelstm_sentiment as ts
+    parsed = ts._synthetic_trees(8, 2000, 128, seed=0)
+    _, children, leaf_ids, _ = ts.trees_to_arrays(
+        parsed, ts.vocabulary(parsed, 2000), 128, 64)
+    model = nn.BinaryTreeLSTM(64, 64, generator=torch.Generator()
+                              .manual_seed(4), device=device)
+    x = np.random.default_rng(4).standard_normal((8, 64, 64)).astype(
+        np.float32)
+    with torch.no_grad():
+        got = model((torch.tensor(x, device=device),
+                     torch.tensor(children, device=device),
+                     torch.tensor(leaf_ids, device=device))).cpu().numpy()
+    want = tree_definition(model, x, children, leaf_ids)
+    excess = float((np.abs(got - want) - F32_TOL["rtol"] * np.abs(want))
+                   .max())
+    failed = [] if excess <= F32_TOL["atol"] else [
+        f"BinaryTreeLSTM: the states are {excess:.3e} beyond rtol "
+        f"{F32_TOL['rtol']} of the definition's (atol {F32_TOL['atol']})"]
+    return excess, failed
+
+
+def example_args(name, n, epochs, device):
+    from bigdl_tpu_torch.examples import text_classifier, treelstm_sentiment
+    module = text_classifier if name == "text_classifier" \
+        else treelstm_sentiment
+    return module, module.parse_args(["--synthetic", str(n), "-e",
+                                      str(epochs), "-q", "--device", device])
+
+
+def example_run(name, k, device="cuda"):
+    """One example trained at its defaults, windows of ``k`` (1: eager),
+    the wrappers' counts zeroed before and read after; samples/s and ms
+    a step from the steady windows, peak memory."""
+    module, args = example_args(
+        name, TEXT_N if name == "text_classifier" else TREE_N,
+        EXAMPLE_EPOCHS, device)
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    model, opt = module.train(args, configure=dispatch_of(k))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steady = opt.window_timings[1:]
+    steps = sum(n for n, _, _ in steady)
+    return dict(model=model, opt=opt, wall=wall, launches=_read_counts(),
+                peak=torch.cuda.max_memory_allocated(),
+                samples_per_s=_samples_per_s(opt, args.batch_size),
+                ms_per_step=sum(dt for _, dt, _ in steady) / steps * 1e3,
+                losses=[v for _, v in opt.loss_history],
+                dispatch=dict(opt.dispatch_stats),
+                validation=[{n: v.result()[0] for n, v in res.items()}
+                            for _, res in opt.validation_history])
+
+
+def example_busy(name, device="cuda"):
+    """The device's busy ms a step over a short run of the example
+    (EXAMPLE_BUSY_N samples, one epoch, no validation, windows of
+    EXAMPLE_WINDOW) under traced()."""
+    module, args = example_args(name, EXAMPLE_BUSY_N[name], 1, device)
+
+    def configure(opt):
+        opt.set_iterations_per_dispatch(EXAMPLE_WINDOW)
+        opt.val_trigger = None
+    (_, opt), framed = traced_call(lambda: module.train(args, configure))
+    busy_us = sum(e.time_range.elapsed_us() for e in device_events(framed))
+    return busy_us / device_steps(opt, opt.state["neval"] - 1) / 1e3
+
+
+def layers_9c_reading(device="cuda") -> dict:
+    """The layers_9c phase's readings and failed checks: TF32 off, every
+    layer of LAYERS_9C on the card against a CPU copy, then each example
+    eagerly and in windows of EXAMPLE_WINDOW under deterministic
+    algorithms (losses and parameters bit for bit; the loss finite and
+    falling), none launching #1-#11."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    failed, layers = [], {}
+    _zero_counts()
+    for name, make, shapes, pack in LAYERS_9C:
+        layers[name], bad = layer_case(name, make, shapes, pack, device)
+        failed += bad
+    tree_excess, bad = tree_held(device)
+    failed += bad
+    launches = {"layers_9c": _read_counts()}
+    examples = {}
+    for name in ("text_classifier", "treelstm"):
+        with deterministic() as nondet:
+            runs = {"eager": example_run(name, 1, device),
+                    "graph": example_run(name, EXAMPLE_WINDOW, device)}
+        for label, x in runs.items():
+            launches[f"{name}_{label}_training"] = x["launches"]
+            losses = x["losses"]
+            if not (np.all(np.isfinite(losses)) and
+                    np.mean(losses[-4:]) < np.mean(losses[:4])):
+                failed.append(f"{name} {label}: the loss did not fall: "
+                              f"{losses[:4]} ... {losses[-4:]}")
+        e, g = runs["eager"], runs["graph"]
+        same_losses = e["opt"].loss_history == g["opt"].loss_history
+        same_params = all(torch.equal(p, q) for p, q in zip(
+            e["model"].parameters(), g["model"].parameters()))
+        if not (same_losses and same_params):
+            failed.append(f"{name}: windows of {EXAMPLE_WINDOW} are not the "
+                          f"eager run (losses {'equal' if same_losses else 'differ'}, "
+                          f"parameters {'equal' if same_params else 'differ'})")
+        if not g["dispatch"].get("replays"):
+            failed.append(f"{name}: the windowed run replayed no graph: "
+                          f"{g['dispatch']}")
+        for x in runs.values():
+            del x["opt"], x["model"]
+        _free()
+        # the eager steps launch the windows' kernels: one trace serves
+        runs["eager"]["busy"] = runs["graph"]["busy"] = example_busy(
+            name, device)
+        examples[name] = dict(runs=runs, same_losses=same_losses,
+                              same_params=same_params,
+                              nondeterministic=sorted(nondet))
+    for path, counts in launches.items():
+        if any(counts.values()):
+            failed.append(f"{path} launched a kernel of #1-#11: {counts}")
+    return dict(layers=layers, tree_excess=tree_excess, examples=examples,
+                launches=launches, seconds=time.perf_counter() - t0,
+                failed=failed)
+
+
+def phase_layers_9c(smi):
+    """13j: see layers_9c_reading."""
+    def report(r):
+        worst = max(r["layers"].items(), key=lambda kv: kv[1])
+        print(f"layers_9c: {len(r['layers'])} layers forward and backward "
+              f"on the card against a CPU copy (TF32 off): all within "
+              f"rtol {LAYER_TOL['rtol']}, atol {LAYER_TOL['atol']}; the "
+              f"largest excess over rtol {worst[1]:.3e} ({worst[0]}); "
+              f"BinaryTreeLSTM on 8 synthetic trees against the node-by-node "
+              f"definition: largest excess {r['tree_excess']:.3e}",
+              flush=True)
+        for name, ex in r["examples"].items():
+            for label, x in ex["runs"].items():
+                step = x["ms_per_step"]
+                print(f"layers_9c: {name} {label}: {x['samples_per_s']:.1f} "
+                      f"samples/s, {step:.3f} ms a step (steady windows), "
+                      f"{x['wall']:.2f} s with validation; device busy "
+                      f"{x['busy']:.3f} ms a step (torch.profiler, a short "
+                      f"run in windows), idle share "
+                      f"{1 - x['busy'] / step:.3f}; peak "
+                      f"memory {x['peak']} bytes; loss {x['losses'][0]:.5f} "
+                      f"-> {x['losses'][-1]:.5f} over {len(x['losses'])} "
+                      f"steps; validation {x['validation']}; dispatch "
+                      f"{x['dispatch']}", flush=True)
+            print(f"layers_9c: {name}: windows of {EXAMPLE_WINDOW} against "
+                  f"eager: losses {'equal' if ex['same_losses'] else 'DIFFER'}"
+                  f", parameters {'equal' if ex['same_params'] else 'DIFFER'}"
+                  f" bit for bit; operations without a deterministic "
+                  f"implementation: {ex['nondeterministic'] or 'none'}",
+                  flush=True)
+        print(f"layers_9c: launches of #1-#11 by path "
+              f"{ {p: sum(c.values()) for p, c in r['launches'].items()} }; "
+              f"{r['seconds']:.1f} s; on {smi}", flush=True)
+    return _phase("layers_9c", layers_9c_reading, report)
+
+
 def _kernel_entry(name, source, replaces, launches, row):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -7109,6 +7972,8 @@ def main() -> int:
     zoo = phase_zoo(smi)
     detection = phase_detection(smi)
     methods = phase_methods(smi, rates, dispatch["lm"])
+    int8 = phase_int8(smi, rates)
+    layers_9c = phase_layers_9c(smi)
     # the replays' launches, from the graph runs' device events
     replayed = {**{path: r["replayed"] for path, r in dispatch.items()},
                 "resume": resume["replayed"],
@@ -7132,6 +7997,8 @@ def main() -> int:
                   for label, r in zoo["ptb"].items()},
                "detection": detection["launches"],
                **methods["launches"],
+               **int8["launches"],
+               **layers_9c["launches"],
                **{f"{path}_graph_replays": r for path, r in replayed.items()}}
 
     def paths(name):

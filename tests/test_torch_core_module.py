@@ -488,5 +488,10 @@ def test_unported_persistence_raises_naming_its_item(tmp_path):
                  lambda: m.load_weights(str(tmp_path / "w"))):
         with pytest.raises(NotImplementedError, match="item 13"):
             call()
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        m.quantize()
+    # quantize is ported (tests/test_torch_quantized.py): an eval-mode
+    # copy, here with nothing to swap (no Linear of exact type), the
+    # module left as it was
+    q = m.quantize()
+    assert q is not m and not q.training and m.training
+    x = torch.tensor(x_of(3, 4))
+    assert torch.equal(q(x), m(x))

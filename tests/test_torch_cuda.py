@@ -1375,3 +1375,141 @@ def test_methods_gate_refuses_each_fault(cuda, fault):
     import chip_gate_controls
     refused_by, _ = chip_gate_controls.methods_gate_under(fault)
     assert bool(refused_by) == (fault is not None), refused_by
+
+
+# ---- int8 inference and the Tree-LSTM ----------------------------------------
+
+@pytest.mark.parametrize("kind,shape", [
+    ("lenet_conv1_k25_n6", (1, 28, 28, 1)),
+    ("stem_7x7s2", (4, 64, 64, 3)),
+    ("fc6_dilated6", (2, 19, 19, 32)),
+    ("linear_k25_n6_b1", (1, 25)),
+    ("linear_1d", (25,)),
+])
+def test_int8_layers_on_the_card_equal_the_plain_version(cuda, kind, shape):
+    """The int8 layers' ``_int_mm`` path on the card, padded to its shape
+    rules where K or N is not a multiple of 8 or the rows are 16 or
+    fewer, against the float64 plain version: int32 sums and outputs bit
+    for bit; ``torch._int_mm`` ran."""
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.nn import quantized as q
+    g = torch.Generator().manual_seed(3)
+    layer = {
+        "lenet_conv1_k25_n6": lambda: nn.SpatialConvolution(
+            1, 6, 5, 5, generator=g, device=cuda),
+        "stem_7x7s2": lambda: nn.SpatialConvolution(
+            3, 64, 7, 7, 2, 2, 3, 3, generator=g, device=cuda),
+        "fc6_dilated6": lambda: nn.SpatialDilatedConvolution(
+            32, 24, 3, 3, 1, 1, 6, 6, 6, 6, generator=g, device=cuda),
+    }.get(kind, lambda: nn.Linear(25, 6, generator=g, device=cuda))()
+    ql = q.quantize(layer)
+    x = rnd(*shape, seed=4, device=cuda)
+    rows = x if x.dim() > 1 else x[None]
+    with torch.no_grad(), chip_smoke.int_mm_calls() as calls:
+        qx, sx, acc = ql.accumulate(rows)
+        out = ql(x)
+    assert calls[0] >= 2
+    with torch.no_grad(), chip_smoke.plain_products():
+        assert torch.equal(acc, ql.accumulate(rows)[2])
+        assert torch.equal(out, ql(x))
+
+
+def test_quantizer_on_the_card_leaves_no_float_layer():
+    """Quantizer over ResNet-50 and SSD-300 on the card: no
+    SpatialConvolution, SpatialDilatedConvolution or Linear of exact
+    type is left, and the buffers are int8 on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.models import resnet50, ssd_vgg16_300
+    from bigdl_tpu_torch.nn.quantized import (QuantizedLinear,
+                                              QuantizedSpatialConvolution,
+                                              quantize)
+    g = torch.Generator().manual_seed(0)
+    for model in (resnet50(1000, generator=g, device="cuda"),
+                  ssd_vgg16_300(21, generator=g, device="cuda")):
+        q = quantize(model)
+        floats = [type(m).__name__ for m in q.modules()
+                  if type(m) in (nn.SpatialConvolution,
+                                 nn.SpatialDilatedConvolution, nn.Linear)]
+        assert floats == []
+        quantized = [m for m in q.modules() if isinstance(
+            m, (QuantizedLinear, QuantizedSpatialConvolution))]
+        assert quantized and all(
+            m.qweight.dtype == torch.int8 and m.qweight.is_cuda
+            for m in quantized)
+
+
+def test_tree_lstm_in_a_cuda_graph_equals_eager(cuda):
+    """The Tree-LSTM example's forward and backward over 128 slots,
+    captured once as a CUDA graph and replayed on new trees, equal to the
+    eager run bit for bit."""
+    from bigdl_tpu_torch.examples import treelstm_sentiment as ts
+    parsed = ts._synthetic_trees(64, 2000, 128, seed=0)
+    toks, ch, leaf, y = ts.trees_to_arrays(parsed, ts.vocabulary(parsed,
+                                                                 2000),
+                                          128, 64)
+    model = ts.build_model(2000, 64, 64, 5,
+                           generator=torch.Generator().manual_seed(0),
+                           device=cuda)
+    criterion = torch.nn.NLLLoss()
+    batches = [tuple(torch.tensor(a[s], device=cuda) for a in
+                     (toks, ch, leaf, y - 1))
+               for s in (slice(0, 32), slice(32, 64))]
+
+    def step(inputs):
+        model.zero_grad(set_to_none=False)
+        loss = criterion(model(inputs[:3]), inputs[3].long())
+        loss.backward()
+        return loss.detach(), [p.grad.clone() for p in model.parameters()]
+
+    eager = [step(b) for b in batches]
+    static = [t.clone() for t in batches[0]]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step(static)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        loss, grads = step(static)
+    for b, (want_loss, want_grads) in zip(batches, eager):
+        for s, t in zip(static, b):
+            s.copy_(t)
+        graph.replay()
+        assert torch.equal(loss, want_loss)
+        assert all(torch.equal(a, w) for a, w in zip(grads, want_grads))
+
+
+@pytest.mark.parametrize("fault", [None, "round_half_away_from_zero",
+                                   "weight_scale_per_tensor",
+                                   "int8_conv_drops_its_dilation",
+                                   "tree_children_swapped",
+                                   "unpadded_int_mm_rescued_by_the_plain_"
+                                   "version"])
+def test_int8_checks_refuse_each_fault(cuda, fault):
+    """chip_smoke's int8 gate and Tree-LSTM check pass the port as it
+    stands and refuse each of chip_gate_controls.py's int8 faults (14)."""
+    import chip_gate_controls
+    refused_by = chip_gate_controls.int8_checks_under(fault)
+    assert bool(refused_by) == (fault is not None), refused_by
+
+
+def test_batchnorm_eval_on_the_card_equals_the_cpu_bit_for_bit(cuda):
+    """An eval-mode BatchNorm gives the CPU's bits on the card: 1 / sqrt
+    in float64 in place of the card's approximate float32 rsqrt and sqrt,
+    each op correctly rounded (an int8 layer after it would turn an ulp
+    into int8 steps).  4096 channels: the float32 sqrt of ResNet-50's
+    blocks parted from the CPU's in one or two channels of 256-1024."""
+    from bigdl_tpu_torch import nn
+    g = torch.Generator().manual_seed(5)
+    n = 4096
+    bn = nn.SpatialBatchNormalization(n, generator=g, device="cpu").eval()
+    with torch.no_grad():
+        bn.weight.copy_(torch.rand(n, generator=g) + 0.5)
+        bn.running_mean.copy_(torch.randn(n, generator=g) * 0.1)
+        bn.running_var.copy_(torch.rand(n, generator=g) + 0.5)
+    x = rnd(2, 4, 4, n, seed=6)
+    want = bn(x)
+    got = bn.to(cuda)(x.to(cuda)).cpu()
+    assert torch.equal(got, want)

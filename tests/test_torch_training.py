@@ -327,7 +327,6 @@ def test_perf_cli_trains_and_reports_the_reference_keys(capsys):
     (["--input-pipeline", "images"], "--input-pipeline"),
     (["--real-jpeg-train", "8"], "--real-jpeg-train"),
     (["--generate", "4"], "--generate"),
-    (["--int8-infer"], "--int8-infer"),
 ])
 def test_perf_cli_refuses_other_models_and_modes(extra, match):
     with pytest.raises(NotImplementedError, match=match):
