@@ -21,7 +21,10 @@ The recurrent cells' ``w_input``, ``w_hidden``, ``bias``,
 LM), and the detectors' (SSD's ``base.<i>``, ``fc6``, ``loc_layers.<i>``,
 ``conv4_3_norm``; Mask R-CNN's ``backbone.stages.<i>.<j>``,
 ``backbone.fpn``, ``rpn``, ``box_head``, ``mask_head``), and the
-tree-LSTM's (``leaf_w``, ``leaf_b``, ``comp_w``, ``comp_b``).  Buffers
+tree-LSTM's (``leaf_w``, ``leaf_b``, ``comp_w``, ``comp_b``), and the
+wide-and-deep recommender's (its four tables ``user_table``,
+``item_table``, ``wide_user``, ``wide_item``, each a ``weight``, then the
+tower's ``tower.layers.<i>``; a sparse layer's ``inner``).  Buffers
 are the persistent ones: BatchNorm's running statistics, a penalty
 layer's ``loss``, a local normalisation's ``kernel``, a connection
 table's ``mask``, and an int8 layer's ``qweight`` (int8, copied as it

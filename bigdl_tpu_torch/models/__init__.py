@@ -7,6 +7,9 @@ builder takes ``generator=`` (its random inits) and ``device=`` (default
 from bigdl_tpu_torch.models.autoencoder import (  # noqa: F401
     Autoencoder, autoencoder,
 )
+from bigdl_tpu_torch.models.dlrm import (  # noqa: F401
+    WideAndDeep, wide_and_deep,
+)
 from bigdl_tpu_torch.models.inception import (  # noqa: F401
     Inception_v1, Inception_v2,
 )
@@ -36,12 +39,6 @@ def _transformer_lm_tiny(**kwargs):
     return transformer_lm(**cfg)
 
 
-def _wide_and_deep(**kwargs):
-    raise NotImplementedError(
-        "zoo('wide_and_deep') is not ported yet: it needs "
-        "embedding/sharded_table.py (ROADMAP.md queue 1, item 11)")
-
-
 _ZOO = {
     "lenet5": LeNet5,
     "lenet5_graph": lenet5_graph,
@@ -49,7 +46,7 @@ _ZOO = {
     "resnet_cifar": resnet_cifar,
     "vgg_cifar10": VggForCifar10,
     "transformer_lm_tiny": _transformer_lm_tiny,
-    "wide_and_deep": _wide_and_deep,
+    "wide_and_deep": wide_and_deep,
 }
 
 # the per-sample (unbatched) input shape of each zoo model, for the

@@ -19,5 +19,6 @@ from bigdl_tpu_torch.nn.quantized import *  # noqa: F401,F403
 from bigdl_tpu_torch.nn.regularization import *  # noqa: F401,F403
 from bigdl_tpu_torch.nn.rnn import *  # noqa: F401,F403
 from bigdl_tpu_torch.nn.shape_ops import *  # noqa: F401,F403
+from bigdl_tpu_torch.nn.sparse import *  # noqa: F401,F403
 from bigdl_tpu_torch.nn.table_ops import *  # noqa: F401,F403
 from bigdl_tpu_torch.nn.tree import *  # noqa: F401,F403

@@ -171,3 +171,18 @@ class Graph(Module):
             values[nid] = m(args[0]) if len(args) == 1 else m(tuple(args))
         outs = tuple(values[o] for o in self.output_ids)
         return outs[0] if len(outs) == 1 else outs
+
+
+# ---------------------------------------------------------------------------
+# structural aliases (reference nn/containers.py:225-235): BaseModule (a
+# module defined by an inner graph) is any Module holding a Graph;
+# DynamicContainer (the add()-accepting base) is Container; DynamicGraph
+# (the scheduler-driven executor for control-flow nodes) is Graph, whose
+# nodes may hold ops/control.py's modules
+# ---------------------------------------------------------------------------
+
+BaseModule = Module
+DynamicContainer = Container
+DynamicGraph = Graph
+
+__all__ += ["BaseModule", "DynamicContainer", "DynamicGraph"]

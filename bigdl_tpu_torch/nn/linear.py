@@ -1,9 +1,10 @@
 """Dense and parameterized elementwise layers (counterpart of
 ``bigdl_tpu/nn/linear.py``, every class).
 
-Weight layout stays Torch-style (out, in).  Initial values are drawn on
-the CPU from the caller's ``torch.Generator`` (so one seed gives the
-same weights whatever the device) and then moved to ``device``; they
+Weight layout stays Torch-style (out, in).  Initial values are drawn
+from the caller's ``torch.Generator`` on its device (a CPU generator, so
+one seed gives the same weights whatever the device; a CUDA generator
+draws on the card) and then moved to ``device``; they
 follow the reference's distributions, not its bits.  ``init_weight`` /
 ``init_bias`` give them as they are.
 """
@@ -30,7 +31,9 @@ def _uniform(shape, bound: float, generator: Optional[torch.Generator]):
     if generator is None:
         raise ValueError("a random initial value needs generator= (or "
                          "init_weight= / init_bias=)")
-    return (torch.rand(shape, generator=generator) * 2.0 - 1.0) * bound
+    # drawn where the generator lives: a CUDA generator draws on the card
+    return (torch.rand(shape, generator=generator, device=generator.device)
+            * 2.0 - 1.0) * bound
 
 
 def _given(value, shape, what: str) -> torch.Tensor:

@@ -5,6 +5,7 @@ the faults they are there to catch:
     python3 chip_gate_controls.py        # from the repository root
     python3 chip_gate_controls.py --only methods    # section 13 alone
     python3 chip_gate_controls.py --only int8       # section 14 alone
+    python3 chip_gate_controls.py --only recommender    # section 15 alone
 
 1. Kernel mutants.  ``flash_attention_bwd.cu`` is rebuilt, into the
    git-ignored build directory, with one of the reference's bf16 rounding
@@ -166,6 +167,23 @@ the faults they are there to catch:
    checks pass the port as it stands and refuse each fault, and prints
    the checks that refused each (what each fault moved).  ``--only
    int8`` runs this section alone.
+
+15. Recommender and ops_9b controls.  chip_smoke's recommender step check
+   (``rec_step_check``: one step of the 100M-user wide_and_deep, each
+   table's scatter at most one row per unique id, the user tables'
+   nonzero gradient rows at the batch's unique users, less for the deep
+   table those whose tower is off as the forward's hooks read it, no
+   untouched row moved), its eval resume (``rec_eval``: stopped,
+   round-tripped through JSON and resumed equal to the one-shot sweep)
+   and the ops_9b phase (``ops_9b_reading``: every op on the card, its
+   results left there, against the CPU and the edge cases' numpy
+   definitions) run with one fault at a time in the port: a dedup that
+   scatters one row per occurrence, a deep table's gradient dropped for
+   every 7th sample before its dedup, the dense lookup on 0-based ids,
+   an eval resume that skips one batch too few, TopK by ``torch.topk``
+   (ties in no fixed order) and a FloorDiv that truncates.  The script fails unless the checks pass the port as it
+   stands and refuse each fault, and prints the checks that refused
+   each.  ``--only recommender`` runs this section alone.
 
 The last line is one JSON object with every reading.  Imports torch,
 numpy, ``bigdl_tpu_torch`` and ``chip_smoke`` only.
@@ -1475,6 +1493,100 @@ def phase_int8_controls(device="cuda"):
     return readings, failures
 
 
+def recommender_faults():
+    """{name: (object, attribute, the fault put in its place, the check
+    that must refuse it: "step", "eval" or "ops")} of the recommender and
+    ops_9b controls."""
+    from bigdl_tpu_torch.embedding import eval as rec_eval
+    from bigdl_tpu_torch.embedding.sharded_table import ShardedEmbeddingTable
+    from bigdl_tpu_torch.nn import sparse
+    from bigdl_tpu_torch.ops import operations
+
+    def per_occurrence(idx, grads):
+        return idx.reshape(-1), grads
+
+    def zero_based(self, ids):
+        return sparse.dedup_gather(self.weight,
+                                   ids.long().clamp(0, self.n_index - 1))
+
+    def deep_rows_dropped(idx, grads, inner=sparse.dedup_scatter_updates):
+        if grads[0].numel() > 1:
+            grads = grads.clone()
+            grads[::7] = 0
+        return inner(idx, grads)
+
+    def one_too_few(it, n, skip=rec_eval.skip_batches):
+        skip(it, n - 1)
+        return n
+
+    def unstable_top_k(self, x):
+        values, indices = torch.topk(operations._t(x), self.k)
+        return values, indices
+
+    return {
+        "dedup_scatters_a_row_per_occurrence": (
+            sparse, "dedup_scatter_updates", per_occurrence, "step"),
+        "deep_gradient_dropped_for_every_7th_sample": (
+            sparse, "dedup_scatter_updates", deep_rows_dropped, "step"),
+        "dense_lookup_with_0_based_ids": (
+            ShardedEmbeddingTable, "_dense_lookup", zero_based, "step"),
+        "eval_resume_skips_one_batch_too_few": (
+            rec_eval, "skip_batches", one_too_few, "eval"),
+        "top_k_by_an_unstable_sort": (
+            operations.TopK, "forward", unstable_top_k, "ops"),
+        "floor_div_truncates": (
+            operations.FloorDiv, "fn", staticmethod(
+                lambda a, b: torch.div(a, b, rounding_mode="trunc")), "ops"),
+    }
+
+
+def recommender_checks_under(fault=None, device="cuda"):
+    """The failed checks of chip_smoke's recommender step check, its eval
+    resume (an untrained model at the full scale) and the ops_9b phase
+    with ``fault`` (a name of recommender_faults(), or None for the port
+    as it stands: all three run)."""
+    owner, name, swap, part = (None, None, None, None) if fault is None \
+        else recommender_faults()[fault]
+    saved = owner.__dict__[name] if owner is not None else None
+    if owner is not None:
+        setattr(owner, name, swap)
+    failed = []
+    try:
+        if part in (None, "step"):
+            failed += chip_smoke.rec_step_check(device)[1]
+        if part in (None, "eval"):
+            model = chip_smoke.rec_model(device)
+            failed += chip_smoke.rec_eval(
+                model, chip_smoke.rec_slates(chip_smoke.rec_batches()),
+                device)[1]
+            del model
+            chip_smoke._free()
+        if part in (None, "ops"):
+            failed += chip_smoke.ops_9b_reading(device)["failed"]
+    except Exception as e:  # noqa: BLE001 - a crash refuses it too
+        failed.append(f"{type(e).__name__}: {e}")
+    finally:
+        if owner is not None:
+            setattr(owner, name, saved)
+    return failed
+
+
+def phase_recommender_controls(device="cuda"):
+    """chip_smoke's recommender and ops_9b checks with each fault in turn:
+    they must pass the port as it stands and refuse every fault."""
+    readings, failures = {}, []
+    for fault in (None, *recommender_faults()):
+        what = fault or "as_it_is"
+        refused_by = readings[what] = recommender_checks_under(fault, device)
+        print(f"recommender control {what}: refused by {len(refused_by)} "
+              f"checks: {[f[:200] for f in refused_by]}", flush=True)
+        if (fault is None) == bool(refused_by):
+            failures.append(f"the recommender checks "
+                            f"{'refuse the port' if refused_by else 'pass'}"
+                            f" {what.replace('_', ' ')}")
+    return readings, failures
+
+
 def main() -> int:
     chip_smoke.phase_device()
     if sys.argv[1:3] == ["--only", "methods"]:
@@ -1485,6 +1597,11 @@ def main() -> int:
     if sys.argv[1:3] == ["--only", "int8"]:
         int8_controls, failures = phase_int8_controls()
         print(json.dumps({"int8_controls": int8_controls,
+                          "failures": failures}))
+        return 1 if failures else 0
+    if sys.argv[1:3] == ["--only", "recommender"]:
+        recommender_controls, failures = phase_recommender_controls()
+        print(json.dumps({"recommender_controls": recommender_controls,
                           "failures": failures}))
         return 1 if failures else 0
     mutants, failures = phase_mutants()
@@ -1517,6 +1634,8 @@ def main() -> int:
     failures += more
     int8_controls, more = phase_int8_controls()
     failures += more
+    recommender_controls, more = phase_recommender_controls()
+    failures += more
     print(json.dumps({"mutants": mutants, "control_step": control,
                       "bounds": {"grad_norm_rel": chip_smoke.GRAD_NORM_REL,
                                  "grad_max_rel": chip_smoke.GRAD_MAX_REL},
@@ -1534,6 +1653,7 @@ def main() -> int:
                       "detection_controls": detection_controls,
                       "methods_controls": methods_controls,
                       "int8_controls": int8_controls,
+                      "recommender_controls": recommender_controls,
                       "failures": failures}))
     return 1 if failures else 0
 

@@ -311,6 +311,36 @@ Phases, each raising on failure (the script then exits non-zero):
    parameters bit for bit, the loss falling), samples/s, ms a step, the
    idle share (a short run under ``traced()``) and peak memory; #1-#11
    at 0 launches.  A failed check prints ``layers_9c: FAILED: <check>``;
+13k. recommender: TF32 off; ``zoo("wide_and_deep")`` at the id
+   stream's scale (``synthetic_id_stream``'s defaults: 100M users, 1M
+   items, batches of 4096; embed 16, tower (32, 16); 6.87 GB of tables on
+   the card from a seeded CUDA generator); one step on the first batch
+   (``rec_step_check``: each table's scatter lands at most one row per
+   unique id, the user tables' nonzero gradient rows are the rows their
+   scatters landed at the batch's unique users, no row the batch did not
+   touch moves); 16 batches for 4 epochs (the tables on SGD(0.5), the
+   tower on SGD(0.05), ``hybrid_optim_methods``) eagerly and in windows
+   of 4 (CUDA graph replays) under deterministic algorithms, losses and
+   parameters bit for bit, the loss finite and its last epoch's mean
+   below the first's (ms a step, samples/s, peak memory, the busy and
+   idle shares from a short traced run); ``StreamingRecEval`` HitRatio@10
+   and NDCG@10 over 4096 slates of 1 + 100, stopped after 3 batches,
+   round-tripped through JSON and resumed equal to the one-shot sweep;
+   64 requests through ``RecommenderScorer`` with ``shard_affinity_key``
+   sessions, each within F32_TOL of the solo forward; 10 steps at
+   MovieLens-1M's widths on the card against a CPU copy, and the CPU's
+   float32 against its float64 (REC_LOSS_RTOL, REC_PARAM_NORM_REL); no
+   launch of #1-#11.  A failed check prints ``recommender: FAILED:
+   <check>``;
+13l. ops_9b: TF32 off; every op of ``ops/operations.py`` on the card
+   against the CPU (OPS_TOL for a floating result, else equal) and the
+   edge cases against their numpy definitions (floor and truncating
+   division, half-even rounding, an out-of-range one-hot, top-k ties
+   lower index first, a bucket boundary, gathers filled); the random ops
+   by bounds and moments; the sparse layers and the control-flow
+   modules forward and backward against a CPU copy (LAYER_TOL);
+   ``dedup_gather``'s backward against the CPU (``dedup_held``); no
+   launch of #1-#11.  A failed check prints ``ops_9b: FAILED: <check>``;
 14. a ``{"kernels": [...]}`` line (eleven kernels, launches by path
    (#1's on ``serving_prefix_cache``, ``serving_disaggregated``,
    ``oneshot_lm``, ``beam_lm``, ``translation_beam`` and
@@ -319,8 +349,8 @@ Phases, each raising on failure (the script then exits non-zero):
    row-independence readings),
    the graph replays' among them (phases 13, 13b, 13c and 13h's ResNet-50)
    as the profiler counted them on the device, 13h's LM with Adam, and
-   13f's and 13g's paths, 13h's LeNet and examples and 13i's and 13j's
-   paths at 0; all but #4 also their design, launches
+   13f's and 13g's paths, 13h's LeNet and examples and 13i's, 13j's,
+   13k's and 13l's paths at 0; all but #4 also their design, launches
    by route and build report; #1 its row at the training shape beside the decode row), then
    the ``{"ok": true, ...}`` line.
 
@@ -7896,6 +7926,937 @@ def phase_layers_9c(smi):
     return _phase("layers_9c", layers_9c_reading, report)
 
 
+# ---------------------------------------------------------------------------
+# 13k. recommender: WideAndDeep at the id stream's 100M-user scale
+# ---------------------------------------------------------------------------
+
+# synthetic_id_stream's defaults (bigdl_tpu/dataset/movielens.py:74-76):
+# 100M users, 1M items, batches of 4096; REC_BATCHES of them (seed 0) for
+# REC_EPOCHS epochs, eagerly and in windows of REC_WINDOW; wide_and_deep's
+# widths (embed 16, tower (32, 16): bigdl_tpu/models/dlrm.py:77-83); the
+# tables on SGD(0.5) and the tower on SGD(0.05), docs/recommender.md's
+# example
+REC_USERS, REC_ITEMS, REC_BATCH, REC_BATCHES = (100_000_000, 1_000_000,
+                                                4096, 16)
+REC_EPOCHS, REC_WINDOW = 4, 4
+REC_TABLE_LR, REC_DENSE_LR = 0.5, 0.05
+# eval: HitRatio@10 and NDCG@10 over slates of 1 positive + 100 negatives
+# (the ncf example's --neg-eval 100: bigdl_tpu/examples/ncf.py:77) for
+# REC_EVAL_USERS of the stream's positive pairs, REC_EVAL_BATCH slates a
+# batch, stopped after REC_EVAL_STOP batches and resumed
+REC_EVAL_USERS, REC_EVAL_NEG, REC_EVAL_BATCH, REC_EVAL_STOP = (4096, 100,
+                                                               256, 3)
+# scoring: REC_REQUESTS pairs through RecommenderScorer, each with the
+# session key of its user's shard among REC_SHARDS
+REC_REQUESTS, REC_SHARDS = 64, 8
+# the card against a CPU copy at MovieLens-1M's widths (6040 users, 3706
+# items, batch 256: the ncf example's shape), REC_CPU_STEPS steps, TF32
+# off: each loss within REC_LOSS_RTOL, each parameter within
+# REC_PARAM_NORM_REL in norm; the CPU's float32 run is held to the same
+# bounds against its float64 run first (queue 3: the inputs are
+# conditioned where f32 and f64 part)
+REC_CPU_USERS, REC_CPU_ITEMS, REC_CPU_BATCH, REC_CPU_STEPS = 6040, 3706, \
+    256, 10
+REC_LOSS_RTOL, REC_PARAM_NORM_REL = 1e-5, 1e-5
+# the short traced runs (eager, and in windows of REC_WINDOW) whose device
+# time gives each run's busy and idle shares
+REC_BUSY_BATCHES = 8
+
+
+def rec_batches(users=None, items=None, batch=None, batches=None, seed=0):
+    """The id stream's (pairs [B, 2] int32, labels [B, 1]) batches, by
+    default REC_BATCHES of REC_BATCH over REC_USERS x REC_ITEMS."""
+    from bigdl_tpu_torch.dataset.movielens import synthetic_id_stream
+    return list(synthetic_id_stream(
+        users or REC_USERS, items or REC_ITEMS, batch or REC_BATCH,
+        batches or REC_BATCHES, seed))
+
+
+def rec_dataset(batches, device="cuda"):
+    """The batches as an unshuffled DataSet, cached on the card."""
+    from bigdl_tpu_torch.dataset import DataSet, MiniBatch
+    data = DataSet.array([MiniBatch(p, y) for p, y in batches],
+                         shuffle=False)
+    return data if device == "cpu" else data.cache_on_device(device)
+
+
+def rec_model(device="cuda", users=None, items=None, seed=0):
+    """``zoo("wide_and_deep")`` at the builder's widths (by default over
+    REC_USERS x REC_ITEMS), drawn from a seeded generator on ``device``
+    (the tables on the card)."""
+    from bigdl_tpu_torch.models import zoo
+    g = torch.Generator(device=device).manual_seed(seed)
+    return zoo("wide_and_deep", user_count=users or REC_USERS,
+               item_count=items or REC_ITEMS, generator=g, device=device)
+
+
+def rec_optimizer(model, data, k=1, epochs=None, iterations=None):
+    """BCE, the tables and the tower on their own SGD
+    (``hybrid_optim_methods``), windows of ``k``."""
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.embedding import hybrid_optim_methods
+    from bigdl_tpu_torch.optim import SGD, Optimizer, Trigger
+    end = (Trigger.max_iteration(iterations) if iterations
+           else Trigger.max_epoch(epochs or REC_EPOCHS))
+    return (Optimizer(model, data, nn.BCECriterion(), seed=0)
+            .set_optim_methods(hybrid_optim_methods(
+                model, SGD(REC_TABLE_LR), SGD(REC_DENSE_LR)))
+            .set_end_when(end).set_iterations_per_dispatch(k))
+
+
+@contextmanager
+def scatter_rows_recorded():
+    """For each ``dedup_gather`` backward in the block: (its table's
+    width, the unique 0-based ids it was given, the ids whose row its
+    scatter lands nonzero)."""
+    from bigdl_tpu_torch.nn import sparse
+    inner = sparse.dedup_scatter_updates
+    seen = []
+
+    def recorded(idx, grads):
+        rows, contrib = inner(idx, grads)
+        landed = rows[(contrib != 0).flatten(1).any(1)]
+        seen.append((int(grads[0].numel()), torch.unique(idx), landed))
+        return rows, contrib
+    sparse.dedup_scatter_updates = recorded
+    try:
+        yield seen
+    finally:
+        sparse.dedup_scatter_updates = inner
+
+
+@contextmanager
+def tower_forwards(model):
+    """For each forward of ``model`` (a WideAndDeep) in the block: [its
+    pairs, the outputs of the tower's ReLU layers]."""
+    from bigdl_tpu_torch import nn
+    seen = []
+
+    def pairs_in(module, args):
+        seen.append([torch.as_tensor(args[0]), []])
+
+    def relu_out(module, args, out):
+        seen[-1][1].append(out.detach())
+    handles = [model.register_forward_pre_hook(pairs_in)] + [
+        m.register_forward_hook(relu_out) for m in model.tower
+        if isinstance(m, nn.ReLU)]
+    try:
+        yield seen
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def rec_step_check(device="cuda"):
+    """One Optimizer step of the model on the stream's first batch.  Each
+    table's scatter lands at most one row per unique id.  The user
+    tables' nonzero gradient rows are, in number and position, the
+    batch's unique users: all of them for ``wide_user``; for
+    ``user_table`` all but the users each of whose samples has some ReLU
+    layer of the tower off in every unit (read from the forward by hooks,
+    so no gradient can reach their rows).  No row the batch did not touch
+    moves in the SGD step.  (readings, failed)."""
+    model = rec_model(device)
+    batches = rec_batches(batches=1)
+    pairs = batches[0][0]
+    users = torch.as_tensor(np.unique(pairs[:, 0]) - 1,
+                            device=device).long()
+    touched = torch.zeros(REC_USERS, dtype=torch.bool, device=device)
+    touched[users] = True
+    before = {n: getattr(model, n).weight.detach().clone()
+              for n in ("user_table", "wide_user")}
+    opt = rec_optimizer(model, rec_dataset(batches, device), iterations=1)
+    _zero_counts()
+    with scatter_rows_recorded() as scattered, \
+            tower_forwards(model) as forwards:
+        opt.optimize()
+    launches = _read_counts()
+    failed, rows = [], {}
+    landed_rows = [(dim, len(uniq), len(landed))
+                   for dim, uniq, landed in scattered]
+    if len(scattered) != 4 or any(n > u for _, u, n in landed_rows):
+        failed.append(f"the tables' scatters landed (width, unique ids, "
+                      f"rows) {landed_rows}: more than one row per unique "
+                      f"id")
+    live = torch.zeros_like(touched)
+    if len(forwards) == 1:
+        seen, relus = forwards[0]
+        dead = torch.stack([(r == 0).all(-1) for r in relus]).any(0)
+        live[seen[..., 0].to(device)[~dead.to(device)].long() - 1] = True
+    else:
+        failed.append(f"the step ran {len(forwards)} forwards, not one")
+    for n, want in (("user_table", live), ("wide_user", touched)):
+        w = getattr(model, n).weight
+        nonzero = (w.grad != 0).any(1)
+        moved = (w.detach() != before[n]).any(1)
+        rows[n] = dict(nonzero_grad_rows=int(nonzero.sum()),
+                       zero_updates=int((touched & ~nonzero).sum()),
+                       tower_off_users=int((touched & ~want).sum()),
+                       untouched_moved=int((moved & ~touched).sum()),
+                       touched_moved=int((moved & touched).sum()))
+        if not torch.equal(nonzero, want):
+            failed.append(f"{n}: {rows[n]['nonzero_grad_rows']} nonzero "
+                          f"gradient rows, not the batch's {len(users)} "
+                          f"unique users less the "
+                          f"{rows[n]['tower_off_users']} whose tower is off"
+                          f" ({int((nonzero & ~want).sum())} rows beyond "
+                          f"them, {int((want & ~nonzero).sum())} missing)")
+        if rows[n]["untouched_moved"]:
+            failed.append(f"{n}: {rows[n]['untouched_moved']} rows the "
+                          f"batch did not touch moved in the SGD step")
+    reading = dict(unique_users=len(users),
+                   unique_items=int(np.unique(pairs[:, 1]).size),
+                   tables=rows, scattered=landed_rows, launches=launches,
+                   loss=opt.loss_history[-1][1])
+    del model, before, opt, touched, live, scattered, forwards
+    _free()
+    return reading, failed
+
+
+def rec_train(k, device="cuda", batches=None):
+    """The model trained REC_EPOCHS epochs over ``batches`` in windows of
+    ``k`` (1: eagerly), the wrappers' counts zeroed before and read
+    after: the model, its optimizer, ms a step and samples/s of the
+    steady windows, peak memory."""
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    model = rec_model(device)
+    opt = rec_optimizer(model, rec_dataset(batches or rec_batches(),
+                                           device), k=k)
+    _zero_counts()
+    t0 = time.perf_counter()
+    opt.optimize()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steady = opt.window_timings[1:]
+    steps = sum(n for n, _, _ in steady)
+    return dict(model=model, opt=opt, wall=wall, launches=_read_counts(),
+                peak=torch.cuda.max_memory_allocated(),
+                ms_per_step=sum(dt for _, dt, _ in steady) / steps * 1e3,
+                samples_per_s=_samples_per_s(opt, REC_BATCH),
+                losses=[v for _, v in opt.loss_history],
+                dispatch=dict(opt.dispatch_stats))
+
+
+def rec_slates(batches, seed=1):
+    """[REC_EVAL_USERS, 1 + REC_EVAL_NEG, 2] slates: the stream's first
+    positive pairs, each followed by negatives drawn at random from the
+    REC_ITEMS items for its user."""
+    pos = np.concatenate([p[y[:, 0] > 0] for p, y in batches])
+    pos = pos[:REC_EVAL_USERS]
+    slates = np.empty((len(pos), 1 + REC_EVAL_NEG, 2), np.int32)
+    slates[:, :, 0] = pos[:, :1]
+    slates[:, 0, 1] = pos[:, 1]
+    slates[:, 1:, 1] = np.random.default_rng(seed).integers(
+        1, REC_ITEMS + 1, size=(len(pos), REC_EVAL_NEG))
+    return slates
+
+
+def rec_eval(model, slates, device="cuda"):
+    """StreamingRecEval's one-shot sweep, and the same sweep stopped after
+    REC_EVAL_STOP batches, its state round-tripped through JSON and
+    resumed: results and partial sums equal bit for bit.  (readings,
+    failed)."""
+    from bigdl_tpu_torch.embedding import StreamingRecEval
+
+    def evaluator():
+        return StreamingRecEval(model, batch_size=REC_EVAL_BATCH,
+                                device=device)
+    oneshot, final = evaluator().evaluate(slates)
+    _, state = evaluator().evaluate(slates, max_batches=REC_EVAL_STOP)
+    state = json.loads(json.dumps(state))
+    resumed, resumed_final = evaluator().evaluate(slates, state=state)
+    failed = []
+    got = None if resumed is None else [r.result() for r in resumed]
+    want = [r.result() for r in oneshot]
+    if got != want or resumed_final["partials"] != final["partials"]:
+        failed.append(f"eval: resumed after {REC_EVAL_STOP} batches "
+                      f"{got} {resumed_final['partials']}, one-shot {want} "
+                      f"{final['partials']}")
+    if not all(0.0 <= v <= 1.0 for v, _ in want):
+        failed.append(f"eval: results out of [0, 1]: {want}")
+    return dict(results={r.fmt: r.result()[0] for r in oneshot},
+                chance=_chance(10, REC_EVAL_NEG), slates=len(slates),
+                partials=final["partials"]), failed
+
+
+def rec_scoring(model, pairs, device="cuda"):
+    """REC_REQUESTS pairs through RecommenderScorer, each with the session
+    key of its user's shard: every scored row within F32_TOL of the
+    model's forward of the row alone.  (readings, failed)."""
+    from bigdl_tpu_torch.embedding import (RecommenderScorer,
+                                           shard_affinity_key)
+    rows = pairs[:REC_REQUESTS]
+    sessions = [shard_affinity_key(int(u), REC_USERS, REC_SHARDS,
+                                   model="wide_and_deep") for u in rows[:, 0]]
+    scorer = RecommenderScorer(model, max_batch=32, device=device).warmup(
+        np.zeros(2, np.int32))
+    futures = [scorer.submit_generate_async(r, 1) for r in rows]
+    scores = [np.asarray(f.result(120)) for f in futures]
+    stats = scorer.stats()
+    scorer.shutdown()
+    failed, worst = [], 0.0
+    with torch.inference_mode():
+        for i, (r, got) in enumerate(zip(rows, scores)):
+            want = model(torch.as_tensor(r[None], device=device))[0].cpu() \
+                .numpy()
+            worst = max(worst, float(np.abs(got - want).max()))
+            if got.shape != want.shape or not np.allclose(got, want,
+                                                          **F32_TOL):
+                failed.append(f"scoring: request {i} scored {got}, its "
+                              f"solo forward {want}")
+    return dict(requests=len(rows), max_abs_err=worst,
+                shards=len(set(sessions)),
+                sessions=sorted(set(sessions))[:4], stats=stats), failed
+
+
+def rec_parity(device="cuda"):
+    """REC_CPU_STEPS steps at MovieLens-1M's widths on the card against a
+    CPU copy, and the CPU's float32 run against its float64 run, by
+    REC_LOSS_RTOL and REC_PARAM_NORM_REL.  (readings, failed)."""
+    import copy
+    batches = rec_batches(REC_CPU_USERS, REC_CPU_ITEMS, REC_CPU_BATCH,
+                          REC_CPU_STEPS, seed=1)
+    cpu = rec_model("cpu", REC_CPU_USERS, REC_CPU_ITEMS, seed=1)
+    runs = {}
+    for name, m, dev, data in (
+            ("cpu", cpu, "cpu", batches),
+            ("f64", copy.deepcopy(cpu).double(), "cpu",
+             [(p, y.astype(np.float64)) for p, y in batches]),
+            ("card", _copy_to(cpu, device), device, batches)):
+        opt = rec_optimizer(m, rec_dataset(data, dev),
+                            iterations=REC_CPU_STEPS)
+        opt.optimize()
+        runs[name] = (np.asarray([v for _, v in opt.loss_history]),
+                      [p.detach().cpu().double() for p in m.parameters()])
+    gaps, failed = {}, []
+    for name, other in (("f32_vs_f64", "f64"), ("card_vs_cpu", "card")):
+        (a, pa), (b, pb) = runs[other], runs["cpu"]
+        gaps[name] = dict(
+            loss_rel=float(np.max(np.abs(a - b) / np.abs(b))),
+            param_norm_rel=max(float((p - q).norm() / q.norm())
+                               for p, q in zip(pa, pb)))
+        if not (gaps[name]["loss_rel"] <= REC_LOSS_RTOL and
+                gaps[name]["param_norm_rel"] <= REC_PARAM_NORM_REL):
+            failed.append(f"{name}: loss {gaps[name]['loss_rel']:.3e}, "
+                          f"parameters {gaps[name]['param_norm_rel']:.3e} "
+                          f"in norm (bounds {REC_LOSS_RTOL}, "
+                          f"{REC_PARAM_NORM_REL})")
+    gaps["losses"] = [round(float(v), 6) for v in runs["card"][0]]
+    return gaps, failed
+
+
+def rec_busy(model, batches, k, device="cuda"):
+    """The device's busy ms a step over REC_BUSY_BATCHES steps of
+    ``model`` in windows of ``k`` (1: eagerly) under traced()."""
+    def run():
+        opt = rec_optimizer(model, rec_dataset(batches[:REC_BUSY_BATCHES],
+                                               device), k=k, epochs=1)
+        opt.optimize()
+        return opt
+    opt, framed = traced_call(run)
+    busy_us = sum(e.time_range.elapsed_us() for e in device_events(framed))
+    return busy_us / device_steps(opt, REC_BUSY_BATCHES) / 1e3
+
+
+def recommender_reading(device="cuda") -> dict:
+    """The recommender phase's readings and failed checks: TF32 off; the
+    step check (rec_step_check), 64 steps eagerly and in windows of
+    REC_WINDOW under deterministic algorithms (losses and parameters bit
+    for bit; the loss finite, the last epoch's mean below the first's),
+    the eval resume (rec_eval) and the scoring (rec_scoring) on the
+    trained model, the busy share of each run (rec_busy) and the card
+    against a CPU copy (rec_parity); none launching #1-#11."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    batches = rec_batches()
+    unique = [(np.unique(p[:, 0]).size, np.unique(p[:, 1]).size)
+              for p, _ in batches]
+    check, failed = rec_step_check(device)
+    launches = {"recommender_step_check": check.pop("launches")}
+    with deterministic() as nondet:
+        eager = rec_train(1, device, batches)
+        eager_params = [p.detach().cpu() for p in eager["model"].parameters()]
+        eager_history = eager["opt"].loss_history
+        del eager["model"], eager["opt"]
+        graph = rec_train(REC_WINDOW, device, batches)
+    model = graph.pop("model")
+    model.zero_grad(set_to_none=True)
+    same_losses = graph.pop("opt").loss_history == eager_history
+    same_params = all(torch.equal(a, p.detach().cpu()) for a, p in
+                      zip(eager_params, model.parameters()))
+    del eager_params
+    runs = {"eager": eager, "graph": graph}
+    for label, x in runs.items():
+        launches[f"recommender_{label}_training"] = x.pop("launches")
+        losses = np.asarray(x["losses"])
+        first = losses[:REC_BATCHES].mean()
+        last = losses[-REC_BATCHES:].mean()
+        x["epoch_means"] = (float(first), float(last))
+        if not (np.all(np.isfinite(losses))
+                and len(losses) == REC_BATCHES * REC_EPOCHS and last < first):
+            failed.append(f"{label}: the loss did not fall over "
+                          f"{len(losses)} steps: epoch means {first} -> "
+                          f"{last}")
+    if not (same_losses and same_params):
+        failed.append(f"windows of {REC_WINDOW} are not the eager run "
+                      f"(losses {'equal' if same_losses else 'differ'}, "
+                      f"parameters {'equal' if same_params else 'differ'})")
+    want = REC_BATCHES * REC_EPOCHS
+    if graph["dispatch"].get("replays") != want:
+        failed.append(f"the windowed run replayed {graph['dispatch']}, not "
+                      f"{want} steps")
+    _zero_counts()
+    evaluation, bad = rec_eval(model, rec_slates(batches), device)
+    failed += bad
+    scoring, bad = rec_scoring(model, batches[0][0], device)
+    failed += bad
+    launches["recommender_eval_and_scoring"] = _read_counts()
+    _zero_counts()
+    busy = {label: rec_busy(model, batches, k, device)
+            for label, k in (("eager", 1), ("graph", REC_WINDOW))}
+    launches["recommender_busy"] = _read_counts()
+    del model
+    _free()
+    _zero_counts()
+    parity, bad = rec_parity(device)
+    failed += bad
+    launches["recommender_cpu_parity"] = _read_counts()
+    for path, counts in launches.items():
+        if any(counts.values()):
+            failed.append(f"{path} launched a kernel of #1-#11: {counts}")
+    return dict(check=check, unique=unique, runs=runs, busy=busy,
+                same_losses=same_losses, same_params=same_params,
+                nondeterministic=sorted(nondet), evaluation=evaluation,
+                scoring=scoring, parity=parity, launches=launches,
+                seconds=time.perf_counter() - t0, failed=failed)
+
+
+def phase_recommender(smi):
+    """13k: see recommender_reading."""
+    def report(r):
+        c = r["check"]
+        u = np.asarray(r["unique"])
+        print(f"recommender: wide_and_deep at {REC_USERS} users x "
+              f"{REC_ITEMS} items (embed 16, tower (32, 16)), batches of "
+              f"{REC_BATCH}: unique users a batch {u[:, 0].min()}-"
+              f"{u[:, 0].max()}, unique items {u[:, 1].min()}-"
+              f"{u[:, 1].max()}; one step: {c['tables']}, the scatters' "
+              f"(width, unique ids, rows landed) {c['scattered']}",
+              flush=True)
+        for label, x in r["runs"].items():
+            step = x["ms_per_step"]
+            print(f"recommender: {label}: {step:.3f} ms a step, "
+                  f"{x['samples_per_s']:.1f} samples/s (steady windows), "
+                  f"{x['wall']:.2f} s for {len(x['losses'])} steps; device "
+                  f"busy {r['busy'][label]:.3f} ms a step (torch.profiler, "
+                  f"{REC_BUSY_BATCHES} steps run the same way), idle share "
+                  f"{1 - r['busy'][label] / step:.3f}; peak memory "
+                  f"{x['peak']} bytes; epoch mean loss "
+                  f"{x['epoch_means'][0]:.5f} -> {x['epoch_means'][1]:.5f}"
+                  f"; dispatch {x['dispatch']}", flush=True)
+        print(f"recommender: windows of {REC_WINDOW} against eager: losses "
+              f"{'equal' if r['same_losses'] else 'DIFFER'}, parameters "
+              f"{'equal' if r['same_params'] else 'DIFFER'} bit for bit; "
+              f"operations without a deterministic implementation: "
+              f"{r['nondeterministic'] or 'none'}", flush=True)
+        e, s, p = r["evaluation"], r["scoring"], r["parity"]
+        print(f"recommender: eval {e['results']} over {e['slates']} slates "
+              f"of 1 + {REC_EVAL_NEG} (chance {e['chance']}), resumed "
+              f"after {REC_EVAL_STOP} batches equal to the one-shot sweep; "
+              f"scoring {s['requests']} requests over {s['shards']} shard "
+              f"sessions, largest error against the solo forward "
+              f"{s['max_abs_err']:.3e}; "
+              f"card against CPU at MovieLens-1M widths {p['card_vs_cpu']},"
+              f" CPU f32 against f64 {p['f32_vs_f64']}", flush=True)
+        print(f"recommender: launches of #1-#11 by path "
+              f"{ {k: sum(v.values()) for k, v in r['launches'].items()} }; "
+              f"{r['seconds']:.1f} s; on {smi}", flush=True)
+    return _phase("recommender", recommender_reading, report)
+
+
+# ---------------------------------------------------------------------------
+# 13l. ops_9b: nn/sparse.py, ops/operations.py and ops/control.py on the
+# card against the CPU
+# ---------------------------------------------------------------------------
+
+# every op of ops/operations.py on the same numpy inputs on the card and
+# on the CPU: a floating result within OPS_TOL (the card's special
+# functions are some ulps from the host's), any other equal; the edge
+# cases also equal their numpy definition (the reference's semantics)
+OPS_TOL = dict(rtol=1e-5, atol=1e-6)
+# ops over numpy object arrays (strings), which run on the host; every
+# other op's results from card inputs must lie on the card
+HOST_OPS = ("Substr",)
+
+
+def _ops_arrays():
+    rng = np.random.default_rng(9)
+
+    def r(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+    return dict(
+        halves=np.asarray([-2.5, -1.5, -0.5, 0.5, 1.5, 2.5, 3.7, -3.7, 0.0],
+                          np.float32),
+        ia=np.asarray([7, -7, 7, -7, 6, -6, 0, 1], np.int32),
+        ib=np.asarray([2, 2, -2, -2, 3, 4, 3, -5], np.int32),
+        fa=np.asarray([7.5, -7.5, 7.5, -7.5, 6.0, -0.25, 0.0, 1e-3],
+                      np.float32),
+        fb=np.asarray([2.0, 2.0, -2.0, -2.0, 3.0, 4.0, 3.0, -5.0],
+                      np.float32),
+        x=r(3, 4), pos=np.abs(r(7)) + 0.25, r=r,
+        specials=np.asarray([1.0, np.inf, -np.inf, np.nan], np.float32),
+        ties=(np.arange(4096) % 4).astype(np.float32).reshape(2, 2048))
+
+
+def _trunc_div(a, b):
+    return (np.abs(a) // np.abs(b)) * np.sign(a) * np.sign(b)
+
+
+def _one_hot(idx, depth, on, off):
+    hot = (idx[..., None] == np.arange(depth))
+    return np.where(hot, on, off)
+
+
+def _stable_top(x, k):
+    order = np.argsort(-x, axis=-1, kind="stable")[..., :k]
+    return [np.take_along_axis(x, order, -1), order]
+
+
+def _gather_fill(params, idx):
+    n = params.shape[0]
+    idx = np.where(idx < 0, idx + n, idx)
+    ok = (idx >= 0) & (idx < n)
+    return np.where(ok[:, None], params[np.clip(idx, 0, n - 1)], 0)
+
+
+def _in_top_k(pred, target, k):
+    score = pred[np.arange(len(target)), target]
+    return np.isfinite(score) & ((pred > score[:, None]).sum(1) < k)
+
+
+def ops_cases():
+    """(name, make(ops, nn, device), input (numpy, nested), numpy definition
+    of the result or None): every class of ops/operations.py but the random ops
+    (random_ops_held)."""
+    a = _ops_arrays()
+    r, x, pos = a["r"], a["x"], a["pos"]
+    ia, ib, fa, fb = a["ia"], a["ib"], a["fa"], a["fb"]
+    tie_rows = np.asarray([[0.5, 0.5, 0.5, 0.1], [0.9, 0.2, 0.2, 0.2],
+                           [np.nan, 0.5, 0.1, 0.0]], np.float32)
+    params = r(3, 2)
+    gidx = np.asarray([2, -1, 0, 3, -4, 1], np.int32)
+    bounds = [10.0, 0.0, 100.0]
+    bx = np.asarray([-5.0, 0.0, 5.0, 10.0, 50.0, 100.0, 500.0], np.float32)
+    return [
+        ("All", lambda o, n, d: o.All(), (x > -1, 0), None),
+        ("Any", lambda o, n, d: o.Any(keep_dims=True), (x > 1, 1), None),
+        ("ArgMax", lambda o, n, d: o.ArgMax(1),
+         np.asarray([[1, 3, 3], [2, 2, 1]], np.float32),
+         np.asarray([1, 0])),
+        ("BatchMatMul", lambda o, n, d: o.BatchMatMul(True, True),
+         (r(2, 4, 3), r(2, 5, 4)), None),
+        ("Cast", lambda o, n, d: o.Cast(np.int32), a["halves"] * 1.3,
+         (a["halves"] * 1.3).astype(np.int32)),
+        ("Ceil", lambda o, n, d: o.Ceil(), a["halves"], np.ceil(a["halves"])),
+        ("Floor", lambda o, n, d: o.Floor(), a["halves"],
+         np.floor(a["halves"])),
+        ("Round", lambda o, n, d: o.Round(), a["halves"],
+         np.round(a["halves"])),
+        ("Rint", lambda o, n, d: o.Rint(), a["halves"], np.rint(a["halves"])),
+        ("Equal", lambda o, n, d: o.Equal(), (ia, ib), ia == ib),
+        ("NotEqual", lambda o, n, d: o.NotEqual(), (ia, ib), ia != ib),
+        ("Greater", lambda o, n, d: o.Greater(), (ia, ib), ia > ib),
+        ("GreaterEqual", lambda o, n, d: o.GreaterEqual(), (ia, ib), ia >= ib),
+        ("Less", lambda o, n, d: o.Less(), (ia, ib), ia < ib),
+        ("LessEqual", lambda o, n, d: o.LessEqual(), (fa, fb), fa <= fb),
+        ("Erf", lambda o, n, d: o.Erf(), x * 2, None),
+        ("Erfc", lambda o, n, d: o.Erfc(), x * 2, None),
+        ("Expm1", lambda o, n, d: o.Expm1(), x, None),
+        ("FloorDiv_int", lambda o, n, d: o.FloorDiv(), (ia, ib),
+         np.floor_divide(ia, ib)),
+        ("FloorDiv_float", lambda o, n, d: o.FloorDiv(), (fa, fb),
+         np.floor_divide(fa, fb)),
+        ("FloorMod_int", lambda o, n, d: o.FloorMod(), (ia, ib),
+         np.mod(ia, ib)),
+        ("FloorMod_float", lambda o, n, d: o.FloorMod(), (fa, fb), None),
+        ("Mod_int", lambda o, n, d: o.Mod(), (ia, ib), np.fmod(ia, ib)),
+        ("Mod_float", lambda o, n, d: o.Mod(), (fa, fb), np.fmod(fa, fb)),
+        ("TruncateDiv_int", lambda o, n, d: o.TruncateDiv(), (ia, ib),
+         _trunc_div(ia, ib)),
+        ("TruncateDiv_float", lambda o, n, d: o.TruncateDiv(), (fa, fb),
+         np.trunc(fa / fb)),
+        ("Inv", lambda o, n, d: o.Inv(), pos, None),
+        ("IsFinite", lambda o, n, d: o.IsFinite(), a["specials"],
+         np.isfinite(a["specials"])),
+        ("IsInf", lambda o, n, d: o.IsInf(), a["specials"],
+         np.isinf(a["specials"])),
+        ("IsNan", lambda o, n, d: o.IsNan(), a["specials"],
+         np.isnan(a["specials"])),
+        ("L2Loss", lambda o, n, d: o.L2Loss(), x, None),
+        ("Lgamma", lambda o, n, d: o.Lgamma(), pos * 3, None),
+        ("Digamma", lambda o, n, d: o.Digamma(), pos * 3, None),
+        ("Log1p", lambda o, n, d: o.Log1p(), pos, None),
+        ("LogicalAnd", lambda o, n, d: o.LogicalAnd(), (x > 0, x > 0.5),
+         (x > 0) & (x > 0.5)),
+        ("LogicalOr", lambda o, n, d: o.LogicalOr(), (x > 0, x < -0.5),
+         (x > 0) | (x < -0.5)),
+        ("LogicalNot", lambda o, n, d: o.LogicalNot(), x > 0, ~(x > 0)),
+        ("MaximumOp", lambda o, n, d: o.MaximumOp(), (fa, fb),
+         np.maximum(fa, fb)),
+        ("MinimumOp", lambda o, n, d: o.MinimumOp(), (ia, ib),
+         np.minimum(ia, ib)),
+        ("OneHot", lambda o, n, d: o.OneHot(),
+         (np.asarray([-1, 0, 2, 5], np.int32), 3, 5.0, -1.0),
+         _one_hot(np.asarray([-1, 0, 2, 5]), 3, 5.0, -1.0)),
+        ("Pad", lambda o, n, d: o.Pad("REFLECT"),
+         (r(3, 4, 5), [[1, 2], [2, 1], [0, 3]]), None),
+        ("Pad_symmetric", lambda o, n, d: o.Pad("SYMMETRIC"),
+         (x, [[3, 1], [2, 4]]), np.pad(x, [[3, 1], [2, 4]], "symmetric")),
+        ("Pow", lambda o, n, d: o.Pow(), (pos, r(7)), None),
+        ("Prod", lambda o, n, d: o.Prod(axis=1, keep_dims=True), x, None),
+        ("RangeOps", lambda o, n, d: o.RangeOps(device=d), (0.5, 3.0, 0.75),
+         np.arange(0.5, 3.0, 0.75)),
+        ("Rank", lambda o, n, d: o.Rank(), r(2, 3, 4), np.asarray(3)),
+        ("Rsqrt", lambda o, n, d: o.Rsqrt(), pos, None),
+        ("SelectOp", lambda o, n, d: o.SelectOp(), (x > 0, x, -x),
+         np.where(x > 0, x, -x)),
+        ("Sign", lambda o, n, d: o.Sign(),
+         np.asarray([-2.0, -0.0, 0.0, 3.0, np.nan], np.float32),
+         np.sign(np.asarray([-2.0, -0.0, 0.0, 3.0, np.nan], np.float32))),
+        ("Slice", lambda o, n, d: o.Slice((0, 1, 0), (2, 2, -1)), r(2, 3, 4),
+         None),
+        ("SquaredDifference", lambda o, n, d: o.SquaredDifference(), (fa, fb),
+         None),
+        ("SumOp", lambda o, n, d: o.SumOp(), (r(2, 3, 4), [0, 2]), None),
+        ("TileOp", lambda o, n, d: o.TileOp(), (r(3), [2, 2]), None),
+        ("TopK", lambda o, n, d: o.TopK(3),
+         np.asarray([[1.0, 5.0, 3.0, 5.0, 3.0], [2.0, 2.0, 2.0, 2.0, 1.0]],
+                    np.float32),
+         _stable_top(np.asarray([[1.0, 5.0, 3.0, 5.0, 3.0],
+                                 [2.0, 2.0, 2.0, 2.0, 1.0]], np.float32), 3)),
+        ("TopK_many_ties", lambda o, n, d: o.TopK(16), a["ties"],
+         _stable_top(a["ties"], 16)),
+        ("BucketizedCol", lambda o, n, d: o.BucketizedCol(bounds), bx,
+         np.searchsorted(sorted(bounds), bx, side="right")),
+        ("CrossEntropy", lambda o, n, d: o.CrossEntropy(),
+         (r(3, 5), np.eye(5, dtype=np.float32)[[1, 4, 0]]), None),
+        ("DepthwiseConv2D", lambda o, n, d: o.DepthwiseConv2D(2, 2, "SAME"),
+         (r(2, 7, 6, 3), r(3, 3, 3, 2)), None),
+        ("TensorOp", lambda o, n, d: ((o.TensorOp() * 2.0 + 2.0).abs().sqrt()
+                                   .sigmoid().softmax()
+                                   .mean(axis=0, keepdims=True).t()), x,
+         None),
+        ("ApproximateEqual", lambda o, n, d: o.ApproximateEqual(0.1),
+         (np.asarray([1.0, 2.0, 3.0], np.float32),
+          np.asarray([1.05, 3.0, 2.95], np.float32)),
+         np.asarray([True, False, True])),
+        ("Gather", lambda o, n, d: o.Gather(), (params, gidx),
+         _gather_fill(params, gidx)),
+        ("InTopK", lambda o, n, d: o.InTopK(2),
+         (tie_rows, np.asarray([2, 3, 0], np.int32)),
+         _in_top_k(tie_rows, np.asarray([2, 3, 0]), 2)),
+        ("SegmentSum", lambda o, n, d: o.SegmentSum(num_segments=3),
+         (r(5, 2), np.asarray([0, 0, 1, 1, 3], np.int32)), None),
+        ("ModuleToOperation", lambda o, n, d: o.ModuleToOperation(n.ReLU()), x,
+         np.maximum(x, 0)),
+        ("Dilation2D", lambda o, n, d: o.Dilation2D((1, 2, 2, 1), (1, 2, 1, 1),
+                                                  "SAME"),
+         (r(2, 7, 6, 3), r(2, 3, 3)), None),
+        ("Substr", lambda o, n, d: o.Substr(),
+         (np.asarray([b"hello", b"world"], object), 1, 3),
+         np.asarray([b"ell", b"orl"], object)),
+    ]
+
+
+def _on(v, device):
+    if isinstance(v, np.ndarray) and v.dtype != object:
+        return torch.tensor(v, device=device)
+    if isinstance(v, (tuple, list)):
+        return type(v)(_on(a, device) for a in v)
+    return v
+
+
+def _host_list(y):
+    ys = list(y) if isinstance(y, (tuple, list)) else [y]
+    return [t.detach().cpu().numpy() if torch.is_tensor(t) else np.asarray(t)
+            for t in ys]
+
+
+def ops_held(name, got, want, definition):
+    """The failed checks of one op: the card's results against the CPU's
+    (OPS_TOL for a floating result, else equal) and its definition."""
+    failed = []
+    defs = None if definition is None else _host_list(definition)
+    for i, (g, w) in enumerate(zip(got, want)):
+        ok = g.shape == w.shape and (
+            np.allclose(g, w, equal_nan=True, **OPS_TOL)
+            if g.dtype.kind == "f" else np.array_equal(g, w))
+        if not ok:
+            failed.append(f"{name}[{i}]: the card's {g.tolist()} is not the "
+                          f"CPU's {w.tolist()}")
+        if defs is not None and not (g.shape == defs[i].shape and (
+                np.array_equal(g.astype(np.float64),
+                               defs[i].astype(np.float64), equal_nan=True)
+                if g.dtype != object else g.tolist() == defs[i].tolist())):
+            failed.append(f"{name}[{i}]: {g.tolist()} is not its definition "
+                          f"{defs[i].tolist()}")
+    return failed
+
+
+def sparse_control_cases():
+    """(name, build(nn, ops) -> module, inputs (numpy, nested), int inputs
+    by position): the sparse layers and the control-flow modules, forward
+    and backward."""
+    from bigdl_tpu_torch.nn.sparse import SparseTensor
+    rng = np.random.default_rng(11)
+    dense = rng.standard_normal((5, 7)).astype(np.float32) * \
+        (rng.random((5, 7)) > 0.4)
+    idx = np.argwhere(dense != 0).astype(np.int32)
+    ids = np.asarray([[r, c] for r in range(4) for c in range(3)], np.int32)
+
+    class Sp(torch.nn.Module):
+        """A sparse layer on SparseTensors built from (indices, values)."""
+
+        def __init__(self, inner, shape, weighted=False):
+            super().__init__()
+            self.inner, self.shape, self.weighted = inner, shape, weighted
+
+        def forward(self, i, v, w=None):
+            sp = SparseTensor(i, v, self.shape)
+            return self.inner((sp, SparseTensor(i, w, self.shape))
+                              if self.weighted else sp)
+
+    class Lam(torch.nn.Module):
+        def __init__(self, fn):
+            super().__init__()
+            self.fn = fn
+
+        def forward(self, v):
+            return self.fn(v)
+
+    class Apply(torch.nn.Module):
+        """``fn(module, input)``: a control-flow module on its table."""
+
+        def __init__(self, module, fn):
+            super().__init__()
+            self.module, self.fn = module, fn
+
+        def forward(self, v):
+            return self.fn(self.module, v)
+
+    class Cell(torch.nn.Module):
+        def __init__(self, nn):
+            super().__init__()
+            self.lin = nn.Linear(3, 3, **_gen(3))
+
+        def forward(self, sx):
+            s2 = torch.tanh(self.lin(sx[0]) + sx[1])
+            return s2, s2 * 2.0
+
+    def join(nn):
+        class Join(torch.nn.Module):
+            def forward(self, i1, v1, i2, v2):
+                return nn.SparseJoinTable(2)(
+                    [SparseTensor(i1, v1, (5, 7)),
+                     SparseTensor(i2, v2, (5, 3))]).to_dense()
+        return Join()
+
+    ids_vals = rng.integers(0, 6, size=12).astype(np.float32)
+    wts = (rng.random(12) + 0.5).astype(np.float32)
+    cases = [
+        ("SparseLinear", lambda nn, o: Sp(nn.SparseLinear(7, 3, **_gen(1)),
+                                          (5, 7)),
+         [idx, dense[tuple(idx.T)]]),
+        ("SparseJoinTable", lambda nn, o: join(nn),
+         [idx, dense[tuple(idx.T)], idx[:4] % 3, dense[tuple(idx[:4].T)]]),
+        ("DenseToSparse", lambda nn, o: Lam(
+            lambda v: nn.DenseToSparse()(v).to_dense() * 2.0), [dense]),
+        *((f"LookupTableSparse_{c}", (lambda nn, o, c=c: Sp(
+            nn.LookupTableSparse(6, 5, combiner=c, max_norm=1.5,
+                                 **_gen(2)), (4, 3), weighted=True)),
+           [ids, ids_vals, wts]) for c in ("sum", "mean", "sqrtn")),
+        ("Cond_true", lambda nn, o: Apply(o.Cond(
+            nn.Linear(3, 3, **_gen(4)), nn.Identity()),
+            lambda m, v: m((True, v))),
+         [rng.standard_normal((2, 3)).astype(np.float32)]),
+        ("Cond_tensor", lambda nn, o: Apply(o.Cond(
+            nn.Identity(), nn.Tanh()), lambda m, v: m((v.sum() > 1e9, v))),
+         [rng.standard_normal((2, 3)).astype(np.float32)]),
+        ("WhileLoop", lambda nn, o: Apply(o.WhileLoop(
+            lambda s: s[0] < 4, Lam(lambda s: (s[0] + 1, s[1] * 1.5)),
+            max_iterations=3),
+            lambda m, v: m((torch.zeros((), device=v.device), v))[1]),
+         [rng.standard_normal(3).astype(np.float32)]),
+        ("Scan", lambda nn, o: Apply(o.Scan(Cell(nn)), lambda m, v: m(
+            (torch.zeros(2, 3, device=v.device), v))[1]),
+         [rng.standard_normal((2, 5, 3)).astype(np.float32)]),
+        ("TensorArrayScan", lambda nn, o: Apply(o.TensorArrayScan(
+            Lam(lambda t: torch.sigmoid(t) * t), time_axis=2),
+            lambda m, v: m(v)),
+         [rng.standard_normal((2, 3, 4)).astype(np.float32)]),
+    ]
+    return cases
+
+
+def _dedup_case(ids_shape, span, dim, seed):
+    rng = np.random.default_rng(seed)
+    w = rng.standard_normal((span * 2, dim)).astype(np.float32)
+    idx = rng.integers(0, span, size=ids_shape)
+    cot = rng.standard_normal(ids_shape + (dim,)).astype(np.float32)
+    return w, idx, cot
+
+
+def dedup_held(device="cuda"):
+    """dedup_gather's backward on the card against the CPU: bit for bit
+    where no id repeats more than three times (the scan's order is the
+    CPU's left-to-right sum there), within 1e-6 of the largest update
+    beyond; the card's twice the same bits.  (readings, failed)."""
+    from bigdl_tpu_torch.nn.sparse import dedup_gather
+    failed, rows = [], {}
+    for name, shape, span, dim in (("runs_le_3", (64,), 1000, 16),
+                                   ("dup_heavy", (4096,), 64, 16),
+                                   ("wide_dim1", (256, 4), 40, 1)):
+        w, idx, cot = _dedup_case(shape, span, dim, len(name))
+        if name == "runs_le_3":
+            idx = np.repeat(np.arange(64), 3)[:64] * 7   # runs of 1-3
+            np.random.default_rng(1).shuffle(idx)
+        grads = []
+        for dev in ("cpu", device, device):
+            tw = torch.tensor(w, device=dev, requires_grad=True)
+            dedup_gather(tw, torch.tensor(idx, device=dev)).backward(
+                torch.tensor(cot, device=dev))
+            grads.append(tw.grad.cpu())
+        err = float((grads[1] - grads[0]).abs().max())
+        scale = float(np.abs(cot).max())
+        twice = torch.equal(grads[1], grads[2])
+        rows[name] = dict(max_abs_err=err, same_bits_twice=twice,
+                          max_run=int(np.bincount(idx.reshape(-1)).max()))
+        if not twice:
+            failed.append(f"dedup_gather {name}: two backwards on the card "
+                          "differ")
+        if (err != 0.0) if name == "runs_le_3" else (err > 1e-6 * scale *
+                                                     rows[name]["max_run"]):
+            failed.append(f"dedup_gather {name}: the card's gradient is "
+                          f"{err:.3e} from the CPU's")
+    return rows, failed
+
+
+def random_ops_held(device="cuda"):
+    """RandomUniform(-2, 3) and TruncatedNormal(1, 2) from a CUDA
+    generator: in their bounds, their mean and variance within 5
+    standard errors over 20000 draws, the same draws again from the same
+    seed."""
+    from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.core.module import forward_context
+    n = 20000
+    cases = (("RandomUniform", ops.RandomUniform(-2.0, 3.0), -2.0, 3.0, 0.5,
+              25.0 / 12.0),
+             ("TruncatedNormal", ops.TruncatedNormal(1.0, 2.0), -3.0, 5.0,
+              1.0, 4.0 * (1.0 - 4.0 * 0.05399096651318806
+                          / 0.9544997361036416)))
+    failed, rows = [], {}
+    for name, op, lo, hi, mean, var in cases:
+        draws = []
+        for _ in range(2):
+            with forward_context(generator=torch.Generator(
+                    device=device).manual_seed(3)):
+                draws.append(op(np.asarray([n])))
+        x = draws[0].double().cpu().numpy()
+        rows[name] = dict(mean=float(x.mean()), var=float(x.var()),
+                          lo=float(x.min()), hi=float(x.max()))
+        if not (draws[0].device.type == torch.device(device).type
+                and torch.equal(draws[0], draws[1])
+                and x.min() >= lo and x.max() <= hi
+                and abs(x.mean() - mean) < 5 * np.sqrt(var / n)
+                and abs(x.var() - var) < 7.5 * var * np.sqrt(2.0 / n)):
+            failed.append(f"{name}: draws {rows[name]} not U/N within "
+                          f"[{lo}, {hi}], mean {mean}, var {var}")
+    return rows, failed
+
+
+def ops_9b_reading(device="cuda") -> dict:
+    """The ops_9b phase's readings and failed checks: TF32 off; every op
+    of ops/operations.py (ops_cases) on the card, its results left there
+    (but HOST_OPS'), against the CPU and its definition, the random ops
+    by bounds and moments, the sparse layers and the control-flow modules
+    forward and backward against a CPU copy (LAYER_TOL), dedup_gather's
+    backward (dedup_held); none launching #1-#11."""
+    from bigdl_tpu_torch import nn, ops
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    _zero_counts()
+    failed, held = [], 0
+    for name, make, x, definition in ops_cases():
+        y = make(ops, nn, device)(_on(x, device))
+        ys = list(y) if isinstance(y, (tuple, list)) else [y]
+        if name not in HOST_OPS and not all(
+                torch.is_tensor(t) and t.device.type == "cuda" for t in ys):
+            where = [getattr(t, "device", type(t)) for t in ys]
+            failed.append(f"{name}: the card's run left results off the "
+                          f"card: {where}")
+        got = _host_list(y)
+        want = _host_list(make(ops, nn, "cpu")(_on(x, "cpu")))
+        failed += ops_held(name, got, want, definition)
+        held += 1
+    random_rows, bad = random_ops_held(device)
+    failed += bad
+    layers = {}
+    for name, build, inputs in sparse_control_cases():
+        cpu = build(nn, ops)
+        card = _copy_to(cpu, device)
+        runs = []
+        for m, dev in ((cpu, "cpu"), (card, device)):
+            xs = [torch.tensor(a, device=dev) for a in inputs]
+            for t in xs:
+                if t.is_floating_point():
+                    t.requires_grad_(True)
+            y = m(*xs)
+            cot = torch.tensor(np.random.default_rng(50).standard_normal(
+                tuple(y.shape)).astype(np.float32), device=dev)
+            (y * cot).sum().backward()
+            runs.append([y.detach().cpu()]
+                        + [t.grad.cpu() for t in xs if t.grad is not None]
+                        + [p.grad.cpu() for p in m.parameters()
+                           if p.grad is not None])
+        worst = 0.0
+        for w, g in zip(*runs):
+            err = (g - w).abs() - LAYER_TOL["rtol"] * w.abs()
+            worst = max(worst, float(err.max()) if err.numel() else 0.0)
+        layers[name] = worst
+        if len(runs[0]) != len(runs[1]) or not worst <= LAYER_TOL["atol"]:
+            failed.append(f"{name}: the card's forward or backward is "
+                          f"{worst:.3e} beyond rtol {LAYER_TOL['rtol']} of "
+                          f"the CPU's (atol {LAYER_TOL['atol']})")
+    dedup, bad = dedup_held(device)
+    failed += bad
+    launches = {"ops_9b": _read_counts()}
+    if any(launches["ops_9b"].values()):
+        failed.append(f"ops_9b launched a kernel of #1-#11: {launches}")
+    return dict(ops=held, random=random_rows, layers=layers, dedup=dedup,
+                launches=launches, seconds=time.perf_counter() - t0,
+                failed=failed)
+
+
+def phase_ops_9b(smi):
+    """13l: see ops_9b_reading."""
+    def report(r):
+        worst = max(r["layers"].items(), key=lambda kv: kv[1])
+        print(f"ops_9b: {r['ops']} ops of ops/operations.py on the card "
+              f"against the CPU (floating results within rtol "
+              f"{OPS_TOL['rtol']}, atol {OPS_TOL['atol']}; others and the "
+              f"edge cases' definitions equal); random ops {r['random']}; "
+              f"{len(r['layers'])} sparse and control-flow modules forward "
+              f"and backward against a CPU copy, the largest excess over "
+              f"rtol {worst[1]:.3e} ({worst[0]}); dedup_gather's backward "
+              f"{r['dedup']}; launches of #1-#11 "
+              f"{sum(r['launches']['ops_9b'].values())}; "
+              f"{r['seconds']:.1f} s; on {smi}", flush=True)
+    return _phase("ops_9b", ops_9b_reading, report)
+
+
 def _kernel_entry(name, source, replaces, launches, row):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -7974,6 +8935,8 @@ def main() -> int:
     methods = phase_methods(smi, rates, dispatch["lm"])
     int8 = phase_int8(smi, rates)
     layers_9c = phase_layers_9c(smi)
+    recommender = phase_recommender(smi)
+    ops_9b = phase_ops_9b(smi)
     # the replays' launches, from the graph runs' device events
     replayed = {**{path: r["replayed"] for path, r in dispatch.items()},
                 "resume": resume["replayed"],
@@ -7999,6 +8962,8 @@ def main() -> int:
                **methods["launches"],
                **int8["launches"],
                **layers_9c["launches"],
+               **recommender["launches"],
+               **ops_9b["launches"],
                **{f"{path}_graph_replays": r for path, r in replayed.items()}}
 
     def paths(name):

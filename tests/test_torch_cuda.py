@@ -57,6 +57,12 @@ each of chip_gate_controls.py's detection faults.
 Optim methods: each method's CUDA-graph windows on LeNet-5 equal to its
 eager run bit for bit, and chip_smoke's methods gate passing the port
 and refusing each of chip_gate_controls.py's methods faults.
+The recommender: dedup_gather's backward on the card against the CPU
+(chip_smoke.dedup_held: bit for bit for runs of up to three rows, within
+1e-6 of the largest update beyond), a Cond's host predicate refused in a
+captured step, WideAndDeep's windows equal to its eager run bit for bit,
+and chip_smoke's recommender and ops_9b checks passing the port and
+refusing each of chip_gate_controls.py's recommender faults.
 """
 
 import numpy as np
@@ -1513,3 +1519,84 @@ def test_batchnorm_eval_on_the_card_equals_the_cpu_bit_for_bit(cuda):
     want = bn(x)
     got = bn.to(cuda)(x.to(cuda)).cpu()
     assert torch.equal(got, want)
+
+
+def test_dedup_gather_backward_on_the_card_matches_the_cpu(cuda):
+    """dedup_gather's backward on the card: the CPU's bits where no id
+    repeats more than three times, within 1e-6 of the largest update
+    beyond (a fixed-order scan, not atomics), the same bits twice."""
+    rows, failed = chip_smoke.dedup_held("cuda")
+    assert not failed, (failed, rows)
+
+
+def test_a_host_predicate_is_refused_in_a_captured_step(cuda):
+    """A Cond whose predicate is a tensor trains eagerly on the card, and
+    raises, naming the capture, when the Optimizer's windows capture the
+    step (a replay would take the captured branch)."""
+    from bigdl_tpu_torch import nn, ops
+
+    class Branch(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.cond = ops.Cond(nn.Identity(), nn.Tanh())
+
+        def forward(self, x):
+            return self.cond((x.sum() > 0, x))
+
+    def run(k):
+        g = torch.Generator().manual_seed(0)
+        model = nn.Sequential(nn.Linear(4, 4, generator=g, device=cuda),
+                              Branch())
+        data = DataSet.array([MiniBatch(rnd(8, 4, seed=i).numpy(),
+                                        rnd(8, 4, seed=9 + i).numpy())
+                              for i in range(4)], shuffle=False)
+        from bigdl_tpu_torch.nn.criterion import MSECriterion
+        return (Optimizer(model, data, MSECriterion())
+                .set_optim_method(SGD(0.1)).set_end_when(Trigger.max_epoch(1))
+                .set_iterations_per_dispatch(k)).optimize()
+
+    run(1)
+    with pytest.raises(RuntimeError, match="CUDA graph capture"):
+        run(2)
+
+
+def test_wide_and_deep_windows_equal_eager_on_the_card(cuda):
+    """WideAndDeep at 64 users x 32 items, 8 steps on the card in windows
+    of 4 (CUDA graph replays), deterministic algorithms on: the eager
+    run's losses and parameters bit for bit."""
+    from bigdl_tpu_torch.models import WideAndDeep
+    batches = chip_smoke.rec_batches(64, 32, 16, 8, seed=6)
+    runs = []
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for k in (1, 4):
+            model = WideAndDeep(64, 32, 8, (16,),
+                                generator=torch.Generator().manual_seed(8),
+                                device=cuda)
+            opt = chip_smoke.rec_optimizer(
+                model, chip_smoke.rec_dataset(batches, "cuda"), k=k, epochs=1)
+            opt.optimize()
+            runs.append((opt, model))
+    finally:
+        torch.use_deterministic_algorithms(was)
+    (eager, em), (graph, gm) = runs
+    assert graph.dispatch_stats["replays"] == 8
+    assert eager.loss_history == graph.loss_history
+    assert all(torch.equal(p, q) for p, q in zip(em.parameters(),
+                                                 gm.parameters()))
+
+
+@pytest.mark.parametrize("fault", [None, "dedup_scatters_a_row_per_occurrence",
+                                   "deep_gradient_dropped_for_every_7th_sample",
+                                   "dense_lookup_with_0_based_ids",
+                                   "eval_resume_skips_one_batch_too_few",
+                                   "top_k_by_an_unstable_sort",
+                                   "floor_div_truncates"])
+def test_recommender_checks_refuse_each_fault(cuda, fault):
+    """chip_smoke's recommender step check, eval resume and ops_9b checks
+    pass the port as it stands and refuse each of chip_gate_controls.py's
+    recommender faults (15)."""
+    import chip_gate_controls
+    refused_by = chip_gate_controls.recommender_checks_under(fault)
+    assert bool(refused_by) == (fault is not None), refused_by

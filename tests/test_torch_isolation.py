@@ -14,7 +14,7 @@ import torch
 
 import bigdl_tpu_torch
 from bigdl_tpu_torch.models import (LeNet5, TransformerLM, lenet5_graph,
-                                    resnet50, resnet_cifar)
+                                    resnet50, resnet_cifar, wide_and_deep)
 from bigdl_tpu_torch.nn import (PReLU, SpatialBatchNormalization,
                                 SpatialConvolution)
 from bigdl_tpu_torch.serving import (DisaggregatedEngine,
@@ -75,7 +75,16 @@ def test_port_and_chip_smoke_import_no_jax():
                  "bigdl_tpu_torch.dataset.mnist",
                  "bigdl_tpu_torch.examples.common",
                  "bigdl_tpu_torch.examples.ncf",
-                 "bigdl_tpu_torch.examples.autoencoder"):
+                 "bigdl_tpu_torch.examples.autoencoder",
+                 "bigdl_tpu_torch.nn.sparse",
+                 "bigdl_tpu_torch.embedding.sharded_table",
+                 "bigdl_tpu_torch.embedding.hybrid",
+                 "bigdl_tpu_torch.embedding.eval",
+                 "bigdl_tpu_torch.embedding.serving",
+                 "bigdl_tpu_torch.models.dlrm",
+                 "bigdl_tpu_torch.ops.feature_columns",
+                 "bigdl_tpu_torch.ops.operations",
+                 "bigdl_tpu_torch.ops.control"):
         assert name in {m.name for m in pkgutil.walk_packages(
             bigdl_tpu_torch.__path__, "bigdl_tpu_torch.")}
     assert leaked == "[]", leaked
@@ -113,6 +122,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         lenet5_graph(10, generator=gen)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         PReLU(3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        wide_and_deep(generator=gen)
     assert resnet_cifar(8, generator=gen, device="cpu").head.weight \
         .device.type == "cpu"
 

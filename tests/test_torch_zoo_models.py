@@ -252,7 +252,7 @@ def test_simple_rnn_and_autoencoder_match_reference():
 
 def test_zoo_registry():
     """test_serving.py:484: the reference's names and sample shapes;
-    every name builds but wide_and_deep, which names its item."""
+    every name builds."""
     from bigdl_tpu.models import _ZOO, _ZOO_SAMPLE_SHAPES
     assert set(pmodels._ZOO) == set(_ZOO)
     assert pmodels._ZOO_SAMPLE_SHAPES == _ZOO_SAMPLE_SHAPES
@@ -260,10 +260,6 @@ def test_zoo_registry():
     assert hasattr(m, "forward")
     assert pmodels.zoo_sample_shape("lenet5") == (784,)
     for name in sorted(pmodels._ZOO):
-        if name == "wide_and_deep":
-            with pytest.raises(NotImplementedError, match="item 11"):
-                pmodels.zoo(name, **gen())
-            continue
         model = pmodels.zoo(name, **gen())
         assert sum(p.numel() for p in model.parameters()) > 0
     m = pmodels.zoo("lenet5", class_num=7, **gen())
